@@ -1,0 +1,61 @@
+"""Bring the reference package's parameters into the port.
+
+The caller converts a reference tree (from ``repro.models.lm.init_params``
+or ``repro.core.deploy.deploy_packed``) to numpy first — e.g. with
+``jax.tree.map(np.asarray, tree)`` — so this module never touches jax.
+Dicts and tuples keep their structure (the stacked leading layer axis of
+``segments[i]["slot<j>"]`` included); numpy arrays become tensors on
+``device``; packed containers, recognised by their fields, become the
+port's ``PackedSASPWeight`` / ``PackedFFN``.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
+
+
+def to_tensor(a, device="cuda"):
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _is_packed_weight(node) -> bool:
+    return all(hasattr(node, f) for f in ("vals", "kn", "shape", "block"))
+
+
+def _is_packed_ffn(node) -> bool:
+    return all(hasattr(node, f) for f in ("w1v", "w3v", "w2v", "block_f"))
+
+
+def from_numpy(tree, device="cuda"):
+    """Numpy-converted reference tree -> port tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(from_numpy(v, device) for v in tree)
+    if _is_packed_weight(tree):
+        if getattr(tree, "shards", 1) != 1:
+            raise NotImplementedError("TP-sharded containers are not "
+                                      "ported yet")
+        t = functools.partial(to_tensor, device=device)
+        return PackedSASPWeight(t(tree.vals), t(tree.kn), tuple(tree.shape),
+                                tuple(tree.block), scale=t(tree.scale),
+                                bias=t(tree.bias), act=tree.act)
+    if _is_packed_ffn(tree):
+        if getattr(tree, "shards", 1) != 1:
+            raise NotImplementedError("TP-sharded containers are not "
+                                      "ported yet")
+        t = functools.partial(to_tensor, device=device)
+        return PackedFFN(t(tree.w1v), t(tree.w3v), t(tree.w2v), t(tree.b1),
+                         t(tree.b3), t(tree.b2), d_model=tree.d_model,
+                         d_ff=tree.d_ff, block_f=tree.block_f, act=tree.act,
+                         s1=t(tree.s1), s3=t(tree.s3), s2=t(tree.s2),
+                         jv=t(tree.jv))
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return to_tensor(tree, device)
+    return tree

@@ -1,0 +1,153 @@
+"""SASP structured pruning: global tile-L1 selection (paper §3.1).
+
+Weights are grids of (block_k × block_n) tiles; tiles are scored by L1
+norm and the lowest ``floor(sparsity × total)`` are zeroed across the
+whole model. Ties are broken by a stable sort over one flat score
+vector whose order is the reference's leaf order: dict keys in SORTED
+order, sequences in index order (what ``jax.tree_util`` flattening
+gives), so the port selects the same tiles.
+
+Params are nested dicts / tuples of tensors; a leaf's path is the tuple
+of its dict keys and sequence indices.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import SASPConfig
+
+Params = Dict[str, Any]
+Path = Tuple
+
+
+def iter_leaves(tree, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
+    """(path, leaf) pairs in the reference's flattening order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from iter_leaves(tree[k], path + (k,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from iter_leaves(v, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def path_str(path: Path) -> str:
+    return "/".join(str(k) for k in path)
+
+
+def map_leaves(fn, tree, path: Path = ()):
+    """Rebuild ``tree`` with ``fn(path, leaf)`` at every tensor leaf."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_leaves(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    return tree
+
+
+def effective_blocks(shape: Tuple[int, int], bk: int, bn: int
+                     ) -> Tuple[int, int]:
+    K, N = shape
+    return min(bk, K), min(bn, N)
+
+
+def tile_l1(w: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
+    """L1 norm per (bk × bn) tile. w: (..., K, N) -> (..., KB, NB)."""
+    *lead, K, N = w.shape
+    KB, NB = K // bk, N // bn
+    wb = w.reshape(*lead, KB, bk, NB, bn).to(torch.float32).abs()
+    return wb.sum(dim=(-3, -1))
+
+
+def apply_block_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """w: (..., K, N); mask: (..., KB, NB) bool -> w with pruned tiles
+    zeroed."""
+    *lead, K, N = w.shape
+    KB, NB = mask.shape[-2], mask.shape[-1]
+    bk, bn = K // KB, N // NB
+    wb = w.reshape(*lead, KB, bk, NB, bn)
+    wb = wb * mask[..., :, None, :, None].to(w.dtype)
+    return wb.reshape(*lead, K, N)
+
+
+def default_ffn_predicate(path: Path) -> bool:
+    """Paper scope: feed-forward GEMMs only."""
+    keys = path_str(path)
+    return ("ffn" in keys or "moe" in keys) and keys.endswith("/w")
+
+
+def all_gemm_predicate(path: Path) -> bool:
+    keys = path_str(path)
+    if "emb" in keys or "norm" in keys or "router" in keys:
+        return False
+    return keys.endswith("/w") or any(
+        keys.endswith(s) for s in ("wq/w", "wk/w", "wv/w", "wo/w"))
+
+
+def scope_predicate(sasp: SASPConfig) -> Callable[[Path], bool]:
+    return default_ffn_predicate if sasp.scope == "ffn" else \
+        all_gemm_predicate
+
+
+def find_prunable(params: Params, sasp: SASPConfig,
+                  is_prunable: Callable[[Path], bool]
+                  ) -> List[Tuple[Path, torch.Tensor, int, int]]:
+    out = []
+    for path, leaf in iter_leaves(params):
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+            continue
+        if not is_prunable(path):
+            continue
+        K, N = leaf.shape[-2], leaf.shape[-1]
+        bk, bn = effective_blocks((K, N), sasp.block_k, sasp.block_n)
+        if K % bk or N % bn:
+            continue
+        out.append((path, leaf, bk, bn))
+    return out
+
+
+def compute_sasp_masks(params: Params, sasp: SASPConfig,
+                       is_prunable: Optional[Callable] = None
+                       ) -> Dict[Path, torch.Tensor]:
+    """{path: bool mask (..., KB, NB)} with exactly
+    ``floor(sparsity × total_tiles)`` tiles pruned model-wide."""
+    pred = is_prunable or scope_predicate(sasp)
+    leaves = find_prunable(params, sasp, pred)
+    if not leaves:
+        return {}
+    scores = [tile_l1(w, bk, bn) for _, w, bk, bn in leaves]
+    all_scores = torch.cat([s.reshape(-1) for s in scores])
+    total = all_scores.numel()
+    n_prune = int(np.floor(sasp.sparsity * total))
+    keep = torch.ones((total,), dtype=torch.bool, device=all_scores.device)
+    if n_prune:
+        order = torch.argsort(all_scores, stable=True)
+        keep[order[:n_prune]] = False
+    masks: Dict[Path, torch.Tensor] = {}
+    off = 0
+    for (path, _, _, _), s in zip(leaves, scores):
+        masks[path] = keep[off:off + s.numel()].reshape(s.shape)
+        off += s.numel()
+    return masks
+
+
+def prune_params(params: Params, sasp: SASPConfig,
+                 is_prunable: Optional[Callable] = None
+                 ) -> Tuple[Params, Dict[Path, torch.Tensor]]:
+    """Zero the pruned tiles (masked-dense path) and return the masks."""
+    masks = compute_sasp_masks(params, sasp, is_prunable)
+    if not masks:
+        return params, masks
+
+    def maybe_prune(path, leaf):
+        if path in masks:
+            return apply_block_mask(leaf, masks[path])
+        return leaf
+
+    return map_leaves(maybe_prune, params), masks

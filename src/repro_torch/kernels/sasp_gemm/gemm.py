@@ -1,0 +1,122 @@
+"""Tile-skip GEMM: ``act(x @ (W ⊙ mask) + bias)`` over a packed visit
+list (port of ``repro.kernels.sasp_gemm.kernel.sasp_gemm``).
+
+``sasp_gemm`` launches the CUDA kernel (``csrc/sasp_gemm.cu``) for CUDA
+tensors and runs ``sasp_gemm_plain`` — the same function in plain
+PyTorch — for CPU tensors. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+launches = 0
+
+# activations of the flush epilogue; gelu is jax.nn.gelu's tanh form
+ACTS = {
+    None: lambda v: v,
+    "silu": F.silu,
+    "gelu": lambda v: F.gelu(v, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_fn():
+    """The launch entry point, its signature set once."""
+    fn = build.load("sasp_gemm").sasp_gemm_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    return fn
+
+
+def sasp_gemm_plain(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
+                    n: int, scales: Optional[torch.Tensor] = None,
+                    bias: Optional[torch.Tensor] = None,
+                    act: Optional[str] = None) -> torch.Tensor:
+    """Plain-PyTorch version: one (M, bk) @ (bk, bn) product per visit,
+    scattered onto its output column-block. fp: weights rounded to
+    x.dtype, fp32 products; int8: fp32, partials scaled per visit."""
+    M, K = x.shape
+    nnz, bk, bn = vals.shape
+    kn = kn.to(torch.int64)
+    xg = x.reshape(M, K // bk, bk)[:, kn[0]].to(torch.float32)  # (M,nnz,bk)
+    if scales is None:
+        w = vals.to(x.dtype).to(torch.float32)
+    else:
+        w = vals.to(torch.float32)
+    part = torch.einsum("mvk,vkn->vmn", xg, w)                  # (nnz,M,bn)
+    if scales is not None:
+        part = part * scales.to(torch.float32)[:, None, None]
+    acc = torch.zeros((n // bn, M, bn), dtype=torch.float32,
+                      device=x.device)
+    acc.index_add_(0, kn[1], part)
+    y = acc.permute(1, 0, 2).reshape(M, n)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return ACTS[act](y).to(x.dtype)
+
+
+def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
+              col_ptr: torch.Tensor, n: int,
+              scales: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None,
+              act: Optional[str] = None) -> torch.Tensor:
+    """x (M, K) @ packed weight -> (M, n) in x.dtype. vals (nnz, bk, bn)
+    fp32/bf16, or int8 with ``scales`` (nnz,); kn (2, nnz) int32 sorted
+    by (n, k); col_ptr (n // bn + 1,) int32; bias (n,) fp32."""
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return sasp_gemm_plain(x, vals, kn, n, scales, bias, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"sasp_gemm runs on cuda or cpu, not {x.device}")
+    if x.ndim != 2 or vals.ndim != 3:
+        raise ValueError(f"x {tuple(x.shape)} must be (M, K), vals "
+                         f"{tuple(vals.shape)} (nnz, bk, bn)")
+    M, K = x.shape
+    nnz, bk, bn = vals.shape
+    if K % bk or n % bn:
+        raise ValueError(f"shape ({K}, {n}) not divisible by block "
+                         f"({bk}, {bn})")
+    if (vals.dtype == torch.int8) != (scales is not None):
+        raise ValueError("int8 values need scales, fp values take none")
+    expect = {"kn": (kn, (2, nnz)), "col_ptr": (col_ptr, (n // bn + 1,)),
+              "scales": (scales, (nnz,)), "bias": (bias, (n,))}
+    for name, (t, shape) in expect.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if vals.device != x.device:
+        raise ValueError(f"vals on {vals.device}, x on {x.device}")
+    x = x.contiguous()
+    vals = vals.contiguous()
+    kcoord = kn[0].to(torch.int32).contiguous()
+    col_ptr = col_ptr.to(torch.int32).contiguous()
+    if scales is not None:
+        scales = scales.to(torch.float32).contiguous()
+    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    out = torch.empty((M, n), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out
+    code = _launch_fn()(
+        x.data_ptr(), vals.data_ptr(), kcoord.data_ptr(), col_ptr.data_ptr(),
+        None if scales is None else scales.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        M, K, n, bk, bn, build.dtype_code(x.dtype),
+        build.dtype_code(vals.dtype), build.ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "sasp_gemm")
+    global launches
+    launches += 1
+    return out

@@ -1,0 +1,189 @@
+"""Attention of the port: GQA + RoPE + optional qk-norm / QKV bias /
+sliding window, with a ring-buffer KV cache (``repro.models.attention``).
+
+The reference computes attention in jnp (not Pallas), so it stays plain
+torch here. Masked scores are ``NEG_INF = -1e30``; a key is visible iff
+``0 <= q_pos - kv_pos < window`` and ``kv_pos >= 0`` (left-pad columns
+and empty ring slots carry -1). Decode updates the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.modules import (
+    apply_rope,
+    dense_apply,
+    qknorm_apply,
+    softcap,
+)
+
+NEG_INF = -1.0e30
+Q_CHUNK = 512          # query rows per score block in attend_chunked
+
+
+class KVCache(NamedTuple):
+    """k, v: (B, C, KH, D); pos: (B, C) absolute position per ring slot,
+    -1 if empty. Layer stacks add a leading layer axis."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+
+
+def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,
+                  head_dim: int, dtype, device) -> KVCache:
+    shape = (batch, capacity, num_kv_heads, head_dim)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        pos=torch.full((batch, capacity), -1, dtype=torch.int32,
+                       device=device))
+
+
+def _proj(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """One projection, through the packed tile-skip kernel when a
+    deployment container is attached (bias fused into its flush)."""
+    packed = p.get("sasp_packed")
+    if packed is not None and name in packed:
+        from repro_torch.core.deploy import packed_matmul
+        return packed_matmul(x, packed[name])
+    return dense_apply(p[name], x)
+
+
+def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
+    """x (B, S, d) -> q (B,S,H,D), k/v (B,S,KH,D), qk-normed + RoPE'd."""
+    B, S, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    dt = x.dtype
+    q = _proj(p, "wq", x).reshape(B, S, h, hd)
+    k = _proj(p, "wk", x).reshape(B, S, kvh, hd)
+    v = _proj(p, "wv", x).reshape(B, S, kvh, hd)
+    if cfg.qk_norm:
+        q = qknorm_apply(p["q_norm"], q, eps=cfg.norm_eps)
+        k = qknorm_apply(p["k_norm"], k, eps=cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q.to(dt), k.to(dt), v.to(dt)
+
+
+def attend_chunked(q, k, v, q_pos, kv_pos, *, window, cap: float = 0.0
+                   ) -> torch.Tensor:
+    """Causal (optionally windowed) attention.
+
+    q (B, Sq, KH, G, D); k, v (B, Sk, KH, D); q_pos / kv_pos (S,) or
+    (B, S). Queries run in chunks of ``Q_CHUNK`` against every key at
+    once (the reference also chunks keys with an online softmax; one key
+    chunk gives the same softmax). A fully masked query row returns 0.
+    Returns (B, Sq, KH, G, D)."""
+    B, Sq, KH, G, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    q = q * scale
+    q_pos = torch.broadcast_to(torch.atleast_2d(q_pos.to(torch.int32)),
+                               (B, Sq))
+    kv_pos = torch.broadcast_to(torch.atleast_2d(kv_pos.to(torch.int32)),
+                                (B, Sk))
+    kf = k.to(torch.float32)
+    outs = []
+    for s0 in range(0, Sq, Q_CHUNK):
+        qb = q[:, s0:s0 + Q_CHUNK]
+        qp = q_pos[:, s0:s0 + Q_CHUNK]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb.to(torch.float32), kf)
+        if cap:
+            s = softcap(s, cap)
+        delta = qp[:, :, None] - kv_pos[:, None, :]
+        mask = (delta >= 0) & (delta < window) & (kv_pos[:, None, :] >= 0)
+        mask = mask[:, None, None]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m = torch.amax(s, dim=-1, keepdim=True)
+        pr = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+        l = torch.sum(pr, dim=-1)
+        pv = torch.einsum("bkgqs,bskd->bkgqd",
+                          pr.to(v.dtype).to(torch.float32),
+                          v.to(torch.float32))
+        out = pv / torch.clamp(l, min=1e-20)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
+
+
+def attn_apply_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, window
+                    ) -> Tuple[torch.Tensor, Tuple]:
+    """Prefill / full-sequence path. Returns (y, (k, v))."""
+    B, S, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    pos2 = positions[None, :] if positions.ndim == 1 else positions
+    q, k, v = _project_qkv(p, cfg, x, pos2)
+    qg = q.reshape(B, S, kvh, h // kvh, hd)
+    out = attend_chunked(qg, k, v, positions, positions, window=window,
+                         cap=cfg.logit_softcap)
+    out = out.reshape(B, S, h * hd).to(x.dtype)
+    return _proj(p, "wo", out), (k, v)
+
+
+def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                      pos: torch.Tensor, cache: KVCache, window
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """x (B, 1, d); pos (B,) absolute position of the new token. Writes
+    the new K/V into ``cache`` in place and returns it."""
+    B = x.shape[0]
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    C = cache.k.shape[1]
+    q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
+    slot = (pos % C).to(torch.int64)
+    bidx = torch.arange(B, device=x.device)
+    cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
+    cache.pos[bidx, slot] = pos.to(torch.int32)
+
+    qg = q.reshape(B, kvh, h // kvh, hd) * (hd ** -0.5)
+    k_read = cache.k.to(qg.dtype)
+    s = torch.einsum("bkgd,bckd->bkgc", qg.to(torch.float32),
+                     k_read.to(torch.float32))
+    if cfg.logit_softcap:
+        s = softcap(s, cfg.logit_softcap)
+    delta = pos[:, None] - cache.pos
+    mask = (cache.pos >= 0) & (delta >= 0) & (delta < window)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd",
+                       w.to(qg.dtype).to(torch.float32),
+                       cache.v.to(qg.dtype).to(torch.float32))
+    out = out.reshape(B, 1, h * hd).to(x.dtype)
+    return _proj(p, "wo", out), cache
+
+
+def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor,
+                             capacity: int,
+                             positions: Optional[torch.Tensor] = None
+                             ) -> KVCache:
+    """Arrange prefill K/V (B, S, KH, D) into a ring of ``capacity``.
+    positions: optional per-batch (B, S) (left-padded prefill; pads < 0
+    are zeroed and written with pos = -1)."""
+    B, S, KH, D = k.shape
+    cache = init_kv_cache(B, capacity, KH, D, k.dtype, k.device)
+    if positions is None:
+        n = min(S, capacity)
+        src = torch.arange(S - n, S, device=k.device)
+        slots = src % capacity
+        cache.k[:, slots] = k[:, src]
+        cache.v[:, slots] = v[:, src]
+        cache.pos[:, slots] = src.to(torch.int32).expand(B, n)
+        return cache
+    positions = positions.to(torch.int32)
+    if S > capacity:
+        k, v = k[:, -capacity:], v[:, -capacity:]
+        positions = positions[:, -capacity:]
+    valid = positions >= 0
+    slots = (positions % capacity).to(torch.int64)
+    posv = torch.where(valid, positions, torch.full_like(positions, -1))
+    kz = torch.where(valid[..., None, None], k, torch.zeros_like(k))
+    vz = torch.where(valid[..., None, None], v, torch.zeros_like(v))
+    bidx = torch.arange(B, device=k.device)[:, None]
+    cache.pos[bidx, slots] = posv
+    cache.k[bidx, slots] = kz
+    cache.v[bidx, slots] = vz
+    return cache

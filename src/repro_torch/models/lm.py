@@ -1,0 +1,310 @@
+"""Decoder-only LM of the port (``repro.models.lm``).
+
+Params keep the reference layout: ``segments`` is a tuple following the
+segment plan, each ``{"slot<j>": params}`` with a leading layer axis
+(the reference's ``lax.scan`` layout); here a Python loop walks the
+layers. Attention-only stacks with dense FFNs are ported; MoE and SSM
+layers raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import (
+    ATTN_LOCAL,
+    FFN_MOE,
+    MIXER_ATTN,
+    ModelConfig,
+)
+from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import ffn as ffn_mod
+from repro_torch.models.modules import (
+    as_dtype,
+    embedding_apply,
+    matmul_f32,
+    rmsnorm_apply,
+    softcap,
+)
+
+LayerSpec = Tuple[int, int, int]            # (mixer, attn_kind, ffn_kind)
+Segment = Tuple[Tuple[LayerSpec, ...], int]
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def segment_plan(cfg: ModelConfig) -> List[Segment]:
+    mixers = cfg.layer_mixer_kinds()
+    attns = cfg.layer_attn_kinds()
+    ffns = cfg.layer_ffn_kinds()
+    specs = list(zip(mixers, attns, ffns))
+    L = cfg.num_layers
+    p = 1
+    for per in (cfg.hybrid_attn_period, cfg.local_global_period,
+                cfg.moe_period):
+        if per:
+            p = _lcm(p, per)
+    p = min(p, L)
+    segments: List[Segment] = []
+    full = L // p
+    if full:
+        segments.append((tuple(specs[:p]), full))
+    rem = specs[full * p:]
+    if rem:
+        if all(s == rem[0] for s in rem):
+            segments.append(((rem[0],), len(rem)))
+        else:
+            segments.append((tuple(rem), 1))
+    return segments
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    for mixer, _, ffn_kind in zip(cfg.layer_mixer_kinds(),
+                                  cfg.layer_attn_kinds(),
+                                  cfg.layer_ffn_kinds()):
+        if mixer != MIXER_ATTN:
+            raise NotImplementedError("SSM layers are not ported yet")
+        if ffn_kind == FFN_MOE:
+            raise NotImplementedError("MoE layers are not ported yet")
+    if cfg.frontend != "none":
+        raise NotImplementedError("modality frontends are not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _attn_init(gen, cfg: ModelConfig, layers: int, device,
+               out_scale: float) -> Dict:
+    dt = as_dtype(cfg.param_dtype)
+    d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.attn_head_dim
+
+    def dense(d_in, d_out, scale=0.02, bias=False):
+        w = torch.randn((layers, d_in, d_out), generator=gen, device=device,
+                        dtype=torch.float32) * scale
+        p = {"w": w.to(dt)}
+        if bias:
+            p["b"] = torch.zeros((layers, d_out), dtype=dt, device=device)
+        return p
+
+    p = {"wq": dense(d, h * hd, bias=cfg.qkv_bias),
+         "wk": dense(d, kvh * hd, bias=cfg.qkv_bias),
+         "wv": dense(d, kvh * hd, bias=cfg.qkv_bias),
+         "wo": dense(h * hd, d, scale=out_scale)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((layers, hd), dtype=dt, device=device)
+        p["k_norm"] = torch.ones((layers, hd), dtype=dt, device=device)
+    return p
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device="cuda") -> Dict:
+    """Random params in the reference layout and at its scales (wo and
+    w2 at 0.02 / sqrt(2 L), every other projection at 0.02), drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``. (The numbers
+    differ from the reference's PRNG; tests bridge the reference's
+    params instead.)"""
+    _check_supported(cfg)
+    dt = as_dtype(cfg.param_dtype)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d = cfg.d_model
+    out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+    params: Dict[str, Any] = {
+        "embed": {"emb": (torch.randn((cfg.vocab_size, d), generator=gen,
+                                      device=device) * 0.02).to(dt)},
+        "final_norm": {"scale": torch.ones((d,), dtype=dt, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"emb": (torch.randn(
+            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
+        ).to(dt)}
+    segs = []
+    for pattern, repeat in segment_plan(cfg):
+        seg = {}
+        for slot, _spec in enumerate(pattern):
+            seg[f"slot{slot}"] = {
+                "norm1": {"scale": torch.ones((repeat, d), dtype=dt,
+                                              device=device)},
+                "norm2": {"scale": torch.ones((repeat, d), dtype=dt,
+                                              device=device)},
+                "mixer": _attn_init(gen, cfg, repeat, device, out_scale),
+                "ffn": ffn_mod.ffn_init(gen, cfg, layers=repeat,
+                                        device=device, out_scale=out_scale),
+            }
+        segs.append(seg)
+    params["segments"] = tuple(segs)
+    return params
+
+
+def layer_params(tree, i: int):
+    """Layer ``i`` of a layer-stacked param subtree."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    if isinstance(tree, (PackedSASPWeight, PackedFFN)):
+        return tree.layer(i)
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Apply
+# ---------------------------------------------------------------------------
+
+
+def _slot_window(cfg: ModelConfig, spec: LayerSpec, seq_len: int) -> int:
+    if spec[1] == ATTN_LOCAL and cfg.sliding_window:
+        return cfg.sliding_window
+    return max(seq_len, 1) + 1
+
+
+def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                     x: torch.Tensor, positions: torch.Tensor,
+                     want_cache: bool, cache_len: int):
+    S = x.shape[1]
+    h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
+    window = _slot_window(cfg, spec, S)
+    y, (k, v) = attn_mod.attn_apply_full(sp["mixer"], cfg, h, positions,
+                                         window)
+    cache = None
+    if want_cache:
+        cap = min(window, cache_len) if spec[1] == ATTN_LOCAL else cache_len
+        cache = attn_mod.build_cache_from_prefill(
+            k, v, cap, positions=positions if positions.ndim == 2 else None)
+    x = x + y
+    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
+    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
+
+
+def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                       x: torch.Tensor, pos: torch.Tensor, cache):
+    h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
+    window = _slot_window(cfg, spec, int(1e9) - 2)
+    y, cache = attn_mod.attn_apply_decode(sp["mixer"], cfg, h, pos, cache,
+                                          window)
+    x = x + y
+    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
+    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
+
+
+def _stack_caches(caches: List[attn_mod.KVCache]) -> attn_mod.KVCache:
+    return attn_mod.KVCache(*(torch.stack(list(f)) for f in zip(*caches)))
+
+
+def _run_segments_full(params, cfg: ModelConfig, x, positions,
+                       want_cache: bool, cache_len: int):
+    _check_supported(cfg)
+    all_caches = []
+    for seg_params, (pattern, repeat) in zip(params["segments"],
+                                             segment_plan(cfg)):
+        per_slot: Dict[str, list] = {f"slot{s}": [] for s in
+                                     range(len(pattern))}
+        for r in range(repeat):
+            for slot, spec in enumerate(pattern):
+                name = f"slot{slot}"
+                x, c = _apply_slot_full(layer_params(seg_params[name], r),
+                                        spec, cfg, x, positions,
+                                        want_cache, cache_len)
+                per_slot[name].append(c)
+        if want_cache:
+            all_caches.append({n: _stack_caches(cs)
+                               for n, cs in per_slot.items()})
+    return x, tuple(all_caches) if want_cache else None
+
+
+def _embed_in(params, cfg: ModelConfig, tokens):
+    return embedding_apply(params["embed"], tokens,
+                           dtype=as_dtype(cfg.compute_dtype))
+
+
+def _head_table(params, cfg: ModelConfig):
+    return (params["embed"]["emb"] if cfg.tie_embeddings
+            else params["lm_head"]["emb"])
+
+
+def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, d) -> fp32 logits (B, S, V): the table is rounded to x's
+    type, the product summed in fp32."""
+    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
+    emb = _head_table(params, cfg).to(x.dtype)
+    return matmul_f32(x, emb.t())
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V)."""
+    x = _embed_in(params, cfg, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    x, _ = _run_segments_full(params, cfg, x, positions, False, 0)
+    logits = logits_fn(params, cfg, x)
+    return softcap(logits, cfg.logit_softcap)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            cache_len: Optional[int] = None,
+            positions: Optional[torch.Tensor] = None):
+    """Process prompts; returns (last-token logits (B, 1, V), caches).
+    positions: optional per-batch (B, S) for the left-padded batched
+    prefill (pad columns negative)."""
+    x = _embed_in(params, cfg, tokens)
+    S = x.shape[1]
+    cache_len = cache_len or S
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    else:
+        positions = positions.to(torch.int32)
+    x, caches = _run_segments_full(params, cfg, x, positions, True,
+                                   cache_len)
+    logits = logits_fn(params, cfg, x[:, -1:])
+    return softcap(logits, cfg.logit_softcap), caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
+                pos: torch.Tensor, caches):
+    """One decode step. tokens (B, 1); pos (B,). Updates ``caches`` in
+    place; returns (logits (B, 1, V), caches)."""
+    _check_supported(cfg)
+    x = _embed_in(params, cfg, tokens)
+    for seg_params, seg_caches, (pattern, repeat) in zip(
+            params["segments"], caches, segment_plan(cfg)):
+        for r in range(repeat):
+            for slot, spec in enumerate(pattern):
+                name = f"slot{slot}"
+                c = seg_caches[name]
+                layer_cache = attn_mod.KVCache(c.k[r], c.v[r], c.pos[r])
+                x, _ = _apply_slot_decode(layer_params(seg_params[name], r),
+                                          spec, cfg, x, pos, layer_cache)
+    logits = logits_fn(params, cfg, x)
+    return softcap(logits, cfg.logit_softcap), caches
+
+
+def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
+                device=None):
+    """Zero caches matching the segment plan, (repeat, B, C, KH, D)."""
+    _check_supported(cfg)
+    device = device or params["embed"]["emb"].device
+    cdt = as_dtype(cfg.compute_dtype)
+    caches = []
+    for pattern, repeat in segment_plan(cfg):
+        seg = {}
+        for slot, spec in enumerate(pattern):
+            if cfg.kv_quant:
+                raise NotImplementedError("int8 KV cache is not ported yet")
+            cap = min(_slot_window(cfg, spec, cache_len), cache_len)
+            shape = (repeat, batch, cap, cfg.num_kv_heads, cfg.attn_head_dim)
+            seg[f"slot{slot}"] = attn_mod.KVCache(
+                k=torch.zeros(shape, dtype=cdt, device=device),
+                v=torch.zeros(shape, dtype=cdt, device=device),
+                pos=torch.full((repeat, batch, cap), -1, dtype=torch.int32,
+                               device=device))
+        caches.append(seg)
+    return tuple(caches)
