@@ -11,7 +11,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 wq 5120->8192, wk/wv 5120->1024, wo 8192->5120 and the
                 5120/25600 gated FFN, decode and prefill rows, fp32 and
                 bf16), with kernel / plain / library times and the
-                least time the card could take (bound).
+                least time the card could take (bound). Then the three
+                ablation kernels: the masked-grid GEMM (timed beside the
+                tile-skip GEMM over BSR on the same weights and mask: the
+                paper's skip-vs-predicate contrast) and the dense int8
+                GEMM at every projection shape (w1/w3 5120->25600, w2
+                25600->5120 too), and flash attention at 64/8 heads,
+                head_dim 128, batch 4 (42 and 256 causal, 1 query against
+                256 keys, 4096 causal, 4096 with window 1024).
   3. serve    — the main path: qwen3-32b at full width, depth cut to 4
                 layers, random weights from seed 0 (wo and w2 rescaled
                 to the 0.02 of the other projections), pruned to 50% tiles
@@ -19,12 +26,28 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 cache 256) serving 4 requests of 16 new tokens, after
                 one untimed run of the same prompts (the cold start).
                 Both kernels must launch on it.
+  3b. paths   — (run after 5, once the packed model is freed) the other
+                serving paths at full width, bf16, the packed phase's seed
+                and rescaling, the same 4 requests: kernel (BSR through
+                the tile-skip GEMM, repacked per call; scope all, 4
+                layers), bsr (gathered block matmul, plain torch; scope
+                all, 2 layers) and masked with int8 weights (scope ffn, 2
+                layers). The kernel path must launch the tile-skip GEMM.
   4. profile  — the prefill step and three decode steps of the same
                 model under torch.profiler: device time by kernel and
                 the device's busy share of the wall time (traces in
                 build/chip_smoke/).
-  5. parity   — fp32 packed vs masked (plain matmuls on the same pruned
-                weights): prefill logits and the first decode step.
+  5. parity   — fp32 packed vs masked and kernel vs masked (plain
+                matmuls on the same pruned weights): prefill logits and
+                the first decode step.
+  5b. ablation path — the three ablation kernels through their entry
+                points (masked_matmul, int8_matmul, mha) on one fp32 layer
+                of the served model: its pruned w1 and mask, the int8 w1
+                the masked int8 path holds, and layer 0's q/k/v of a causal
+                prefill; held against the served paths' own products
+                (torch.matmul, dequantize + torch.matmul, attend_chunked).
+                These calls are those kernels' path: their launches are
+                counted here. Also sasp_matmul over the layer's BSR.
   6. int8     — --int8-weights at full width, 1 layer: both int8 kernel
                 variants on the path, within 5e-2 of the fp32 masked model.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -139,6 +162,17 @@ def bound_ms(n_bytes: int, ops):
 def rel_err(got, want) -> float:
     g, w = got.float(), want.float()
     return float((g - w).abs().max() / w.abs().max().clamp_min(1e-9))
+
+
+def row_rel_err(got, want) -> float:
+    """Largest error of a row of the last axis over that row's largest
+    value: an attention output row averages its visible keys, so rows
+    differ in scale by far more than the tolerance (a row that sees one
+    key copies it; one that sees thousands is near 0). A row of zeros
+    (no visible key) must come out exactly 0."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(dim=-1)
+    return float((err / w.abs().amax(dim=-1).clamp_min(1e-30)).max())
 
 
 def gemm_checks(torch, timer, rows):
@@ -275,6 +309,198 @@ def ffn_checks(torch, timer, rows):
     return results
 
 
+# every projection of the layer (wk and wv, w1 and w3 share a shape)
+PROJ_SHAPES = GEMM_SHAPES + (("w1/w3", 5120, 25600), ("w2", 25600, 5120))
+# flash attention cases: (Sq, Sk, window); None = causal (window Sk + 1)
+ATTN = dict(B=4, H=64, KH=8, D=128)
+ATTN_CASES = ((42, 42, None), (256, 256, None), (1, 256, None),
+              (4096, 4096, None), (4096, 4096, 1024))
+
+
+def masked_checks(torch, timer, rows):
+    """Masked-grid GEMM at every projection shape (32x32 tiles, half
+    pruned), against its plain version; timed beside the tile-skip GEMM
+    over the BSR of the same weights and mask (sasp_matmul, its per-call
+    repack included) and a dense torch.matmul on the masked weight. Both
+    kernels share one bound (the function's); ``dense_w_read_ms`` is the
+    time the masked grid's design needs to read the whole dense W."""
+    from repro_torch.core.sparse import bsr_from_mask
+    from repro_torch.kernels.sasp_gemm import gemm, masked
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    bk = bn = BLOCK
+    results = []
+    for proj, K, N in PROJ_SHAPES:
+        w = torch.randn((K, N), generator=gen, device=DEVICE) * 0.02
+        mask = torch.rand((K // bk, N // bn), generator=gen,
+                          device=DEVICE) > SPARSITY
+        mask_i = mask.to(torch.int32)
+        live = int(mask.sum())
+        bsr32 = bsr_from_mask(w.cpu().numpy(), mask.cpu().numpy(), bk, bn,
+                              device=DEVICE)
+        for xdt in ("float32", "bfloat16"):
+            typ = getattr(torch, xdt)
+            wt = w.to(typ)
+            bsr = dataclasses.replace(bsr32, vals=bsr32.vals.to(typ))
+            wd = wt * mask.repeat_interleave(bk, 0).repeat_interleave(
+                bn, 1).to(typ)
+            for M in rows:
+                x = torch.randn((M, K), generator=gen, device=DEVICE).to(typ)
+                got = masked.masked_matmul(x, wt, mask_i)
+                want = masked.sasp_gemm_masked_plain(x, wt, mask_i)
+                skip = gemm.sasp_matmul(x, bsr)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                tol = 1e-4 if xdt == "float32" else 1e-2
+                check(err <= tol, f"sasp_gemm_masked {proj} {xdt} M={M}: "
+                      f"error {err:.3g} > {tol}")
+                skip_err = rel_err(skip, want)
+                check(skip_err <= tol, f"sasp_matmul {proj} {xdt} M={M}: "
+                      f"error {skip_err:.3g} > {tol}")
+                k_ms = timer.ms(lambda: masked.masked_matmul(x, wt, mask_i))
+                s_ms = timer.ms(lambda: gemm.sasp_matmul(x, bsr))
+                p_ms = timer.ms(lambda: masked.sasp_gemm_masked_plain(
+                    x, wt, mask_i), reps=3)
+                lib_ms = timer.ms(lambda: torch.matmul(x, wd))
+                # both kernels compute x @ (W * mask): the function needs
+                # x, the live tiles, the mask and the output
+                b_ms, b_by = bound_ms(
+                    nbytes(x, mask_i, got) + live * bk * bn
+                    * wt.element_size(), [(2.0 * M * bk * bn * live, xdt)])
+                # what the masked grid's design reads: every byte of W
+                dense_read_ms = bound_ms(nbytes(x, wt, mask_i, got), [])[0]
+                results.append(dict(
+                    proj=proj, K=K, N=N, variant="fp", x=xdt, M=M,
+                    live_tiles=live, rel_err=err, max_abs_err=float(
+                        (got.float() - want.float()).abs().max()),
+                    tile_skip_rel_err=skip_err,
+                    tile_skip_equal=bool(torch.equal(skip, got)),
+                    tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, dense_w_read_ms=dense_read_ms,
+                    tile_skip_ms=s_ms))
+                log("  sasp_gemm_masked " + json.dumps(results[-1]))
+            del wd, bsr
+        del w, bsr32
+    return results
+
+
+def int8_checks(torch, timer, rows):
+    """Dense weight-only int8 GEMM (32x32 quant blocks) at every
+    projection shape, against its plain version (the kernel's own
+    arithmetic); the dequantize-then-matmul oracle rounds differently and
+    is recorded, not bounded; library: torch.matmul on the dequantized
+    weight in x's type."""
+    from repro_torch.core.quantization import dequantize_int8, quantize_int8
+    from repro_torch.kernels.int8_gemm import gemm as int8
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(6)
+    results = []
+    for proj, K, N in PROJ_SHAPES:
+        qw = quantize_int8(torch.randn((K, N), generator=gen, device=DEVICE)
+                           * 0.02, BLOCK, BLOCK)
+        for xdt in ("float32", "bfloat16"):
+            typ = getattr(torch, xdt)
+            wd = dequantize_int8(qw, typ)
+            for M in rows:
+                x = torch.randn((M, K), generator=gen, device=DEVICE).to(typ)
+                got = int8.int8_matmul(x, qw)
+                want = int8.int8_gemm_plain(x, qw.q, qw.scale)
+                ref = int8.int8_gemm_ref(x, qw.q, qw.scale)
+                torch.cuda.synchronize()
+                err = rel_err(got, want)
+                tol = 1e-4 if xdt == "float32" else 1e-2
+                check(err <= tol, f"int8_gemm {proj} {xdt} M={M}: "
+                      f"error {err:.3g} > {tol}")
+                k_ms = timer.ms(lambda: int8.int8_matmul(x, qw))
+                p_ms = timer.ms(lambda: int8.int8_gemm_plain(
+                    x, qw.q, qw.scale), reps=3)
+                lib_ms = timer.ms(lambda: torch.matmul(x, wd))
+                b_ms, b_by = bound_ms(nbytes(x, qw.q, qw.scale, got),
+                                      [(2.0 * M * K * N, xdt)])
+                results.append(dict(
+                    proj=proj, K=K, N=N, variant="fp", x=xdt, w="int8", M=M,
+                    rel_err=err, ref_rel_err=rel_err(got, ref),
+                    max_abs_err=float((got.float() - want.float()).abs()
+                                      .max()),
+                    tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by))
+                log("  int8_gemm " + json.dumps(results[-1]))
+            del wd
+        del qw
+    return results
+
+
+def _fold(t):
+    """(B, S, H, D) -> (B·H, S, D), the kernel's layout (ops.mha)."""
+    B, S, H, D = t.shape
+    return t.permute(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+def flash_checks(torch, timer):
+    """mha (flash attention with the GQA fold) against the plain online
+    softmax on the same folded tensors; library:
+    F.scaled_dot_product_attention with enable_gqa, is_causal for a
+    square causal case, else the visibility as an explicit mask. The
+    error is taken per output row (row_rel_err)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import kernel as flash
+    from repro_torch.kernels.flash_attn.ops import mha
+
+    B, H, KH, D = ATTN["B"], ATTN["H"], ATTN["KH"], ATTN["D"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    results = []
+    for Sq, Sk, window in ATTN_CASES:
+        win = Sk + 1 if window is None else window
+        qp = torch.arange(Sk - Sq, Sk, device=DEVICE, dtype=torch.int32)
+        kp = torch.arange(Sk, device=DEVICE, dtype=torch.int32)
+        delta = qp[:, None] - kp[None, :]
+        vis = (delta >= 0) & (delta < win)
+        pairs = int(vis.sum())
+        causal = Sq == Sk and window is None
+        full = bool(vis.all())
+        reps = 3 if Sq * Sk > 1 << 20 else 10
+        for xdt in ("float32", "bfloat16"):
+            typ = getattr(torch, xdt)
+            q = torch.randn((B, Sq, H, D), generator=gen, device=DEVICE
+                            ).to(typ)
+            k = torch.randn((B, Sk, KH, D), generator=gen, device=DEVICE
+                            ).to(typ)
+            v = torch.randn((B, Sk, KH, D), generator=gen, device=DEVICE
+                            ).to(typ)
+            got = mha(q, k, v, qp, kp, window=win)
+            want = flash.flash_attention_plain(_fold(q), _fold(k), _fold(v),
+                                               qp, kp, window=win)
+            want = want.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
+            torch.cuda.synchronize()
+            err = row_rel_err(got, want)
+            tol = 1e-4 if xdt == "float32" else 1e-2
+            check(err <= tol, f"flash_attention Sq={Sq} Sk={Sk} "
+                  f"window={window} {xdt}: error {err:.3g} > {tol}")
+            k_ms = timer.ms(lambda: mha(q, k, v, qp, kp, window=win), reps)
+            p_ms = timer.ms(lambda: flash.flash_attention_plain(
+                _fold(q), _fold(k), _fold(v), qp, kp, window=win), reps=3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None if causal or full else vis
+            lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal,
+                enable_gqa=True), reps)
+            b_ms, b_by = bound_ms(nbytes(q, k, v, qp, kp, got),
+                                  [(4.0 * D * pairs * B * H, xdt)])
+            results.append(dict(
+                Sq=Sq, Sk=Sk, window=window, B=B, H=H, KH=KH, D=D, x=xdt,
+                variant="fp", M=Sq, visible_pairs=pairs, row_rel_err=err,
+                rel_err=rel_err(got, want),
+                max_abs_err=float((got.float() - want.float()).abs().max()),
+                tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by))
+            log("  flash_attention " + json.dumps(results[-1]))
+            del q, k, v, got, want
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the port's main path
 # ---------------------------------------------------------------------------
@@ -301,10 +527,8 @@ def main_config(layers: int, compute: str):
 
 
 def serve_phase(torch, counters):
-    from repro_torch.launch.serve import build_serving_params, \
-        synthetic_requests
+    from repro_torch.launch.serve import build_serving_params
     from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine
 
     cfg = main_config(N_LAYERS, "bfloat16")
     log(f"  qwen3-32b at full width: d_model {cfg.d_model}, heads "
@@ -328,6 +552,21 @@ def serve_phase(torch, counters):
         f"0.02 like every other projection")
     log(f"  init + prune + pack: {time.time() - t0:.1f} s, device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    launches, e2e = _serve(torch, params, cfg, counters)
+    for name in MAIN_PATH:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the main path")
+    return params, cfg, launches, e2e
+
+
+def _serve(torch, params, cfg, counters):
+    """Serve the launcher's 4 requests of 16 new tokens (4 slots, cache
+    256) after one untimed run of the same prompts; the launch counts of
+    ``counters`` are set to 0 just before the timed run and read just
+    after it."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+
     reqs = synthetic_requests(4, cfg.vocab_size, 16)
     # The first launch of each PyTorch kernel in a process loads its
     # module. One untimed run of the same prompts (prefill + one decode
@@ -342,8 +581,7 @@ def serve_phase(torch, counters):
     eng = Engine(params, cfg, batch_slots=4, cache_len=256)
     for r in reqs:
         eng.submit(r)
-    for c in counters:
-        setattr(c, "launches", 0)
+    reset(counters)
     step_ms, done = [], []
     while len(done) < len(reqs):
         torch.cuda.synchronize()
@@ -351,28 +589,73 @@ def serve_phase(torch, counters):
         done += eng.step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
-    launches = {c.__name__.rsplit(".", 1)[-1]: c.launches for c in counters}
+    launches = read(counters)
     decode_ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1)
     prefill_ms = step_ms[0] - decode_ms
     toks = sum(len(r.out_tokens) for r in done)
     tok_s = toks / (sum(step_ms) / 1e3)
     M_prefill = len(reqs) * max(len(r.prompt) for r in reqs)
+    mem_gib = torch.cuda.memory_allocated() / 2**30
     log(f"  served {len(done)} requests, {toks} tokens in "
         f"{len(step_ms)} steps: prefill {prefill_ms:.1f} ms "
         f"({M_prefill} padded rows), decode {decode_ms:.2f} ms/step "
-        f"(4 tokens), {tok_s:.1f} tok/s; launches {launches}")
+        f"(4 tokens), {tok_s:.1f} tok/s; launches {launches} "
+        f"({ {k: n / len(step_ms) for k, n in launches.items()} } per "
+        f"step); device memory {mem_gib:.1f} GiB")
     check(len(done) == 4 and all(len(r.out_tokens) == 16 for r in done),
           "not every request produced its 16 tokens")
     check(all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens),
           "token id out of the vocabulary")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
     for r in sorted(done, key=lambda r: r.rid):
         log(f"  req {r.rid}: prompt[{len(r.prompt)}] -> {r.out_tokens}")
-    return params, cfg, launches, dict(prefill_ms=prefill_ms,
-                                       decode_ms_per_step=decode_ms,
-                                       tok_s=tok_s, prefill_rows=M_prefill,
-                                       cold_start_ms=cold_ms)
+    return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                          tok_s=tok_s, prefill_rows=M_prefill,
+                          cold_start_ms=cold_ms, steps=len(step_ms),
+                          device_memory_gib=mem_gib,
+                          streams={r.rid: r.out_tokens for r in done})
+
+
+# (path, layers, int8 weights, scope) of phase 3b
+OTHER_PATHS = (("kernel", N_LAYERS, False, "all"), ("bsr", 2, False, "all"),
+               ("masked", 2, True, "ffn"))
+
+
+def paths_phase(torch, counters):
+    """The kernel, bsr and int8 masked serving paths at full width, bf16,
+    from the packed phase's seed and rescaling; the kernel path is also
+    profiled. Returns the results and layer 0's int8 w1 of the masked
+    path (for phase 5b)."""
+    from repro_torch.launch.serve import build_serving_params
+    from repro_torch.models import lm
+
+    results, qw = {}, None
+    for path, layers, int8, scope in OTHER_PATHS:
+        name = path + ("+int8" if int8 else "")
+        log(f"  --path {path}{' --int8-weights' if int8 else ''} --scope "
+            f"{scope}, {layers} layers")
+        cfg = main_config(layers, "bfloat16")
+        t0 = time.time()
+        params, cfg = build_serving_params(
+            spread_output_scales(lm.init_params(cfg, seed=0, device=DEVICE),
+                                 cfg),
+            cfg, path=path, sparsity=SPARSITY, scope=scope,
+            int8_weights=int8, verbose=False)
+        torch.cuda.synchronize()
+        log(f"  init + prune + deploy: {time.time() - t0:.1f} s")
+        launches, e2e = _serve(torch, params, cfg, counters)
+        if path == "kernel":
+            check(launches["sasp_gemm"] > 0,
+                  "the kernel path never launched sasp_gemm")
+            log("  kernel path under torch.profiler: the prefill step and "
+                "3 decode steps")
+            e2e["profile"] = profile_phase(torch, params, cfg, "kernel_")
+        if int8:
+            qw = params["segments"][0]["slot0"]["ffn"]["w1"]["qw"].layer(0)
+        results[name] = dict(layers=layers, scope=scope, launches=launches,
+                             **e2e)
+        del params
+        torch.cuda.empty_cache()
+    return results, qw
 
 
 def _profiled(torch, step, n: int, name: str):
@@ -418,10 +701,10 @@ def _profiled(torch, step, n: int, name: str):
                 busy_share=busy_us / wall_us, kernels=rows)
 
 
-def profile_phase(torch, params, cfg):
-    """The main path's model (4 slots) under torch.profiler: the
-    admission step (left-padded prefill of 4 prompts, then the first
-    decode step), then three decode steps."""
+def profile_phase(torch, params, cfg, tag: str = ""):
+    """A served model (4 slots) under torch.profiler: the admission step
+    (left-padded prefill of 4 prompts, then the first decode step), then
+    three decode steps; traces go to <tag>prefill / <tag>decode."""
     from repro_torch.launch.serve import synthetic_requests
     from repro_torch.serve.engine import Engine
 
@@ -429,14 +712,19 @@ def profile_phase(torch, params, cfg):
     for r in synthetic_requests(4, cfg.vocab_size, 8):
         eng.submit(r)
     torch.cuda.synchronize()
-    return dict(prefill=_profiled(torch, eng.step, 1, "prefill"),
-                decode=_profiled(torch, eng.step, 3, "decode"))
+    return dict(prefill=_profiled(torch, eng.step, 1, tag + "prefill"),
+                decode=_profiled(torch, eng.step, 3, tag + "decode"))
 
 
 def parity_phase(torch, params):
-    """fp32 compute: packed vs masked on the main path's pruned weights."""
+    """fp32 compute on the main path's pruned weights: packed vs masked,
+    and kernel (BSR through the tile-skip GEMM) vs masked. Returns the
+    errors and layer 0's fp32 tensors for phase 5b."""
     from repro_torch.core.deploy import deploy_packed, strip_packed
+    from repro_torch.core.pruning import compute_sasp_masks
+    from repro_torch.core.sasp import bsr_overlay_from_masks, merge_overlay
     from repro_torch.models import lm
+    from repro_torch.models.modules import embedding_apply, rmsnorm_apply
 
     cfg = main_config(N_LAYERS, "float32")
     dense = strip_packed(params)
@@ -445,25 +733,107 @@ def parity_phase(torch, params):
         scope="all", path="masked"))
     t0 = time.time()
     packed, pcfg = deploy_packed(dense, masked_cfg)
-    log(f"  fp32 re-pack: {time.time() - t0:.1f} s")
+    # the pruned tiles are exactly zero, so selecting the same share of
+    # tiles again gives the served masks
+    masks = compute_sasp_masks(dense, masked_cfg.sasp)
+    kparams = merge_overlay(dense, bsr_overlay_from_masks(
+        dense, masks, masked_cfg.sasp))
+    kcfg = dataclasses.replace(masked_cfg, sasp=dataclasses.replace(
+        masked_cfg.sasp, path="kernel"))
+    log(f"  fp32 re-pack and BSR: {time.time() - t0:.1f} s")
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
                          device=DEVICE)
+    errs = {}
     with torch.no_grad():
         lg_m, c_m = lm.prefill(dense, masked_cfg, toks, cache_len=32)
-        lg_p, c_p = lm.prefill(packed, pcfg, toks, cache_len=32)
         nxt = torch.argmax(lg_m[:, 0], dim=-1, keepdim=True)
         pos = torch.full((2,), 24, dtype=torch.int32, device=DEVICE)
         d_m, _ = lm.decode_step(dense, masked_cfg, nxt, pos, c_m)
-        d_p, _ = lm.decode_step(packed, pcfg, nxt, pos, c_p)
-    e_pre, e_dec = rel_err(lg_p, lg_m), rel_err(d_p, d_m)
-    log(f"  packed vs masked (fp32, TF32 off): prefill rel err {e_pre:.3g}, "
-        f"decode rel err {e_dec:.3g} (tolerance 1e-4 of the logit scale)")
-    check(e_pre < 1e-4 and e_dec < 1e-4, "packed path disagrees with masked")
-    check(bool(torch.isfinite(lg_p).all() and torch.isfinite(d_p).all()),
-          "non-finite logits")
-    return dict(prefill_rel_err=e_pre, decode_rel_err=e_dec)
+        for name, p, pc in (("packed", packed, pcfg),
+                            ("kernel", kparams, kcfg)):
+            lg, c = lm.prefill(p, pc, toks, cache_len=32)
+            d, _ = lm.decode_step(p, pc, nxt, pos, c)
+            e_pre, e_dec = rel_err(lg, lg_m), rel_err(d, d_m)
+            log(f"  {name} vs masked (fp32, TF32 off): prefill rel err "
+                f"{e_pre:.3g}, decode rel err {e_dec:.3g} (tolerance 1e-4 "
+                f"of the logit scale)")
+            check(e_pre < 1e-4 and e_dec < 1e-4,
+                  f"{name} path disagrees with masked")
+            check(bool(torch.isfinite(lg).all() and torch.isfinite(d).all()),
+                  "non-finite logits")
+            errs[name] = dict(prefill_rel_err=e_pre, decode_rel_err=e_dec)
+    slot = dense["segments"][0]["slot0"]
+    w1_path = ("segments", 0, "slot0", "ffn", "w1", "w")
+    with torch.no_grad():
+        h0 = rmsnorm_apply(lm.layer_params(slot["norm1"], 0),
+                           embedding_apply(dense["embed"], toks,
+                                           dtype=torch.float32),
+                           eps=cfg.norm_eps)
+    layer0 = dict(
+        cfg=masked_cfg, toks=toks, h0=h0,
+        mixer=lm.layer_params(slot["mixer"], 0),
+        w1=slot["ffn"]["w1"]["w"][0], w1_mask=masks[w1_path][0],
+        w1_bsr=kparams["segments"][0]["slot0"]["ffn"]["sasp_bsr"]["w1"]
+        .layer(0))
+    return dict(errs["packed"], kernel=errs["kernel"]), layer0
+
+
+def ablation_phase(torch, layer0, qw, counters):
+    """The ablation kernels through their entry points on one fp32 layer
+    of the served model, held against the served paths' own products.
+    The launch counts of ``counters`` are set to 0 just before and read
+    just after: this is those kernels' path."""
+    from repro_torch.core.quantization import dequantize_int8
+    from repro_torch.kernels.flash_attn.ops import mha
+    from repro_torch.kernels.int8_gemm.gemm import int8_matmul
+    from repro_torch.kernels.sasp_gemm.gemm import sasp_matmul
+    from repro_torch.kernels.sasp_gemm.masked import masked_matmul
+    from repro_torch.models.attention import _project_qkv, attend_chunked
+
+    cfg, toks = layer0["cfg"], layer0["toks"]
+    B, S = toks.shape
+    h0 = layer0["h0"]                                # (B, S, d) fp32
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE)
+    x = h0.reshape(B * S, -1)
+    w1, mask, bsr = layer0["w1"], layer0["w1_mask"], layer0["w1_bsr"]
+    with torch.no_grad():
+        q, k, v = _project_qkv(layer0["mixer"], cfg, h0, pos[None])
+        reset(counters)
+        got = dict(masked=masked_matmul(x, w1, mask),
+                   tile_skip=sasp_matmul(x, bsr),
+                   int8=int8_matmul(x, qw),
+                   flash=mha(q, k, v, pos, pos, window=S + 1))
+        torch.cuda.synchronize()
+        launches = read(counters)
+        H, KH = q.shape[2], k.shape[2]
+        want = dict(masked=torch.matmul(x, w1), tile_skip=torch.matmul(x, w1),
+                    int8=torch.matmul(x, dequantize_int8(qw, x.dtype)),
+                    flash=attend_chunked(
+                        q.reshape(B, S, KH, H // KH, -1), k, v, pos, pos,
+                        window=S + 1).reshape(q.shape))
+    errs = {n: (row_rel_err if n == "flash" else rel_err)(got[n], want[n])
+            for n in got}
+    log(f"  on layer 0 of the served model (fp32, {B * S} rows; attention "
+        f"{B}x{S} causal): rel err vs the served paths' products {errs} "
+        f"(tolerance 1e-4, per output row for attention); launches "
+        f"{launches}")
+    for n, e in errs.items():
+        check(e < 1e-4, f"{n} disagrees with its served path: {e:.3g}")
+    for n in ("sasp_gemm_masked", "int8_gemm", "flash_attention",
+              "sasp_gemm"):
+        check(launches[n] > 0, f"kernel {n} never launched on its path")
+    return dict(rel_err=errs, launches=launches)
+
+
+def reset(counters):
+    for m in counters.values():
+        m.launches = 0
+
+
+def read(counters):
+    return {name: m.launches for name, m in counters.items()}
 
 
 def int8_phase(torch, counters):
@@ -483,41 +853,54 @@ def int8_phase(torch, counters):
     gen.manual_seed(4)
     toks = torch.randint(0, cfg.vocab_size, (1, 16), generator=gen,
                          device=DEVICE)
-    for c in counters:
-        setattr(c, "launches", 0)
+    reset(counters)
     with torch.no_grad():
         got = lm.forward(params, pcfg, toks)
-        launches = {c.__name__.rsplit(".", 1)[-1]: c.launches
-                    for c in counters}
+        launches = read(counters)
         ref = lm.forward(dense, mcfg, toks)
     err = rel_err(got, ref)
     log(f"  int8 packed vs fp32 masked, 1 layer: rel err {err:.3g} "
         f"(bound 5e-2); int8 launches {launches}")
     check(err < 5e-2, "int8 path outside the 5e-2 bound")
-    for name, n in launches.items():
-        check(n > 0, f"int8 variant of {name} never launched")
+    for name in MAIN_PATH:
+        check(launches[name] > 0, f"int8 variant of {name} never launched")
     return dict(rel_err=err, launches=launches)
 
 
-def kernels_line(gemm_res, ffn_res, launches):
-    """One entry per kernel, read at its most frequent main-path launch:
-    a decode step (4 rows, bf16), for sasp_gemm at wq's shape."""
-    def pick(res):
-        return next(r for r in res if r["variant"] == "fp"
+# name -> (source, TPU kernel it replaces); the first two run on the
+# packed main path, the other three on the ablation path of phase 5b
+KERNELS = {
+    "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
+                  "src/repro/kernels/sasp_gemm/kernel.py:142"),
+    "sasp_fused_ffn": ("src/repro_torch/kernels/csrc/fused_ffn.cu",
+                       "src/repro/kernels/sasp_gemm/kernel.py:254"),
+    "sasp_gemm_masked": ("src/repro_torch/kernels/csrc/sasp_gemm_masked.cu",
+                         "src/repro/kernels/sasp_gemm/kernel.py:346"),
+    "int8_gemm": ("src/repro_torch/kernels/csrc/int8_gemm.cu",
+                  "src/repro/kernels/int8_gemm/kernel.py:39"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn/kernel.py:66"),
+}
+MAIN_PATH = ("sasp_gemm", "sasp_fused_ffn")
+
+
+def kernels_line(res, launches):
+    """One entry per kernel, read at its most frequent launch on its path:
+    a decode step (4 rows, bf16) for the GEMMs (at wq's shape) and the
+    fused FFN; the 42-row causal prefill group (bf16) for flash
+    attention. ``launches`` are counted on each kernel's path."""
+    def pick(name):
+        if name == "flash_attention":
+            return next(r for r in res[name] if r["x"] == "bfloat16"
+                        and r["Sq"] == r["Sk"] == 42)
+        return next(r for r in res[name] if r["variant"] == "fp"
                     and r["x"] == "bfloat16" and r["M"] == 4
                     and r.get("proj") in (None, "wq"))
     out = []
-    for name, res, src, repl in (
-            ("sasp_gemm", gemm_res,
-             "src/repro_torch/kernels/csrc/sasp_gemm.cu",
-             "src/repro/kernels/sasp_gemm/kernel.py:142"),
-            ("sasp_fused_ffn", ffn_res,
-             "src/repro_torch/kernels/csrc/fused_ffn.cu",
-             "src/repro/kernels/sasp_gemm/kernel.py:254")):
-        r = pick(res)
+    for name, (src, repl) in KERNELS.items():
+        r = pick(name)
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": repl, "launches": launches[
-                        "gemm" if name == "sasp_gemm" else "fused_ffn"],
+                    "replaces": repl, "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
@@ -539,7 +922,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
-    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.kernels.flash_attn import kernel as flash
+    from repro_torch.kernels.int8_gemm import gemm as int8
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm, masked
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn,
+                "sasp_gemm_masked": masked, "int8_gemm": int8,
+                "flash_attention": flash}
 
     t_start = time.time()
     card = card_line()
@@ -560,39 +948,53 @@ def main() -> int:
     rows = [4, len(reqs) * max(len(r.prompt) for r in reqs)]
     timer = Timer(torch)
     log(f"[2] kernels vs plain versions (rows {rows}; tolerance: 1e-4 of "
-        f"the output scale with fp32 activations, 1e-2 with bf16)")
-    gemm_res = gemm_checks(torch, timer, rows)
-    ffn_res = ffn_checks(torch, timer, rows)
+        f"the output scale with fp32 activations, 1e-2 with bf16; for "
+        f"attention the scale of each output row)")
+    res = {"sasp_gemm": gemm_checks(torch, timer, rows),
+           "sasp_fused_ffn": ffn_checks(torch, timer, rows),
+           "sasp_gemm_masked": masked_checks(torch, timer, rows),
+           "int8_gemm": int8_checks(torch, timer, rows),
+           "flash_attention": flash_checks(torch, timer)}
     del timer
     torch.cuda.empty_cache()
 
     log("[3] serve: packed qwen3-32b, bf16, 4 layers")
-    counters = (gemm, fused_ffn)
     params, cfg, launches, e2e = serve_phase(torch, counters)
 
     log("[4] profile: the prefill step and 3 decode steps under "
         "torch.profiler")
     prof = profile_phase(torch, params, cfg)
 
-    log("[5] parity: packed vs masked, fp32")
-    parity = parity_phase(torch, params)
+    log("[5] parity: packed and kernel vs masked, fp32")
+    parity, layer0 = parity_phase(torch, params)
     del params
     torch.cuda.empty_cache()
 
-    log("[6] int8 weights, 1 layer")
-    int8 = int8_phase(torch, counters)
+    log("[3b] the kernel, bsr and masked int8 paths, bf16 (after [5], when "
+        "the packed model is freed)")
+    paths, qw = paths_phase(torch, counters)
 
+    log("[5b] ablation path: masked_matmul, int8_matmul and mha on layer 0")
+    ablation = ablation_phase(torch, layer0, qw, counters)
+    del layer0, qw
+    torch.cuda.empty_cache()
+
+    log("[6] int8 weights, 1 layer")
+    int8_res = int8_phase(torch, counters)
+
+    # each kernel's launches on its own path
+    path_launches = {n: (launches if n in MAIN_PATH
+                         else ablation["launches"])[n] for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
-        json.dump(dict(card=card, gemm=gemm_res, fused_ffn=ffn_res,
-                       serve=e2e, launches=launches, profile=prof,
-                       parity=parity,
-                       int8=int8, seconds=time.time() - t_start), fh,
-                  indent=1)
+        json.dump(dict(card=card, kernels=res, serve=e2e, launches=launches,
+                       profile=prof, parity=parity, paths=paths,
+                       ablation=ablation, int8=int8_res,
+                       seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)
-    print(json.dumps(kernels_line(gemm_res, ffn_res, launches)))
+    print(json.dumps(kernels_line(res, path_launches)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

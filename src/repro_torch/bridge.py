@@ -6,7 +6,8 @@ or ``repro.core.deploy.deploy_packed``) to numpy first — e.g. with
 Dicts and tuples keep their structure (the stacked leading layer axis of
 ``segments[i]["slot<j>"]`` included); numpy arrays become tensors on
 ``device``; packed containers, recognised by their fields, become the
-port's ``PackedSASPWeight`` / ``PackedFFN``.
+port's ``PackedSASPWeight`` / ``PackedFFN`` / ``BlockSparseWeight`` /
+``QuantizedWeight``.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
+from repro_torch.core.quantization import QuantizedWeight
+from repro_torch.core.sparse import (BlockSparseWeight, PackedFFN,
+                                     PackedSASPWeight)
 
 
 def to_tensor(a, device="cuda"):
@@ -30,6 +33,14 @@ def _is_packed_weight(node) -> bool:
 
 def _is_packed_ffn(node) -> bool:
     return all(hasattr(node, f) for f in ("w1v", "w3v", "w2v", "block_f"))
+
+
+def _is_bsr(node) -> bool:
+    return all(hasattr(node, f) for f in ("vals", "idx", "shape", "block"))
+
+
+def _is_quantized(node) -> bool:
+    return all(hasattr(node, f) for f in ("q", "scale", "block"))
 
 
 def from_numpy(tree, device="cuda"):
@@ -56,6 +67,14 @@ def from_numpy(tree, device="cuda"):
                          d_ff=tree.d_ff, block_f=tree.block_f, act=tree.act,
                          s1=t(tree.s1), s3=t(tree.s3), s2=t(tree.s2),
                          jv=t(tree.jv))
+    if _is_bsr(tree):
+        t = functools.partial(to_tensor, device=device)
+        return BlockSparseWeight(t(tree.vals), t(tree.idx), tuple(tree.shape),
+                                 tuple(tree.block), scale=t(tree.scale))
+    if _is_quantized(tree):
+        return QuantizedWeight(to_tensor(tree.q, device),
+                               to_tensor(tree.scale, device),
+                               tuple(tree.block))
     if isinstance(tree, (np.ndarray, np.generic)):
         return to_tensor(tree, device)
     return tree

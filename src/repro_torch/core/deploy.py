@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quantization import dequantize_int8
 from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
 from repro_torch.kernels.sasp_gemm import pack
 from repro_torch.kernels.sasp_gemm.fused_ffn import fused_ffn
@@ -49,12 +50,13 @@ def _np(t) -> np.ndarray:
 
 
 def _dense_weight(entry) -> Optional[np.ndarray]:
+    """One matrix dict {w} | {qw} as dense fp32 numpy."""
     if not isinstance(entry, dict):
         return None
-    if "qw" in entry:
-        raise NotImplementedError("int8 dense weights (qw) are not ported")
     if "w" in entry:
         return _np(entry["w"])
+    if "qw" in entry:
+        return _np(dequantize_int8(entry["qw"]))
     return None
 
 

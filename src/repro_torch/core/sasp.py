@@ -1,0 +1,119 @@
+"""SASP deployment views of the port (``repro.core.sasp``).
+
+Two artifact kinds beside the packed containers of ``core.deploy``:
+
+* int8 ``qw`` entries: ``quantize_params`` replaces ``{"w": dense}``
+  with ``{"qw": QuantizedWeight}`` for every weight in scope (the masked
+  path's weight-only int8);
+* ``sasp_bsr`` overlays: ``bsr_overlay_from_masks`` builds a
+  ``BlockSparseWeight`` per pruned matrix, attached next to the weights
+  with ``merge_overlay`` (the ``bsr`` and ``kernel`` paths).
+
+Leaves are walked in the reference's order (``core.pruning.iter_leaves``).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import SASPConfig
+from repro_torch.core.pruning import iter_leaves, scope_predicate
+from repro_torch.core.quantization import quantize_int8
+from repro_torch.core.sparse import bsr_from_mask, stack_bsr
+
+Params = Dict[str, Any]
+
+__all__ = ["bsr_overlay_from_masks", "merge_overlay", "quantize_params",
+           "scope_predicate"]
+
+
+def _path_keys(path: Tuple) -> Tuple[str, ...]:
+    return tuple(str(k) for k in path)
+
+
+def merge_overlay(params: Params, overlay: Optional[Params]) -> Params:
+    """Merge ``overlay`` into a shallow copy of ``params``. Tuples
+    (segment lists) are merged element-wise by index key."""
+    if overlay is None:
+        return params
+    if isinstance(params, tuple):
+        out = list(params)
+        for k, v in overlay.items():
+            i = int(k)
+            out[i] = merge_overlay(out[i], v)
+        return tuple(out)
+    if isinstance(params, dict):
+        out = dict(params)
+        for k, v in overlay.items():
+            if k in out and isinstance(v, dict) and isinstance(
+                    out[k], (dict, tuple)):
+                out[k] = merge_overlay(out[k], v)
+            else:
+                out[k] = v
+        return out
+    return overlay
+
+
+def quantize_params(params: Params, sasp: SASPConfig,
+                    is_quantizable: Optional[Callable] = None) -> Params:
+    """Replace {'w': dense} with {'qw': QuantizedWeight} for every weight
+    in scope. Biases, norms and embeddings stay fp."""
+    pred = is_quantizable or scope_predicate(sasp)
+    targets = {_path_keys(path[:-1]) for path, leaf in iter_leaves(params)
+               if path[-1] == "w" and getattr(leaf, "ndim", 0) >= 2
+               and pred(path)}
+
+    def rebuild(node, prefix):
+        if isinstance(node, tuple):
+            return tuple(rebuild(v, prefix + (str(i),))
+                         for i, v in enumerate(node))
+        if isinstance(node, dict):
+            out = {}
+            for k, v in node.items():
+                child = prefix + (k,)
+                if isinstance(v, dict) and child in targets and "w" in v:
+                    nv = {kk: vv for kk, vv in v.items() if kk != "w"}
+                    nv["qw"] = quantize_int8(v["w"], sasp.block_k,
+                                             sasp.block_n)
+                    out[k] = nv
+                else:
+                    out[k] = rebuild(v, child)
+            return out
+        return node
+
+    return rebuild(params, ())
+
+
+def bsr_overlay_from_masks(params: Params, masks: Dict[Tuple, Any],
+                           sasp: SASPConfig) -> Params:
+    """{…, 'sasp_bsr': {matrix: BlockSparseWeight}} overlays, on the
+    device of each weight. 2-D weights get one container; (L, K, N)
+    layer stacks get per-layer BSRs padded to a shared k_max and stacked.
+    Stacks of more dims (MoE expert grids) stay on the masked path."""
+    flat = dict(iter_leaves(params))
+    overlay: Params = {}
+    for path, mask in masks.items():
+        leaf = flat[path]
+        w = leaf.detach().to("cpu", torch.float32).numpy()
+        m = torch.as_tensor(mask).cpu().numpy()
+        *parent, mat, _ = _path_keys(path)
+        K, N = w.shape[-2:]
+        KB, NB = m.shape[-2:]
+        bk, bn = K // KB, N // NB
+        if w.ndim == 2:
+            bsr = bsr_from_mask(w, m, bk, bn, quantize=sasp.quantize,
+                                device=leaf.device)
+        elif w.ndim == 3:
+            k_max = max(1, int(m.sum(axis=-2).max()))
+            bsr = stack_bsr([
+                bsr_from_mask(w[i], m[i], bk, bn, quantize=sasp.quantize,
+                              k_max=k_max, device=leaf.device)
+                for i in range(w.shape[0])])
+        else:
+            continue                     # MoE expert stacks: masked path
+        node = overlay
+        for k in parent:
+            node = node.setdefault(k, {})
+        node.setdefault("sasp_bsr", {})[mat] = bsr
+    return overlay

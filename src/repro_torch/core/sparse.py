@@ -18,14 +18,22 @@ w1v/w3v (…, nv, d, bf), w2v (…, nv, bf, d), b1/b3 (…, nv, bf), b2
 (…, d), optional int8 scales s1/s3/s2 (…, nv), and jv (…, nv) the d_ff
 block index of each visit (-1 for padding, whose w2v is zero).
 
+``BlockSparseWeight`` (BSR) is the container of the ``bsr`` and
+``kernel`` paths: vals (…, k_max, NB, bk, bn) the surviving blocks of
+each output column-block in ascending k order, padded with zero blocks
+of idx 0 to one depth ``k_max``; idx (…, k_max, NB) int32 their k-block;
+int8 vals carry a scale (…, k_max, NB) per (j, n) block. Built offline
+in numpy (``bsr_from_mask``), so it equals the reference's arrays.
+
 The single-device port has ``shards == 1``; every field shared with the
 reference container holds exactly the reference's values.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -105,3 +113,109 @@ class PackedFFN:
             self, w1v=self.w1v[i], w3v=self.w3v[i], w2v=self.w2v[i],
             b1=self.b1[i], b3=self.b3[i], b2=self.b2[i], s1=pick(self.s1),
             s3=pick(self.s3), s2=pick(self.s2), jv=pick(self.jv))
+
+
+@dataclasses.dataclass
+class BlockSparseWeight:
+    vals: torch.Tensor
+    idx: torch.Tensor
+    shape: Tuple[int, int]
+    block: Tuple[int, int]
+    scale: Optional[torch.Tensor] = None
+
+    @property
+    def k_max(self) -> int:
+        return self.vals.shape[-4]
+
+    def layer(self, i: int) -> "BlockSparseWeight":
+        """The container of layer ``i`` of a layer-stacked BSR."""
+        return dataclasses.replace(
+            self, vals=self.vals[i], idx=self.idx[i],
+            scale=None if self.scale is None else self.scale[i])
+
+
+def bsr_from_mask(w: np.ndarray, mask: np.ndarray, bk: int, bn: int, *,
+                  quantize: bool = False, k_max: Optional[int] = None,
+                  device="cuda") -> BlockSparseWeight:
+    """Offline (numpy) BSR of one (K, N) weight with a (KB, NB) keep-mask,
+    moved to ``device``: column n's kept k-blocks in ascending order at
+    depths 0, 1, …, the rest zero blocks of idx 0. int8 rounds per (j, n)
+    block. ``k_max`` forces the padded depth (layer stacks share one)."""
+    K, N = w.shape
+    KB, NB = K // bk, N // bn
+    mask = np.asarray(mask, dtype=bool)
+    assert mask.shape == (KB, NB), (mask.shape, (KB, NB))
+    counts = mask.sum(axis=0)
+    needed = int(counts.max()) if counts.size else 0
+    k_max = max(needed, 1) if k_max is None else k_max
+    assert k_max >= needed, (k_max, needed)
+
+    ns, ks = np.nonzero(mask.T)                 # sorted by (n, k)
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    js = np.arange(ns.size) - start[ns]
+    wb = np.asarray(w, dtype=np.float32).reshape(KB, bk, NB, bn)
+    vals = np.zeros((k_max, NB, bk, bn), dtype=np.float32)
+    idx = np.zeros((k_max, NB), dtype=np.int32)
+    vals[js, ns] = wb[ks, :, ns, :]
+    idx[js, ns] = ks
+
+    scale = None
+    if quantize:
+        amax = np.abs(vals).max(axis=(2, 3))
+        scale = np.maximum(amax, 1e-12) / 127.0
+        vals = np.clip(np.round(vals / scale[:, :, None, None]),
+                       -127, 127).astype(np.int8)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(device)
+    return BlockSparseWeight(t(vals), t(idx), (K, N), (bk, bn), t(scale))
+
+
+def stack_bsr(bsrs: Sequence[BlockSparseWeight]) -> BlockSparseWeight:
+    """Per-layer BSRs of one shape, block and k_max -> one container with
+    a leading layer axis."""
+    b0 = bsrs[0]
+    return BlockSparseWeight(
+        torch.stack([b.vals for b in bsrs]),
+        torch.stack([b.idx for b in bsrs]), b0.shape, b0.block,
+        None if b0.scale is None else torch.stack([b.scale for b in bsrs]))
+
+
+def _bsr_float_vals(w: BlockSparseWeight) -> torch.Tensor:
+    """vals with int8 blocks dequantized by their scales (fp32)."""
+    if w.scale is None:
+        return w.vals
+    return w.vals.to(torch.float32) * w.scale[:, :, None, None]
+
+
+def bsr_matmul(x: torch.Tensor, w: BlockSparseWeight) -> torch.Tensor:
+    """x (M, K) @ BSR (K, N) -> (M, N) in x's type, skipping pruned tiles:
+    for j = 0 … k_max-1 in order, gather one k-block of x per output
+    column-block and add the batched (M, bk) @ (bk, bn) products in fp32
+    (blocks rounded to x's type first)."""
+    K, N = w.shape
+    bk, bn = w.block
+    KB, NB = K // bk, N // bn
+    M = x.shape[0]
+    xb = x.reshape(M, KB, bk).permute(1, 0, 2).to(torch.float32)
+    vals = _bsr_float_vals(w).to(x.dtype).to(torch.float32)
+    idx = w.idx.to(torch.int64)
+    acc = torch.zeros((NB, M, bn), dtype=torch.float32, device=x.device)
+    for j in range(w.k_max):
+        acc = acc + torch.bmm(xb[idx[j]], vals[j])
+    return acc.permute(1, 0, 2).reshape(M, N).to(x.dtype)
+
+
+def bsr_to_dense(w: BlockSparseWeight) -> torch.Tensor:
+    """The dense fp32 (K, N) a BSR stands for (padding adds zero)."""
+    K, N = w.shape
+    bk, bn = w.block
+    KB, NB = K // bk, N // bn
+    vals = _bsr_float_vals(w).to(torch.float32)
+    dense = torch.zeros((KB, NB, bk, bn), dtype=torch.float32,
+                        device=vals.device)
+    nb = torch.arange(NB, device=vals.device)
+    for j in range(w.k_max):
+        dense.index_put_((w.idx[j].to(torch.int64), nb), vals[j],
+                         accumulate=True)
+    return dense.permute(0, 2, 1, 3).reshape(K, N)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared
 library under ``build/kernels/`` at the repository root (a few seconds
 per file: no PyTorch headers), then loaded with ``ctypes``. The library
-name carries a hash of its source, so an edited kernel is rebuilt.
+name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -27,7 +28,8 @@ BUILD_DIR = os.path.join(REPO_ROOT, "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
-SOURCES = ("sasp_gemm", "fused_ffn")
+SOURCES = ("sasp_gemm", "fused_ffn", "sasp_gemm_masked", "int8_gemm",
+           "flash_attn")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -45,8 +47,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

@@ -1,0 +1,2 @@
+"""Dense weight-only int8 GEMM: kernel wrapper with its plain PyTorch
+version and the dequantize-then-matmul oracle (``gemm``)."""

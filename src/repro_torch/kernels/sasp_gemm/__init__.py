@@ -1,3 +1,3 @@
-"""The SASP tile-skip GEMM and fused gated FFN: numpy packers
-(``pack``), kernel wrappers with plain PyTorch versions (``gemm``,
-``fused_ffn``)."""
+"""The SASP tile-skip GEMM, fused gated FFN and masked-grid GEMM: numpy
+packers (``pack``), kernel wrappers with plain PyTorch versions
+(``gemm``, ``fused_ffn``, ``masked``)."""

@@ -120,3 +120,34 @@ def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def bsr_visit_list(w):
+    """A ``BlockSparseWeight``'s per-call visit-list view: every padded
+    (j, n) slot becomes a visit, n-major, so column n owns visits
+    [k_max·n, k_max·(n+1)). Returns (vals (k_max·NB, bk, bn), kn (2,
+    k_max·NB), col_ptr (NB + 1,), scales or None). Padding slots are zero
+    blocks and add nothing; ``col_ptr`` is built directly, since the
+    padding's k = 0 breaks the k order within a column."""
+    k_max, NB = w.idx.shape
+    bk, bn = w.block
+    dev = w.vals.device
+    vals = w.vals.permute(1, 0, 2, 3).reshape(k_max * NB, bk, bn)
+    kn = torch.stack([
+        w.idx.t().reshape(-1).to(torch.int32),
+        torch.arange(NB, dtype=torch.int32, device=dev
+                     ).repeat_interleave(k_max)])
+    col_ptr = k_max * torch.arange(NB + 1, dtype=torch.int32, device=dev)
+    scales = None if w.scale is None else w.scale.t().reshape(-1)
+    return vals, kn, col_ptr, scales
+
+
+def sasp_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """(…, K) @ ``BlockSparseWeight`` -> (…, N) through the tile-skip
+    kernel, repacking the container into a visit list on every call (the
+    cost the ``kernel`` path pays and the ``packed`` path avoids)."""
+    *lead, K = x.shape
+    vals, kn, col_ptr, scales = bsr_visit_list(w)
+    y = sasp_gemm(x.reshape(-1, K), vals, kn, col_ptr, w.shape[1],
+                  scales=scales)
+    return y.reshape(*lead, w.shape[1]).to(x.dtype)

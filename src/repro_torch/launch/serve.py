@@ -5,10 +5,18 @@
       --sasp 0.5 --path packed --scope all --requests 4
 
 Paths: ``dense`` (unpruned), ``masked`` (pruned tiles zeroed, dense
-matmuls), ``packed`` (visit-list containers through the tile-skip GEMM
-and fused gated-FFN kernels). ``--reduce`` (default on) shrinks the
-config to 4 layers, d_model 128, vocab 512; ``--no-reduce`` serves the
-full config.
+matmuls; ``--int8-weights`` stores the weights in scope as int8 with
+per-block scales and dequantizes them per call), ``bsr`` (block-sparse
+containers through the gathered block matmul), ``kernel`` (the same
+containers through the tile-skip GEMM kernel, repacked per call),
+``packed`` (visit-list containers through the tile-skip GEMM and fused
+gated-FFN kernels). ``--reduce`` (default on) shrinks the config to 4
+layers, d_model 128, vocab 512; ``--no-reduce`` serves the full config.
+
+``--path masked --int8-weights --scope all`` is refused: the reference
+quantizes the attention projections there too and then fails to serve
+them (its attention reads only the dense ``w``), so the port does not
+serve a combination the reference cannot.
 """
 from __future__ import annotations
 
@@ -22,11 +30,24 @@ import torch
 
 from repro_torch.configs import SASPConfig, get_config, reduced
 from repro_torch.core.pruning import prune_params
+from repro_torch.core.sasp import (bsr_overlay_from_masks, merge_overlay,
+                                   quantize_params)
 from repro_torch.models import lm
 from repro_torch.models.modules import as_dtype
 from repro_torch.serve.engine import Engine, Request
 
-PATHS = ("dense", "masked", "packed")
+PATHS = ("dense", "masked", "bsr", "kernel", "packed")
+
+MASKED_INT8_ALL = (
+    "--path masked --int8-weights --scope all is not served: the reference "
+    "quantizes wq/wk/wv/wo to {'qw'} there and its attention then fails "
+    "with KeyError: 'w' (repro/models/attention.py:133 -> "
+    "repro/models/modules.py:36); use --scope ffn, or --path packed")
+
+
+def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
+    return (path == "masked" and int8_weights and scope == "all"
+            and sparsity > 0)
 
 # reference flags this slice does not serve yet
 NOT_PORTED = ("--mesh", "--scheduler", "--hosts", "--int8-kv", "--kv-pages",
@@ -44,6 +65,8 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
     ready for the Engine."""
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
+    if _masked_int8_all(path, int8_weights, scope, sparsity):
+        raise ValueError(MASKED_INT8_ALL)
     if path == "dense" or sparsity <= 0:
         return params, cfg
     sasp = SASPConfig(enabled=True, block_k=block_k, block_n=block_n,
@@ -56,9 +79,15 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
               f"{len(masks)} matrices, path={path}")
     if path == "masked":
         if int8_weights:
-            raise NotImplementedError(
-                "--int8-weights on the masked path is not ported yet; "
-                "use --path packed")
+            params = quantize_params(params, sasp)
+            if verbose:
+                print("weights quantized to INT8 (per-block scales)")
+        return params, cfg
+    if path in ("bsr", "kernel"):
+        params = merge_overlay(params,
+                               bsr_overlay_from_masks(params, masks, sasp))
+        cfg = dataclasses.replace(
+            cfg, sasp=dataclasses.replace(sasp, path=path))
         return params, cfg
     from repro_torch.core.deploy import (cast_packed_values, deploy_packed,
                                          packed_summary)
@@ -112,6 +141,8 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
+    if _masked_int8_all(args.path, args.int8_weights, args.scope, args.sasp):
+        raise SystemExit(MASKED_INT8_ALL)
 
     cfg = get_config(args.arch)
     if args.reduce:

@@ -1,11 +1,20 @@
 """Feed-forward layers of the port (``repro.models.ffn``), single device.
 
-Paths: dense (no SASP), masked (pruned tiles zeroed in the dense
-weights, or a ``sasp_masks`` overlay), and packed — the whole-FFN fused
-kernel when a ``PackedFFN`` (``sasp_fused``) is attached, else the
-per-matrix tile-skip GEMMs (``sasp_packed``) with the activation folded
-into w1's flush. BSR, shard_map and the rs+int8-ag reduction are not
-ported yet.
+Paths:
+  * dense — no SASP;
+  * masked — pruned tiles zeroed in the dense weights, or a
+    ``sasp_masks`` overlay; with int8 weights (``qw``) each matrix is
+    dequantized in plain torch and multiplied densely, as the reference
+    does;
+  * bsr — ``BlockSparseWeight`` containers (``sasp_bsr``) through the
+    gathered block matmul ``bsr_matmul``;
+  * kernel — the same containers through the tile-skip kernel
+    (``sasp_matmul``), repacked into a visit list on every call;
+  * packed — the whole-FFN fused kernel when a ``PackedFFN``
+    (``sasp_fused``) is attached, else the per-matrix tile-skip GEMMs
+    (``sasp_packed``) with the activation folded into w1's flush.
+
+The shard_map (TP) paths and the rs+int8-ag reduction are not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +24,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pruning import apply_block_mask
+from repro_torch.core.quantization import dequantize_int8
+from repro_torch.core.sparse import bsr_matmul
+from repro_torch.kernels.sasp_gemm.gemm import sasp_matmul
 from repro_torch.models.modules import act_fn, as_dtype
 
 
@@ -38,13 +50,22 @@ def ffn_init(gen: torch.Generator, cfg: ModelConfig, *, layers: int,
 
 def _materialize(p: Dict, name: str, dtype) -> torch.Tensor:
     entry = p[name]
-    if "qw" in entry:
-        raise NotImplementedError("int8 dense weights (qw) are not ported")
-    w = entry["w"]
+    w = dequantize_int8(entry["qw"]) if "qw" in entry else entry["w"]
     masks = p.get("sasp_masks")
     if masks is not None and name in masks:
         w = apply_block_mask(w, masks[name])
     return w.to(dtype)
+
+
+def _mm(p: Dict, name: str, x2: torch.Tensor, cfg: ModelConfig
+        ) -> torch.Tensor:
+    """(M, K) @ weight[name] through whatever SASP view is attached."""
+    bsr = p.get("sasp_bsr")
+    if bsr is not None and name in bsr:
+        if cfg.sasp.path == "kernel":
+            return sasp_matmul(x2, bsr[name])
+        return bsr_matmul(x2, bsr[name])
+    return torch.matmul(x2, _materialize(p, name, x2.dtype))
 
 
 def _ffn_apply_packed(p: Dict, cfg: ModelConfig, x2: torch.Tensor
@@ -71,12 +92,12 @@ def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         if y is not None:
             return y.reshape(*lead, d).to(x.dtype)
     act = act_fn(cfg.act)
-    h = torch.matmul(x2, _materialize(p, "w1", x2.dtype))
+    h = _mm(p, "w1", x2, cfg)
     if cfg.ffn_gated:
-        h = act(h) * torch.matmul(x2, _materialize(p, "w3", x2.dtype))
+        h = act(h) * _mm(p, "w3", x2, cfg)
     else:
         h = act(h)
-    y = torch.matmul(h, _materialize(p, "w2", x2.dtype))
+    y = _mm(p, "w2", h, cfg)
     if "b" in p.get("w2", {}):
         y = y + p["w2"]["b"].to(y.dtype)
     return y.reshape(*lead, d).to(x.dtype)

@@ -19,7 +19,9 @@ from repro_torch.configs.base import (
     MIXER_ATTN,
     ModelConfig,
 )
-from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
+from repro_torch.core.quantization import QuantizedWeight
+from repro_torch.core.sparse import (BlockSparseWeight, PackedFFN,
+                                     PackedSASPWeight)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models.modules import (
@@ -148,7 +150,8 @@ def layer_params(tree, i: int):
     """Layer ``i`` of a layer-stacked param subtree."""
     if isinstance(tree, dict):
         return {k: layer_params(v, i) for k, v in tree.items()}
-    if isinstance(tree, (PackedSASPWeight, PackedFFN)):
+    if isinstance(tree, (PackedSASPWeight, PackedFFN, BlockSparseWeight,
+                         QuantizedWeight)):
         return tree.layer(i)
     if isinstance(tree, torch.Tensor):
         return tree[i]

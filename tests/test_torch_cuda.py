@@ -49,6 +49,16 @@ def _close(got, want, tol):
     assert float(err) <= tol * float(want.float().abs().max()), float(err)
 
 
+def _close_rows(got, want, tol):
+    """``_close`` for each row of the last axis on its own: attention rows
+    average different numbers of keys and differ in scale."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(dim=-1)
+    bad = err > tol * w.abs().amax(dim=-1)
+    assert not bad.any(), float((err / w.abs().amax(dim=-1)
+                                 .clamp_min(1e-30)).max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
                                      ("bfloat16", "bfloat16"),
@@ -175,3 +185,143 @@ def test_packed_engine_batch_matches_solo(cuda_device):
     assert t_gemm.launches > g0 and t_ffn.launches > f0
     for i, p in enumerate(prompts):
         assert run([p], 1)[0] == batch[i]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32")])
+@pytest.mark.parametrize("M", [1, 4, 37, 70])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (16, 64), (64, 16)])
+def test_masked_gemm_matches_plain_and_tile_skip(cuda_device, xdt, wdt, M,
+                                                 bk, bn):
+    from repro_torch.core.sparse import bsr_from_mask
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+
+    K, N = 256, 192
+    w, mask = _masked((K, N), bk, bn, 0.5)
+    mask[:, 1] = False                      # an empty output column
+    dev = cuda_device
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    wt = T(w).to(dev, getattr(torch, wdt))
+    mt = T(mask.astype(np.int32)).to(dev)
+    n0 = t_masked.launches
+    got = t_masked.masked_matmul(x, wt, mt)
+    want = t_masked.sasp_gemm_masked_plain(x, wt, mt)
+    torch.cuda.synchronize()
+    assert t_masked.launches == n0 + 1
+    _close(got, want, 1e-4 if xdt == "float32" else 2e-2)
+    # the same sums, in the same order, as the tile-skip kernel over BSR
+    bsr = bsr_from_mask(w, mask, bk, bn, device=dev)
+    bsr.vals = bsr.vals.to(getattr(torch, wdt))
+    torch.testing.assert_close(t_gemm.sasp_matmul(x, bsr), got, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 37, 70])
+@pytest.mark.parametrize("bk,bn", [(32, 32), (8, 16), (64, 64)])
+def test_int8_gemm_matches_plain(cuda_device, xdt, M, bk, bn):
+    from repro_torch.core.quantization import quantize_int8
+    from repro_torch.kernels.int8_gemm import gemm as t_int8
+
+    K, N = 256, 192
+    dev = cuda_device
+    qw = quantize_int8(T(RNG.normal(size=(K, N)).astype(np.float32)).to(dev),
+                       bk, bn)
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    n0 = t_int8.launches
+    got = t_int8.int8_matmul(x, qw)
+    want = t_int8.int8_gemm_plain(x, qw.q, qw.scale)
+    torch.cuda.synchronize()
+    assert t_int8.launches == n0 + 1 and got.dtype == x.dtype
+    _close(got, want, 1e-4 if xdt == "float32" else 2e-2)
+    # dequantize-then-matmul rounds differently: held loosely
+    _close(got, t_int8.int8_gemm_ref(x, qw.q, qw.scale), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hk,Sq,Sk,D,window", [
+    (4, 4, 64, 64, 32, 10 ** 9),            # causal
+    (8, 2, 42, 42, 128, 10 ** 9),           # GQA, ragged against tiles
+    (4, 1, 1, 256, 128, 10 ** 9),           # one query against a cache
+    (2, 2, 100, 300, 64, 37),               # window, Sq < Sk
+    (2, 2, 33, 33, 16, 8),                  # tiny window, tiny head dim
+])
+def test_flash_attention_matches_plain(cuda_device, dt, H, Hk, Sq, Sk, D,
+                                       window):
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+    from repro_torch.kernels.flash_attn import ref as t_ref
+
+    dev = cuda_device
+    typ = getattr(torch, dt)
+    q = T(RNG.normal(size=(H, Sq, D)).astype(np.float32)).to(dev, typ)
+    k = T(RNG.normal(size=(Hk, Sk, D)).astype(np.float32)).to(dev, typ)
+    v = T(RNG.normal(size=(Hk, Sk, D)).astype(np.float32)).to(dev, typ)
+    qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+    n0 = t_flash.launches
+    got = t_flash.flash_attention(q, k, v, qp, kp, window=window)
+    want = t_flash.flash_attention_plain(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    assert t_flash.launches == n0 + 1
+    _close_rows(got, want, 1e-4 if dt == "float32" else 2e-2)
+    G = H // Hk
+    ref = t_ref.flash_attention_ref(
+        q.float(), k.float().repeat_interleave(G, 0),
+        v.float().repeat_interleave(G, 0), qp, kp, window=window)
+    _close_rows(got, ref, 2e-5 if dt == "float32" else 3e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_unseen_rows_are_zero(cuda_device):
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+
+    dev = cuda_device
+    q, k, v = (T(RNG.normal(size=(2, n, 64)).astype(np.float32)).to(dev)
+               for n in (40, 70, 70))
+    qp = torch.arange(-20, 20, device=dev, dtype=torch.int32)
+    kp = torch.arange(70, device=dev, dtype=torch.int32)
+    got = t_flash.flash_attention(q, k, v, qp, kp, window=5)
+    want = t_flash.flash_attention_plain(q, k, v, qp, kp, window=5)
+    torch.cuda.synchronize()
+    assert not got[:, :20].any()
+    _close_rows(got[:, 20:], want[:, 20:], 1e-4)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_refuse_bad_operands(cuda_device):
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+    from repro_torch.kernels.int8_gemm import gemm as t_int8
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+
+    dev = cuda_device
+    x = torch.zeros((2, 64), device=dev)
+    w = torch.zeros((64, 64), device=dev)
+    with pytest.raises(ValueError):                       # K not tiled
+        t_masked.sasp_gemm_masked(x, w, torch.ones((3, 2), device=dev))
+    with pytest.raises(ValueError):                       # wrong device
+        t_masked.sasp_gemm_masked(x, w.cpu(), torch.ones((2, 2)))
+    with pytest.raises(TypeError):                        # int8 weight
+        t_masked.sasp_gemm_masked(x, w.to(torch.int8),
+                                  torch.ones((2, 2), device=dev))
+    s = torch.ones((2, 2), device=dev)
+    with pytest.raises(TypeError):                        # not int8
+        t_int8.int8_gemm(x, w, s)
+    with pytest.raises(ValueError):                       # scale shape
+        t_int8.int8_gemm(x, w.to(torch.int8), torch.ones((3, 2), device=dev))
+    q = torch.zeros((4, 8, 64), device=dev)
+    kv = torch.zeros((3, 8, 64), device=dev)
+    pos = torch.arange(8, device=dev)
+    with pytest.raises(ValueError):                       # 3 kv heads of 4
+        t_flash.flash_attention(q, kv, kv, pos, pos, window=8)
+    with pytest.raises(ValueError):                       # head dim 48
+        t_flash.flash_attention(q[..., :48], q[..., :48], q[..., :48], pos,
+                                pos, window=8)
+    with pytest.raises(TypeError):                        # mixed types
+        t_flash.flash_attention(q, q.to(torch.bfloat16), q, pos, pos,
+                                window=8)
