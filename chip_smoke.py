@@ -8,10 +8,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 with nvcc for sm_90a (one nvcc per source, in parallel).
   2. kernels  — every kernel variant against its plain PyTorch version on
                 the card, at the shapes of the main path (qwen3-32b width:
-                wq 5120->8192, wk/wv 5120->1024, wo 8192->5120 and the
-                5120/25600 gated FFN, decode and prefill rows, fp32 and
-                bf16), with kernel / plain / library times and the
-                least time the card could take (bound). Then the three
+                the tile-skip GEMM at all five projection shapes, wq
+                5120->8192, wk/wv 5120->1024, wo 8192->5120, w1/w3
+                5120->25600, w2 25600->5120, and the 5120/25600 gated
+                FFN, decode and prefill rows, fp32 and bf16), with
+                kernel / plain / library times, the least time the card
+                could take (bound) and the variant that ran (tensor-core
+                "mma" or fp32 "fma", read from the wrapper's per-variant
+                launch counts). Then the three
                 ablation kernels: the masked-grid GEMM (timed beside the
                 tile-skip GEMM over BSR on the same weights and mask: the
                 paper's skip-vs-predicate contrast) and the dense int8
@@ -25,7 +29,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 (scope all), packed, bf16 compute, Engine(4 slots,
                 cache 256) serving 4 requests of 16 new tokens, after
                 one untimed run of the same prompts (the cold start).
-                Both kernels must launch on it.
+                Both kernels must launch on it, in bf16 on their
+                tensor-core variants.
   3b. paths   — (run after 5, once the packed model is freed) the other
                 serving paths at full width, bf16, the packed phase's seed
                 and rescaling, the same 4 requests: kernel (BSR through
@@ -80,6 +85,8 @@ DEVICE = "cuda"
 # (K, N) (wk and wv share one shape) and the gated FFN (d, d_ff)
 GEMM_SHAPES = (("wq", 5120, 8192), ("wk/wv", 5120, 1024),
                ("wo", 8192, 5120))
+# every projection of the layer (wk and wv, w1 and w3 share a shape)
+PROJ_SHAPES = GEMM_SHAPES + (("w1/w3", 5120, 25600), ("w2", 25600, 5120))
 FFN_SHAPE = (5120, 25600)
 BLOCK = 32
 
@@ -175,13 +182,23 @@ def row_rel_err(got, want) -> float:
     return float((err / w.abs().amax(dim=-1).clamp_min(1e-30)).max())
 
 
+def ran_variant(mod, fn):
+    """Call fn; return its result and the variant the wrapper's
+    per-variant launch count shows it launched."""
+    before = dict(mod.variant_launches)
+    out = fn()
+    ran = [k for k, n in mod.variant_launches.items() if n != before.get(k, 0)]
+    check(len(ran) == 1, f"no single variant launched: {ran}")
+    return out, ran[0]
+
+
 def gemm_checks(torch, timer, rows):
-    """Tile-skip GEMM at every attention projection's shape (32x32 tiles,
-    half the tiles pruned), every variant, decode and prefill rows."""
+    """Tile-skip GEMM at every projection's shape (32x32 tiles, half the
+    tiles pruned), every variant, decode and prefill rows."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     results = []
-    for shape in GEMM_SHAPES:
+    for shape in PROJ_SHAPES:
         results += _gemm_checks_at(torch, timer, rows, gen, *shape)
     return results
 
@@ -215,8 +232,8 @@ def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
             for M in rows:
                 x = torch.randn((M, K), generator=gen, device=DEVICE
                                 ).to(getattr(torch, xdt))
-                got = gemm.sasp_gemm(x, v_t, kn_t, cp, N, scales=st,
-                                     bias=bt, act=act)
+                got, ran = ran_variant(gemm, lambda: gemm.sasp_gemm(
+                    x, v_t, kn_t, cp, N, scales=st, bias=bt, act=act))
                 want = gemm.sasp_gemm_plain(x, v_t, kn_t, N, st, bt, act)
                 torch.cuda.synchronize()
                 err = rel_err(got, want)
@@ -237,7 +254,7 @@ def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
                 b_ms, b_by = bound_ms(n_b, [(2.0 * M * bk * bn * live, xdt)])
                 results.append(dict(
                     proj=proj, K=K, N=N, variant=variant, x=xdt,
-                    w=str(v_t.dtype)[6:], M=M,
+                    w=str(v_t.dtype)[6:], M=M, ran=ran,
                     rel_err=err, max_abs_err=float(
                         (got.float() - want.float()).abs().max()),
                     tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -282,8 +299,8 @@ def ffn_checks(torch, timer, rows):
             for M in rows:
                 x = torch.randn((M, d), generator=gen, device=DEVICE
                                 ).to(getattr(torch, xdt))
-                got = fused_ffn.fused_ffn(x, *ws, *bs, act="silu",
-                                          scales=st)
+                got, ran = ran_variant(fused_ffn, lambda: fused_ffn.fused_ffn(
+                    x, *ws, *bs, act="silu", scales=st))
                 want = fused_ffn.fused_ffn_plain(x, *ws, *bs, act="silu",
                                                  scales=st)
                 torch.cuda.synchronize()
@@ -300,7 +317,7 @@ def ffn_checks(torch, timer, rows):
                 b_ms, b_by = bound_ms(n_b, [(2 * flops, xdt), (flops, down)])
                 results.append(dict(
                     variant=variant, x=xdt, w=str(ws[0].dtype)[6:], M=M,
-                    nv=nv, rel_err=err, max_abs_err=float(
+                    nv=nv, ran=ran, rel_err=err, max_abs_err=float(
                         (got.float() - want.float()).abs().max()),
                     tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=None,
                     bound_ms=b_ms, bound_by=b_by))
@@ -309,8 +326,6 @@ def ffn_checks(torch, timer, rows):
     return results
 
 
-# every projection of the layer (wk and wv, w1 and w3 share a shape)
-PROJ_SHAPES = GEMM_SHAPES + (("w1/w3", 5120, 25600), ("w2", 25600, 5120))
 # flash attention cases: (Sq, Sk, window); None = causal (window Sk + 1)
 ATTN = dict(B=4, H=64, KH=8, D=128)
 ATTN_CASES = ((42, 42, None), (256, 256, None), (1, 256, None),
@@ -556,6 +571,11 @@ def serve_phase(torch, counters):
     for name in MAIN_PATH:
         check(launches[name] > 0,
               f"kernel {name} never launched on the main path")
+    want = {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"}
+    for name, ran in e2e["variants"].items():
+        check(set(ran) == {want[name]},
+              f"{name} ran {ran} on the bf16 main path, not only "
+              f"{want[name]}")
     return params, cfg, launches, e2e
 
 
@@ -590,6 +610,9 @@ def _serve(torch, params, cfg, counters):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t) * 1e3)
     launches = read(counters)
+    variants = {name: dict(m.variant_launches)
+                for name, m in counters.items()
+                if hasattr(m, "variant_launches") and m.launches}
     decode_ms = sum(step_ms[1:]) / max(1, len(step_ms) - 1)
     prefill_ms = step_ms[0] - decode_ms
     toks = sum(len(r.out_tokens) for r in done)
@@ -599,7 +622,8 @@ def _serve(torch, params, cfg, counters):
     log(f"  served {len(done)} requests, {toks} tokens in "
         f"{len(step_ms)} steps: prefill {prefill_ms:.1f} ms "
         f"({M_prefill} padded rows), decode {decode_ms:.2f} ms/step "
-        f"(4 tokens), {tok_s:.1f} tok/s; launches {launches} "
+        f"(4 tokens), {tok_s:.1f} tok/s; launches {launches}, by "
+        f"variant {variants} "
         f"({ {k: n / len(step_ms) for k, n in launches.items()} } per "
         f"step); device memory {mem_gib:.1f} GiB")
     check(len(done) == 4 and all(len(r.out_tokens) == 16 for r in done),
@@ -611,7 +635,7 @@ def _serve(torch, params, cfg, counters):
     return launches, dict(prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
                           tok_s=tok_s, prefill_rows=M_prefill,
                           cold_start_ms=cold_ms, steps=len(step_ms),
-                          device_memory_gib=mem_gib,
+                          device_memory_gib=mem_gib, variants=variants,
                           streams={r.rid: r.out_tokens for r in done})
 
 
@@ -830,6 +854,8 @@ def ablation_phase(torch, layer0, qw, counters):
 def reset(counters):
     for m in counters.values():
         m.launches = 0
+        if hasattr(m, "variant_launches"):
+            m.variant_launches.clear()
 
 
 def read(counters):

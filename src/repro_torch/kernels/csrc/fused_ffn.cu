@@ -1,276 +1,334 @@
-// Fused gated FFN over surviving d_ff column-blocks, for Hopper (sm_90a).
+// Gated FFN over surviving d_ff column-blocks, for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/sasp_gemm/kernel.py::sasp_fused_ffn and its
 // bodies _fused_ffn_kernel (fp) and _fused_ffn_kernel_int8.
 //
-// Computes out = act(x@W1v + b1) * (x@W3v + b3) @ W2v + b2, visit by
-// visit: w1v/w3v (nv, d, bf) up-projection column-blocks, w2v (nv, bf, d)
-// the matching down-projection row-blocks, b1/b3 (nv, bf), b2 (d,). The
-// (M, d_ff) intermediate lives only as a (rows x bf) tile in shared
-// memory and never reaches device memory.
+// Computes out = act(x@W1v + b1) * (x@W3v + b3) @ W2v + b2 over the nv
+// visits: w1v/w3v (nv, d, bf) up-projection column-blocks, w2v (nv, bf,
+// d) the matching down-projection row-blocks (one (nv*bf, d) matrix),
+// b1/b3 (nv, bf), b2 (d,).
 //
 // Numerics mirror the TPU kernel. fp: weights are rounded to x's type,
 // products accumulate in fp32, h = act(u) * g is rounded to x's type
 // before the down-projection. int8: everything in fp32, each visit's
 // partial products scaled by s1 / s3 / s2, h kept in fp32.
 //
-// Design. The Pallas kernel walks the visits as a sequential grid axis
-// with one (bm, d) accumulator. At decode M is the slot count (about 4),
-// so row tiles give no parallelism: here the visits are split into
-// S = ceil(nv / vps) contiguous groups, vps chosen from nv alone (never
-// from M), and thread block (split, row tile) accumulates its group's
-// contribution to a (4, d) fp32 tile in shared memory, then writes it as
-// its own partial. A second kernel adds the S partials in split order and
-// adds b2: no atomics, and a row's result does not depend on the batch
-// size. Per visit, the up-projections split d over 8 warps (lane = d_ff
-// column), their 8 slices are added in a fixed order, and the
-// down-projection gives every thread columns j, j+256, ... of the tile.
+// Design: two launches on tile_mma.cuh's mainloop, one schedule for
+// every M, each weight byte read once per call.
+//  (a) up:   thread block (row tile, visit v, and v + 1 at prefill)
+//            computes x @ [W1v | W3v] over 64-deep slices of d (both
+//            slabs of each visit staged side by side), then the gated
+//            epilogue h = act(u*s1 + b1) * (g*s3 + b3), written to H
+//            (M, nv*bf) in x's type (fp; the reference's own rounding) or
+//            fp32 (int8).
+//  (b) down: thread block (row tile, 64 columns of d at decode or 128 at
+//            prefill, visit group) computes H @ W2v over its group's
+//            visits, one bf-deep step per visit (int8: each visit's
+//            partial times s2). The visit groups ([g*vps, (g+1)*vps), vps
+//            from nv and d alone) write fp32 partials that
+//            tile::reduce_groups adds in group order, then b2 and the
+//            cast; with one group the block flushes.
+// The (M, d_ff) intermediate H now passes through device memory: 8.6 MB
+// at 168 rows in bf16 against 786 MB of weights, and in return every
+// weight is read once whatever M is. Keeping h on chip (the previous
+// design) forced a (rows x d) fp32 accumulator per block, so few rows
+// per block (4), so the weights were read once per 4 rows at prefill,
+// and a (splits, M, d) fp32 partial buffer (688 MB at 168 rows).
+// Tensor cores run (a) for bf16 x and (b) for bf16 h (fp path); fp32 x
+// and the int8 path's fp32 h run as FMAs. fp (b) accumulates the visits
+// straight into its fp32 tile; int8 (b) scales each visit's partial.
 //
-// Bound. At decode every surviving weight byte is read once: bound by
-// bytes, 3 * nv * d * bf * sizeof(w) / 3.35 TB/s. At prefill the row
-// tiles re-read the weights once per 4 rows, and the products run as fp32
-// FMAs on the CUDA cores; this first version trades speed for a simple,
-// exact schedule, and PERF.md records its distance from the bound.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+// Bound. Bytes at decode and prefill alike: 3 * nv * d * bf * sizeof(w)
+// / 3.35 TB/s (0.235 ms at qwen3-32b's 5120 / 25600 in bf16); at 168
+// rows the tensor-core work (0.134 ms at peak) comes close, and the
+// re-reads of x and H from L2 (1.2 GB) hold the kernel back (PERF.md).
+#include "tile_mma.cuh"
 
 namespace {
 
-constexpr int FBM = 4;        // rows per thread block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int SLICES = THREADS / 32;
-constexpr int MAX_BF = 32;
-constexpr int MAX_DEVICES = 64;
+using tile::Geom;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+struct FfnArgs {
+  const void* x;
+  const void* w1v;
+  const void* w3v;
+  const void* w2v;
+  const float* s1;
+  const float* s3;
+  const float* s2;
+  const float* b1;
+  const float* b3;
+  const float* b2;
+  void* h;         // (M, nv*bf) in x's type (fp) or fp32 (int8)
+  float* partial;  // (G, M, d) fp32 when G > 1
+  void* out;
+  int M, d, bf, nv, act, ks, G, vps;
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename TX> __device__ __forceinline__ float round_to(float v) {
-  return to_f(from_f<TX>(v));
-}
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  switch (act) {
-    case 1: return v / (1.0f + expf(-v));
-    case 2: {
-      const float c = 0.7978845608028654f;
-      return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+// up-projection of the block's visits v0 .. v0 + nvis - 1: step i = rows
+// [i*ks, (i+1)*ks) of each visit's W1v and W3v slabs, side by side in the
+// tile as [u of v0 | g of v0 | u of v0+1 | g of v0+1 | ...]
+template <typename TX, typename TW>
+struct UpSrc {
+  const char* x;
+  size_t a_ld;
+  int rows;
+  const TW* w1;    // w1v[v0]
+  const TW* w3;
+  int ks, bf, d, nvis;
+  __device__ tile::TileDesc a_tile() const {
+    return {{x}, {0}, 1, rows, ks * static_cast<int>(sizeof(TX)), 0, a_ld,
+            ks * sizeof(TX)};
+  }
+  __device__ size_t a_off(int i) const {
+    return static_cast<size_t>(i) * ks * sizeof(TX);
+  }
+  __device__ tile::TileDesc w_tile() const {
+    const int row = bf * sizeof(TW);
+    const size_t slab = static_cast<size_t>(d) * bf;
+    tile::TileDesc t{};
+    t.nseg = 2 * nvis;
+    for (int j = 0; j < nvis; ++j) {
+      t.base[2 * j] = reinterpret_cast<const char*>(w1 + j * slab);
+      t.base[2 * j + 1] = reinterpret_cast<const char*>(w3 + j * slab);
+      t.dst_col[2 * j] = 2 * j * row;
+      t.dst_col[2 * j + 1] = (2 * j + 1) * row;
     }
-    case 3: return fmaxf(v, 0.0f);
-    default: return v;
+    t.rows = ks;
+    t.row_bytes = row;
+    t.ld = row;
+    t.gran = static_cast<size_t>(ks) * row;
+    return t;
+  }
+  __device__ size_t w_off(int i) const {
+    return static_cast<size_t>(i) * ks * bf * sizeof(TW);
+  }
+  __device__ bool live(int) const { return true; }
+  __device__ float scale(int) const { return 1.0f; }
+};
+
+template <typename TX, typename TW, bool QUANT, int W, int T, bool MMA>
+__global__ void __launch_bounds__(MMA ? tile::MMA_THREADS : tile::FMA_THREADS)
+ffn_up_kernel(FfnArgs p, Geom gm, int vpb) {
+  using TH = typename std::conditional<QUANT, float, TX>::type;
+  extern __shared__ __align__(128) char smem[];
+  const int v0 = blockIdx.y * vpb;
+  const int nvis = min(vpb, p.nv - v0);
+  const int m0 = blockIdx.x * gm.bm;
+  const int rows = min(gm.bm, p.M - m0);
+  const size_t wv = static_cast<size_t>(v0) * p.d * p.bf;
+  UpSrc<TX, TW> src{static_cast<const char*>(p.x) +
+                        static_cast<size_t>(m0) * p.d * sizeof(TX),
+                    static_cast<size_t>(p.d) * sizeof(TX), rows,
+                    static_cast<const TW*>(p.w1v) + wv,
+                    static_cast<const TW*>(p.w3v) + wv, p.ks, p.bf, p.d, nvis};
+  const float* C = tile::accumulate_tile<TX, TW, !QUANT, W, T, MMA, false, false>(
+      src, p.d / p.ks, gm, smem);
+
+  const int cs = gm.bn + tile::C_PAD;
+  const size_t ldh = static_cast<size_t>(p.nv) * p.bf;
+  const int per_row = nvis * p.bf;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row, jf = i - r * per_row;
+    const int j = jf / p.bf, f = jf - j * p.bf, v = v0 + j;
+    float u = C[r * cs + 2 * j * p.bf + f], g = C[r * cs + (2 * j + 1) * p.bf + f];
+    if (QUANT) { u *= p.s1[v]; g *= p.s3[v]; }
+    u += p.b1[static_cast<size_t>(v) * p.bf + f];
+    g += p.b3[static_cast<size_t>(v) * p.bf + f];
+    static_cast<TH*>(p.h)[(m0 + r) * ldh + static_cast<size_t>(v) * p.bf + f] =
+        tile::from_f<TH>(tile::apply_act(u, p.act) * g);
   }
 }
 
-template <typename TX, typename TW, bool QUANT>
-__global__ void __launch_bounds__(THREADS)
-fused_ffn_partial_kernel(const TX* __restrict__ x, const TW* __restrict__ w1v,
-                         const TW* __restrict__ w3v, const TW* __restrict__ w2v,
-                         const float* __restrict__ s1, const float* __restrict__ s3,
-                         const float* __restrict__ s2, const float* __restrict__ b1,
-                         const float* __restrict__ b3, float* __restrict__ partial,
-                         int M, int d, int bf, int nv, int vps, int act) {
-  extern __shared__ float smem[];
-  float* acc = smem;                                   // FBM * d
-  float* red = acc + FBM * d;                          // SLICES * FBM * 2 * MAX_BF
-  float* hs = red + SLICES * FBM * 2 * MAX_BF;         // FBM * MAX_BF
+// down-projection: step i = visit v0 + i, H columns [v*bf, (v+1)*bf)
+template <typename TH, typename TW>
+struct DownSrc {
+  const char* h;   // row m0, column v0 * bf of H
+  size_t a_ld;
+  int rows;
+  const TW* w2;    // w2v[v0], column n0
+  tile::Steps<float> s2;     // the visits' scales (int8)
+  int bf, d, ncols;
+  __device__ tile::TileDesc a_tile() const {
+    return {{h}, {0}, 1, rows, bf * static_cast<int>(sizeof(TH)), 0, a_ld,
+            bf * sizeof(TH)};
+  }
+  __device__ size_t a_off(int i) const {
+    return static_cast<size_t>(i) * bf * sizeof(TH);
+  }
+  __device__ tile::TileDesc w_tile() const {
+    return {{reinterpret_cast<const char*>(w2)}, {0}, 1, bf,
+            ncols * static_cast<int>(sizeof(TW)), 0, d * sizeof(TW),
+            static_cast<size_t>(bf) * d * sizeof(TW)};
+  }
+  __device__ size_t w_off(int i) const {
+    return static_cast<size_t>(i) * bf * d * sizeof(TW);
+  }
+  __device__ bool live(int) const { return true; }
+  __device__ float scale(int i) const { return s2.at(i); }
+};
 
-  const int split = blockIdx.x;
-  const int m0 = blockIdx.y * FBM;
-  const int rows = min(FBM, M - m0);
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int sl = tid / 32;
-  const int dchunk = (d + SLICES - 1) / SLICES;
-  const int d0 = min(d, sl * dchunk);
-  const int d1 = min(d, d0 + dchunk);
-
-  for (int i = tid; i < FBM * d; i += THREADS) acc[i] = 0.0f;
-
-  const int va = split * vps;
-  const int vb = min(nv, va + vps);
-  for (int v = va; v < vb; ++v) {
-    // up-projections: this warp's d-slice, lane = d_ff column
-    float au[FBM], ag[FBM];
-#pragma unroll
-    for (int m = 0; m < FBM; ++m) { au[m] = 0.0f; ag[m] = 0.0f; }
-    if (lane < bf) {
-      const TW* p1 = w1v + static_cast<size_t>(v) * d * bf + lane;
-      const TW* p3 = w3v + static_cast<size_t>(v) * d * bf + lane;
-#pragma unroll 4
-      for (int kd = d0; kd < d1; ++kd) {
-        float w1 = to_f(p1[static_cast<size_t>(kd) * bf]);
-        float w3 = to_f(p3[static_cast<size_t>(kd) * bf]);
-        if (!QUANT) { w1 = round_to<TX>(w1); w3 = round_to<TX>(w3); }
-#pragma unroll
-        for (int m = 0; m < FBM; ++m) {
-          const float xv = m < rows ? to_f(x[static_cast<size_t>(m0 + m) * d + kd]) : 0.0f;
-          au[m] = fmaf(xv, w1, au[m]);
-          ag[m] = fmaf(xv, w3, ag[m]);
-        }
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < FBM; ++m) {
-      red[((sl * FBM + m) * 2 + 0) * MAX_BF + lane] = au[m];
-      red[((sl * FBM + m) * 2 + 1) * MAX_BF + lane] = ag[m];
-    }
-    __syncthreads();
-    if (tid < FBM * MAX_BF) {
-      const int m = tid / MAX_BF, c = tid % MAX_BF;
-      float h = 0.0f;
-      if (c < bf) {
-        float u = 0.0f, g = 0.0f;
-        for (int k = 0; k < SLICES; ++k) {
-          u += red[((k * FBM + m) * 2 + 0) * MAX_BF + c];
-          g += red[((k * FBM + m) * 2 + 1) * MAX_BF + c];
-        }
-        if (QUANT) { u *= s1[v]; g *= s3[v]; }
-        u += b1[static_cast<size_t>(v) * bf + c];
-        g += b3[static_cast<size_t>(v) * bf + c];
-        h = apply_act(u, act) * g;
-        if (!QUANT) h = round_to<TX>(h);
-      }
-      hs[m * MAX_BF + c] = h;
-    }
-    __syncthreads();
-    // down-projection into the shared accumulator
-    const TW* p2 = w2v + static_cast<size_t>(v) * bf * d;
-    const float sc = QUANT ? s2[v] : 1.0f;
-    for (int j = tid; j < d; j += THREADS) {
-      float dv[FBM];
-#pragma unroll
-      for (int m = 0; m < FBM; ++m) dv[m] = 0.0f;
-      for (int f = 0; f < bf; ++f) {
-        float w = to_f(p2[static_cast<size_t>(f) * d + j]);
-        if (!QUANT) w = round_to<TX>(w);
-#pragma unroll
-        for (int m = 0; m < FBM; ++m) dv[m] = fmaf(hs[m * MAX_BF + f], w, dv[m]);
-      }
-#pragma unroll
-      for (int m = 0; m < FBM; ++m) acc[m * d + j] += QUANT ? dv[m] * sc : dv[m];
-    }
+// fp: the visits accumulate straight into the fp32 tile; int8: each
+// visit's partial is scaled by its s2, as the reference scales it.
+template <typename TX, typename TW, bool QUANT, int W, int T, bool MMA>
+__global__ void __launch_bounds__(MMA ? tile::MMA_THREADS : tile::FMA_THREADS)
+ffn_down_kernel(FfnArgs p, Geom gm) {
+  using TH = typename std::conditional<QUANT, float, TX>::type;
+  extern __shared__ __align__(128) char smem[];
+  const int n0 = blockIdx.y * gm.bn;
+  const int ncols = min(gm.bn, p.d - n0);
+  const int m0 = blockIdx.x * gm.bm;
+  const int rows = min(gm.bm, p.M - m0);
+  const int grp = blockIdx.z;
+  const int v0 = grp * p.vps, v1 = min(p.nv, v0 + p.vps);
+  const size_t ldh = static_cast<size_t>(p.nv) * p.bf;
+  __shared__ float s2_s[QUANT ? tile::MAX_PRELOAD : 1];
+  tile::Steps<float> s2{};
+  if constexpr (QUANT) {
+    s2 = tile::preload(s2_s, p.s2 + v0, v1 - v0);
     __syncthreads();
   }
-  float* dst = partial + (static_cast<size_t>(split) * M + m0) * d;
-  for (int i = tid; i < rows * d; i += THREADS) dst[i] = acc[i];
+  DownSrc<TH, TW> src{static_cast<const char*>(p.h) +
+                          (m0 * ldh + static_cast<size_t>(v0) * p.bf) * sizeof(TH),
+                      ldh * sizeof(TH), rows,
+                      static_cast<const TW*>(p.w2v) +
+                          static_cast<size_t>(v0) * p.bf * p.d + n0,
+                      s2, p.bf, p.d, ncols};
+  const float* C = tile::accumulate_tile<TH, TW, !QUANT, W, T, MMA, QUANT, QUANT>(
+      src, v1 - v0, gm, smem);
+
+  const int cs = gm.bn + tile::C_PAD;
+  for (int i = threadIdx.x; i < rows * ncols; i += blockDim.x) {
+    const int r = i / ncols, c = i - r * ncols;
+    const float v = C[r * cs + c];
+    const size_t o = static_cast<size_t>(m0 + r) * p.d + n0 + c;
+    if (p.G == 1)
+      static_cast<TX*>(p.out)[o] = tile::from_f<TX>(v + p.b2[n0 + c]);
+    else
+      p.partial[static_cast<size_t>(grp) * p.M * p.d + o] = v;
+  }
 }
 
-template <typename TX>
-__global__ void fused_ffn_reduce_kernel(const float* __restrict__ partial,
-                                        const float* __restrict__ b2,
-                                        TX* __restrict__ out, int S, int M, int d) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(M) * d;
-  if (i >= total) return;
-  float a = 0.0f;
-  for (int s = 0; s < S; ++s) a += partial[static_cast<size_t>(s) * total + i];
-  out[i] = from_f<TX>(a + b2[i % d]);
-}
-
-size_t smem_bytes(int d) {
-  return sizeof(float) * (static_cast<size_t>(FBM) * d +
-                          SLICES * FBM * 2 * MAX_BF + FBM * MAX_BF);
-}
-
-template <typename TX, typename TW, bool QUANT>
-cudaError_t launch_partial(const void* x, const void* w1v, const void* w3v,
-                           const void* w2v, const float* s1, const float* s3,
-                           const float* s2, const float* b1, const float* b3,
-                           float* partial, int M, int d, int bf, int nv, int vps,
-                           int act, cudaStream_t stream) {
-  const int smem = static_cast<int>(smem_bytes(d));
-  auto kern = fused_ffn_partial_kernel<TX, TW, QUANT>;
-  // The shared-memory limit is raised once per template instance and
-  // device, and again only for a larger d.
-  static int smem_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+template <typename TX, typename TW, bool QUANT, int W, int T, bool MMA>
+cudaError_t launch_up(const FfnArgs& p, const Geom& gm, int vpb, cudaStream_t stream) {
+  const int smem = tile::smem_bytes(gm);
+  auto kern = ffn_up_kernel<TX, TW, QUANT, W, T, MMA>;
+  cudaError_t err = tile::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (smem_set[dev] < smem) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = smem;
-  }
-  const int S = (nv + vps - 1) / vps;
-  dim3 grid(S, (M + FBM - 1) / FBM);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const TW*>(w1v),
-      static_cast<const TW*>(w3v), static_cast<const TW*>(w2v), s1, s3, s2, b1,
-      b3, partial, M, d, bf, nv, vps, act);
+  dim3 grid((p.M + gm.bm - 1) / gm.bm, (p.nv + vpb - 1) / vpb);
+  kern<<<grid, gm.threads, smem, stream>>>(p, gm, vpb);
   return cudaGetLastError();
 }
 
+template <typename TX, typename TW, bool QUANT, int W, int T, bool MMA>
+cudaError_t launch_down(const FfnArgs& p, const Geom& gm, cudaStream_t stream) {
+  const int smem = tile::smem_bytes(gm);
+  auto kern = ffn_down_kernel<TX, TW, QUANT, W, T, MMA>;
+  cudaError_t err = tile::allow_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.M + gm.bm - 1) / gm.bm, (p.d + gm.bn - 1) / gm.bn, p.G);
+  kern<<<grid, gm.threads, smem, stream>>>(p, gm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.G == 1) return err;
+  return tile::launch_reduce<TX>(p.partial, p.G, p.M, p.d, p.b2, 0, p.out, stream);
+}
+
+// variant 1 (MMA): bf16 x, ks a multiple of 16, 2bf in {16, 32, 64}; a
+// block takes one visit at decode, two at prefill (both share each x
+// tile). variant 0 (FMA): one 64-column tile holds [u | g] of one visit.
+template <typename TX, typename TW, bool QUANT>
+cudaError_t up_variant(const FfnArgs& p, int variant, cudaStream_t s) {
+  if (variant == 1) {
+    if constexpr (std::is_same<TX, __nv_bfloat16>::value) {
+      const int w = 2 * p.bf;
+      if (p.ks % 16 != 0 || (w != 16 && w != 32 && w != 64))
+        return cudaErrorInvalidValue;
+      const Geom gm = tile::mma_geom(p.M, p.ks, w, 2, sizeof(TX), sizeof(TW));
+      const int vpb = gm.bn / w;
+      if (gm.pw == 16)
+        return gm.tm == 1 ? launch_up<TX, TW, QUANT, 16, 1, true>(p, gm, vpb, s)
+                          : launch_up<TX, TW, QUANT, 16, 2, true>(p, gm, vpb, s);
+      if (gm.pw == 32)
+        return gm.tm == 1 ? launch_up<TX, TW, QUANT, 32, 1, true>(p, gm, vpb, s)
+                          : launch_up<TX, TW, QUANT, 32, 2, true>(p, gm, vpb, s);
+      return gm.tm == 1 ? launch_up<TX, TW, QUANT, 64, 1, true>(p, gm, vpb, s)
+                        : launch_up<TX, TW, QUANT, 64, 2, true>(p, gm, vpb, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  const Geom gm = tile::fma_geom(p.M, p.ks, 64, sizeof(TX), sizeof(TW));
+  if (p.M <= 8) return launch_up<TX, TW, QUANT, 64, 0, false>(p, gm, 1, s);
+  return launch_up<TX, TW, QUANT, 64, 1, false>(p, gm, 1, s);
+}
+
+// variant 1 (MMA): fp path with bf16 h, bf a multiple of 16, d of 64; 64
+// columns of d per block at decode, 128 at prefill. variant 0 (FMA): 64.
+template <typename TX, typename TW, bool QUANT>
+cudaError_t down_variant(const FfnArgs& p, int variant, cudaStream_t s) {
+  using TH = typename std::conditional<QUANT, float, TX>::type;
+  if (variant == 1) {
+    if constexpr (std::is_same<TX, __nv_bfloat16>::value && !QUANT) {
+      if (p.bf % 16 != 0 || p.d % 64 != 0) return cudaErrorInvalidValue;
+      const Geom gm = tile::mma_geom(p.M, p.bf, 64, 2, sizeof(TH), sizeof(TW));
+      if (gm.pw == 16) return launch_down<TX, TW, QUANT, 16, 1, true>(p, gm, s);
+      return gm.tm == 1 ? launch_down<TX, TW, QUANT, 64, 1, true>(p, gm, s)
+                        : launch_down<TX, TW, QUANT, 64, 2, true>(p, gm, s);
+    }
+    return cudaErrorInvalidValue;
+  }
+  const Geom gm = tile::fma_geom(p.M, p.bf, 64, sizeof(TH), sizeof(TW));
+  if (p.M <= 8) return launch_down<TX, TW, QUANT, 64, 0, false>(p, gm, s);
+  return launch_down<TX, TW, QUANT, 64, 1, false>(p, gm, s);
+}
+
+template <typename TX, typename TW, bool QUANT>
+cudaError_t launch_typed(const FfnArgs& p, int up, int down, cudaStream_t s) {
+  cudaError_t err = up_variant<TX, TW, QUANT>(p, up, s);
+  if (err != cudaSuccess) return err;
+  return down_variant<TX, TW, QUANT>(p, down, s);
+}
+
 template <typename TX>
-cudaError_t launch_partial_x(int w_dtype, const void* x, const void* w1v,
-                             const void* w3v, const void* w2v, const float* s1,
-                             const float* s3, const float* s2, const float* b1,
-                             const float* b3, float* partial, int M, int d,
-                             int bf, int nv, int vps, int act,
-                             cudaStream_t stream) {
+cudaError_t launch_x(int w_dtype, const FfnArgs& p, int up, int down,
+                     cudaStream_t s) {
   switch (w_dtype) {
-    case 0: return launch_partial<TX, float, false>(x, w1v, w3v, w2v, s1, s3, s2, b1,
-                                                   b3, partial, M, d, bf, nv, vps,
-                                                   act, stream);
-    case 1: return launch_partial<TX, __nv_bfloat16, false>(x, w1v, w3v, w2v, s1, s3,
-                                                           s2, b1, b3, partial, M, d,
-                                                           bf, nv, vps, act, stream);
-    case 2: return launch_partial<TX, int8_t, true>(x, w1v, w3v, w2v, s1, s3, s2, b1,
-                                                   b3, partial, M, d, bf, nv, vps,
-                                                   act, stream);
+    case 0: return launch_typed<TX, float, false>(p, up, down, s);
+    case 1: return launch_typed<TX, __nv_bfloat16, false>(p, up, down, s);
+    case 2: return launch_typed<TX, int8_t, true>(p, up, down, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Largest d the shared-memory accumulator admits (4 rows of fp32).
-extern "C" int fused_ffn_max_d() {
-  return static_cast<int>((227 * 1024 - smem_bytes(0)) / (sizeof(float) * FBM));
-}
-
 // x (M, d) in x_dtype (0 fp32, 1 bf16); w1v/w3v (nv, d, bf), w2v
 // (nv, bf, d) in w_dtype (0 fp32, 1 bf16, 2 int8 with s1/s3/s2 (nv,));
-// b1/b3 (nv, bf) fp32; partial (S, M, d) fp32 scratch with
-// S = ceil(nv / vps); b2 (d,) fp32; out (M, d) in x_dtype.
+// b1/b3 (nv, bf), b2 (d,) fp32; h (M, nv*bf) scratch in x_dtype (fp) or
+// fp32 (int8); partial (G, M, d) fp32 scratch when G > 1; out (M, d) in
+// x_dtype. ks: depth of an up-projection step (divides d); up / down:
+// variant of each phase (1 MMA, 0 FMA); G groups of vps visits in the
+// down-projection.
 extern "C" int fused_ffn_launch(const void* x, const void* w1v,
                                 const void* w3v, const void* w2v,
                                 const float* s1, const float* s3,
                                 const float* s2, const float* b1,
-                                const float* b3, const float* b2,
+                                const float* b3, const float* b2, void* h,
                                 float* partial, void* out, int M, int d,
-                                int bf, int nv, int vps, int x_dtype,
-                                int w_dtype, int act, void* stream) {
+                                int bf, int nv, int x_dtype, int w_dtype,
+                                int act, int ks, int up, int down,
+                                int groups, int vps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf > MAX_BF || bf < 1 || vps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bf < 1 || bf > 32 || ks < 1 || d % ks != 0 || groups < 1 || vps < 1 ||
+      (groups - 1) * vps >= nv || (groups > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FfnArgs p{x, w1v, w3v, w2v, s1, s3, s2, b1, b3, b2, h, partial, out,
+            M, d, bf, nv, act, ks, groups, vps};
   cudaError_t err;
   if (x_dtype == 0)
-    err = launch_partial_x<float>(w_dtype, x, w1v, w3v, w2v, s1, s3, s2, b1, b3,
-                                  partial, M, d, bf, nv, vps, act, s);
+    err = launch_x<float>(w_dtype, p, up, down, s);
   else if (x_dtype == 1)
-    err = launch_partial_x<__nv_bfloat16>(w_dtype, x, w1v, w3v, w2v, s1, s3, s2,
-                                          b1, b3, partial, M, d, bf, nv, vps, act, s);
+    err = launch_x<__nv_bfloat16>(w_dtype, p, up, down, s);
   else
     err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int S = (nv + vps - 1) / vps;
-  const size_t total = static_cast<size_t>(M) * d;
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  if (x_dtype == 0)
-    fused_ffn_reduce_kernel<float><<<blocks, threads, 0, s>>>(
-        partial, b2, static_cast<float*>(out), S, M, d);
-  else
-    fused_ffn_reduce_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        partial, b2, static_cast<__nv_bfloat16*>(out), S, M, d);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }

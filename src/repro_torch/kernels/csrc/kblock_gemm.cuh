@@ -1,5 +1,5 @@
-// Dense-grid k-block GEMM body shared by sasp_gemm_masked.cu and
-// int8_gemm.cu.
+// Dense-grid k-block GEMM body of int8_gemm.cu (the masked grid, which
+// shared it, now runs on tile_mma.cuh beside the tile-skip kernel).
 //
 // Computes out (M, N) from x (M, K) and a dense weight w (K, N) split
 // into (bk, bn) blocks, bk = K / KB, bn = N / NB. One thread block owns
@@ -11,7 +11,7 @@
 // registers, and each k-block's partial is summed in fp32 before it is
 // added to the fp32 accumulator; the output is cast to x's type once.
 //
-// A policy says what differs between the two kernels:
+// A policy says what the kernel adds to the plain k-block loop:
 //   W                     the weight's type in device memory;
 //   load(w[i])            a weight as the product uses it;
 //   live(b)               whether k-block b = kb * NB + n takes part; the

@@ -3,7 +3,8 @@ list (port of ``repro.kernels.sasp_gemm.kernel.sasp_gemm``).
 
 ``sasp_gemm`` launches the CUDA kernel (``csrc/sasp_gemm.cu``) for CUDA
 tensors and runs ``sasp_gemm_plain`` — the same function in plain
-PyTorch — for CPU tensors. ``launches`` counts kernel launches.
+PyTorch — for CPU tensors. ``launches`` counts kernel launches. The
+variant and the visit groups come from ``schedule``.
 """
 from __future__ import annotations
 
@@ -15,8 +16,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.sasp_gemm import schedule
 
 launches = 0
+# launches by variant ("mma": tensor cores, "fma": fp32 FMAs)
+variant_launches = {}
 
 # activations of the flush epilogue; gelu is jax.nn.gelu's tanh form
 ACTS = {
@@ -32,7 +36,7 @@ def _launch_fn():
     """The launch entry point, its signature set once."""
     fn = build.load("sasp_gemm").sasp_gemm_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     return fn
 
@@ -64,6 +68,34 @@ def sasp_gemm_plain(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
     return ACTS[act](y).to(x.dtype)
 
 
+def as_type(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    """t as a contiguous tensor of ``dtype`` (t itself where it is one,
+    without the dispatch ``contiguous()`` costs even then)."""
+    if t is None or (t.dtype == dtype and t.is_contiguous()):
+        return t
+    return t.to(dtype).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(x_dtype, w_dtype, K: int, n: int, bk: int, bn: int, act):
+    """(variant, the launch's type / activation / variant codes, visit
+    groups): a function of the types and the weight's shape alone."""
+    variant = schedule.gemm_variant(x_dtype, w_dtype, bk, bn)
+    codes = (build.dtype_code(x_dtype), build.dtype_code(w_dtype),
+             build.ACT_CODES[act], schedule.variant_code(variant))
+    return variant, codes, schedule.gemm_groups(K // bk, n // bn)
+
+
+def check_words(what: str, *rows) -> None:
+    """The kernels copy rows of x and weights into shared memory in
+    pieces of at least 4 bytes: every (tensor, row length) given must
+    start on a 4-byte boundary and hold whole 4-byte words."""
+    for t, n in rows:
+        if (n * t.element_size()) % 4 or t.data_ptr() % 4:
+            raise ValueError(f"{what}: rows of {n} {t.dtype} values are not "
+                             f"whole, aligned 4-byte words")
+
+
 def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
               col_ptr: torch.Tensor, n: int,
               scales: Optional[torch.Tensor] = None,
@@ -88,37 +120,41 @@ def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
                          f"({bk}, {bn})")
     if (vals.dtype == torch.int8) != (scales is not None):
         raise ValueError("int8 values need scales, fp values take none")
-    expect = {"kn": (kn, (2, nnz)), "col_ptr": (col_ptr, (n // bn + 1,)),
-              "scales": (scales, (nnz,)), "bias": (bias, (n,))}
-    for name, (t, shape) in expect.items():
+    for name, t, shape in (("kn", kn, (2, nnz)),
+                           ("col_ptr", col_ptr, (n // bn + 1,)),
+                           ("scales", scales, (nnz,)), ("bias", bias, (n,))):
         if t is None:
             continue
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name} {tuple(t.shape)} != {shape}")
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
     if vals.device != x.device:
         raise ValueError(f"vals on {vals.device}, x on {x.device}")
-    x = x.contiguous()
-    vals = vals.contiguous()
-    kcoord = kn[0].to(torch.int32).contiguous()
-    col_ptr = col_ptr.to(torch.int32).contiguous()
-    if scales is not None:
-        scales = scales.to(torch.float32).contiguous()
-    bias = None if bias is None else bias.to(torch.float32).contiguous()
+    x = as_type(x, x.dtype)
+    vals = as_type(vals, vals.dtype)
+    kcoord = as_type(kn[0], torch.int32)
+    col_ptr = as_type(col_ptr, torch.int32)
+    scales = as_type(scales, torch.float32)
+    bias = as_type(bias, torch.float32)
     out = torch.empty((M, n), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
+    check_words("sasp_gemm", (x, bk), (vals, bn))
+    variant, codes, G = _plan(x.dtype, vals.dtype, K, n, bk, bn, act)
+    partial = None if G == 1 else torch.empty(
+        (G, M, n), dtype=torch.float32, device=x.device)
     code = _launch_fn()(
         x.data_ptr(), vals.data_ptr(), kcoord.data_ptr(), col_ptr.data_ptr(),
         None if scales is None else scales.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        M, K, n, bk, bn, build.dtype_code(x.dtype),
-        build.dtype_code(vals.dtype), build.ACT_CODES[act],
+        None if partial is None else partial.data_ptr(),
+        M, K, n, bk, bn, *codes, G,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "sasp_gemm")
     global launches
     launches += 1
+    variant_launches[variant] = variant_launches.get(variant, 0) + 1
     return out
 
 

@@ -17,6 +17,8 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.sasp_gemm import schedule
+from repro_torch.kernels.sasp_gemm.gemm import check_words
 
 launches = 0
 
@@ -26,7 +28,7 @@ def _launch_fn():
     """The launch entry point, its signature set once."""
     fn = build.load("sasp_gemm_masked").sasp_gemm_masked_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     return fn
 
@@ -75,9 +77,19 @@ def sasp_gemm_masked(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
+    bk, bn = K // KB, N // NB
+    check_words("sasp_gemm_masked", (x, bk), (w, bn))
+    # the tile-skip kernel's variant and visit groups, so that
+    # the two sum the same partials in the same order
+    variant = schedule.gemm_variant(x.dtype, w.dtype, bk, bn)
+    G = schedule.gemm_groups(KB, NB)
+    partial = None if G == 1 else torch.empty(
+        (G, M, N), dtype=torch.float32, device=x.device)
     code = _launch_fn()(
         x.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if partial is None else partial.data_ptr(),
         M, K, N, KB, NB, build.dtype_code(x.dtype), build.dtype_code(w.dtype),
+        schedule.variant_code(variant), G,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "sasp_gemm_masked")
     global launches

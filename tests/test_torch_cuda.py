@@ -325,3 +325,183 @@ def test_new_wrappers_refuse_bad_operands(cuda_device):
     with pytest.raises(TypeError):                        # mixed types
         t_flash.flash_attention(q, q.to(torch.bfloat16), q, pos, pos,
                                 window=8)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core / FMA mainloop (csrc/tile_mma.cuh): every variant at
+# decode and prefill row counts, rows independent of M bit for bit, the
+# visit split of a weight with few column-blocks
+# ---------------------------------------------------------------------------
+
+
+def _gemm_operands(dev, K, N, bk, bn, xdt, wdt, M, bias, sparsity=0.5):
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    w, mask = _masked((K, N), bk, bn, sparsity)
+    mask[:, 1] = False                      # an empty output column
+    vals, kn, sc = t_pack.build_kernel_weight(w, mask, bk, bn,
+                                              quantize=wdt == "int8")
+    vals, kn, sc = t_pack.pad_block_list(vals, kn, sc, vals.shape[0] + 2)
+    vt = T(vals).to(dev)
+    if wdt == "bfloat16":
+        vt = vt.to(torch.bfloat16)
+    kt = T(kn).to(dev)
+    st = None if sc is None else T(sc).to(dev)
+    bt = T(RNG.normal(size=(N,)).astype(np.float32)).to(dev) if bias \
+        else None
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    variant = schedule.gemm_variant(x.dtype, vt.dtype, bk, bn)
+    return x, vt, kt, col_ptr_from_kn(kt, N // bn), st, bt, variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("float32", "int8"),
+                                     ("bfloat16", "int8")])
+@pytest.mark.parametrize("M", [1, 4, 17, 168])
+@pytest.mark.parametrize("bk,bn,act", [(32, 32, "relu"), (16, 64, "silu"),
+                                       (8, 32, "gelu")])
+def test_gemm_variants_match_plain(cuda_device, xdt, wdt, M, bk, bn, act):
+    """bk = 8 keeps bf16 x on the FMA variant; every other case with bf16
+    x runs the tensor cores."""
+    x, vt, kt, cp, st, bt, variant = _gemm_operands(
+        cuda_device, 256, 192, bk, bn, xdt, wdt, M, True)
+    assert variant == ("mma" if xdt == "bfloat16" and bk % 16 == 0
+                       else "fma")
+    n0 = t_gemm.launches
+    got = t_gemm.sasp_gemm(x, vt, kt, cp, 192, scales=st, bias=bt, act=act)
+    want = t_gemm.sasp_gemm_plain(x, vt, kt, 192, st, bt, act)
+    torch.cuda.synchronize()
+    assert t_gemm.launches == n0 + 1 and got.dtype == x.dtype
+    _close(got, want, 1e-4 if xdt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "int8")])
+@pytest.mark.parametrize("K,N", [(256, 192), (1024, 1024)])
+def test_gemm_rows_do_not_depend_on_M(cuda_device, xdt, wdt, K, N):
+    """Rows of a 168-row call equal the same rows computed 1 and 4 at a
+    time, bit for bit; (1024, 1024) in 32x32 blocks has 32 column-blocks,
+    so its visits are split into groups and reduced."""
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    x, vt, kt, cp, st, bt, _ = _gemm_operands(
+        cuda_device, K, N, 32, 32, xdt, wdt, 168, True)
+    if K == 1024:
+        assert schedule.gemm_groups(K // 32, N // 32) > 1
+    full = t_gemm.sasp_gemm(x, vt, kt, cp, N, scales=st, bias=bt,
+                            act="silu")
+    for rows in (slice(0, 1), slice(77, 78), slice(164, 168), slice(0, 4)):
+        part = t_gemm.sasp_gemm(x[rows].contiguous(), vt, kt, cp, N,
+                                scales=st, bias=bt, act="silu")
+        torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+    want = t_gemm.sasp_gemm_plain(x, vt, kt, N, st, bt, "silu")
+    _close(full, want, 1e-4 if xdt == "float32" else 2e-2)
+
+
+def _ffn_operands(dev, d, F, bf, xdt, wdt, M):
+    w1, _ = _masked((d, F), 32, bf, 0.4)
+    w3, _ = _masked((d, F), 32, bf, 0.4)
+    w2, _ = _masked((F, d), bf, 32, 0.4)
+    w2 *= 0.1
+    b1 = RNG.normal(size=(F,)).astype(np.float32)
+    pk = t_pack.build_fused_ffn(w1, w3, w2, block_f=bf, b1=b1,
+                                b2=np.ones((d,), np.float32),
+                                quantize=wdt == "int8", nv_pad=F // bf + 3)
+    ws = [T(a).to(dev) for a in pk[:3]]
+    if wdt == "bfloat16":
+        ws = [a.to(torch.bfloat16) for a in ws]
+    bs = [T(a).to(dev) for a in pk[3:6]]
+    sc = None if pk[6] is None else tuple(T(s).to(dev) for s in pk[6])
+    x = T(RNG.normal(size=(M, d)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    return x, ws, bs, sc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "float32"),
+                                     ("float32", "int8"),
+                                     ("bfloat16", "int8")])
+@pytest.mark.parametrize("M", [1, 4, 17, 168])
+@pytest.mark.parametrize("bf,act", [(32, "silu"), (16, "gelu"),
+                                    (8, "relu")])
+def test_fused_ffn_variants_match_plain(cuda_device, xdt, wdt, M, bf, act):
+    """bf = 8 keeps the bf16 down-projection on FMAs (bf not a multiple of
+    16); the int8 path's down-projection (fp32 h) always runs as FMAs."""
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    x, ws, bs, sc = _ffn_operands(cuda_device, 256, 512, bf, xdt, wdt, M)
+    up, down = schedule.ffn_variants(x.dtype, sc is not None, 256, bf)
+    assert up == ("mma" if xdt == "bfloat16" else "fma")
+    assert down == ("mma" if xdt == "bfloat16" and sc is None and bf != 8
+                    else "fma")
+    n0 = t_ffn.launches
+    got = t_ffn.fused_ffn(x, *ws, *bs, act=act, scales=sc)
+    want = t_ffn.fused_ffn_plain(x, *ws, *bs, act=act, scales=sc)
+    torch.cuda.synchronize()
+    assert t_ffn.launches == n0 + 1 and got.dtype == x.dtype
+    _close(got, want, 1e-4 if xdt == "float32" else 2e-2)
+    # the two phases' plain versions compose to the same function
+    h = t_ffn.ffn_up_plain(x, ws[0], ws[1], bs[0], bs[1], act=act,
+                           scales=sc)
+    two = t_ffn.ffn_down_plain(h, ws[2], bs[2], out_dtype=x.dtype,
+                               s2=None if sc is None else sc[2])
+    _close(two, want, 1e-4 if xdt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "int8")])
+def test_fused_ffn_rows_do_not_depend_on_M(cuda_device, xdt, wdt):
+    """nv = 2048 / 32 + 3 visits: the down-projection splits them into
+    groups; rows of a 168-row call equal the same rows at M = 1 and 4."""
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    x, ws, bs, sc = _ffn_operands(cuda_device, 256, 2048, 32, xdt, wdt, 168)
+    assert schedule.ffn_down_groups(ws[0].shape[0], 256)[0] > 1
+    full = t_ffn.fused_ffn(x, *ws, *bs, act="silu", scales=sc)
+    for rows in (slice(0, 1), slice(99, 100), slice(164, 168), slice(0, 4)):
+        part = t_ffn.fused_ffn(x[rows].contiguous(), *ws, *bs, act="silu",
+                               scales=sc)
+        torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+    want = t_ffn.fused_ffn_plain(x, *ws, *bs, act="silu", scales=sc)
+    _close(full, want, 1e-4 if xdt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("M", [4, 70])
+def test_masked_grid_equals_tile_skip_across_visit_groups(cuda_device, xdt,
+                                                          wdt, M):
+    """32 column-blocks of 32 k-blocks: both kernels split each column into
+    the same k-block groups and reduce them in the same order, so the
+    masked grid still equals the tile-skip kernel over BSR bit for bit."""
+    from repro_torch.core.sparse import bsr_from_mask
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    K = N = 1024
+    assert schedule.gemm_groups(K // 32, N // 32) > 1
+    w, mask = _masked((K, N), 32, 32, 0.5)
+    mask[:, 1] = False
+    dev = cuda_device
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    wt = T(w).to(dev, getattr(torch, wdt))
+    mt = T(mask.astype(np.int32)).to(dev)
+    got = t_masked.masked_matmul(x, wt, mt)
+    _close(got, t_masked.sasp_gemm_masked_plain(x, wt, mt),
+           1e-4 if xdt == "float32" else 2e-2)
+    bsr = bsr_from_mask(w, mask, 32, 32, device=dev)
+    bsr.vals = bsr.vals.to(getattr(torch, wdt))
+    torch.testing.assert_close(t_gemm.sasp_matmul(x, bsr), got, rtol=0,
+                               atol=0)
