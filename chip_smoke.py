@@ -22,7 +22,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 GEMM at every projection shape (w1/w3 5120->25600, w2
                 25600->5120 too), and flash attention at 64/8 heads,
                 head_dim 128, batch 4 (42 and 256 causal, 1 query against
-                256 keys, 4096 causal, 4096 with window 1024).
+                256 and against 4096 keys, 4096 causal, 4096 with window
+                1024). Every bf16 case of the int8 GEMM and of flash
+                attention must run the tensor-core variant.
   3. serve    — the main path: qwen3-32b at full width, depth cut to 4
                 layers, random weights from seed 0 (wo and w2 rescaled
                 to the 0.02 of the other projections), pruned to 50% tiles
@@ -51,8 +53,11 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 the masked int8 path holds, and layer 0's q/k/v of a causal
                 prefill; held against the served paths' own products
                 (torch.matmul, dequantize + torch.matmul, attend_chunked).
-                These calls are those kernels' path: their launches are
-                counted here. Also sasp_matmul over the layer's BSR.
+                int8_matmul and mha run again on the same tensors in bf16,
+                the served model's compute type (tensor-core variants;
+                tolerance 1e-2). These calls are those kernels' path: their
+                launches are counted here. Also sasp_matmul over the
+                layer's BSR.
   6. int8     — --int8-weights at full width, 1 layer: both int8 kernel
                 variants on the path, within 5e-2 of the fp32 masked model.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -329,7 +334,7 @@ def ffn_checks(torch, timer, rows):
 # flash attention cases: (Sq, Sk, window); None = causal (window Sk + 1)
 ATTN = dict(B=4, H=64, KH=8, D=128)
 ATTN_CASES = ((42, 42, None), (256, 256, None), (1, 256, None),
-              (4096, 4096, None), (4096, 4096, 1024))
+              (1, 4096, None), (4096, 4096, None), (4096, 4096, 1024))
 
 
 def masked_checks(torch, timer, rows):
@@ -420,7 +425,9 @@ def int8_checks(torch, timer, rows):
             wd = dequantize_int8(qw, typ)
             for M in rows:
                 x = torch.randn((M, K), generator=gen, device=DEVICE).to(typ)
-                got = int8.int8_matmul(x, qw)
+                got, ran = ran_variant(int8, lambda: int8.int8_matmul(x, qw))
+                check(ran == ("mma" if xdt == "bfloat16" else "fma"),
+                      f"int8_gemm {proj} {xdt} M={M} ran {ran}")
                 want = int8.int8_gemm_plain(x, qw.q, qw.scale)
                 ref = int8.int8_gemm_ref(x, qw.q, qw.scale)
                 torch.cuda.synchronize()
@@ -436,7 +443,7 @@ def int8_checks(torch, timer, rows):
                                       [(2.0 * M * K * N, xdt)])
                 results.append(dict(
                     proj=proj, K=K, N=N, variant="fp", x=xdt, w="int8", M=M,
-                    rel_err=err, ref_rel_err=rel_err(got, ref),
+                    ran=ran, rel_err=err, ref_rel_err=rel_err(got, ref),
                     max_abs_err=float((got.float() - want.float()).abs()
                                       .max()),
                     tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -485,7 +492,10 @@ def flash_checks(torch, timer):
                             ).to(typ)
             v = torch.randn((B, Sk, KH, D), generator=gen, device=DEVICE
                             ).to(typ)
-            got = mha(q, k, v, qp, kp, window=win)
+            got, ran = ran_variant(flash, lambda: mha(q, k, v, qp, kp,
+                                                      window=win))
+            check(ran == ("mma" if xdt == "bfloat16" else "fma"),
+                  f"flash_attention Sq={Sq} Sk={Sk} {xdt} ran {ran}")
             want = flash.flash_attention_plain(_fold(q), _fold(k), _fold(v),
                                                qp, kp, window=win)
             want = want.reshape(B, H, Sq, D).permute(0, 2, 1, 3)
@@ -506,7 +516,8 @@ def flash_checks(torch, timer):
                                   [(4.0 * D * pairs * B * H, xdt)])
             results.append(dict(
                 Sq=Sq, Sk=Sk, window=window, B=B, H=H, KH=KH, D=D, x=xdt,
-                variant="fp", M=Sq, visible_pairs=pairs, row_rel_err=err,
+                variant="fp", ran=ran, M=Sq, visible_pairs=pairs,
+                row_rel_err=err,
                 rel_err=rel_err(got, want),
                 max_abs_err=float((got.float() - want.float()).abs().max()),
                 tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -822,33 +833,48 @@ def ablation_phase(torch, layer0, qw, counters):
     pos = torch.arange(S, dtype=torch.int32, device=DEVICE)
     x = h0.reshape(B * S, -1)
     w1, mask, bsr = layer0["w1"], layer0["w1_mask"], layer0["w1_bsr"]
+    bf16 = torch.bfloat16
     with torch.no_grad():
         q, k, v = _project_qkv(layer0["mixer"], cfg, h0, pos[None])
+        H, KH = q.shape[2], k.shape[2]
+        xb, qb, kb, vb = (t.to(bf16) for t in (x, q, k, v))
         reset(counters)
         got = dict(masked=masked_matmul(x, w1, mask),
                    tile_skip=sasp_matmul(x, bsr),
                    int8=int8_matmul(x, qw),
-                   flash=mha(q, k, v, pos, pos, window=S + 1))
+                   flash=mha(q, k, v, pos, pos, window=S + 1),
+                   int8_bf16=int8_matmul(xb, qw),
+                   flash_bf16=mha(qb, kb, vb, pos, pos, window=S + 1))
         torch.cuda.synchronize()
         launches = read(counters)
-        H, KH = q.shape[2], k.shape[2]
+        variants = {n: dict(counters[n].variant_launches)
+                    for n in ("int8_gemm", "flash_attention")}
+
+        def attend(q_, k_, v_):
+            return attend_chunked(q_.reshape(B, S, KH, H // KH, -1), k_, v_,
+                                  pos, pos, window=S + 1).reshape(q_.shape)
         want = dict(masked=torch.matmul(x, w1), tile_skip=torch.matmul(x, w1),
                     int8=torch.matmul(x, dequantize_int8(qw, x.dtype)),
-                    flash=attend_chunked(
-                        q.reshape(B, S, KH, H // KH, -1), k, v, pos, pos,
-                        window=S + 1).reshape(q.shape))
-    errs = {n: (row_rel_err if n == "flash" else rel_err)(got[n], want[n])
-            for n in got}
-    log(f"  on layer 0 of the served model (fp32, {B * S} rows; attention "
-        f"{B}x{S} causal): rel err vs the served paths' products {errs} "
-        f"(tolerance 1e-4, per output row for attention); launches "
-        f"{launches}")
+                    flash=attend(q, k, v),
+                    int8_bf16=torch.matmul(xb, dequantize_int8(qw, bf16)),
+                    flash_bf16=attend(qb, kb, vb))
+    errs = {n: (row_rel_err if n.startswith("flash") else rel_err)(
+        got[n], want[n]) for n in got}
+    tol = {n: 1e-2 if n.endswith("bf16") else 1e-4 for n in got}
+    log(f"  on layer 0 of the served model ({B * S} rows; attention "
+        f"{B}x{S} causal; fp32, and bf16 for int8 and attention): rel err "
+        f"vs the served paths' products {errs} (tolerance 1e-4 fp32, 1e-2 "
+        f"bf16, per output row for attention); launches {launches}, by "
+        f"variant {variants}")
     for n, e in errs.items():
-        check(e < 1e-4, f"{n} disagrees with its served path: {e:.3g}")
+        check(e < tol[n], f"{n} disagrees with its served path: {e:.3g}")
     for n in ("sasp_gemm_masked", "int8_gemm", "flash_attention",
               "sasp_gemm"):
         check(launches[n] > 0, f"kernel {n} never launched on its path")
-    return dict(rel_err=errs, launches=launches)
+    for n, ran in variants.items():
+        check(set(ran) == {"mma", "fma"},
+              f"{n} ran {ran} on the ablation path, not both variants")
+    return dict(rel_err=errs, launches=launches, variants=variants)
 
 
 def reset(counters):

@@ -1,5 +1,8 @@
 // Shared mainloop of the SASP kernels for Hopper (sm_90a): sasp_gemm.cu,
-// sasp_gemm_masked.cu and both phases of fused_ffn.cu.
+// sasp_gemm_masked.cu and both phases of fused_ffn.cu. int8_gemm.cu runs
+// its own loop body on this ring (run_ring, the copy plans, the reduce of
+// split partials); flash_attn.cu takes its cp.async, ldmatrix and mma
+// helpers.
 //
 // Each of those kernels is a GEMM whose k-loop walks a list of k-steps:
 // the tile-skip GEMM walks one column's visits, the FFN's up-projection
@@ -408,6 +411,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same product as mma_bf16, not volatile: the compiler may schedule it
+// among other instructions (the flash and int8 kernels' loops).
+__device__ __forceinline__ void mma_bf16_nv(float (&d)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

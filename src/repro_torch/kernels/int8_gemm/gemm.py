@@ -6,7 +6,9 @@ the paper's FP32_INT8 configuration without pruning.
 tensors and runs ``int8_gemm_plain`` — the kernel's own arithmetic in
 plain PyTorch — for CPU tensors. ``int8_gemm_ref`` dequantizes and then
 multiplies (``repro.kernels.int8_gemm.ref``), which rounds differently.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches, ``variant_launches`` the launches
+by variant ("mma": tensor cores, "fma": fp32 FMAs); the variant, column
+tile and k-block groups come from ``schedule``.
 """
 from __future__ import annotations
 
@@ -17,8 +19,12 @@ import torch
 
 from repro_torch.core.quantization import QuantizedWeight
 from repro_torch.kernels import build
+from repro_torch.kernels.int8_gemm import schedule
+from repro_torch.kernels.sasp_gemm.gemm import as_type, check_words
+from repro_torch.kernels.sasp_gemm.schedule import variant_code
 
 launches = 0
+variant_launches = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -26,9 +32,25 @@ def _launch_fn():
     """The launch entry point, its signature set once."""
     fn = build.load("int8_gemm").int8_gemm_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + \
         [ctypes.c_void_p]
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(x_dtype, K: int, N: int, KB: int):
+    """(variant, pipeline step depth, the launch's type / variant / column
+    tile / group arguments): a function of the type and the weight's shape
+    alone."""
+    bk = K // KB
+    variant = schedule.int8_variant(x_dtype, bk)
+    step = schedule.step_depth(bk, variant)
+    if step is None:
+        raise ValueError(f"int8_gemm: k-blocks of {bk} rows; the kernel "
+                         f"takes a multiple of 4")
+    return variant, step, (build.dtype_code(x_dtype), variant_code(variant),
+                           schedule.col_tile(variant),
+                           schedule.int8_groups(K, N, bk, variant))
 
 
 def int8_gemm_plain(x: torch.Tensor, w_q: torch.Tensor,
@@ -81,19 +103,28 @@ def int8_gemm(x: torch.Tensor, w_q: torch.Tensor,
     for name, t in (("w_q", w_q), ("scale", scale)):
         if t.device != x.device:
             raise ValueError(f"{name} on {t.device}, x on {x.device}")
-    x = x.contiguous()
-    w_q = w_q.contiguous()
-    scale = scale.to(torch.float32).contiguous()
+    if N % 4:
+        raise ValueError(f"w_q {tuple(w_q.shape)}: N must be a multiple of 4")
+    x = as_type(x, x.dtype)
+    w_q = as_type(w_q, torch.int8)
+    scale = as_type(scale, torch.float32)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
+    variant, step, codes = _plan(x.dtype, K, N, KB)
+    check_words("int8_gemm", (x, step), (w_q, N))
+    G = codes[-1]
+    partial = None if G == 1 else torch.empty(
+        (G, M, N), dtype=torch.float32, device=x.device)
     code = _launch_fn()(
         x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        M, K, N, KB, NB, build.dtype_code(x.dtype),
+        None if partial is None else partial.data_ptr(),
+        M, K, N, KB, NB, *codes,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "int8_gemm")
     global launches
     launches += 1
+    variant_launches[variant] = variant_launches.get(variant, 0) + 1
     return out
 
 
@@ -102,4 +133,4 @@ def int8_matmul(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
     kernel."""
     *lead, K = x.shape
     y = int8_gemm(x.reshape(-1, K), qw.q, qw.scale)
-    return y.reshape(*lead, qw.q.shape[-1]).to(x.dtype)
+    return y.reshape(*lead, qw.q.shape[-1])

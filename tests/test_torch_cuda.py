@@ -505,3 +505,156 @@ def test_masked_grid_equals_tile_skip_across_visit_groups(cuda_device, xdt,
     bsr.vals = bsr.vals.to(getattr(torch, wdt))
     torch.testing.assert_close(t_gemm.sasp_matmul(x, bsr), got, rtol=0,
                                atol=0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention on the tensor cores and the int8 GEMM on its split-k
+# mainloop: GQA over ragged tiles, windows that cut tiles, positions that
+# are not an arange, strided views, scale blocks inside wide column tiles,
+# rows independent of M
+# ---------------------------------------------------------------------------
+
+
+def _flash_case(dev, typ, H, Hk, Sq, Sk, D):
+    q = T(RNG.normal(size=(H, Sq, D)).astype(np.float32)).to(dev, typ)
+    k = T(RNG.normal(size=(Hk, Sk, D)).astype(np.float32)).to(dev, typ)
+    v = T(RNG.normal(size=(Hk, Sk, D)).astype(np.float32)).to(dev, typ)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk,window", [
+    (200, 333, 10 ** 9),                    # ragged rows and keys, causal
+    (333, 333, 100),                        # a window cutting tiles diagonally
+    (1, 333, 10 ** 9),                      # one query, 8 heads of one kv head
+])
+def test_flash_gqa_ragged_tiles_match_plain(cuda_device, dt, Sq, Sk, window):
+    """D = 128 with 8 query heads to a kv head: a tile's rows are (position,
+    head) pairs, the tiles ragged at both ends."""
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+
+    dev, typ = cuda_device, getattr(torch, dt)
+    q, k, v = _flash_case(dev, typ, 16, 2, Sq, Sk, 128)
+    qp = torch.arange(Sk - Sq, Sk, device=dev, dtype=torch.int32)
+    kp = torch.arange(Sk, device=dev, dtype=torch.int32)
+    runs = dict(t_flash.variant_launches)
+    got = t_flash.flash_attention(q, k, v, qp, kp, window=window)
+    want = t_flash.flash_attention_plain(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    ran = t_flash.variant(typ)
+    assert t_flash.variant_launches[ran] == runs.get(ran, 0) + 1
+    assert ran == ("mma" if dt == "bfloat16" else "fma")
+    _close_rows(got, want, 1e-4 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [10 ** 9, 40])
+def test_flash_left_padded_positions_match_plain(cuda_device, dt, window):
+    """The prefill of a left-padded batch row: a run of repeated negative
+    positions, then 0, 1, ... with one position repeated: with both
+    windows, pairs of 64-position tiles are skipped, full and partial in
+    one call."""
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+
+    dev, typ = cuda_device, getattr(torch, dt)
+    pos = np.concatenate([np.full(70, -1), np.arange(-5, 0), np.arange(225)])
+    pos[150] = pos[149]                     # a repeated position
+    kp = T(pos.astype(np.int32)).to(dev)
+    qp = kp.clone()
+    q, k, v = _flash_case(dev, typ, 8, 2, 300, 300, 64)
+    classes = {t_flash.tile_class(qmin, qmax, kmin, kmax, window, False)
+               for qmin, qmax in t_flash.tile_bounds(qp, 64)
+               for kmin, kmax in t_flash.tile_bounds(kp, 64)}
+    assert classes == {t_flash.SKIP, t_flash.PARTIAL, t_flash.FULL}
+    got = t_flash.flash_attention(q, k, v, qp, kp, window=window)
+    want = t_flash.flash_attention_plain(q, k, v, qp, kp, window=window)
+    torch.cuda.synchronize()
+    _close_rows(got, want, 1e-4 if dt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_mha_strided_views_equal_contiguous(cuda_device, dt):
+    """mha reads (B, S, H, D) views in place: slices of a wider cache and a
+    q taken from a fused projection give the same bits as their
+    contiguous copies."""
+    from repro_torch.kernels.flash_attn import kernel as t_flash
+    from repro_torch.kernels.flash_attn.ops import mha
+
+    dev, typ = cuda_device, getattr(torch, dt)
+    B, S, H, KH, D = 2, 77, 8, 2, 64
+    qkv = T(RNG.normal(size=(B, S, H + 2 * KH, D)).astype(np.float32)
+            ).to(dev, typ)
+    cache = T(RNG.normal(size=(B, 96, KH, 2, D)).astype(np.float32)
+              ).to(dev, typ)
+    q = qkv[:, :, :H]                        # a view, heads strided
+    k, v = cache[:, 10:10 + S, :, 0], cache[:, 10:10 + S, :, 1]
+    assert not (q.is_contiguous() or k.is_contiguous())
+    pos = torch.arange(S, device=dev, dtype=torch.int32)
+    n0 = t_flash.launches
+    got = mha(q, k, v, pos, pos, window=10 ** 9)
+    want = mha(q.contiguous(), k.contiguous(), v.contiguous(), pos, pos,
+               window=10 ** 9)
+    torch.cuda.synchronize()
+    assert t_flash.launches == n0 + 2
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    plain = t_flash.flash_attention_plain(
+        q.permute(0, 2, 1, 3).reshape(B * H, S, D),
+        k.permute(0, 2, 1, 3).reshape(B * KH, S, D),
+        v.permute(0, 2, 1, 3).reshape(B * KH, S, D), pos, pos,
+        window=10 ** 9).reshape(B, H, S, D).permute(0, 2, 1, 3)
+    _close_rows(got, plain, 1e-4 if dt == "float32" else 2e-2)
+
+
+def _int8_case(dev, K, N, bk, bn, M, xdt):
+    from repro_torch.core.quantization import quantize_int8
+
+    qw = quantize_int8(T(RNG.normal(size=(K, N)).astype(np.float32)).to(dev),
+                       bk, bn)
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    return qw, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [1, 4, 37, 168])
+def test_int8_wide_tiles_and_k_groups_match_plain(cuda_device, xdt, M):
+    """32x32 scale blocks, K 2048 and N 384: each column tile spans several
+    scale blocks and the k-blocks split into several groups."""
+    from repro_torch.kernels.int8_gemm import gemm as t_int8
+    from repro_torch.kernels.int8_gemm import schedule
+
+    qw, x = _int8_case(cuda_device, 2048, 384, 32, 32, M, xdt)
+    variant = schedule.int8_variant(x.dtype, 32)
+    assert variant == ("mma" if xdt == "bfloat16" else "fma")
+    assert schedule.col_tile(variant) > 32
+    assert schedule.int8_groups(2048, 384, 32, variant) > 1
+    runs = dict(t_int8.variant_launches)
+    got = t_int8.int8_matmul(x, qw)
+    want = t_int8.int8_gemm_plain(x, qw.q, qw.scale)
+    torch.cuda.synchronize()
+    assert t_int8.variant_launches[variant] == runs.get(variant, 0) + 1
+    _close(got, want, 1e-4 if xdt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,bk,bn", [("bfloat16", 32, 32),
+                                       ("bfloat16", 64, 16),
+                                       ("bfloat16", 8, 32),
+                                       ("float32", 32, 32)])
+def test_int8_rows_do_not_depend_on_M(cuda_device, xdt, bk, bn):
+    """The rows of a 168-row call equal the same rows computed alone, bit
+    for bit (the variant and k groups read no M)."""
+    from repro_torch.kernels.int8_gemm import gemm as t_int8
+
+    qw, x = _int8_case(cuda_device, 2048, 384, bk, bn, 168, xdt)
+    full = t_int8.int8_matmul(x, qw)
+    for rows in (slice(0, 1), slice(77, 78), slice(164, 168), slice(0, 4),
+                 slice(100, 137)):
+        part = t_int8.int8_matmul(x[rows].contiguous(), qw)
+        torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+    _close(full, t_int8.int8_gemm_plain(x, qw.q, qw.scale),
+           1e-4 if xdt == "float32" else 2e-2)
