@@ -24,7 +24,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 head_dim 128, batch 4 (42 and 256 causal, 1 query against
                 256 and against 4096 keys, 4096 causal, 4096 with window
                 1024). Every bf16 case of the int8 GEMM and of flash
-                attention must run the tensor-core variant.
+                attention must run the tensor-core variant, every masked
+                grid case the variant its plan names (bf16 "tma", fp32
+                "fma"), and a masked grid decode call may not take less
+                than reading its dense weight (dense_w_read_ms).
   3. serve    — the main path: qwen3-32b at full width, depth cut to 4
                 layers, random weights from seed 0 (wo and w2 rescaled
                 to the 0.02 of the other projections), pruned to 50% tiles
@@ -53,11 +56,12 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 the masked int8 path holds, and layer 0's q/k/v of a causal
                 prefill; held against the served paths' own products
                 (torch.matmul, dequantize + torch.matmul, attend_chunked).
-                int8_matmul and mha run again on the same tensors in bf16,
-                the served model's compute type (tensor-core variants;
-                tolerance 1e-2). These calls are those kernels' path: their
-                launches are counted here. Also sasp_matmul over the
-                layer's BSR.
+                All three run again on the same tensors in bf16, the
+                served model's compute type (tensor-core variants: the
+                masked grid's TMA-fed "tma", the others' "mma"; tolerance
+                1e-2); each must run both its variants here. These calls
+                are those kernels' path: their launches are counted here.
+                Also sasp_matmul over the layer's BSR.
   6. int8     — --int8-weights at full width, 1 layer: both int8 kernel
                 variants on the path, within 5e-2 of the fp32 masked model.
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -337,13 +341,24 @@ ATTN_CASES = ((42, 42, None), (256, 256, None), (1, 256, None),
               (1, 4096, None), (4096, 4096, None), (4096, 4096, 1024))
 
 
+def masked_variant(M, K, N, typ):
+    """The variant the masked grid's plan names for these shapes."""
+    from repro_torch.kernels.sasp_gemm import schedule
+    return schedule.masked_plan(M, K, N, K // BLOCK, N // BLOCK, typ,
+                                typ).variant
+
+
 def masked_checks(torch, timer, rows):
     """Masked-grid GEMM at every projection shape (32x32 tiles, half
     pruned), against its plain version; timed beside the tile-skip GEMM
     over the BSR of the same weights and mask (sasp_matmul, its per-call
     repack included) and a dense torch.matmul on the masked weight. Both
     kernels share one bound (the function's); ``dense_w_read_ms`` is the
-    time the masked grid's design needs to read the whole dense W."""
+    time the masked grid's design needs to read the whole dense W, and a
+    decode call (M <= 16) may never take less. ``ran`` is the variant the
+    wrapper's per-variant count shows (bf16: "tma", fp32: "fma"), and it
+    must be the one its plan names; ``pruned_ms`` times the same call
+    with every tile pruned (the bytes alone)."""
     from repro_torch.core.sparse import bsr_from_mask
     from repro_torch.kernels.sasp_gemm import gemm, masked
 
@@ -356,6 +371,7 @@ def masked_checks(torch, timer, rows):
         mask = torch.rand((K // bk, N // bn), generator=gen,
                           device=DEVICE) > SPARSITY
         mask_i = mask.to(torch.int32)
+        no_tiles = torch.zeros_like(mask_i)
         live = int(mask.sum())
         bsr32 = bsr_from_mask(w.cpu().numpy(), mask.cpu().numpy(), bk, bn,
                               device=DEVICE)
@@ -367,7 +383,11 @@ def masked_checks(torch, timer, rows):
                 bn, 1).to(typ)
             for M in rows:
                 x = torch.randn((M, K), generator=gen, device=DEVICE).to(typ)
-                got = masked.masked_matmul(x, wt, mask_i)
+                got, ran = ran_variant(masked, lambda: masked.masked_matmul(
+                    x, wt, mask_i))
+                want_ran = masked_variant(M, K, N, typ)
+                check(ran == want_ran, f"sasp_gemm_masked {proj} {xdt} M={M} "
+                      f"ran {ran}, its plan {want_ran}")
                 want = masked.sasp_gemm_masked_plain(x, wt, mask_i)
                 skip = gemm.sasp_matmul(x, bsr)
                 torch.cuda.synchronize()
@@ -390,15 +410,23 @@ def masked_checks(torch, timer, rows):
                     * wt.element_size(), [(2.0 * M * bk * bn * live, xdt)])
                 # what the masked grid's design reads: every byte of W
                 dense_read_ms = bound_ms(nbytes(x, wt, mask_i, got), [])[0]
+                if M <= 16:
+                    check(k_ms >= dense_read_ms,
+                          f"sasp_gemm_masked {proj} {xdt} M={M}: {k_ms:.4f} ms "
+                          f"is under the dense-W read, {dense_read_ms:.4f} ms")
+                # the same call with every tile pruned: the bytes moved and
+                # no MMA or FMA at all
+                pruned_ms = timer.ms(lambda: masked.masked_matmul(
+                    x, wt, no_tiles))
                 results.append(dict(
-                    proj=proj, K=K, N=N, variant="fp", x=xdt, M=M,
+                    proj=proj, K=K, N=N, variant="fp", x=xdt, M=M, ran=ran,
                     live_tiles=live, rel_err=err, max_abs_err=float(
                         (got.float() - want.float()).abs().max()),
                     tile_skip_rel_err=skip_err,
                     tile_skip_equal=bool(torch.equal(skip, got)),
                     tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
                     bound_ms=b_ms, bound_by=b_by, dense_w_read_ms=dense_read_ms,
-                    tile_skip_ms=s_ms))
+                    tile_skip_ms=s_ms, pruned_ms=pruned_ms))
                 log("  sasp_gemm_masked " + json.dumps(results[-1]))
             del wd, bsr
         del w, bsr32
@@ -837,9 +865,10 @@ def ablation_phase(torch, layer0, qw, counters):
     with torch.no_grad():
         q, k, v = _project_qkv(layer0["mixer"], cfg, h0, pos[None])
         H, KH = q.shape[2], k.shape[2]
-        xb, qb, kb, vb = (t.to(bf16) for t in (x, q, k, v))
+        xb, qb, kb, vb, w1b = (t.to(bf16) for t in (x, q, k, v, w1))
         reset(counters)
         got = dict(masked=masked_matmul(x, w1, mask),
+                   masked_bf16=masked_matmul(xb, w1b, mask),
                    tile_skip=sasp_matmul(x, bsr),
                    int8=int8_matmul(x, qw),
                    flash=mha(q, k, v, pos, pos, window=S + 1),
@@ -848,12 +877,15 @@ def ablation_phase(torch, layer0, qw, counters):
         torch.cuda.synchronize()
         launches = read(counters)
         variants = {n: dict(counters[n].variant_launches)
-                    for n in ("int8_gemm", "flash_attention")}
+                    for n in ("sasp_gemm_masked", "int8_gemm",
+                              "flash_attention")}
 
         def attend(q_, k_, v_):
             return attend_chunked(q_.reshape(B, S, KH, H // KH, -1), k_, v_,
                                   pos, pos, window=S + 1).reshape(q_.shape)
-        want = dict(masked=torch.matmul(x, w1), tile_skip=torch.matmul(x, w1),
+        want = dict(masked=torch.matmul(x, w1),
+                    masked_bf16=torch.matmul(xb, w1b),
+                    tile_skip=torch.matmul(x, w1),
                     int8=torch.matmul(x, dequantize_int8(qw, x.dtype)),
                     flash=attend(q, k, v),
                     int8_bf16=torch.matmul(xb, dequantize_int8(qw, bf16)),
@@ -862,7 +894,8 @@ def ablation_phase(torch, layer0, qw, counters):
         got[n], want[n]) for n in got}
     tol = {n: 1e-2 if n.endswith("bf16") else 1e-4 for n in got}
     log(f"  on layer 0 of the served model ({B * S} rows; attention "
-        f"{B}x{S} causal; fp32, and bf16 for int8 and attention): rel err "
+        f"{B}x{S} causal; fp32, and bf16 for the masked grid, int8 and "
+        f"attention): rel err "
         f"vs the served paths' products {errs} (tolerance 1e-4 fp32, 1e-2 "
         f"bf16, per output row for attention); launches {launches}, by "
         f"variant {variants}")
@@ -871,9 +904,12 @@ def ablation_phase(torch, layer0, qw, counters):
     for n in ("sasp_gemm_masked", "int8_gemm", "flash_attention",
               "sasp_gemm"):
         check(launches[n] > 0, f"kernel {n} never launched on its path")
+    # the masked grid's tensor-core variant is its TMA-fed one
+    both = {"sasp_gemm_masked": {"tma", "fma"}}
     for n, ran in variants.items():
-        check(set(ran) == {"mma", "fma"},
-              f"{n} ran {ran} on the ablation path, not both variants")
+        want_ran = both.get(n, {"mma", "fma"})
+        check(set(ran) == want_ran,
+              f"{n} ran {ran} on the ablation path, not {sorted(want_ran)}")
     return dict(rel_err=errs, launches=launches, variants=variants)
 
 

@@ -508,6 +508,169 @@ def test_masked_grid_equals_tile_skip_across_visit_groups(cuda_device, xdt,
 
 
 # ---------------------------------------------------------------------------
+# the masked grid's TMA-fed variant (csrc/sasp_gemm_masked.cu on
+# csrc/tma_ring.cuh): ragged rows, column tiles past N, k-block groups that
+# do not divide KB, all-pruned / all-live masks and an empty column, and
+# every variant its plan picks; each case held against the plain version
+# and, bit for bit, against the tile-skip kernel over BSR
+# ---------------------------------------------------------------------------
+
+
+def _masked_operands(dev, K, N, bk, bn, kind, xdt, wdt, M):
+    """Dense weights with every tile nonzero (a pruned tile the kernel
+    multiplied would show) and a mask of the given kind."""
+    w = RNG.normal(size=(K, N)).astype(np.float32)
+    mask = RNG.random((K // bk, N // bn)) > 0.5
+    if kind == "all_pruned":
+        mask[:] = False
+    elif kind == "all_live":
+        mask[:] = True
+    elif kind == "empty_column":
+        mask[:, -1] = False
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    return x, w, mask, T(w).to(dev, getattr(torch, wdt)), \
+        T(mask.astype(np.int32)).to(dev)
+
+
+def _masked_vs_plain_and_tile_skip(dev, x, w, mask, wt, mt, bk, bn, wdt):
+    from repro_torch.core.sparse import bsr_from_mask
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+
+    before = dict(t_masked.variant_launches)
+    got = t_masked.masked_matmul(x, wt, mt)
+    ran = [k for k, n in t_masked.variant_launches.items()
+           if n != before.get(k, 0)]
+    want = t_masked.sasp_gemm_masked_plain(x, wt, mt)
+    torch.cuda.synchronize()
+    if mask.any():
+        _close(got, want, 1e-4 if x.dtype == torch.float32 else 2e-2)
+    else:
+        assert not got.any() and not want.any()
+    bsr = bsr_from_mask(w, mask, bk, bn, device=dev)
+    bsr.vals = bsr.vals.to(getattr(torch, wdt))
+    torch.testing.assert_close(t_gemm.sasp_matmul(x, bsr), got, rtol=0,
+                               atol=0)
+    return ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,bk,bn", [(256, 192, 32, 32),
+                                       (1600, 320, 32, 32),
+                                       (1024, 384, 16, 64),
+                                       (768, 320, 64, 16),
+                                       (2048, 256, 32, 128)])
+@pytest.mark.parametrize("M", [1, 4, 37, 70, 168, 200])
+@pytest.mark.parametrize("kind", ["random", "all_pruned", "all_live",
+                                  "empty_column"])
+def test_masked_tma_variant_matches_plain_and_tile_skip(cuda_device, K, N,
+                                                        bk, bn, M, kind):
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    x, w, mask, wt, mt = _masked_operands(cuda_device, K, N, bk, bn, kind,
+                                          "bfloat16", "bfloat16", M)
+    plan = schedule.masked_plan(M, K, N, K // bk, N // bn, x.dtype, wt.dtype)
+    assert plan.variant == schedule.TMA
+    ran = _masked_vs_plain_and_tile_skip(cuda_device, x, w, mask, wt, mt, bk,
+                                         bn, "bfloat16")
+    assert ran == [plan.variant]
+
+
+def test_masked_tma_cases_cover_ragged_tiles_and_groups():
+    """The shapes above hold what they are there for (no card needed)."""
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    ragged_n = groups_ragged = False
+    for K, N, bk, bn in ((256, 192, 32, 32), (1600, 320, 32, 32),
+                         (1024, 384, 16, 64), (768, 320, 64, 16),
+                         (2048, 256, 32, 128)):
+        KB, NB = K // bk, N // bn
+        for M in (4, 168):
+            plan = schedule.masked_plan(M, K, N, KB, NB, torch.bfloat16,
+                                        torch.bfloat16)
+            ragged_n |= N % plan.bn != 0
+        G = schedule.gemm_groups(KB, NB)
+        groups_ragged |= G > 1 and KB % G != 0
+    assert ragged_n and groups_ragged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt,bk,bn", [
+    ("bfloat16", "bfloat16", 32, 32), ("bfloat16", "float32", 32, 32),
+    ("float32", "float32", 32, 32), ("float32", "bfloat16", 32, 32),
+    ("bfloat16", "bfloat16", 8, 32), ("bfloat16", "bfloat16", 32, 256)])
+@pytest.mark.parametrize("M", [4, 168])
+def test_masked_grid_runs_the_variant_its_plan_names(cuda_device, xdt, wdt,
+                                                     bk, bn, M):
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    K, N = 48 * bk, 3 * bn
+    x, w, mask, wt, mt = _masked_operands(cuda_device, K, N, bk, bn,
+                                          "empty_column", xdt, wdt, M)
+    plan = schedule.masked_plan(M, K, N, K // bk, N // bn, x.dtype, wt.dtype)
+    ran = _masked_vs_plain_and_tile_skip(cuda_device, x, w, mask, wt, mt, bk,
+                                         bn, wdt)
+    assert ran == [plan.variant]
+
+
+@pytest.mark.cuda
+def test_masked_tma_rows_do_not_depend_on_m(cuda_device):
+    """A row's result is the same bit for bit alone or among 168."""
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+
+    x, w, mask, wt, mt = _masked_operands(cuda_device, 1600, 320, 32, 32,
+                                          "random", "bfloat16", "bfloat16",
+                                          168)
+    full = t_masked.masked_matmul(x, wt, mt)
+    for rows in (slice(0, 1), slice(99, 100), slice(164, 168), slice(0, 4),
+                 slice(0, 37)):
+        part = t_masked.masked_matmul(x[rows].contiguous(), wt, mt)
+        torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N,bk,bn", [(1600, 320, 32, 32),
+                                       (1024, 384, 16, 64),
+                                       (2048, 256, 32, 128)])
+@pytest.mark.parametrize("M", [4, 168])
+def test_masked_tma_kernel_matches_its_plan_order_walk(cuda_device, K, N, bk,
+                                                       bn, M):
+    """The kernel against the plain walk of its own plan
+    (``sasp_gemm_masked_planned``: its tiles, groups and k-blocks in order,
+    fp32 sums on the CPU) on the same bf16 values: one bf16 step of the
+    output's scale, the rounding of the kernel's single cast."""
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+    from repro_torch.kernels.sasp_gemm import schedule
+
+    x, w, mask, wt, mt = _masked_operands(cuda_device, K, N, bk, bn,
+                                          "empty_column", "bfloat16",
+                                          "bfloat16", M)
+    plan = schedule.masked_plan(M, K, N, K // bk, N // bn, x.dtype, wt.dtype)
+    assert plan.variant == schedule.TMA
+    got = t_masked.masked_matmul(x, wt, mt)
+    walk = t_masked.sasp_gemm_masked_planned(
+        x.float().cpu(), wt.float().cpu(), mt.cpu(), plan=plan)
+    _close(got.cpu(), walk, 2 ** -7)
+
+
+@pytest.mark.cuda
+def test_masked_tma_takes_an_unaligned_view(cuda_device):
+    """x that starts off a 16-byte boundary (a tensor map's base must lie
+    on one) is copied, not refused."""
+    from repro_torch.kernels.sasp_gemm import masked as t_masked
+
+    x, w, mask, wt, mt = _masked_operands(cuda_device, 256, 192, 32, 32,
+                                          "random", "bfloat16", "bfloat16", 5)
+    big = torch.zeros(5 * 256 + 2, dtype=torch.bfloat16, device=cuda_device)
+    view = big[2:].view(5, 256)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    torch.testing.assert_close(t_masked.masked_matmul(view, wt, mt),
+                               t_masked.masked_matmul(x, wt, mt), rtol=0,
+                               atol=0)
+
+
+# ---------------------------------------------------------------------------
 # flash attention on the tensor cores and the int8 GEMM on its split-k
 # mainloop: GQA over ragged tiles, windows that cut tiles, positions that
 # are not an arange, strided views, scale blocks inside wide column tiles,
