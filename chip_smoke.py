@@ -43,6 +43,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 layers), bsr (gathered block matmul, plain torch; scope
                 all, 2 layers) and masked with int8 weights (scope ffn, 2
                 layers). The kernel path must launch the tile-skip GEMM.
+  3c. paged   — the same packed model (4 layers, bf16, cache 256) served
+                from the paged KV pool (tile-aligned 32-token pages, 8 a
+                ring): (a) phase 3's 4 requests with pages for every
+                slot, streams and the logits of every step bit for bit
+                equal to the contiguous engine's; (b) 8 requests sharing a
+                96-token prefix (3 full pages) plus distinct suffixes
+                through 4 slots with prefix sharing, an 18-page pool and a
+                host spill pool, one request preempted with its pages
+                kept (it spills and faults back); (c) run (b) with an int8
+                drafter at 75% tile sparsity, draft_k 4; (d) run (b) with
+                a bf16 drafter at the target's own 50% (the same weights,
+                so drafts are accepted). (b), (c) and (d) hold
+                their greedy streams to the contiguous engine's on the
+                same requests (a divergence passes only where the
+                contiguous run's top-2 logit margin at that token is under
+                1e-2 of the logit scale, and is printed), run the
+                allocator's check() after every step and leak no page.
+                Times beside the contiguous runs; launches by kernel,
+                variant and weight type (the drafter's int8 forms apart).
   4. profile  — the prefill step and three decode steps of the same
                 model under torch.profiler: device time by kernel and
                 the device's busy share of the wall time (traces in
@@ -678,6 +697,268 @@ def _serve(torch, params, cfg, counters):
                           streams={r.rid: r.out_tokens for r in done})
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the paged KV pool, prefix sharing, preemption, speculation
+# ---------------------------------------------------------------------------
+
+PAGED = dict(cache_len=256, shared_pages=18, host_pages=8, prefix=96,
+             n_shared=8, draft_sparsity=0.75, draft_k=4, preempt_at=3)
+
+
+def shared_prefix_requests(vocab: int):
+    """Run (b)'s 8 requests: one 96-token prefix (3 full 32-token pages)
+    and a distinct 8-31-token suffix each, 16 new tokens. Lengths come
+    from their own seeded draw, so they do not depend on the vocabulary."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+
+    lens = np.random.default_rng(5).integers(8, 32, size=PAGED["n_shared"])
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, vocab, size=(PAGED["prefix"],))
+    return [Request(rid=i, prompt=np.concatenate(
+        [prefix, rng.integers(0, vocab, size=(int(n),))]).astype(np.int32),
+        max_new_tokens=16) for i, n in enumerate(lens)]
+
+
+def _recording(eng):
+    """Keep every decode step's logits rows, and each request's top-2
+    logit margin, both tokens and logit scale at every token it is given
+    (prefill and decode), keyed (rid, token index)."""
+    torch = sys.modules["torch"]
+    rec = dict(steps=[], margins={})
+
+    def note(reqs, logits):
+        top = torch.topk(logits.float(), 2, dim=-1)
+        scale = logits.float().abs().amax(dim=-1)
+        for row, req in reqs:
+            rec["margins"][(req.rid, len(req.out_tokens))] = (
+                float(top.values[row, 0] - top.values[row, 1]),
+                float(scale[row]), int(top.indices[row, 0]),
+                int(top.indices[row, 1]))
+
+    def decode(step):
+        def recorded(params, cfg, *args):
+            out = step(params, cfg, *args)
+            if params is eng.params:            # not the drafter's steps
+                rec["steps"].append(out.clone())
+                note([(i, r) for i, r in enumerate(eng.slot_req)
+                      if r is not None], out)
+            return out
+        return recorded
+
+    pre = eng._run_prefill
+
+    def run_prefill(toks, poss, all_slots, reqs, valid):
+        out = pre(toks, poss, all_slots, reqs, valid)
+        note(list(enumerate(reqs)), out)
+        return out
+
+    eng._decode_step = decode(eng._decode_step)
+    eng._paged_decode_step = decode(eng._paged_decode_step)
+    eng._run_prefill = run_prefill
+    return rec
+
+
+def _drive_timed(torch, eng, reqs, preempt_at=None, check_pool=True):
+    """Serve ``reqs`` step by step, timing each step with the device
+    synchronised; at step ``preempt_at`` the first occupied slot is
+    preempted with its pages kept and queued behind the others. Returns
+    the streams and per-step (ms, admitted, tokens emitted)."""
+    for r in reqs:
+        eng.submit(r)
+    steps, n = [], 0
+    while eng.has_work():
+        adm = eng.stats["admitted"]
+        toks = sum(len(r.out_tokens) for r in reqs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t) * 1e3,
+                      eng.stats["admitted"] - adm,
+                      sum(len(r.out_tokens) for r in reqs) - toks))
+        if check_pool and eng.pool is not None:
+            eng.pool.alloc.check()
+        n += 1
+        if n == preempt_at:
+            slot = next(i for i, r in enumerate(eng.slot_req)
+                        if r is not None)
+            eng.queue.append(eng.preempt_slot(slot, keep_kv=True))
+    return {r.rid: list(r.out_tokens) for r in reqs}, steps
+
+
+def _step_times(steps):
+    """Mean ms of steps that admitted nothing (decode, and speculative
+    rounds), of steps that admitted (prefill + decode), the prefill's
+    share of those (admission step less a decode step), tokens a decode
+    step emitted, and tokens per second over the run."""
+    dec = [ms for ms, adm, _ in steps if not adm]
+    pre = [ms for ms, adm, _ in steps if adm]
+    toks = sum(t for _, _, t in steps)
+    dec_ms = sum(dec) / max(1, len(dec))
+    adm_ms = sum(pre) / max(1, len(pre))
+    return dict(steps=len(steps), decode_ms_per_step=dec_ms,
+                admission_step_ms=adm_ms, prefill_ms=adm_ms - dec_ms,
+                tokens_per_decode_step=sum(t for _, a, t in steps if not a)
+                / max(1, len(dec)),
+                tok_s=toks / (sum(ms for ms, _, _ in steps) / 1e3))
+
+
+def _greedy_equal(name, got, want, margins):
+    """Streams equal the contiguous run's, or first diverge where its
+    top-2 logit margin is under 1e-2 of the logit scale (printed)."""
+    ties = []
+    for rid, ref in want.items():
+        out = got[rid]
+        t = next((i for i, (a, b) in enumerate(zip(out, ref)) if a != b),
+                 None)
+        if t is None:
+            check(len(out) == len(ref), f"{name}: request {rid} emitted "
+                  f"{len(out)} tokens, the contiguous run {len(ref)}")
+            continue
+        margin, scale, top1, top2 = margins[(rid, t)]
+        log(f"  {name}: request {rid} diverges at token {t}: {out[t]} "
+            f"against the contiguous run's {ref[t]}; its top-2 margin "
+            f"there {margin:.4g} (tokens {top1}, {top2}), logit scale "
+            f"{scale:.4g}")
+        check(margin < 1e-2 * scale, f"{name}: request {rid} diverges at "
+              f"token {t} where the contiguous run is no near-tie")
+        ties.append(dict(rid=rid, token=t, margin=margin, scale=scale,
+                         got=out[t], want=ref[t]))
+    return ties
+
+
+def _no_leak(name, eng):
+    mem = eng.memory_stats()
+    check(mem.device_used == mem.cached_pages and mem.host_used == 0
+          and not eng.pool.alloc.rc and not eng.pool.alloc.scratch,
+          f"{name}: pages leaked: {mem.as_dict()}")
+    eng.pool.alloc.check()
+    return mem.as_dict()
+
+
+def _launch_counts(counters):
+    return {n: dict(total=m.launches, variant=dict(m.variant_launches),
+                    weight=dict(m.weight_launches))
+            for n, m in counters.items() if n in MAIN_PATH}
+
+
+def paged_phase(torch, params, cfg, counters):
+    """Runs (a) to (d) on the served packed model."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+
+    C, B = PAGED["cache_len"], 4
+    out = {}
+    # (a) paged only, pages for every slot, against contiguous
+    runs = {}
+    for name, kw in (("contiguous", {}), ("paged", dict(kv_pages=B * 8))):
+        eng = Engine(params, cfg, batch_slots=B, cache_len=C, **kw)
+        rec = _recording(eng)
+        reset(counters)
+        streams, steps = _drive_timed(
+            torch, eng, synthetic_requests(4, cfg.vocab_size, 16))
+        runs[name] = dict(streams=streams, rec=rec, eng=eng,
+                          times=_step_times(steps),
+                          launches=_launch_counts(counters))
+    a, c = runs["paged"], runs["contiguous"]
+    check(a["eng"].pool.page_len == 32 and a["eng"].pool.NB == 8,
+          f"page_len {a['eng'].pool.page_len}, not the 32-token tile")
+    check(a["streams"] == c["streams"],
+          "(a) paged streams differ from the contiguous engine's")
+    check(len(a["rec"]["steps"]) == len(c["rec"]["steps"]) and all(
+        torch.equal(x, y) for x, y in zip(a["rec"]["steps"],
+                                          c["rec"]["steps"])),
+          "(a) paged decode logits are not bit for bit the contiguous ones")
+    out["a"] = dict(paged=a["times"], contiguous=c["times"],
+                    launches=a["launches"],
+                    memory=_no_leak("(a)", a["eng"]),
+                    bit_identical_steps=len(a["rec"]["steps"]))
+    log(f"  (a) paged, {B * 8} pages of 32 tokens: streams and all "
+        f"{len(a['rec']['steps'])} decode steps' logits bit for bit equal "
+        f"to contiguous; decode {a['times']['decode_ms_per_step']:.2f} "
+        f"ms/step (contiguous {c['times']['decode_ms_per_step']:.2f}), "
+        f"prefill {a['times']['prefill_ms']:.1f} ms "
+        f"({c['times']['prefill_ms']:.1f}); launches "
+        f"{a['launches']}")
+    del runs
+    log("  (a) under torch.profiler (phase 4's steps, paged): the page "
+        "gather and write-back by kernel")
+    out["a"]["profile"] = profile_phase(torch, params, cfg, "paged_",
+                                        kv_pages=B * 8)
+    # the contiguous engine on run (b)'s requests: the streams to hold
+    # (b) to (d) to, with its margins
+    eng = Engine(params, cfg, batch_slots=B, cache_len=C)
+    rec = _recording(eng)
+    want, steps = _drive_timed(torch, eng,
+                               shared_prefix_requests(cfg.vocab_size))
+    out["contiguous_shared"] = _step_times(steps)
+    log(f"  contiguous, run (b)'s 8 requests: {out['contiguous_shared']}")
+    draft = dict(draft_sparsity=PAGED["draft_sparsity"], draft_int8=True,
+                 draft_k=PAGED["draft_k"])
+    # (d): a bf16 drafter at the target's own sparsity (the same masks,
+    # so the same weights): drafts are accepted, which (c)'s drafter on
+    # random weights rarely is, and promotion and merges run
+    same = dict(draft_sparsity=SPARSITY, draft_k=PAGED["draft_k"])
+    for name, kw in (("b", {}), ("c", draft), ("d", same)):
+        t0 = time.time()
+        eng = Engine(params, cfg, batch_slots=B, cache_len=C,
+                     kv_pages=PAGED["shared_pages"],
+                     kv_host_pages=PAGED["host_pages"], kv_share=True, **kw)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        reset(counters)
+        got, steps = _drive_timed(torch, eng,
+                                  shared_prefix_requests(cfg.vocab_size),
+                                  preempt_at=PAGED["preempt_at"])
+        launches = _launch_counts(counters)
+        ties = _greedy_equal(f"({name})", got, want, rec["margins"])
+        st = {k: eng.stats[k] for k in (
+            "prefill_tokens", "prefill_tokens_skipped", "reprefill_tokens",
+            "preemptions", "resumes", "spec_rounds", "spec_draft_tokens",
+            "spec_accepted_tokens", "spec_fallbacks", "generated_tokens")}
+        mem = _no_leak(f"({name})", eng)
+        res = dict(times=_step_times(steps), stats=st, memory=mem,
+                   launches=launches, near_ties=ties, setup_s=setup_s)
+        out[name] = res
+        drafter = {"b": "", "c": ", int8 drafter at 75%, k 4",
+                   "d": ", bf16 drafter at the target's 50%, k 4"}[name]
+        log(f"  ({name}) sharing, {PAGED['shared_pages']} pages + "
+            f"{PAGED['host_pages']} host{drafter}: {res['times']}; "
+            f"prefill tokens {st['prefill_tokens']}, "
+            f"skipped {st['prefill_tokens_skipped']}, re-prefilled "
+            f"{st['reprefill_tokens']}; spills {mem['spills']}, faults "
+            f"{mem['faults']}, drops {mem['drops']}, prefix hits "
+            f"{mem['prefix_hits']}, COW {mem['cow_copies']}; preemptions "
+            f"{st['preemptions']}, resumes {st['resumes']}; spec rounds "
+            f"{st['spec_rounds']}, drafted {st['spec_draft_tokens']}, "
+            f"accepted {st['spec_accepted_tokens']}, fallbacks "
+            f"{st['spec_fallbacks']}; launches {launches}; set-up "
+            f"{setup_s:.1f} s; near-ties {len(ties)}")
+        check(st["prefill_tokens_skipped"] > 0,
+              f"({name}) skipped no prefill token")
+        check(st["preemptions"] >= 1 and st["resumes"] >= 1,
+              f"({name}) no preempt / resume")
+        for n in MAIN_PATH:
+            check(launches[n]["weight"].get("bfloat16", 0) > 0,
+                  f"({name}) the target never launched {n}")
+        if name == "b":
+            check(mem["spills"] >= 1 and mem["faults"] >= 1,
+                  f"(b) no spill and fault: {mem}")
+        else:
+            check(st["spec_rounds"] >= 1, f"({name}) no speculative round")
+        if name == "c":
+            for n in MAIN_PATH:
+                check(launches[n]["weight"].get("int8", 0) > 0,
+                      f"(c) the int8 drafter never launched {n}")
+        if name == "d":
+            check(st["spec_accepted_tokens"] > 0,
+                  "(d) the target's own weights drafted, none accepted")
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
 # (path, layers, int8 weights, scope) of phase 3b
 OTHER_PATHS = (("kernel", N_LAYERS, False, "all"), ("bsr", 2, False, "all"),
                ("masked", 2, True, "ffn"))
@@ -764,14 +1045,15 @@ def _profiled(torch, step, n: int, name: str):
                 busy_share=busy_us / wall_us, kernels=rows)
 
 
-def profile_phase(torch, params, cfg, tag: str = ""):
+def profile_phase(torch, params, cfg, tag: str = "", **engine_kw):
     """A served model (4 slots) under torch.profiler: the admission step
     (left-padded prefill of 4 prompts, then the first decode step), then
-    three decode steps; traces go to <tag>prefill / <tag>decode."""
+    three decode steps; traces go to <tag>prefill / <tag>decode.
+    ``engine_kw`` go to the Engine (the paged phase's pool)."""
     from repro_torch.launch.serve import synthetic_requests
     from repro_torch.serve.engine import Engine
 
-    eng = Engine(params, cfg, batch_slots=4, cache_len=256)
+    eng = Engine(params, cfg, batch_slots=4, cache_len=256, **engine_kw)
     for r in synthetic_requests(4, cfg.vocab_size, 8):
         eng.submit(r)
     torch.cuda.synchronize()
@@ -916,8 +1198,9 @@ def ablation_phase(torch, layer0, qw, counters):
 def reset(counters):
     for m in counters.values():
         m.launches = 0
-        if hasattr(m, "variant_launches"):
-            m.variant_launches.clear()
+        for name in ("variant_launches", "weight_launches"):
+            if hasattr(m, name):
+                getattr(m, name).clear()
 
 
 def read(counters):
@@ -1053,6 +1336,11 @@ def main() -> int:
         "torch.profiler")
     prof = profile_phase(torch, params, cfg)
 
+    log("[3c] paged KV: (a) paged only, (b) prefix sharing with spill and "
+        "preemption, (c) (b) with an int8 self-speculation drafter, (d) "
+        "(b) with the target's own weights as the drafter")
+    paged = paged_phase(torch, params, cfg, counters)
+
     log("[5] parity: packed and kernel vs masked, fp32")
     parity, layer0 = parity_phase(torch, params)
     del params
@@ -1077,7 +1365,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
         json.dump(dict(card=card, kernels=res, serve=e2e, launches=launches,
-                       profile=prof, parity=parity, paths=paths,
+                       profile=prof, paged=paged, parity=parity,
+                       paths=paths,
                        ablation=ablation, int8=int8_res,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")

@@ -304,6 +304,33 @@ def strip_packed(params: Params) -> Params:
     return out
 
 
+def draft_pack(params: Params, cfg: ModelConfig, *, sparsity: float,
+               quantize: bool = False) -> Tuple[Params, ModelConfig]:
+    """Self-speculation drafter on the sparsity ladder: the deployed
+    weights re-pruned at a higher global tile ``sparsity`` and packed
+    (int8 with per-block scales with ``quantize``). Same architecture,
+    so the same cache geometry: drafter and target share one paged KV
+    pool. Greedy exactness never rests on the drafter (every emitted
+    token is a target argmax); its fidelity only moves the acceptance.
+    Fp blocks are stored in the compute type, as the launcher stores
+    the target's (the kernels round weights to it anyway)."""
+    if not 0.0 < float(sparsity) < 1.0:
+        raise ValueError(
+            f"draft sparsity={sparsity} must lie in (0, 1)")
+    from repro_torch.core.pruning import prune_params
+    from repro_torch.models.modules import as_dtype
+    dsasp = dataclasses.replace(
+        cfg.sasp, enabled=True, sparsity=float(sparsity),
+        quantize=bool(quantize))
+    dcfg = dataclasses.replace(cfg, sasp=dsasp)
+    pruned, _ = prune_params(strip_packed(params), dsasp)
+    out, dcfg = deploy_packed(pruned, dcfg, quantize=bool(quantize))
+    cdt = as_dtype(cfg.compute_dtype)
+    if cdt != torch.float32:
+        out = cast_packed_values(out, cdt)
+    return out, dcfg
+
+
 def cast_packed_values(params: Params, dtype: torch.dtype) -> Params:
     """Store the fp blocks of every container in ``dtype`` (the compute
     type): the kernels round each weight to x's type anyway, so results

@@ -25,6 +25,10 @@ from repro_torch.kernels.sasp_gemm.gemm import ACTS, as_type, check_words
 launches = 0
 # launches by variant of the (up, down) phases, e.g. "mma/mma"
 variant_launches = {}
+# launches by weight type ("bfloat16", "float32", "int8"): the int8
+# forms apart from the fp ones (a self-speculation drafter's from its
+# target's)
+weight_launches = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,4 +177,6 @@ def fused_ffn(x: torch.Tensor, w1v, w3v, w2v, b1, b3, b2, *,
     launches += 1
     key = f"{up}/{down}"
     variant_launches[key] = variant_launches.get(key, 0) + 1
+    wkey = str(w1v.dtype)[6:]
+    weight_launches[wkey] = weight_launches.get(wkey, 0) + 1
     return out

@@ -21,6 +21,10 @@ from repro_torch.kernels.sasp_gemm import schedule
 launches = 0
 # launches by variant ("mma": tensor cores, "fma": fp32 FMAs)
 variant_launches = {}
+# launches by weight type ("bfloat16", "float32", "int8"): the int8
+# forms apart from the fp ones (a self-speculation drafter's from its
+# target's)
+weight_launches = {}
 
 # activations of the flush epilogue; gelu is jax.nn.gelu's tanh form
 ACTS = {
@@ -46,10 +50,15 @@ def sasp_gemm_plain(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
                     bias: Optional[torch.Tensor] = None,
                     act: Optional[str] = None) -> torch.Tensor:
     """Plain-PyTorch version: one (M, bk) @ (bk, bn) product per visit,
-    scattered onto its output column-block. fp: weights rounded to
-    x.dtype, fp32 products; int8: fp32, partials scaled per visit."""
+    added onto its output column-block. fp: weights rounded to x.dtype,
+    fp32 products; int8: fp32, partials scaled per visit.
+
+    Each column-block sums its visits in list order (k order), one
+    visit per pass, with no atomics, so a call gives the same bits on
+    every run, on the card as on the CPU."""
     M, K = x.shape
     nnz, bk, bn = vals.shape
+    NBc = n // bn
     kn = kn.to(torch.int64)
     xg = x.reshape(M, K // bk, bk)[:, kn[0]].to(torch.float32)  # (M,nnz,bk)
     if scales is None:
@@ -59,9 +68,22 @@ def sasp_gemm_plain(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
     part = torch.einsum("mvk,vkn->vmn", xg, w)                  # (nnz,M,bn)
     if scales is not None:
         part = part * scales.to(torch.float32)[:, None, None]
-    acc = torch.zeros((n // bn, M, bn), dtype=torch.float32,
-                      device=x.device)
-    acc.index_add_(0, kn[1], part)
+    # table[c, t]: the t-th visit of column-block c in list order (nnz,
+    # a zero partial, past a column's last visit)
+    cols = kn[1]
+    order = torch.sort(cols, stable=True).indices
+    counts = torch.bincount(cols, minlength=NBc)
+    sc = cols[order]
+    rank = torch.arange(nnz, device=x.device) - \
+        (torch.cumsum(counts, 0) - counts)[sc]
+    depth = int(counts.max()) if nnz else 0
+    table = torch.full((NBc, max(depth, 1)), nnz, dtype=torch.int64,
+                       device=x.device)
+    table[sc, rank] = order
+    part = torch.cat([part, part.new_zeros((1, M, bn))])
+    acc = torch.zeros((NBc, M, bn), dtype=torch.float32, device=x.device)
+    for t in range(depth):
+        acc = acc + part[table[:, t]]
     y = acc.permute(1, 0, 2).reshape(M, n)
     if bias is not None:
         y = y + bias.to(torch.float32)
@@ -155,6 +177,8 @@ def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
     global launches
     launches += 1
     variant_launches[variant] = variant_launches.get(variant, 0) + 1
+    wkey = str(vals.dtype)[6:]
+    weight_launches[wkey] = weight_launches.get(wkey, 0) + 1
     return out
 
 

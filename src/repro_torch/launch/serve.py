@@ -17,6 +17,14 @@ layers, d_model 128, vocab 512; ``--no-reduce`` serves the full config.
 quantizes the attention projections there too and then fails to serve
 them (its attention reads only the dense ``w``), so the port does not
 serve a combination the reference cannot.
+
+Engine options, with the reference's meanings and usage errors:
+``--buckets`` (prefill length buckets), ``--int8-kv``, the paged pool
+(``--kv-pages``, ``--kv-page-len``, ``--kv-watermark``,
+``--kv-host-pool``), prefix sharing (``--kv-share``,
+``--kv-share-min-pages``, ``--kv-dedup-every``), self-speculative
+decoding (``--draft-sparsity``, ``--draft-k``, ``--draft-int8``,
+``--draft-interactive``) and ``--stream``.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import argparse
 import dataclasses
 import sys
 import time
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +58,109 @@ def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
     return (path == "masked" and int8_weights and scope == "all"
             and sparsity > 0)
 
-# reference flags this slice does not serve yet
-NOT_PORTED = ("--mesh", "--scheduler", "--hosts", "--int8-kv", "--kv-pages",
-              "--kv-page-len", "--kv-watermark", "--kv-host-pool",
-              "--kv-share", "--kv-share-min-pages", "--kv-dedup-every",
-              "--draft-sparsity", "--draft-k", "--draft-int8",
-              "--draft-interactive", "--ckpt-dir")
+# reference flags the port does not serve yet
+NOT_PORTED = ("--mesh", "--scheduler", "--hosts", "--ckpt-dir")
+
+
+def prefill_bucket_table(cache_len: int, n_buckets: int = 4,
+                         min_len: int = 16) -> Tuple[int, ...]:
+    """Geometric prefill buckets halving down from ``cache_len`` (the
+    longest covers every cacheable prompt)."""
+    out = []
+    b = int(cache_len)
+    while len(out) < n_buckets and b >= min_len:
+        out.append(b)
+        b //= 2
+    return tuple(sorted(out)) if out else (int(cache_len),)
+
+
+def parse_buckets(spec: Optional[str], cache_len: int
+                  ) -> Optional[Tuple[int, ...]]:
+    """--buckets 'N' -> a geometric table of N lengths topping out at
+    --cache-len; --buckets 'l1,l2,…' -> explicit lengths; None/'' ->
+    exact shapes."""
+    if not spec:
+        return None
+    try:
+        if "," in spec:
+            lens = tuple(int(v) for v in spec.split(","))
+        else:
+            lens = int(spec)
+    except ValueError:
+        raise SystemExit(
+            f"--buckets expects an int count (e.g. --buckets 4) or "
+            f"comma-separated lengths (e.g. --buckets 32,64,128), "
+            f"got {spec!r}")
+    if isinstance(lens, int):
+        if lens < 1:
+            raise SystemExit(f"--buckets count must be >= 1, got {spec!r}")
+        return prefill_bucket_table(cache_len, lens)
+    if not lens or any(v < 1 for v in lens):
+        raise SystemExit(
+            f"--buckets lengths must all be >= 1, got {spec!r}")
+    if any(v > cache_len for v in lens):
+        raise SystemExit(
+            f"--buckets lengths must not exceed --cache-len "
+            f"({cache_len}): a bucket beyond the cache can never "
+            f"admit — got {spec!r}")
+    return lens
+
+
+def validate_kv_flags(*, kv_pages: Optional[int], kv_watermark: float,
+                      kv_share: bool, kv_share_min_pages: int,
+                      int8_kv: bool, draft_sparsity: Optional[float],
+                      draft_k: int = 4, draft_int8: bool = False,
+                      kv_dedup_every: int = 0, cache_len: int = 256):
+    """Cross-flag validation of the KV and speculative-decoding flags;
+    raises SystemExit with a usage message."""
+    if not 0.0 < kv_watermark <= 1.0:
+        raise SystemExit(
+            f"--kv-watermark must lie in (0, 1], got {kv_watermark}")
+    if kv_pages is not None and kv_pages < 1:
+        raise SystemExit(f"--kv-pages must be >= 1, got {kv_pages}")
+    if kv_share:
+        if kv_pages is None:
+            raise SystemExit("--kv-share requires --kv-pages (prefix "
+                             "sharing lives on the paged pool)")
+        if int8_kv:
+            raise SystemExit("--kv-share is incompatible with "
+                             "--int8-kv: suffix prefill would attend "
+                             "dequantized prefix KV and break "
+                             "bit-identity")
+    if kv_share_min_pages < 1:
+        raise SystemExit(f"--kv-share-min-pages must be >= 1, got "
+                         f"{kv_share_min_pages}")
+    if draft_sparsity is not None:
+        if kv_pages is None:
+            raise SystemExit("--draft-sparsity requires --kv-pages: "
+                             "speculative drafts live on scratch pages "
+                             "of the paged pool")
+        if int8_kv:
+            raise SystemExit("--draft-sparsity is incompatible with "
+                             "--int8-kv: verification attends fresh "
+                             "fp KV while sequential decode attends "
+                             "dequantized KV, breaking bit-identity")
+        if not 0.0 < draft_sparsity < 1.0:
+            raise SystemExit(f"--draft-sparsity must lie in (0, 1), "
+                             f"got {draft_sparsity}")
+        if draft_k < 1:
+            raise SystemExit(f"--draft-k must be >= 1, got {draft_k}")
+        if draft_k + 1 > cache_len:
+            raise SystemExit(
+                f"--draft-k {draft_k} needs a draft+verify window of "
+                f"{draft_k + 1} tokens inside --cache-len "
+                f"({cache_len}); shrink --draft-k")
+    elif draft_int8:
+        raise SystemExit("--draft-int8 modifies the drafter pack; add "
+                         "--draft-sparsity S")
+    if kv_dedup_every < 0:
+        raise SystemExit(f"--kv-dedup-every must be >= 0, got "
+                         f"{kv_dedup_every}")
+    if kv_dedup_every and not (kv_pages and kv_share):
+        raise SystemExit("--kv-dedup-every requires --kv-pages and "
+                         "--kv-share: the dedup sweep re-links "
+                         "identical resident pages through the prefix "
+                         "radix")
 
 
 def build_serving_params(params, cfg, *, path: str, sparsity: float,
@@ -136,6 +242,46 @@ def parse_args(argv):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--int8-kv", action="store_true")
+    ap.add_argument("--kv-pages", type=int, default=None,
+                    help="paged KV: device page pool size (default: "
+                         "contiguous per-slot rings)")
+    ap.add_argument("--kv-page-len", type=int, default=None,
+                    help="page length in tokens: a multiple of the SASP "
+                         "tile that divides --cache-len (default: "
+                         "tile-aligned automatic)")
+    ap.add_argument("--kv-watermark", type=float, default=1.0,
+                    help="fraction of --kv-pages that may stay resident; "
+                         "allocations beyond it spill cold pages to host")
+    ap.add_argument("--kv-host-pool", type=int, default=0,
+                    help="host spill pool size in pages (0: cold pages "
+                         "drop to re-prefill resume under pressure)")
+    ap.add_argument("--kv-share", action="store_true",
+                    help="prefix sharing over the paged pool; requires "
+                         "--kv-pages, incompatible with --int8-kv")
+    ap.add_argument("--kv-share-min-pages", type=int, default=1,
+                    help="least whole pages a prompt must match before "
+                         "sharing is taken")
+    ap.add_argument("--kv-dedup-every", type=int, default=0,
+                    help="dedup sweep cadence in decode steps (0 = off); "
+                         "requires --kv-share")
+    ap.add_argument("--draft-sparsity", type=float, default=None,
+                    help="self-speculative decoding: the same weights "
+                         "repacked at this higher tile sparsity draft "
+                         "tokens; requires --kv-pages")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="drafted tokens per verify step")
+    ap.add_argument("--draft-int8", action="store_true",
+                    help="int8 drafter weights (with --draft-sparsity)")
+    ap.add_argument("--draft-interactive", action="store_true",
+                    help="let interactive requests speculate too")
+    ap.add_argument("--buckets", default=None,
+                    help="prefill buckets: an int count builds a "
+                         "geometric table up to --cache-len; "
+                         "comma-separated lengths give it explicitly")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve through the per-token iterator and "
+                         "print tokens as they are sampled")
     return ap.parse_args(argv)
 
 
@@ -144,9 +290,19 @@ def main(argv=None):
     if _masked_int8_all(args.path, args.int8_weights, args.scope, args.sasp):
         raise SystemExit(MASKED_INT8_ALL)
 
+    buckets = parse_buckets(args.buckets, args.cache_len)
+    validate_kv_flags(
+        kv_pages=args.kv_pages, kv_watermark=args.kv_watermark,
+        kv_share=args.kv_share, kv_share_min_pages=args.kv_share_min_pages,
+        int8_kv=args.int8_kv, draft_sparsity=args.draft_sparsity,
+        draft_k=args.draft_k, draft_int8=args.draft_int8,
+        kv_dedup_every=args.kv_dedup_every, cache_len=args.cache_len)
+
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
+    if args.int8_kv:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
     with torch.no_grad():
         params = lm.init_params(cfg, seed=0, device=args.device)
         params, cfg = build_serving_params(
@@ -155,12 +311,46 @@ def main(argv=None):
     reqs = synthetic_requests(args.requests, cfg.vocab_size, args.max_new,
                               args.temperature, args.eos_id)
     eng = Engine(params, cfg, batch_slots=args.slots,
-                 cache_len=args.cache_len)
+                 cache_len=args.cache_len, buckets=buckets,
+                 kv_pages=args.kv_pages, kv_page_len=args.kv_page_len,
+                 kv_watermark=args.kv_watermark,
+                 kv_host_pages=args.kv_host_pool, kv_share=args.kv_share,
+                 kv_share_min_pages=args.kv_share_min_pages,
+                 draft_sparsity=args.draft_sparsity, draft_k=args.draft_k,
+                 draft_int8=args.draft_int8,
+                 draft_interactive=args.draft_interactive,
+                 kv_dedup_every=args.kv_dedup_every)
     t0 = time.time()
-    done = eng.run(reqs)
+    if args.stream:
+        n = 0
+        for rid, tok in eng.stream(reqs):
+            if n < 12:
+                print(f"  stream: req {rid} += {tok}")
+            n += 1
+        print(f"  … streamed {n} tokens incrementally")
+        done = [r for r in reqs if r.done]
+    else:
+        done = eng.run(reqs)
     if eng.device.type == "cuda":
         torch.cuda.synchronize(eng.device)
     dt = time.time() - t0
+    st = eng.stats
+    if args.draft_sparsity is not None:
+        drafted, acc = st["spec_draft_tokens"], st["spec_accepted_tokens"]
+        print(f"speculative: {st['spec_rounds']} rounds, "
+              f"{acc}/{max(drafted, 1)} drafts accepted "
+              f"({acc / max(drafted, 1):.0%}), "
+              f"{st['spec_fallbacks']} fallbacks")
+    mem = eng.memory_stats()
+    if mem is not None:
+        print(f"paged KV: {mem.device_pages} device pages × "
+              f"{eng.pool.page_len} tokens, {mem.spills} spills, "
+              f"{mem.faults} faults, {mem.drops} drops")
+        if args.kv_share:
+            print(f"prefix sharing: {mem.prefix_hits} hits, "
+                  f"{mem.prefix_pages_reused} pages reused, "
+                  f"{st['prefill_tokens_skipped']} prefill tokens "
+                  f"skipped, {mem.cow_copies} COW copies")
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{len(done)} requests, {toks} tokens in {dt:.1f}s "
           f"({toks / max(dt, 1e-9):.1f} tok/s, "

@@ -5,6 +5,11 @@ The reference computes attention in jnp (not Pallas), so it stays plain
 torch here. Masked scores are ``NEG_INF = -1e30``; a key is visible iff
 ``0 <= q_pos - kv_pos < window`` and ``kv_pos >= 0`` (left-pad columns
 and empty ring slots carry -1). Decode updates the cache in place.
+
+The int8 cache (``cfg.kv_quant``) stores k / v as int8 with one fp32
+scale per (slot, head); reads dequantize. The paged pool's primitives
+(``gather_kv_pages`` …) assemble ring caches from (R, P, L, …) page
+leaves through block tables and write pages back.
 """
 from __future__ import annotations
 
@@ -26,21 +31,64 @@ Q_CHUNK = 512          # query rows per score block in attend_chunked
 
 class KVCache(NamedTuple):
     """k, v: (B, C, KH, D); pos: (B, C) absolute position per ring slot,
-    -1 if empty. Layer stacks add a leading layer axis."""
+    -1 if empty; kscale / vscale: (B, C, KH) fp32 scales of the int8
+    cache, else None. Layer stacks add a leading layer axis."""
 
     k: torch.Tensor
     v: torch.Tensor
     pos: torch.Tensor
+    kscale: Optional[torch.Tensor] = None
+    vscale: Optional[torch.Tensor] = None
+
+
+def cache_map(fn, cache: KVCache) -> KVCache:
+    """``fn`` over every present leaf of a cache (None stays None)."""
+    return KVCache(*(None if a is None else fn(a) for a in cache))
 
 
 def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,
-                  head_dim: int, dtype, device) -> KVCache:
+                  head_dim: int, dtype, device, quant: bool = False
+                  ) -> KVCache:
     shape = (batch, capacity, num_kv_heads, head_dim)
+    pos = torch.full((batch, capacity), -1, dtype=torch.int32,
+                     device=device)
+    if quant:
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            pos=pos,
+            kscale=torch.zeros(shape[:3], dtype=torch.float32,
+                               device=device),
+            vscale=torch.zeros(shape[:3], dtype=torch.float32,
+                               device=device))
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
-        pos=torch.full((batch, capacity), -1, dtype=torch.int32,
-                       device=device))
+        pos=pos)
+
+
+def _quant_heads(x: torch.Tensor):
+    """x (..., KH, D) -> int8 values and one scale per head (...). The
+    fp32 division by the scale (not a product with its reciprocal) and
+    round-half-to-even give the reference's bytes."""
+    xf = x.to(torch.float32)
+    amax = torch.amax(torch.abs(xf), dim=-1)
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127
+                    ).to(torch.int8)
+    return q, scale
+
+
+def _dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.to(torch.float32) * scale[..., None]).to(dtype)
+
+
+def _read_kv(cache: KVCache, dtype):
+    """The cache's k, v in ``dtype`` (int8 caches dequantized)."""
+    if cache.kscale is not None:
+        return (_dequant(cache.k, cache.kscale, dtype),
+                _dequant(cache.v, cache.vscale, dtype))
+    return cache.k.to(dtype), cache.v.to(dtype)
 
 
 def _proj(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -135,12 +183,20 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
     slot = (pos % C).to(torch.int64)
     bidx = torch.arange(B, device=x.device)
-    cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
+    if cache.kscale is not None:
+        kq, ks = _quant_heads(k_new[:, 0])
+        vq, vs = _quant_heads(v_new[:, 0])
+        cache.k[bidx, slot] = kq
+        cache.v[bidx, slot] = vq
+        cache.kscale[bidx, slot] = ks
+        cache.vscale[bidx, slot] = vs
+    else:
+        cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
     cache.pos[bidx, slot] = pos.to(torch.int32)
 
     qg = q.reshape(B, kvh, h // kvh, hd) * (hd ** -0.5)
-    k_read = cache.k.to(qg.dtype)
+    k_read, v_read = _read_kv(cache, qg.dtype)
     s = torch.einsum("bkgd,bckd->bkgc", qg.to(torch.float32),
                      k_read.to(torch.float32))
     if cfg.logit_softcap:
@@ -151,27 +207,40 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgc,bckd->bkgd",
                        w.to(qg.dtype).to(torch.float32),
-                       cache.v.to(qg.dtype).to(torch.float32))
+                       v_read.to(torch.float32))
     out = out.reshape(B, 1, h * hd).to(x.dtype)
     return _proj(p, "wo", out), cache
 
 
+def _ring_write(cache: KVCache, idx, k, v, posv, quant: bool):
+    """Write k / v (…, KH, D) and positions at ``idx`` of a fresh ring
+    (int8 caches quantize per head first)."""
+    cache.pos[idx] = posv
+    if quant:
+        kq, ks = _quant_heads(k)
+        vq, vs = _quant_heads(v)
+        cache.k[idx], cache.v[idx] = kq, vq
+        cache.kscale[idx], cache.vscale[idx] = ks, vs
+    else:
+        cache.k[idx] = k.to(cache.k.dtype)
+        cache.v[idx] = v.to(cache.v.dtype)
+
+
 def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor,
                              capacity: int,
-                             positions: Optional[torch.Tensor] = None
-                             ) -> KVCache:
+                             positions: Optional[torch.Tensor] = None,
+                             quant: bool = False) -> KVCache:
     """Arrange prefill K/V (B, S, KH, D) into a ring of ``capacity``.
     positions: optional per-batch (B, S) (left-padded prefill; pads < 0
     are zeroed and written with pos = -1)."""
     B, S, KH, D = k.shape
-    cache = init_kv_cache(B, capacity, KH, D, k.dtype, k.device)
+    cache = init_kv_cache(B, capacity, KH, D, k.dtype, k.device, quant)
     if positions is None:
         n = min(S, capacity)
         src = torch.arange(S - n, S, device=k.device)
         slots = src % capacity
-        cache.k[:, slots] = k[:, src]
-        cache.v[:, slots] = v[:, src]
-        cache.pos[:, slots] = src.to(torch.int32).expand(B, n)
+        _ring_write(cache, (slice(None), slots), k[:, src], v[:, src],
+                    src.to(torch.int32).expand(B, n), quant)
         return cache
     positions = positions.to(torch.int32)
     if S > capacity:
@@ -183,7 +252,95 @@ def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor,
     kz = torch.where(valid[..., None, None], k, torch.zeros_like(k))
     vz = torch.where(valid[..., None, None], v, torch.zeros_like(v))
     bidx = torch.arange(B, device=k.device)[:, None]
-    cache.pos[bidx, slots] = posv
-    cache.k[bidx, slots] = kz
-    cache.v[bidx, slots] = vz
+    _ring_write(cache, (bidx, slots), kz, vz, posv, quant)
     return cache
+
+
+def build_cache_from_suffix(k: torch.Tensor, v: torch.Tensor,
+                            capacity: int, positions: torch.Tensor,
+                            quant: bool = False) -> KVCache:
+    """A ring holding ONLY the freshly prefilled suffix tokens: pad
+    columns (positions < 0) go to a sacrificial extra slot that is cut
+    off, so no pad write lands on the resident prefix's slots; every
+    other slot stays empty (zeros, pos = -1)."""
+    B, S, KH, D = k.shape
+    positions = positions.to(torch.int32)
+    if S > capacity:
+        k, v = k[:, -capacity:], v[:, -capacity:]
+        positions = positions[:, -capacity:]
+    valid = positions >= 0
+    cache = init_kv_cache(B, capacity + 1, KH, D, k.dtype, k.device, quant)
+    slots = torch.where(valid, positions % capacity,
+                        torch.full_like(positions, capacity)).to(torch.int64)
+    posv = torch.where(valid, positions, torch.full_like(positions, -1))
+    kz = torch.where(valid[..., None, None], k, torch.zeros_like(k))
+    vz = torch.where(valid[..., None, None], v, torch.zeros_like(v))
+    bidx = torch.arange(B, device=k.device)[:, None]
+    _ring_write(cache, (bidx, slots), kz, vz, posv, quant)
+    return cache_map(lambda a: a[:, :capacity], cache)
+
+
+def attn_apply_prefill_past(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                            positions: torch.Tensor, past: KVCache, window
+                            ) -> Tuple[torch.Tensor, KVCache]:
+    """Prefill only a prompt's suffix against resident prefix K/V.
+
+    x (B, S, d) suffix states; positions (B, S) absolute (pads < 0);
+    past: each row's gathered ring holding the prefix (every other slot
+    pos = -1). Keys are the ring followed by the fresh suffix K/V; the
+    returned cache holds only the suffix (``build_cache_from_suffix``)."""
+    B, S, _ = x.shape
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    k_past, v_past = _read_kv(past, k_new.dtype)
+    k_all = torch.cat([k_past, k_new], dim=1)
+    v_all = torch.cat([v_past, v_new], dim=1)
+    kv_pos = torch.cat([past.pos, positions.to(torch.int32)], dim=1)
+    qg = q.reshape(B, S, kvh, h // kvh, hd)
+    out = attend_chunked(qg, k_all, v_all, positions, kv_pos,
+                         window=window, cap=cfg.logit_softcap)
+    out = out.reshape(B, S, h * hd).to(x.dtype)
+    cache = build_cache_from_suffix(k_new, v_new, past.k.shape[1],
+                                    positions, quant=cfg.kv_quant)
+    return _proj(p, "wo", out), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV primitives (serve/memory.py): a pool leaf stacks pages
+# (R, P, L, …) — R layers of a segment slot, P physical pages of L
+# tokens. A slot's ring of C = NB·L tokens is the gather of its NB pages.
+# ---------------------------------------------------------------------------
+
+
+def gather_kv_pages(leaf: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """leaf (R, P, L, …), block table bt (B, NB) -> rings (R, B, NB·L, …),
+    the contiguous cache layout (a new tensor)."""
+    R, _, L = leaf.shape[:3]
+    B, NB = bt.shape
+    g = leaf[:, bt.reshape(-1).to(torch.int64)]
+    return g.reshape((R, B, NB * L) + tuple(leaf.shape[3:]))
+
+
+def scatter_kv_written_page(leaf: torch.Tensor, new_leaf: torch.Tensor,
+                            bt: torch.Tensor, page_idx: torch.Tensor):
+    """Write back the one page per slot a decode step touched: logical
+    page ``page_idx[i]`` of row i goes to ``bt[i, page_idx[i]]`` (idle
+    rows' tables point at the trash page)."""
+    R, _, L = leaf.shape[:3]
+    B, NB = bt.shape
+    r = new_leaf.reshape((R, B, NB, L) + tuple(new_leaf.shape[3:]))
+    rows = torch.arange(B, device=leaf.device)
+    pj = page_idx.to(torch.int64)
+    leaf[:, bt[rows, pj].to(torch.int64)] = r[:, rows, pj].to(leaf.dtype)
+
+
+def scatter_prefill_pages(leaf: torch.Tensor, new_leaf: torch.Tensor,
+                          dests: torch.Tensor):
+    """Scatter prefill rings (R, G, C, …) into the pool at ``dests``
+    (G, NB): the trash page where a logical page is unallocated or the
+    row is group padding."""
+    R, G = new_leaf.shape[:2]
+    NB = dests.shape[1]
+    L = new_leaf.shape[2] // NB
+    r = new_leaf.reshape((R, G * NB, L) + tuple(new_leaf.shape[3:]))
+    leaf[:, dests.reshape(-1).to(torch.int64)] = r.to(leaf.dtype)

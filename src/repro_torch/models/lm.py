@@ -171,7 +171,8 @@ def _slot_window(cfg: ModelConfig, spec: LayerSpec, seq_len: int) -> int:
 
 def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
                      x: torch.Tensor, positions: torch.Tensor,
-                     want_cache: bool, cache_len: int):
+                     want_cache: bool, cache_len: int,
+                     uniform_cache: bool = False):
     S = x.shape[1]
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
     window = _slot_window(cfg, spec, S)
@@ -179,9 +180,13 @@ def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
                                          window)
     cache = None
     if want_cache:
-        cap = min(window, cache_len) if spec[1] == ATTN_LOCAL else cache_len
+        # uniform_cache: every layer's ring at the full cache_len (the
+        # paged pool's one page geometry); the window mask governs reads
+        cap = min(window, cache_len) if (
+            spec[1] == ATTN_LOCAL and not uniform_cache) else cache_len
         cache = attn_mod.build_cache_from_prefill(
-            k, v, cap, positions=positions if positions.ndim == 2 else None)
+            k, v, cap, positions=positions if positions.ndim == 2 else None,
+            quant=cfg.kv_quant)
     x = x + y
     h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
     return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
@@ -198,12 +203,39 @@ def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
     return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
 
 
+def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                             x: torch.Tensor, positions: torch.Tensor,
+                             cache: attn_mod.KVCache):
+    """One layer of the suffix prefill: attention reads the resident
+    prefix through ``cache``; the returned cache holds only the suffix.
+    Global layers take window = C, the ring capacity: sequential decode
+    never attends an entry C or more positions back, so masking those
+    (old-lap entries of a wrapped ring) keeps this pass step-equivalent
+    to decode, which the speculative verify relies on."""
+    C = cache.k.shape[1]
+    h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
+    window = cfg.sliding_window if (
+        spec[1] == ATTN_LOCAL and cfg.sliding_window) else C
+    y, new_cache = attn_mod.attn_apply_prefill_past(
+        sp["mixer"], cfg, h, positions, cache, window)
+    x = x + y
+    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
+    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), new_cache
+
+
 def _stack_caches(caches: List[attn_mod.KVCache]) -> attn_mod.KVCache:
-    return attn_mod.KVCache(*(torch.stack(list(f)) for f in zip(*caches)))
+    return attn_mod.KVCache(*(None if f[0] is None else torch.stack(list(f))
+                              for f in zip(*caches)))
+
+
+def _layer_cache(c: attn_mod.KVCache, r: int) -> attn_mod.KVCache:
+    """Layer ``r`` of a layer-stacked cache (views: writes land in c)."""
+    return attn_mod.cache_map(lambda a: a[r], c)
 
 
 def _run_segments_full(params, cfg: ModelConfig, x, positions,
-                       want_cache: bool, cache_len: int):
+                       want_cache: bool, cache_len: int,
+                       uniform_cache: bool = False):
     _check_supported(cfg)
     all_caches = []
     for seg_params, (pattern, repeat) in zip(params["segments"],
@@ -215,12 +247,32 @@ def _run_segments_full(params, cfg: ModelConfig, x, positions,
                 name = f"slot{slot}"
                 x, c = _apply_slot_full(layer_params(seg_params[name], r),
                                         spec, cfg, x, positions,
-                                        want_cache, cache_len)
+                                        want_cache, cache_len, uniform_cache)
                 per_slot[name].append(c)
         if want_cache:
             all_caches.append({n: _stack_caches(cs)
                                for n, cs in per_slot.items()})
     return x, tuple(all_caches) if want_cache else None
+
+
+def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,
+                               past):
+    _check_supported(cfg)
+    new_caches = []
+    for seg_params, seg_past, (pattern, repeat) in zip(
+            params["segments"], past, segment_plan(cfg)):
+        per_slot: Dict[str, list] = {f"slot{s}": [] for s in
+                                     range(len(pattern))}
+        for r in range(repeat):
+            for slot, spec in enumerate(pattern):
+                name = f"slot{slot}"
+                x, c = _apply_slot_prefill_past(
+                    layer_params(seg_params[name], r), spec, cfg, x,
+                    positions, _layer_cache(seg_past[name], r))
+                per_slot[name].append(c)
+        new_caches.append({n: _stack_caches(cs)
+                           for n, cs in per_slot.items()})
+    return x, tuple(new_caches)
 
 
 def _embed_in(params, cfg: ModelConfig, tokens):
@@ -254,10 +306,12 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
-            positions: Optional[torch.Tensor] = None):
+            positions: Optional[torch.Tensor] = None,
+            uniform_cache: bool = False):
     """Process prompts; returns (last-token logits (B, 1, V), caches).
     positions: optional per-batch (B, S) for the left-padded batched
-    prefill (pad columns negative)."""
+    prefill (pad columns negative). uniform_cache: every layer's ring at
+    the full cache_len (the paged pool)."""
     x = _embed_in(params, cfg, tokens)
     S = x.shape[1]
     cache_len = cache_len or S
@@ -266,8 +320,24 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     else:
         positions = positions.to(torch.int32)
     x, caches = _run_segments_full(params, cfg, x, positions, True,
-                                   cache_len)
+                                   cache_len, uniform_cache)
     logits = logits_fn(params, cfg, x[:, -1:])
+    return softcap(logits, cfg.logit_softcap), caches
+
+
+def prefill_with_past(params, cfg: ModelConfig, tokens: torch.Tensor,
+                      positions: torch.Tensor, past,
+                      all_logits: bool = False):
+    """Suffix-only prefill (prefix sharing). tokens (B, S): each prompt's
+    suffix, left-padded; positions (B, S) absolute (pads < 0); past:
+    ring caches holding each row's matched prefix (every other slot
+    pos = -1). Returns (logits, suffix-only caches); the logits are the
+    last position's (B, 1, V), or every position's (B, S, V) with
+    ``all_logits`` (the speculative verify)."""
+    x = _embed_in(params, cfg, tokens)
+    x, caches = _run_segments_prefill_past(params, cfg, x,
+                                           positions.to(torch.int32), past)
+    logits = logits_fn(params, cfg, x if all_logits else x[:, -1:])
     return softcap(logits, cfg.logit_softcap), caches
 
 
@@ -282,17 +352,18 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
         for r in range(repeat):
             for slot, spec in enumerate(pattern):
                 name = f"slot{slot}"
-                c = seg_caches[name]
-                layer_cache = attn_mod.KVCache(c.k[r], c.v[r], c.pos[r])
                 x, _ = _apply_slot_decode(layer_params(seg_params[name], r),
-                                          spec, cfg, x, pos, layer_cache)
+                                          spec, cfg, x, pos,
+                                          _layer_cache(seg_caches[name], r))
     logits = logits_fn(params, cfg, x)
     return softcap(logits, cfg.logit_softcap), caches
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
-                device=None):
-    """Zero caches matching the segment plan, (repeat, B, C, KH, D)."""
+                device=None, uniform_cap: bool = False):
+    """Zero caches matching the segment plan, (repeat, B, C, KH, D) (int8
+    with (repeat, B, C, KH) scales under ``cfg.kv_quant``). uniform_cap:
+    every layer at capacity cache_len (the paged pool's page geometry)."""
     _check_supported(cfg)
     device = device or params["embed"]["emb"].device
     cdt = as_dtype(cfg.compute_dtype)
@@ -300,14 +371,12 @@ def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
     for pattern, repeat in segment_plan(cfg):
         seg = {}
         for slot, spec in enumerate(pattern):
-            if cfg.kv_quant:
-                raise NotImplementedError("int8 KV cache is not ported yet")
-            cap = min(_slot_window(cfg, spec, cache_len), cache_len)
-            shape = (repeat, batch, cap, cfg.num_kv_heads, cfg.attn_head_dim)
-            seg[f"slot{slot}"] = attn_mod.KVCache(
-                k=torch.zeros(shape, dtype=cdt, device=device),
-                v=torch.zeros(shape, dtype=cdt, device=device),
-                pos=torch.full((repeat, batch, cap), -1, dtype=torch.int32,
-                               device=device))
+            cap = cache_len if uniform_cap else min(
+                _slot_window(cfg, spec, cache_len), cache_len)
+            c = attn_mod.init_kv_cache(
+                repeat * batch, cap, cfg.num_kv_heads, cfg.attn_head_dim,
+                cdt, device, quant=cfg.kv_quant)
+            seg[f"slot{slot}"] = attn_mod.cache_map(
+                lambda a: a.reshape((repeat, batch) + tuple(a.shape[1:])), c)
         caches.append(seg)
     return tuple(caches)

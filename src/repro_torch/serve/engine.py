@@ -1,29 +1,57 @@
-"""Batched serving engine of the port (``repro.serve.engine``), with a
-contiguous per-slot ring KV cache.
+"""Batched serving engine of the port (``repro.serve.engine``).
 
-The engine keeps B slots; a slot holds one sequence (index i of every
-cache tensor). Queued requests are admitted into free slots — several at
-once in ONE left-padded prefill (row i of the positions is
-[-(S - L_i) … -1, 0 … L_i - 1]; pad columns are masked out of attention
-and written to the cache with pos = -1) — and every step decodes all B
-slots together, idle slots masked. Sampling (greedy argmax, or
-categorical at logits / temperature from the engine's
+The engine keeps B slots; a slot holds one sequence. Queued requests are
+admitted into free slots — several at once in ONE left-padded prefill
+(row i of the positions is [-(S - L_i) … -1, 0 … L_i - 1]; pad columns
+are masked out of attention and written to the cache with pos = -1) —
+and every step decodes all B slots together, idle slots masked. Sampling
+(greedy argmax, or categorical at logits / temperature from the engine's
 ``torch.Generator``) and the EOS / length check run on the device; only
 the (B,) sampled ids and done flags come back to the host.
 
-Paged KV, preemption, speculation, bucketing and telemetry are not
-ported yet.
+* **Prefill buckets** — ``buckets=(…)`` pads every admission group to
+  all B rows and its length up to the smallest bucket ≥ S; pad rows
+  leave their slots' cache rows as they were.
+* **Preemption** — :meth:`Engine.preempt_slot` moves a decoding request
+  back to the queue: ``keep_kv=True`` keeps its KV (a snapshot of its
+  cache rows, or its pages unmapped), ``keep_kv=False`` drops it and
+  resume re-prefills ``prompt + out_tokens[:-1]``. Either way the
+  stream continues exactly.
+* **Paged KV** — ``kv_pages=N`` serves from a shared page pool with
+  per-slot block tables (``serve/memory.py``): decode gathers each
+  slot's pages into the contiguous ring layout, runs the same decode
+  and writes back the one page it touched. Admission defers when the
+  pool is exhausted; cold pages spill to a host pool
+  (``kv_host_pages``) and fault back on resume.
+* **Prefix sharing** — ``kv_share`` maps a prompt's full pages onto
+  identical resident pages and prefills only the suffix
+  (``lm.prefill_with_past``); shared pages are copy-on-written before a
+  decode write; ``kv_dedup_every`` re-links identical resident pages.
+* **Self-speculative decoding** — ``draft_sparsity`` packs the same
+  weights pruned higher on the sparsity ladder (``core.deploy.
+  draft_pack``, int8 with ``draft_int8``) as a drafter: it drafts
+  ``draft_k`` tokens onto scratch pages, one target pass over them
+  verifies, and the longest matching prefix is accepted. Every emitted
+  token is a target argmax.
+* **Streaming** — ``on_token`` is called with every token as it is
+  sampled; :meth:`Engine.stream` yields ``(rid, token)``.
+
+The generator draws one (B, vocab) block of noise per decode step
+whether or not slots speculate, so sampled streams do not depend on the
+drafter. Telemetry and the scheduler's failure hand-off are not ported.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import MIXER_ATTN, ModelConfig
 from repro_torch.models import lm
+from repro_torch.models.attention import cache_map
+from repro_torch.serve import memory as kvmem
 
 
 @dataclass(eq=False)
@@ -33,9 +61,23 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
     eos_id: Optional[int] = None
+    slo: str = "batch"              # "interactive" | "batch"
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
     status: str = "new"             # new | queued | running | done
+    # resume state (set by preempt_slot): the slot's position, and its
+    # cache rows' snapshot for a contiguous keep_kv resume
+    _resume_pos: Optional[int] = field(default=None, repr=False)
+    _kv: Optional[object] = field(default=None, repr=False)
+
+    def mark_resumable(self):
+        """Arm the re-prefill resume from the emitted tokens: the next
+        admission prefills ``prompt + out_tokens[:-1]`` and decode goes
+        on from the last token, none resampled. Any KV snapshot is
+        dropped. No-op while nothing was emitted."""
+        self._kv = None
+        self._resume_pos = (len(self.prompt) + len(self.out_tokens) - 1
+                            if self.out_tokens else None)
 
 
 # Engine counter keys (the reference engine's _STAT_KEYS).
@@ -52,34 +94,210 @@ _STAT_KEYS = ("decode_steps", "admitted",
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
                   gen: torch.Generator) -> torch.Tensor:
     """logits (B, V) -> (B,) int32 on the device: greedy where temp <= 0,
-    else categorical at logits / temp."""
+    else categorical at logits / temp (argmax of probs / q, q ~ Exp(1):
+    what ``torch.multinomial`` draws for one sample). Draws one (B, V)
+    block of the generator's noise."""
     lg = logits.to(torch.float32)
     greedy = torch.argmax(lg, dim=-1).to(torch.int32)
     t = torch.clamp(temps, min=1e-6)[:, None]
     probs = torch.softmax(lg / t, dim=-1)
-    samp = torch.multinomial(probs, 1, generator=gen)[:, 0].to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    samp = torch.argmax(probs / q, dim=-1).to(torch.int32)
     return torch.where(temps > 0, samp, greedy)
 
 
 class Engine:
     def __init__(self, params, cfg: ModelConfig, *, batch_slots: int = 4,
-                 cache_len: int = 512, rng_seed: int = 0):
+                 cache_len: int = 512, rng_seed: int = 0,
+                 buckets: Optional[Sequence[int]] = None,
+                 kv_pages: Optional[int] = None,
+                 kv_page_len: Optional[int] = None,
+                 kv_watermark: float = 1.0,
+                 kv_host_pages: int = 0,
+                 kv_share: bool = False,
+                 kv_share_min_pages: int = 1,
+                 draft_sparsity: Optional[float] = None,
+                 draft_k: int = 4,
+                 draft_int8: bool = False,
+                 draft_interactive: bool = False,
+                 kv_dedup_every: int = 0):
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
+        # prefill length buckets (sorted, <= cache_len); None = exact
+        self.buckets: Optional[Tuple[int, ...]] = None
+        if buckets:
+            bs = tuple(sorted({int(b) for b in buckets}))
+            if bs[0] < 1 or bs[-1] > cache_len:
+                raise ValueError(
+                    f"prefill buckets must lie in [1, cache_len="
+                    f"{cache_len}], got {bs} — a bucket beyond the "
+                    f"cache can never admit")
+            self.buckets = bs
         self._attn_only = all(m == MIXER_ATTN
                               for m in cfg.layer_mixer_kinds())
-        self.caches = lm.init_caches(params, cfg, batch_slots, cache_len,
-                                     device=self.device)
+        self.pool = None
+        if kv_share and not kv_pages:
+            raise ValueError(
+                "kv_share requires the paged KV pool (kv_pages) — "
+                "contiguous rings have no pages to share")
+        self.kv_share_min_pages = max(1, int(kv_share_min_pages))
+        # rid -> prefix tokens matched at admission (prefill skips them)
+        self._shared_tokens: dict = {}
+        if kv_pages:
+            self.pool = kvmem.PagedKVPool(
+                params, cfg, cache_len=cache_len, device_pages=kv_pages,
+                page_len=kv_page_len, watermark=kv_watermark,
+                host_pages=kv_host_pages, share=kv_share,
+                device=self.device)
+            self.caches = None
+        else:
+            self.caches = lm.init_caches(params, cfg, batch_slots,
+                                         cache_len, device=self.device)
         self.pos = np.zeros((batch_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
         self._finished_at_admission: List[Request] = []
+        self.on_token: Optional[Callable[[Request, int], None]] = None
         self.stats = {k: 0 for k in _STAT_KEYS}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
+        self.draft_sparsity = draft_sparsity
+        self.draft_k = int(draft_k)
+        self.draft_interactive = bool(draft_interactive)
+        self._draft = None
+        if draft_sparsity is not None:
+            if self.pool is None:
+                raise ValueError(
+                    "speculative decoding (draft_sparsity) requires "
+                    "the paged KV pool (kv_pages) — draft tokens live "
+                    "on scratch pages")
+            if getattr(cfg, "kv_quant", False):
+                raise ValueError(
+                    "speculative decoding is incompatible with "
+                    "kv_quant: the verify pass attends fresh fp "
+                    "suffix K/V while sequential decode attends "
+                    "dequantized int8 entries, breaking the "
+                    "bit-identity contract")
+            if self.draft_k < 1:
+                raise ValueError(f"draft_k={draft_k} must be >= 1")
+            if self.draft_k + 1 > cache_len:
+                raise ValueError(
+                    f"draft_k={draft_k} needs k+1 <= cache_len="
+                    f"{cache_len}: a round's write range must fit the "
+                    f"ring without self-overlap")
+            from repro_torch.core.deploy import draft_pack
+            with torch.no_grad():
+                self._draft = draft_pack(
+                    self.params, cfg, sparsity=float(draft_sparsity),
+                    quantize=bool(draft_int8))
+        self.kv_dedup_every = max(0, int(kv_dedup_every))
+        if self.kv_dedup_every and (self.pool is None
+                                    or not self.pool.share):
+            raise ValueError(
+                "kv_dedup_every requires the sharing page pool "
+                "(kv_pages + kv_share) — without the radix index "
+                "there is no content evidence to merge on")
+
+    # -- device passes -------------------------------------------------
+    def _t(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    def _decode_step(self, params, cfg, toks, pos):
+        """One decode forward of every slot over the contiguous caches
+        (updated in place): (B, V) logits."""
+        logits, self.caches = lm.decode_step(params, cfg, toks, pos,
+                                             self.caches)
+        return logits[:, 0]
+
+    def _paged_decode_step(self, params, cfg, toks, pos, bt):
+        """The paged twin: gather each slot's pages (block table ``bt``)
+        into the contiguous ring layout, run the same decode, write back
+        the one page each slot touched. (B, V) logits."""
+        caches = kvmem.gather_block_tables(self.pool.data, bt)
+        logits, caches = lm.decode_step(params, cfg, toks, pos, caches)
+        kvmem.scatter_written_pages(self.pool.data, caches, bt, pos,
+                                    self.pool.NB, self.pool.page_len)
+        return logits[:, 0]
+
+    def _draft_decode(self, toks, pos, bt) -> torch.Tensor:
+        """One drafter step (greedy, the generator untouched) -> (B,)."""
+        dparams, dcfg = self._draft
+        logits = self._paged_decode_step(dparams, dcfg, toks, pos, bt)
+        return torch.argmax(logits.to(torch.float32), dim=-1).to(
+            torch.int32)
+
+    def _paged_spec_verify(self, toks, poss, past_bt, dests
+                           ) -> torch.Tensor:
+        """One target pass over [x0, d1..dk] at positions P..P+k against
+        each slot's real pages: the target's greedy token after every
+        position (B, k+1). Its fresh K/V merges into the round's scratch
+        pages (``dests``), only where the suffix holds an entry."""
+        past = kvmem.gather_block_tables(self.pool.data, past_bt)
+        logits, caches1 = lm.prefill_with_past(self.params, self.cfg, toks,
+                                               poss, past, all_logits=True)
+        pred = torch.argmax(logits.to(torch.float32), dim=-1).to(
+            torch.int32)
+        kvmem.masked_scatter_pages(self.pool.data, caches1, dests)
+        return pred
+
+    def _paged_prefill_write(self, toks, poss, dests):
+        """Paged admission: prompt prefill, then the new cache pages
+        scattered into the pool at ``dests`` (G, NB); the trash page
+        takes unallocated logical pages and group padding. Returns the
+        last-token logits (G, V)."""
+        logits, caches1 = lm.prefill(self.params, self.cfg, toks,
+                                     cache_len=self.cache_len,
+                                     positions=poss, uniform_cache=True)
+        kvmem.scatter_prefill_pages(self.pool.data, caches1, dests)
+        return logits[:, 0]
+
+    def _paged_prefill_past_write(self, toks, poss, past_bt, dests):
+        """Suffix-only admission (prefix sharing): gather each row's
+        matched prefix pages as its past ring (the rest reads the zero
+        page), prefill only the suffix against it, scatter the fresh
+        suffix pages (``dests`` routes the shared pages to trash, so a
+        page with refcount > 1 is never written)."""
+        past = kvmem.gather_block_tables(self.pool.data, past_bt)
+        logits, caches1 = lm.prefill_with_past(self.params, self.cfg, toks,
+                                               poss, past)
+        kvmem.scatter_prefill_pages(self.pool.data, caches1, dests)
+        return logits[:, 0]
+
+    def _prefill_and_write(self, toks, poss, all_slots, valid):
+        """Contiguous admission: prompt prefill, then the new cache rows
+        written into the batch caches at ``all_slots``. ``valid`` (G,)
+        masks bucketed pad rows, which rewrite their slot's own rows."""
+        logits, caches1 = lm.prefill(self.params, self.cfg, toks,
+                                     cache_len=self.cache_len,
+                                     positions=poss)
+        idx = self._t(all_slots, torch.int64)
+        for seg, new_seg in zip(self.caches, caches1):
+            for name, c in seg.items():
+                for leaf, new in zip(c, new_seg[name]):
+                    if leaf is None:
+                        continue
+                    new = new.to(leaf.dtype)
+                    if valid is not None:
+                        vm = valid.reshape((1, -1) + (1,) * (new.ndim - 2))
+                        new = torch.where(vm, new, leaf[:, idx])
+                    leaf[:, idx] = new
+        return logits[:, 0]
+
+    def _run_prefill(self, toks, poss, all_slots, reqs, valid):
+        """One admission pass; returns the last-token logits (G, V).
+        Paged engines scatter pages at each request's allocated pages
+        (pad rows write the trash page)."""
+        toks = self._t(toks)
+        poss = None if poss is None else self._t(poss)
+        if self.pool is None:
+            return self._prefill_and_write(toks, poss, all_slots, valid)
+        return self._paged_prefill_write(
+            toks, poss, self._t(self.pool.dest_table([r.rid for r in reqs],
+                                                     toks.shape[0])))
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -89,35 +307,156 @@ class Engine:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
-    def _sample_host(self, logits: torch.Tensor, temps: List[float]
+    def n_free(self) -> int:
+        return len(self._free_slots())
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None
+                                       for r in self.slot_req)
+
+    def admission_capacity(self) -> int:
+        """Requests this engine could admit now: free slots, capped by
+        the page pool's headroom when KV is paged."""
+        free = self.n_free()
+        if self.pool is None:
+            return free
+        return min(free, self.pool.admissible_requests())
+
+    def memory_stats(self):
+        """The page pool's accounting (None when KV is contiguous)."""
+        return None if self.pool is None else self.pool.stats()
+
+    def route_headroom_tokens(self) -> Optional[int]:
+        """Tokens of cache this engine can allocate before it spills:
+        free pages under the watermark plus cached (rc 0) prefix pages,
+        times the page length. None for contiguous engines."""
+        if self.pool is None:
+            return None
+        st = self.pool.stats()
+        free = max(0, st.watermark - st.device_used) + st.cached_pages
+        return free * self.pool.page_len
+
+    def _emit(self, req: Request, tok: int):
+        req.out_tokens.append(tok)
+        if self.on_token is not None:
+            self.on_token(req, tok)
+
+    def _sample_host(self, logits: torch.Tensor, temps: Sequence[float]
                      ) -> List[int]:
-        t = torch.tensor(temps, dtype=torch.float32, device=self.device)
+        t = torch.tensor(list(temps), dtype=torch.float32,
+                         device=self.device)
         return sample_tokens(logits, t, self._gen).cpu().tolist()
 
-    def _write_rows(self, caches1, slots: List[int]):
-        """Scatter freshly prefilled cache rows into the batch caches."""
-        idx = torch.tensor(slots, dtype=torch.int64, device=self.device)
-        for seg, new_seg in zip(self.caches, caches1):
+    # -- preemption ----------------------------------------------------
+    def preempt_slot(self, slot: int, *, keep_kv: bool = True) -> Request:
+        """Move the request decoding in ``slot`` back to QUEUED and free
+        the slot; the caller re-queues it. ``keep_kv=True`` keeps its KV
+        (a snapshot of the slot's cache rows; paged: its pages stay
+        allocated, turn cold and may spill), ``keep_kv=False`` drops it
+        and resume re-prefills ``prompt + out_tokens[:-1]``."""
+        req = self.slot_req[slot]
+        assert req is not None, f"preempting free slot {slot}"
+        if self.pool is not None:
+            if keep_kv:
+                self.pool.preempt(req.rid)
+            else:
+                self.pool.free(req.rid)
+        elif keep_kv:
+            req._kv = tuple({name: cache_map(lambda a: a[:, slot].clone(), c)
+                             for name, c in seg.items()}
+                            for seg in self.caches)
+        req._resume_pos = int(self.pos[slot])
+        req.status = "queued"
+        self.slot_req[slot] = None
+        self.stats["preemptions"] += 1
+        return req
+
+    def _finish_resume(self, slot: int, req: Request):
+        req._resume_pos = None
+        req._kv = None
+        req.status = "running"
+        self.slot_req[slot] = req
+        self.stats["resumes"] += 1
+
+    def _restore_slot(self, slot: int, req: Request):
+        """Snapshot resume: the saved cache rows go back, no forward."""
+        assert self.slot_req[slot] is None, \
+            f"resume into occupied slot {slot}"
+        for seg, saved in zip(self.caches, req._kv):
             for name, c in seg.items():
-                for leaf, new in zip(c, new_seg[name]):
-                    leaf[:, idx] = new.to(leaf.dtype)
+                for leaf, s in zip(c, saved[name]):
+                    if leaf is not None:
+                        leaf[:, slot] = s
+        self.pos[slot] = req._resume_pos
+        self._finish_resume(slot, req)
 
-    def _run_prefill(self, toks: np.ndarray, poss: Optional[np.ndarray],
-                     slots: List[int]) -> torch.Tensor:
-        t = torch.as_tensor(toks, dtype=torch.int32, device=self.device)
-        p = None if poss is None else torch.as_tensor(
-            poss, dtype=torch.int32, device=self.device)
-        logits, caches1 = lm.prefill(self.params, self.cfg, t,
-                                     cache_len=self.cache_len, positions=p)
-        self._write_rows(caches1, slots)
-        return logits[:, 0]
+    def _attach_paged_resume(self, slot: int, req: Request):
+        """Paged resume: the pages were just pinned resident (spilled
+        ones faulted back); only the block table changes."""
+        assert self.slot_req[slot] is None, \
+            f"resume into occupied slot {slot}"
+        self.pos[slot] = req._resume_pos
+        self._finish_resume(slot, req)
 
-    def _start_decoding(self, slot: int, req: Request, nxt: int,
-                        length: int):
+    def _page_keys(self, seq: np.ndarray) -> Tuple[bytes, ...]:
+        """Radix keys: one per FULL page of ``seq`` (the trailing partial
+        page is private). Empty when sharing is off or the sequence
+        overflows the ring."""
+        if self.pool is None or not self.pool.share:
+            return ()
+        if len(seq) > self.cache_len:
+            return ()
+        L = self.pool.page_len
+        a = np.ascontiguousarray(np.asarray(seq, np.int32))
+        return tuple(a[j * L:(j + 1) * L].tobytes()
+                     for j in range(len(seq) // L))
+
+    def _paged_reserve(self, req: Request) -> Tuple[bool, str]:
+        """Acquire an admission's pages: (ok, 'resume') re-attached a
+        preempted request's live pages, (ok, 'prefill') allocated pages
+        to prefill. Sharing maps matched prefix pages instead, leaving at
+        least one token to prefill (the first sampled token comes from
+        the suffix's last logits). Not ok: the pool is exhausted."""
+        if req._resume_pos is not None and self.pool.has_pages(req.rid):
+            return self.pool.resume(req.rid), "resume"
+        seq = self._prefill_tokens(req)
+        n = self.pool.pages_for(len(seq))
+        keys = self._page_keys(seq)
+        if keys:
+            keys = keys[:(len(seq) - 1) // self.pool.page_len]
+        ok, m = self.pool.admit_prefix(
+            req.rid, n, keys, min_pages=self.kv_share_min_pages)
+        if ok and m:
+            self._shared_tokens[req.rid] = m * self.pool.page_len
+        return ok, "prefill"
+
+    def _prefill_tokens(self, req: Request) -> np.ndarray:
+        """The prompt, or for a re-prefill resume the prompt and every
+        generated token but the last (the next decode input)."""
+        if req._resume_pos is None:
+            return np.asarray(req.prompt, np.int32)
+        return np.concatenate([
+            np.asarray(req.prompt, np.int32),
+            np.asarray(req.out_tokens[:-1], np.int32)])
+
+    def _bucket_len(self, S: int) -> int:
+        """Smallest bucket >= S; S itself past every bucket."""
+        for b in self.buckets:
+            if b >= S:
+                return b
+        return S
+
+    def _started(self, slot: int, req: Request, nxt: int, length: int):
+        """A prefilled request enters decode with its first token (a
+        re-prefill resume discards the sampled one: its last token was
+        emitted before the preemption)."""
         assert self.slot_req[slot] is None, \
             f"prefill into occupied slot {slot}"
         self.pos[slot] = length
-        req.out_tokens.append(nxt)
+        if req._resume_pos is not None:
+            self._finish_resume(slot, req)
+            return
+        self._emit(req, nxt)
         if self._retired_at_admission(req):
             return
         req.status = "running"
@@ -125,33 +464,99 @@ class Engine:
 
     def _prefill_into_slot(self, slot: int, req: Request, seq: np.ndarray):
         """Single-sequence prefill (unpadded positions)."""
-        logits_last = self._run_prefill(seq[None, :], None, [slot])
+        logits_last = self._run_prefill(seq[None, :], None, [slot], [req],
+                                        None)
+        self._register_prompt([req], [seq])
         (nxt,) = self._sample_host(logits_last, [req.temperature])
-        self._start_decoding(slot, req, nxt, len(seq))
+        self._started(slot, req, nxt, len(seq))
 
     def _prefill_group(self, slots: List[int], reqs: List[Request],
                        seqs: List[np.ndarray]):
-        """Batched multi-slot prefill: one LEFT-padded forward pass."""
+        """Batched multi-slot prefill: one LEFT-padded forward pass. With
+        ``buckets`` the group is padded to all B rows and S to a bucket;
+        pad rows leave their slots untouched."""
         G = len(reqs)
         lens = [len(s) for s in seqs]
         S = max(lens)
-        toks = np.zeros((G, S), np.int32)
-        poss = np.tile(np.arange(S, dtype=np.int32) - S, (G, 1))
+        valid = None
+        all_slots = list(slots)
+        if self.buckets:
+            S = self._bucket_len(S)
+            all_slots += [i for i in range(self.B) if i not in slots]
+            valid = self._t(np.arange(len(all_slots)) < G, torch.bool)
+        Gp = len(all_slots)
+        toks = np.zeros((Gp, S), np.int32)
+        poss = np.tile(np.arange(S, dtype=np.int32) - S, (Gp, 1))
         for g, seq in enumerate(seqs):
             pad = S - lens[g]
             toks[g, pad:] = seq
             poss[g] = np.arange(S) - pad
-        logits_last = self._run_prefill(toks, poss, slots)
-        nxts = self._sample_host(logits_last,
-                                 [r.temperature for r in reqs])
+        logits_last = self._run_prefill(toks, poss, all_slots, reqs, valid)
+        self._register_prompt(reqs, seqs)
+        temps = np.zeros((Gp,), np.float32)
+        for g, r in enumerate(reqs):
+            temps[g] = r.temperature
+        nxts = self._sample_host(logits_last, temps)[:G]
         for slot, req, nxt, L in zip(slots, reqs, nxts, lens):
-            self._start_decoding(slot, req, nxt, L)
+            self._started(slot, req, nxt, L)
+
+    def _register_prompt(self, reqs: List[Request],
+                         seqs: List[np.ndarray]):
+        """Publish freshly prefilled full prompt pages into the radix
+        index, before any retire-at-admission free (a prompt that ends
+        at once still seeds the cache)."""
+        if self.pool is None or not self.pool.share:
+            return
+        for r, s in zip(reqs, seqs):
+            self.pool.register_prefix(r.rid, self._page_keys(s))
+
+    def _prefill_group_shared(self, slots: List[int],
+                              reqs: List[Request],
+                              seqs: List[np.ndarray]):
+        """Suffix-only batched prefill of admissions whose prompts
+        matched shared prefix pages: row g holds ``seq[skip_g:]``
+        left-padded at absolute positions (pads -1); each row's matched
+        pages are gathered as its past ring and only the fresh suffix
+        pages are written (shared pages never are)."""
+        L = self.pool.page_len
+        skips = [self._shared_tokens[r.rid] for r in reqs]
+        sufs = [np.asarray(s[m:], np.int32) for s, m in zip(seqs, skips)]
+        lens = [len(s) for s in sufs]
+        G = len(reqs)
+        S = max(lens)
+        nrows = G
+        if self.buckets:
+            S = self._bucket_len(S)
+            nrows = self.B
+        toks = np.zeros((nrows, S), np.int32)
+        poss = np.full((nrows, S), -1, np.int32)
+        for g, suf in enumerate(sufs):
+            pad = S - lens[g]
+            toks[g, pad:] = suf
+            poss[g, pad:] = np.arange(skips[g], skips[g] + lens[g])
+        rids = [r.rid for r in reqs]
+        skip_pages = [m // L for m in skips]
+        logits = self._paged_prefill_past_write(
+            self._t(toks), self._t(poss),
+            self._t(self.pool.prefix_table(rids, skip_pages, nrows)),
+            self._t(self.pool.dest_table(rids, nrows,
+                                         skip_pages=skip_pages)))
+        self._register_prompt(reqs, seqs)
+        temps = np.zeros((nrows,), np.float32)
+        for g, r in enumerate(reqs):
+            temps[g] = r.temperature
+        nxts = self._sample_host(logits, temps)[:G]
+        for slot, req, nxt, seq in zip(slots, reqs, nxts, seqs):
+            self._started(slot, req, nxt, len(seq))
 
     def _retired_at_admission(self, req: Request) -> bool:
+        """EOS / budget check on the prefill-sampled token."""
         if ((req.eos_id is not None and req.out_tokens[-1] == req.eos_id)
                 or len(req.out_tokens) >= req.max_new_tokens):
             req.done = True
             req.status = "done"
+            if self.pool is not None:
+                self.pool.free(req.rid)
             self._finished_at_admission.append(req)
             return True
         return False
@@ -161,77 +566,374 @@ class Engine:
         take = min(len(free), len(self.queue))
         if not take:
             return
-        reqs = [self.queue.pop(0) for _ in range(take)]
+        popped = [self.queue.pop(0) for _ in range(take)]
         slots = free[:take]
-        if len(free) < self.B:
-            self.stats["continuous_refills"] += take
-        self.stats["admitted"] += take
-        seqs = [np.asarray(r.prompt, np.int32) for r in reqs]
-        self.stats["prefill_tokens"] += sum(len(s) for s in seqs)
-        if (self._attn_only and max(len(s) for s in seqs) <= self.cache_len
-                and len(reqs) > 1):
-            self._prefill_group(slots, reqs, seqs)
-        else:
-            for slot, req, seq in zip(slots, reqs, seqs):
-                self._prefill_into_slot(slot, req, seq)
+        try:
+            # snapshot / page resumes restore directly; paged admissions
+            # take their pages first and defer (back to the queue, in
+            # order) once the pool is exhausted
+            pending = []
+            for k, (slot, req) in enumerate(zip(slots, popped)):
+                if self.pool is not None:
+                    ok, mode = self._paged_reserve(req)
+                    if not ok:
+                        self.queue[:0] = popped[k:]
+                        popped = popped[:k]
+                        break
+                    if mode == "resume":
+                        self._attach_paged_resume(slot, req)
+                        continue
+                if req._resume_pos is not None and req._kv is not None:
+                    self._restore_slot(slot, req)
+                else:
+                    pending.append((slot, req))
+            if len(free) < self.B:
+                self.stats["continuous_refills"] += len(popped)
+            self.stats["admitted"] += len(popped)
+            if not pending:
+                return
+            # sharing admissions take the suffix prefill, the others the
+            # unchanged path
+            shared, normal = [], []
+            for slot, req in pending:
+                seq = self._prefill_tokens(req)
+                skip = self._shared_tokens.get(req.rid, 0)
+                if req._resume_pos is None:
+                    self.stats["prefill_tokens"] += len(seq) - skip
+                    self.stats["prefill_tokens_skipped"] += skip
+                else:
+                    self.stats["reprefill_tokens"] += len(seq) - skip
+                (shared if skip else normal).append((slot, req, seq))
+            if shared:
+                self._prefill_group_shared(
+                    [s for s, _, _ in shared], [r for _, r, _ in shared],
+                    [q for _, _, q in shared])
+            if normal:
+                slots = [s for s, _, _ in normal]
+                reqs = [r for _, r, _ in normal]
+                seqs = [q for _, _, q in normal]
+                if (self._attn_only
+                        and max(len(s) for s in seqs) <= self.cache_len
+                        and (len(reqs) > 1 or self.buckets)):
+                    self._prefill_group(slots, reqs, seqs)
+                else:
+                    for slot, req, seq in zip(slots, reqs, seqs):
+                        self._prefill_into_slot(slot, req, seq)
+            for _, req in pending:
+                self._shared_tokens.pop(req.rid, None)
+        except BaseException:
+            # a raising admission loses no request: what is not slotted
+            # (or retired) goes back to the queue front, and its pages
+            # are released (un-prefilled) or turn cold again (resumes)
+            placed = {id(r) for r in self.slot_req if r is not None}
+            placed |= {id(r) for r in self._finished_at_admission}
+            back = [r for r in popped if id(r) not in placed]
+            for r in popped:
+                self._shared_tokens.pop(r.rid, None)
+            if self.pool is not None:
+                for r in back:
+                    if not self.pool.has_pages(r.rid):
+                        continue
+                    if r._resume_pos is not None:
+                        self.pool.mark_preempted(r.rid)
+                    else:
+                        self.pool.free(r.rid)
+            self.queue[:0] = back
+            raise
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def step(self) -> List[Request]:
-        """Admit queued requests, run one decode step, retire finished.
-        Returns completed requests."""
+        """Admit queued requests, run one decode step (and the slots'
+        speculative rounds), retire finished. Returns completed
+        requests."""
         self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
+        # speculating slots are claimed first: their writes land on
+        # scratch pages, so they skip the write-rule guard below
+        specs = self._collect_specs(active) if active else []
+        if self.pool is not None and active:
+            # decode growth + write rule: the page of this step's write
+            # position must be resident and writable (rc 1, unregistered)
+            # before the step; a slot that cannot get it is preempted
+            # with its pages kept
+            C, L = self.cache_len, self.pool.page_len
+            for i in list(active):
+                req = self.slot_req[i]
+                if not self.pool.ensure_writable(
+                        req.rid, (int(self.pos[i]) % C) // L):
+                    self.queue.insert(0, self.preempt_slot(i))
+                    active.remove(i)
+        if not active and not specs:
             finished = self._finished_at_admission
             self._finished_at_admission = []
+            if self.pool is not None:
+                self.stats["memory"] = self.pool.stats().as_dict()
             return finished
-        last = np.zeros((self.B, 1), np.int32)
-        temps = np.zeros((self.B,), np.float32)
-        act = np.zeros((self.B,), bool)
-        eos = np.full((self.B,), -1, np.int32)
-        remaining = np.zeros((self.B,), np.int32)
-        for i in active:
-            req = self.slot_req[i]
-            last[i, 0] = req.out_tokens[-1]
-            temps[i] = req.temperature
-            act[i] = True
-            eos[i] = -1 if req.eos_id is None else req.eos_id
-            remaining[i] = req.max_new_tokens - len(req.out_tokens)
-
-        dev = self.device
-        logits, self.caches = lm.decode_step(
-            self.params, self.cfg, torch.as_tensor(last, device=dev),
-            torch.as_tensor(self.pos, device=dev), self.caches)
-        act_t = torch.as_tensor(act, device=dev)
-        nxt = sample_tokens(logits[:, 0], torch.as_tensor(temps, device=dev),
-                            self._gen)
-        nxt = torch.where(act_t, nxt, torch.zeros_like(nxt))
-        done = act_t & ((nxt == torch.as_tensor(eos, device=dev))
-                        | (torch.as_tensor(remaining, device=dev) <= 1))
-        nxt = nxt.cpu().numpy()                 # the only per-token
-        done = done.cpu().numpy()               # host traffic
-
+        finished: List[Request] = []
+        if active:
+            last = np.zeros((self.B, 1), np.int32)
+            temps = np.zeros((self.B,), np.float32)
+            act = np.zeros((self.B,), bool)
+            eos = np.full((self.B,), -1, np.int32)
+            remaining = np.zeros((self.B,), np.int32)
+            for i in active:
+                req = self.slot_req[i]
+                last[i, 0] = req.out_tokens[-1]
+                temps[i] = req.temperature
+                act[i] = True
+                eos[i] = -1 if req.eos_id is None else req.eos_id
+                remaining[i] = req.max_new_tokens - len(req.out_tokens)
+            toks, pos = self._t(last), self._t(self.pos)
+            if self.pool is None:
+                logits = self._decode_step(self.params, self.cfg, toks, pos)
+            else:
+                # speculating slots read and write the trash page here
+                bt = self._t(self.pool.block_table(
+                    [r.rid if (r is not None and i in active) else None
+                     for i, r in enumerate(self.slot_req)]))
+                logits = self._paged_decode_step(self.params, self.cfg,
+                                                 toks, pos, bt)
+            act_t = self._t(act, torch.bool)
+            nxt = sample_tokens(logits, self._t(temps, torch.float32),
+                                self._gen)
+            nxt = torch.where(act_t, nxt, torch.zeros_like(nxt))
+            done = act_t & ((nxt == self._t(eos))
+                            | (self._t(remaining) <= 1))
+            nxt = nxt.cpu().numpy()                 # the only per-token
+            done = done.cpu().numpy()               # host traffic
+        else:
+            # every live slot speculates: draw the step's noise all the
+            # same, so later sampled tokens do not depend on the drafter
+            torch.empty((self.B, self.cfg.vocab_size), device=self.device
+                        ).exponential_(1.0, generator=self._gen)
         self.stats["decode_steps"] += 1
         self.stats["generated_tokens"] += len(active)
-        finished: List[Request] = []
         for i in active:
             req = self.slot_req[i]
             self.pos[i] += 1
-            req.out_tokens.append(int(nxt[i]))
+            self._emit(req, int(nxt[i]))
             if bool(done[i]):
                 req.done = True
                 req.status = "done"
+                if self.pool is not None:
+                    self.pool.free(req.rid)
                 finished.append(req)
                 self.slot_req[i] = None
+        if specs:
+            finished += self._run_spec_round(specs)
+        if (self.kv_dedup_every
+                and self.stats["decode_steps"] % self.kv_dedup_every == 0):
+            self.pool.dedup_sweep()
         finished = self._finished_at_admission + finished
         self._finished_at_admission = []
+        if self.pool is not None:
+            self.stats["memory"] = self.pool.stats().as_dict()
         return finished
 
-    def run(self, requests: List[Request]) -> List[Request]:
-        for r in requests:
-            self.submit(r)
-        done: List[Request] = []
-        while len(done) < len(requests):
-            done.extend(self.step())
-        return done
+    # -- speculative decoding ------------------------------------------
+    def _collect_specs(self, active: List[int]
+                       ) -> List[Tuple[int, Request, dict]]:
+        """Claim this step's speculating slots (removed from ``active``):
+        greedy requests (interactive ones only with draft_interactive)
+        with at least two tokens of budget left whose round gets its
+        scratch pages; under pool pressure a slot decodes normally."""
+        if self._draft is None:
+            return []
+        C, L = self.cache_len, self.pool.page_len
+        k = self.draft_k
+        specs = []
+        for i in list(active):
+            req = self.slot_req[i]
+            if req.temperature > 0:
+                continue
+            if req.slo == "interactive" and not self.draft_interactive:
+                continue
+            if req.max_new_tokens - len(req.out_tokens) < 2:
+                continue
+            P = int(self.pos[i])
+            js = sorted({((P + t) % C) // L for t in range(k + 1)})
+            got = self.pool.begin_scratch(req.rid, js)
+            if got is None:
+                self.stats["spec_fallbacks"] += 1
+                continue
+            specs.append((i, req, got))
+            active.remove(i)
+        return specs
+
+    def _run_spec_round(self, specs: List[Tuple[int, Request, dict]]
+                        ) -> List[Request]:
+        """Draft-k / verify-1 over the claimed slots, batched.
+
+        The drafter decodes k steps through block tables whose
+        write-range pages are the round's scratch pages (it reads the
+        real prefix; its K/V lands on scratch only). One target pass
+        over [x0, d1..dk] against the real pages then overwrites the
+        drafter's entries on the scratch pages with target K/V. With a
+        the longest prefix of drafts equal to the target's predictions,
+        t_pred[0..a] are emitted (a+1 target argmaxes); scratch pages
+        inside the accepted range are promoted, the boundary page
+        merges the accepted entries, the rest are discarded. If a merge
+        finds no room, the slot falls back to an exact re-prefill
+        resume."""
+        k = self.draft_k
+        C, L, NB = self.cache_len, self.pool.page_len, self.pool.NB
+        B = self.B
+        finished: List[Request] = []
+        try:
+            slot_rids: List[Optional[int]] = [None] * B
+            for i, req, _ in specs:
+                slot_rids[i] = req.rid
+            dbt = self.pool.block_table(slot_rids)
+            for i, req, got in specs:
+                for j, s in got.items():
+                    dbt[i, j] = s
+            dbt_t = self._t(dbt)
+            cur = np.zeros((B, 1), np.int32)
+            act = np.zeros((B,), bool)
+            for i, req, _ in specs:
+                cur[i, 0] = req.out_tokens[-1]
+                act[i] = True
+            pos_d = self.pos.astype(np.int32).copy()
+            drafts = np.zeros((k, B), np.int32)
+            for t in range(k):
+                nxt = self._draft_decode(self._t(cur), self._t(pos_d),
+                                         dbt_t)
+                drafts[t] = np.where(act, nxt.cpu().numpy(), 0)
+                cur = drafts[t].reshape(B, 1)
+                pos_d += 1
+            toks = np.zeros((B, k + 1), np.int32)
+            poss = np.full((B, k + 1), -1, np.int32)
+            verify_bt = np.full((B, NB), kvmem.ZERO_PAGE, np.int32)
+            dests = np.full((B, NB), kvmem.TRASH_PAGE, np.int32)
+            for i, req, got in specs:
+                P = int(self.pos[i])
+                toks[i, 0] = req.out_tokens[-1]
+                toks[i, 1:] = drafts[:, i]
+                poss[i] = np.arange(P, P + k + 1)
+                for j, p in enumerate(self.pool.alloc.dev_pages(req.rid)):
+                    if p is not None:
+                        verify_bt[i, j] = p
+                for j, s in got.items():
+                    dests[i, j] = s
+            pred = self._paged_spec_verify(
+                self._t(toks), self._t(poss), self._t(verify_bt),
+                self._t(dests))
+            pred = pred.cpu().numpy()               # (B, k+1)
+            for i, req, got in specs:
+                P = int(self.pos[i])
+                a = 0
+                while a < k and drafts[a, i] == pred[i, a]:
+                    a += 1
+                self.stats["spec_rounds"] += 1
+                self.stats["spec_draft_tokens"] += k
+                self.stats["spec_accepted_tokens"] += a
+                done = False
+                for t in range(a + 1):
+                    tok = int(pred[i, t])
+                    self._emit(req, tok)
+                    self.stats["generated_tokens"] += 1
+                    if ((req.eos_id is not None and tok == req.eos_id)
+                            or len(req.out_tokens) >= req.max_new_tokens):
+                        done = True
+                        break
+                if done:
+                    self.pool.discard_scratch(req.rid)
+                    req.done = True
+                    req.status = "done"
+                    self.pool.free(req.rid)
+                    finished.append(req)
+                    self.slot_req[i] = None
+                    continue
+                # keep K/V for positions P..P+a: a real page never holds
+                # entries past the slot's last written position
+                hi = P + a
+                ok = True
+                for j in sorted(got):
+                    wj = [p for p in range(P, P + k + 1)
+                          if (p % C) // L == j]
+                    kj = [p for p in wj if p <= hi]
+                    if not kj:
+                        continue
+                    if len(kj) == len(wj):
+                        self.pool.promote_scratch(req.rid, j)
+                    else:
+                        if not self.pool.ensure_writable(req.rid, j):
+                            ok = False
+                            break
+                        dst = self.pool.alloc.dev_pages(req.rid)[j]
+                        self.pool.merge_scratch_slots(got[j], dst, P, hi)
+                self.pool.discard_scratch(req.rid)
+                if not ok:
+                    self.stats["spec_fallbacks"] += 1
+                    self.queue.insert(
+                        0, self.preempt_slot(i, keep_kv=False))
+                    continue
+                self.pos[i] = P + a + 1
+        finally:
+            # a raise mid-round must not leak scratch pages
+            for _, req, _ in specs:
+                self.pool.discard_scratch(req.rid)
+        return finished
+
+    # -- cancellation --------------------------------------------------
+    def _release_slot(self, slot: int) -> Request:
+        req = self.slot_req[slot]
+        assert req is not None, f"releasing free slot {slot}"
+        if self.pool is not None and self.pool.has_pages(req.rid):
+            self.pool.free(req.rid)
+        self.slot_req[slot] = None
+        return req
+
+    def cancel(self, rid: int) -> Optional[Request]:
+        """Remove a request wherever it is (queued or decoding), with its
+        pages and any KV snapshot. Returns it (status untouched), or None
+        if ``rid`` is not here."""
+        for i, req in enumerate(self.queue):
+            if req.rid == rid:
+                self.queue.pop(i)
+                if self.pool is not None and self.pool.has_pages(rid):
+                    self.pool.free(rid)
+                req._kv = None
+                self.stats["cancelled"] += 1
+                return req
+        for i, req in enumerate(self.slot_req):
+            if req is not None and req.rid == rid:
+                self._release_slot(i)
+                req._kv = None
+                self.stats["cancelled"] += 1
+                return req
+        return None
+
+    def run(self, requests: List[Request],
+            on_token: Optional[Callable[[Request, int], None]] = None
+            ) -> List[Request]:
+        prev = self.on_token
+        if on_token is not None:
+            self.on_token = on_token
+        try:
+            for r in requests:
+                self.submit(r)
+            done: List[Request] = []
+            while len(done) < len(requests):
+                done.extend(self.step())
+            return done
+        finally:
+            self.on_token = prev
+
+    def stream(self, requests: List[Request]
+               ) -> Iterator[Tuple[int, int]]:
+        """Yield ``(rid, token)`` in sampling order as steps retire."""
+        buf: List[Tuple[int, int]] = []
+        prev = self.on_token
+        self.on_token = lambda req, tok: buf.append((req.rid, tok))
+        try:
+            for r in requests:
+                self.submit(r)
+            ndone = 0
+            while ndone < len(requests):
+                ndone += len(self.step())
+                while buf:
+                    yield buf.pop(0)
+        finally:
+            self.on_token = prev

@@ -821,3 +821,138 @@ def test_int8_rows_do_not_depend_on_M(cuda_device, xdt, bk, bn):
         torch.testing.assert_close(part, full[rows], rtol=0, atol=0)
     _close(full, t_int8.int8_gemm_plain(x, qw.q, qw.scale),
            1e-4 if xdt == "float32" else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "int8")])
+@pytest.mark.parametrize("M", [4, 168])
+def test_gemm_plain_gives_equal_bits_twice(cuda_device, xdt, wdt, M):
+    """The plain tile-skip GEMM, the kernel's oracle, adds each column's
+    visits in a fixed order: two calls on the same inputs give the same
+    bits (padded visit lists and an empty column included)."""
+    K, N, bk, bn = 1024, 512, 32, 32
+    w, mask = _masked((K, N), bk, bn, 0.5)
+    mask[:, 3] = False
+    vals, kn, sc = t_pack.build_kernel_weight(w, mask, bk, bn,
+                                              quantize=wdt == "int8")
+    vals, kn, sc = t_pack.pad_block_list(vals, kn, sc, vals.shape[0] + 5)
+    dev = cuda_device
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(
+        dev, getattr(torch, xdt))
+    v = T(vals).to(dev)
+    if wdt != "int8":
+        v = v.to(getattr(torch, wdt))
+    s = None if sc is None else T(sc).to(dev)
+    bias = T(RNG.normal(size=(N,)).astype(np.float32)).to(dev)
+    a = t_gemm.sasp_gemm_plain(x, v, T(kn).to(dev), N, s, bias, "silu")
+    b = t_gemm.sasp_gemm_plain(x, v, T(kn).to(dev), N, s, bias, "silu")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _paged_model(cuda_device, layers=2):
+    """A bf16 packed reduced qwen3-32b (50% of its 32x32 tiles pruned,
+    scope all) on the card."""
+    from repro_torch.launch.serve import build_serving_params
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen3-32b"), layers=layers, d_model=128,
+                vocab=256), compute_dtype="bfloat16")
+    params = lm.init_params(cfg, seed=0, device=cuda_device)
+    # test-only: wo and w2 up to the 0.02 of the other projections
+    for seg in params["segments"]:
+        for slot in seg.values():
+            slot["mixer"]["wo"]["w"].mul_((2 * layers) ** 0.5)
+            slot["ffn"]["w2"]["w"].mul_((2 * layers) ** 0.5)
+    return build_serving_params(params, cfg, path="packed", sparsity=0.5,
+                                scope="all", verbose=False)
+
+
+@pytest.mark.cuda
+def test_paged_streams_equal_contiguous_bit_for_bit(cuda_device):
+    """On the card, the paged engine (an ample pool, and a small one
+    with host spill and a preempt / resume) gives the contiguous
+    engine's streams, and its final logits bit for bit: the same shapes
+    go through the same kernels, only the page gather / scatter
+    differs."""
+    from repro_torch.serve.engine import Engine, Request
+
+    params, cfg = _paged_model(cuda_device)
+    prompts = [RNG.integers(0, 256, size=(n,)).astype(np.int32)
+               for n in (37, 12, 70, 5)]
+
+    def run(**kw):
+        eng = Engine(params, cfg, batch_slots=4, cache_len=128, **kw)
+        done = eng.run([Request(rid=i, prompt=p, max_new_tokens=12)
+                        for i, p in enumerate(prompts)])
+        return {r.rid: r.out_tokens for r in done}, eng
+
+    contig, _ = run()
+    paged, eng = run(kv_pages=16)
+    assert paged == contig
+    assert eng.pool.page_len == 32
+    eng.pool.alloc.check()
+    # one more decode step of both engines from the same state: equal
+    # logits, bit for bit
+    ce = Engine(params, cfg, batch_slots=4, cache_len=128)
+    pe = Engine(params, cfg, batch_slots=4, cache_len=128, kv_pages=16)
+    for e in (ce, pe):
+        for i, p in enumerate(prompts):
+            e.submit(Request(rid=i, prompt=p, max_new_tokens=12))
+        e.step()
+    toks = torch.tensor([[r.out_tokens[-1]] for r in ce.slot_req],
+                        dtype=torch.int32, device=cuda_device)
+    pos = torch.as_tensor(ce.pos, device=cuda_device)
+    for r, p in zip(pe.slot_req, ce.pos):
+        assert pe.pool.ensure_writable(r.rid, int(p) // pe.pool.page_len)
+    bt = torch.as_tensor(pe.pool.block_table([r.rid for r in pe.slot_req]),
+                         device=cuda_device)
+    with torch.no_grad():
+        want = ce._decode_step(params, cfg, toks, pos)
+        got = pe._paged_decode_step(params, cfg, toks, pos, bt)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # a small pool: admission defers, a preempted request spills, faults
+    eng = Engine(params, cfg, batch_slots=2, cache_len=128, kv_pages=6,
+                 kv_host_pages=6)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=12)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    eng.queue.append(eng.preempt_slot(0))
+    while eng.has_work():
+        eng.step()
+        eng.pool.alloc.check()
+    assert {r.rid: r.out_tokens for r in reqs} == contig
+    assert eng.memory_stats().device_used == 0
+
+
+@pytest.mark.cuda
+def test_int8_drafter_runs_the_int8_kernel_forms(cuda_device):
+    """``draft_int8``: the drafter's decode steps launch the int8 forms
+    of both kernels and the verify pass the bf16 ones (counted by weight
+    type); streams equal the engine's without a drafter."""
+    from repro_torch.serve.engine import Engine, Request
+
+    params, cfg = _paged_model(cuda_device)
+    prompt = RNG.integers(0, 256, size=(40,)).astype(np.int32)
+
+    def run(**kw):
+        eng = Engine(params, cfg, batch_slots=2, cache_len=128, kv_pages=16,
+                     **kw)
+        done = eng.run([Request(rid=i, prompt=prompt[:30 + 5 * i],
+                                max_new_tokens=16) for i in range(2)])
+        return {r.rid: r.out_tokens for r in done}, eng
+
+    off, _ = run()
+    g0, f0 = dict(t_gemm.weight_launches), dict(t_ffn.weight_launches)
+    on, eng = run(draft_sparsity=0.75, draft_int8=True, draft_k=4)
+    assert on == off and eng.stats["spec_rounds"] > 0
+    for mod, before in ((t_gemm, g0), (t_ffn, f0)):
+        for wt in ("int8", "bfloat16"):
+            assert mod.weight_launches.get(wt, 0) > before.get(wt, 0), \
+                (mod.__name__, wt, mod.weight_launches)
+    eng.pool.alloc.check()
