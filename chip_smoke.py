@@ -62,6 +62,38 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 allocator's check() after every step and leak no page.
                 Times beside the contiguous runs; launches by kernel,
                 variant and weight type (the drafter's int8 forms apart).
+                At (c)'s and (d)'s first near-tie (or token 1 of a
+                request, if none) the step is run both ways from the
+                same KV, sequential decode (1 row) and the verify pass
+                (k+1 rows), and the first op whose bits differ is
+                printed (projections, attention output, norms, FFN,
+                final norm, lm-head).
+  3d. sched   — the same packed model (4 layers, bf16, cache 256) behind
+                the serving tier: (a) ShardedScheduler(2 ranks x 4
+                slots, one params tree), EDF, aging 0.05, preemption (KV
+                kept), 16 of the launcher's prompts, every second one
+                interactive with 8 new tokens (submitted after two
+                steps, so they preempt), the others batch with 16, one
+                batch request with an EOS that fires mid-decode; run
+                traced and untraced (streams and every decode step's
+                logits bit for bit equal), then the drain baseline (more
+                decode steps); (b) (a) with rank 0's 4th Engine.step
+                raising: every request completes on rank 1, then
+                revive_rank(0) serves one more; (c) ClusterFrontend over
+                2 in-process hosts (1 rank, paged sharing pools of 18 +
+                8 host pages) on 3c (b)'s 8 requests, chaos
+                kill:0@4,seed:3, retries 2: no token twice, drain clean,
+                pools checked, the Chrome trace written to
+                build/chip_smoke/frontend_trace.json and read back; (d)
+                2 host_worker processes (packed, full width, 1 layer)
+                serving 6 requests, host 0 SIGKILLed mid-load. Every run
+                is held to each request alone through
+                Engine(batch_slots=1) (3c's near-tie rule); (c) to an
+                undisturbed 1-host run and (d) to a 1-worker run too.
+                Prints tok/s, decode ms/step per rank, TTFT p50/p95 per
+                class, deadline attainment, preemptions, refills,
+                requeues, retries, the scheduler's own host ms per step
+                and launches by kernel and variant.
   4. profile  — the prefill step and three decode steps of the same
                 model under torch.profiler: device time by kernel and
                 the device's busy share of the wall time (traces in
@@ -580,17 +612,11 @@ def flash_checks(torch, timer):
 
 
 def spread_output_scales(params, cfg):
-    """Smoke-only weights: wo and w2 times sqrt(2 L), which puts every
-    projection at 0.02. With the reference's init (wo and w2 at
-    0.02 / sqrt(2 L)) tile L1 separates by scale so sharply that 50%
-    global pruning removes every tile of wo and w2 first, and the kernels
-    would run on empty visit lists."""
-    f = max(1.0, (2 * cfg.num_layers) ** 0.5)
-    for seg in params["segments"]:
-        for slot in seg.values():
-            slot["mixer"]["wo"]["w"].mul_(f)
-            slot["ffn"]["w2"]["w"].mul_(f)
-    return params
+    """Smoke-only weights: wo and w2 times sqrt(2 L), so that 50% global
+    pruning does not remove every tile of wo and w2 first (the
+    ``host_worker`` spec's option of the same name)."""
+    from repro_torch.serve.host_worker import spread_output_scales as f
+    return f(params, cfg)
 
 
 def main_config(layers: int, compute: str):
@@ -804,27 +830,28 @@ def _step_times(steps):
                 tok_s=toks / (sum(ms for ms, _, _ in steps) / 1e3))
 
 
-def _greedy_equal(name, got, want, margins):
-    """Streams equal the contiguous run's, or first diverge where its
-    top-2 logit margin is under 1e-2 of the logit scale (printed)."""
+def _greedy_equal(name, got, want, margins, ref="the contiguous run"):
+    """Streams equal ``ref``'s (``want``), or first diverge where the
+    top-2 logit margin of the run that recorded ``margins`` is under 1e-2
+    of the logit scale (printed)."""
     ties = []
-    for rid, ref in want.items():
+    for rid, want_s in want.items():
         out = got[rid]
-        t = next((i for i, (a, b) in enumerate(zip(out, ref)) if a != b),
-                 None)
+        t = next((i for i, (a, b) in enumerate(zip(out, want_s))
+                  if a != b), None)
         if t is None:
-            check(len(out) == len(ref), f"{name}: request {rid} emitted "
-                  f"{len(out)} tokens, the contiguous run {len(ref)}")
+            check(len(out) == len(want_s), f"{name}: request {rid} emitted "
+                  f"{len(out)} tokens, {ref} {len(want_s)}")
             continue
         margin, scale, top1, top2 = margins[(rid, t)]
         log(f"  {name}: request {rid} diverges at token {t}: {out[t]} "
-            f"against the contiguous run's {ref[t]}; its top-2 margin "
+            f"against {ref}'s {want_s[t]}; its top-2 margin "
             f"there {margin:.4g} (tokens {top1}, {top2}), logit scale "
             f"{scale:.4g}")
         check(margin < 1e-2 * scale, f"{name}: request {rid} diverges at "
-              f"token {t} where the contiguous run is no near-tie")
+              f"token {t} where {ref} is no near-tie")
         ties.append(dict(rid=rid, token=t, margin=margin, scale=scale,
-                         got=out[t], want=ref[t]))
+                         got=out[t], want=want_s[t]))
     return ties
 
 
@@ -954,9 +981,680 @@ def paged_phase(torch, params, cfg, counters):
         if name == "d":
             check(st["spec_accepted_tokens"] > 0,
                   "(d) the target's own weights drafted, none accepted")
+        if name in ("c", "d"):
+            res["near_tie_op"] = _near_tie_probe(
+                torch, params, cfg, f"({name})", ties,
+                shared_prefix_requests(cfg.vocab_size), want)
         del eng
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3c, (c) and (d): which op first differs at a near-tie
+# ---------------------------------------------------------------------------
+
+
+def _sync(torch):
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def locate_near_tie_op(torch, params, cfg, prompt, stream, t, k):
+    """At token ``t`` of ``stream`` (``prompt``'s greedy stream), run the
+    same step both ways from the same KV: sequential decode (one row:
+    token t-1 at position P = len(prompt) + t - 1) and the speculative
+    verify pass (k+1 rows from P, ``prefill_with_past``). The past is a
+    solo engine's cache after it emitted t tokens. Every projection
+    (wq, wk, wv, wo), each layer's attention output (wo's input), each
+    norm, each FFN, the final norm and the lm-head product are recorded
+    in call order; returns the first whose row P differs, bit for bit,
+    with the count of differing ops."""
+    import numpy as np
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, Request
+
+    t = max(1, t)               # the verify pass emits tokens 1 on
+    eng = Engine(params, cfg, batch_slots=1, cache_len=PAGED["cache_len"])
+    eng.run([Request(rid=0, prompt=np.asarray(prompt, np.int32),
+                     max_new_tokens=t)])
+    P = len(prompt) + t - 1
+    past = eng.caches
+
+    def clone():
+        from repro_torch.models.attention import cache_map
+        return tuple({n: cache_map(lambda a: a.clone(), c)
+                      for n, c in seg.items()} for seg in past)
+
+    rec = []
+    orig = (attn_mod._proj, lm.rmsnorm_apply, ffn_mod.ffn_apply,
+            lm.matmul_f32)
+    count = {"layer": 0, "norm": 0}
+
+    def proj(p, name, x):
+        if name == "wo":
+            rec.append((f"L{count['layer']}.attention", x))
+        y = orig[0](p, name, x)
+        rec.append((f"L{count['layer']}.{name}", y))
+        return y
+
+    def norm(p, x, *, eps):
+        y = orig[1](p, x, eps=eps)
+        count["norm"] += 1
+        rec.append(("final_norm" if count["layer"] == cfg.num_layers
+                    else f"L{count['layer']}.norm{count['norm']}", y))
+        return y
+
+    def ffn(p, c, x):
+        y = orig[2](p, c, x)
+        rec.append((f"L{count['layer']}.ffn", y))
+        count["layer"] += 1
+        count["norm"] = 0
+        return y
+
+    def head(a, b):
+        y = orig[3](a, b)
+        rec.append(("lm_head", y))
+        return y
+
+    def run(fn):
+        rec.clear()
+        count.update(layer=0, norm=0)
+        attn_mod._proj, lm.rmsnorm_apply = proj, norm
+        ffn_mod.ffn_apply, lm.matmul_f32 = ffn, head
+        try:
+            with torch.no_grad():
+                fn()
+        finally:
+            (attn_mod._proj, lm.rmsnorm_apply, ffn_mod.ffn_apply,
+             lm.matmul_f32) = orig
+        return [(n, v[0, 0].clone()) for n, v in rec]
+
+    dev = params["embed"]["emb"].device
+    toks = [stream[t - 1]] + list(stream[t:t + k])
+    toks += [stream[t - 1]] * (k + 1 - len(toks))
+    dec = run(lambda: lm.decode_step(
+        params, cfg, torch.tensor([[stream[t - 1]]], dtype=torch.int32,
+                                  device=dev),
+        torch.tensor([P], dtype=torch.int32, device=dev), clone()))
+    ver = run(lambda: lm.prefill_with_past(
+        params, cfg, torch.tensor([toks], dtype=torch.int32, device=dev),
+        torch.arange(P, P + k + 1, dtype=torch.int32,
+                     device=dev)[None], clone(), all_logits=True))
+    if [n for n, _ in dec] != [n for n, _ in ver]:
+        return dict(error="the two passes recorded different ops")
+    diff = [(n, float((a.float() - b.float()).abs().max()))
+            for (n, a), (_, b) in zip(dec, ver) if not torch.equal(a, b)]
+    dl, vl = dec[-1][1].float(), ver[-1][1].float()
+    return dict(rid_token=t, position=P, ops=len(dec),
+                first_differing=diff[0][0] if diff else None,
+                first_max_abs_diff=diff[0][1] if diff else 0.0,
+                differing=len(diff), names=[n for n, _ in diff][:8],
+                logits_max_abs_diff=float((dl - vl).abs().max()),
+                argmax_decode=int(dl.argmax()), argmax_verify=int(vl.argmax()))
+
+
+def _near_tie_probe(torch, params, cfg, name, ties, reqs, want):
+    """Locate the op at ``name``'s first near-tie, or at token 1 of
+    request 0 when the run diverged nowhere."""
+    first = min(ties, key=lambda d: (d["rid"], d["token"])) if ties \
+        else dict(rid=reqs[0].rid, token=1)
+    req = next(r for r in reqs if r.rid == first["rid"])
+    tok = max(1, first["token"])
+    out = locate_near_tie_op(torch, params, cfg, req.prompt,
+                             want[req.rid], tok, PAGED["draft_k"])
+    where = "its first near-tie" if ties else "no divergence; probed"
+    log(f"  {name} near-tie op probe ({where}: request {req.rid}, token "
+        f"{first['token']}): decode (1 row) vs verify ({PAGED['draft_k'] + 1}"
+        f" rows) from the same KV: first op whose bits differ "
+        f"{out.get('first_differing')} (max |diff| "
+        f"{out.get('first_max_abs_diff', 0):.3g}); {out.get('differing')} "
+        f"of {out.get('ops')} ops differ {out.get('names')}; logits max "
+        f"|diff| {out.get('logits_max_abs_diff', 0):.3g}, argmax "
+        f"{out.get('argmax_decode')} vs {out.get('argmax_verify')}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the QoS scheduler, rank failure, the cluster frontend
+# ---------------------------------------------------------------------------
+
+SCHED = dict(cache_len=256, ranks=2, slots=4, requests=16, interactive_new=8,
+             batch_new=16, aging=0.05, fault_step=4, subprocess_layers=1,
+             subprocess_requests=6, subprocess_new=12, kill_tick=3)
+
+
+def _solo_oracle(torch, params, cfg, reqs):
+    """Each request alone through ``Engine(batch_slots=1)``: streams, and
+    the top-2 margins at every token (``_recording``)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    streams, margins = {}, {}
+    for r in reqs:
+        eng = Engine(params, cfg, batch_slots=1, cache_len=SCHED["cache_len"])
+        rec = _recording(eng)
+        done = eng.run([Request(rid=r.rid, prompt=r.prompt,
+                                max_new_tokens=r.max_new_tokens,
+                                eos_id=r.eos_id)])
+        streams[r.rid] = list(done[0].out_tokens)
+        margins.update(rec["margins"])
+    _sync(torch)
+    return streams, margins
+
+
+def qos_requests(vocab: int):
+    """Run (a)'s traffic: the launcher's 16 prompts (seed 0); every
+    second request interactive with 8 new tokens, the others batch with
+    16."""
+    from repro_torch.launch.serve import synthetic_requests
+
+    reqs = synthetic_requests(SCHED["requests"], vocab, SCHED["batch_new"],
+                              interactive_every=2)
+    for r in reqs:
+        if r.slo == "interactive":
+            r.max_new_tokens = SCHED["interactive_new"]
+    return reqs
+
+
+def _fresh_req(reqs):
+    """Copies of ``reqs`` with nothing emitted (same prompts, budgets,
+    classes and EOS)."""
+    from repro_torch.serve.engine import Request
+    return [Request(rid=r.rid, prompt=r.prompt,
+                    max_new_tokens=r.max_new_tokens, slo=r.slo,
+                    eos_id=r.eos_id) for r in reqs]
+
+
+def _pick_eos(reqs, solo):
+    """One batch request gets an EOS that fires mid-decode: the first
+    token of its solo stream, at index 4 or later (index 1 or later if
+    none), that did not occur before. Fails if no batch stream has one."""
+    for lo in (4, 1):
+        for r in reqs:
+            s = solo[r.rid]
+            if r.slo != "batch":
+                continue
+            at = next((i for i in range(lo, len(s) - 1)
+                       if s[i] not in s[:i]), None)
+            if at is not None:
+                r.eos_id = int(s[at])
+                solo[r.rid] = s[:at + 1]
+                return r.rid, at
+    fail("(a) no batch request's solo stream has a fresh token after "
+         "position 0: no EOS can fire mid-decode")
+
+
+def _timed_engines(torch, sched, log_ms, fault_rank=None):
+    """Wrap every rank's ``Engine.step``: the device is synchronised at
+    its end and (rank, ms, admitted) noted; ``fault_rank``'s 4th step
+    raises a Python RuntimeError instead."""
+    for eng in sched.shards:
+        inner, calls = eng.step, {"n": 0}
+
+        def step(eng=eng, inner=inner, calls=calls):
+            calls["n"] += 1
+            if eng.rank == fault_rank and calls["n"] == SCHED["fault_step"]:
+                raise RuntimeError("injected rank fault (phase 3d (b))")
+            adm = eng.stats["admitted"]
+            t = time.perf_counter()
+            try:
+                return inner()
+            finally:
+                _sync(torch)
+                log_ms.append((eng.rank, (time.perf_counter() - t) * 1e3,
+                               eng.stats["admitted"] - adm))
+        eng.step = step
+
+
+def _timed_scheduler(torch, sched, rows):
+    """Wrap a host's ``ShardedScheduler.step`` (and its engines', as
+    ``_timed_engines``): ``rows`` gets (step ms, its engines' ms) per step;
+    returns the engine rows."""
+    eng_ms = []
+    _timed_engines(torch, sched, eng_ms)
+    inner = sched.step
+
+    def step():
+        k = len(eng_ms)
+        _sync(torch)
+        t = time.perf_counter()
+        out = inner()
+        _sync(torch)
+        rows.append(((time.perf_counter() - t) * 1e3,
+                     sum(ms for _, ms, _ in eng_ms[k:])))
+        return out
+    sched.step = step
+    return eng_ms
+
+
+def _decode_ms(eng_ms):
+    """Mean ms of engine steps that admitted nothing, by rank."""
+    dec = {}
+    for rank, ms, adm in eng_ms:
+        if not adm:
+            dec.setdefault(rank, []).append(ms)
+    return {r: sum(v) / len(v) for r, v in sorted(dec.items())}
+
+
+def _attainment(reqs):
+    """Share of each class's requests retired by their absolute
+    deadline."""
+    return {c: sum(1 for r in reqs if r.slo == c and r.t_done is not None
+                   and r.t_deadline is not None and r.t_done <= r.t_deadline)
+            / sum(1 for r in reqs if r.slo == c)
+            for c in sorted({r.slo for r in reqs})}
+
+
+def _drive_qos(torch, sched, reqs, fault_rank=None):
+    """Batch requests first, two scheduler steps, then the interactive
+    ones (so that they find every slot busy and preempt), then steps to
+    the end. Returns (finished, per-step rows, engine rows)."""
+    eng_ms, rows, finished = [], [], []
+    _timed_engines(torch, sched, eng_ms, fault_rank)
+    later = [r for r in reqs if r.slo == "interactive"]
+    for r in reqs:
+        if r.slo != "interactive":
+            check(sched.submit(r), f"request {r.rid} rejected")
+    n = 0
+    while later or sched.has_work():
+        if n == 2:
+            for r in later:
+                check(sched.submit(r), f"request {r.rid} rejected")
+            later = []
+        k = len(eng_ms)
+        _sync(torch)
+        t = time.perf_counter()
+        done = sched.step()
+        _sync(torch)
+        wall = (time.perf_counter() - t) * 1e3
+        finished += done
+        rows.append((wall, sum(ms for _, ms, _ in eng_ms[k:]),
+                     sum(len(r.out_tokens) for r in reqs)))
+        n += 1
+    return finished, rows, eng_ms
+
+
+def _qos_report(name, sched, reqs, rows, eng_ms):
+    """tok/s, decode ms/step per rank, TTFT per class (the Telemetry
+    histogram's bucket bounds, and nearest-rank from the requests'
+    stamps), deadline attainment, preemptions / refills / requeues, the
+    scheduler's own host ms per step."""
+    from repro_torch.serve.telemetry import pcts_ms
+
+    st = sched.stats()
+    wall = sum(w for w, _, _ in rows)
+    toks = sum(len(r.out_tokens) for r in reqs)
+    dec_ms = _decode_ms(eng_ms)
+    own = [w - e for w, e, _ in rows]
+    att = _attainment(reqs)
+    per = st["per_rank"]
+    exact = {}
+    for c in ("interactive", "batch"):
+        lat = sorted(r.t_first - r.t_submit for r in reqs
+                     if r.slo == c and r.t_first is not None)
+        if lat:
+            exact[c] = pcts_ms(lat)
+    res = dict(steps=len(rows), tok_s=toks / (wall / 1e3),
+               decode_ms_per_step_by_rank=dec_ms,
+               sched_host_ms_per_step=sum(own) / len(own),
+               ttft=st["ttft"], ttft_exact_p50_p95_ms=exact,
+               deadline_attainment=att,
+               preemptions=st["preemptions"],
+               resumes=sum(p["resumes"] for p in per),
+               refills=sum(p["continuous_refills"] for p in per),
+               requeued=st["requeued"],
+               decode_steps=sum(p["decode_steps"] for p in per),
+               admitted_by_rank=[p["admitted"] for p in per])
+    ttft = {c: f"{d['p50_ms']:.1f}/{d['p95_ms']:.1f}"
+            for c, d in sorted(st["ttft"].items())}
+    log(f"  {name}: {len(rows)} steps, {res['tok_s']:.1f} tok/s; decode "
+        f"ms/step by rank { {r: round(v, 2) for r, v in dec_ms.items()} }; "
+        f"TTFT p50/p95 ms {ttft} (histogram bounds; from the stamps "
+        f"{ {c: tuple(round(x, 1) for x in v) for c, v in exact.items()} }"
+        f"); deadline attainment {att}; preemptions "
+        f"{res['preemptions']}, resumes {res['resumes']}, refills "
+        f"{res['refills']}, requeues {res['requeued']}; scheduler host "
+        f"{res['sched_host_ms_per_step']:.3f} ms/step beyond its engines'")
+    return res
+
+
+def sched_phase(torch, params, cfg, counters):
+    """Runs (a) to (d) on the served packed model."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.scheduler import SchedulerConfig, ShardedScheduler
+    from repro_torch.serve.telemetry import Telemetry
+
+    t_phase = time.time()
+    out = {}
+    reqs = qos_requests(cfg.vocab_size)
+    solo, margins = _solo_oracle(torch, params, cfg, reqs)
+    eos_rid, eos_at = _pick_eos(reqs, solo)
+    log(f"  solo oracle (Engine(batch_slots=1), each request alone): "
+        f"{len(reqs)} requests; request {eos_rid} gets EOS "
+        f"{reqs[eos_rid].eos_id} at its token {eos_at}")
+
+    def sched_cfg(**kw):
+        return SchedulerConfig(slots_per_rank=SCHED["slots"],
+                               cache_len=SCHED["cache_len"], policy="edf",
+                               aging=SCHED["aging"], preempt=True,
+                               preempt_mode="kv", **kw)
+
+    # (a) traced and untraced, bit for bit; then the drain baseline
+    runs = {}
+    for trace in (True, False):
+        sched = ShardedScheduler(params, cfg, ranks=SCHED["ranks"],
+                                 sched=sched_cfg(),
+                                 telemetry=Telemetry(trace=trace))
+        recs = [_recording(e) for e in sched.shards]
+        batch = _fresh_req(reqs)
+        reset(counters)
+        done, rows, eng_ms = _drive_qos(torch, sched, batch)
+        launches = _launch_counts(counters)
+        runs[trace] = dict(sched=sched, recs=recs, reqs=batch,
+                           streams={r.rid: list(r.out_tokens) for r in done},
+                           report=_qos_report(
+                               f"(a) {'traced' if trace else 'untraced'}",
+                               sched, batch, rows, eng_ms),
+                           launches=launches)
+    a, u = runs[True], runs[False]
+    check(len(a["streams"]) == len(reqs), "(a) not every request completed")
+    ties = _greedy_equal("(a)", a["streams"], solo, margins,
+                         ref="the solo oracle")
+    check(a["streams"] == u["streams"],
+          "(a) streams differ with tracing on and off")
+    same = all(len(x["steps"]) == len(y["steps"]) and all(
+        torch.equal(p, q) for p, q in zip(x["steps"], y["steps"]))
+        for x, y in zip(a["recs"], u["recs"]))
+    check(same, "(a) decode logits differ with tracing on and off")
+    rep = a["report"]
+    check(all(n > 0 for n in rep["admitted_by_rank"]),
+          f"(a) a rank admitted nothing: {rep['admitted_by_rank']}")
+    check(rep["preemptions"] >= 1 and rep["resumes"] >= 1,
+          "(a) no preemption and resume")
+    check(rep["refills"] >= 1, "(a) no continuous refill")
+    for n in MAIN_PATH:
+        check(a["launches"][n]["total"] > 0, f"(a) never launched {n}")
+    want_v = {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"}
+    for n, v in a["launches"].items():
+        check(set(v["variant"]) == {want_v[n]},
+              f"(a) {n} ran {v['variant']}, not only {want_v[n]}")
+    names = {e["name"] for e in a["sched"].telemetry.tracer.events()}
+    check({"submit", "admit", "prefill", "token", "preempt", "resume"}
+          <= names, f"(a) trace lacks events: {sorted(names)}")
+    log(f"  (a) streams equal the solo oracle ({len(ties)} near-ties), "
+        f"bit for bit equal with tracing off (streams and "
+        f"{sum(len(x['steps']) for x in a['recs'])} decode steps' logits); "
+        f"launches {a['launches']}")
+    drain = ShardedScheduler(params, cfg, ranks=SCHED["ranks"],
+                             sched=sched_cfg(drain=True))
+    batch = _fresh_req(reqs)
+    d_done, d_rows, d_ms = _drive_qos(torch, drain, batch)
+    d_rep = _qos_report("(a) drain baseline", drain, batch, d_rows, d_ms)
+    _greedy_equal("(a) drain", {r.rid: list(r.out_tokens) for r in d_done},
+                  solo, margins, ref="the solo oracle")
+    check(d_rep["decode_steps"] > rep["decode_steps"],
+          f"(a) drain took {d_rep['decode_steps']} decode steps, continuous "
+          f"{rep['decode_steps']}")
+    out["a"] = dict(traced=rep, untraced=u["report"], drain=d_rep,
+                    launches=a["launches"], near_ties=ties,
+                    bit_identical_steps=sum(len(x["steps"])
+                                            for x in a["recs"]))
+    del runs, a, u, drain
+
+    # (b) rank 0's 4th Engine.step raises; then revive_rank(0)
+    sched = ShardedScheduler(params, cfg, ranks=SCHED["ranks"],
+                             sched=sched_cfg())
+    batch = _fresh_req(reqs)
+    reset(counters)
+    done, rows, eng_ms = _drive_qos(torch, sched, batch, fault_rank=0)
+    b_launches = _launch_counts(counters)
+    b_rep = _qos_report("(b) rank 0 fails at its step "
+                        f"{SCHED['fault_step']}", sched, batch, rows, eng_ms)
+    check(sched.shards[0].dead and len(done) == len(reqs)
+          and all(r.status == "done" for r in batch),
+          "(b) not every request completed after the rank fault")
+    check(all(r.rank == 1 for r in done), "(b) a request completed on the "
+          f"dead rank: {[(r.rid, r.rank) for r in done]}")
+    check(b_rep["requeued"] >= 1, "(b) nothing requeued")
+    b_ties = _greedy_equal("(b)", {r.rid: list(r.out_tokens) for r in done},
+                           solo, margins, ref="the solo oracle")
+    sched.revive_rank(0)
+    extra = qos_requests(cfg.vocab_size)[0]
+    extra.rid = 100
+    x_solo, x_margins = _solo_oracle(torch, params, cfg, [extra])
+    got = sched.run([_fresh_req([extra])[0]])
+    check(len(got) == 1 and got[0].rank == 0,
+          "(b) the revived rank 0 did not serve the next request")
+    _greedy_equal("(b) revived", {100: list(got[0].out_tokens)}, x_solo,
+                  x_margins, ref="the solo oracle")
+    log(f"  (b) every request completed on rank 1 ({b_rep['requeued']} "
+        f"requeued), streams equal the solo oracle ({len(b_ties)} "
+        f"near-ties); revive_rank(0) served request 100 on rank 0; "
+        f"launches {b_launches}")
+    out["b"] = dict(b_rep, near_ties=b_ties, launches=b_launches)
+    del sched
+
+    out["c"] = _frontend_run(torch, params, cfg, counters)
+    out["d"] = _subprocess_run(torch)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 3d: {out['seconds']:.1f} s")
+    return out
+
+
+def _frontend_run(torch, params, cfg, counters):
+    """(c): two in-process hosts (1 rank each, paged KV with sharing),
+    chaos kill:0@4,seed:3, retries 2, against an undisturbed 1-host run
+    and the solo oracle."""
+    from repro_torch.serve.chaos import ChaosMonkey, parse_chaos_spec
+    from repro_torch.serve.frontend import (ClusterFrontend, FrontendConfig,
+                                            make_local_hosts)
+    from repro_torch.serve.scheduler import SchedulerConfig
+
+    reqs = shared_prefix_requests(cfg.vocab_size)
+    solo, margins = _solo_oracle(torch, params, cfg, reqs)
+    sc = SchedulerConfig(slots_per_rank=SCHED["slots"],
+                         cache_len=SCHED["cache_len"],
+                         kv_pages=PAGED["shared_pages"],
+                         kv_host_pages=PAGED["host_pages"], kv_share=True)
+
+    def serve(n_hosts, chaos):
+        hosts = make_local_hosts(params, cfg, hosts=n_hosts, sched=sc,
+                                 chaos=chaos, trace=True)
+        delivered = {}
+        fe = ClusterFrontend(hosts, FrontendConfig(retries=2,
+                                                   backoff_base=0.001),
+                             on_token=lambda r, t: delivered.setdefault(
+                                 r.rid, []).append(t))
+        rows = {h.host_id: [] for h in hosts}
+        eng_ms = {h.host_id: _timed_scheduler(torch, h.sched, rows[h.host_id])
+                  for h in hosts}
+        batch = _fresh_req(reqs)
+        _sync(torch)
+        t = time.perf_counter()
+        done = fe.run(batch)
+        drained, clean = fe.drain()
+        _sync(torch)
+        wall = time.perf_counter() - t
+        return fe, hosts, done + drained, clean, delivered, wall, dict(
+            rows=rows, eng_ms=eng_ms, reqs=batch)
+
+    fe1, _, done1, _, _, _, _ = serve(1, None)
+    one = {r.rid: list(r.out_tokens) for r in done1}
+    fe1.close()
+    chaos = parse_chaos_spec("kill:0@4,seed:3")
+    reset(counters)
+    fe, hosts, done, clean, delivered, wall, tm = serve(2,
+                                                        ChaosMonkey(chaos))
+    launches = _launch_counts(counters)
+    got = {r.rid: list(r.out_tokens) for r in done}
+    st = fe.stats()
+    check(len(got) == len(reqs) and not fe.failed and not fe.rejected,
+          f"(c) not every request completed: {st}")
+    check(fe.n_retries >= 1 and hosts[0].killed, "(c) no kill and retry")
+    check(delivered == got, "(c) a token was streamed twice or lost")
+    check(clean, "(c) drain was not clean")
+    ties = _greedy_equal("(c)", got, solo, margins, ref="the solo oracle")
+    ties1 = _greedy_equal("(c) undisturbed 1 host", one, solo, margins,
+                          ref="the solo oracle")
+    _greedy_equal("(c) vs the undisturbed 1-host run", got, one, margins,
+                  ref="the 1-host run")
+    mems = [_no_leak(f"(c) host {h.host_id}", h.sched.shards[0])
+            for h in hosts]
+    path = os.path.join(OUT_DIR, "frontend_trace.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    n_ev = fe.write_trace(path)
+    with open(path, encoding="utf-8") as fh:
+        trace = json.load(fh)
+    names = {e["name"] for e in trace["traceEvents"]}
+    check(len(trace["traceEvents"]) == n_ev and {
+        "submit", "prefill", "token", "host_kill", "host_dead", "retry"}
+        <= names, f"(c) trace lacks events: {sorted(names)}")
+    text, host_text = fe.prometheus(), hosts[1].telemetry.prometheus()
+    check('serve_admitted_total{host="1"}' in text
+          and "serve_frontend_retries_total" in text
+          and 'serve_admitted_total{rank="0"}' in host_text
+          and 'serve_kv_device_used{rank="0"}' in host_text,
+          "(c) Prometheus text lacks per-rank counters or serve_kv_* gauges")
+    for n in MAIN_PATH:
+        check(launches[n]["total"] > 0, f"(c) never launched {n}")
+    toks = sum(len(v) for v in got.values())
+    ttft = {c: f"{d['p50_ms']:.1f}/{d['p95_ms']:.1f}"
+            for c, d in sorted(st["ttft"].items())}
+    dec_ms = {h: round(_decode_ms(m).get(0, float("nan")), 2)
+              for h, m in tm["eng_ms"].items()}
+    own = [w - e for rows in tm["rows"].values() for w, e in rows]
+    per = [h.sched.stats()["per_rank"][0] for h in hosts]
+    res = dict(tok_s=toks / wall, wall_s=wall, retries=fe.n_retries,
+               deduped=fe.n_deduped, ttft=st["ttft"], near_ties=ties,
+               near_ties_one_host=ties1, trace_events=n_ev,
+               memory=mems, launches=launches,
+               decode_ms_per_step_by_host=dec_ms,
+               sched_host_ms_per_step=sum(own) / max(1, len(own)),
+               deadline_attainment=_attainment(tm["reqs"]),
+               preemptions=sum(p["preemptions"] for p in per),
+               refills=sum(p["continuous_refills"] for p in per),
+               requeued=sum(h.sched.n_requeued for h in hosts),
+               steps=[h.steps for h in hosts])
+    log(f"  (c) 2 hosts, kill:0@4: {len(got)} done, {fe.n_retries} retries, "
+        f"{fe.n_deduped} duplicate tokens dropped, drain clean; "
+        f"{res['tok_s']:.1f} tok/s over {wall:.2f} s; decode ms/step by "
+        f"host {dec_ms}; "
+        f"TTFT p50/p95 ms {ttft}; deadline attainment "
+        f"{res['deadline_attainment']}; preemptions {res['preemptions']}, "
+        f"refills {res['refills']}, requeues {res['requeued']}; scheduler "
+        f"host {res['sched_host_ms_per_step']:.3f} ms/step beyond its "
+        f"engines'; host steps {res['steps']}; trace {n_ev} events -> "
+        f"{os.path.relpath(path, ROOT)}; pools checked, no page leaked; "
+        f"near-ties {len(ties)} (1 host: {len(ties1)}); launches {launches}")
+    fe.close()
+    return res
+
+
+def subprocess_spec():
+    """The host_worker spec of (d): qwen3-32b packed at full width, 1
+    layer, bf16, seed 0, wo / w2 rescaled, 50% tiles, scope all."""
+    return dict(device=DEVICE, reduce=False,
+                layers=SCHED["subprocess_layers"], param_seed=0,
+                spread_output_scales=True, sasp=SPARSITY, path="packed",
+                scope="all", compute="bfloat16", slots=SCHED["slots"],
+                cache_len=SCHED["cache_len"])
+
+
+def _subprocess_run(torch):
+    """(d): two ``host_worker`` processes on the card (packed, full width,
+    1 layer, bf16, seed 0), host 0 SIGKILLed mid-load, against an
+    undisturbed 1-worker run and the solo oracle on the same weights
+    built in this process."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.frontend import (ClusterFrontend, FrontendConfig,
+                                            SubprocessHost)
+    from repro_torch.serve.host_worker import build_model
+
+    spec = subprocess_spec()
+    params, cfg = build_model(spec)
+    reqs = synthetic_requests(SCHED["subprocess_requests"], cfg.vocab_size,
+                              SCHED["subprocess_new"])
+    solo, margins = _solo_oracle(torch, params, cfg, reqs)
+    del params
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    ref_host = SubprocessHost(0, spec=dict(spec, seed=0))
+    start_s = time.perf_counter() - t
+    ref_fe = ClusterFrontend([ref_host], FrontendConfig())
+    try:
+        one = {r.rid: list(r.out_tokens)
+               for r in ref_fe.run(_fresh_req(reqs))}
+    finally:
+        ref_fe.close()
+    hosts = [SubprocessHost(0, spec=dict(spec, seed=0)),
+             SubprocessHost(1, spec=dict(spec, seed=1))]
+    step_ms = {h.host_id: [] for h in hosts}
+    for h in hosts:
+        inner = h.step
+
+        def step(h=h, inner=inner):
+            t = time.perf_counter()
+            out = inner()
+            step_ms[h.host_id].append((time.perf_counter() - t) * 1e3)
+            return out
+        h.step = step
+    delivered, killed = {}, []
+    fe = ClusterFrontend(hosts, FrontendConfig(retries=2,
+                                               backoff_base=0.001),
+                         on_token=lambda r, tk: delivered.setdefault(
+                             r.rid, []).append(tk))
+
+    def on_tick(tick):
+        if tick == SCHED["kill_tick"] and not killed:
+            check(any(tr.host_id == 0 for tr in fe.unresolved()),
+                  "(d) host 0 holds no request at the kill")
+            hosts[0].kill()
+            killed.append(tick)
+
+    t = time.perf_counter()
+    try:
+        done = fe.run(_fresh_req(reqs), on_tick=on_tick)
+    finally:
+        fe.close()
+    wall = time.perf_counter() - t
+    got = {r.rid: list(r.out_tokens) for r in done}
+    check(killed and fe._state(0) == "dead", "(d) host 0 was not killed")
+    check(len(got) == len(reqs) and not fe.failed and not fe.rejected,
+          f"(d) not every request completed: {fe.stats()}")
+    check(fe.n_retries >= 1, "(d) no retry after the kill")
+    check(delivered == got, "(d) a token was streamed twice or lost")
+    check(all(h.proc.poll() is not None for h in [ref_host] + hosts),
+          "(d) a worker process is still running")
+    check(hosts[0].proc.returncode == -9, "(d) host 0 did not die of "
+          f"SIGKILL: {hosts[0].proc.returncode}")
+    ties = _greedy_equal("(d)", got, solo, margins, ref="the solo oracle")
+    ties1 = _greedy_equal("(d) undisturbed 1 worker", one, solo, margins,
+                          ref="the solo oracle")
+    _greedy_equal("(d) vs the undisturbed 1-worker run", got, one, margins,
+                  ref="the 1-worker run")
+    toks = sum(len(v) for v in got.values())
+    ms = {h: sum(v) / max(1, len(v)) for h, v in step_ms.items()}
+    res = dict(tok_s=toks / wall, wall_s=wall, worker_start_s=start_s,
+               step_ms_by_host=ms, steps_by_host={
+                   h: len(v) for h, v in step_ms.items()},
+               retries=fe.n_retries, near_ties=ties,
+               near_ties_one_worker=ties1,
+               exit_codes=[h.proc.returncode for h in [ref_host] + hosts])
+    log(f"  (d) 2 host_worker processes ({SCHED['subprocess_layers']} "
+        f"layer, full width), host 0 SIGKILLed at tick "
+        f"{SCHED['kill_tick']}: {len(got)} done, {fe.n_retries} retries, no "
+        f"token duplicated, {res['tok_s']:.1f} tok/s over {wall:.2f} s "
+        f"(worker start {start_s:.1f} s); ms per step (the worker's step "
+        f"and the protocol round trip) by host "
+        f"{ {h: round(v, 2) for h, v in ms.items()} }, steps "
+        f"{res['steps_by_host']}; TTFT and attainment not measured (they "
+        f"live in the workers); exit codes {res['exit_codes']}; "
+        f"near-ties {len(ties)} (1 worker: {len(ties1)})")
+    return res
 
 
 # (path, layers, int8 weights, scope) of phase 3b
@@ -1341,6 +2039,13 @@ def main() -> int:
         "(b) with the target's own weights as the drafter")
     paged = paged_phase(torch, params, cfg, counters)
 
+    log("[3d] scheduler / frontend: (a) 2-rank QoS scheduler (EDF, aging, "
+        "preemption), traced and untraced, and the drain baseline; (b) a "
+        "rank fault with requeue, then revive; (c) 2 in-process hosts with "
+        "paged sharing pools, chaos kill:0@4; (d) 2 host_worker processes, "
+        "kill -9")
+    sched = sched_phase(torch, params, cfg, counters)
+
     log("[5] parity: packed and kernel vs masked, fp32")
     parity, layer0 = parity_phase(torch, params)
     del params
@@ -1365,7 +2070,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
         json.dump(dict(card=card, kernels=res, serve=e2e, launches=launches,
-                       profile=prof, paged=paged, parity=parity,
+                       profile=prof, paged=paged, scheduler=sched,
+                       parity=parity,
                        paths=paths,
                        ablation=ablation, int8=int8_res,
                        seconds=time.time() - t_start), fh, indent=1)

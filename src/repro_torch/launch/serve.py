@@ -25,14 +25,27 @@ Engine options, with the reference's meanings and usage errors:
 ``--kv-share-min-pages``, ``--kv-dedup-every``), self-speculative
 decoding (``--draft-sparsity``, ``--draft-k``, ``--draft-int8``,
 ``--draft-interactive``) and ``--stream``.
+
+Serving tiers, with the reference's meanings and usage errors:
+``--scheduler`` serves through the sharded scheduler (``--ranks``,
+``--slots-per-rank``, ``--max-queue``, ``--admission fcfs|sjf|edf``,
+``--aging``, ``--drain``, ``--preempt``, ``--preempt-mode kv|reprefill``,
+``--shed count|deadline``, ``--interactive-every``); ``--hosts N`` serves
+through the fault-tolerant cluster frontend over N in-process hosts
+(``--chaos``, ``--retries``, ``--backoff``, ``--timeout``,
+``--drain-timeout``). ``--trace-out`` writes a Chrome trace of the run,
+``--metrics-dump`` the Prometheus text, ``--metrics-interval`` prints a
+counter summary while serving. ``--mesh`` and ``--ckpt-dir`` are not
+ported.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import sys
+import threading
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +57,7 @@ from repro_torch.core.sasp import (bsr_overlay_from_masks, merge_overlay,
 from repro_torch.models import lm
 from repro_torch.models.modules import as_dtype
 from repro_torch.serve.engine import Engine, Request
+from repro_torch.serve.telemetry import Telemetry, pcts_ms
 
 PATHS = ("dense", "masked", "bsr", "kernel", "packed")
 
@@ -59,7 +73,7 @@ def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
             and sparsity > 0)
 
 # reference flags the port does not serve yet
-NOT_PORTED = ("--mesh", "--scheduler", "--hosts", "--ckpt-dir")
+NOT_PORTED = ("--mesh", "--ckpt-dir")
 
 
 def prefill_bucket_table(cache_len: int, n_buckets: int = 4,
@@ -72,6 +86,15 @@ def prefill_bucket_table(cache_len: int, n_buckets: int = 4,
         out.append(b)
         b //= 2
     return tuple(sorted(out)) if out else (int(cache_len),)
+
+
+def rank_bucket_tables(ranks: int, cache_len: int, n_buckets: int = 4,
+                       min_len: int = 16) -> Tuple[Tuple[int, ...], ...]:
+    """One bucket table per scheduler rank, the same for every rank: a
+    request takes the same prefill shapes whichever rank serves it, so
+    re-routing never adds a shape."""
+    table = prefill_bucket_table(cache_len, n_buckets, min_len)
+    return tuple(table for _ in range(ranks))
 
 
 def parse_buckets(spec: Optional[str], cache_len: int
@@ -210,15 +233,37 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
 
 
 def synthetic_requests(n: int, vocab: int, max_new: int,
-                       temperature: float = 0.0, eos_id=None):
-    """The launcher's request mix: prompt lengths in [8, 48), seed 0."""
+                       temperature: float = 0.0, eos_id=None,
+                       interactive_every: int = 0):
+    """The launcher's request mix: prompt lengths in [8, 48), seed 0;
+    every ``interactive_every``-th request (from the first) is
+    interactive-class, the others batch."""
     rng = np.random.default_rng(0)
+    every = interactive_every
     return [Request(rid=i,
                     prompt=rng.integers(0, vocab, size=(rng.integers(8, 48),))
                     .astype(np.int32),
                     max_new_tokens=max_new, temperature=temperature,
-                    eos_id=eos_id)
+                    eos_id=eos_id,
+                    slo=("interactive" if every and i % every == 0
+                         else "batch"))
             for i in range(n)]
+
+
+def start_metrics_reporter(summary_fn: Callable[[], dict],
+                           interval: float) -> threading.Event:
+    """Print ``summary_fn()`` every ``interval`` seconds from a daemon
+    thread until the returned event is set (--metrics-interval)."""
+    stop = threading.Event()
+    if interval <= 0:
+        return stop
+
+    def loop():
+        while not stop.wait(interval):
+            print(f"metrics: {summary_fn()}")
+
+    threading.Thread(target=loop, daemon=True).start()
+    return stop
 
 
 def parse_args(argv):
@@ -282,14 +327,120 @@ def parse_args(argv):
     ap.add_argument("--stream", action="store_true",
                     help="serve through the per-token iterator and "
                          "print tokens as they are sampled")
+    ap.add_argument("--scheduler", action="store_true",
+                    help="serve through the sharded request scheduler: "
+                         "admission-controlled queue, one engine shard "
+                         "per rank, continuous batching")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="engine shards of the scheduler (all on one "
+                         "device, over the same weights)")
+    ap.add_argument("--slots-per-rank", type=int, default=None,
+                    help="slots of each rank's engine (default: --slots)")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="admission control: reject submissions once "
+                         "this many requests wait beyond free slot "
+                         "capacity (default: unbounded)")
+    ap.add_argument("--admission", choices=("fcfs", "sjf", "edf"),
+                    default="fcfs",
+                    help="queue policy: fcfs (arrival order), sjf "
+                         "(shortest remaining work first) or edf "
+                         "(earliest effective deadline first)")
+    ap.add_argument("--aging", type=float, default=0.0,
+                    help="anti-starvation credit per second waited "
+                         "(seconds of deadline for edf, tokens for sjf)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="interactive requests may evict the worst-"
+                         "deadline batch decode at step granularity")
+    ap.add_argument("--preempt-mode", choices=("kv", "reprefill"),
+                    default="kv",
+                    help="preempted-slot resume: 'kv' keeps the slot's "
+                         "KV, 'reprefill' re-prefills prompt + tokens")
+    ap.add_argument("--interactive-every", type=int, default=0,
+                    help="mark every Nth synthetic request interactive "
+                         "(0 = all batch)")
+    ap.add_argument("--shed", choices=("count", "deadline"),
+                    default="count",
+                    help="overload shedding once --max-queue overflows: "
+                         "'count' rejects the newcomer, 'deadline' evicts "
+                         "the waiting request least likely to meet its "
+                         "deadline (batch before interactive)")
+    ap.add_argument("--drain", action="store_true",
+                    help="drain-batch baseline: admit only when every "
+                         "slot is free")
+    ap.add_argument("--hosts", type=int, default=None,
+                    help="serve through the fault-tolerant cluster "
+                         "frontend over N in-process hosts, each its own "
+                         "sharded scheduler")
+    ap.add_argument("--retries", type=int, default=2,
+                    help="re-submissions after a host failure before a "
+                         "request fails (frontend only)")
+    ap.add_argument("--backoff", type=float, default=0.05,
+                    help="retry backoff base seconds: attempt k waits "
+                         "base*2^(k-1), capped, with seeded jitter")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="per-request wall-clock watchdog seconds "
+                         "(default: none)")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="graceful-shutdown bound in seconds")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="deterministic fault injection into the "
+                         "frontend's hosts, e.g. 'kill:0@12,raise:1@3,"
+                         "drop-hb:0@5x3,slow:1@0.02,seed:7' (requires "
+                         "--hosts)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="arm the span tracer and write a Chrome trace-"
+                         "event JSON of the run")
+    ap.add_argument("--metrics-dump", default=None, metavar="PATH",
+                    help="write the Prometheus text of every counter, "
+                         "gauge and histogram at exit")
+    ap.add_argument("--metrics-interval", type=float, default=0.0,
+                    help="print a counter summary every N seconds while "
+                         "serving (0 = off)")
     return ap.parse_args(argv)
+
+
+def validate_tier_flags(args):
+    """Usage errors of the scheduler / frontend flags (the reference's
+    loud ones, and the port's for counts it would otherwise raise on
+    deep inside)."""
+    if args.hosts is not None and args.hosts < 1:
+        raise SystemExit(f"--hosts must be >= 1, got {args.hosts}")
+    if args.ranks is not None and args.ranks < 1:
+        raise SystemExit(f"--ranks must be >= 1, got {args.ranks}")
+    if args.chaos and not args.hosts:
+        raise SystemExit("--chaos drives the cluster frontend's fault "
+                         "hooks; add --hosts N")
+    if not args.chaos:
+        return None
+    from repro_torch.serve.chaos import parse_chaos_spec
+    try:
+        return parse_chaos_spec(args.chaos)
+    except ValueError as e:
+        raise SystemExit(f"--chaos: {e}")
+
+
+def scheduler_config(args, buckets):
+    from repro_torch.serve.scheduler import SchedulerConfig
+    return SchedulerConfig(
+        slots_per_rank=args.slots_per_rank or args.slots,
+        cache_len=args.cache_len, max_queue=args.max_queue,
+        policy=args.admission, drain=args.drain, aging=args.aging,
+        preempt=args.preempt, preempt_mode=args.preempt_mode,
+        buckets=buckets, shed=args.shed, kv_pages=args.kv_pages,
+        kv_page_len=args.kv_page_len, kv_watermark=args.kv_watermark,
+        kv_host_pages=args.kv_host_pool, kv_share=args.kv_share,
+        kv_share_min_pages=args.kv_share_min_pages,
+        draft_sparsity=args.draft_sparsity, draft_k=args.draft_k,
+        draft_int8=args.draft_int8,
+        draft_interactive=args.draft_interactive,
+        kv_dedup_every=args.kv_dedup_every)
 
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
     if _masked_int8_all(args.path, args.int8_weights, args.scope, args.sasp):
         raise SystemExit(MASKED_INT8_ALL)
-
+    chaos_cfg = validate_tier_flags(args)
     buckets = parse_buckets(args.buckets, args.cache_len)
     validate_kv_flags(
         kv_pages=args.kv_pages, kv_watermark=args.kv_watermark,
@@ -309,48 +460,109 @@ def main(argv=None):
             params, cfg, path=args.path, sparsity=args.sasp,
             int8_weights=args.int8_weights, scope=args.scope)
     reqs = synthetic_requests(args.requests, cfg.vocab_size, args.max_new,
-                              args.temperature, args.eos_id)
-    eng = Engine(params, cfg, batch_slots=args.slots,
-                 cache_len=args.cache_len, buckets=buckets,
-                 kv_pages=args.kv_pages, kv_page_len=args.kv_page_len,
-                 kv_watermark=args.kv_watermark,
-                 kv_host_pages=args.kv_host_pool, kv_share=args.kv_share,
-                 kv_share_min_pages=args.kv_share_min_pages,
-                 draft_sparsity=args.draft_sparsity, draft_k=args.draft_k,
-                 draft_int8=args.draft_int8,
-                 draft_interactive=args.draft_interactive,
-                 kv_dedup_every=args.kv_dedup_every)
-    t0 = time.time()
-    if args.stream:
+                              args.temperature, args.eos_id,
+                              args.interactive_every)
+    trace = bool(args.trace_out)
+
+    def drive(run_fn, stream_fn) -> Sequence[Request]:
+        """--stream: print tokens as they retire; else run to done."""
+        if not args.stream:
+            return run_fn(reqs)
         n = 0
-        for rid, tok in eng.stream(reqs):
+        for rid, tok in stream_fn(reqs):
             if n < 12:
                 print(f"  stream: req {rid} += {tok}")
             n += 1
         print(f"  … streamed {n} tokens incrementally")
-        done = [r for r in reqs if r.done]
+        return [r for r in reqs if r.done]
+
+    if args.hosts:
+        done, dt, tel_trace, tel_prom = _serve_frontend(
+            args, params, cfg, reqs, buckets, chaos_cfg)
+    elif args.scheduler:
+        from repro_torch.serve.scheduler import ShardedScheduler
+        sched = ShardedScheduler(params, cfg, ranks=args.ranks,
+                                 telemetry=Telemetry(trace=trace),
+                                 sched=scheduler_config(args, buckets))
+        stop_rep = start_metrics_reporter(
+            lambda: sched.telemetry.registry.summary()["counters"],
+            args.metrics_interval)
+        t0 = time.time()
+        done = drive(sched.run, sched.stream)
+        _sync(params)
+        dt = time.time() - t0
+        stop_rep.set()
+        st = sched.stats()
+        print(f"scheduler: {st['ranks']} rank(s), "
+              f"{st['accepted']}/{st['submitted']} admitted "
+              f"({st['rejected']} rejected, {st['failed']} failed, "
+              f"{st['preemptions']} preempted), "
+              f"policy={args.admission}"
+              f"{', drain baseline' if args.drain else ''}")
+        for r_st in st["per_rank"]:
+            print(f"  rank stats: {r_st}")
+        if args.interactive_every:
+            for klass in ("interactive", "batch"):
+                lats = sorted(r.latency for r in done
+                              if r.slo == klass and r.latency)
+                if lats:
+                    p50, p95 = pcts_ms(lats)
+                    print(f"  {klass:12s}: n={len(lats)} "
+                          f"p50={p50:.0f}ms p95={p95:.0f}ms")
+        for klass, d in st.get("ttft", {}).items():
+            print(f"  ttft {klass:12s}: n={d['count']} "
+                  f"p50={d['p50_ms']:.1f}ms p95={d['p95_ms']:.1f}ms")
+        tel_trace, tel_prom = (sched.telemetry.write_trace,
+                               sched.telemetry.prometheus)
     else:
-        done = eng.run(reqs)
-    if eng.device.type == "cuda":
-        torch.cuda.synchronize(eng.device)
-    dt = time.time() - t0
-    st = eng.stats
-    if args.draft_sparsity is not None:
-        drafted, acc = st["spec_draft_tokens"], st["spec_accepted_tokens"]
-        print(f"speculative: {st['spec_rounds']} rounds, "
-              f"{acc}/{max(drafted, 1)} drafts accepted "
-              f"({acc / max(drafted, 1):.0%}), "
-              f"{st['spec_fallbacks']} fallbacks")
-    mem = eng.memory_stats()
-    if mem is not None:
-        print(f"paged KV: {mem.device_pages} device pages × "
-              f"{eng.pool.page_len} tokens, {mem.spills} spills, "
-              f"{mem.faults} faults, {mem.drops} drops")
-        if args.kv_share:
-            print(f"prefix sharing: {mem.prefix_hits} hits, "
-                  f"{mem.prefix_pages_reused} pages reused, "
-                  f"{st['prefill_tokens_skipped']} prefill tokens "
-                  f"skipped, {mem.cow_copies} COW copies")
+        eng = Engine(params, cfg, batch_slots=args.slots,
+                     cache_len=args.cache_len, buckets=buckets,
+                     kv_pages=args.kv_pages, kv_page_len=args.kv_page_len,
+                     kv_watermark=args.kv_watermark,
+                     kv_host_pages=args.kv_host_pool,
+                     kv_share=args.kv_share,
+                     kv_share_min_pages=args.kv_share_min_pages,
+                     draft_sparsity=args.draft_sparsity,
+                     draft_k=args.draft_k, draft_int8=args.draft_int8,
+                     draft_interactive=args.draft_interactive,
+                     kv_dedup_every=args.kv_dedup_every,
+                     telemetry=Telemetry(trace=trace))
+        stop_rep = start_metrics_reporter(
+            lambda: eng.telemetry.registry.summary()["counters"],
+            args.metrics_interval)
+        t0 = time.time()
+        done = drive(eng.run, eng.stream)
+        _sync(params)
+        dt = time.time() - t0
+        stop_rep.set()
+        st = eng.stats
+        if args.draft_sparsity is not None:
+            drafted = st["spec_draft_tokens"]
+            acc = st["spec_accepted_tokens"]
+            print(f"speculative: {st['spec_rounds']} rounds, "
+                  f"{acc}/{max(drafted, 1)} drafts accepted "
+                  f"({acc / max(drafted, 1):.0%}), "
+                  f"{st['spec_fallbacks']} fallbacks")
+        mem = eng.memory_stats()
+        if mem is not None:
+            print(f"paged KV: {mem.device_pages} device pages × "
+                  f"{eng.pool.page_len} tokens, {mem.spills} spills, "
+                  f"{mem.faults} faults, {mem.drops} drops")
+            if args.kv_share:
+                print(f"prefix sharing: {mem.prefix_hits} hits, "
+                      f"{mem.prefix_pages_reused} pages reused, "
+                      f"{st['prefill_tokens_skipped']} prefill tokens "
+                      f"skipped, {mem.cow_copies} COW copies")
+        tel_trace, tel_prom = (eng.telemetry.write_trace,
+                               eng.telemetry.prometheus)
+    if args.trace_out:
+        n_ev = tel_trace(args.trace_out)
+        print(f"trace: {n_ev} events -> {args.trace_out} "
+              "(load at ui.perfetto.dev)")
+    if args.metrics_dump:
+        with open(args.metrics_dump, "w", encoding="utf-8") as fh:
+            fh.write(tel_prom())
+        print(f"metrics -> {args.metrics_dump}")
     toks = sum(len(r.out_tokens) for r in done)
     print(f"{len(done)} requests, {toks} tokens in {dt:.1f}s "
           f"({toks / max(dt, 1e-9):.1f} tok/s, "
@@ -358,6 +570,71 @@ def main(argv=None):
     for r in sorted(done, key=lambda r: r.rid)[:3]:
         print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> "
               f"{r.out_tokens[:10]}…")
+
+
+def _sync(params):
+    dev = params["embed"]["emb"].device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _serve_frontend(args, params, cfg, reqs, buckets, chaos_cfg):
+    """--hosts: the cluster frontend over in-process hosts, then a
+    bounded drain. Returns (done, seconds, trace writer, prometheus)."""
+    from repro_torch.serve.chaos import ChaosMonkey
+    from repro_torch.serve.frontend import (ClusterFrontend, FrontendConfig,
+                                            make_local_hosts)
+    hosts = make_local_hosts(
+        params, cfg, hosts=args.hosts, ranks=args.ranks or 1,
+        chaos=ChaosMonkey(chaos_cfg) if chaos_cfg else None,
+        trace=bool(args.trace_out), sched=scheduler_config(args, buckets))
+    fe = ClusterFrontend(hosts, FrontendConfig(
+        retries=args.retries, backoff_base=args.backoff,
+        request_timeout=args.timeout, drain_timeout=args.drain_timeout))
+    n_stream = [0]
+    if args.stream:
+        def _tok(req, tok):
+            if n_stream[0] < 12:
+                print(f"  stream: req {req.rid} += {tok}")
+            n_stream[0] += 1
+        fe.on_token = _tok
+
+    def cluster_summary():
+        out: dict = {}
+        for h in hosts:
+            for k, v in h.telemetry.registry.summary()["counters"].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    stop_rep = start_metrics_reporter(cluster_summary, args.metrics_interval)
+    t0 = time.time()
+    done = fe.run(reqs)
+    drained, clean = fe.drain()         # bounded graceful shutdown
+    done += drained
+    _sync(params)
+    dt = time.time() - t0
+    stop_rep.set()
+    fe.close()
+    if args.stream:
+        print(f"  … streamed {n_stream[0]} tokens incrementally")
+    st = fe.stats()
+    print(f"frontend: {st['hosts']} host(s) "
+          f"({st['healthy']} healthy, {st['suspect']} suspect, "
+          f"{st['dead']} dead), {st['done']} done, "
+          f"{st['failed']} failed, {st['rejected']} rejected, "
+          f"{st['retries']} retries, "
+          f"{st['deduped_tokens']} deduped tokens, "
+          f"drain {'clean' if clean else 'cut stragglers'}")
+    for h_st in st["per_host"]:
+        print(f"  host {h_st['host']}: steps={h_st['steps']} "
+              f"live_ranks={h_st.get('live_ranks', 0)}/"
+              f"{h_st.get('ranks', 0)} "
+              f"accepted={h_st.get('accepted', 0)} "
+              f"requeued={h_st.get('requeued', 0)}")
+    for klass, d in st["ttft"].items():
+        print(f"  ttft {klass:12s}: n={d['count']} "
+              f"p50={d['p50_ms']:.1f}ms p95={d['p95_ms']:.1f}ms")
+    return done, dt, fe.write_trace, fe.prometheus
 
 
 if __name__ == "__main__":

@@ -35,13 +35,30 @@ the (B,) sampled ids and done flags come back to the host.
   token is a target argmax.
 * **Streaming** — ``on_token`` is called with every token as it is
   sampled; :meth:`Engine.stream` yields ``(rid, token)``.
+* **Admission modes** — ``admission="continuous"`` refills a slot freed
+  by EOS / budget at the next step; ``"drain"`` admits only when every
+  slot is free (the batch-inference baseline).
+* **Telemetry** — ``stats`` is the per-rank :class:`~repro_torch.serve.
+  telemetry.CounterView` of the engine's :class:`Telemetry`; the span
+  tracer records submit / admit / prefill / token / preempt / resume /
+  spec_round events and the pool's spills and faults on the host clock
+  (no device read, no synchronise, no generator draw), TTFT goes to the
+  per-class histogram, decode tokens to the per-path tok/s gauge.
+* **Failure hand-off** — ``dead`` is set by the scheduler when a step
+  raises; :meth:`Engine.evacuate_inflight` re-arms in-flight requests
+  for an exact re-prefill resume elsewhere, :meth:`Engine.fail_inflight`
+  fails them.
 
 The generator draws one (B, vocab) block of noise per decode step
 whether or not slots speculate, so sampled streams do not depend on the
-drafter. Telemetry and the scheduler's failure hand-off are not ported.
+drafter. Every device op of :meth:`Engine.step` and
+:meth:`Engine.preempt_slot` runs on the stream the engine was built on,
+whichever thread calls it (torch's current stream is per thread).
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
@@ -52,6 +69,12 @@ from repro_torch.configs.base import MIXER_ATTN, ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_map
 from repro_torch.serve import memory as kvmem
+from repro_torch.serve.telemetry import Telemetry
+
+ADMISSION_MODES = ("continuous", "drain")
+SLO_CLASSES = ("interactive", "batch")
+# request lifecycle states surfaced on Request.status
+STATUSES = ("new", "queued", "running", "done", "failed", "rejected")
 
 
 @dataclass(eq=False)
@@ -61,14 +84,40 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0        # 0 = greedy
     eos_id: Optional[int] = None
+    # QoS: SLO class and latency target. ``deadline`` is relative seconds
+    # from submission (None = the scheduler's default for the class);
+    # the scheduler stamps the absolute ``t_deadline``.
     slo: str = "batch"              # "interactive" | "batch"
+    deadline: Optional[float] = None
     out_tokens: List[int] = field(default_factory=list)
     done: bool = False
-    status: str = "new"             # new | queued | running | done
+    status: str = "new"             # see STATUSES
+    error: Optional[str] = None     # set when status == "failed"
+    # serving metadata (filled by Engine / ShardedScheduler / frontend)
+    rank: Optional[int] = None      # engine shard that served the request
+    t_submit: Optional[float] = None   # time.monotonic() at submission
+    t_first: Optional[float] = None    # first token sampled (prefill)
+    t_done: Optional[float] = None     # retired
+    t_deadline: Optional[float] = None  # absolute monotonic deadline
+    preemptions: int = 0            # times preempted back to the queue
+    requeues: int = 0               # times evacuated off a dead rank
+    attempts: int = 0               # frontend retry count
     # resume state (set by preempt_slot): the slot's position, and its
     # cache rows' snapshot for a contiguous keep_kv resume
     _resume_pos: Optional[int] = field(default=None, repr=False)
     _kv: Optional[object] = field(default=None, repr=False)
+
+    @property
+    def latency(self) -> Optional[float]:
+        """Submit-to-retire seconds (None until both stamps exist)."""
+        if self.t_submit is None or self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+    def cost_estimate(self) -> int:
+        """Admission-policy key: tokens this request still needs (prompt
+        prefill + remaining decode budget)."""
+        return len(self.prompt) + self.max_new_tokens - len(self.out_tokens)
 
     def mark_resumable(self):
         """Arm the re-prefill resume from the emitted tokens: the next
@@ -80,7 +129,8 @@ class Request:
                             if self.out_tokens else None)
 
 
-# Engine counter keys (the reference engine's _STAT_KEYS).
+# Engine counter keys, declared (declare-if-absent) into the telemetry
+# registry scope of the engine's rank.
 _STAT_KEYS = ("decode_steps", "admitted",
               "prefill_tokens", "prefill_tokens_skipped",
               "reprefill_tokens", "generated_tokens",
@@ -89,6 +139,31 @@ _STAT_KEYS = ("decode_steps", "admitted",
               "cancelled", "deaths",
               "spec_rounds", "spec_draft_tokens",
               "spec_accepted_tokens", "spec_fallbacks")
+
+
+def _exec_path_label(params, cfg: ModelConfig) -> str:
+    """The execution path an engine's decode tokens are credited to
+    (the per-path tok/s gauges): dense / masked / bsr / kernel / packed
+    / int8. A host-side walk of the param tree for the packed
+    containers (``deploy_packed`` sets path="kernel" and adds
+    ``sasp_packed`` / ``sasp_fused``)."""
+    s = cfg.sasp
+    if not getattr(s, "enabled", False):
+        return "dense"
+    if getattr(s, "quantize", False):
+        return "int8"
+
+    def has_packed(p) -> bool:
+        if isinstance(p, dict):
+            return ("sasp_packed" in p or "sasp_fused" in p
+                    or any(has_packed(v) for v in p.values()))
+        if isinstance(p, (list, tuple)):
+            return any(has_packed(v) for v in p)
+        return False
+
+    if s.path == "kernel" and has_packed(params):
+        return "packed"
+    return s.path
 
 
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
@@ -120,12 +195,33 @@ class Engine:
                  draft_k: int = 4,
                  draft_int8: bool = False,
                  draft_interactive: bool = False,
-                 kv_dedup_every: int = 0):
+                 kv_dedup_every: int = 0,
+                 admission: str = "continuous",
+                 rank: int = 0,
+                 telemetry: Optional[Telemetry] = None):
+        if admission not in ADMISSION_MODES:
+            raise ValueError(f"admission={admission!r} not in "
+                             f"{ADMISSION_MODES}")
+        self.admission = admission
+        self.rank = rank
+        self.dead = False               # set by the scheduler on a raise
+        # counters live in the registry's per-rank scope (declare-if-
+        # absent keeps them across a revive_rank rebuild against a shared
+        # Telemetry); a private default (tracing off) keeps solo engines
+        # zero-config
+        self.telemetry = telemetry if telemetry is not None \
+            else Telemetry()
+        self._trace = self.telemetry.tracer
+        self.stats = self.telemetry.engine_stats(rank).declare(_STAT_KEYS)
         self.params = params
         self.cfg = cfg
         self.B = batch_slots
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
+        # the stream every device op of step() runs on, whichever thread
+        # holds the caller's lock
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         # prefill length buckets (sorted, <= cache_len); None = exact
         self.buckets: Optional[Tuple[int, ...]] = None
         if buckets:
@@ -151,7 +247,7 @@ class Engine:
                 params, cfg, cache_len=cache_len, device_pages=kv_pages,
                 page_len=kv_page_len, watermark=kv_watermark,
                 host_pages=kv_host_pages, share=kv_share,
-                device=self.device)
+                device=self.device, telemetry=self.telemetry)
             self.caches = None
         else:
             self.caches = lm.init_caches(params, cfg, batch_slots,
@@ -161,7 +257,6 @@ class Engine:
         self.queue: List[Request] = []
         self._finished_at_admission: List[Request] = []
         self.on_token: Optional[Callable[[Request, int], None]] = None
-        self.stats = {k: 0 for k in _STAT_KEYS}
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(rng_seed)
         self.draft_sparsity = draft_sparsity
@@ -200,6 +295,27 @@ class Engine:
                 "kv_dedup_every requires the sharing page pool "
                 "(kv_pages + kv_share) — without the radix index "
                 "there is no content evidence to merge on")
+        self.path_label = _exec_path_label(self.params, cfg)
+        if self.pool is not None:
+            # export-time memory gauges, keyed so a revive_rank rebuild
+            # replaces its predecessor's collector
+            self.telemetry.registry.register_collector(
+                self._memory_metrics, key=("kv_pool", rank))
+
+    def _memory_metrics(self):
+        """Prometheus lines of the page pool's MemoryStats (host
+        counters, no device read)."""
+        out = {}
+        for k, v in self.pool.stats().as_dict().items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                out[f'serve_kv_{k}{{rank="{self.rank}"}}'] = v
+        return out
+
+    def _on_stream(self):
+        """Run on the engine's stream (a no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
 
     # -- device passes -------------------------------------------------
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -290,22 +406,52 @@ class Engine:
     def _run_prefill(self, toks, poss, all_slots, reqs, valid):
         """One admission pass; returns the last-token logits (G, V).
         Paged engines scatter pages at each request's allocated pages
-        (pad rows write the trash page)."""
+        (pad rows write the trash page). The ``prefill`` span times the
+        host around the launches."""
+        t0 = self._trace.t0()
+        rows, S = np.shape(toks)
         toks = self._t(toks)
         poss = None if poss is None else self._t(poss)
         if self.pool is None:
-            return self._prefill_and_write(toks, poss, all_slots, valid)
-        return self._paged_prefill_write(
-            toks, poss, self._t(self.pool.dest_table([r.rid for r in reqs],
-                                                     toks.shape[0])))
+            out = self._prefill_and_write(toks, poss, all_slots, valid)
+        else:
+            out = self._paged_prefill_write(
+                toks, poss, self._t(self.pool.dest_table(
+                    [r.rid for r in reqs], rows)))
+        self._trace.complete("prefill", t0, tid=self.rank,
+                             rids=[r.rid for r in reqs], rows=int(rows),
+                             S=int(S))
+        return out
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
+        """Enqueue a request (FCFS append; a scheduler imposes its own
+        order by re-sorting the queue before each step)."""
+        if req.t_submit is None:
+            req.t_submit = time.monotonic()
+        req.rank = self.rank
         req.status = "queued"
         self.queue.append(req)
+        self._trace.instant("submit", tid=self.rank, rid=req.rid,
+                            queue=len(self.queue))
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def slot_states(self) -> List[str]:
+        """Per-slot state: 'free' or 'decode' (prefill is transient
+        inside the step that admits)."""
+        return ["free" if r is None else "decode" for r in self.slot_req]
+
+    def outstanding_tokens(self, slo: Optional[str] = None) -> int:
+        """Load metric for routing: queued work (prompt to prefill +
+        decode budget) plus the remaining decode budget of every occupied
+        slot; ``slo`` restricts the sum to one SLO class."""
+        return (sum(r.cost_estimate() for r in self.queue
+                    if slo is None or r.slo == slo)
+                + sum(r.max_new_tokens - len(r.out_tokens)
+                      for r in self.slot_req
+                      if r is not None and (slo is None or r.slo == slo)))
 
     def n_free(self) -> int:
         return len(self._free_slots())
@@ -338,6 +484,7 @@ class Engine:
 
     def _emit(self, req: Request, tok: int):
         req.out_tokens.append(tok)
+        self._trace.instant("token", tid=self.rank, rid=req.rid)
         if self.on_token is not None:
             self.on_token(req, tok)
 
@@ -362,13 +509,17 @@ class Engine:
             else:
                 self.pool.free(req.rid)
         elif keep_kv:
-            req._kv = tuple({name: cache_map(lambda a: a[:, slot].clone(), c)
-                             for name, c in seg.items()}
-                            for seg in self.caches)
+            with self._on_stream():
+                req._kv = tuple(
+                    {name: cache_map(lambda a: a[:, slot].clone(), c)
+                     for name, c in seg.items()} for seg in self.caches)
         req._resume_pos = int(self.pos[slot])
+        req.preemptions += 1
         req.status = "queued"
         self.slot_req[slot] = None
         self.stats["preemptions"] += 1
+        self._trace.instant("preempt", tid=self.rank, rid=req.rid,
+                            kept_kv=bool(keep_kv))
         return req
 
     def _finish_resume(self, slot: int, req: Request):
@@ -377,6 +528,7 @@ class Engine:
         req.status = "running"
         self.slot_req[slot] = req
         self.stats["resumes"] += 1
+        self._trace.instant("resume", tid=self.rank, rid=req.rid)
 
     def _restore_slot(self, slot: int, req: Request):
         """Snapshot resume: the saved cache rows go back, no forward."""
@@ -457,6 +609,8 @@ class Engine:
             self._finish_resume(slot, req)
             return
         self._emit(req, nxt)
+        req.t_first = time.monotonic()
+        self._observe_ttft(req)
         if self._retired_at_admission(req):
             return
         req.status = "running"
@@ -500,6 +654,13 @@ class Engine:
         for slot, req, nxt, L in zip(slots, reqs, nxts, lens):
             self._started(slot, req, nxt, L)
 
+    def _observe_ttft(self, req: Request):
+        """Time to first token into the per-SLO-class histogram, when
+        ``t_first`` is stamped."""
+        if req.t_submit is not None and req.t_first is not None:
+            self.telemetry.observe_ttft(req.slo,
+                                        req.t_first - req.t_submit)
+
     def _register_prompt(self, reqs: List[Request],
                          seqs: List[np.ndarray]):
         """Publish freshly prefilled full prompt pages into the radix
@@ -536,11 +697,14 @@ class Engine:
             poss[g, pad:] = np.arange(skips[g], skips[g] + lens[g])
         rids = [r.rid for r in reqs]
         skip_pages = [m // L for m in skips]
+        t0 = self._trace.t0()
         logits = self._paged_prefill_past_write(
             self._t(toks), self._t(poss),
             self._t(self.pool.prefix_table(rids, skip_pages, nrows)),
             self._t(self.pool.dest_table(rids, nrows,
                                          skip_pages=skip_pages)))
+        self._trace.complete("prefill", t0, tid=self.rank, rids=rids,
+                             rows=int(nrows), S=int(S), shared=True)
         self._register_prompt(reqs, seqs)
         temps = np.zeros((nrows,), np.float32)
         for g, r in enumerate(reqs):
@@ -555,6 +719,7 @@ class Engine:
                 or len(req.out_tokens) >= req.max_new_tokens):
             req.done = True
             req.status = "done"
+            req.t_done = time.monotonic()
             if self.pool is not None:
                 self.pool.free(req.rid)
             self._finished_at_admission.append(req)
@@ -563,6 +728,8 @@ class Engine:
 
     def _admit(self):
         free = self._free_slots()
+        if self.admission == "drain" and len(free) < self.B:
+            return                  # the drain baseline waits for all
         take = min(len(free), len(self.queue))
         if not take:
             return
@@ -590,6 +757,10 @@ class Engine:
             if len(free) < self.B:
                 self.stats["continuous_refills"] += len(popped)
             self.stats["admitted"] += len(popped)
+            if self._trace.enabled:
+                for req in popped:
+                    self._trace.instant("admit", tid=self.rank,
+                                        rid=req.rid)
             if not pending:
                 return
             # sharing admissions take the suffix prefill, the others the
@@ -642,11 +813,14 @@ class Engine:
             raise
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def step(self) -> List[Request]:
         """Admit queued requests, run one decode step (and the slots'
         speculative rounds), retire finished. Returns completed
         requests."""
+        with torch.no_grad(), self._on_stream():
+            return self._step_inner()
+
+    def _step_inner(self) -> List[Request]:
         self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         # speculating slots are claimed first: their writes land on
@@ -709,6 +883,7 @@ class Engine:
                         ).exponential_(1.0, generator=self._gen)
         self.stats["decode_steps"] += 1
         self.stats["generated_tokens"] += len(active)
+        self.telemetry.note_tokens(self.path_label, len(active))
         for i in active:
             req = self.slot_req[i]
             self.pos[i] += 1
@@ -716,6 +891,7 @@ class Engine:
             if bool(done[i]):
                 req.done = True
                 req.status = "done"
+                req.t_done = time.monotonic()
                 if self.pool is not None:
                     self.pool.free(req.rid)
                 finished.append(req)
@@ -780,6 +956,8 @@ class Engine:
         C, L, NB = self.cache_len, self.pool.page_len, self.pool.NB
         B = self.B
         finished: List[Request] = []
+        t_round = self._trace.t0()
+        emitted = 0
         try:
             slot_rids: List[Optional[int]] = [None] * B
             for i, req, _ in specs:
@@ -828,11 +1006,13 @@ class Engine:
                 self.stats["spec_rounds"] += 1
                 self.stats["spec_draft_tokens"] += k
                 self.stats["spec_accepted_tokens"] += a
+                self.telemetry.note_spec_round(a, k)
                 done = False
                 for t in range(a + 1):
                     tok = int(pred[i, t])
                     self._emit(req, tok)
                     self.stats["generated_tokens"] += 1
+                    emitted += 1
                     if ((req.eos_id is not None and tok == req.eos_id)
                             or len(req.out_tokens) >= req.max_new_tokens):
                         done = True
@@ -841,6 +1021,7 @@ class Engine:
                     self.pool.discard_scratch(req.rid)
                     req.done = True
                     req.status = "done"
+                    req.t_done = time.monotonic()
                     self.pool.free(req.rid)
                     finished.append(req)
                     self.slot_req[i] = None
@@ -874,16 +1055,54 @@ class Engine:
             # a raise mid-round must not leak scratch pages
             for _, req, _ in specs:
                 self.pool.discard_scratch(req.rid)
+        if emitted:
+            self.telemetry.note_tokens("draft", emitted)
+        self._trace.complete("spec_round", t_round, tid=self.rank,
+                             slots=len(specs), emitted=emitted)
         return finished
 
-    # -- cancellation --------------------------------------------------
+    # -- failure containment and cancellation --------------------------
     def _release_slot(self, slot: int) -> Request:
+        """Detach the request in ``slot`` (pages freed, slot free)
+        without deciding its fate: the caller fails, requeues or cancels
+        it."""
         req = self.slot_req[slot]
         assert req is not None, f"releasing free slot {slot}"
         if self.pool is not None and self.pool.has_pages(req.rid):
             self.pool.free(req.rid)
         self.slot_req[slot] = None
         return req
+
+    def evacuate_inflight(self) -> List[Request]:
+        """Pull every slot-occupying request off this engine with its
+        emitted tokens armed for an exact re-prefill resume elsewhere
+        (:meth:`Request.mark_resumable`); the scheduler's requeue-on-
+        failure path re-routes them to live ranks."""
+        evacuated = []
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            self._release_slot(i)
+            req.mark_resumable()
+            evacuated.append(req)
+        return evacuated
+
+    def fail_inflight(self, err) -> List[Request]:
+        """Mark every slot-occupying request failed and free its slot
+        (the scheduler's containment when requeueing is off); queued
+        requests are left to the caller to re-route."""
+        failed = []
+        now = time.monotonic()
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            self._release_slot(i)
+            req.status = "failed"
+            req.error = f"{type(err).__name__}: {err}"
+            req.t_done = now
+            self.stats["failed"] += 1
+            failed.append(req)
+        return failed
 
     def cancel(self, rid: int) -> Optional[Request]:
         """Remove a request wherever it is (queued or decoding), with its

@@ -40,6 +40,7 @@ import torch
 from repro_torch.configs.base import MIXER_ATTN, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import lm
+from repro_torch.serve.telemetry import SpanTracer, Telemetry
 
 ZERO_PAGE = 0
 TRASH_PAGE = 1
@@ -828,7 +829,8 @@ class PagedKVPool:
     def __init__(self, params, cfg: ModelConfig, *, cache_len: int,
                  device_pages: int, page_len: Optional[int] = None,
                  watermark: float = 1.0, host_pages: int = 0,
-                 share: bool = False, device=None):
+                 share: bool = False, device=None,
+                 telemetry: Optional[Telemetry] = None):
         if any(m != MIXER_ATTN for m in cfg.layer_mixer_kinds()):
             raise ValueError(
                 "paged KV requires an attention-only stack (SSM/hybrid "
@@ -843,6 +845,9 @@ class PagedKVPool:
                 "kv_share is incompatible with kv_quant: suffix prefill "
                 "attends DEQUANTIZED int8 prefix KV, which breaks the "
                 "bit-identity contract vs the solo/contiguous engine")
+        self.telemetry = telemetry
+        self._trace = (telemetry.tracer if telemetry is not None
+                       else SpanTracer(enabled=False))
         self.cfg = cfg
         self.cache_len = int(cache_len)
         self.page_len = tile_aligned_page_len(cfg, cache_len, page_len)
@@ -1050,9 +1055,11 @@ class PagedKVPool:
     # -- data movement -------------------------------------------------
     def _execute(self, moves: List[_Move]):
         """Run the allocator's spill / fault moves: one gather to the
-        host per call, one scatter from it."""
+        host per call, one scatter from it. The ``spill`` / ``fault``
+        spans time the host around the copies."""
         spills = [(m[3], m[4]) for m in moves if m[0] == "spill"]
         faults = [(m[3], m[4]) for m in moves if m[0] == "fault"]
+        t0 = self._trace.t0()
         if spills:
             vals = self._read([d for d, _ in spills])
             hs = torch.as_tensor([h for _, h in spills], dtype=torch.int64)
@@ -1060,11 +1067,13 @@ class PagedKVPool:
                 for h, v in zip(hc, vals[si][name]):
                     if h is not None:
                         h[:, hs] = v.cpu()
+            self._trace.complete("spill", t0, cat="kv", pages=len(spills))
         if faults:
             hs = torch.as_tensor([h for h, _ in faults], dtype=torch.int64)
             self._write([d for _, d in faults], _rebuild(
                 self._host, lambda si, n, c: attn_mod.cache_map(
                     lambda a: a[:, hs], c)))
+            self._trace.complete("fault", t0, cat="kv", pages=len(faults))
 
     # -- accounting ----------------------------------------------------
     def stats(self) -> MemoryStats:

@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card (marker ``cuda``; every test skips
 where ``torch.cuda.is_available()`` is false). Each kernel variant is
 held against its plain PyTorch version on the same CUDA tensors, and the
-packed engine's streams must not depend on which requests share a batch.
+packed engine's streams must not depend on which requests share a batch;
+the serving tier on the card: a 2-rank scheduler against the solo engine,
+tracing on and off bit for bit, and a ``host_worker`` process.
 Imports torch and repro_torch only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -956,3 +958,118 @@ def test_int8_drafter_runs_the_int8_kernel_forms(cuda_device):
             assert mod.weight_launches.get(wt, 0) > before.get(wt, 0), \
                 (mod.__name__, wt, mod.weight_launches)
     eng.pool.alloc.check()
+
+
+@pytest.mark.cuda
+def test_scheduler_two_ranks_streams_equal_solo(cuda_device):
+    """A 2-rank ShardedScheduler on the card (EDF, preemption, one params
+    tree for both ranks) gives every request the stream it has alone
+    through Engine(batch_slots=1), and runs both kernels."""
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.scheduler import SchedulerConfig, ShardedScheduler
+
+    params, cfg = _paged_model(cuda_device)
+    prompts = [RNG.integers(0, 256, size=(n,)).astype(np.int32)
+               for n in (37, 12, 70, 5, 23, 9, 30, 16)]
+
+    def reqs():
+        # four batch requests fill the four slots, then four interactive
+        # ones arrive and preempt
+        return [Request(rid=i, prompt=p, max_new_tokens=10 if i < 4 else 6,
+                        slo="batch" if i < 4 else "interactive")
+                for i, p in enumerate(prompts)]
+
+    solo = {}
+    for r in reqs():
+        solo[r.rid] = Engine(params, cfg, batch_slots=1, cache_len=128).run(
+            [r])[0].out_tokens
+    sched = ShardedScheduler(params, cfg, ranks=2, sched=SchedulerConfig(
+        slots_per_rank=2, cache_len=128, policy="edf", preempt=True))
+    batch = reqs()
+    for r in batch[:4]:
+        assert sched.submit(r)
+    sched.step()
+    for r in batch[4:]:
+        assert sched.submit(r)
+    g0, f0 = t_gemm.launches, t_ffn.launches
+    done = []
+    while sched.has_work():
+        done += sched.step()
+    assert {r.rid: r.out_tokens for r in done} == solo
+    assert t_gemm.launches > g0 and t_ffn.launches > f0
+    st = sched.stats()
+    assert all(p["admitted"] > 0 for p in st["per_rank"])
+    assert st["preemptions"] >= 1
+
+
+@pytest.mark.cuda
+def test_tracing_on_and_off_bit_identical(cuda_device):
+    """The span tracer reads no device value and draws no random number:
+    with tracing on, a paged engine's streams (one sampled), every decode
+    step's logits and the generator's state equal the untraced run's."""
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.telemetry import Telemetry
+
+    params, cfg = _paged_model(cuda_device)
+    prompts = [RNG.integers(0, 256, size=(n,)).astype(np.int32)
+               for n in (37, 12, 70)]
+
+    def run(trace):
+        eng = Engine(params, cfg, batch_slots=2, cache_len=128, kv_pages=12,
+                     telemetry=Telemetry(trace=trace))
+        steps, inner = [], eng._paged_decode_step
+
+        def rec(*a):
+            out = inner(*a)
+            steps.append(out.clone())
+            return out
+
+        eng._paged_decode_step = rec
+        done = eng.run([Request(rid=i, prompt=p, max_new_tokens=10,
+                                temperature=0.7 if i == 1 else 0.0)
+                        for i, p in enumerate(prompts)])
+        torch.cuda.synchronize()
+        return ({r.rid: r.out_tokens for r in done}, steps,
+                eng._gen.get_state(), eng)
+
+    off, s_off, g_off, _ = run(False)
+    on, s_on, g_on, eng = run(True)
+    assert on == off
+    assert len(s_on) == len(s_off) > 0
+    for a, b in zip(s_on, s_off):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert torch.equal(g_on, g_off)
+    names = {e["name"] for e in eng.telemetry.tracer.events()}
+    assert {"submit", "admit", "prefill", "token"} <= names
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(600)
+def test_host_worker_starts_on_the_card_and_answers_ping(cuda_device):
+    """``python -m repro_torch.serve.host_worker`` with device "cuda"
+    starts, answers ping, serves a request and exits on ``exit``."""
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.frontend import SubprocessHost
+
+    host = SubprocessHost(0, spec=dict(device="cuda", layers=1, d_model=128,
+                                       vocab=256, sasp=0.5, path="packed",
+                                       scope="all", compute="bfloat16",
+                                       cache_len=64))
+    try:
+        assert host.alive and host.heartbeat()
+        req = Request(rid=7, prompt=np.arange(1, 9, dtype=np.int32),
+                      max_new_tokens=4)
+        assert host.submit(req) == "ok"
+        toks, done = [], []
+        for _ in range(20):
+            fin, failed, ev = host.step()
+            assert not failed
+            toks += [t for rid, i, t in ev if rid == 7]
+            done += fin
+            if done:
+                break
+        assert done == [7] and len(toks) == 4
+        assert host.heartbeat()
+    finally:
+        host.close()
+    assert host.proc.returncode == 0

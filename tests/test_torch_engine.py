@@ -96,10 +96,10 @@ def test_launcher_cpu_run_and_flags(capsys):
                   "--cache-len", "64", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "packed:" in out and "2 requests, 6 tokens" in out
-    for flag in (["--mesh", "1,2"], ["--scheduler"], ["--hosts", "2"],
-                 ["--ckpt-dir=ckpt"]):
+    for flag in (["--mesh", "1,2"], ["--ckpt-dir=ckpt"]):
         with pytest.raises(SystemExit, match="not ported"):
             t_serve.main(flag)
+    assert t_serve.NOT_PORTED == ("--mesh", "--ckpt-dir")
 
 
 def test_reduce_flag_can_be_switched_off():

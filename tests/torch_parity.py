@@ -56,3 +56,72 @@ def model(**kw):
 def mask_key(path):
     """jax key path -> the port's path tuple."""
     return tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
+
+
+def amp_model(packed=False):
+    """(ref cfg, port cfg, ref params, port params) of the reduced dense
+    model with every weight times 3 (position-dependent greedy streams,
+    as in the reference's tests/test_scheduler.py); ``packed`` prunes 25%
+    of its 8x8 tiles (scope all) and packs it, in each package."""
+    from repro.configs import SASPConfig as RSASP
+    from repro.core.deploy import deploy_packed
+    from repro.core.pruning import prune_params
+    from repro_torch.core import deploy as t_deploy
+    from repro_torch.core import pruning as t_pruning
+
+    cfg, tcfg = configs()
+    cfg = dataclasses.replace(cfg, sasp=RSASP())
+    tcfg = dataclasses.replace(tcfg, sasp=TSASPConfig())
+    params = jax.tree.map(lambda a: a * 3.0, lm.init_params(KEY, cfg))
+    tparams = bridged(params)
+    if not packed:
+        return cfg, tcfg, params, tparams
+    kw = dict(enabled=True, block_k=8, block_n=8, sparsity=0.25,
+              scope="all")
+    cfg = dataclasses.replace(cfg, sasp=RSASP(**kw))
+    tcfg = dataclasses.replace(tcfg, sasp=TSASPConfig(**kw))
+    params, _ = prune_params(params, cfg.sasp)
+    params, cfg = deploy_packed(params, cfg)
+    tparams, _ = t_pruning.prune_params(tparams, tcfg.sasp)
+    tparams, tcfg = t_deploy.deploy_packed(tparams, tcfg)
+    return cfg, tcfg, params, tparams
+
+
+class SoloOracle:
+    """Greedy streams of each request alone through a single-slot engine,
+    in both packages: ``stream(prompt, max_new, eos)`` runs the port's
+    ``Engine(batch_slots=1)`` and the reference's, asserts they agree and
+    returns the stream (memoised; one reference engine is reused, so each
+    prompt length compiles its prefill once)."""
+
+    def __init__(self, model, cache_len=64):
+        from repro.serve.engine import Engine
+        self.cfg, self.tcfg, self.params, self.tparams = model
+        self.cache_len = cache_len
+        self._ref = Engine(self.params, self.cfg, batch_slots=1,
+                           cache_len=cache_len)
+        self._memo = {}
+
+    def stream(self, prompt, max_new, eos=None):
+        from repro.serve.engine import Request
+        from repro_torch.serve.engine import Engine as TEngine
+        from repro_torch.serve.engine import Request as TRequest
+        prompt = np.asarray(prompt, np.int32)
+        key = (prompt.tobytes(), int(max_new), eos)
+        if key not in self._memo:
+            want = self._ref.run([Request(
+                rid=0, prompt=prompt.copy(), max_new_tokens=max_new,
+                eos_id=eos)])[0].out_tokens
+            got = TEngine(self.tparams, self.tcfg, batch_slots=1,
+                          cache_len=self.cache_len).run([TRequest(
+                              rid=0, prompt=prompt.copy(),
+                              max_new_tokens=max_new,
+                              eos_id=eos)])[0].out_tokens
+            assert list(got) == [int(t) for t in want], (got, want)
+            self._memo[key] = list(got)
+        return list(self._memo[key])
+
+    def of(self, reqs):
+        """{rid: solo stream} of port or reference requests."""
+        return {r.rid: self.stream(r.prompt, r.max_new_tokens, r.eos_id)
+                for r in reqs}
