@@ -115,6 +115,29 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 Also sasp_matmul over the layer's BSR.
   6. int8     — --int8-weights at full width, 1 layer: both int8 kernel
                 variants on the path, within 5e-2 of the fp32 masked model.
+  7. train    — (last, once every serving model is freed) (a) qwen3-32b at
+                full width, 4 layers, fp32 master weights, bf16 compute,
+                every layer recomputed in backward, the SASP overlay at 50%
+                of the 32x32 FFN tiles (built at step 0, as
+                launch/train.py builds it), AdamW 3e-4 under
+                warmup_cosine(3, 20), lm_batch 4 x 256: 20 timed steps
+                after one untimed (step ms split into forward + backward
+                and optimizer with CUDA events, the host time a step waits
+                for its batch, tokens/s, peak GiB, model utilization), then
+                one step under torch.profiler; the loss finite at every
+                step and falling, every pruned tile's gradient exactly 0 at
+                every step, the overlay within one tile of 50%. (b) 1
+                full-width layer with int8 moments: 6 steps, save_async at
+                step 3 (the stall, the write's seconds and bytes),
+                restore into a fresh state and run steps 4-6 again
+                (losses and params within 1e-3 of the uninterrupted
+                run's); the checkpoint served packed (50%, scope all,
+                bf16) through the serve launcher's --ckpt-dir code path,
+                both main-path kernels on their tensor-core variants, and
+                phase 5's fp32 packed-vs-masked check on these weights;
+                the files under build/chip_smoke/train_ckpt are removed
+                after. (c) one train step on the card against the CPU,
+                fp32, 2 layers, d 256, with 1 and 2 micro-batches.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1759,7 +1782,7 @@ def profile_phase(torch, params, cfg, tag: str = "", **engine_kw):
                 decode=_profiled(torch, eng.step, 3, tag + "decode"))
 
 
-def parity_phase(torch, params):
+def parity_phase(torch, params, layers: int = N_LAYERS):
     """fp32 compute on the main path's pruned weights: packed vs masked,
     and kernel (BSR through the tile-skip GEMM) vs masked. Returns the
     errors and layer 0's fp32 tensors for phase 5b."""
@@ -1769,7 +1792,7 @@ def parity_phase(torch, params):
     from repro_torch.models import lm
     from repro_torch.models.modules import embedding_apply, rmsnorm_apply
 
-    cfg = main_config(N_LAYERS, "float32")
+    cfg = main_config(layers, "float32")
     dense = strip_packed(params)
     masked_cfg = dataclasses.replace(cfg, sasp=dataclasses.replace(
         cfg.sasp, enabled=True, block_k=32, block_n=32, sparsity=SPARSITY,
@@ -1936,6 +1959,413 @@ def int8_phase(torch, counters):
     return dict(rel_err=err, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training, checkpoints, serving the trained checkpoint
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(layers=4, batch=4, seq=256, steps=20, lr=3e-4, warmup=3,
+             sparsity=0.5)
+
+
+def train_config(layers: int):
+    """qwen3-32b at full width, fp32 master weights, bf16 compute, every
+    layer recomputed in backward, SASP at 50% of the 32x32 FFN tiles."""
+    from repro_torch.configs import SASPConfig
+    return dataclasses.replace(
+        main_config(layers, "bfloat16"), remat="full",
+        sasp=SASPConfig(enabled=True, block_k=BLOCK, block_n=BLOCK,
+                        sparsity=TRAIN["sparsity"]))
+
+
+def _batch(torch, pipe):
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in pipe.next().items()}
+
+
+def _ffn_masks(overlay, grads):
+    """(gradient of a masked FFN weight, its mask) for every masked FFN
+    weight of the overlay (scope ffn)."""
+    for si, seg in overlay["segments"].items():
+        for slot, sp in seg.items():
+            for mat, mask in sp["ffn"]["sasp_masks"].items():
+                yield grads["segments"][int(si)][slot]["ffn"][mat]["w"], mask
+
+
+def _pruned_grad_max(torch, overlay, grads):
+    """The largest |gradient| over every pruned FFN tile (one layer at a
+    time, to bound the temporaries)."""
+    worst = torch.zeros((), device=DEVICE)
+    for g, mask in _ffn_masks(overlay, grads):
+        KB, NB = mask.shape[-2:]
+        for layer in range(g.shape[0]):
+            K, N = g.shape[-2:]
+            tiles = g[layer].reshape(KB, K // KB, NB, N // NB).abs().amax(
+                dim=(1, 3))
+            worst = torch.maximum(worst, tiles.masked_fill(mask[layer],
+                                                           0).amax())
+    return worst
+
+
+class TimedUpdate:
+    """Stands in for ``train_step.adamw_update`` during phase 7: the same
+    update between two CUDA events (the optimizer's share of a step), and
+    the step's gradients kept until the caller has checked them."""
+
+    def __init__(self, torch, update):
+        self.torch, self.update = torch, update
+        self.ms, self.grads = [], None
+
+    def __call__(self, grads, state, params, cfg, lr_scale=1.0):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.update(grads, state, params, cfg, lr_scale=lr_scale)
+        ev[1].record()
+        self.ms.append(ev)
+        self.grads = grads
+        return out
+
+
+def _model_flops(cfg, params, batch: int, seq: int) -> float:
+    """6 x (the layers' GEMM weights x tokens + the head table x the
+    predicted positions) + causal attention's matmuls (forward and
+    backward, 3x the forward); recomputation not counted."""
+    from repro_torch.core.pruning import iter_leaves
+    gemm = sum(w.numel() for path, w in iter_leaves(params["segments"])
+               if path[-1] == "w")
+    head = cfg.vocab_size * cfg.d_model
+    attn_fwd = 4 * batch * cfg.num_heads * cfg.attn_head_dim * \
+        seq * (seq + 1) // 2
+    return (6 * (gemm * batch * seq + head * batch * (seq - 1))
+            + 3 * attn_fwd * cfg.num_layers)
+
+
+def train_full_width(torch):
+    """(a) 20 timed steps after one untimed, 4 full-width layers."""
+    import numpy as np
+
+    from repro_torch.core.sasp import build_sasp_overlay, sasp_summary
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts_mod
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.schedule import warmup_cosine
+
+    L, B, S = TRAIN["layers"], TRAIN["batch"], TRAIN["seq"]
+    cfg = train_config(L)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = spread_output_scales(lm.init_params(cfg, seed=0, device=DEVICE),
+                                  cfg)
+    n_params = sum(p.numel() for p in _tensors(params))
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"])
+    opt = adamw_init(params, opt_cfg)
+    overlay, got = build_sasp_overlay(params, cfg.sasp)
+    summ = sasp_summary(overlay)
+    log(f"  qwen3-32b full width, {L} layers, {n_params / 1e9:.3f} B params "
+        f"(fp32 master, bf16 compute, remat full); overlay at "
+        f"{got:.6f} of {summ['total_tiles']} FFN tiles (scope ffn) built "
+        f"at step 0; init + overlay {time.time() - t0:.1f} s")
+    check(abs(got - TRAIN["sparsity"]) <= 1.0 / summ["total_tiles"],
+          f"overlay sparsity {got} not within one tile of 50%")
+    step_fn = ts_mod.make_train_step(
+        cfg, opt_cfg, overlay=overlay,
+        lr_schedule=warmup_cosine(TRAIN["warmup"], TRAIN["steps"]))
+    pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                               global_batch=B))
+    timed = TimedUpdate(torch, ts_mod.adamw_update)
+    ts_mod.adamw_update = timed
+    rows = []
+    try:
+        for i in range(TRAIN["steps"] + 1):
+            t = time.perf_counter()
+            batch = _batch(torch, pipe)
+            data_ms = (time.perf_counter() - t) * 1e3
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            params, opt, m = step_fn(params, opt, batch)
+            ev[1].record()
+            pruned = float(_pruned_grad_max(torch, overlay, timed.grads))
+            timed.grads = None
+            torch.cuda.synchronize()
+            step_ms = ev[0].elapsed_time(ev[1])
+            opt_ms = timed.ms[-1][0].elapsed_time(timed.ms[-1][1])
+            row = dict(step=i, loss=float(m["loss"]),
+                       grad_norm=float(m["grad_norm"]), step_ms=step_ms,
+                       opt_ms=opt_ms, fwd_bwd_ms=step_ms - opt_ms,
+                       data_ms=data_ms, pruned_grad_max=pruned)
+            rows.append(row)
+            log(f"  step {i:2d}{' (untimed)' if i == 0 else ''}: loss "
+                f"{row['loss']:.4f}, grad norm {row['grad_norm']:.3f}, "
+                f"{step_ms:.1f} ms (forward + backward {step_ms - opt_ms:.1f}"
+                f", optimizer {opt_ms:.1f}), batch {data_ms:.2f} ms, pruned "
+                f"tiles' largest |grad| {pruned}")
+            check(np.isfinite(row["loss"]), f"loss not finite at step {i}")
+            check(pruned == 0.0,
+                  f"a pruned FFN tile got gradient {pruned} at step {i}")
+    finally:
+        ts_mod.adamw_update = timed.update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = [params, opt]
+
+    def one_step():
+        state[0], state[1], _ = step_fn(state[0], state[1],
+                                        _batch(torch, pipe))
+    prof = _profiled(torch, one_step, 1, "train_step")
+    params, opt = state
+    timed_rows = rows[1:]
+    step_ms = sum(r["step_ms"] for r in timed_rows) / len(timed_rows)
+    opt_ms = sum(r["opt_ms"] for r in timed_rows) / len(timed_rows)
+    data_ms = sum(r["data_ms"] for r in timed_rows) / len(timed_rows)
+    tok_s = B * S / (step_ms / 1e3)
+    flops = _model_flops(cfg, params, B, S)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    first, last5 = rows[1]["loss"], [r["loss"] for r in rows[-5:]]
+    log(f"  {len(timed_rows)} timed steps: {step_ms:.1f} ms/step (forward + "
+        f"backward "
+        f"{step_ms - opt_ms:.1f}, optimizer {opt_ms:.1f}; CUDA events), "
+        f"waiting for the batch {data_ms:.2f} ms/step (host build + copy, "
+        f"device idle), {tok_s:.0f} tokens/s, peak {peak:.2f} GiB; model "
+        f"utilization {mfu:.4f} ({flops / 1e12:.2f} TFLOP a step: 6 x "
+        f"(GEMM weights + head table) x tokens + causal attention, "
+        f"recomputation not counted, over 989 TFLOP/s bf16); loss "
+        f"{first:.4f} at step 1 -> mean {sum(last5) / 5:.4f} over the last "
+        f"5")
+    check(sum(last5) / 5 < first,
+          "the mean loss of the last 5 steps is not below step 1's")
+    del params, opt, overlay, step_fn
+    return dict(layers=L, params=n_params, achieved_sparsity=got,
+                tiles=summ["total_tiles"], step_ms=step_ms, opt_ms=opt_ms,
+                fwd_bwd_ms=step_ms - opt_ms, data_ms=data_ms, tok_s=tok_s,
+                peak_gib=peak, model_flops=flops, mfu=mfu, steps=rows,
+                profile=prof)
+
+
+def _tensors(tree):
+    from repro_torch.train.checkpoint import named_leaves
+    return [t for _, t in named_leaves(tree)]
+
+
+def _rel_diff(a_tree, b_tree):
+    """Largest |a - b| over each leaf's largest |b|, over every leaf."""
+    from repro_torch.train.checkpoint import named_leaves
+    worst = (0.0, "")
+    for (n, a), (_, b) in zip(named_leaves(a_tree), named_leaves(b_tree)):
+        a, b = a.float(), b.to(a.device).float()
+        e = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, (e, n))
+    return worst
+
+
+def train_checkpoint_serve(torch, counters):
+    """(b) 1 full-width layer, int8 moments: 6 steps with save_async at
+    step 3; restore into a fresh state and run steps 4-6 again; serve the
+    restored params packed through the serve launcher's --ckpt-dir path."""
+    import shutil
+
+    from repro_torch.core.sasp import build_sasp_overlay
+    from repro_torch.data.pipeline import DataConfig, DataState, Pipeline
+    from repro_torch.launch.serve import build_serving_params, restore_params
+    from repro_torch.models import lm
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = train_config(1)
+    opt_cfg = AdamWConfig(lr=TRAIN["lr"], quantized=True)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"])
+
+    def fresh(seed):
+        p = spread_output_scales(lm.init_params(cfg, seed=seed,
+                                                device=DEVICE), cfg)
+        return p, adamw_init(p, opt_cfg)
+
+    params, opt = fresh(0)
+    need = 2 * sum(t.numel() * t.element_size()
+                   for t in _tensors({"params": params, "opt": opt}))
+    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    free = shutil.disk_usage(OUT_DIR).free
+    check(free > need, f"disk too short for the checkpoint: {free / 1e9:.1f}"
+          f" GB free under {OUT_DIR}, {need / 1e9:.1f} GB needed")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    overlay, _ = build_sasp_overlay(params, cfg.sasp)
+    step_fn = make_train_step(
+        cfg, opt_cfg, overlay=overlay,
+        lr_schedule=warmup_cosine(TRAIN["warmup"], TRAIN["steps"]))
+    pipe = Pipeline(dcfg)
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    losses = []
+    try:
+        for i in range(6):
+            params, opt, m = step_fn(params, opt, _batch(torch, pipe))
+            losses.append(float(m["loss"]))
+            if i + 1 == 3:
+                t = time.perf_counter()
+                mgr.save_async(3, {"params": params, "opt": opt},
+                               extra=pipe.state.to_dict())
+                t_snap = time.time()
+                stall_ms = (time.perf_counter() - t) * 1e3
+        mgr.wait()
+        step_dir = os.path.join(ckpt_dir, f"step_{3:010d}")
+        files = [os.path.join(step_dir, f) for f in os.listdir(step_dir)]
+        n_bytes = sum(os.path.getsize(f) for f in files)
+        write_s = os.path.getmtime(os.path.join(step_dir, "manifest.json")) \
+            - t_snap
+        log(f"  1 layer, int8 moments: losses {losses}; save_async at step "
+            f"3: stall {stall_ms:.1f} ms (host snapshot), write "
+            f"{write_s:.2f} s in the background ({n_bytes / 1e9:.3f} GB, "
+            f"{n_bytes / 1e9 / max(write_s, 1e-9):.2f} GB/s)")
+        p2, o2 = fresh(1)
+        t = time.perf_counter()
+        state, extra = mgr.restore({"params": p2, "opt": o2})
+        restore_s = time.perf_counter() - t
+        del p2, o2
+        p2, o2 = state["params"], state["opt"]
+        pipe2 = Pipeline(dcfg, state=DataState.from_dict(extra))
+        resumed = []
+        for i in range(3, 6):
+            p2, o2, m = step_fn(p2, o2, _batch(torch, pipe2))
+            resumed.append(float(m["loss"]))
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(resumed, losses[3:]))
+        p_err, p_leaf = _rel_diff(p2, params)
+        log(f"  restored in {restore_s:.2f} s; steps 4-6 resumed: losses "
+            f"{resumed}, largest relative difference from the "
+            f"uninterrupted run: losses {loss_err:.3g}, params {p_err:.3g} "
+            f"({p_leaf}) (tolerance 1e-3 of each leaf's scale)")
+        check(loss_err <= 1e-3 and p_err <= 1e-3,
+              "the resumed run left the uninterrupted one")
+        del params, opt, p2, o2, state, step_fn, overlay
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            served = restore_params(ckpt_dir, lm.init_params(
+                cfg, seed=2, device=DEVICE))
+            served, scfg = build_serving_params(
+                served, cfg, path="packed", sparsity=SPARSITY, scope="all")
+        launches, e2e = _serve(torch, served, scfg, counters)
+        for name in MAIN_PATH:
+            check(launches[name] > 0,
+                  f"kernel {name} never launched serving the checkpoint")
+        want = {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"}
+        for name, ran in e2e["variants"].items():
+            check(set(ran) == {want[name]},
+                  f"{name} ran {ran} serving the checkpoint, not only "
+                  f"{want[name]}")
+        parity, _ = parity_phase(torch, served, layers=1)
+        del served
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return dict(losses=losses, resumed=resumed, stall_ms=stall_ms,
+                write_s=write_s, bytes=n_bytes, restore_s=restore_s,
+                loss_rel_err=loss_err, param_rel_err=p_err,
+                launches=launches, serve=e2e, parity=parity)
+
+
+def train_card_vs_cpu(torch):
+    """(c) one train step on the card against the same step on the CPU,
+    both in the port, fp32, reduced qwen3-32b (2 layers, d 256), the
+    overlay (built once, on the CPU) closed over; once more with 2
+    micro-batches. Gradients and moments must agree within 1e-5 of each
+    leaf's scale; params too wherever the gradient is at least 100 eps
+    (``_conditioned_diff``); the largest difference over all params is
+    printed beside it."""
+    import copy
+
+    from repro_torch.configs import SASPConfig, get_config, reduced
+    from repro_torch.core.sasp import build_sasp_overlay
+    from repro_torch.data.pipeline import DataConfig, lm_batch
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step, value_and_grad
+
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen3-32b"), layers=2, d_model=256, vocab=512),
+        sasp=SASPConfig(enabled=True, block_k=BLOCK, block_n=BLOCK,
+                        sparsity=0.5))
+    base = spread_output_scales(lm.init_params(cfg, seed=0, device="cpu"),
+                                cfg)
+    overlay, _ = build_sasp_overlay(base, cfg.sasp)
+    batch = lm_batch(DataConfig(vocab_size=512, seq_len=64,
+                                global_batch=4), 0)
+    opt_cfg = AdamWConfig()
+    out = {}
+    for dev in ("cpu", DEVICE):
+        p = _to(copy.deepcopy(base), dev)
+        ov = _to(overlay, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        res = {"grads": value_and_grad(cfg, p, b, ov)[2]}
+        for k in (1, 2):
+            pk = copy.deepcopy(p)
+            pk, ok, _ = make_train_step(cfg, opt_cfg, overlay=ov,
+                                        n_microbatches=k)(
+                pk, adamw_init(pk, opt_cfg), b)
+            res[k] = dict(params=pk, m=ok.m, v=ok.v)
+        out[dev] = res
+    errs = {"grads": _rel_diff(out[DEVICE]["grads"], out["cpu"]["grads"])}
+    for k in (1, 2):
+        card, cpu = out[DEVICE][k], out["cpu"][k]
+        errs[f"m (K={k})"] = _rel_diff(card["m"], cpu["m"])
+        errs[f"v (K={k})"] = _rel_diff(card["v"], cpu["v"])
+        errs[f"params (K={k}), |g| >= 100 eps"] = _conditioned_diff(
+            card["params"], cpu["params"], out["cpu"]["grads"],
+            100 * opt_cfg.eps)
+        errs[f"params (K={k}), all"] = _rel_diff(card["params"],
+                                                 cpu["params"])
+    log("  card vs CPU, fp32, largest difference over each leaf's scale: "
+        + ", ".join(f"{k} {e:.3g} ({n})" for k, (e, n) in errs.items()))
+    for k, (e, n) in errs.items():
+        if not k.endswith("all"):
+            check(e <= 1e-5, f"card and CPU differ in {k}: {e:.3g} at {n}")
+    return {k: dict(rel_err=e, leaf=n) for k, (e, n) in errs.items()}
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _conditioned_diff(a_tree, b_tree, g_tree, floor):
+    """``_rel_diff`` over the elements whose gradient is at least
+    ``floor``: the first AdamW step moves an element by lr * g / (|g| +
+    eps), which amplifies rounding in g by eps / (|g| + eps)^2 ~ 1/eps
+    where |g| is near eps, and by under 1% of g's own relative error
+    where |g| >= 100 eps."""
+    from repro_torch.train.checkpoint import named_leaves
+    grads = dict(named_leaves(g_tree))
+    worst = (0.0, "")
+    for (n, a), (_, b) in zip(named_leaves(a_tree), named_leaves(b_tree)):
+        keep = grads[n].abs() >= floor
+        a, b = a.float().cpu(), b.float()
+        e = float(((a - b).abs() * keep).max()
+                  / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, (e, n))
+    return worst
+
+
+def train_phase(torch, counters):
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    log(f"  device memory held before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    log("  (a) full width: 4 layers, batch 4 x 256 tokens, 20 steps")
+    out = {"a": train_full_width(torch)}
+    torch.cuda.empty_cache()
+    log("  (b) checkpoint, resume and serve: 1 full-width layer, int8 "
+        "moments")
+    out["b"] = train_checkpoint_serve(torch, counters)
+    torch.cuda.empty_cache()
+    log("  (c) one step on the card against the CPU, fp32, 2 layers, d 256")
+    out["c"] = train_card_vs_cpu(torch)
+    out["seconds"] = time.time() - t0
+    log(f"  phase 7: {out['seconds']:.1f} s")
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -2063,6 +2493,10 @@ def main() -> int:
     log("[6] int8 weights, 1 layer")
     int8_res = int8_phase(torch, counters)
 
+    log("[7] train: qwen3-32b at full width under the SASP overlay; "
+        "checkpoint, resume and serve the checkpoint; card vs CPU")
+    train = train_phase(torch, counters)
+
     # each kernel's launches on its own path
     path_launches = {n: (launches if n in MAIN_PATH
                          else ablation["launches"])[n] for n in KERNELS}
@@ -2073,7 +2507,7 @@ def main() -> int:
                        profile=prof, paged=paged, scheduler=sched,
                        parity=parity,
                        paths=paths,
-                       ablation=ablation, int8=int8_res,
+                       ablation=ablation, int8=int8_res, train=train,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

@@ -7,7 +7,12 @@ Dicts and tuples keep their structure (the stacked leading layer axis of
 ``segments[i]["slot<j>"]`` included); numpy arrays become tensors on
 ``device``; packed containers, recognised by their fields, become the
 port's ``PackedSASPWeight`` / ``PackedFFN`` / ``BlockSparseWeight`` /
-``QuantizedWeight``.
+``QuantizedWeight``; the reference optimizer's ``AdamWState`` and
+``QMoment``, recognised by their fields, become the port's.
+``to_numpy`` goes the other way: port tree -> numpy arrays in the same
+dicts, tuples and NamedTuples, which the reference's functions take as
+they are (its ``adamw_update`` reads ``.step`` / ``.m`` / ``.v`` and
+``.q`` / ``.scale``).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import torch
 from repro_torch.core.quantization import QuantizedWeight
 from repro_torch.core.sparse import (BlockSparseWeight, PackedFFN,
                                      PackedSASPWeight)
+from repro_torch.train.optimizer import AdamWState, QMoment
 
 
 def to_tensor(a, device="cuda"):
@@ -43,10 +49,19 @@ def _is_quantized(node) -> bool:
     return all(hasattr(node, f) for f in ("q", "scale", "block"))
 
 
+def _fields(node):
+    return getattr(node, "_fields", None) if isinstance(node, tuple) \
+        else None
+
+
 def from_numpy(tree, device="cuda"):
     """Numpy-converted reference tree -> port tree on ``device``."""
     if isinstance(tree, dict):
         return {k: from_numpy(v, device) for k, v in tree.items()}
+    if _fields(tree) == ("step", "m", "v"):
+        return AdamWState(*(from_numpy(v, device) for v in tree))
+    if _fields(tree) == ("q", "scale"):
+        return QMoment(*(from_numpy(v, device) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_numpy(v, device) for v in tree)
     if _is_packed_weight(tree):
@@ -77,4 +92,21 @@ def from_numpy(tree, device="cuda"):
                                tuple(tree.block))
     if isinstance(tree, (np.ndarray, np.generic)):
         return to_tensor(tree, device)
+    return tree
+
+
+def to_numpy(tree):
+    """Port tree of tensors -> the same structure of numpy arrays
+    (bfloat16 widened to float32, exactly)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    if _fields(tree):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return t.numpy()
     return tree

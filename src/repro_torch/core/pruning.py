@@ -151,3 +151,38 @@ def prune_params(params: Params, sasp: SASPConfig,
         return leaf
 
     return map_leaves(maybe_prune, params), masks
+
+
+def mask_sparsity(masks: Dict[Path, torch.Tensor]) -> float:
+    total = sum(int(np.prod(tuple(m.shape))) for m in masks.values())
+    kept = sum(int(torch.as_tensor(m).sum()) for m in masks.values())
+    return 1.0 - kept / max(total, 1)
+
+
+def per_matrix_sparsity(masks: Dict[Path, torch.Tensor]
+                        ) -> Dict[str, float]:
+    """Pruned share of each weight, named as the reference names it
+    (dict keys as they are, sequence indices as ``[i]``)."""
+    out = {}
+    for path, m in masks.items():
+        name = "/".join(f"[{k}]" if isinstance(k, int) else str(k)
+                        for k in path)
+        out[name] = 1.0 - float(torch.as_tensor(m).to(torch.float32)
+                                .mean())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Pruning schedule (gradual magnitude pruning for train-time SASP)
+# ---------------------------------------------------------------------------
+
+
+def cubic_sparsity_schedule(step: int, *, start_step: int, end_step: int,
+                            final_sparsity: float) -> float:
+    """Zhu & Gupta cubic ramp: s(t) = s_f (1 - (1 - t)^3)."""
+    if step <= start_step:
+        return 0.0
+    if step >= end_step:
+        return final_sparsity
+    t = (step - start_step) / max(1, end_step - start_step)
+    return final_sparsity * (1.0 - (1.0 - t) ** 3)

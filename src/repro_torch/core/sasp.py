@@ -1,7 +1,11 @@
 """SASP deployment views of the port (``repro.core.sasp``).
 
-Two artifact kinds beside the packed containers of ``core.deploy``:
+Three artifact kinds beside the packed containers of ``core.deploy``:
 
+* ``sasp_masks`` overlays: bool (…, KB, NB) per weight, kept in a tree of
+  their own and merged into a view of the params inside the loss
+  (training: the masks are applied straight through, so pruned tiles get
+  zero gradient), built by ``build_sasp_overlay``;
 * int8 ``qw`` entries: ``quantize_params`` replaces ``{"w": dense}``
   with ``{"qw": QuantizedWeight}`` for every weight in scope (the masked
   path's weight-only int8);
@@ -18,18 +22,36 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import SASPConfig
-from repro_torch.core.pruning import iter_leaves, scope_predicate
+from repro_torch.core.pruning import (compute_sasp_masks, iter_leaves,
+                                     mask_sparsity, scope_predicate)
 from repro_torch.core.quantization import quantize_int8
 from repro_torch.core.sparse import bsr_from_mask, stack_bsr
 
 Params = Dict[str, Any]
 
-__all__ = ["bsr_overlay_from_masks", "merge_overlay", "quantize_params",
-           "scope_predicate"]
+__all__ = ["bsr_overlay_from_masks", "build_sasp_overlay",
+           "masks_to_overlay", "merge_overlay", "quantize_params",
+           "sasp_summary", "scope_predicate"]
 
 
 def _path_keys(path: Tuple) -> Tuple[str, ...]:
     return tuple(str(k) for k in path)
+
+
+def masks_to_overlay(masks: Dict[Tuple, Any]) -> Params:
+    """{path-to-'w'-leaf: mask} -> nested overlay dict where each mask sits
+    at (..., parent, 'sasp_masks', <matrix-name>): the mask of
+    ``.../ffn/w1/w`` lands at ``.../ffn/sasp_masks/w1``."""
+    overlay: Params = {}
+    for path, mask in masks.items():
+        keys = _path_keys(path)
+        assert keys[-1] == "w", keys
+        *parent, mat, _ = keys
+        node = overlay
+        for k in parent:
+            node = node.setdefault(k, {})
+        node.setdefault("sasp_masks", {})[mat] = mask
+    return overlay
 
 
 def merge_overlay(params: Params, overlay: Optional[Params]) -> Params:
@@ -53,6 +75,18 @@ def merge_overlay(params: Params, overlay: Optional[Params]) -> Params:
                 out[k] = v
         return out
     return overlay
+
+
+def build_sasp_overlay(params: Params, sasp: SASPConfig,
+                       is_prunable: Optional[Callable] = None
+                       ) -> Tuple[Params, float]:
+    """Global-L1 tile selection on the live params -> (overlay, achieved
+    sparsity). Attach with ``merge_overlay(params, overlay)`` inside the
+    loss (training) or bake with ``prune_params`` (deploy). Only the FFN
+    reads ``sasp_masks``: as in the reference, attention's projections
+    ignore masks placed beside them under scope ``all``."""
+    masks = compute_sasp_masks(params, sasp, is_prunable)
+    return masks_to_overlay(masks), mask_sparsity(masks)
 
 
 def quantize_params(params: Params, sasp: SASPConfig,
@@ -117,3 +151,28 @@ def bsr_overlay_from_masks(params: Params, masks: Dict[Tuple, Any],
             node = node.setdefault(k, {})
         node.setdefault("sasp_bsr", {})[mat] = bsr
     return overlay
+
+
+def sasp_summary(overlay: Params) -> Dict[str, float]:
+    masks = []
+
+    def collect(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                if k == "sasp_masks":
+                    masks.extend(v.values())
+                else:
+                    collect(v)
+        elif isinstance(node, tuple):
+            for v in node:
+                collect(v)
+
+    collect(overlay)
+    total = sum(m.numel() for m in masks)
+    kept = sum(int(m.sum()) for m in masks)
+    return {
+        "n_masked_matrices": len(masks),
+        "total_tiles": total,
+        "kept_tiles": kept,
+        "sparsity": 1.0 - kept / max(total, 1),
+    }

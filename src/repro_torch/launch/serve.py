@@ -35,8 +35,10 @@ through the fault-tolerant cluster frontend over N in-process hosts
 (``--chaos``, ``--retries``, ``--backoff``, ``--timeout``,
 ``--drain-timeout``). ``--trace-out`` writes a Chrome trace of the run,
 ``--metrics-dump`` the Prometheus text, ``--metrics-interval`` prints a
-counter summary while serving. ``--mesh`` and ``--ckpt-dir`` are not
-ported.
+counter summary while serving. ``--ckpt-dir DIR`` serves the params of
+the latest checkpoint in DIR (written by ``repro_torch.launch.train`` or
+the reference's trainer; the config flags must match the trained model's
+shapes). ``--mesh`` is not ported.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ from repro_torch.models import lm
 from repro_torch.models.modules import as_dtype
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.telemetry import Telemetry, pcts_ms
+from repro_torch.train.checkpoint import CheckpointManager
 
 PATHS = ("dense", "masked", "bsr", "kernel", "packed")
 
@@ -73,7 +76,7 @@ def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
             and sparsity > 0)
 
 # reference flags the port does not serve yet
-NOT_PORTED = ("--mesh", "--ckpt-dir")
+NOT_PORTED = ("--mesh",)
 
 
 def prefill_bucket_table(cache_len: int, n_buckets: int = 4,
@@ -232,6 +235,15 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
     return params, cfg
 
 
+def restore_params(ckpt_dir: str, params):
+    """The params of the latest checkpoint in ``ckpt_dir`` (either
+    package's format), in ``params``' structure, types and device."""
+    mgr = CheckpointManager(ckpt_dir)
+    state, _ = mgr.restore({"params": params})
+    print(f"restored step {mgr.latest_step()} from {ckpt_dir}")
+    return state["params"]
+
+
 def synthetic_requests(n: int, vocab: int, max_new: int,
                        temperature: float = 0.0, eos_id=None,
                        interactive_every: int = 0):
@@ -287,6 +299,8 @@ def parse_args(argv):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the latest checkpoint here")
     ap.add_argument("--int8-kv", action="store_true")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="paged KV: device page pool size (default: "
@@ -456,6 +470,8 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, kv_quant=True)
     with torch.no_grad():
         params = lm.init_params(cfg, seed=0, device=args.device)
+        if args.ckpt_dir:
+            params = restore_params(args.ckpt_dir, params)
         params, cfg = build_serving_params(
             params, cfg, path=args.path, sparsity=args.sasp,
             int8_weights=args.int8_weights, scope=args.scope)

@@ -5,13 +5,21 @@ segment plan, each ``{"slot<j>": params}`` with a leading layer axis
 (the reference's ``lax.scan`` layout); here a Python loop walks the
 layers. Attention-only stacks with dense FFNs are ported; MoE and SSM
 layers raise ``NotImplementedError``.
+
+Training (``loss_fn``): under autograd each layer repeat runs through
+``cfg.remat`` (``none``; ``full``: recomputed in backward; ``dots``:
+recomputed except the matmul outputs, which are saved), and the chunked
+cross-entropy recomputes each chunk's fp32 logits in backward instead of
+keeping them.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as torch_ckpt
 
 from repro_torch.configs.base import (
     ATTN_LOCAL,
@@ -233,10 +241,32 @@ def _layer_cache(c: attn_mod.KVCache, r: int) -> attn_mod.KVCache:
     return attn_mod.cache_map(lambda a: a[r], c)
 
 
+# the products whose outputs "dots" keeps (jax's checkpoint_dots policy)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn(x) -> x`` under ``cfg.remat``: ``none`` keeps every
+    activation, ``full`` recomputes ``fn`` in backward, ``dots``
+    recomputes it except the matmul outputs, which are saved."""
+    if cfg.remat == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_ckpt.create_selective_checkpoint_contexts, list(_DOT_OPS))
+    elif cfg.remat != "full":
+        raise ValueError(f"remat {cfg.remat!r} not in none|full|dots")
+    return lambda x: torch_ckpt.checkpoint(fn, x, **kw)
+
+
 def _run_segments_full(params, cfg: ModelConfig, x, positions,
                        want_cache: bool, cache_len: int,
                        uniform_cache: bool = False):
     _check_supported(cfg)
+    if not want_cache and torch.is_grad_enabled():
+        return _run_segments_train(params, cfg, x, positions), None
     all_caches = []
     for seg_params, (pattern, repeat) in zip(params["segments"],
                                              segment_plan(cfg)):
@@ -253,6 +283,22 @@ def _run_segments_full(params, cfg: ModelConfig, x, positions,
             all_caches.append({n: _stack_caches(cs)
                                for n, cs in per_slot.items()})
     return x, tuple(all_caches) if want_cache else None
+
+
+def _run_segments_train(params, cfg: ModelConfig, x, positions):
+    """The full-sequence forward under autograd: each repeat of a
+    segment's pattern (the reference's scan body) through ``_maybe_remat``."""
+    for seg_params, (pattern, repeat) in zip(params["segments"],
+                                             segment_plan(cfg)):
+        for r in range(repeat):
+            def body(xc, r=r, seg_params=seg_params, pattern=pattern):
+                for slot, spec in enumerate(pattern):
+                    xc, _ = _apply_slot_full(
+                        layer_params(seg_params[f"slot{slot}"], r), spec,
+                        cfg, xc, positions, False, 0)
+                return xc
+            x = _maybe_remat(body, cfg)(x)
+    return x
 
 
 def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,
@@ -275,9 +321,11 @@ def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,
     return x, tuple(new_caches)
 
 
-def _embed_in(params, cfg: ModelConfig, tokens):
-    return embedding_apply(params["embed"], tokens,
-                           dtype=as_dtype(cfg.compute_dtype))
+def _embed_in(params, cfg: ModelConfig, tokens, embeds=None):
+    cdt = as_dtype(cfg.compute_dtype)
+    if embeds is not None:
+        return embeds.to(cdt)
+    return embedding_apply(params["embed"], tokens, dtype=cdt)
 
 
 def _head_table(params, cfg: ModelConfig):
@@ -293,15 +341,61 @@ def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, emb.t())
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, V)."""
-    x = _embed_in(params, cfg, tokens)
+def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, V); ``embeds`` (B, S, d), if
+    given, replaces the token embedding."""
+    x = _embed_in(params, cfg, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     x, _ = _run_segments_full(params, cfg, x, positions, False, 0)
     logits = logits_fn(params, cfg, x)
     return softcap(logits, cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy: never holds (B, S, V) at once)
+# ---------------------------------------------------------------------------
+
+
+def _xent_chunk(x_chunk, targets, emb, cfg: ModelConfig) -> torch.Tensor:
+    logits = matmul_f32(x_chunk, emb.t())
+    logits = softcap(logits, cfg.logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets[..., None].to(torch.int64))
+    return (lse - tgt[..., 0]).sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            xent_chunk: int = 512):
+    """batch: tokens (B, S) [+ embeds (B, S, d)]. Next-token CE (+ the
+    MoE aux loss, 0 for the ported dense stacks). Returns (loss,
+    {"ce", "aux"}). Each chunk of positions is checkpointed: backward
+    recomputes its (B, chunk, V) fp32 logits instead of keeping them."""
+    tokens = batch["tokens"]
+    x = _embed_in(params, cfg, tokens, batch.get("embeds"))
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    x, _ = _run_segments_full(params, cfg, x, positions, False, 0)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
+    emb = _head_table(params, cfg).to(x.dtype)
+    n = S - 1
+    c = min(xent_chunk, n)
+    while n % c:
+        c -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, n, c):
+        xc, tc = x[:, i:i + c], tokens[:, i + 1:i + 1 + c]
+        if torch.is_grad_enabled():
+            part = torch_ckpt.checkpoint(_xent_chunk, xc, tc, emb, cfg,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
+        else:
+            part = _xent_chunk(xc, tc, emb, cfg)
+        total = total + part
+    ce = total / (B * n)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -1,0 +1,225 @@
+"""Fault-tolerant checkpoints in the reference's on-disk format
+(``repro.train.checkpoint``), so that either package restores what the
+other wrote.
+
+Format: ``<dir>/step_<n:010d>/arrays.0.npz`` (arrays ``a0``, ``a1``, … in
+leaf order) and ``manifest.json`` with the step, wall time, the caller's
+``extra`` dict and, for every leaf, its name, array key, shape, dtype and
+the CRC32 of its stored bytes.
+
+* Leaf names follow the reference's ``tree_flatten_with_path``: dict keys
+  in sorted order, sequence indices as digits, NamedTuple fields as
+  ``.<field>`` (``opt/.m/embed/emb/.q``), joined with ``/``.
+* bfloat16 and fp8 leaves (which numpy cannot hold) are stored as
+  same-width unsigned views, with the true dtype in the manifest.
+* Atomic: written to ``<dir>/tmp.<step>.<pid>`` then ``os.replace``d to
+  ``step_<n>``, so a crash mid-save never corrupts the latest checkpoint.
+* ``save_async`` copies every leaf to host memory synchronously (the
+  training loop's only stall) and writes in a background thread; at most
+  one write is outstanding. ``keep`` most recent checkpoints are kept.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import re
+import shutil
+import threading
+import time
+import zlib
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+# dtype name -> (stored numpy type, a numpy and a torch type of its width
+# that convert into each other, the true torch type)
+_EXOTIC = {
+    "bfloat16": (np.uint16, np.int16, torch.int16, torch.bfloat16),
+    "float8_e4m3fn": (np.uint8, np.uint8, torch.uint8,
+                      torch.float8_e4m3fn),
+    "float8_e5m2": (np.uint8, np.uint8, torch.uint8, torch.float8_e5m2),
+}
+_EXOTIC_BY_TORCH = {e[3]: name for name, e in _EXOTIC.items()}
+
+# (name, stored array, true dtype name)
+HostLeaf = Tuple[str, np.ndarray, str]
+
+
+def named_leaves(tree, prefix: Tuple[str, ...] = ()
+                 ) -> Iterator[Tuple[str, Any]]:
+    """(name, leaf) in the reference's flattening order and naming."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from named_leaves(getattr(tree, f), prefix + ("." + f,))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, prefix + (str(i),))
+    elif tree is not None:
+        yield "/".join(prefix), tree
+
+
+def _rebuild(like, leaves: Iterator):
+    """``like``'s structure with its leaves taken from ``leaves``, in
+    ``named_leaves`` order."""
+    if isinstance(like, dict):
+        new = {k: _rebuild(like[k], leaves) for k in sorted(like)}
+        return {k: new[k] for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_rebuild(getattr(like, f), leaves)
+                            for f in like._fields))
+    if isinstance(like, (tuple, list)):
+        return type(like)(_rebuild(v, leaves) for v in like)
+    if like is None:
+        return None
+    return next(leaves)
+
+
+def _to_host(leaf) -> Tuple[np.ndarray, str]:
+    """A copy of ``leaf`` in host memory as (stored array, dtype name)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        name = _EXOTIC_BY_TORCH.get(t.dtype)
+        if name is not None:
+            stored, _, twin, _ = _EXOTIC[name]
+            return t.view(twin).numpy().view(stored), name
+        a = t.numpy()
+    else:
+        a = np.array(leaf)
+    return a, str(a.dtype)
+
+
+def _from_stored(a: np.ndarray, dtype_name: str) -> torch.Tensor:
+    if dtype_name in _EXOTIC:
+        _, np_twin, _, true = _EXOTIC[dtype_name]
+        return torch.from_numpy(a.view(np_twin)).view(true)
+    return torch.from_numpy(a)
+
+
+def _snapshot(state: Any) -> List[HostLeaf]:
+    """Every leaf of ``state`` copied to host memory."""
+    return [(n, *_to_host(leaf)) for n, leaf in named_leaves(state)]
+
+
+def _crc(a: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(a).view(np.uint8))
+
+
+@dataclasses.dataclass
+class CheckpointManager:
+    directory: str
+    keep: int = 3
+
+    def __post_init__(self):
+        os.makedirs(self.directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, state: Any, extra: Optional[Dict] = None):
+        """Synchronous atomic save of a tree of tensors."""
+        self._write(step, _snapshot(state), extra or {})
+
+    def save_async(self, step: int, state: Any,
+                   extra: Optional[Dict] = None):
+        """Snapshot synchronously (device -> host copy), write in the
+        background. Joins any previous write first (at most one
+        outstanding, which bounds host memory)."""
+        self.wait()
+        host = _snapshot(state)
+
+        def work():
+            try:
+                self._write(step, host, extra or {})
+            except BaseException as e:       # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+    # ------------------------------------------------------------------
+    def _write(self, step: int, host: List[HostLeaf], extra: Dict):
+        tmp = os.path.join(self.directory, f"tmp.{step}.{os.getpid()}")
+        final = os.path.join(self.directory, f"step_{step:010d}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        np.savez(os.path.join(tmp, "arrays.0.npz"),
+                 **{f"a{i}": a for i, (_, a, _) in enumerate(host)})
+        manifest = {
+            "step": step,
+            "time": time.time(),
+            "extra": extra,
+            "leaves": [
+                {"name": n, "key": f"a{i}", "shape": list(a.shape),
+                 "dtype": dt, "crc32": _crc(a)}
+                for i, (n, a, dt) in enumerate(host)
+            ],
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        self._gc()
+
+    def _gc(self):
+        steps = self.all_steps()
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s:010d}"),
+                          ignore_errors=True)
+
+    # ------------------------------------------------------------------
+    def all_steps(self) -> List[int]:
+        out = []
+        for d in os.listdir(self.directory):
+            m = re.fullmatch(r"step_(\d+)", d)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like: Any, step: Optional[int] = None,
+                verify: bool = True) -> Tuple[Any, Dict]:
+        """Restore into the structure of ``like`` (a tree of tensors):
+        each leaf takes its ``like`` leaf's dtype and device. Returns
+        (tree, the manifest's ``extra``)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:010d}")
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
+        out = []
+        with np.load(os.path.join(d, "arrays.0.npz")) as data:
+            for name, ref in named_leaves(like):
+                if name not in by_name:
+                    raise KeyError(f"checkpoint missing leaf {name!r}")
+                meta = by_name[name]
+                a = data[meta["key"]]
+                if verify and _crc(a) != meta["crc32"]:
+                    raise IOError(f"CRC mismatch for {name!r} (corrupt "
+                                  f"checkpoint step {step})")
+                if tuple(a.shape) != tuple(ref.shape):
+                    raise ValueError(
+                        f"shape mismatch for {name!r}: ckpt {a.shape} vs "
+                        f"model {tuple(ref.shape)}")
+                out.append(_from_stored(a, meta["dtype"]).to(
+                    device=ref.device, dtype=ref.dtype))
+        return _rebuild(like, iter(out)), manifest["extra"]
