@@ -121,12 +121,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 of the 32x32 FFN tiles (built at step 0, as
                 launch/train.py builds it), AdamW 3e-4 under
                 warmup_cosine(3, 20), lm_batch 4 x 256: 20 timed steps
-                after one untimed (step ms split into forward + backward
-                and optimizer with CUDA events, the host time a step waits
-                for its batch, tokens/s, peak GiB, model utilization), then
-                one step under torch.profiler; the loss finite at every
-                step and falling, every pruned tile's gradient exactly 0 at
-                every step, the overlay within one tile of 50%. (b) 1
+                after one untimed, each as the train step's two halves
+                (forward + backward and optimizer ms with CUDA events, the
+                host time a step waits for its batch), then 3 steps of
+                make_train_step (step ms, tokens/s, model utilization),
+                peak GiB, and one step under torch.profiler; the loss
+                finite at every step and falling, every pruned tile's
+                gradient exactly 0 at each of the 21 split steps, the
+                overlay within one tile of 50%. (b) 1
                 full-width layer with int8 moments: 6 steps, save_async at
                 step 3 (the stall, the write's seconds and bytes),
                 restore into a fresh state and run steps 4-6 again
@@ -1723,15 +1725,16 @@ def paths_phase(torch, counters):
     return results, qw
 
 
-def _profiled(torch, step, n: int, name: str):
+def _profiled(torch, step, n: int, name: str, ops_by_shape=()):
     """Device time by kernel over ``n`` calls of ``step`` under
     torch.profiler, and the share of the wall time the device was busy
-    (sum of kernel self times; kernels of one stream do not overlap).
-    The trace goes to build/chip_smoke/<name>_trace.json."""
+    (sum of kernel self times; kernels of one stream do not overlap);
+    the ops named in ``ops_by_shape`` also by their input shapes. The
+    trace goes to build/chip_smoke/<name>_trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(ops_by_shape)) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
@@ -1761,9 +1764,24 @@ def _profiled(torch, step, n: int, name: str):
                          ms_per_step=dev_us(e) / n / 1e3))
         log(f"    {dev_us(e) / n / 1e3:8.3f} ms/step  {e.count / n:6.1f} "
             f"calls/step  {e.key[:90]}")
+    shaped = []
+    if ops_by_shape:
+        def tot_us(e):
+            return getattr(e, "device_time_total", None) or \
+                getattr(e, "cuda_time_total", 0)
+        ops = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key in ops_by_shape and tot_us(e)]
+        log(f"  {name}: {', '.join(ops_by_shape)} by input shapes "
+            f"(device time, their kernels included):")
+        for e in sorted(ops, key=tot_us, reverse=True)[:16]:
+            shaped.append(dict(op=e.key, shapes=str(e.input_shapes),
+                               calls=e.count, ms_per_step=tot_us(e) / n / 1e3))
+            log(f"    {tot_us(e) / n / 1e3:8.3f} ms/step  "
+                f"{e.count / n:6.1f} calls/step  {e.key} "
+                f"{str(e.input_shapes)[:100]}")
     return dict(wall_ms_per_step=wall_us / n / 1e3,
                 busy_ms_per_step=busy_us / n / 1e3,
-                busy_share=busy_us / wall_us, kernels=rows)
+                busy_share=busy_us / wall_us, kernels=rows, ops=shaped)
 
 
 def profile_phase(torch, params, cfg, tag: str = "", **engine_kw):
@@ -2005,25 +2023,6 @@ def _pruned_grad_max(torch, overlay, grads):
     return worst
 
 
-class TimedUpdate:
-    """Stands in for ``train_step.adamw_update`` during phase 7: the same
-    update between two CUDA events (the optimizer's share of a step), and
-    the step's gradients kept until the caller has checked them."""
-
-    def __init__(self, torch, update):
-        self.torch, self.update = torch, update
-        self.ms, self.grads = [], None
-
-    def __call__(self, grads, state, params, cfg, lr_scale=1.0):
-        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        out = self.update(grads, state, params, cfg, lr_scale=lr_scale)
-        ev[1].record()
-        self.ms.append(ev)
-        self.grads = grads
-        return out
-
-
 def _model_flops(cfg, params, batch: int, seq: int) -> float:
     """6 x (the layers' GEMM weights x tokens + the head table x the
     predicted positions) + causal attention's matmuls (forward and
@@ -2039,15 +2038,21 @@ def _model_flops(cfg, params, batch: int, seq: int) -> float:
 
 
 def train_full_width(torch):
-    """(a) 20 timed steps after one untimed, 4 full-width layers."""
+    """(a) 20 timed steps after one untimed, 4 full-width layers, each
+    run as the train step's two halves between CUDA events
+    (``value_and_grad``, then ``global_norm`` and ``adamw_update``): the
+    split, and the gradients for the pruned-tile check. Then 3 steps of
+    ``make_train_step`` between CUDA events (the step time) and one under
+    torch.profiler."""
     import numpy as np
 
     from repro_torch.core.sasp import build_sasp_overlay, sasp_summary
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.models import lm
-    from repro_torch.train import train_step as ts_mod
-    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update, global_norm)
     from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.train_step import make_train_step, value_and_grad
 
     L, B, S = TRAIN["layers"], TRAIN["batch"], TRAIN["seq"]
     cfg = train_config(L)
@@ -2066,62 +2071,74 @@ def train_full_width(torch):
         f"at step 0; init + overlay {time.time() - t0:.1f} s")
     check(abs(got - TRAIN["sparsity"]) <= 1.0 / summ["total_tiles"],
           f"overlay sparsity {got} not within one tile of 50%")
-    step_fn = ts_mod.make_train_step(
-        cfg, opt_cfg, overlay=overlay,
-        lr_schedule=warmup_cosine(TRAIN["warmup"], TRAIN["steps"]))
+    sched = warmup_cosine(TRAIN["warmup"], TRAIN["steps"])
     pipe = Pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
                                global_batch=B))
-    timed = TimedUpdate(torch, ts_mod.adamw_update)
-    ts_mod.adamw_update = timed
     rows = []
-    try:
-        for i in range(TRAIN["steps"] + 1):
-            t = time.perf_counter()
-            batch = _batch(torch, pipe)
-            data_ms = (time.perf_counter() - t) * 1e3
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-            params, opt, m = step_fn(params, opt, batch)
-            ev[1].record()
-            pruned = float(_pruned_grad_max(torch, overlay, timed.grads))
-            timed.grads = None
-            torch.cuda.synchronize()
-            step_ms = ev[0].elapsed_time(ev[1])
-            opt_ms = timed.ms[-1][0].elapsed_time(timed.ms[-1][1])
-            row = dict(step=i, loss=float(m["loss"]),
-                       grad_norm=float(m["grad_norm"]), step_ms=step_ms,
-                       opt_ms=opt_ms, fwd_bwd_ms=step_ms - opt_ms,
-                       data_ms=data_ms, pruned_grad_max=pruned)
-            rows.append(row)
-            log(f"  step {i:2d}{' (untimed)' if i == 0 else ''}: loss "
-                f"{row['loss']:.4f}, grad norm {row['grad_norm']:.3f}, "
-                f"{step_ms:.1f} ms (forward + backward {step_ms - opt_ms:.1f}"
-                f", optimizer {opt_ms:.1f}), batch {data_ms:.2f} ms, pruned "
-                f"tiles' largest |grad| {pruned}")
-            check(np.isfinite(row["loss"]), f"loss not finite at step {i}")
-            check(pruned == 0.0,
-                  f"a pruned FFN tile got gradient {pruned} at step {i}")
-    finally:
-        ts_mod.adamw_update = timed.update
+    for i in range(TRAIN["steps"] + 1):
+        t = time.perf_counter()
+        batch = _batch(torch, pipe)
+        data_ms = (time.perf_counter() - t) * 1e3
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, _, grads = value_and_grad(cfg, params, batch, overlay)
+        ev[1].record()
+        gnorm = global_norm(grads)
+        params, opt = adamw_update(grads, opt, params, opt_cfg,
+                                   lr_scale=sched(opt.step), gnorm=gnorm)
+        ev[2].record()
+        pruned = float(_pruned_grad_max(torch, overlay, grads))
+        del grads
+        torch.cuda.synchronize()
+        fwd_bwd_ms, opt_ms = (ev[0].elapsed_time(ev[1]),
+                              ev[1].elapsed_time(ev[2]))
+        row = dict(step=i, loss=float(loss), grad_norm=float(gnorm),
+                   fwd_bwd_ms=fwd_bwd_ms, opt_ms=opt_ms, data_ms=data_ms,
+                   pruned_grad_max=pruned)
+        rows.append(row)
+        log(f"  step {i:2d}{' (untimed)' if i == 0 else ''}: loss "
+            f"{row['loss']:.4f}, grad norm {row['grad_norm']:.3f}, forward "
+            f"+ backward {fwd_bwd_ms:.1f} ms, optimizer {opt_ms:.1f} ms, "
+            f"batch {data_ms:.2f} ms, pruned tiles' largest |grad| {pruned}")
+        check(np.isfinite(row["loss"]), f"loss not finite at step {i}")
+        check(pruned == 0.0,
+              f"a pruned FFN tile got gradient {pruned} at step {i}")
+    step_fn = make_train_step(cfg, opt_cfg, overlay=overlay,
+                              lr_schedule=sched)
+    e2e = []
+    for i in range(3):
+        batch = _batch(torch, pipe)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, opt, m = step_fn(params, opt, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        e2e.append(ev[0].elapsed_time(ev[1]))
+        check(np.isfinite(float(m["loss"])),
+              f"make_train_step's loss not finite at step {len(rows) + i}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     state = [params, opt]
 
     def one_step():
         state[0], state[1], _ = step_fn(state[0], state[1],
                                         _batch(torch, pipe))
-    prof = _profiled(torch, one_step, 1, "train_step")
+    prof = _profiled(torch, one_step, 1, "train_step", ops_by_shape=(
+        "aten::add", "aten::add_", "aten::fill_", "aten::zero_",
+        "aten::cat", "aten::stack"))
     params, opt = state
     timed_rows = rows[1:]
-    step_ms = sum(r["step_ms"] for r in timed_rows) / len(timed_rows)
+    fwd_bwd_ms = sum(r["fwd_bwd_ms"] for r in timed_rows) / len(timed_rows)
     opt_ms = sum(r["opt_ms"] for r in timed_rows) / len(timed_rows)
     data_ms = sum(r["data_ms"] for r in timed_rows) / len(timed_rows)
+    step_ms = sum(e2e) / len(e2e)
     tok_s = B * S / (step_ms / 1e3)
     flops = _model_flops(cfg, params, B, S)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
     first, last5 = rows[1]["loss"], [r["loss"] for r in rows[-5:]]
-    log(f"  {len(timed_rows)} timed steps: {step_ms:.1f} ms/step (forward + "
-        f"backward "
-        f"{step_ms - opt_ms:.1f}, optimizer {opt_ms:.1f}; CUDA events), "
+    log(f"  {len(timed_rows)} timed steps in halves: forward + backward "
+        f"{fwd_bwd_ms:.1f} ms, optimizer {opt_ms:.1f} ms (sum "
+        f"{fwd_bwd_ms + opt_ms:.1f}); make_train_step {step_ms:.1f} ms/step "
+        f"over {len(e2e)} steps {[round(x, 1) for x in e2e]} (CUDA events); "
         f"waiting for the batch {data_ms:.2f} ms/step (host build + copy, "
         f"device idle), {tok_s:.0f} tokens/s, peak {peak:.2f} GiB; model "
         f"utilization {mfu:.4f} ({flops / 1e12:.2f} TFLOP a step: 6 x "
@@ -2133,10 +2150,10 @@ def train_full_width(torch):
           "the mean loss of the last 5 steps is not below step 1's")
     del params, opt, overlay, step_fn
     return dict(layers=L, params=n_params, achieved_sparsity=got,
-                tiles=summ["total_tiles"], step_ms=step_ms, opt_ms=opt_ms,
-                fwd_bwd_ms=step_ms - opt_ms, data_ms=data_ms, tok_s=tok_s,
-                peak_gib=peak, model_flops=flops, mfu=mfu, steps=rows,
-                profile=prof)
+                tiles=summ["total_tiles"], step_ms=step_ms, e2e_ms=e2e,
+                opt_ms=opt_ms, fwd_bwd_ms=fwd_bwd_ms, data_ms=data_ms,
+                tok_s=tok_s, peak_gib=peak, model_flops=flops, mfu=mfu,
+                steps=rows, profile=prof)
 
 
 def _tensors(tree):

@@ -166,6 +166,19 @@ def layer_params(tree, i: int):
     return tree
 
 
+def unstack_layers(tree, n: int) -> List:
+    """The ``n`` layers of a layer-stacked param subtree, split at once.
+    ``torch.unbind`` is one autograd node per leaf, whose backward stacks
+    the layers' gradients; indexing layer by layer would instead add a
+    zero-padded full-size gradient per layer, quadratic in depth."""
+    if isinstance(tree, dict):
+        per = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per.items()} for i in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree))
+    return [layer_params(tree, i) for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Apply
 # ---------------------------------------------------------------------------
@@ -247,10 +260,10 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
-    """``fn(x) -> x`` under ``cfg.remat``: ``none`` keeps every
-    activation, ``full`` recomputes ``fn`` in backward, ``dots``
-    recomputes it except the matmul outputs, which are saved."""
-    if cfg.remat == "none":
+    """``fn(x)`` under ``cfg.remat`` when autograd records: ``none``
+    keeps every activation, ``full`` recomputes ``fn`` in backward,
+    ``dots`` recomputes it except the matmul outputs, which are saved."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     kw = dict(use_reentrant=False, preserve_rng_state=False)
     if cfg.remat == "dots":
@@ -265,40 +278,29 @@ def _run_segments_full(params, cfg: ModelConfig, x, positions,
                        want_cache: bool, cache_len: int,
                        uniform_cache: bool = False):
     _check_supported(cfg)
-    if not want_cache and torch.is_grad_enabled():
-        return _run_segments_train(params, cfg, x, positions), None
     all_caches = []
     for seg_params, (pattern, repeat) in zip(params["segments"],
                                              segment_plan(cfg)):
-        per_slot: Dict[str, list] = {f"slot{s}": [] for s in
-                                     range(len(pattern))}
+        names = [f"slot{s}" for s in range(len(pattern))]
+        layers = {n: unstack_layers(seg_params[n], repeat) for n in names}
+        per_slot: Dict[str, list] = {n: [] for n in names}
         for r in range(repeat):
-            for slot, spec in enumerate(pattern):
-                name = f"slot{slot}"
-                x, c = _apply_slot_full(layer_params(seg_params[name], r),
-                                        spec, cfg, x, positions,
-                                        want_cache, cache_len, uniform_cache)
+            def body(xc, r=r, names=names, pattern=pattern, layers=layers):
+                cs = []
+                for name, spec in zip(names, pattern):
+                    xc, c = _apply_slot_full(layers[name][r], spec, cfg, xc,
+                                             positions, want_cache,
+                                             cache_len, uniform_cache)
+                    cs.append(c)
+                return xc, cs
+            # the reference's scan body, recomputed in backward
+            x, cs = (body if want_cache else _maybe_remat(body, cfg))(x)
+            for name, c in zip(names, cs):
                 per_slot[name].append(c)
         if want_cache:
             all_caches.append({n: _stack_caches(cs)
                                for n, cs in per_slot.items()})
     return x, tuple(all_caches) if want_cache else None
-
-
-def _run_segments_train(params, cfg: ModelConfig, x, positions):
-    """The full-sequence forward under autograd: each repeat of a
-    segment's pattern (the reference's scan body) through ``_maybe_remat``."""
-    for seg_params, (pattern, repeat) in zip(params["segments"],
-                                             segment_plan(cfg)):
-        for r in range(repeat):
-            def body(xc, r=r, seg_params=seg_params, pattern=pattern):
-                for slot, spec in enumerate(pattern):
-                    xc, _ = _apply_slot_full(
-                        layer_params(seg_params[f"slot{slot}"], r), spec,
-                        cfg, xc, positions, False, 0)
-                return xc
-            x = _maybe_remat(body, cfg)(x)
-    return x
 
 
 def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,

@@ -18,7 +18,7 @@ port's TP slice.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,13 +118,16 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads: Params, state: AdamWState, params: Params,
-                 cfg: AdamWConfig, lr_scale=1.0
+                 cfg: AdamWConfig, lr_scale=1.0,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Params, AdamWState]:
-    """One AdamW step; ``lr_scale`` is a number or a 0-d fp32 tensor.
+    """One AdamW step; ``lr_scale`` is a number or a 0-d fp32 tensor;
+    ``gnorm`` is ``global_norm(grads)`` where the caller has it already.
     Params and moments are updated in place (and returned); ``grads`` are
     left as they are."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     dev = step.device
 
     def f32(x):

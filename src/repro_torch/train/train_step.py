@@ -86,11 +86,13 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                        for n in ms[0]}
 
         lr_scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
+        gnorm = global_norm(grads)
         new_params, new_opt = adamw_update(grads, opt_state, params,
-                                           opt_cfg, lr_scale=lr_scale)
+                                           opt_cfg, lr_scale=lr_scale,
+                                           gnorm=gnorm)
         out = dict(metrics)
         out["loss"] = loss
-        out["grad_norm"] = global_norm(grads)
+        out["grad_norm"] = gnorm
         return new_params, new_opt, out
 
     return step

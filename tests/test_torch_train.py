@@ -295,6 +295,42 @@ def test_remat_modes_give_equal_loss_and_gradients():
                               tparams, tb, tov)
 
 
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_stacked_leaves_split_by_one_backward_node(remat):
+    """Each layer-stacked leaf (through its overlay product, if masked)
+    reaches the layers by one chain that ends in an unbind: its backward
+    stacks the layers' gradients once, where a node per layer would add
+    a zero-padded full-size gradient per layer."""
+    _, tcfg, _, tparams, _, tov, _, tb = _case("qwen-overlay")
+    live = {k: p.detach().requires_grad_(True)
+            for k, p in t_pruning.iter_leaves(tparams)}
+    with torch.enable_grad():
+        p = t_pruning.map_leaves(lambda path, _: live[path], tparams)
+        loss, _ = t_lm.loss_fn(t_sasp.merge_overlay(p, tov),
+                               dataclasses.replace(tcfg, remat=remat), tb)
+    users, acc, seen, todo = {}, {}, set(), [loss.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node in seen:
+            continue
+        seen.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is not None:
+                users.setdefault(nxt, set()).add(node)
+                if hasattr(nxt, "variable"):
+                    acc[id(nxt.variable)] = nxt
+                todo.append(nxt)
+    stacked = [k for k in live if k[0] == "segments"]
+    assert stacked
+    for k in stacked:
+        node, chain = acc[id(live[k])], []
+        while node.name() != "UnbindBackward0":
+            assert len(users[node]) == 1, (k, chain, users[node])
+            node = next(iter(users[node]))
+            chain.append(node.name())
+        assert chain[:-1] in ([], ["MulBackward0"]), (k, chain)
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
