@@ -140,6 +140,37 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 the files under build/chip_smoke/train_ckpt are removed
                 after. (c) one train step on the card against the CPU,
                 fp32, 2 layers, d 256, with 1 and 2 micro-batches.
+  8. families — (after 7) the other layer kinds, each part served like
+                phase 3 (the launcher's 4 prompts, 16 new tokens,
+                Engine(4 slots, cache 256), one untimed run first;
+                prefill ms, decode ms/step, tok/s, peak GiB, launches by
+                kernel and variant): (a) moonshot-v1-16b-a3b at full width
+                (d_model 2048, 16/16 heads of 128, 64 experts top 6,
+                capacity 1.25, d_ff 1408, vocab 163840), depth cut from 48
+                to 8 layers (4.9 B parameters; 48 layers of fp32 masters
+                are 108 GB), random weights from seed 0, output
+                projections spread as in phase 3, 50% of the 32x32 tiles
+                pruned with scope all, packed, bf16: the tile-skip GEMM on
+                mma, 4 projections x 8 layers a forward; a second run
+                gives the same streams and decode logits bit for bit (MoE
+                capacity is shared by a step's rows, so no solo run is an
+                oracle); fp32 packed vs masked at 2 layers (1e-4 of the
+                logit scale). (b) mamba2-780m whole (48 layers, d_model
+                1536, 48 heads of 64, state 128, chunk 256, vocab 50280),
+                50% scope all, nothing packs (the SSM serves masked-dense),
+                bf16, per-request prefill, one request preempted with its
+                KV kept and one with it dropped: streams greedy-equal to
+                each request alone (phase 3c's near-tie rule); fp32 at 2
+                layers, prefill 16 tokens and decode 8 against the forward
+                (5e-3, the reference's bound). (c) jamba-1.5-large's
+                hybrid super-block, reduced to 8 layers at d_model 1024,
+                vocab 65536 (7 mamba + 1 attention layer, MoE of 4 experts
+                top 2 on odd layers, dense FFNs on even ones), weights and
+                compute bf16: both main-path kernels on mma, the (a)
+                determinism check, fp32 packed vs masked (1e-4). (d) one
+                train step card vs CPU as 7 (c), loss and aux loss too,
+                on reduced granite-moe-1b-a400m and jamba (4 layers, d
+                256).
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -150,6 +181,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -810,11 +842,12 @@ def _recording(eng):
     return rec
 
 
-def _drive_timed(torch, eng, reqs, preempt_at=None, check_pool=True):
+def _drive_timed(torch, eng, reqs, preempts=(), check_pool=True):
     """Serve ``reqs`` step by step, timing each step with the device
-    synchronised; at step ``preempt_at`` the first occupied slot is
-    preempted with its pages kept and queued behind the others. Returns
-    the streams and per-step (ms, admitted, tokens emitted)."""
+    synchronised; ``preempts`` maps a step number to ``keep_kv``: after
+    that step the first occupied slot is preempted (its KV kept or
+    dropped) and queued behind the others. Returns the streams and
+    per-step (ms, admitted, tokens emitted)."""
     for r in reqs:
         eng.submit(r)
     steps, n = [], 0
@@ -831,10 +864,11 @@ def _drive_timed(torch, eng, reqs, preempt_at=None, check_pool=True):
         if check_pool and eng.pool is not None:
             eng.pool.alloc.check()
         n += 1
-        if n == preempt_at:
+        if n in preempts:
             slot = next(i for i, r in enumerate(eng.slot_req)
                         if r is not None)
-            eng.queue.append(eng.preempt_slot(slot, keep_kv=True))
+            eng.queue.append(eng.preempt_slot(slot,
+                                              keep_kv=preempts[n]))
     return {r.rid: list(r.out_tokens) for r in reqs}, steps
 
 
@@ -962,7 +996,7 @@ def paged_phase(torch, params, cfg, counters):
         reset(counters)
         got, steps = _drive_timed(torch, eng,
                                   shared_prefix_requests(cfg.vocab_size),
-                                  preempt_at=PAGED["preempt_at"])
+                                  preempts={PAGED["preempt_at"]: True})
         launches = _launch_counts(counters)
         ties = _greedy_equal(f"({name})", got, want, rec["margins"])
         st = {k: eng.stats[k] for k in (
@@ -2280,14 +2314,17 @@ def train_checkpoint_serve(torch, counters):
                 launches=launches, serve=e2e, parity=parity)
 
 
-def train_card_vs_cpu(torch):
+def train_card_vs_cpu(torch, cfg=None):
     """(c) one train step on the card against the same step on the CPU,
-    both in the port, fp32, reduced qwen3-32b (2 layers, d 256), the
-    overlay (built once, on the CPU) closed over; once more with 2
-    micro-batches. Gradients and moments must agree within 1e-5 of each
-    leaf's scale; params too wherever the gradient is at least 100 eps
-    (``_conditioned_diff``); the largest difference over all params is
-    printed beside it."""
+    both in the port, fp32, ``cfg`` (default: reduced qwen3-32b, 2
+    layers, d 256), the overlay (built once, on the CPU) closed over;
+    once more with 2 micro-batches. The loss and the MoE aux loss, the
+    gradients and the moments must agree within 1e-5 of each leaf's
+    scale; every element of the params within its own bound
+    (``_param_bound_diff``). A stack with neither MoE nor SSM layers is
+    also held flat at 1e-5 over the elements whose gradient is at least
+    100 eps (``_conditioned_diff``); the largest difference over all
+    params is printed beside it."""
     import copy
 
     from repro_torch.configs import SASPConfig, get_config, reduced
@@ -2298,7 +2335,8 @@ def train_card_vs_cpu(torch):
     from repro_torch.train.train_step import make_train_step, value_and_grad
 
     cfg = dataclasses.replace(
-        reduced(get_config("qwen3-32b"), layers=2, d_model=256, vocab=512),
+        cfg or reduced(get_config("qwen3-32b"), layers=2, d_model=256,
+                       vocab=512),
         sasp=SASPConfig(enabled=True, block_k=BLOCK, block_n=BLOCK,
                         sparsity=0.5))
     base = spread_output_scales(lm.init_params(cfg, seed=0, device="cpu"),
@@ -2307,12 +2345,15 @@ def train_card_vs_cpu(torch):
     batch = lm_batch(DataConfig(vocab_size=512, seq_len=64,
                                 global_batch=4), 0)
     opt_cfg = AdamWConfig()
+    flat = cfg.moe is None and cfg.ssm is None
     out = {}
     for dev in ("cpu", DEVICE):
         p = _to(copy.deepcopy(base), dev)
         ov = _to(overlay, dev)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        res = {"grads": value_and_grad(cfg, p, b, ov)[2]}
+        loss, metrics, grads = value_and_grad(cfg, p, b, ov)
+        res = {"grads": grads, "loss": float(loss),
+               "aux": float(metrics["aux"])}
         for k in (1, 2):
             pk = copy.deepcopy(p)
             pk, ok, _ = make_train_step(cfg, opt_cfg, overlay=ov,
@@ -2320,22 +2361,36 @@ def train_card_vs_cpu(torch):
                 pk, adamw_init(pk, opt_cfg), b)
             res[k] = dict(params=pk, m=ok.m, v=ok.v)
         out[dev] = res
-    errs = {"grads": _rel_diff(out[DEVICE]["grads"], out["cpu"]["grads"])}
+    errs = {k: (abs(out[DEVICE][k] - out["cpu"][k])
+                / max(abs(out["cpu"][k]), 1e-30), k) for k in ("loss", "aux")}
+    errs["grads"] = _rel_diff(out[DEVICE]["grads"], out["cpu"]["grads"])
+    bounds = {}
     for k in (1, 2):
         card, cpu = out[DEVICE][k], out["cpu"][k]
         errs[f"m (K={k})"] = _rel_diff(card["m"], cpu["m"])
         errs[f"v (K={k})"] = _rel_diff(card["v"], cpu["v"])
-        errs[f"params (K={k}), |g| >= 100 eps"] = _conditioned_diff(
-            card["params"], cpu["params"], out["cpu"]["grads"],
-            100 * opt_cfg.eps)
+        if flat:
+            errs[f"params (K={k}), |g| >= 100 eps"] = _conditioned_diff(
+                card["params"], cpu["params"], out["cpu"]["grads"],
+                100 * opt_cfg.eps)
         errs[f"params (K={k}), all"] = _rel_diff(card["params"],
                                                  cpu["params"])
+        bounds[k] = _param_bound_diff(card["params"], cpu["params"],
+                                      card["m"], cpu["m"], opt_cfg)
     log("  card vs CPU, fp32, largest difference over each leaf's scale: "
         + ", ".join(f"{k} {e:.3g} ({n})" for k, (e, n) in errs.items()))
+    for k, b in bounds.items():
+        log(f"  params (K={k}), every element against its own bound: "
+            f"largest |difference| / bound {b['ratio']:.3g} ({b['leaf']}); "
+            f"{b['above']} of {b['elements']} elements have a bound above "
+            f"1e-5 of their leaf's scale, by leaf {b['above_by_leaf']}")
+        check(b["ratio"] <= 1, f"card and CPU differ in params (K={k}) "
+              f"beyond an element's bound: {b['ratio']:.3g} at {b['leaf']}")
     for k, (e, n) in errs.items():
         if not k.endswith("all"):
             check(e <= 1e-5, f"card and CPU differ in {k}: {e:.3g} at {n}")
-    return {k: dict(rel_err=e, leaf=n) for k, (e, n) in errs.items()}
+    return {k: dict(rel_err=e, leaf=n) for k, (e, n) in errs.items()} | {
+        f"params (K={k}), bound": b for k, b in bounds.items()}
 
 
 def _to(tree, dev):
@@ -2364,6 +2419,42 @@ def _conditioned_diff(a_tree, b_tree, g_tree, floor):
     return worst
 
 
+def _param_bound_diff(a_tree, b_tree, ma_tree, mb_tree, opt_cfg):
+    """Every element of the params after a first AdamW step (zero moments
+    before) against its own bound. The step moves an element by
+    lr * g / (|g| + eps), where g = m / (1 - b1) is the gradient it
+    applied (with MoE, micro-batches route, and so differentiate,
+    otherwise than the whole batch). An error dg in g (here the element's
+    own, from the two sides' first moments, which their check holds
+    within 1e-5) moves it by at most
+    lr * eps * dg / (max(|g| - dg, 0) + eps)^2, and never by over 2 lr;
+    the bound is that plus 1e-5 of the leaf's max|param|. Returns the
+    largest |difference| / bound and its leaf, and how many elements, by
+    leaf, have a bound above that flat term."""
+    from repro_torch.train.checkpoint import named_leaves
+    ma, mb = dict(named_leaves(ma_tree)), dict(named_leaves(mb_tree))
+    lr, eps = opt_cfg.lr, opt_cfg.eps
+    ratio, leaf, above, n_el, by_leaf = 0.0, "", 0, 0, {}
+    for (n, a), (_, b) in zip(named_leaves(a_tree), named_leaves(b_tree)):
+        if b.numel() == 0:
+            continue
+        g = mb[n].double().abs() / (1 - opt_cfg.b1)
+        dg = (ma[n].double().cpu() - mb[n].double()).abs() / (1 - opt_cfg.b1)
+        step = (lr * eps * dg / ((g - dg).clamp_min(0) + eps) ** 2
+                ).clamp_max(2 * lr)
+        a, b = a.double().cpu(), b.double()
+        flat = 1e-5 * float(b.abs().max())
+        r = float(((a - b).abs() / (flat + step).clamp_min(1e-30)).max())
+        if r > ratio:
+            ratio, leaf = r, n
+        k = int((step > flat).sum())
+        above, n_el = above + k, n_el + b.numel()
+        if k:
+            by_leaf[n] = k
+    return dict(ratio=ratio, leaf=leaf, above=above, elements=n_el,
+                above_by_leaf=by_leaf)
+
+
 def train_phase(torch, counters):
     t0 = time.time()
     torch.cuda.empty_cache()
@@ -2380,6 +2471,314 @@ def train_phase(torch, counters):
     out["c"] = train_card_vs_cpu(torch)
     out["seconds"] = time.time() - t0
     log(f"  phase 7: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the other model families (MoE, SSM, hybrid) on one card
+# ---------------------------------------------------------------------------
+
+FAMILY = dict(moonshot_layers=8, parity_layers=2, slots=4, cache_len=256,
+              max_new=16, preempts={3: True, 6: False})
+
+
+def moonshot_config(layers: int, compute: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               num_layers=layers, compute_dtype=compute)
+
+
+def mamba_config(layers: int, compute: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mamba2-780m"), num_layers=layers,
+                               compute_dtype=compute)
+
+
+def jamba_config(weights: str):
+    """jamba-1.5-large's one 8-layer super-block at d_model 1024 (the
+    reduced config's widths: 128 SSM heads of 16, state 16, 4 experts top
+    2, d_ff 1024), bf16 compute, weights stored in ``weights``. With the
+    launcher's fp32 masters a mamba layer's products come out fp32 (JAX's
+    promotion), which carries the residual, and so the kernels' inputs,
+    in fp32: both kernels then run their FMA variants. bf16 weights keep
+    the residual in bf16 and the kernels on their tensor-core variants."""
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(
+        reduced(get_config("jamba-1.5-large-398b"), layers=8, d_model=1024,
+                vocab=65536),
+        param_dtype=weights, compute_dtype="bfloat16")
+
+
+def _served(torch, cfg, seed=0):
+    """Random weights from ``seed`` (output projections spread as in
+    phase 3), 50% of the 32x32 tiles pruned with scope all, packed."""
+    from repro_torch.launch.serve import build_serving_params
+    from repro_torch.models import lm
+    return build_serving_params(
+        spread_output_scales(lm.init_params(cfg, seed=seed, device=DEVICE),
+                             cfg),
+        cfg, path="packed", sparsity=SPARSITY, scope="all", verbose=False)
+
+
+def _family_serve(torch, name, params, cfg, counters, preempts=()):
+    """The launcher's 4 prompts, 16 new tokens each, through
+    Engine(4 slots, cache 256) after one untimed run of the same prompts;
+    every step timed, every decode step's logits and every token's top-2
+    margin recorded, launches counted from 0 over the timed run."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+
+    F = FAMILY
+    Engine(params, cfg, batch_slots=F["slots"], cache_len=F["cache_len"]
+           ).run(synthetic_requests(F["slots"], cfg.vocab_size, 2))
+    _sync(torch)
+    reqs = synthetic_requests(F["slots"], cfg.vocab_size, F["max_new"])
+    eng = Engine(params, cfg, batch_slots=F["slots"],
+                 cache_len=F["cache_len"])
+    rec = _recording(eng)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset(counters)
+    streams, steps = _drive_timed(torch, eng, reqs, preempts=preempts)
+    launches = read(counters)
+    variants = {n: dict(m.variant_launches) for n, m in counters.items()
+                if n in MAIN_PATH and m.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t = _step_times(steps)
+    log(f"  {name}: prefill {t['prefill_ms']:.1f} ms, decode "
+        f"{t['decode_ms_per_step']:.2f} ms/step, {t['tok_s']:.1f} tok/s, "
+        f"{t['steps']} steps, peak {peak:.2f} GiB ({held:.2f} held "
+        f"before the run); launches "
+        f"{ {n: launches[n] for n in MAIN_PATH} } by variant {variants}; "
+        f"preemptions {eng.stats['preemptions']}, resumes "
+        f"{eng.stats['resumes']}")
+    check(all(len(st) == F["max_new"] for st in streams.values()),
+          f"{name}: not every request produced {F['max_new']} tokens")
+    check(all(0 <= tok < cfg.vocab_size for st in streams.values()
+              for tok in st), f"{name}: token id out of the vocabulary")
+    check(all(bool(torch.isfinite(x).all()) for x in rec["steps"]),
+          f"{name}: non-finite logits")
+    return dict(streams=streams, logits=rec["steps"], margins=rec["margins"],
+                timing=t, peak_gib=peak, held_gib=held, launches=launches,
+                variants=variants, preemptions=eng.stats["preemptions"])
+
+
+def _deterministic(name, a, b):
+    """Two runs of the same requests: equal streams and every decode
+    step's logits equal bit for bit."""
+    torch = sys.modules["torch"]
+    check(a["streams"] == b["streams"], f"{name}: streams differ between "
+          f"two runs of the same requests")
+    check(len(a["logits"]) == len(b["logits"]) and all(
+        torch.equal(x, y) for x, y in zip(a["logits"], b["logits"])),
+        f"{name}: decode logits differ between two runs")
+    log(f"  {name}: a second run gives the same streams and "
+        f"{len(a['logits'])} decode steps' logits bit for bit")
+
+
+def _packed_vs_masked(torch, name, params, cfg):
+    """fp32: the packed model's prefill logits (2 x 24 tokens) and first
+    decode step against the masked-dense model on the same pruned
+    weights, within 1e-4 of the logit scale."""
+    from repro_torch.core.deploy import strip_packed
+    from repro_torch.models import lm
+
+    masked = strip_packed(params)
+    mcfg = dataclasses.replace(cfg, sasp=dataclasses.replace(
+        cfg.sasp, path="masked"))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                         device=DEVICE)
+    pos = torch.full((2,), 24, dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        lg_m, c_m = lm.prefill(masked, mcfg, toks, cache_len=32)
+        nxt = torch.argmax(lg_m[:, 0], dim=-1, keepdim=True)
+        d_m, _ = lm.decode_step(masked, mcfg, nxt, pos, c_m)
+        lg, c = lm.prefill(params, cfg, toks, cache_len=32)
+        d, _ = lm.decode_step(params, cfg, nxt, pos, c)
+    e_pre, e_dec = rel_err(lg, lg_m), rel_err(d, d_m)
+    log(f"  {name}: fp32 packed vs masked, prefill rel err {e_pre:.3g}, "
+        f"decode rel err {e_dec:.3g} (tolerance 1e-4 of the logit scale)")
+    check(e_pre < 1e-4 and e_dec < 1e-4, f"{name}: packed disagrees with "
+          f"masked")
+    return dict(prefill_rel_err=e_pre, decode_rel_err=e_dec)
+
+
+def _kernel_checks(name, run, want):
+    """Every kernel of ``want`` launched, only on its tensor-core variant;
+    the others not at all."""
+    for k in MAIN_PATH:
+        if k in want:
+            check(run["launches"][k] > 0, f"{name}: {k} never launched")
+            check(set(run["variants"].get(k, {})) == {want[k]},
+                  f"{name}: {k} ran {run['variants'].get(k)}, not only "
+                  f"{want[k]}")
+        else:
+            check(run["launches"][k] == 0, f"{name}: {k} launched")
+
+
+def _summary(run):
+    return {k: v for k, v in run.items()
+            if k not in ("logits", "margins", "streams")} | dict(
+        streams={str(r): s for r, s in run["streams"].items()})
+
+
+def families_moe(torch, counters, cfg, parity_cfg):
+    """(a) moonshot-v1-16b-a3b."""
+    t0 = time.time()
+    params, cfg = _served(torch, cfg)
+    _sync(torch)
+    log(f"  (a) {cfg.name}: d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.head_dim}, {cfg.moe.num_experts} "
+        f"experts top {cfg.moe.top_k}, capacity {cfg.moe.capacity_factor}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; depth cut 48 -> "
+        f"{cfg.num_layers} layers; init + prune + pack "
+        f"{time.time() - t0:.1f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    first = _family_serve(torch, "(a)", params, cfg, counters)
+    _kernel_checks("(a)", first, {"sasp_gemm": "mma"})
+    forwards = 1 + len(first["logits"])
+    per = first["launches"]["sasp_gemm"] / forwards
+    log(f"  (a) tile-skip GEMM launches per forward: {per:g} (4 "
+        f"projections x {cfg.num_layers} layers = {4 * cfg.num_layers})")
+    check(per == 4 * cfg.num_layers, "(a) the tile-skip GEMM did not run "
+          "once per projection and layer")
+    second = _family_serve(torch, "(a) again", params, cfg, counters)
+    _deterministic("(a)", first, second)
+    prof = profile_phase(torch, params, cfg, tag="moonshot_")
+    del params
+    torch.cuda.empty_cache()
+    parity = _packed_vs_masked(torch, f"(a) at {parity_cfg.num_layers} "
+                               "layers", *_served(torch, parity_cfg))
+    torch.cuda.empty_cache()
+    return dict(serve=_summary(first), parity=parity, profile=prof,
+                seconds=time.time() - t0)
+
+
+def families_ssm(torch, counters, cfg, parity_cfg):
+    """(b) mamba2-780m whole."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import lm
+
+    t0 = time.time()
+    params, cfg = _served(torch, cfg)
+    s = cfg.ssm
+    n_params = sum(t.numel() for t in _tensors(params))
+    log(f"  (b) {cfg.name}: d_model {cfg.d_model}, d_inner "
+        f"{s.d_inner(cfg.d_model)}, {s.num_heads(cfg.d_model)} heads of "
+        f"{s.head_dim}, state {s.state_dim}, conv {s.conv_kernel}, chunk "
+        f"{s.chunk_size}, vocab {cfg.vocab_size}, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B params; fp32 master weights, "
+        f"{cfg.compute_dtype} compute (the SSM's products promote to fp32); "
+        f"nothing packs (the SSM serves masked-dense)")
+    run = _family_serve(torch, "(b)", params, cfg, counters,
+                        preempts=FAMILY["preempts"])
+    _kernel_checks("(b)", run, {})
+    check(run["preemptions"] == 2, "(b) expected 2 preemptions")
+    solo, margins = _solo_oracle(torch, params, cfg, synthetic_requests(
+        FAMILY["slots"], cfg.vocab_size, FAMILY["max_new"]))
+    ties = _greedy_equal("(b)", run["streams"], solo, margins,
+                         ref="the solo run")
+    log(f"  (b) streams greedy-equal to each request alone "
+        f"({len(ties)} near-ties)")
+    prof = profile_phase(torch, params, cfg, tag="mamba2_")
+    del params
+    torch.cuda.empty_cache()
+    # fp32, 2 layers: prefill 16 tokens and decode 8 against the forward
+    params, pcfg = _served(torch, parity_cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4)
+    toks = torch.randint(0, pcfg.vocab_size, (2, 24), generator=gen,
+                         device=DEVICE)
+    with torch.no_grad():
+        full = lm.forward(params, pcfg, toks)
+        lg, caches = lm.prefill(params, pcfg, toks[:, :16], cache_len=24)
+        errs = [float((lg[:, 0] - full[:, 15]).abs().max())]
+        for t in range(16, 24):
+            lg, caches = lm.decode_step(
+                params, pcfg, toks[:, t:t + 1],
+                torch.full((2,), t, dtype=torch.int32, device=DEVICE),
+                caches)
+            errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    log(f"  (b) fp32 {pcfg.num_layers} layers: prefill + 8 decode steps "
+        f"against the forward, largest |difference| {max(errs):.3g} "
+        f"(bound 5e-3, the reference's)")
+    check(max(errs) < 5e-3, "(b) decode disagrees with the forward")
+    del params, caches
+    torch.cuda.empty_cache()
+    return dict(serve=_summary(run), near_ties=ties, profile=prof,
+                decode_vs_forward_max_abs=max(errs),
+                seconds=time.time() - t0)
+
+
+def families_hybrid(torch, counters):
+    """(c) jamba's hybrid super-block: with bf16 weights (both kernels on
+    their tensor-core variants), twice, then fp32 against masked; and as
+    the launcher builds it, fp32 masters (both kernels on FMAs)."""
+    t0 = time.time()
+    params, cfg = _served(torch, jamba_config("bfloat16"))
+    kinds = ["attn" if m == 0 else "mamba" for m in cfg.layer_mixer_kinds()]
+    ffns = ["moe" if f else "dense" for f in cfg.layer_ffn_kinds()]
+    log(f"  (c) {cfg.name} reduced: d_model {cfg.d_model}, layers "
+        f"{list(zip(kinds, ffns))}, {cfg.moe.num_experts} experts top "
+        f"{cfg.moe.top_k}, vocab {cfg.vocab_size}, weights and compute "
+        f"{cfg.compute_dtype}")
+    first = _family_serve(torch, "(c)", params, cfg, counters)
+    _kernel_checks("(c)", first, {"sasp_gemm": "mma",
+                                  "sasp_fused_ffn": "mma/mma"})
+    second = _family_serve(torch, "(c) again", params, cfg, counters)
+    _deterministic("(c)", first, second)
+    fp32 = _to_fp32(params, dataclasses.replace(
+        cfg, param_dtype="float32", compute_dtype="float32"))
+    del params
+    parity = _packed_vs_masked(torch, "(c)", *fp32)
+    del fp32
+    torch.cuda.empty_cache()
+    params, cfg = _served(torch, jamba_config("float32"))
+    log(f"  (c) as the serve launcher builds it: fp32 master weights, "
+        f"{cfg.compute_dtype} compute")
+    launcher = _family_serve(torch, "(c) launcher", params, cfg, counters)
+    _kernel_checks("(c) launcher", launcher, {"sasp_gemm": "fma",
+                                              "sasp_fused_ffn": "fma/fma"})
+    del params
+    torch.cuda.empty_cache()
+    return dict(serve=_summary(first), launcher=_summary(launcher),
+                parity=parity, seconds=time.time() - t0)
+
+
+def _to_fp32(params, cfg):
+    """(params, cfg) of the served tree with its dense weights in fp32,
+    packed again from them (bf16 -> fp32 is exact: the same pruned
+    weights); ``cfg`` is the served config in fp32."""
+    from repro_torch.core.deploy import deploy_packed, strip_packed
+    from repro_torch.core.pruning import map_leaves
+    dense = map_leaves(lambda _, t: t.float() if t.is_floating_point()
+                       else t, strip_packed(params))
+    return deploy_packed(dense, cfg)
+
+
+def families_phase(torch, counters):
+    """Phase 8, at the sizes of ``FAMILY`` and the configs above."""
+    from repro_torch.configs import get_config, reduced
+
+    F = FAMILY
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    out = {"a": families_moe(
+        torch, counters, moonshot_config(F["moonshot_layers"], "bfloat16"),
+        moonshot_config(F["parity_layers"], "float32"))}
+    out["b"] = families_ssm(torch, counters, mamba_config(48, "bfloat16"),
+                            mamba_config(F["parity_layers"], "float32"))
+    out["c"] = families_hybrid(torch, counters)
+    out["d"] = {}
+    for arch in ("granite-moe-1b-a400m", "jamba-1.5-large-398b"):
+        cfg = reduced(get_config(arch), layers=4, d_model=256, vocab=512)
+        log(f"  (d) one train step on the card against the CPU: {arch}, "
+            f"fp32, {cfg.num_layers} layers, d {cfg.d_model}")
+        out["d"][arch] = train_card_vs_cpu(torch, cfg)
+    out["seconds"] = time.time() - t0
+    log(f"  phase 8: {out['seconds']:.1f} s")
     return out
 
 
@@ -2514,6 +2913,11 @@ def main() -> int:
         "checkpoint, resume and serve the checkpoint; card vs CPU")
     train = train_phase(torch, counters)
 
+    log("[8] families: (a) moonshot-v1-16b-a3b packed at full width, (b) "
+        "mamba2-780m whole, (c) jamba's hybrid super-block, (d) MoE and "
+        "hybrid train steps, card vs CPU")
+    families = families_phase(torch, counters)
+
     # each kernel's launches on its own path
     path_launches = {n: (launches if n in MAIN_PATH
                          else ablation["launches"])[n] for n in KERNELS}
@@ -2525,6 +2929,7 @@ def main() -> int:
                        parity=parity,
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
+                       families=families,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

@@ -227,7 +227,10 @@ def _deploy_slot(slot: Params, cfg: ModelConfig, *, quantize: bool,
         w1 = _dense_weight(ffn.get("w1"))
         w2 = _dense_weight(ffn.get("w2"))
         w3 = _dense_weight(ffn.get("w3")) if gated else None
-        if w1 is not None and w2 is not None and w1.ndim in (2, 3):
+        # an empty FFN (d_ff = 0) has nothing to pack (the reference's
+        # packer divides by its zero width)
+        if (w1 is not None and w2 is not None and w1.ndim in (2, 3)
+                and w1.size):
             def bias(name):
                 e = ffn[name]
                 return _np(e["b"]) if isinstance(e, dict) and "b" in e \

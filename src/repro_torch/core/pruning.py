@@ -105,6 +105,10 @@ def find_prunable(params: Params, sasp: SASPConfig,
         if not is_prunable(path):
             continue
         K, N = leaf.shape[-2], leaf.shape[-1]
+        if not K or not N:
+            # an empty matrix (mamba2's d_ff = 0 FFN) holds no tiles; the
+            # reference divides by its zero width here and raises
+            continue
         bk, bn = effective_blocks((K, N), sasp.block_k, sasp.block_n)
         if K % bk or N % bn:
             continue

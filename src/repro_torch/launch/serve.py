@@ -12,6 +12,11 @@ containers through the tile-skip GEMM kernel, repacked per call),
 ``packed`` (visit-list containers through the tile-skip GEMM and fused
 gated-FFN kernels). ``--reduce`` (default on) shrinks the config to 4
 layers, d_model 128, vocab 512; ``--no-reduce`` serves the full config.
+Every ``--arch`` of the reference serves: MoE stacks (granite-moe,
+moonshot) take every engine option (experts stay masked-dense under
+``packed``), SSM and hybrid stacks (mamba2, jamba) prefill one request
+at a time and refuse the paged pool, and the stub-frontend models
+(musicgen, chameleon) serve from their token tables.
 
 ``--path masked --int8-weights --scope all`` is refused: the reference
 quantizes the attention projections there too and then fails to serve
@@ -38,7 +43,7 @@ through the fault-tolerant cluster frontend over N in-process hosts
 counter summary while serving. ``--ckpt-dir DIR`` serves the params of
 the latest checkpoint in DIR (written by ``repro_torch.launch.train`` or
 the reference's trainer; the config flags must match the trained model's
-shapes). ``--mesh`` is not ported.
+shapes). ``--mesh`` is not ported (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -282,8 +287,10 @@ def parse_args(argv):
     for a in argv:
         flag = a.split("=", 1)[0]
         if flag in NOT_PORTED:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             "(serve it with python -m repro.launch.serve)")
+            raise SystemExit(f"{flag} is not ported to repro_torch yet: "
+                             "the mesh waits for the TP / distribution "
+                             "slice (ROADMAP Queue 1 item 6); serve it "
+                             "with python -m repro.launch.serve")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b")
     ap.add_argument("--reduce", action=argparse.BooleanOptionalAction,

@@ -9,9 +9,13 @@ overlay, checkpointing in the reference's format.
 serve launcher's ``--reduce``, so ``python -m repro_torch.launch.serve
 --ckpt-dir DIR`` serves what this wrote). ``--resume`` restarts from the
 latest checkpoint in ``--ckpt-dir`` (params, optimizer and data step).
-The default architecture is qwen3-32b (the reference's, mamba2-780m, is
-an SSM, which the port does not run yet). ``--mesh single|multi`` is not
-ported.
+Every architecture of the reference runs (MoE, SSM, hybrid and the stub
+frontends included). The default is qwen3-32b, not the reference's
+mamba2-780m: at mamba2-780m's own widths the reference's SSD backward
+gives NaN gradients (``_segsum_decay`` takes ``exp`` of positive sums
+above the diagonal, which overflow to inf, before masking them to 0),
+and the port, which computes what the reference computes, gives the same
+NaNs. ``--mesh single|multi`` is not ported.
 """
 from __future__ import annotations
 

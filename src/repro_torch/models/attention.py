@@ -41,9 +41,10 @@ class KVCache(NamedTuple):
     vscale: Optional[torch.Tensor] = None
 
 
-def cache_map(fn, cache: KVCache) -> KVCache:
-    """``fn`` over every present leaf of a cache (None stays None)."""
-    return KVCache(*(None if a is None else fn(a) for a in cache))
+def cache_map(fn, cache):
+    """``fn`` over every present leaf of a cache (None stays None); the
+    result has the cache's type (``KVCache`` or the SSM's ``SSMCache``)."""
+    return type(cache)(*(None if a is None else fn(a) for a in cache))
 
 
 def init_kv_cache(batch: int, capacity: int, num_kv_heads: int,

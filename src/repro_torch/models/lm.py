@@ -3,8 +3,11 @@
 Params keep the reference layout: ``segments`` is a tuple following the
 segment plan, each ``{"slot<j>": params}`` with a leading layer axis
 (the reference's ``lax.scan`` layout); here a Python loop walks the
-layers. Attention-only stacks with dense FFNs are ported; MoE and SSM
-layers raise ``NotImplementedError``.
+layers. A layer's mixer is attention or Mamba-2 (``models.ssm``) and its
+FFN dense or MoE (``models.moe``, single device: the expert-parallel
+dispatch waits for the mesh port), as its ``LayerSpec`` says; the full
+walk sums the MoE aux loss. ``embeds`` replace the token embedding (the
+audio / VLM stub frontends).
 
 Training (``loss_fn``): under autograd each layer repeat runs through
 ``cfg.remat`` (``none``; ``full``: recomputed in backward; ``dots``:
@@ -32,6 +35,8 @@ from repro_torch.core.sparse import (BlockSparseWeight, PackedFFN,
                                      PackedSASPWeight)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.modules import (
     as_dtype,
     embedding_apply,
@@ -73,18 +78,6 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
     return segments
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    for mixer, _, ffn_kind in zip(cfg.layer_mixer_kinds(),
-                                  cfg.layer_attn_kinds(),
-                                  cfg.layer_ffn_kinds()):
-        if mixer != MIXER_ATTN:
-            raise NotImplementedError("SSM layers are not ported yet")
-        if ffn_kind == FFN_MOE:
-            raise NotImplementedError("MoE layers are not ported yet")
-    if cfg.frontend != "none":
-        raise NotImplementedError("modality frontends are not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -116,12 +109,12 @@ def _attn_init(gen, cfg: ModelConfig, layers: int, device,
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device="cuda") -> Dict:
-    """Random params in the reference layout and at its scales (wo and
-    w2 at 0.02 / sqrt(2 L), every other projection at 0.02), drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``. (The numbers
-    differ from the reference's PRNG; tests bridge the reference's
-    params instead.)"""
-    _check_supported(cfg)
+    """Random params in the reference layout and at its scales (wo,
+    out_proj and every w2 at 0.02 / sqrt(2 L), every other projection at
+    0.02; the SSM's and the router's own leaves as the reference draws
+    them), drawn from a ``torch.Generator`` seeded with ``seed`` on
+    ``device``. (The numbers differ from the reference's PRNG; tests
+    bridge the reference's params instead.)"""
     dt = as_dtype(cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -139,15 +132,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     segs = []
     for pattern, repeat in segment_plan(cfg):
         seg = {}
-        for slot, _spec in enumerate(pattern):
+        for slot, (mixer, _, ffn_kind) in enumerate(pattern):
+            kw = dict(layers=repeat, device=device, out_scale=out_scale)
             seg[f"slot{slot}"] = {
                 "norm1": {"scale": torch.ones((repeat, d), dtype=dt,
                                               device=device)},
                 "norm2": {"scale": torch.ones((repeat, d), dtype=dt,
                                               device=device)},
-                "mixer": _attn_init(gen, cfg, repeat, device, out_scale),
-                "ffn": ffn_mod.ffn_init(gen, cfg, layers=repeat,
-                                        device=device, out_scale=out_scale),
+                "mixer": (_attn_init(gen, cfg, repeat, device, out_scale)
+                          if mixer == MIXER_ATTN
+                          else ssm_mod.ssm_init(gen, cfg, **kw)),
+                "ffn": (moe_mod.moe_init(gen, cfg, **kw)
+                        if ffn_kind == FFN_MOE
+                        else ffn_mod.ffn_init(gen, cfg, **kw)),
             }
         segs.append(seg)
     params["segments"] = tuple(segs)
@@ -190,38 +187,60 @@ def _slot_window(cfg: ModelConfig, spec: LayerSpec, seq_len: int) -> int:
     return max(seq_len, 1) + 1
 
 
+def _ffn(sp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor):
+    """The residual block's second half: (x + FFN(norm2(x)), the MoE aux
+    loss, or None for a dense FFN)."""
+    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
+    if spec[2] == FFN_MOE:
+        y2, aux = moe_mod.moe_ffn_local(sp["ffn"], cfg, h2)
+        return x + y2, aux
+    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), None
+
+
 def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
                      x: torch.Tensor, positions: torch.Tensor,
                      want_cache: bool, cache_len: int,
                      uniform_cache: bool = False):
+    """One layer over the whole sequence -> (x, aux or None, cache or
+    None)."""
     S = x.shape[1]
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
-    window = _slot_window(cfg, spec, S)
-    y, (k, v) = attn_mod.attn_apply_full(sp["mixer"], cfg, h, positions,
-                                         window)
     cache = None
-    if want_cache:
-        # uniform_cache: every layer's ring at the full cache_len (the
-        # paged pool's one page geometry); the window mask governs reads
-        cap = min(window, cache_len) if (
-            spec[1] == ATTN_LOCAL and not uniform_cache) else cache_len
-        cache = attn_mod.build_cache_from_prefill(
-            k, v, cap, positions=positions if positions.ndim == 2 else None,
-            quant=cfg.kv_quant)
-    x = x + y
-    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
-    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
+    if spec[0] == MIXER_ATTN:
+        window = _slot_window(cfg, spec, S)
+        y, (k, v) = attn_mod.attn_apply_full(sp["mixer"], cfg, h,
+                                             positions, window)
+        if want_cache:
+            # uniform_cache: every layer's ring at the full cache_len
+            # (the paged pool's one page geometry); the window mask
+            # governs reads
+            cap = min(window, cache_len) if (
+                spec[1] == ATTN_LOCAL and not uniform_cache) else cache_len
+            cache = attn_mod.build_cache_from_prefill(
+                k, v, cap,
+                positions=positions if positions.ndim == 2 else None,
+                quant=cfg.kv_quant)
+    else:
+        y, ssm_cache = ssm_mod.ssm_apply_full(sp["mixer"], cfg, h)
+        if want_cache:
+            cache = ssm_cache
+    x, aux = _ffn(sp, spec, cfg, x + y)
+    return x, aux, cache
 
 
 def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
                        x: torch.Tensor, pos: torch.Tensor, cache):
+    """One layer of a decode step; the layer's cache is written in
+    place."""
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
-    window = _slot_window(cfg, spec, int(1e9) - 2)
-    y, cache = attn_mod.attn_apply_decode(sp["mixer"], cfg, h, pos, cache,
-                                          window)
-    x = x + y
-    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
-    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), cache
+    if spec[0] == MIXER_ATTN:
+        window = _slot_window(cfg, spec, int(1e9) - 2)
+        y, cache = attn_mod.attn_apply_decode(sp["mixer"], cfg, h, pos,
+                                              cache, window)
+    else:
+        y, cache = ssm_mod.ssm_apply_decode(sp["mixer"], cfg, h, cache)
+    x, _ = _ffn(sp, spec, cfg, x + y)
+    return x, cache
 
 
 def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
@@ -239,17 +258,17 @@ def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
         spec[1] == ATTN_LOCAL and cfg.sliding_window) else C
     y, new_cache = attn_mod.attn_apply_prefill_past(
         sp["mixer"], cfg, h, positions, cache, window)
-    x = x + y
-    h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
-    return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), new_cache
+    x, _ = _ffn(sp, spec, cfg, x + y)
+    return x, new_cache
 
 
-def _stack_caches(caches: List[attn_mod.KVCache]) -> attn_mod.KVCache:
-    return attn_mod.KVCache(*(None if f[0] is None else torch.stack(list(f))
-                              for f in zip(*caches)))
+def _stack_caches(caches: List):
+    """Per-layer caches -> one cache of their type with a layer axis."""
+    return type(caches[0])(*(None if f[0] is None else torch.stack(list(f))
+                             for f in zip(*caches)))
 
 
-def _layer_cache(c: attn_mod.KVCache, r: int) -> attn_mod.KVCache:
+def _layer_cache(c, r: int):
     """Layer ``r`` of a layer-stacked cache (views: writes land in c)."""
     return attn_mod.cache_map(lambda a: a[r], c)
 
@@ -260,7 +279,7 @@ _DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _maybe_remat(fn, cfg: ModelConfig):
-    """``fn(x)`` under ``cfg.remat`` when autograd records: ``none``
+    """``fn(*args)`` under ``cfg.remat`` when autograd records: ``none``
     keeps every activation, ``full`` recomputes ``fn`` in backward,
     ``dots`` recomputes it except the matmul outputs, which are saved."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
@@ -271,41 +290,46 @@ def _maybe_remat(fn, cfg: ModelConfig):
             torch_ckpt.create_selective_checkpoint_contexts, list(_DOT_OPS))
     elif cfg.remat != "full":
         raise ValueError(f"remat {cfg.remat!r} not in none|full|dots")
-    return lambda x: torch_ckpt.checkpoint(fn, x, **kw)
+    return lambda *args: torch_ckpt.checkpoint(fn, *args, **kw)
 
 
 def _run_segments_full(params, cfg: ModelConfig, x, positions,
                        want_cache: bool, cache_len: int,
                        uniform_cache: bool = False):
-    _check_supported(cfg)
+    """The layer walk -> (x, the MoE aux loss summed over layers (fp32
+    scalar), stacked caches or None)."""
     all_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg_params, (pattern, repeat) in zip(params["segments"],
                                              segment_plan(cfg)):
         names = [f"slot{s}" for s in range(len(pattern))]
         layers = {n: unstack_layers(seg_params[n], repeat) for n in names}
         per_slot: Dict[str, list] = {n: [] for n in names}
         for r in range(repeat):
-            def body(xc, r=r, names=names, pattern=pattern, layers=layers):
+            def body(xc, aux, r=r, names=names, pattern=pattern,
+                     layers=layers):
                 cs = []
                 for name, spec in zip(names, pattern):
-                    xc, c = _apply_slot_full(layers[name][r], spec, cfg, xc,
-                                             positions, want_cache,
-                                             cache_len, uniform_cache)
+                    xc, a, c = _apply_slot_full(
+                        layers[name][r], spec, cfg, xc, positions,
+                        want_cache, cache_len, uniform_cache)
+                    if a is not None:
+                        aux = aux + a
                     cs.append(c)
-                return xc, cs
+                return xc, aux, cs
             # the reference's scan body, recomputed in backward
-            x, cs = (body if want_cache else _maybe_remat(body, cfg))(x)
+            x, aux, cs = (body if want_cache
+                          else _maybe_remat(body, cfg))(x, aux)
             for name, c in zip(names, cs):
                 per_slot[name].append(c)
         if want_cache:
             all_caches.append({n: _stack_caches(cs)
                                for n, cs in per_slot.items()})
-    return x, tuple(all_caches) if want_cache else None
+    return x, aux, tuple(all_caches) if want_cache else None
 
 
 def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,
                                past):
-    _check_supported(cfg)
     new_caches = []
     for seg_params, seg_past, (pattern, repeat) in zip(
             params["segments"], past, segment_plan(cfg)):
@@ -350,7 +374,7 @@ def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,
     x = _embed_in(params, cfg, tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, _ = _run_segments_full(params, cfg, x, positions, False, 0)
+    x, _, _ = _run_segments_full(params, cfg, x, positions, False, 0)
     logits = logits_fn(params, cfg, x)
     return softcap(logits, cfg.logit_softcap)
 
@@ -370,16 +394,15 @@ def _xent_chunk(x_chunk, targets, emb, cfg: ModelConfig) -> torch.Tensor:
 
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             xent_chunk: int = 512):
-    """batch: tokens (B, S) [+ embeds (B, S, d)]. Next-token CE (+ the
-    MoE aux loss, 0 for the ported dense stacks). Returns (loss,
+    """batch: tokens (B, S) [+ embeds (B, S, d)]. Next-token CE + the
+    MoE aux loss summed over layers (0 without MoE). Returns (loss,
     {"ce", "aux"}). Each chunk of positions is checkpointed: backward
     recomputes its (B, chunk, V) fp32 logits instead of keeping them."""
     tokens = batch["tokens"]
     x = _embed_in(params, cfg, tokens, batch.get("embeds"))
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    x, _ = _run_segments_full(params, cfg, x, positions, False, 0)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux, _ = _run_segments_full(params, cfg, x, positions, False, 0)
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     emb = _head_table(params, cfg).to(x.dtype)
     n = S - 1
@@ -415,8 +438,8 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     else:
         positions = positions.to(torch.int32)
-    x, caches = _run_segments_full(params, cfg, x, positions, True,
-                                   cache_len, uniform_cache)
+    x, _, caches = _run_segments_full(params, cfg, x, positions, True,
+                                      cache_len, uniform_cache)
     logits = logits_fn(params, cfg, x[:, -1:])
     return softcap(logits, cfg.logit_softcap), caches
 
@@ -440,8 +463,8 @@ def prefill_with_past(params, cfg: ModelConfig, tokens: torch.Tensor,
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                 pos: torch.Tensor, caches):
     """One decode step. tokens (B, 1); pos (B,). Updates ``caches`` in
-    place; returns (logits (B, 1, V), caches)."""
-    _check_supported(cfg)
+    place (attention writes its ring views, the SSM its state and conv
+    window); returns (logits (B, 1, V), caches)."""
     x = _embed_in(params, cfg, tokens)
     for seg_params, seg_caches, (pattern, repeat) in zip(
             params["segments"], caches, segment_plan(cfg)):
@@ -457,21 +480,25 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
                 device=None, uniform_cap: bool = False):
-    """Zero caches matching the segment plan, (repeat, B, C, KH, D) (int8
-    with (repeat, B, C, KH) scales under ``cfg.kv_quant``). uniform_cap:
-    every layer at capacity cache_len (the paged pool's page geometry)."""
-    _check_supported(cfg)
+    """Zero caches matching the segment plan: attention rings (repeat, B,
+    C, KH, D) (int8 with (repeat, B, C, KH) scales under
+    ``cfg.kv_quant``), SSM states (repeat, B, H, P, N) and conv windows
+    (repeat, B, K-1, conv_dim). uniform_cap: every ring at capacity
+    cache_len (the paged pool's page geometry)."""
     device = device or params["embed"]["emb"].device
     cdt = as_dtype(cfg.compute_dtype)
     caches = []
     for pattern, repeat in segment_plan(cfg):
         seg = {}
         for slot, spec in enumerate(pattern):
-            cap = cache_len if uniform_cap else min(
-                _slot_window(cfg, spec, cache_len), cache_len)
-            c = attn_mod.init_kv_cache(
-                repeat * batch, cap, cfg.num_kv_heads, cfg.attn_head_dim,
-                cdt, device, quant=cfg.kv_quant)
+            if spec[0] == MIXER_ATTN:
+                cap = cache_len if uniform_cap else min(
+                    _slot_window(cfg, spec, cache_len), cache_len)
+                c = attn_mod.init_kv_cache(
+                    repeat * batch, cap, cfg.num_kv_heads,
+                    cfg.attn_head_dim, cdt, device, quant=cfg.kv_quant)
+            else:
+                c = ssm_mod.init_ssm_cache(cfg, repeat * batch, cdt, device)
             seg[f"slot{slot}"] = attn_mod.cache_map(
                 lambda a: a.reshape((repeat, batch) + tuple(a.shape[1:])), c)
         caches.append(seg)

@@ -42,15 +42,17 @@ import torch
 
 
 def spread_output_scales(params, cfg):
-    """Test-only weights: wo and w2 times sqrt(2 L), which puts every
-    projection at 0.02. With the reference's init (wo and w2 at
-    0.02 / sqrt(2 L)) tile L1 separates by scale so sharply that 50%
-    global pruning removes every tile of wo and w2 first, and the kernels
+    """Test-only weights: the output projections (attention's wo, the
+    SSM's out_proj, the FFN's w2 and every expert's w2) times sqrt(2 L),
+    which puts every projection at 0.02. With the reference's init (those
+    at 0.02 / sqrt(2 L)) tile L1 separates by scale so sharply that 50%
+    global pruning removes every tile of them first, and the kernels
     would run on empty visit lists."""
     f = max(1.0, (2 * cfg.num_layers) ** 0.5)
     for seg in params["segments"]:
         for slot in seg.values():
-            slot["mixer"]["wo"]["w"].mul_(f)
+            mixer = slot["mixer"]
+            mixer["wo" if "wo" in mixer else "out_proj"]["w"].mul_(f)
             slot["ffn"]["w2"]["w"].mul_(f)
     return params
 

@@ -1151,3 +1151,55 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, n_microbatches):
         KB, NB = mask.shape[-2:]
         tiles = g.reshape(L, KB, K // KB, NB, N // NB).abs().amax(dim=(2, 4))
         assert bool((tiles[~mask.to(tiles.device)] == 0).all()), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,capacity", [(2, 1.25), (6, 0.5)])
+def test_moe_ffn_local_on_the_card_matches_the_cpu(cuda_device, top_k,
+                                                   capacity):
+    """``moe_ffn_local`` (fp32, 8 experts, capacity 0.5 drops slots) on the
+    card against the CPU: the same routing exactly, outputs and aux loss
+    within 1e-4 of their scale."""
+    from repro_torch.models import moe
+
+    cfg = reduced(get_config("granite-moe-1b-a400m"), layers=1, d_model=64,
+                  vocab=64)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, num_experts=8, top_k=top_k, capacity_factor=capacity))
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg, layers=1,
+                     device="cpu", out_scale=0.02)
+    p = {k: {"w": v["w"][0] * 10} for k, v in p.items()}
+    x = T(RNG.normal(size=(4, 37, 64)).astype(np.float32))
+    y, aux = moe.moe_ffn_local(p, cfg, x)
+    pc = {k: {"w": v["w"].to(cuda_device)} for k, v in p.items()}
+    yc, auxc = moe.moe_ffn_local(pc, cfg, x.to(cuda_device))
+    r = moe.route(p, cfg, x.reshape(-1, 64))
+    rc = moe.route(pc, cfg, x.reshape(-1, 64).to(cuda_device))
+    for f in ("expert_idx", "sort_idx", "pos_in_expert"):
+        assert torch.equal(getattr(rc, f).cpu(), getattr(r, f)), f
+    _close(yc.cpu(), y, 1e-4)
+    assert abs(float(auxc) - float(aux)) <= 1e-5 * abs(float(aux))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,S", [(1, 256), (2, 45)])
+def test_ssd_chunked_on_the_card_matches_the_cpu(cuda_device, groups, S):
+    """``ssd_chunked`` at mamba2-780m's head count and state size (48 heads
+    of 64, state 128, chunk 256) on the card against the CPU, fp32:
+    outputs and final state within 1e-4 of their scale."""
+    from repro_torch.models import ssm
+
+    B, H, P, N = 2, 48, 64, 128
+    x = T(RNG.normal(size=(B, S, H, P)).astype(np.float32))
+    dt = T(np.log1p(np.exp(RNG.normal(size=(B, S, H)) - 3)).astype(
+        np.float32))
+    A = -torch.arange(1, H + 1, dtype=torch.float32)
+    Bm = T(RNG.normal(size=(B, S, groups, N)).astype(np.float32))
+    Cm = T(RNG.normal(size=(B, S, groups, N)).astype(np.float32))
+    D = torch.ones(H)
+    h0 = torch.zeros(B, H, P, N)
+    args = (x, dt, A, Bm, Cm, D, h0)
+    y, h = ssm.ssd_chunked(*args, chunk=256)
+    yc, hc = ssm.ssd_chunked(*(a.to(cuda_device) for a in args), chunk=256)
+    _close(yc.cpu(), y, 1e-4)
+    _close(hc.cpu(), h, 1e-4)

@@ -49,28 +49,9 @@ from repro_torch.train import schedule as t_sched  # noqa: E402
 from repro_torch.train import train_step as t_step  # noqa: E402
 from repro_torch.train.checkpoint import named_leaves  # noqa: E402
 from torch_parity import KEY, bridged, mask_key, model, to_np  # noqa: E402
+from torch_parity import assert_leaves_close as _assert_leaves_close  # noqa
 
 ESP_VOCAB = 32
-
-
-def _leaves_np(tree):
-    """{name: fp32 numpy} of a reference or port tree, by checkpoint
-    leaf name (the same in both packages)."""
-    if any(isinstance(x, torch.Tensor) for _, x in named_leaves(tree)):
-        return {n: np.asarray(x.detach().float().numpy())
-                for n, x in named_leaves(tree)}
-    return {n: np.asarray(x, np.float32)
-            for n, x in _flatten_with_names(tree)}
-
-
-def _assert_leaves_close(got, want, tol):
-    """Every leaf within ``tol`` of that leaf's largest magnitude."""
-    g, w = _leaves_np(got), _leaves_np(want)
-    assert g.keys() == w.keys()
-    for n in w:
-        scale = max(float(np.abs(w[n]).max()), 1e-30)
-        err = float(np.abs(g[n] - w[n]).max())
-        assert err <= tol * scale, (n, err, scale)
 
 
 def _qwen(sparsity=0.25, scope="ffn"):

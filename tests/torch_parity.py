@@ -53,6 +53,31 @@ def model(**kw):
     return cfg, tcfg, params, bridged(params)
 
 
+def leaves_np(tree):
+    """{name: fp32 numpy} of a reference or port tree, by checkpoint
+    leaf name (the same in both packages)."""
+    from repro.train.checkpoint import _flatten_with_names
+    from repro_torch.train.checkpoint import named_leaves
+    if any(isinstance(x, torch.Tensor) for _, x in named_leaves(tree)):
+        return {n: np.asarray(x.detach().float().numpy())
+                for n, x in named_leaves(tree)}
+    return {n: np.asarray(x, np.float32)
+            for n, x in _flatten_with_names(tree)}
+
+
+def assert_leaves_close(got, want, tol):
+    """Every leaf within ``tol`` of that leaf's largest magnitude."""
+    g, w = leaves_np(got), leaves_np(want)
+    assert g.keys() == w.keys()
+    for n in w:
+        assert g[n].shape == w[n].shape, (n, g[n].shape, w[n].shape)
+        if not w[n].size:           # mamba2's empty (d_ff = 0) FFN
+            continue
+        scale = max(float(np.abs(w[n]).max()), 1e-30)
+        err = float(np.abs(g[n] - w[n]).max())
+        assert err <= tol * scale, (n, err, scale)
+
+
 def mask_key(path):
     """jax key path -> the port's path tuple."""
     return tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path)
