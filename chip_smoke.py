@@ -23,11 +23,15 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 25600->5120 too), and flash attention at 64/8 heads,
                 head_dim 128, batch 4 (42 and 256 causal, 1 query against
                 256 and against 4096 keys, 4096 causal, 4096 with window
-                1024). Every bf16 case of the int8 GEMM and of flash
-                attention must run the tensor-core variant, every masked
-                grid case the variant its plan names (bf16 "tma", fp32
-                "fma"), and a masked grid decode call may not take less
-                than reading its dense weight (dense_w_read_ms).
+                1024). Also the new shapes of phase 9's tp=8 shards: a
+                wk/wv col shard 5120->128 (its visit groups from the
+                whole wk's grid), a wo row shard 1024->5120 and a fused
+                FFN d_ff shard 3200 wide. Every bf16 case of the int8
+                GEMM and of flash attention must run the tensor-core
+                variant, every masked grid case the variant its plan
+                names (bf16 "tma", fp32 "fma"), and a masked grid decode
+                call may not take less than reading its dense weight
+                (dense_w_read_ms).
   3. serve    — the main path: qwen3-32b at full width, depth cut to 4
                 layers, random weights from seed 0 (wo and w2 rescaled
                 to the 0.02 of the other projections), pruned to 50% tiles
@@ -171,6 +175,32 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 train step card vs CPU as 7 (c), loss and aux loss too,
                 on reduced granite-moe-1b-a400m and jamba (4 layers, d
                 256).
+  9. tp       — tensor-parallel packed serving of phase 3's model (seed
+                0, output projections spread, 50% of the 32x32 tiles,
+                scope all, bf16, 4 layers, the same 4 requests of 16
+                tokens): (a) (after phase 5, on phase 3's served tree)
+                the shard loop on one card, ``reshard_packed`` to tp 2,
+                4 and 8:
+                every layer's wq / wk / wv col-shard outputs bit for bit
+                their columns of the unsharded kernel (decode and
+                prefill rows), launches tp times tp=1's (16·tp tile-skip
+                GEMMs and 4·tp fused FFNs a forward, all mma), streams
+                greedy-equal to tp=1 (3c's near-tie rule), decode ms/step
+                and container GiB beside tp=1; (b) ``--mesh 1,2``
+                through the serve launcher's ``serve_mesh`` with this
+                script's rank function (``_mesh_rank``): 2 spawned ranks
+                over gloo (host-staged when they share a card), each
+                building its tree layer by layer from the seed with the
+                launcher's ``build_rank_params`` (wo and w2 spread as
+                drawn); contiguous then paged, every rank's streams and
+                every decode step's logits bit for bit (a)'s tp=2 (last,
+                every earlier model freed); half (a)'s launches a rank;
+                rs+int8-ag
+                within 2e-2 of the exact reduction; transport, per-rank
+                GiB (building, serving) and decode ms/step printed;
+                again over NCCL where
+                the machine has a card per rank, else ``nccl: not run``.
+                ``tools/tp_phase.py`` runs it alone.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +235,12 @@ GEMM_SHAPES = (("wq", 5120, 8192), ("wk/wv", 5120, 1024),
 # every projection of the layer (wk and wv, w1 and w3 share a shape)
 PROJ_SHAPES = GEMM_SHAPES + (("w1/w3", 5120, 25600), ("w2", 25600, 5120))
 FFN_SHAPE = (5120, 25600)
+# new shapes of phase 9's shards at tp 8: a wk/wv col shard (4 column
+# blocks; its visit groups from the whole wk's 32), a wo row shard, and a
+# fused FFN d_ff shard (3200 wide)
+TP_SHAPES = (("wk/wv tp8 col shard", 5120, 128, 1024 // 32),
+             ("wo tp8 row shard", 1024, 5120, None))
+FFN_TP_SHAPE = (5120, 3200)
 BLOCK = 32
 
 
@@ -315,12 +351,13 @@ def gemm_checks(torch, timer, rows):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     results = []
-    for shape in PROJ_SHAPES:
+    for shape in PROJ_SHAPES + TP_SHAPES:
         results += _gemm_checks_at(torch, timer, rows, gen, *shape)
     return results
 
 
-def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
+def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int,
+                    group_nb=None):
     from repro_torch.core.sparse import col_ptr_from_kn
     from repro_torch.kernels.sasp_gemm import gemm, pack
 
@@ -350,7 +387,8 @@ def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
                 x = torch.randn((M, K), generator=gen, device=DEVICE
                                 ).to(getattr(torch, xdt))
                 got, ran = ran_variant(gemm, lambda: gemm.sasp_gemm(
-                    x, v_t, kn_t, cp, N, scales=st, bias=bt, act=act))
+                    x, v_t, kn_t, cp, N, scales=st, bias=bt, act=act,
+                    group_nb=group_nb))
                 want = gemm.sasp_gemm_plain(x, v_t, kn_t, N, st, bt, act)
                 torch.cuda.synchronize()
                 err = rel_err(got, want)
@@ -358,7 +396,8 @@ def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
                 check(err <= tol, f"sasp_gemm {proj} {variant} {xdt} M={M}: "
                       f"error {err:.3g} > {tol}")
                 k_ms = timer.ms(lambda: gemm.sasp_gemm(
-                    x, v_t, kn_t, cp, N, scales=st, bias=bt, act=act))
+                    x, v_t, kn_t, cp, N, scales=st, bias=bt, act=act,
+                    group_nb=group_nb))
                 p_ms = timer.ms(lambda: gemm.sasp_gemm_plain(
                     x, v_t, kn_t, N, st, bt, act), reps=3)
                 lib_ms = None
@@ -382,12 +421,18 @@ def _gemm_checks_at(torch, timer, rows, gen, proj: str, K: int, N: int):
 
 def ffn_checks(torch, timer, rows):
     """Fused gated FFN at the slice shape (d 5120, d_ff 25600, bf 32,
-    half the 32x32 tiles of w1/w3/w2 pruned)."""
-    from repro_torch.kernels.sasp_gemm import fused_ffn, pack
-
-    (d, F), b = FFN_SHAPE, BLOCK
+    half the 32x32 tiles of w1/w3/w2 pruned), and at a tp=8 d_ff shard's
+    (d_ff 3200)."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(2)
+    return (_ffn_checks_at(torch, timer, rows, gen, FFN_SHAPE)
+            + _ffn_checks_at(torch, timer, rows, gen, FFN_TP_SHAPE))
+
+
+def _ffn_checks_at(torch, timer, rows, gen, shape):
+    from repro_torch.kernels.sasp_gemm import fused_ffn, pack
+
+    (d, F), b = shape, BLOCK
 
     def pruned(shape, scale):
         w = torch.randn(shape, generator=gen, device=DEVICE) * scale
@@ -434,8 +479,9 @@ def ffn_checks(torch, timer, rows):
                 b_ms, b_by = bound_ms(n_b, [(2 * flops, xdt), (flops, down)])
                 results.append(dict(
                     variant=variant, x=xdt, w=str(ws[0].dtype)[6:], M=M,
-                    nv=nv, ran=ran, rel_err=err, max_abs_err=float(
-                        (got.float() - want.float()).abs().max()),
+                    d=d, d_ff=F, nv=nv, ran=ran, rel_err=err,
+                    max_abs_err=float((got.float() - want.float()).abs()
+                                      .max()),
                     tol=tol, ms=k_ms, plain_ms=p_ms, library_ms=None,
                     bound_ms=b_ms, bound_by=b_by))
                 log("  sasp_fused_ffn " + json.dumps(results[-1]))
@@ -1092,10 +1138,10 @@ def locate_near_tie_op(torch, params, cfg, prompt, stream, t, k):
             lm.matmul_f32)
     count = {"layer": 0, "norm": 0}
 
-    def proj(p, name, x):
+    def proj(p, name, x, cfg=None):
         if name == "wo":
             rec.append((f"L{count['layer']}.attention", x))
-        y = orig[0](p, name, x)
+        y = orig[0](p, name, x, cfg)
         rec.append((f"L{count['layer']}.{name}", y))
         return y
 
@@ -2782,6 +2828,326 @@ def families_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tensor-parallel packed serving
+# ---------------------------------------------------------------------------
+
+# (a) shard counts of the shard loop; (b) the mesh's model ranks and the
+# paged run's pool (8 pages of 32 tokens a slot, as phase 3c (a))
+TPP = dict(tps=(2, 4, 8), mesh_tp=2, slots=4, cache_len=256, kv_pages=32)
+
+
+def _tree_gib(tree) -> float:
+    """GiB of every tensor in a param tree (containers included)."""
+    torch = sys.modules["torch"]
+    seen = []
+
+    def walk(node):
+        if isinstance(node, torch.Tensor):
+            seen.append(node.numel() * node.element_size())
+        elif isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                walk(v)
+        elif dataclasses.is_dataclass(node):
+            for f in dataclasses.fields(node):
+                walk(getattr(node, f.name))
+    walk(tree)
+    return sum(seen) / 2**30
+
+
+def _digest(x) -> str:
+    """sha256 of a tensor's fp32 bytes: equal digests, equal bits."""
+    import hashlib
+    return hashlib.sha256(x.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def _tp_serve(torch, params, cfg, counters, mesh=None, **engine_kw):
+    """Phase 3's 4 requests of 16 tokens (Engine(4 slots, cache 256))
+    after an untimed 2-token run; launch counts set to 0 just before and
+    read just after; every decode step's logits kept with a digest."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+    kw = dict(batch_slots=TPP["slots"], cache_len=TPP["cache_len"],
+              mesh=mesh, **engine_kw)
+    Engine(params, cfg, **kw).run(synthetic_requests(4, cfg.vocab_size, 2))
+    eng = Engine(params, cfg, **kw)
+    rec = _recording(eng)
+    reset(counters)
+    streams, steps = _drive_timed(
+        torch, eng, synthetic_requests(4, cfg.vocab_size, 16))
+    launches = _launch_counts(counters)
+    return dict(streams=streams, rec=rec, times=_step_times(steps),
+                launches=launches,
+                digests=[_digest(x) for x in rec["steps"]])
+
+
+def _col_shard_bits(torch, whole, sharded, tp: int, rows) -> int:
+    """Every layer's wq / wk / wv: each col shard's output equal to its
+    columns of the unsharded kernel's bit for bit, at decode and prefill
+    rows. Returns the number of shard outputs compared."""
+    from repro_torch.core.deploy import packed_matmul
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    n = 0
+    for seg_w, seg_s in zip(whole["segments"], sharded["segments"]):
+        for slot in seg_w:
+            gw = seg_w[slot]["mixer"]["sasp_packed"]
+            gs = seg_s[slot]["mixer"]["sasp_packed"]
+            for name in ("wq", "wk", "wv"):
+                check(gs[name].shards == tp and gs[name].shard_kind == "col",
+                      f"(a) tp={tp}: {name} is not col-sharded")
+                K, N = gw[name].shape
+                ns, nb = N // tp, N // gw[name].block[1]
+                for li in range(gw[name].vals.shape[0]):
+                    pw, ps = gw[name].layer(li), gs[name].layer(li)
+                    for M in rows:
+                        x = torch.randn((M, K), generator=gen, device=DEVICE
+                                        ).to(torch.bfloat16)
+                        want = packed_matmul(x, pw)
+                        for sh in range(tp):
+                            got = packed_matmul(x, ps.shard(sh), group_nb=nb)
+                            check(torch.equal(
+                                got, want[:, sh * ns:(sh + 1) * ns]),
+                                f"(a) tp={tp} {name} layer {li} shard {sh} "
+                                f"M={M}: not its columns of the unsharded "
+                                f"kernel bit for bit")
+                            n += 1
+    return n
+
+
+def _mesh_spec(layers: int, backend: str) -> dict:
+    """(b)'s spec for ``serve_mesh``: phase 3's model on a (1, 2) mesh
+    over ``backend``."""
+    return dict(mesh=(1, TPP["mesh_tp"]), cfg=main_config(layers, "bfloat16"),
+                device=DEVICE, backend=backend,
+                build=dict(seed=0, sparsity=SPARSITY, scope="all",
+                           int8_weights=False))
+
+
+def spread_leaf(cfg):
+    """``spread_output_scales`` as ``build_rank_params``' ``prepare``
+    hook: wo and w2 times sqrt(2 L), in place, as each stacked leaf is
+    drawn (the same product on the same values)."""
+    f = max(1.0, (2 * cfg.num_layers) ** 0.5)
+
+    def prepare(path, t):
+        if path[-3:] in (("mixer", "wo", "w"), ("ffn", "w2", "w")):
+            t.mul_(f)
+        return t
+    return prepare
+
+
+def _rs_ag_check(torch, params, cfg, mesh) -> dict:
+    """Layer 0's FFN on this rank's shard, reduced exactly and with
+    ``tp_comm="rs_ag_int8"``, on the same input: the largest error over
+    the exact output's largest magnitude (the reference's bound is
+    2e-2)."""
+    from repro_torch.distribution import context as dctx
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import lm
+    p0 = lm.layer_params(params["segments"][0]["slot0"]["ffn"], 0)
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(7)
+    x = torch.randn((4, cfg.d_model), generator=gen, device=mesh.device
+                    ).to(torch.bfloat16)
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        exact = ffn_mod.ffn_apply(p0, dataclasses.replace(cfg, tp_comm="ar"),
+                                  x).float()
+        int8 = ffn_mod.ffn_apply(
+            p0, dataclasses.replace(cfg, tp_comm="rs_ag_int8"), x).float()
+    return dict(rel_err=float((int8 - exact).abs().max()
+                              / exact.abs().max().clamp_min(1e-30)))
+
+
+def _mesh_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """(b)'s model rank, spawned by the launcher's ``serve_mesh``: join
+    the mesh over ``spec["backend"]``, build phase 3's model layer by
+    layer (``build_rank_params``, wo and w2 spread as drawn), hold
+    rs+int8-ag against the exact reduction, and serve (a)'s requests
+    contiguous, then paged. Returns what the parent process checks."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    t0 = time.perf_counter()
+    params, cfg, lcfg = launch.build_rank_params(
+        spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank, device=dev,
+        prepare=spread_leaf(spec["cfg"]), **spec["build"])
+    torch.cuda.synchronize(dev)
+    out = dict(rank=rank, transport=mesh.transport,
+               build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               tree_gib=_tree_gib(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["rs_ag"] = _rs_ag_check(torch, params, lcfg, mesh)
+    keep = ("streams", "digests", "times", "launches")
+    run = _tp_serve(torch, params, lcfg, counters, mesh=mesh)
+    out.update({k: run[k] for k in keep})
+    run = _tp_serve(torch, params, lcfg, counters, mesh=mesh,
+                    kv_pages=TPP["kv_pages"])
+    out["paged"] = {k: run[k] for k in keep}
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    return out
+
+
+def tp_phase(torch, counters, layers: int = N_LAYERS):
+    """Phase 9 alone (``tools/tp_phase.py``): phase 3's model built here,
+    then (a) and (b)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+
+    t_phase = time.time()
+    cfg0 = main_config(layers, "bfloat16")
+    params, cfg = launch.build_serving_params(
+        spread_output_scales(lm.init_params(cfg0, seed=0, device=DEVICE),
+                             cfg0),
+        cfg0, path="packed", sparsity=SPARSITY, scope="all", verbose=False)
+    torch.cuda.synchronize()
+    log(f"  phase 3's model ({layers} layers) built in "
+        f"{time.time() - t_phase:.1f} s")
+    out, a2 = tp_shard_loop(torch, params, cfg, counters)
+    del params
+    torch.cuda.empty_cache()
+    out["b"] = _tp_mesh(torch, layers, a2)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 9: {out['seconds']:.1f} s")
+    return out
+
+
+def tp_shard_loop(torch, params, cfg, counters):
+    """(a): phase 3's served tree, ``reshard_packed`` to tp 2, 4 and 8
+    and served by the shard loop on one card. Returns the results and
+    the tp=2 run (what (b) is held to)."""
+    from repro_torch.core.deploy import reshard_packed
+    from repro_torch.distribution.sharding import local_params
+
+    t_phase = time.time()
+    layers = cfg.num_layers
+    # a 1-rank local tree: the containers without the dense masters
+    params = local_params(params, cfg, 1, 0)
+    log(f"  (a) phase 3's model ({layers} layers, bf16, 50% of the 32x32 "
+        f"tiles, scope all), packed tp=1: containers "
+        f"{_tree_gib(params):.2f} GiB")
+    base = _tp_serve(torch, params, cfg, counters)
+    out = {"a": {1: dict(times=base["times"], launches=base["launches"],
+                         tree_gib=_tree_gib(params))}}
+    rows = [4, 168]
+    a2 = None
+    for tp in TPP["tps"]:
+        t0 = time.time()
+        sharded = reshard_packed(params, cfg, tp=tp)
+        torch.cuda.synchronize()
+        reshard_s = time.time() - t0
+        n_bits = _col_shard_bits(torch, params, sharded, tp, rows)
+        run = _tp_serve(torch, sharded, cfg, counters)
+        for name in MAIN_PATH:
+            got, want = run["launches"][name], base["launches"][name]
+            check(got["total"] == tp * want["total"],
+                  f"(a) tp={tp}: {name} launched {got['total']} times, not "
+                  f"{tp} x tp=1's {want['total']}")
+            ran = set(got["variant"])
+            check(ran == set(want["variant"]) and ran <= {"mma", "mma/mma"},
+                  f"(a) tp={tp}: {name} ran {got['variant']}")
+        ties = _greedy_equal(f"(a) tp={tp}", run["streams"], base["streams"],
+                             base["rec"]["margins"], ref="the tp=1 run")
+        fwd = max(1, base["launches"]["sasp_fused_ffn"]["total"] // layers)
+        out["a"][tp] = dict(
+            times=run["times"], launches=run["launches"], near_ties=ties,
+            reshard_s=reshard_s, col_shard_outputs_bit_equal=n_bits,
+            tree_gib=_tree_gib(sharded))
+        log(f"  (a) tp={tp}: reshard {reshard_s:.2f} s, containers "
+            f"{out['a'][tp]['tree_gib']:.2f} GiB; {n_bits} col-shard outputs "
+            f"(wq/wk/wv, every layer, rows {rows}) bit for bit the unsharded "
+            f"kernel's columns; decode "
+            f"{run['times']['decode_ms_per_step']:.2f} ms/step (tp=1 "
+            f"{base['times']['decode_ms_per_step']:.2f}), prefill "
+            f"{run['times']['prefill_ms']:.1f} ms; launches per forward "
+            f"sasp_gemm {run['launches']['sasp_gemm']['total'] // fwd}, "
+            f"fused FFN {run['launches']['sasp_fused_ffn']['total'] // fwd}"
+            f" ({fwd} forwards), by variant "
+            f"{ {n: l['variant'] for n, l in run['launches'].items()} }; "
+            f"{len(ties)} near-tie divergences from tp=1")
+        if tp == TPP["mesh_tp"]:
+            a2 = {k: run[k] for k in ("streams", "digests", "launches",
+                                      "times")}
+        del sharded, run
+    torch.cuda.empty_cache()
+    out["seconds_a"] = time.time() - t_phase
+    log(f"  phase 9 (a): {out['seconds_a']:.1f} s")
+    return out, a2
+
+
+
+
+def _check_mesh_run(tag, run, a2, tp):
+    check(run["streams"] == a2["streams"],
+          f"{tag}: streams differ from (a)'s tp={tp} shard loop")
+    check(run["digests"] == a2["digests"],
+          f"{tag}: decode logits are not bit for bit (a)'s tp={tp}")
+    for name in MAIN_PATH:
+        got, want = run["launches"][name], a2["launches"][name]
+        check(got["total"] * tp == want["total"],
+              f"{tag}: {name} launched {got['total']} times, not 1/{tp} of "
+              f"(a)'s tp={tp} {want['total']}")
+        check(got["variant"].keys() == want["variant"].keys(),
+              f"{tag}: {name} ran {got['variant']}, (a) {want['variant']}")
+
+
+def _tp_mesh(torch, layers: int, a2):
+    """(b): --mesh 1,2 through the launcher's ``serve_mesh`` with
+    ``_mesh_rank`` (2 spawned ranks), contiguous then paged in each rank,
+    held bit for bit to (a)'s tp=2 shard loop; rs+int8-ag on layer 0's
+    FFN; over NCCL too where the ranks can have a card each."""
+    from repro_torch.launch import serve as launch
+    tp = TPP["mesh_tp"]
+    keep = ("rank", "transport", "build_s", "build_peak_gib", "tree_gib",
+            "peak_gib", "held_gib", "rs_ag", "times", "launches")
+    out = {}
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= tp
+                           else [])
+    for backend in backends:
+        t0 = time.time()
+        res = launch.serve_mesh(_mesh_spec(layers, backend), _mesh_rank,
+                                store_dir=OUT_DIR, timeout=400)
+        wall = time.time() - t0
+        for r in res:
+            tag = f"(b) {backend} rank {r['rank']}"
+            _check_mesh_run(f"{tag} contiguous", r, a2, tp)
+            _check_mesh_run(f"{tag} paged", r["paged"], a2, tp)
+            check(r["rs_ag"]["rel_err"] <= 2e-2,
+                  f"{tag}: rs+int8-ag {r['rs_ag']['rel_err']:.3g} from the "
+                  f"exact reduction (bound 2e-2)")
+        r0 = res[0]
+        log(f"  (b) --mesh 1,{tp} over {backend}: {tp} spawned ranks, "
+            f"transport {r0['transport']}, {wall:.1f} s wall (build "
+            f"{[round(r['build_s'], 1) for r in res]} s by rank, layer by "
+            f"layer); every rank's streams and all {len(r0['digests'])} "
+            f"decode steps' logits bit for bit (a)'s tp={tp}, contiguous "
+            f"and paged; decode {r0['times']['decode_ms_per_step']:.2f} "
+            f"ms/step (paged {r0['paged']['times']['decode_ms_per_step']:.2f}"
+            f"; (a) tp={tp} {a2['times']['decode_ms_per_step']:.2f}), "
+            f"prefill {r0['times']['prefill_ms']:.1f} ms; launches a rank "
+            f"{ {n: l['total'] for n, l in r0['launches'].items()} }; GiB by "
+            f"rank: tree {[round(r['tree_gib'], 2) for r in res]}, peak "
+            f"building {[round(r['build_peak_gib'], 2) for r in res]}, peak "
+            f"serving {[round(r['peak_gib'], 2) for r in res]}, held "
+            f"{[round(r['held_gib'], 2) for r in res]}; rs+int8-ag "
+            f"{[r['rs_ag']['rel_err'] for r in res]} of the exact reduction")
+        out[backend] = dict(wall_s=wall, ranks=[{k: r[k] for k in keep}
+                                                for r in res],
+                            paged=[r["paged"]["times"] for r in res])
+    if "nccl" not in out:
+        out["nccl"] = "not run (1 card)"
+        log(f"  nccl: not run ({torch.cuda.device_count()} card)")
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -2894,6 +3260,10 @@ def main() -> int:
 
     log("[5] parity: packed and kernel vs masked, fp32")
     parity, layer0 = parity_phase(torch, params)
+
+    log("[9a] tp: the shard loop at tp 2, 4 and 8 on one card, on phase 3's "
+        "model")
+    tp, tp_a2 = tp_shard_loop(torch, params, cfg, counters)
     del params
     torch.cuda.empty_cache()
 
@@ -2918,6 +3288,13 @@ def main() -> int:
         "hybrid train steps, card vs CPU")
     families = families_phase(torch, counters)
 
+    log("[9b] tp: --mesh 1,2, two spawned ranks (last, every earlier model "
+        "freed)")
+    t0 = time.time()
+    tp["b"] = _tp_mesh(torch, N_LAYERS, tp_a2)
+    tp["seconds"] = tp["seconds_a"] + time.time() - t0
+    log(f"  phase 9: {tp['seconds']:.1f} s")
+
     # each kernel's launches on its own path
     path_launches = {n: (launches if n in MAIN_PATH
                          else ablation["launches"])[n] for n in KERNELS}
@@ -2929,7 +3306,7 @@ def main() -> int:
                        parity=parity,
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
-                       families=families,
+                       families=families, tp=tp,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

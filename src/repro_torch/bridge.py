@@ -7,7 +7,8 @@ Dicts and tuples keep their structure (the stacked leading layer axis of
 ``segments[i]["slot<j>"]`` included); numpy arrays become tensors on
 ``device``; packed containers, recognised by their fields, become the
 port's ``PackedSASPWeight`` / ``PackedFFN`` / ``BlockSparseWeight`` /
-``QuantizedWeight``; the reference optimizer's ``AdamWState`` and
+``QuantizedWeight`` (TP-sharded ones keep ``shards`` / ``shard_kind``);
+the reference optimizer's ``AdamWState`` and
 ``QMoment``, recognised by their fields, become the port's.
 ``to_numpy`` goes the other way: port tree -> numpy arrays in the same
 dicts, tuples and NamedTuples, which the reference's functions take as
@@ -16,6 +17,7 @@ they are (its ``adamw_update`` reads ``.step`` / ``.m`` / ``.v`` and
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -65,23 +67,19 @@ def from_numpy(tree, device="cuda"):
     if isinstance(tree, (tuple, list)):
         return type(tree)(from_numpy(v, device) for v in tree)
     if _is_packed_weight(tree):
-        if getattr(tree, "shards", 1) != 1:
-            raise NotImplementedError("TP-sharded containers are not "
-                                      "ported yet")
         t = functools.partial(to_tensor, device=device)
         return PackedSASPWeight(t(tree.vals), t(tree.kn), tuple(tree.shape),
                                 tuple(tree.block), scale=t(tree.scale),
-                                bias=t(tree.bias), act=tree.act)
+                                bias=t(tree.bias), act=tree.act,
+                                shards=tree.shards,
+                                shard_kind=tree.shard_kind)
     if _is_packed_ffn(tree):
-        if getattr(tree, "shards", 1) != 1:
-            raise NotImplementedError("TP-sharded containers are not "
-                                      "ported yet")
         t = functools.partial(to_tensor, device=device)
         return PackedFFN(t(tree.w1v), t(tree.w3v), t(tree.w2v), t(tree.b1),
                          t(tree.b3), t(tree.b2), d_model=tree.d_model,
                          d_ff=tree.d_ff, block_f=tree.block_f, act=tree.act,
                          s1=t(tree.s1), s3=t(tree.s3), s2=t(tree.s2),
-                         jv=t(tree.jv))
+                         shards=tree.shards, jv=t(tree.jv))
     if _is_bsr(tree):
         t = functools.partial(to_tensor, device=device)
         return BlockSparseWeight(t(tree.vals), t(tree.idx), tuple(tree.shape),
@@ -97,9 +95,16 @@ def from_numpy(tree, device="cuda"):
 
 def to_numpy(tree):
     """Port tree of tensors -> the same structure of numpy arrays
-    (bfloat16 widened to float32, exactly)."""
+    (bfloat16 widened to float32, exactly); packed containers keep their
+    type and static fields (``shards``, ``shard_kind`` …) with numpy
+    arrays in their array fields, which ``from_numpy`` reads back."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (PackedSASPWeight, PackedFFN)):
+        return dataclasses.replace(tree, **{
+            f.name: to_numpy(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
     if _fields(tree):
         return type(tree)(*(to_numpy(v) for v in tree))
     if isinstance(tree, (tuple, list)):

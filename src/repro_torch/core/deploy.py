@@ -7,11 +7,15 @@ containers, so that serving does no per-call repacking: a
 activation folded into w1's flush, and, for ``scope="all"``, packed
 wq/wk/wv/wo. Layer stacks are packed per layer and padded to one shared
 nnz / nv. Masks are recovered from the nonzero tiles of the pruned
-weights. Packing runs in numpy (``kernels.sasp_gemm.pack``), exactly as
-in the reference, so the containers are equal array for array; the
-tensors then move to the device of the weights.
+weights. Packing runs in torch on the weights' device
+(``kernels.sasp_gemm.pack``) with the reference packers' arithmetic, so
+the containers are equal array for array.
 
-TP sharding (``tp > 1``) is not ported yet.
+TP sharding (``tp > 1``): every visit list splits into shard-local lists
+by shard kind (``core.sparse``), each shard keeping only its own
+surviving blocks; ``reshard_packed`` re-partitions existing containers to
+another shard count, equal array for array to packing the dense weights
+at that count.
 """
 from __future__ import annotations
 
@@ -43,96 +47,131 @@ def _fit_block(dim: int, want: int) -> int:
     return b
 
 
-def _np(t) -> np.ndarray:
-    if isinstance(t, torch.Tensor):
-        return t.detach().to("cpu", torch.float32).numpy()
-    return np.asarray(t, np.float32)
+def _f32(a, device) -> Optional[torch.Tensor]:
+    """``a`` (numpy or tensor) as fp32 on ``device``, or None."""
+    if a is None:
+        return None
+    return torch.as_tensor(a, dtype=torch.float32, device=device)
 
 
-def _dense_weight(entry) -> Optional[np.ndarray]:
-    """One matrix dict {w} | {qw} as dense fp32 numpy."""
+def _dense_weight(entry) -> Optional[torch.Tensor]:
+    """One matrix dict {w} | {qw} as a dense fp32 tensor."""
     if not isinstance(entry, dict):
         return None
     if "w" in entry:
-        return _np(entry["w"])
+        return entry["w"].detach().to(torch.float32)
     if "qw" in entry:
-        return _np(dequantize_int8(entry["qw"]))
+        return dequantize_int8(entry["qw"]).to(torch.float32)
     return None
 
 
-def _no_tp(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError("TP-sharded packing is not ported yet")
-
-
-def pack_weight(w: np.ndarray, *, block_k: int, block_n: int,
-                bias: Optional[np.ndarray] = None,
+def pack_weight(w, *, block_k: int, block_n: int, bias=None,
                 act: Optional[str] = None, quantize: bool = False,
-                tp: int = 1, device="cuda") -> PackedSASPWeight:
-    """(K, N) or layer-stacked (L, K, N) pruned weight -> container."""
-    _no_tp(tp)
-    w = np.asarray(w, np.float32)
+                tp: int = 1, shard_kind: str = "col",
+                device="cuda") -> PackedSASPWeight:
+    """(K, N) or layer-stacked (L, K, N) pruned weight (numpy or tensor)
+    -> container on ``device``.
+
+    ``tp > 1`` packs ``tp`` shard-local visit lists per layer:
+    ``shard_kind="col"`` slices the output-column blocks (bias per shard,
+    fused), ``"row"`` the input-row blocks (partial outputs: no ``act``,
+    bias whole, added after the reduction). Every (layer, shard) list is
+    padded to one nnz."""
+    w = _f32(w, device)
+    bias = _f32(bias, device)
     squeeze = w.ndim == 2
     if squeeze:
         w = w[None]
-        bias = None if bias is None else np.asarray(bias)[None]
+        bias = None if bias is None else bias[None]
     L, K, N = w.shape
     bk = _fit_block(K, block_k)
     bn = _fit_block(N, block_n)
-    KB, NB = K // bk, N // bn
-    packs = []
+    assert shard_kind in ("col", "row"), shard_kind
+    if tp > 1:
+        assert _shard_blocks(shard_kind, K, N, bk, bn) % tp == 0, (
+            shard_kind, K, N, tp)
+        assert shard_kind == "col" or act is None, \
+            "row-sharded outputs are partial; no nonlinear epilogue"
+
+    def piece(wi, s):
+        if tp == 1:
+            return wi
+        if shard_kind == "col":
+            ns = N // tp
+            return wi[:, s * ns:(s + 1) * ns]
+        ks = K // tp
+        return wi[s * ks:(s + 1) * ks, :]
+
+    packs = []                          # [L][tp] of (vals, kn, scale)
     for i in range(L):
-        m = np.any(w[i].reshape(KB, bk, NB, bn), axis=(1, 3))
-        packs.append(pack.build_kernel_weight(w[i], m, bk, bn,
-                                              quantize=quantize))
-    nnz = max(p[0].shape[0] for p in packs)
-    padded = [pack.pad_block_list(v, kn, sc, nnz) for v, kn, sc in packs]
+        row = []
+        for s in range(tp):
+            ws = piece(w[i], s)
+            kb, nb = ws.shape[0] // bk, ws.shape[1] // bn
+            m = (ws.reshape(kb, bk, nb, bn) != 0).any(dim=3).any(dim=1)
+            row.append(pack.build_kernel_weight(ws, m, bk, bn,
+                                                quantize=quantize))
+        packs.append(row)
+    nnz = max(p[0].shape[0] for row in packs for p in row)
+    padded = [[pack.pad_block_list(v, kn, sc, nnz) for v, kn, sc in row]
+              for row in packs]
 
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    def stack(j):
+        a = torch.stack([torch.stack([p[j] for p in row]) for row in padded])
+        return a[:, 0] if tp == 1 else a
 
-    vals = dev(np.stack([p[0] for p in padded]))
-    kn = dev(np.stack([p[1] for p in padded]))
-    scale = None if padded[0][2] is None else dev(
-        np.stack([p[2] for p in padded]).astype(np.float32))
-    b = None if bias is None else dev(np.asarray(bias, np.float32))
+    vals, kn = stack(0), stack(1)
+    scale = None if padded[0][0][2] is None else stack(2)
+    b = bias
+    if b is not None and tp > 1 and shard_kind == "col":
+        b = b.reshape(L, tp, N // tp)       # fused per column shard
     if squeeze:
         vals, kn = vals[0], kn[0]
         scale = None if scale is None else scale[0]
         b = None if b is None else b[0]
     return PackedSASPWeight(vals, kn, (K, N), (bk, bn), scale=scale,
-                            bias=b, act=act)
+                            bias=b, act=act, shards=tp,
+                            shard_kind=shard_kind if tp > 1 else None)
 
 
-def pack_ffn(w1: np.ndarray, w3: np.ndarray, w2: np.ndarray, *,
-             block_f: int, act: str, b1=None, b3=None, b2=None,
-             quantize: bool = False, tp: int = 1,
+def pack_ffn(w1, w3, w2, *, block_f: int, act: str, b1=None, b3=None,
+             b2=None, quantize: bool = False, tp: int = 1,
              device="cuda") -> PackedFFN:
-    """Gated-FFN triple (each optionally layer-stacked) -> PackedFFN."""
-    _no_tp(tp)
-    w1 = np.asarray(w1, np.float32)
+    """Gated-FFN triple (each optionally layer-stacked; numpy or tensors)
+    -> PackedFFN on ``device``.
+
+    ``tp > 1`` splits the d_ff visits contiguously: shard s packs d_ff
+    columns [s·F/tp, (s+1)·F/tp) of w1/w3 and the matching w2 rows, its
+    ``jv`` global d_ff blocks. b2 is not folded into a shard (the shards'
+    partials are summed); it stays whole, added once after the sum."""
     squeeze = w1.ndim == 2
 
     def lift(a):
-        if a is None:
-            return None
-        a = np.asarray(a, np.float32)
-        return a[None] if squeeze else a
+        a = _f32(a, device)
+        return a[None] if squeeze and a is not None else a
 
-    w1 = lift(w1)
-    w3, w2 = lift(w3), lift(w2)
+    w1, w3, w2 = lift(w1), lift(w3), lift(w2)
     b1, b3, b2 = lift(b1), lift(b3), lift(b2)
     L, d, F = w1.shape
     bf = _fit_block(F, block_f)
-    packs = []
-    for i in range(L):
+    if tp > 1:
+        assert (F // bf) % tp == 0, (F, bf, tp)
+    fs = F // tp
+
+    def build(i, s):
+        sl = slice(s * fs, (s + 1) * fs)
         pk = pack.build_fused_ffn(
-            w1[i], w3[i], w2[i], block_f=bf,
-            b1=None if b1 is None else b1[i],
-            b3=None if b3 is None else b3[i],
-            b2=None if b2 is None else b2[i],
+            w1[i][:, sl], w3[i][:, sl], w2[i][sl, :], block_f=bf,
+            b1=None if b1 is None else b1[i][sl],
+            b3=None if b3 is None else b3[i][sl],
+            b2=None if (b2 is None or tp > 1) else b2[i],
             quantize=quantize, return_visits=True)
-        packs.append(pk)
+        jv = pk[-1]
+        if tp > 1:          # shard-local keep indices -> global d_ff blocks
+            jv = torch.where(jv >= 0, jv + s * ((F // bf) // tp), -1)
+        return pk[:-1] + (jv,)
+
+    packs = [build(i, s) for i in range(L) for s in range(tp)]
     nv = max(p[0].shape[0] for p in packs)
 
     def pad_visits(p):
@@ -140,31 +179,38 @@ def pack_ffn(w1: np.ndarray, w3: np.ndarray, w2: np.ndarray, *,
         n_pad = nv - w1v.shape[0]
         if n_pad:
             def z(a):
-                return np.concatenate(
-                    [a, np.zeros((n_pad,) + a.shape[1:], a.dtype)])
+                return torch.cat([a, a.new_zeros((n_pad,) + tuple(
+                    a.shape[1:]))])
             w1v, w3v, w2v, b1v, b3v = (z(a) for a in
                                        (w1v, w3v, w2v, b1v, b3v))
-            jv = np.concatenate([jv, np.full((n_pad,), -1, np.int32)])
+            jv = torch.cat([jv, jv.new_full((n_pad,), -1)])
             if sc is not None:
                 sc = tuple(z(s) for s in sc)
         return w1v, w3v, w2v, b1v, b3v, b2v, sc, jv
 
     rows = [pad_visits(p) for p in packs]
 
-    def stack(idx):
-        a = torch.from_numpy(np.ascontiguousarray(
-            np.stack([r[idx] for r in rows]))).to(device)
+    def stack(get):
+        a = torch.stack([get(r) for r in rows])
+        if tp > 1:                          # (L·tp, …) -> (L, tp, …)
+            a = a.reshape((L, tp) + tuple(a.shape[1:]))
         return a[0] if squeeze else a
 
+    if tp > 1:
+        # the shards carried zero b2 placeholders; the real bias stays
+        # whole, added once after the shard reduction
+        b2v = b2 if b2 is not None else w1.new_zeros((L, d))
+        b2v = b2v[0] if squeeze else b2v
+    else:
+        b2v = stack(lambda r: r[5])
     scales = [None, None, None]
     if rows[0][6] is not None:
-        for j in range(3):
-            a = torch.from_numpy(np.stack([r[6][j] for r in rows])).to(device)
-            scales[j] = a[0] if squeeze else a
-    return PackedFFN(stack(0), stack(1), stack(2), stack(3), stack(4),
-                     stack(5), d_model=d, d_ff=F, block_f=bf, act=act,
-                     s1=scales[0], s3=scales[1], s2=scales[2],
-                     jv=stack(7))
+        scales = [stack(lambda r, j=j: r[6][j]) for j in range(3)]
+    return PackedFFN(stack(lambda r: r[0]), stack(lambda r: r[1]),
+                     stack(lambda r: r[2]), stack(lambda r: r[3]),
+                     stack(lambda r: r[4]), b2v, d_model=d, d_ff=F,
+                     block_f=bf, act=act, s1=scales[0], s3=scales[1],
+                     s2=scales[2], shards=tp, jv=stack(lambda r: r[7]))
 
 
 # ---------------------------------------------------------------------------
@@ -172,19 +218,32 @@ def pack_ffn(w1: np.ndarray, w3: np.ndarray, w2: np.ndarray, *,
 # ---------------------------------------------------------------------------
 
 
-def packed_matmul(x: torch.Tensor, pw: PackedSASPWeight) -> torch.Tensor:
+def _unsharded(node) -> None:
+    if node.shards != 1:
+        raise ValueError(
+            "a TP-sharded container runs through models.ffn's TP paths "
+            "(packed_mm_sharded, _packed_ffn_fused_sharded), shard by "
+            "shard")
+
+
+def packed_matmul(x: torch.Tensor, pw: PackedSASPWeight, *,
+                  group_nb: Optional[int] = None) -> torch.Tensor:
     """(…, K) @ packed weight -> (…, N) through the tile-skip kernel, bias
-    and activation fused into the flush."""
-    _no_tp(pw.shards)
+    and activation fused into the flush. ``group_nb``: the column-blocks
+    of the whole weight a col shard was cut from, whose grid fixes the
+    kernel's visit groups (so the shard sums its columns in the whole
+    weight's order)."""
+    _unsharded(pw)
     *lead, K = x.shape
     y = sasp_gemm(x.reshape(-1, K), pw.vals, pw.kn, pw.col_ptr,
-                  pw.shape[1], scales=pw.scale, bias=pw.bias, act=pw.act)
+                  pw.shape[1], scales=pw.scale, bias=pw.bias, act=pw.act,
+                  group_nb=group_nb)
     return y.reshape(*lead, pw.shape[1]).to(x.dtype)
 
 
 def packed_ffn_apply(x: torch.Tensor, pf: PackedFFN) -> torch.Tensor:
     """Whole gated FFN in one fused kernel launch."""
-    _no_tp(pf.shards)
+    _unsharded(pf)
     *lead, d = x.shape
     scales = None if pf.s1 is None else (pf.s1, pf.s3, pf.s2)
     y = fused_ffn(x.reshape(-1, d), pf.w1v, pf.w3v, pf.w2v, pf.b1, pf.b3,
@@ -196,11 +255,47 @@ def packed_ffn_apply(x: torch.Tensor, pf: PackedFFN) -> torch.Tensor:
 # deploy_packed — the load-time conversion entry point
 # ---------------------------------------------------------------------------
 
+# TP-eligibility rules, shared by deploy_packed and reshard_packed so the
+# two walks cannot part
+
+
+def _shard_blocks(kind: str, K: int, N: int, bk: int, bn: int) -> int:
+    """Block count along the dimension a shard kind partitions."""
+    return (N // bn) if kind == "col" else (K // bk)
+
+
+def _fused_tp(d_ff: int, block_f: int, tp: int) -> int:
+    """Shards the fused d_ff visit schedule takes (1 = unsharded)."""
+    return tp if tp > 1 and (d_ff // block_f) % tp == 0 else 1
+
+
+def _attn_tp(cfg: ModelConfig, tp: int) -> int:
+    """wq/wk/wv col shards must land on head boundaries."""
+    return tp if (tp > 1 and cfg.num_heads % tp == 0
+                  and cfg.num_kv_heads % tp == 0) else 1
+
+
+def _tp_fits(w: torch.Tensor, kind: str, cfg: ModelConfig, tp: int) -> bool:
+    """Does the matrix's block grid split evenly into ``tp`` shards?"""
+    K, N = w.shape[-2:]
+    bk = _fit_block(K, cfg.sasp.block_k)
+    bn = _fit_block(N, cfg.sasp.block_n)
+    return _shard_blocks(kind, K, N, bk, bn) % tp == 0
+
+
+_FFN_KINDS = {"w1": "col", "w3": "col", "w2": "row"}
+_ATTN_KINDS = {"wq": "col", "wk": "col", "wv": "col", "wo": "row"}
+
 
 def _pack_matrix_group(node: Params, names, cfg: ModelConfig,
                        quantize: bool, act_for: Dict[str, Optional[str]],
-                       device) -> Optional[Dict[str, PackedSASPWeight]]:
-    out = {}
+                       device, tp: int = 1,
+                       kinds: Optional[Dict[str, str]] = None
+                       ) -> Optional[Dict[str, PackedSASPWeight]]:
+    """Pack matrices that serve together; TP sharding is all or nothing
+    across the group."""
+    kinds = kinds or {}
+    mats = []
     for name in names:
         entry = node.get(name)
         w = None if entry is None else _dense_weight(entry)
@@ -208,16 +303,21 @@ def _pack_matrix_group(node: Params, names, cfg: ModelConfig,
             continue
         if w.ndim not in (2, 3):
             return None
-        bias = _np(entry["b"]) if "b" in entry else None
+        mats.append((name, w, entry.get("b")))
+    if tp > 1 and any(not _tp_fits(w, kinds.get(n, "col"), cfg, tp)
+                      for n, w, _ in mats):
+        tp = 1
+    out = {}
+    for name, w, bias in mats:
         out[name] = pack_weight(
             w, block_k=cfg.sasp.block_k, block_n=cfg.sasp.block_n,
-            bias=bias, act=act_for.get(name), quantize=quantize,
-            device=device)
+            bias=bias, act=act_for.get(name), quantize=quantize, tp=tp,
+            shard_kind=kinds.get(name, "col"), device=device)
     return out or None
 
 
 def _deploy_slot(slot: Params, cfg: ModelConfig, *, quantize: bool,
-                 fuse_ffn: bool, attn: bool, device) -> Params:
+                 fuse_ffn: bool, attn: bool, device, tp: int = 1) -> Params:
     slot = dict(slot)
     ffn = slot.get("ffn")
     if (isinstance(ffn, dict) and "w1" in ffn and "w2" in ffn
@@ -230,19 +330,21 @@ def _deploy_slot(slot: Params, cfg: ModelConfig, *, quantize: bool,
         # an empty FFN (d_ff = 0) has nothing to pack (the reference's
         # packer divides by its zero width)
         if (w1 is not None and w2 is not None and w1.ndim in (2, 3)
-                and w1.size):
+                and w1.numel()):
             def bias(name):
                 e = ffn[name]
-                return _np(e["b"]) if isinstance(e, dict) and "b" in e \
-                    else None
+                return e.get("b") if isinstance(e, dict) else None
             if gated and fuse_ffn and w3 is not None:
+                F = w1.shape[-1]
                 ffn["sasp_fused"] = pack_ffn(
                     w1, w3, w2, block_f=cfg.sasp.block_n, act=cfg.act,
                     b1=bias("w1"), b3=bias("w3"), b2=bias("w2"),
-                    quantize=quantize, device=device)
+                    quantize=quantize, device=device,
+                    tp=_fused_tp(F, _fit_block(F, cfg.sasp.block_n), tp))
             else:
                 packed = _pack_matrix_group(
-                    ffn, _FFN_MATS, cfg, quantize, {"w1": cfg.act}, device)
+                    ffn, _FFN_MATS, cfg, quantize, {"w1": cfg.act}, device,
+                    tp=tp, kinds=_FFN_KINDS)
                 if packed is not None:
                     ffn["sasp_packed"] = packed
             slot["ffn"] = ffn
@@ -251,7 +353,8 @@ def _deploy_slot(slot: Params, cfg: ModelConfig, *, quantize: bool,
             m in mixer for m in _ATTN_MATS):
         mixer = dict(mixer)
         packed = _pack_matrix_group(mixer, _ATTN_MATS, cfg, quantize, {},
-                                    device)
+                                    device, tp=_attn_tp(cfg, tp),
+                                    kinds=_ATTN_KINDS)
         if packed is not None:
             mixer["sasp_packed"] = packed
             slot["mixer"] = mixer
@@ -263,22 +366,33 @@ def _param_device(params: Params):
     return emb.device if isinstance(emb, torch.Tensor) else "cuda"
 
 
+def _mesh_tp(mesh, tp: Optional[int]) -> int:
+    if tp is not None:
+        return int(tp)
+    return mesh.axis_size("model") if mesh is not None else 1
+
+
 def deploy_packed(params: Params, cfg: ModelConfig, *,
                   quantize: Optional[bool] = None, fuse_ffn: bool = True,
-                  attn: Optional[bool] = None,
+                  attn: Optional[bool] = None, mesh=None,
                   tp: Optional[int] = None) -> Tuple[Params, ModelConfig]:
     """Convert a pruned param tree into packed serving form. Returns
     ``(params', cfg')`` with containers attached next to the dense
     weights (which stay as the source of truth) and
-    ``cfg'.sasp.path == "kernel"``."""
-    _no_tp(1 if tp is None else tp)
+    ``cfg'.sasp.path == "kernel"``. ``tp`` (or the 'model' axis of
+    ``mesh``): shard every visit list into ``tp`` shard-local lists
+    (wq/wk/wv col on head boundaries, wo row; w1/w3 col, w2 row; the
+    fused FFN by d_ff); a group whose block grid does not divide stays
+    unsharded."""
+    tp = _mesh_tp(mesh, tp)
     quantize = cfg.sasp.quantize if quantize is None else quantize
     attn = (cfg.sasp.scope == "all") if attn is None else attn
     device = _param_device(params)
     out = dict(params)
     out["segments"] = tuple(
         {name: _deploy_slot(slot, cfg, quantize=quantize,
-                            fuse_ffn=fuse_ffn, attn=attn, device=device)
+                            fuse_ffn=fuse_ffn, attn=attn, device=device,
+                            tp=tp)
          for name, slot in seg.items()}
         for seg in params.get("segments", ()))
     cfg = dataclasses.replace(
@@ -357,8 +471,308 @@ def cast_packed_values(params: Params, dtype: torch.dtype) -> Params:
     return walk(params)
 
 
+def _pad_axis(a: torch.Tensor, n: int, dim: int,
+              value: Optional[float] = 0.0) -> torch.Tensor:
+    """``a`` padded to length ``n`` along ``dim`` with ``value``, or (None)
+    with copies of its last entry."""
+    dim %= a.ndim
+    pad = n - a.shape[dim]
+    if not pad:
+        return a
+    shape = list(a.shape)
+    shape[dim] = pad
+    ext = (a.narrow(dim, a.shape[dim] - 1, 1).expand(shape) if value is None
+           else a.new_full(shape, value))
+    return torch.cat([a, ext], dim)
+
+
+def stack_layers(parts):
+    """One layer-stacked tree from trees of one layer each (every leaf's
+    leading layer axis of length 1), containers padded to one nnz / nv
+    as the packers pad them: a visit list by its last visit repeated with
+    zero blocks and scales (``pack.pad_block_list``), a PackedFFN by zero
+    visits with jv -1. Stacking the layers of ``deploy_packed`` run
+    layer by layer gives the containers of one run over every layer."""
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: stack_layers([p[k] for p in parts]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    if first is None:
+        return None
+
+    def cat(name, n=None, dim=-1, value=0.0):
+        ts = [getattr(p, name) for p in parts]
+        if ts[0] is None:
+            return None
+        return torch.cat(ts if n is None else
+                         [_pad_axis(t, n, dim, value) for t in ts])
+
+    if isinstance(first, PackedSASPWeight):
+        n = max(p.nnz for p in parts)
+        return dataclasses.replace(
+            first, vals=cat("vals", n, -3), kn=cat("kn", n, -1, None),
+            scale=cat("scale", n, -1),
+            bias=cat("bias"), col_ptr=None)
+    if isinstance(first, PackedFFN):
+        n = max(p.nv for p in parts)
+        return dataclasses.replace(
+            first, **{f: cat(f, n, -3) for f in ("w1v", "w3v", "w2v")},
+            **{f: cat(f, n, -2) for f in ("b1", "b3")},
+            **{f: cat(f, n, -1) for f in ("s1", "s3", "s2")},
+            jv=cat("jv", n, -1, -1), b2=cat("b2"))
+    raise TypeError(f"stack_layers: {type(first).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-deploy: reshard existing containers
+# ---------------------------------------------------------------------------
+
+
+def _zero_block_scale() -> float:
+    """int8 scale of an all-zero block, by the packers' own arithmetic
+    (``pack.build_kernel_weight``), so resharded containers equal packs
+    from scratch bit for bit."""
+    amax = np.zeros((1,), np.float32)
+    return float((np.maximum(amax, 1e-12) / 127.0).astype(np.float32)[0])
+
+
+def _reshard_weight(pw: PackedSASPWeight, tp: int,
+                    kind: str) -> PackedSASPWeight:
+    """Slice and pad one packed matrix to ``tp`` shards on its own device:
+    live visits (nonzero blocks) are re-binned by output-column (col) or
+    input-row (row) block shard with shard-local coordinates, empty
+    output columns get their zero flush visit, (n, k) order, and the
+    (layer, shard) lists re-pad to one nnz. Equal to ``pack_weight`` on
+    the sliced dense weight."""
+    assert pw.held == pw.shards, "reshard a whole container, not a rank's"
+    K, N = pw.shape
+    bk, bn = pw.block
+    KB, NB = K // bk, N // bn
+    quant = pw.scale is not None
+    assert kind in ("col", "row"), kind
+    assert tp == 1 or kind == "col" or pw.act is None
+    assert (NB if kind == "col" else KB) % tp == 0, (kind, pw.shape, tp)
+    vals, kn, sc = pw.vals, pw.kn.to(torch.int64), pw.scale
+    stacked = vals.ndim == (5 if pw.shards > 1 else 4)
+    if not stacked:
+        vals, kn = vals[None], kn[None]
+        sc = None if sc is None else sc[None]
+    if pw.shards == 1:
+        vals, kn = vals[:, None], kn[:, None]
+        sc = None if sc is None else sc[:, None]
+    L, dev = vals.shape[0], vals.device
+    NB_s = NB // tp if kind == "col" else NB
+    KB_s = KB if kind == "col" else KB // tp
+    zs = _zero_block_scale()
+    packs = []                              # [L][tp] of (vals, kn, scale)
+    for li in range(L):
+        # 1) the layer's global live-visit list (padding and flush
+        #    visits are zero blocks, rebuilt below)
+        ks, ns, vs, ss = [], [], [], []
+        for s in range(pw.shards):
+            v = vals[li, s]
+            live = (v != 0).flatten(1).any(1)
+            k, n = kn[li, s, 0], kn[li, s, 1]
+            if pw.shards > 1:
+                if pw.shard_kind == "col":
+                    n = n + s * (NB // pw.shards)
+                else:
+                    k = k + s * (KB // pw.shards)
+            ks.append(k[live])
+            ns.append(n[live])
+            vs.append(v[live])
+            if quant:
+                ss.append(sc[li, s][live])
+        ks, ns, vs = torch.cat(ks), torch.cat(ns), torch.cat(vs)
+        ss = torch.cat(ss) if quant else None
+        # 2) re-bin to the new shards as the packer bins a sliced weight
+        row = []
+        for s in range(tp):
+            if kind == "col":
+                sel = (ns >= s * NB_s) & (ns < (s + 1) * NB_s)
+                k_loc, n_loc = ks[sel], ns[sel] - s * NB_s
+            else:
+                sel = (ks >= s * KB_s) & (ks < (s + 1) * KB_s)
+                k_loc, n_loc = ks[sel] - s * KB_s, ns[sel]
+            v_loc = vs[sel]
+            s_loc = ss[sel] if quant else None
+            seen = torch.zeros((NB_s,), dtype=torch.bool, device=dev)
+            seen[n_loc] = True
+            empty = torch.nonzero(~seen)[:, 0]
+            if empty.numel():               # one zero flush visit each
+                k_loc = torch.cat([k_loc, torch.zeros_like(empty)])
+                n_loc = torch.cat([n_loc, empty])
+                v_loc = torch.cat([v_loc, v_loc.new_zeros(
+                    (empty.numel(), bk, bn))])
+                if quant:
+                    s_loc = torch.cat([s_loc, torch.full(
+                        (empty.numel(),), zs, dtype=s_loc.dtype,
+                        device=dev)])
+            order = torch.argsort(n_loc * KB_s + k_loc)    # keys unique
+            row.append((v_loc[order],
+                        torch.stack([k_loc[order], n_loc[order]])
+                        .to(torch.int32),
+                        s_loc[order] if quant else None))
+        packs.append(row)
+    # 3) shared-nnz padding and stacking, as pack_weight
+    nnz = max(p[0].shape[0] for row in packs for p in row)
+    packs = [[pack.pad_block_list(*p, nnz) for p in row] for row in packs]
+
+    def stack(j):
+        a = torch.stack([torch.stack([p[j] for p in row]) for row in packs])
+        a = a[:, 0] if tp == 1 else a
+        return a if stacked else a[0]
+
+    bias = pw.bias
+    if bias is not None:
+        if pw.shards > 1 and pw.shard_kind == "col":
+            bias = bias.reshape(tuple(bias.shape[:-2]) + (-1,))
+        if tp > 1 and kind == "col":
+            bias = bias.reshape(tuple(bias.shape[:-1]) + (tp, N // tp))
+        bias = bias.contiguous()
+    return PackedSASPWeight(stack(0), stack(1), (K, N), (bk, bn),
+                            scale=stack(2) if quant else None, bias=bias,
+                            act=pw.act, shards=tp,
+                            shard_kind=kind if tp > 1 else None)
+
+
+_FFN_FIELDS = ("w1v", "w3v", "w2v", "b1", "b3", "jv")
+_FFN_SCALES = ("s1", "s3", "s2")
+
+
+def _reshard_ffn(pf: PackedFFN, tp: int) -> PackedFFN:
+    """Slice and pad the fused FFN's schedule to ``tp`` d_ff shards by its
+    global visit indices ``jv`` (no dense rebuild; equal to ``pack_ffn``
+    on the sliced weights)."""
+    assert pf.held == pf.shards, "reshard a whole container, not a rank's"
+    assert pf.jv is not None, "container has no jv visit indices"
+    d, bf = pf.d_model, pf.block_f
+    FB = pf.d_ff // bf
+    assert tp == 1 or FB % tp == 0, (pf.d_ff, bf, tp)
+    quant = pf.s1 is not None
+    names = _FFN_FIELDS + (_FFN_SCALES if quant else ())
+    stacked = pf.w1v.ndim == 3 + (2 if pf.shards > 1 else 1)
+
+    def norm(a):
+        a = a if stacked else a[None]
+        return a if pf.shards > 1 else a[:, None]
+
+    A = {n: norm(getattr(pf, n)) for n in names}
+    L = A["w1v"].shape[0]
+    zs = _zero_block_scale()
+
+    def zero_visit():
+        z = {n: A[n].new_zeros((1,) + tuple(A[n].shape[3:]))
+             for n in names}
+        z["jv"] = torch.full_like(z["jv"], -1)
+        for n in _FFN_SCALES if quant else ():
+            z[n] = torch.full_like(z[n], zs)
+        return z
+
+    FBs = FB // tp
+    packs = []                              # [L][tp] dicts
+    for li in range(L):
+        parts = {n: [] for n in names}
+        for s in range(pf.shards):
+            live = A["jv"][li, s] >= 0
+            for n in names:
+                parts[n].append(A[n][li, s][live])
+        cat = {n: torch.cat(parts[n]) for n in names}
+        order = torch.sort(cat["jv"], stable=True).indices
+        cat = {n: a[order] for n, a in cat.items()}
+        row = []
+        for s in range(tp):
+            sel = (cat["jv"] >= s * FBs) & (cat["jv"] < (s + 1) * FBs)
+            # an all-pruned shard gets one zero visit: its partial is 0
+            row.append({n: a[sel] for n, a in cat.items()}
+                       if bool(sel.any()) else zero_visit())
+        packs.append(row)
+    nv = max(p["jv"].shape[0] for row in packs for p in row)
+
+    def pad(p):
+        n_pad = nv - p["jv"].shape[0]
+        if not n_pad:
+            return p
+        out = {n: torch.cat([a, a.new_zeros((n_pad,) + tuple(a.shape[1:]))])
+               for n, a in p.items()}
+        out["jv"][-n_pad:] = -1
+        return out
+
+    packs = [[pad(p) for p in row] for row in packs]
+
+    def stack(n):
+        a = torch.stack([torch.stack([p[n] for p in row]) for row in packs])
+        a = a[:, 0] if tp == 1 else a
+        return a if stacked else a[0]
+
+    return PackedFFN(
+        stack("w1v"), stack("w3v"), stack("w2v"), stack("b1"), stack("b3"),
+        pf.b2, d_model=d, d_ff=pf.d_ff, block_f=bf, act=pf.act,
+        s1=stack("s1") if quant else None,
+        s3=stack("s3") if quant else None,
+        s2=stack("s2") if quant else None, shards=tp, jv=stack("jv"))
+
+
+def reshard_packed(params: Params, cfg: ModelConfig, *, mesh=None,
+                   tp: Optional[int] = None) -> Params:
+    """Re-partition every packed container to ``tp`` shards (or the
+    'model' axis of ``mesh``) by slicing and re-padding the existing
+    visit lists, from any current shard count, on the containers' device:
+    no dense rebuild, no mask recovery. Equal array for array to
+    ``deploy_packed(pruned, cfg, tp=tp)`` of the same weights; a group
+    whose block grid (or, for attention, head count) does not divide
+    stays unsharded, by ``deploy_packed``'s rules."""
+    tp = _mesh_tp(mesh, tp)
+
+    def fits(pw: PackedSASPWeight, kind: str) -> bool:
+        K, N = pw.shape
+        bk, bn = pw.block
+        return _shard_blocks(kind, K, N, bk, bn) % tp == 0
+
+    def group(grp, kinds, tp_g):
+        if not all(fits(w, kinds.get(n, "col")) for n, w in grp.items()):
+            tp_g = 1
+        return {n: _reshard_weight(w, tp_g, kinds.get(n, "col"))
+                for n, w in grp.items()}
+
+    if "segments" not in params:
+        raise ValueError("reshard_packed expects a deployed param tree "
+                         "with a 'segments' entry (see deploy_packed)")
+    out = dict(params)
+    segs = []
+    for seg in params["segments"]:
+        new_seg = {}
+        for slot_name, slot in seg.items():
+            slot = dict(slot)
+            ffn = slot.get("ffn")
+            if isinstance(ffn, dict):
+                ffn = dict(ffn)
+                pf = ffn.get("sasp_fused")
+                if isinstance(pf, PackedFFN):
+                    ffn["sasp_fused"] = _reshard_ffn(
+                        pf, _fused_tp(pf.d_ff, pf.block_f, tp))
+                if isinstance(ffn.get("sasp_packed"), dict):
+                    ffn["sasp_packed"] = group(ffn["sasp_packed"],
+                                               _FFN_KINDS, tp)
+                slot["ffn"] = ffn
+            mixer = slot.get("mixer")
+            if isinstance(mixer, dict) and isinstance(
+                    mixer.get("sasp_packed"), dict):
+                mixer = dict(mixer)
+                mixer["sasp_packed"] = group(mixer["sasp_packed"],
+                                             _ATTN_KINDS, _attn_tp(cfg, tp))
+                slot["mixer"] = mixer
+            new_seg[slot_name] = slot
+        segs.append(new_seg)
+    out["segments"] = tuple(segs)
+    return out
+
+
 def packed_summary(params: Params) -> Dict[str, float]:
-    """Deployment report: container counts + compression vs dense fp32."""
+    """Deployment report: container counts + compression vs dense fp32
+    (a sharded container stands for one dense matrix, a rank's local
+    container for its 1/tp of one)."""
     n_packed = n_fused = 0
     packed_bytes = dense_bytes = 0
 
@@ -369,14 +783,15 @@ def packed_summary(params: Params) -> Dict[str, float]:
             packed_bytes += node.nbytes()
             K, N = node.shape
             lead = node.vals.shape[:-3]
-            dense_bytes += int(np.prod(lead, dtype=np.int64)) * K * N * 4
+            dense_bytes += int(np.prod(lead, dtype=np.int64)) \
+                * K * N * 4 // node.shards
         elif isinstance(node, PackedFFN):
             n_fused += 1
             for a in (node.w1v, node.w3v, node.w2v):
                 packed_bytes += a.numel() * a.element_size()
             lead = node.w1v.shape[:-3]
             dense_bytes += int(np.prod(lead, dtype=np.int64)) \
-                * 3 * node.d_model * node.d_ff * 4
+                * 3 * node.d_model * node.d_ff * 4 // node.shards
         elif isinstance(node, dict):
             for v in node.values():
                 visit(v)

@@ -95,25 +95,56 @@ def scope_predicate(sasp: SASPConfig) -> Callable[[Path], bool]:
         all_gemm_predicate
 
 
+def prunable_blocks(path: Path, leaf, sasp: SASPConfig,
+                    is_prunable: Callable[[Path], bool]
+                    ) -> Optional[Tuple[int, int]]:
+    """The (bk, bn) tiles of a prunable leaf, or None."""
+    if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
+        return None
+    if not is_prunable(path):
+        return None
+    K, N = leaf.shape[-2], leaf.shape[-1]
+    if not K or not N:
+        # an empty matrix (mamba2's d_ff = 0 FFN) holds no tiles; the
+        # reference divides by its zero width here and raises
+        return None
+    bk, bn = effective_blocks((K, N), sasp.block_k, sasp.block_n)
+    if K % bk or N % bn:
+        return None
+    return bk, bn
+
+
 def find_prunable(params: Params, sasp: SASPConfig,
                   is_prunable: Callable[[Path], bool]
                   ) -> List[Tuple[Path, torch.Tensor, int, int]]:
     out = []
     for path, leaf in iter_leaves(params):
-        if not isinstance(leaf, torch.Tensor) or leaf.ndim < 2:
-            continue
-        if not is_prunable(path):
-            continue
-        K, N = leaf.shape[-2], leaf.shape[-1]
-        if not K or not N:
-            # an empty matrix (mamba2's d_ff = 0 FFN) holds no tiles; the
-            # reference divides by its zero width here and raises
-            continue
-        bk, bn = effective_blocks((K, N), sasp.block_k, sasp.block_n)
-        if K % bk or N % bn:
-            continue
-        out.append((path, leaf, bk, bn))
+        blocks = prunable_blocks(path, leaf, sasp, is_prunable)
+        if blocks is not None:
+            out.append((path, leaf) + blocks)
     return out
+
+
+def masks_from_scores(scores: List[Tuple[Path, torch.Tensor]],
+                      sparsity: float) -> Dict[Path, torch.Tensor]:
+    """{path: bool mask} from each prunable leaf's tile scores, in the
+    reference's leaf order: the lowest ``floor(sparsity × total)`` tiles
+    model-wide pruned, ties by a stable sort."""
+    if not scores:
+        return {}
+    all_scores = torch.cat([s.reshape(-1) for _, s in scores])
+    total = all_scores.numel()
+    n_prune = int(np.floor(sparsity * total))
+    keep = torch.ones((total,), dtype=torch.bool, device=all_scores.device)
+    if n_prune:
+        order = torch.argsort(all_scores, stable=True)
+        keep[order[:n_prune]] = False
+    masks: Dict[Path, torch.Tensor] = {}
+    off = 0
+    for path, s in scores:
+        masks[path] = keep[off:off + s.numel()].reshape(s.shape)
+        off += s.numel()
+    return masks
 
 
 def compute_sasp_masks(params: Params, sasp: SASPConfig,
@@ -122,23 +153,10 @@ def compute_sasp_masks(params: Params, sasp: SASPConfig,
     """{path: bool mask (..., KB, NB)} with exactly
     ``floor(sparsity × total_tiles)`` tiles pruned model-wide."""
     pred = is_prunable or scope_predicate(sasp)
-    leaves = find_prunable(params, sasp, pred)
-    if not leaves:
-        return {}
-    scores = [tile_l1(w, bk, bn) for _, w, bk, bn in leaves]
-    all_scores = torch.cat([s.reshape(-1) for s in scores])
-    total = all_scores.numel()
-    n_prune = int(np.floor(sasp.sparsity * total))
-    keep = torch.ones((total,), dtype=torch.bool, device=all_scores.device)
-    if n_prune:
-        order = torch.argsort(all_scores, stable=True)
-        keep[order[:n_prune]] = False
-    masks: Dict[Path, torch.Tensor] = {}
-    off = 0
-    for (path, _, _, _), s in zip(leaves, scores):
-        masks[path] = keep[off:off + s.numel()].reshape(s.shape)
-        off += s.numel()
-    return masks
+    return masks_from_scores(
+        [(path, tile_l1(w, bk, bn))
+         for path, w, bk, bn in find_prunable(params, sasp, pred)],
+        sasp.sparsity)
 
 
 def prune_params(params: Params, sasp: SASPConfig,

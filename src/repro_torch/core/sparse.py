@@ -25,8 +25,22 @@ of idx 0 to one depth ``k_max``; idx (…, k_max, NB) int32 their k-block;
 int8 vals carry a scale (…, k_max, NB) per (j, n) block. Built offline
 in numpy (``bsr_from_mask``), so it equals the reference's arrays.
 
-The single-device port has ``shards == 1``; every field shared with the
-reference container holds exactly the reference's values.
+TP sharding (``shards > 1``, ``core.deploy`` with ``tp``): every array
+of a container carries a shard axis right before its visit dims — vals
+(…, tp, nnz, bk, bn), kn (…, tp, 2, nnz), scale (…, tp, nnz); PackedFFN
+w1v (…, tp, nv, d, bf), b1 (…, tp, nv, bf), jv (…, tp, nv) — holding one
+shard-local visit list per TP rank, all padded to one nnz / nv.
+``shard_kind="col"`` splits by output-column block (kn n-coordinates
+shard-local, bias (…, tp, N/tp) fused into each shard's flush, outputs
+concatenate); ``"row"`` by input-row block (k-coordinates shard-local,
+outputs partial: bias (…, N) stays whole, is added after the reduction,
+and a row shard never carries ``act``). A PackedFFN shards its d_ff
+visits contiguously (partials, b2 whole, added once). ``col_ptr`` is
+per shard. A rank's local tree (``distribution.sharding``) keeps the
+shard axis at length 1: ``held`` is the number of shards a container
+holds, ``shard(s)`` the unsharded container of one of them. Every field
+shared with the reference container holds exactly the reference's
+values.
 """
 from __future__ import annotations
 
@@ -45,6 +59,11 @@ def col_ptr_from_kn(kn: torch.Tensor, nb: int) -> torch.Tensor:
     return torch.searchsorted(n, bounds).to(torch.int32)
 
 
+def _pick(a: Optional[torch.Tensor], s: int, from_end: int):
+    """Index ``s`` of the shard axis, ``from_end`` dims before the end."""
+    return None if a is None else a.select(a.ndim - from_end, s)
+
+
 @dataclasses.dataclass
 class PackedSASPWeight:
     vals: torch.Tensor
@@ -61,6 +80,8 @@ class PackedSASPWeight:
     def __post_init__(self):
         if self.col_ptr is None:
             nb = self.shape[1] // self.block[1]
+            if self.shard_kind == "col":
+                nb //= self.shards
             self.col_ptr = col_ptr_from_kn(self.kn, nb)
 
     @property
@@ -74,6 +95,27 @@ class PackedSASPWeight:
             scale=None if self.scale is None else self.scale[i],
             bias=None if self.bias is None else self.bias[i],
             col_ptr=self.col_ptr[i])
+
+    @property
+    def held(self) -> int:
+        """Shards this container holds: ``shards``, or 1 in a rank's
+        local tree."""
+        return self.vals.shape[-4] if self.shards > 1 else 1
+
+    def shard(self, s: int) -> "PackedSASPWeight":
+        """The unsharded container of held shard ``s``: a col shard's
+        (K, N/tp) columns with their bias and act; a row shard's
+        (K/tp, N) rows, partial, with neither bias nor act."""
+        K, N = self.shape
+        tp = self.shards
+        col = self.shard_kind == "col"
+        return PackedSASPWeight(
+            _pick(self.vals, s, 4), _pick(self.kn, s, 3),
+            (K, N // tp) if col else (K // tp, N), self.block,
+            scale=_pick(self.scale, s, 2),
+            bias=_pick(self.bias, s, 2) if col else None,
+            act=self.act if col else None,
+            col_ptr=_pick(self.col_ptr, s, 2))
 
     def nbytes(self) -> int:
         b = self.vals.numel() * self.vals.element_size() + self.kn.numel() * 4
@@ -113,6 +155,23 @@ class PackedFFN:
             self, w1v=self.w1v[i], w3v=self.w3v[i], w2v=self.w2v[i],
             b1=self.b1[i], b3=self.b3[i], b2=self.b2[i], s1=pick(self.s1),
             s3=pick(self.s3), s2=pick(self.s2), jv=pick(self.jv))
+
+    @property
+    def held(self) -> int:
+        """Shards this container holds: ``shards``, or 1 in a rank's
+        local tree."""
+        return self.w1v.shape[-4] if self.shards > 1 else 1
+
+    def shard(self, s: int) -> "PackedFFN":
+        """The unsharded container of held d_ff shard ``s``, with a zero
+        b2: its output is a partial, and b2 is added once after the
+        reduction."""
+        return dataclasses.replace(
+            self, w1v=_pick(self.w1v, s, 4), w3v=_pick(self.w3v, s, 4),
+            w2v=_pick(self.w2v, s, 4), b1=_pick(self.b1, s, 3),
+            b3=_pick(self.b3, s, 3), b2=torch.zeros_like(self.b2),
+            s1=_pick(self.s1, s, 2), s3=_pick(self.s3, s, 2),
+            s2=_pick(self.s2, s, 2), jv=_pick(self.jv, s, 2), shards=1)
 
 
 @dataclasses.dataclass

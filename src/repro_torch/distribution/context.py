@@ -1,0 +1,154 @@
+"""Active-mesh context of the port (``repro.distribution.context``).
+
+The reference runs one program over a ``(data, model)`` device mesh and
+wraps each TP kernel call in ``shard_map``. The port runs one process per
+rank (SPMD), joined by ``torch.distributed``: a :class:`Mesh` holds this
+process's place in the ``(data, model)`` grid and the process group of
+its 'model' axis, and each rank holds only its own slice of every
+sharded leaf (``distribution.sharding.local_params``). Model code reads
+the mesh from :func:`use_mesh` instead of taking it as an argument, as
+in the reference: under an active mesh whose 'model' size equals a
+container's ``shards``, the TP paths of ``models/ffn.py`` run the rank's
+shard-local visit list and call the collective over the 'model' group
+where the reference's ``shard_map`` body calls ``psum`` /
+``psum_scatter`` / ``all_gather``; with no mesh, or another size, a
+sequential loop over the shards runs the same math in one process.
+There is no ``shard_map`` shim: a rank's code is the body itself.
+
+Transport is named, never chosen silently: ``nccl`` where every rank has
+its own card; ``gloo`` on the CPU; ``gloo (host-staged)`` where ranks
+share one card: the mesh copies each CUDA tensor to the host, runs the
+gloo collective there and copies the result back. On gloo a
+``psum_scatter`` is an all-reduce followed by the rank's own slice, and
+an ``all_gather`` a gather of host tensors: the same values.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This process's place in a ``(data, model)`` mesh of ``dp * tp``
+    ranks: global rank ``rank`` sits at data index ``rank // tp`` and
+    model index ``rank % tp``. ``model_group`` is the process group of
+    its 'model' axis; ``host_staged`` runs gloo over host copies of CUDA
+    tensors."""
+    shape: Dict[str, int]
+    rank: int
+    backend: str
+    device: torch.device
+    model_group: Any = None
+    host_staged: bool = False
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.shape["model"]
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.shape["model"]
+
+    @property
+    def transport(self) -> str:
+        return self.backend + (" (host-staged)" if self.host_staged else "")
+
+    def axis_size(self, name: str) -> int:
+        return self.shape.get(name, 1)
+
+    # -- collectives over the 'model' axis -----------------------------
+    def _run(self, x: torch.Tensor, op) -> torch.Tensor:
+        """``op`` on a contiguous copy of x (on the host when staged),
+        the result back on x's device."""
+        y = x.detach().to("cpu" if self.host_staged else x.device,
+                          copy=True).contiguous()
+        y = op(y)
+        return y.to(x.device)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every model rank's ``x``."""
+        def op(y):
+            dist.all_reduce(y, group=self.model_group)
+            return y
+        return self._run(x, op)
+
+    def psum_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's 1/tp slice along ``dim`` of the sum of every model
+        rank's ``x`` (the reference's tiled ``psum_scatter``)."""
+        tp = self.shape["model"]
+        n = x.shape[dim] // tp
+        if self.backend == "nccl":
+            parts = list(torch.chunk(x.contiguous(), tp, dim=dim))
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, [p.contiguous() for p in parts],
+                                group=self.model_group)
+            return out
+        return self.psum(x).narrow(dim, self.model_rank * n, n).contiguous()
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every model rank's ``x`` concatenated along ``dim``, in rank
+        order (the reference's tiled ``all_gather``)."""
+        def op(y):
+            parts = [torch.empty_like(y) for _ in range(self.shape["model"])]
+            dist.all_gather(parts, y, group=self.model_group)
+            return torch.cat(parts, dim=dim)
+        return self._run(x, op)
+
+    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        """Model rank 0's ``x`` on every rank of the model group."""
+        src = self.data_rank * self.shape["model"]
+
+        def op(y):
+            dist.broadcast(y, src=src, group=self.model_group)
+            return y
+        return self._run(x, op)
+
+
+_ACTIVE_MESH: Optional[Mesh] = None
+
+
+def active_mesh() -> Optional[Mesh]:
+    return _ACTIVE_MESH
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    global _ACTIVE_MESH
+    prev = _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH = prev
+
+
+def axis_size(name: str) -> int:
+    return 1 if _ACTIVE_MESH is None else _ACTIVE_MESH.axis_size(name)
+
+
+def _model_mesh() -> Mesh:
+    if _ACTIVE_MESH is None:
+        raise RuntimeError("a 'model' collective needs an active mesh "
+                           "(distribution.context.use_mesh)")
+    return _ACTIVE_MESH
+
+
+def psum(x: torch.Tensor) -> torch.Tensor:
+    """``jax.lax.psum(x, 'model')``."""
+    return _model_mesh().psum(x)
+
+
+def psum_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, 'model', scatter_dimension=dim,
+    tiled=True)``."""
+    return _model_mesh().psum_scatter(x, dim)
+
+
+def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jax.lax.all_gather(x, 'model', axis=dim, tiled=True)``."""
+    return _model_mesh().all_gather(x, dim)

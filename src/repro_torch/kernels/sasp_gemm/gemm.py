@@ -99,13 +99,14 @@ def as_type(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(x_dtype, w_dtype, K: int, n: int, bk: int, bn: int, act):
+def _plan(x_dtype, w_dtype, K: int, group_nb: int, bk: int, bn: int, act):
     """(variant, the launch's type / activation / variant codes, visit
-    groups): a function of the types and the weight's shape alone."""
+    groups): a function of the types and the weight's shape alone (for a
+    col shard, of the whole weight's block grid)."""
     variant = schedule.gemm_variant(x_dtype, w_dtype, bk, bn)
     codes = (build.dtype_code(x_dtype), build.dtype_code(w_dtype),
              build.ACT_CODES[act], schedule.variant_code(variant))
-    return variant, codes, schedule.gemm_groups(K // bk, n // bn)
+    return variant, codes, schedule.gemm_groups(K // bk, group_nb)
 
 
 def check_words(what: str, *rows) -> None:
@@ -122,10 +123,14 @@ def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
               col_ptr: torch.Tensor, n: int,
               scales: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
-              act: Optional[str] = None) -> torch.Tensor:
+              act: Optional[str] = None,
+              group_nb: Optional[int] = None) -> torch.Tensor:
     """x (M, K) @ packed weight -> (M, n) in x.dtype. vals (nnz, bk, bn)
     fp32/bf16, or int8 with ``scales`` (nnz,); kn (2, nnz) int32 sorted
-    by (n, k); col_ptr (n // bn + 1,) int32; bias (n,) fp32."""
+    by (n, k); col_ptr (n // bn + 1,) int32; bias (n,) fp32. ``group_nb``:
+    the column-blocks of the whole weight when this one is a col shard of
+    it (default n // bn): the visit groups come from the whole weight's
+    grid, so each column sums its visits as it does unsharded."""
     if act not in ACTS:
         raise ValueError(f"unknown activation {act!r}")
     if x.device.type == "cpu":
@@ -163,7 +168,8 @@ def sasp_gemm(x: torch.Tensor, vals: torch.Tensor, kn: torch.Tensor,
     if M == 0:
         return out
     check_words("sasp_gemm", (x, bk), (vals, bn))
-    variant, codes, G = _plan(x.dtype, vals.dtype, K, n, bk, bn, act)
+    variant, codes, G = _plan(x.dtype, vals.dtype, K,
+                              group_nb or n // bn, bk, bn, act)
     partial = None if G == 1 else torch.empty(
         (G, M, n), dtype=torch.float32, device=x.device)
     code = _launch_fn()(

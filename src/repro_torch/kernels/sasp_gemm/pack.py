@@ -1,16 +1,41 @@
-"""Offline (numpy) visit-list packers for the tile-skip GEMM and the
-fused gated FFN — copies of the reference packers, returning numpy.
+"""Offline visit-list packers for the tile-skip GEMM and the fused gated
+FFN — the reference packers' arithmetic, in torch on the weights' device
+(``core.deploy`` packs on the card). A caller that passes numpy arrays
+gets numpy arrays back, as from the reference.
 
 The visit-order convention, the empty-column flush visit and the
 dup-last-visit padding are the container format (see
-``repro_torch.core.sparse``); both packages build it with the same numpy
-arithmetic, so their containers are equal array for array.
+``repro_torch.core.sparse``); both packages build it with the same
+arithmetic (gathers, and int8 scales and rounding by true fp32
+division), so their containers are equal array for array.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
+import torch
+
+
+def _numpy_io(fn):
+    """Run ``fn`` on tensors; numpy in (its first argument), numpy out."""
+    def conv(a, to_np):
+        if isinstance(a, (tuple, list)):
+            return type(a)(conv(x, to_np) for x in a)
+        if to_np:
+            return a.numpy() if isinstance(a, torch.Tensor) else a
+        return torch.from_numpy(np.ascontiguousarray(a)) \
+            if isinstance(a, np.ndarray) else a
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        if not isinstance(args[0], np.ndarray):
+            return fn(*args, **kw)
+        out = fn(*conv(args, False),
+                 **{k: conv(v, False) for k, v in kw.items()})
+        return conv(out, True)
+    return wrapped
 
 
 def flush_sorted_order(ks: np.ndarray, ns: np.ndarray, nb: int):
@@ -36,123 +61,123 @@ def kernel_block_list(mask: np.ndarray) -> np.ndarray:
     return np.stack([ks[order], ns[order]]).astype(np.int32)
 
 
-def build_kernel_weight(w: np.ndarray, mask: np.ndarray, bk: int, bn: int,
-                        *, quantize: bool = False):
-    """(vals (nnz, bk, bn), kn (2, nnz), scales (nnz,) or None). Flush
-    visits of empty columns carry zero blocks."""
-    w = np.asarray(w, np.float32)
-    mask = np.asarray(mask, bool)
+def quantize_visits(v: torch.Tensor):
+    """int8 per visit (dim 0): scale max(|v|, 1e-12) / 127, values
+    rounded half to even and clipped to ±127. Every division is by a
+    tensor: CUDA divides by a Python scalar through its reciprocal, which
+    may differ in the last bit."""
+    amax = v.abs().amax(dim=tuple(range(1, v.ndim)))
+    s = amax.clamp_min(1e-12) / torch.full_like(amax, 127.0)
+    q = torch.round(v / s.reshape((-1,) + (1,) * (v.ndim - 1)))
+    return q.clamp_(-127, 127).to(torch.int8), s
+
+
+@_numpy_io
+def build_kernel_weight(w, mask, bk: int, bn: int, *,
+                        quantize: bool = False):
+    """(vals (nnz, bk, bn), kn (2, nnz) int32, scales (nnz,) or None) on
+    w's device. Flush visits of empty columns carry zero blocks."""
+    w = w.to(torch.float32)
+    mask = mask.to(device=w.device, dtype=torch.bool)
     K, N = w.shape
     KB, NB = K // bk, N // bn
-    kn = kernel_block_list(mask)
-    wb = w.reshape(KB, bk, NB, bn)
-    vals = np.stack([
-        wb[k, :, n, :] if mask[k, n] else np.zeros((bk, bn), np.float32)
-        for k, n in kn.T
-    ]) if kn.shape[1] else np.zeros((1, bk, bn), np.float32)
+    kn = torch.from_numpy(kernel_block_list(mask.cpu().numpy())
+                          ).to(w.device)
+    if kn.shape[1]:
+        ks, ns = kn.long()
+        # the (k, n) blocks in visit order; flush visits carry zeros
+        vals = w.reshape(KB, bk, NB, bn).permute(0, 2, 1, 3)[ks, ns]
+        vals[~mask[ks, ns]] = 0.0
+    else:
+        vals = w.new_zeros((1, bk, bn))
     if not quantize:
         return vals, kn, None
-    amax = np.abs(vals).max(axis=(1, 2))
-    scales = (np.maximum(amax, 1e-12) / 127.0).astype(np.float32)
-    q = np.clip(np.round(vals / scales[:, None, None]), -127, 127
-                ).astype(np.int8)
+    q, scales = quantize_visits(vals)
     return q, kn, scales
 
 
-def pad_block_list(vals: np.ndarray, kn: np.ndarray,
-                   scales: Optional[np.ndarray], nnz_to: int):
+@_numpy_io
+def pad_block_list(vals, kn, scales, nnz_to: int):
     """Pad a visit list to ``nnz_to`` entries by repeating the LAST
     visit's (k, n) with zero-valued blocks (and zero scales): the
     appended visits share the final n-block, so they add exactly
     nothing."""
     nnz = vals.shape[0]
     assert nnz_to >= nnz, (nnz_to, nnz)
-    if nnz_to == nnz:
-        return vals, kn, scales
     pad = nnz_to - nnz
-    vals = np.concatenate(
-        [vals, np.zeros((pad,) + vals.shape[1:], vals.dtype)])
-    kn = np.concatenate([kn, np.repeat(kn[:, -1:], pad, axis=1)], axis=1)
+    if not pad:
+        return vals, kn, scales
+    vals = torch.cat([vals, vals.new_zeros((pad,) + tuple(vals.shape[1:]))])
+    kn = torch.cat([kn, kn[:, -1:].expand(2, pad)], dim=1)
     if scales is not None:
-        scales = np.concatenate([scales, np.zeros((pad,), scales.dtype)])
+        scales = torch.cat([scales, scales.new_zeros((pad,))])
     return vals, kn, scales
 
 
-def build_fused_ffn(w1: np.ndarray, w3: np.ndarray, w2: np.ndarray, *,
-                    block_f: int, b1=None, b3=None, b2=None,
-                    quantize: bool = False, nv_pad: Optional[int] = None,
+@_numpy_io
+def build_fused_ffn(w1, w3, w2, *, block_f: int, b1=None, b3=None,
+                    b2=None, quantize: bool = False,
+                    nv_pad: Optional[int] = None,
                     return_visits: bool = False):
     """Pack a gated FFN (pruned tiles already zeroed) for the fused
-    kernel. A d_ff column-block j is visited iff its w2 row-block
-    survives and both up-projection columns (or their biases) do.
-    Returns (w1v, w3v, w2v, b1v, b3v, b2, scales[, jv]) — scales is None
-    or per-visit (s1, s3, s2); jv is the d_ff block index of each visit
-    (-1 for padding)."""
-    w1 = np.asarray(w1, np.float32)
-    w3 = np.asarray(w3, np.float32)
-    w2 = np.asarray(w2, np.float32)
+    kernel, on w1's device. A d_ff column-block j is visited iff its w2
+    row-block survives and both up-projection columns (or their biases)
+    do. Returns (w1v, w3v, w2v, b1v, b3v, b2, scales[, jv]) — scales is
+    None or per-visit (s1, s3, s2); jv is the d_ff block index of each
+    visit (-1 for padding)."""
+    w1, w3, w2 = (a.to(torch.float32) for a in (w1, w3, w2))
     d, F = w1.shape
     assert w3.shape == (d, F) and w2.shape == (F, d), (
         w1.shape, w3.shape, w2.shape)
     bf = block_f
     assert F % bf == 0, (F, bf)
     FB = F // bf
-    b1 = np.zeros((F,), np.float32) if b1 is None else np.asarray(
-        b1, np.float32)
-    b3 = np.zeros((F,), np.float32) if b3 is None else np.asarray(
-        b3, np.float32)
-    b2 = np.zeros((d,), np.float32) if b2 is None else np.asarray(
-        b2, np.float32)
 
-    keep = []
-    for j in range(FB):
-        sl = slice(j * bf, (j + 1) * bf)
-        if not np.any(w2[sl]):
-            continue
-        if not (np.any(w1[:, sl]) or np.any(b1[sl])):
-            continue
-        if not (np.any(w3[:, sl]) or np.any(b3[sl])):
-            continue
-        keep.append(j)
+    def vec(b, n):
+        return w1.new_zeros((n,)) if b is None else \
+            b.to(device=w1.device, dtype=torch.float32)
 
-    jv = np.asarray(keep if keep else [-1], np.int32)
-    if keep:
-        w1v = np.stack([w1[:, j * bf:(j + 1) * bf] for j in keep])
-        w3v = np.stack([w3[:, j * bf:(j + 1) * bf] for j in keep])
-        w2v = np.stack([w2[j * bf:(j + 1) * bf] for j in keep])
-        b1v = np.stack([b1[j * bf:(j + 1) * bf] for j in keep])
-        b3v = np.stack([b3[j * bf:(j + 1) * bf] for j in keep])
+    b1, b3, b2 = vec(b1, F), vec(b3, F), vec(b2, d)
+    # (FB, …) views of the d_ff blocks
+    w1b = w1.reshape(d, FB, bf).permute(1, 0, 2)
+    w3b = w3.reshape(d, FB, bf).permute(1, 0, 2)
+    w2b = w2.reshape(FB, bf, d)
+    b1b, b3b = b1.reshape(FB, bf), b3.reshape(FB, bf)
+    live = ((w2b != 0).any(dim=(1, 2))
+            & ((w1b != 0).any(dim=(1, 2)) | (b1b != 0).any(dim=1))
+            & ((w3b != 0).any(dim=(1, 2)) | (b3b != 0).any(dim=1)))
+    keep = torch.nonzero(live).flatten()
+
+    if keep.numel():
+        jv = keep.to(torch.int32)
+        w1v, w3v, w2v, b1v, b3v = (a[keep] for a in (w1b, w3b, w2b, b1b,
+                                                     b3b))
     else:
         # all of d_ff pruned: one zero visit, so the output is exactly b2
-        w1v = np.zeros((1, d, bf), np.float32)
-        w3v = np.zeros((1, d, bf), np.float32)
-        w2v = np.zeros((1, bf, d), np.float32)
-        b1v = np.zeros((1, bf), np.float32)
-        b3v = np.zeros((1, bf), np.float32)
+        jv = torch.full((1,), -1, dtype=torch.int32, device=w1.device)
+        w1v = w1.new_zeros((1, d, bf))
+        w3v = w1.new_zeros((1, d, bf))
+        w2v = w1.new_zeros((1, bf, d))
+        b1v = w1.new_zeros((1, bf))
+        b3v = w1.new_zeros((1, bf))
 
     if nv_pad is not None:
         nv = w1v.shape[0]
         assert nv_pad >= nv, (nv_pad, nv)
         if nv_pad > nv:
             pad = nv_pad - nv
-            w1v = np.concatenate([w1v, np.zeros((pad, d, bf), np.float32)])
-            w3v = np.concatenate([w3v, np.zeros((pad, d, bf), np.float32)])
-            w2v = np.concatenate([w2v, np.zeros((pad, bf, d), np.float32)])
-            b1v = np.concatenate([b1v, np.zeros((pad, bf), np.float32)])
-            b3v = np.concatenate([b3v, np.zeros((pad, bf), np.float32)])
-            jv = np.concatenate([jv, np.full((pad,), -1, np.int32)])
+
+            def z(a):
+                return torch.cat([a, a.new_zeros((pad,) + tuple(
+                    a.shape[1:]))])
+            w1v, w3v, w2v, b1v, b3v = (z(a) for a in (w1v, w3v, w2v, b1v,
+                                                      b3v))
+            jv = torch.cat([jv, jv.new_full((pad,), -1)])
 
     scales = None
     if quantize:
-        def q(v):
-            amax = np.abs(v).max(axis=tuple(range(1, v.ndim)))
-            s = (np.maximum(amax, 1e-12) / 127.0).astype(np.float32)
-            qv = np.clip(np.round(v / s.reshape((-1,) + (1,) * (v.ndim - 1))),
-                         -127, 127).astype(np.int8)
-            return qv, s
-        w1v, s1 = q(w1v)
-        w3v, s3 = q(w3v)
-        w2v, s2 = q(w2v)
+        (w1v, s1), (w3v, s3), (w2v, s2) = (quantize_visits(v)
+                                           for v in (w1v, w3v, w2v))
         scales = (s1, s3, s2)
 
     out = (w1v, w3v, w2v, b1v, b3v, b2, scales)

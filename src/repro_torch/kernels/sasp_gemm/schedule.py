@@ -55,7 +55,9 @@ def gemm_variant(x_dtype, w_dtype, bk: int, bn: int) -> str:
 def gemm_groups(KB: int, NB: int) -> int:
     """Visit groups per output column-block: about GROUP_BLOCKS
     column-block x group blocks, no group under MIN_KB_PER_GROUP
-    k-blocks. From the block grid (KB, NB) alone."""
+    k-blocks. From the block grid (KB, NB) alone; a TP col shard passes
+    the whole weight's NB, so it sums each column in the whole weight's
+    order."""
     return max(1, min(math.ceil(GROUP_BLOCKS / NB), KB // MIN_KB_PER_GROUP))
 
 

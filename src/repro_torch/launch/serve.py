@@ -43,12 +43,30 @@ through the fault-tolerant cluster frontend over N in-process hosts
 counter summary while serving. ``--ckpt-dir DIR`` serves the params of
 the latest checkpoint in DIR (written by ``repro_torch.launch.train`` or
 the reference's trainer; the config flags must match the trained model's
-shapes). ``--mesh`` is not ported (ROADMAP Queue 1 item 6).
+shapes).
+
+``--mesh DP,TP`` serves tensor-parallel (``--path packed`` only; with
+``--sasp 0`` the visit lists keep every tile): the launcher spawns TP
+processes, each a model rank joined by ``torch.distributed`` (file-store
+rendezvous under ``build/mesh``). Every rank draws the same params from
+the seed and builds its own tree layer by layer (``build_rank_params``):
+each layer is pruned, packed into TP-sharded visit lists and cut to the
+rank's shard before the next is drawn, so a card holds its rank's tree
+and one layer's masters, not the model. Model rank 0 samples and
+broadcasts the tokens, and prints. Transport: gloo on the CPU
+(``--device cpu``), nccl where each rank has its own card, gloo staged
+through the host where ranks share one. Not ported, each refused with a
+message naming its ROADMAP item (Queue 1 item 6b-6h): DP > 1 and
+``--mesh`` with ``--scheduler`` / ``--hosts``, a drafter, any other
+path, MoE and SSM stacks, ``--ckpt-dir``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import os
+import re
 import sys
 import threading
 import time
@@ -57,7 +75,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import SASPConfig, get_config, reduced
+from repro_torch.configs import MIXER_ATTN, SASPConfig, get_config, reduced
 from repro_torch.core.pruning import prune_params
 from repro_torch.core.sasp import (bsr_overlay_from_masks, merge_overlay,
                                    quantize_params)
@@ -79,9 +97,6 @@ MASKED_INT8_ALL = (
 def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
     return (path == "masked" and int8_weights and scope == "all"
             and sparsity > 0)
-
-# reference flags the port does not serve yet
-NOT_PORTED = ("--mesh",)
 
 
 def prefill_bucket_table(cache_len: int, n_buckets: int = 4,
@@ -197,14 +212,20 @@ def validate_kv_flags(*, kv_pages: Optional[int], kv_watermark: float,
 def build_serving_params(params, cfg, *, path: str, sparsity: float,
                          int8_weights: bool = False,
                          block_k: int = 32, block_n: int = 32,
-                         scope: str = "ffn", verbose: bool = True):
+                         scope: str = "ffn", verbose: bool = True,
+                         mesh=None, tp: Optional[int] = None):
     """Deploy ``params`` along one execution path; returns (params, cfg)
-    ready for the Engine."""
+    ready for the Engine. ``mesh`` / ``tp``: TP-shard the packed visit
+    lists over the mesh's 'model' axis, or into ``tp`` shards (packed
+    path only; the tree holds every shard, ``distribution.sharding.
+    local_params`` takes a rank's); TP serves from visit lists, so at
+    ``sparsity`` 0 they keep every tile."""
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
     if _masked_int8_all(path, int8_weights, scope, sparsity):
         raise ValueError(MASKED_INT8_ALL)
-    if path == "dense" or sparsity <= 0:
+    sharded = mesh is not None or (tp or 1) > 1
+    if path == "dense" or (sparsity <= 0 and not sharded):
         return params, cfg
     sasp = SASPConfig(enabled=True, block_k=block_k, block_n=block_n,
                       sparsity=sparsity, scope=scope,
@@ -228,15 +249,17 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
         return params, cfg
     from repro_torch.core.deploy import (cast_packed_values, deploy_packed,
                                          packed_summary)
-    params, cfg = deploy_packed(params, cfg)
+    params, cfg = deploy_packed(params, cfg, mesh=mesh, tp=tp)
     cdt = as_dtype(cfg.compute_dtype)
     if cdt != torch.float32:
         params = cast_packed_values(params, cdt)
     if verbose:
         s = packed_summary(params)
+        n = tp or (mesh.axis_size("model") if mesh is not None else 1)
+        shard = f", {n}-way shard-local visit lists" if n > 1 else ""
         print(f"packed: {s['n_packed_matrices']} matrices + "
               f"{s['n_fused_ffns']} fused FFNs, "
-              f"{s['compression']:.2f}x dense bytes")
+              f"{s['compression']:.2f}x dense bytes{shard}")
     return params, cfg
 
 
@@ -284,13 +307,6 @@ def start_metrics_reporter(summary_fn: Callable[[], dict],
 
 
 def parse_args(argv):
-    for a in argv:
-        flag = a.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet: "
-                             "the mesh waits for the TP / distribution "
-                             "slice (ROADMAP Queue 1 item 6); serve it "
-                             "with python -m repro.launch.serve")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b")
     ap.add_argument("--reduce", action=argparse.BooleanOptionalAction,
@@ -417,7 +433,62 @@ def parse_args(argv):
     ap.add_argument("--metrics-interval", type=float, default=0.0,
                     help="print a counter summary every N seconds while "
                          "serving (0 = off)")
-    return ap.parse_args(argv)
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve tensor-parallel over TP spawned model "
+                         "ranks (packed path; DP must be 1), e.g. "
+                         "--mesh 1,2")
+    args = ap.parse_args(argv)
+    args.mesh = parse_mesh(args)
+    return args
+
+
+MESH_ITEM = "ROADMAP Queue 1 item 6"
+
+
+def parse_mesh(args) -> Optional[Tuple[int, int]]:
+    """--mesh 'DP,TP' -> (DP, TP), or None; a usage error, naming the
+    ROADMAP item that would port it, for what the port does not serve on
+    a mesh."""
+    spec = args.mesh
+    if not spec:
+        return None
+    m = re.fullmatch(r"\s*(\d+)\s*,\s*(\d+)\s*", spec)
+    if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        raise SystemExit(f"--mesh expects 'DP,TP', two positive integers "
+                         f"(e.g. --mesh 1,2), got {spec!r}")
+    dp, tp = int(m.group(1)), int(m.group(2))
+    refuse = None
+    if dp > 1:
+        refuse = (f"--mesh {spec}: data parallelism (DP > 1, scheduler "
+                  f"ranks on submeshes) is not ported: {MESH_ITEM}b")
+    elif args.scheduler or args.hosts:
+        refuse = (f"--mesh with --scheduler / --hosts (scheduler ranks and "
+                  f"hosts as TP groups) is not ported: {MESH_ITEM}b")
+    elif args.draft_sparsity is not None:
+        refuse = (f"--mesh with --draft-sparsity (a drafter sharded by "
+                  f"reshard_packed) is not ported: {MESH_ITEM}d")
+    elif args.ckpt_dir:
+        refuse = (f"--mesh with --ckpt-dir (each rank restoring the "
+                  f"checkpoint layer by layer, as it builds from the seed) "
+                  f"is not ported: {MESH_ITEM}h")
+    elif (args.stream or args.trace_out or args.metrics_dump
+          or args.metrics_interval):
+        refuse = ("--mesh serves its requests to completion and prints "
+                  "rank 0's summary: --stream, --trace-out, --metrics-dump "
+                  "and --metrics-interval are not served on a mesh")
+    elif args.path != "packed":
+        refuse = (f"--mesh serves --path packed only; the other paths "
+                  f"under TP are not ported: {MESH_ITEM}e")
+    else:
+        cfg = get_config(args.arch)
+        if cfg.moe is not None or any(
+                k != MIXER_ATTN for k in cfg.layer_mixer_kinds()):
+            refuse = (f"--mesh with {args.arch}: MoE (expert parallelism) "
+                      f"and SSM layers on a mesh are not ported: "
+                      f"{MESH_ITEM}f")
+    if refuse:
+        raise SystemExit(refuse)
+    return dp, tp
 
 
 def validate_tier_flags(args):
@@ -470,11 +541,10 @@ def main(argv=None):
         draft_k=args.draft_k, draft_int8=args.draft_int8,
         kv_dedup_every=args.kv_dedup_every, cache_len=args.cache_len)
 
-    cfg = get_config(args.arch)
-    if args.reduce:
-        cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
-    if args.int8_kv:
-        cfg = dataclasses.replace(cfg, kv_quant=True)
+    if args.mesh:
+        serve_mesh(mesh_spec(args, buckets))
+        return
+    cfg = model_config(args)
     with torch.no_grad():
         params = lm.init_params(cfg, seed=0, device=args.device)
         if args.ckpt_dir:
@@ -593,6 +663,197 @@ def main(argv=None):
     for r in sorted(done, key=lambda r: r.rid)[:3]:
         print(f"  req {r.rid}: prompt[{len(r.prompt)}] -> "
               f"{r.out_tokens[:10]}…")
+
+
+# ---------------------------------------------------------------------------
+# --mesh: one spawned process per model rank
+# ---------------------------------------------------------------------------
+
+
+def model_config(args):
+    """The config the flags name: ``--arch``, cut by ``--reduce``, with
+    ``--int8-kv``."""
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
+    if args.int8_kv:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    return cfg
+
+
+def mesh_spec(args, buckets=None) -> dict:
+    """What every model rank of a ``--mesh`` run serves, from the flags:
+    the mesh's (DP, TP), the model's config, ``build_rank_params``'
+    options (``build``), the synthetic requests and the engine's
+    options."""
+    return dict(
+        mesh=args.mesh, cfg=model_config(args), device=args.device,
+        build=dict(seed=0, sparsity=args.sasp, scope=args.scope,
+                   int8_weights=args.int8_weights),
+        requests=dict(n=args.requests, max_new=args.max_new,
+                      temperature=args.temperature, eos_id=args.eos_id),
+        engine=dict(batch_slots=args.slots, cache_len=args.cache_len,
+                    buckets=buckets, kv_pages=args.kv_pages,
+                    kv_page_len=args.kv_page_len,
+                    kv_watermark=args.kv_watermark,
+                    kv_host_pages=args.kv_host_pool, kv_share=args.kv_share,
+                    kv_share_min_pages=args.kv_share_min_pages,
+                    kv_dedup_every=args.kv_dedup_every))
+
+
+def mesh_requests(spec: dict, vocab: int):
+    r = spec["requests"]
+    return synthetic_requests(r["n"], vocab, r["max_new"], r["temperature"],
+                              r["eos_id"])
+
+
+def serve_mesh(spec: dict, rank_fn=None, *, store_dir=None,
+               timeout: float = 900.0) -> list:
+    """Spawn the mesh's TP model ranks, each running ``rank_fn(rank,
+    spec, init_file)`` (default :func:`serve_rank`; a module-level
+    function, which a spawned rank imports by name), and return every
+    rank's result, a dict with the rank's ``streams``, in rank order. The
+    ranks' streams must agree; a disagreement raises. The file store
+    lives under ``store_dir`` (default ``build/mesh``)."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import init_file_in, run_ranks
+    tp = spec["mesh"][1]
+    store = init_file_in(store_dir or os.path.join(build.REPO_ROOT, "build",
+                                                   "mesh"),
+                         f"store_{os.getpid()}_{time.time_ns()}")
+    # by its module's name, so that a spawned rank can import it
+    fn = rank_fn or importlib.import_module(
+        "repro_torch.launch.serve").serve_rank
+    try:
+        results = run_ranks(fn, tp, (spec, store), timeout=timeout)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    if any(r["streams"] != results[0]["streams"] for r in results):
+        raise RuntimeError("model ranks served different streams")
+    print(f"mesh: {tp} model ranks served equal streams")
+    return results
+
+
+def join_mesh(rank: int, spec: dict, init_file: str, backend=None):
+    """Join ``spec``'s mesh as ``rank`` (``launch.mesh.make_mesh``;
+    ``backend`` None picks by cards); on the CPU each of the TP ranks
+    takes its share of this process's threads."""
+    from repro_torch.launch.mesh import make_mesh
+    dp, tp = spec["mesh"]
+    if spec["device"] == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // tp))
+    return make_mesh(dp, tp, rank=rank, init_file=init_file,
+                     backend=backend, device=spec["device"])
+
+
+def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """One model rank of a ``--mesh`` run: join the mesh, build this
+    rank's tree (``build_rank_params``), serve the requests; model rank 0
+    prints. Returns the streams, the transport and the seconds to build
+    and to serve."""
+    mesh = join_mesh(rank, spec, init_file)
+    dp, tp = spec["mesh"]
+    lead = mesh.model_rank == 0
+    t0 = time.perf_counter()
+    params, cfg, lcfg = build_rank_params(
+        spec["cfg"], tp=tp, rank=mesh.model_rank, device=mesh.device,
+        verbose=lead, **spec["build"])
+    build_s = time.perf_counter() - t0
+    if lead:
+        print(f"mesh: {mesh.shape} over {dp * tp} processes, transport "
+              f"{mesh.transport}; rank heads {lcfg.num_heads}/"
+              f"{lcfg.num_kv_heads} of {cfg.num_heads}/{cfg.num_kv_heads}; "
+              f"build {build_s:.1f} s", flush=True)
+    eng = Engine(params, lcfg, mesh=mesh, **spec["engine"])
+    t0 = time.perf_counter()
+    done = eng.run(mesh_requests(spec, cfg.vocab_size))
+    _sync(params)
+    dt = time.perf_counter() - t0
+    streams = {r.rid: [int(t) for t in r.out_tokens] for r in done}
+    if lead:
+        toks = sum(len(s) for s in streams.values())
+        print(f"{len(done)} requests, {toks} tokens in {dt:.1f}s "
+              f"({toks / max(dt, 1e-9):.1f} tok/s) on model rank 0",
+              flush=True)
+        for rid in sorted(streams)[:3]:
+            print(f"  req {rid} -> {streams[rid][:10]}…", flush=True)
+    return dict(rank=rank, transport=mesh.transport, build_s=build_s,
+                serve_s=dt, streams=streams)
+
+
+def build_rank_params(cfg, *, tp: int, rank: int, device, seed: int = 0,
+                      sparsity: float, scope: str = "ffn",
+                      int8_weights: bool = False, prepare=None,
+                      verbose: bool = False):
+    """Model rank ``rank``'s tree of the packed TP deployment, built layer
+    by layer. It equals ``distribution.sharding.local_params`` of
+    ``build_serving_params(lm.init_params(cfg, seed=seed), cfg,
+    path="packed", tp=tp, ...)``, but the device never holds more than
+    the rank's tree, the replicated embedding and head, one layer's
+    masters and the stacked leaf being drawn. A first pass draws the
+    model leaf by leaf and keeps each prunable matrix's tile scores (the
+    global SASP selection reads them all); then, for each layer, the
+    draw is repeated keeping only that layer, which is pruned, packed
+    into ``tp`` shards (numpy, as ``deploy_packed`` packs) and cut to
+    this rank's shard. ``prepare(path, leaf)``, where given, changes a
+    stacked leaf as it is drawn, before pruning. Returns ``(params, cfg',
+    lcfg)``: the tree, the deployed config and the rank's local config."""
+    from repro_torch.core.deploy import (cast_packed_values, deploy_packed,
+                                         stack_layers)
+    from repro_torch.core.pruning import (apply_block_mask, iter_leaves,
+                                          masks_from_scores, prunable_blocks,
+                                          scope_predicate, tile_l1)
+    from repro_torch.distribution.sharding import local_config, local_params
+    sasp = SASPConfig(enabled=True, block_k=32, block_n=32,
+                      sparsity=sparsity, scope=scope, quantize=int8_weights)
+    cfg = dataclasses.replace(cfg, sasp=sasp)
+    pred = scope_predicate(sasp)
+    prep = prepare or (lambda path, t: t)
+    cdt = as_dtype(cfg.compute_dtype)
+
+    def scores(path, t):
+        if path[0] != "segments":
+            return t                    # replicated, kept whole
+        t = prep(path, t)
+        blocks = prunable_blocks(path, t, sasp, pred)
+        return None if blocks is None else tile_l1(t, *blocks)
+
+    with torch.no_grad():
+        whole = lm.init_params(cfg, seed=seed, device=device,
+                               leaf_fn=scores)
+        masks = masks_from_scores(
+            list(iter_leaves(whole.pop("segments"), ("segments",))),
+            sparsity)
+        segs = []
+        for si, (_, repeat) in enumerate(lm.segment_plan(cfg)):
+            layers = []
+            for i in range(repeat):
+                def one(path, t, si=si, i=i):
+                    if path[:2] != ("segments", si):
+                        return None
+                    t = prep(path, t)[i:i + 1]
+                    m = masks.get(path)
+                    return t.clone() if m is None else \
+                        apply_block_mask(t, m[i:i + 1])
+
+                part = lm.init_params(cfg, seed=seed, device=device,
+                                      leaf_fn=one)
+                tree, dcfg = deploy_packed(
+                    dict(whole, segments=(part["segments"][si],)), cfg,
+                    tp=tp)
+                del part
+                local = local_params(tree, dcfg, tp, rank)["segments"][0]
+                del tree
+                layers.append(local if cdt == torch.float32
+                              else cast_packed_values(local, cdt))
+            segs.append(stack_layers(layers))
+    if verbose:
+        print(f"SASP deployed: {sparsity:.0%} tile sparsity, scope "
+              f"{scope}, {cfg.num_layers} layers packed one at a time into "
+              f"{tp}-way shard-local visit lists; rank {rank} keeps its "
+              f"shard")
+    return dict(whole, segments=tuple(segs)), dcfg, local_config(dcfg, tp)
 
 
 def _sync(params):

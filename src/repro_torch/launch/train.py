@@ -39,8 +39,8 @@ from repro_torch.train.schedule import (PreemptionHook, StragglerWatchdog,
 from repro_torch.train.train_step import make_train_step
 
 MESH_NOT_PORTED = (
-    "--mesh {} is not ported to repro_torch yet: sharded training waits "
-    "for the TP / distribution slice (ROADMAP Queue 1 item 6); train "
+    "--mesh {} is not ported to repro_torch yet: training under a mesh "
+    "(grad_compress, ZeRO) waits for ROADMAP Queue 1 item 6g; train "
     "with --mesh local, or with python -m repro.launch.train")
 
 

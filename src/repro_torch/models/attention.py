@@ -6,6 +6,10 @@ torch here. Masked scores are ``NEG_INF = -1e30``; a key is visible iff
 ``0 <= q_pos - kv_pos < window`` and ``kv_pos >= 0`` (left-pad columns
 and empty ring slots carry -1). Decode updates the cache in place.
 
+On a mesh each rank runs attention over its own heads: its config
+(``distribution.sharding.local_config``) holds ``num_heads / tp`` query
+and ``num_kv_heads / tp`` KV heads, and so do its caches.
+
 The int8 cache (``cfg.kv_quant``) stores k / v as int8 with one fp32
 scale per (slot, head); reads dequantize. The paged pool's primitives
 (``gather_kv_pages`` …) assemble ring caches from (R, P, L, …) page
@@ -21,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.modules import (
     apply_rope,
     dense_apply,
+    matmul,
     qknorm_apply,
     softcap,
 )
@@ -92,13 +97,35 @@ def _read_kv(cache: KVCache, dtype):
     return cache.k.to(dtype), cache.v.to(dtype)
 
 
-def _proj(p: Dict, name: str, x: torch.Tensor) -> torch.Tensor:
+def _proj(p: Dict, name: str, x: torch.Tensor,
+          cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """One projection, through the packed tile-skip kernel when a
-    deployment container is attached (bias fused into its flush)."""
+    deployment container is attached (bias fused into its flush).
+    TP-sharded containers run through ``ffn.packed_mm_sharded``: wq/wk/wv
+    col shards give this rank's heads, wo's row shard a partial reduced
+    over 'model'. On a mesh a dense wo holds this rank's rows
+    (``distribution.sharding``): its partial is reduced, then the bias
+    added."""
     packed = p.get("sasp_packed")
     if packed is not None and name in packed:
+        pw = packed[name]
+        if pw.shards > 1:
+            from repro_torch.models.ffn import packed_mm_sharded
+            *lead, K = x.shape
+            y = packed_mm_sharded(x.reshape(-1, K), pw, cfg)
+            return y.reshape(*lead, y.shape[-1])
         from repro_torch.core.deploy import packed_matmul
-        return packed_matmul(x, packed[name])
+        return packed_matmul(x, pw)
+    from repro_torch.distribution import context as dctx
+    if name == "wo" and dctx.axis_size("model") > 1:
+        from repro_torch.models.ffn import _tp_reduce
+        w = p["wo"]["w"]
+        y = matmul(x, w)
+        y = _tp_reduce(y.reshape(-1, w.shape[-1]), cfg, y.dtype)
+        y = y.reshape(*x.shape[:-1], w.shape[-1])
+        if "b" in p["wo"]:
+            y = y + p["wo"]["b"].to(y.dtype)
+        return y
     return dense_apply(p[name], x)
 
 
@@ -107,9 +134,9 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
     dt = x.dtype
-    q = _proj(p, "wq", x).reshape(B, S, h, hd)
-    k = _proj(p, "wk", x).reshape(B, S, kvh, hd)
-    v = _proj(p, "wv", x).reshape(B, S, kvh, hd)
+    q = _proj(p, "wq", x, cfg).reshape(B, S, h, hd)
+    k = _proj(p, "wk", x, cfg).reshape(B, S, kvh, hd)
+    v = _proj(p, "wv", x, cfg).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
         q = qknorm_apply(p["q_norm"], q, eps=cfg.norm_eps)
         k = qknorm_apply(p["k_norm"], k, eps=cfg.norm_eps)
@@ -170,7 +197,7 @@ def attn_apply_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = attend_chunked(qg, k, v, positions, positions, window=window,
                          cap=cfg.logit_softcap)
     out = out.reshape(B, S, h * hd).to(x.dtype)
-    return _proj(p, "wo", out), (k, v)
+    return _proj(p, "wo", out, cfg), (k, v)
 
 
 def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -210,7 +237,7 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                        w.to(qg.dtype).to(torch.float32),
                        v_read.to(torch.float32))
     out = out.reshape(B, 1, h * hd).to(x.dtype)
-    return _proj(p, "wo", out), cache
+    return _proj(p, "wo", out, cfg), cache
 
 
 def _ring_write(cache: KVCache, idx, k, v, posv, quant: bool):
@@ -303,7 +330,7 @@ def attn_apply_prefill_past(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(B, S, h * hd).to(x.dtype)
     cache = build_cache_from_suffix(k_new, v_new, past.k.shape[1],
                                     positions, quant=cfg.kv_quant)
-    return _proj(p, "wo", out), cache
+    return _proj(p, "wo", out, cfg), cache
 
 
 # ---------------------------------------------------------------------------

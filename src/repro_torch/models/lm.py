@@ -5,9 +5,14 @@ segment plan, each ``{"slot<j>": params}`` with a leading layer axis
 (the reference's ``lax.scan`` layout); here a Python loop walks the
 layers. A layer's mixer is attention or Mamba-2 (``models.ssm``) and its
 FFN dense or MoE (``models.moe``, single device: the expert-parallel
-dispatch waits for the mesh port), as its ``LayerSpec`` says; the full
+dispatch is not ported, ROADMAP Queue 1 item 6f), as its ``LayerSpec``
+says; the full
 walk sums the MoE aux loss. ``embeds`` replace the token embedding (the
-audio / VLM stub frontends).
+audio / VLM stub frontends). Under an active mesh (``distribution.
+context``) the walk is unchanged: the embedding, the final norm and the
+head are replicated on every rank, and the projections and FFNs route
+themselves by their containers' shards (``models.ffn``); the batch is
+not split while DP is 1.
 
 Training (``loss_fn``): under autograd each layer repeat runs through
 ``cfg.remat`` (``none``; ``full``: recomputed in backward; ``dots``:
@@ -83,68 +88,95 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
+def _keep_all(path, leaf):
+    return leaf
+
+
 def _attn_init(gen, cfg: ModelConfig, layers: int, device,
-               out_scale: float) -> Dict:
+               out_scale: float, keep=_keep_all) -> Dict:
     dt = as_dtype(cfg.param_dtype)
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.attn_head_dim
 
-    def dense(d_in, d_out, scale=0.02, bias=False):
+    def dense(name, d_in, d_out, scale=0.02, bias=False):
         w = torch.randn((layers, d_in, d_out), generator=gen, device=device,
                         dtype=torch.float32) * scale
-        p = {"w": w.to(dt)}
+        p = {"w": keep((name, "w"), w.to(dt))}
         if bias:
-            p["b"] = torch.zeros((layers, d_out), dtype=dt, device=device)
+            p["b"] = keep((name, "b"), torch.zeros(
+                (layers, d_out), dtype=dt, device=device))
         return p
 
-    p = {"wq": dense(d, h * hd, bias=cfg.qkv_bias),
-         "wk": dense(d, kvh * hd, bias=cfg.qkv_bias),
-         "wv": dense(d, kvh * hd, bias=cfg.qkv_bias),
-         "wo": dense(h * hd, d, scale=out_scale)}
+    p = {"wq": dense("wq", d, h * hd, bias=cfg.qkv_bias),
+         "wk": dense("wk", d, kvh * hd, bias=cfg.qkv_bias),
+         "wv": dense("wv", d, kvh * hd, bias=cfg.qkv_bias),
+         "wo": dense("wo", h * hd, d, scale=out_scale)}
     if cfg.qk_norm:
-        p["q_norm"] = torch.ones((layers, hd), dtype=dt, device=device)
-        p["k_norm"] = torch.ones((layers, hd), dtype=dt, device=device)
+        for name in ("q_norm", "k_norm"):
+            p[name] = keep((name,), torch.ones((layers, hd), dtype=dt,
+                                               device=device))
     return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda") -> Dict:
+                device="cuda", leaf_fn=None) -> Dict:
     """Random params in the reference layout and at its scales (wo,
     out_proj and every w2 at 0.02 / sqrt(2 L), every other projection at
     0.02; the SSM's and the router's own leaves as the reference draws
     them), drawn from a ``torch.Generator`` seeded with ``seed`` on
     ``device``. (The numbers differ from the reference's PRNG; tests
-    bridge the reference's params instead.)"""
+    bridge the reference's params instead.)
+
+    ``leaf_fn(path, leaf)``, where given, sees every leaf as it is made,
+    with its path in the tree, and returns what the tree keeps there
+    (None drops it): a caller that needs a few layers of a model it
+    cannot hold whole still draws the whole sequence, one leaf at a time
+    (attention and dense-FFN stacks)."""
+    if leaf_fn is not None and (cfg.moe is not None or any(
+            k != MIXER_ATTN for k in cfg.layer_mixer_kinds())):
+        raise ValueError("init_params(leaf_fn=) draws attention and "
+                         "dense-FFN stacks only")
+    keep = leaf_fn or _keep_all
     dt = as_dtype(cfg.param_dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d = cfg.d_model
     out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
     params: Dict[str, Any] = {
-        "embed": {"emb": (torch.randn((cfg.vocab_size, d), generator=gen,
-                                      device=device) * 0.02).to(dt)},
-        "final_norm": {"scale": torch.ones((d,), dtype=dt, device=device)},
+        "embed": {"emb": keep(("embed", "emb"), (torch.randn(
+            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
+        ).to(dt))},
+        "final_norm": {"scale": keep(("final_norm", "scale"), torch.ones(
+            (d,), dtype=dt, device=device))},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"emb": (torch.randn(
+        params["lm_head"] = {"emb": keep(("lm_head", "emb"), (torch.randn(
             (cfg.vocab_size, d), generator=gen, device=device) * 0.02
-        ).to(dt)}
+        ).to(dt))}
     segs = []
-    for pattern, repeat in segment_plan(cfg):
+    for si, (pattern, repeat) in enumerate(segment_plan(cfg)):
         seg = {}
         for slot, (mixer, _, ffn_kind) in enumerate(pattern):
             kw = dict(layers=repeat, device=device, out_scale=out_scale)
+
+            def at(*prefix, _slot=f"slot{slot}"):
+                return lambda path, t: keep(("segments", si, _slot)
+                                            + prefix + path, t)
+
+            norm = at()
             seg[f"slot{slot}"] = {
-                "norm1": {"scale": torch.ones((repeat, d), dtype=dt,
-                                              device=device)},
-                "norm2": {"scale": torch.ones((repeat, d), dtype=dt,
-                                              device=device)},
-                "mixer": (_attn_init(gen, cfg, repeat, device, out_scale)
+                "norm1": {"scale": norm(("norm1", "scale"), torch.ones(
+                    (repeat, d), dtype=dt, device=device))},
+                "norm2": {"scale": norm(("norm2", "scale"), torch.ones(
+                    (repeat, d), dtype=dt, device=device))},
+                "mixer": (_attn_init(gen, cfg, repeat, device, out_scale,
+                                     keep=at("mixer"))
                           if mixer == MIXER_ATTN
                           else ssm_mod.ssm_init(gen, cfg, **kw)),
                 "ffn": (moe_mod.moe_init(gen, cfg, **kw)
                         if ffn_kind == FFN_MOE
-                        else ffn_mod.ffn_init(gen, cfg, **kw)),
+                        else ffn_mod.ffn_init(gen, cfg, keep=at("ffn"),
+                                              **kw)),
             }
         segs.append(seg)
     params["segments"] = tuple(segs)

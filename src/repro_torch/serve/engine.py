@@ -44,6 +44,12 @@ the (B,) sampled ids and done flags come back to the host.
   spec_round events and the pool's spills and faults on the host clock
   (no device read, no synchronise, no generator draw), TTFT goes to the
   per-class histogram, decode tokens to the per-path tok/s gauge.
+* **Tensor parallelism** — ``mesh=`` (``distribution.context.Mesh``):
+  this process is one model rank, ``params`` its local tree and ``cfg``
+  its local config (``distribution.sharding``); every prefill and
+  decode runs under the mesh, and model rank 0's sampled tokens are
+  broadcast, so every rank's host state (slots, pages, EOS) moves in
+  step. Only the packed path serves on a mesh, without a drafter.
 * **Failure hand-off** — ``dead`` is set by the scheduler when a step
   raises; :meth:`Engine.evacuate_inflight` re-arms in-flight requests
   for an exact re-prefill resume elsewhere, :meth:`Engine.fail_inflight`
@@ -153,17 +159,20 @@ def _exec_path_label(params, cfg: ModelConfig) -> str:
     if getattr(s, "quantize", False):
         return "int8"
 
-    def has_packed(p) -> bool:
-        if isinstance(p, dict):
-            return ("sasp_packed" in p or "sasp_fused" in p
-                    or any(has_packed(v) for v in p.values()))
-        if isinstance(p, (list, tuple)):
-            return any(has_packed(v) for v in p)
-        return False
-
-    if s.path == "kernel" and has_packed(params):
+    if s.path == "kernel" and _has_packed(params):
         return "packed"
     return s.path
+
+
+def _has_packed(p) -> bool:
+    """Does the tree carry a packed container (``sasp_packed`` /
+    ``sasp_fused``)?"""
+    if isinstance(p, dict):
+        return ("sasp_packed" in p or "sasp_fused" in p
+                or any(_has_packed(v) for v in p.values()))
+    if isinstance(p, (list, tuple)):
+        return any(_has_packed(v) for v in p)
+    return False
 
 
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
@@ -198,7 +207,8 @@ class Engine:
                  kv_dedup_every: int = 0,
                  admission: str = "continuous",
                  rank: int = 0,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 mesh=None):
         if admission not in ADMISSION_MODES:
             raise ValueError(f"admission={admission!r} not in "
                              f"{ADMISSION_MODES}")
@@ -215,6 +225,18 @@ class Engine:
         self.stats = self.telemetry.engine_stats(rank).declare(_STAT_KEYS)
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if draft_sparsity is not None:
+                raise ValueError(
+                    "speculative decoding on a mesh is not ported: the "
+                    "drafter would need reshard_packed's TP shards "
+                    "(ROADMAP Queue 1 item 6d)")
+            if cfg.sasp.path != "kernel" or not _has_packed(params):
+                raise ValueError(
+                    "only the packed path serves on a mesh; the dense, "
+                    "masked, bsr and kernel paths under TP are not ported "
+                    "(ROADMAP Queue 1 item 6e)")
         self.B = batch_slots
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
@@ -316,6 +338,23 @@ class Engine:
         if self._stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
+
+    def _mesh_ctx(self):
+        """The engine's mesh as the active one (a no-op without one)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.distribution import context as dctx
+        return dctx.use_mesh(self.mesh)
+
+    def _sample(self, logits: torch.Tensor, temps: torch.Tensor
+                ) -> torch.Tensor:
+        """``sample_tokens`` on this rank; on a mesh, model rank 0's
+        tokens on every rank, so the ranks cannot part even where
+        sampling is not greedy."""
+        nxt = sample_tokens(logits, temps, self._gen)
+        if self.mesh is not None:
+            nxt = self.mesh.broadcast(nxt)
+        return nxt
 
     # -- device passes -------------------------------------------------
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -492,7 +531,7 @@ class Engine:
                      ) -> List[int]:
         t = torch.tensor(list(temps), dtype=torch.float32,
                          device=self.device)
-        return sample_tokens(logits, t, self._gen).cpu().tolist()
+        return self._sample(logits, t).cpu().tolist()
 
     # -- preemption ----------------------------------------------------
     def preempt_slot(self, slot: int, *, keep_kv: bool = True) -> Request:
@@ -817,7 +856,7 @@ class Engine:
         """Admit queued requests, run one decode step (and the slots'
         speculative rounds), retire finished. Returns completed
         requests."""
-        with torch.no_grad(), self._on_stream():
+        with torch.no_grad(), self._on_stream(), self._mesh_ctx():
             return self._step_inner()
 
     def _step_inner(self) -> List[Request]:
@@ -869,8 +908,7 @@ class Engine:
                 logits = self._paged_decode_step(self.params, self.cfg,
                                                  toks, pos, bt)
             act_t = self._t(act, torch.bool)
-            nxt = sample_tokens(logits, self._t(temps, torch.float32),
-                                self._gen)
+            nxt = self._sample(logits, self._t(temps, torch.float32))
             nxt = torch.where(act_t, nxt, torch.zeros_like(nxt))
             done = act_t & ((nxt == self._t(eos))
                             | (self._t(remaining) <= 1))

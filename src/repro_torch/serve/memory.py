@@ -15,6 +15,10 @@ prefill / decode math runs unchanged. Two pages are reserved:
 written) and ``TRASH_PAGE`` (written by idle rows and group padding,
 never read by a live slot).
 
+On a mesh the pool is built on a rank's local config, so its pages hold
+that rank's KV heads; every allocator decision is host-side and reads no
+device value, so it is the same on every rank.
+
 Policy. Pages are allocated at admission (the prompt's pages) and one at
 a time as decode crosses a page boundary, and freed at EOS. A
 high-watermark cap bounds the resident pages; room is made by evicting

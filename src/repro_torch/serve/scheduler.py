@@ -24,7 +24,9 @@ continuous batching and QoS over per-rank :class:`Engine` shards.
 * **Per-rank engine shards** — one :class:`Engine` per rank, each with
   its own slots (and page pool), all on one device and all over the
   SAME params tensors (built once by the caller; no rank copies them).
-  Ranks step independently. Ranks on a mesh (``mesh=``) are not ported.
+  Ranks step independently. Ranks on submeshes of a mesh (``mesh=``),
+  each a TP group, are not ported (ROADMAP Queue 1 item 6b); a single
+  ``Engine`` serves on a mesh.
 * **Failure containment** — a rank whose step raises a Python exception
   is marked dead: its queued requests re-route to live ranks, its
   in-flight requests requeue there with an exact re-prefill resume
@@ -158,7 +160,7 @@ class ShardedScheduler:
 
     ``ranks``: the number of engine shards, all on the device of
     ``params`` and all over the same params tensors. ``mesh=`` (a rank
-    per data-parallel slice of a device mesh) is not ported.
+    per data-parallel slice of a mesh, each a TP group) is not ported.
     """
 
     def __init__(self, params, cfg, *, sched: Optional[SchedulerConfig]
@@ -179,9 +181,9 @@ class ShardedScheduler:
         if mesh is not None:
             raise ValueError(
                 "mesh= ranks (one engine shard per data-parallel slice "
-                "of a device mesh) are not ported: they need tensor-"
-                "parallel packed serving (ROADMAP Queue 1 item 6); use "
-                "meshless ranks=N on one device")
+                "of a mesh, each a TP group) are not ported (ROADMAP "
+                "Queue 1 item 6b); serve one Engine(mesh=...) per TP "
+                "group, or meshless ranks=N on one device")
         n = 1 if ranks is None else int(ranks)
         if n < 1:
             raise ValueError(f"ranks={ranks} must be >= 1")

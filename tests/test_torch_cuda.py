@@ -4,7 +4,8 @@ held against its plain PyTorch version on the same CUDA tensors, and the
 packed engine's streams must not depend on which requests share a batch;
 the serving tier on the card: a 2-rank scheduler against the solo engine,
 tracing on and off bit for bit, and a ``host_worker`` process; one train
-step on the card against the same step on the CPU.
+step on the card against the same step on the CPU; TP col shards of wq's
+grid equal to their columns of the unsharded kernel bit for bit.
 Imports torch and repro_torch only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -13,6 +14,7 @@ Tolerance, as a fraction of the largest output: 1e-4 with fp32
 activations (summation order), 2e-2 with bf16 outputs (one bf16 ulp is
 2^-8 of the value)."""
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -1203,3 +1205,116 @@ def test_ssd_chunked_on_the_card_matches_the_cpu(cuda_device, groups, S):
     yc, hc = ssm.ssd_chunked(*(a.to(cuda_device) for a in args), chunk=256)
     _close(yc.cpu(), y, 1e-4)
     _close(hc.cpu(), h, 1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _wq_packs(quantize: bool, tp: int):
+    """wq's shape (5120 -> 8192, 32x32 tiles, half pruned, bias and silu)
+    packed whole and in ``tp`` col shards, on the card."""
+    from repro_torch.core.deploy import pack_weight
+    rng = np.random.default_rng(5)
+    K, N, b = 5120, 8192, 32
+    mask = rng.random((K // b, N // b)) > 0.5
+    w = rng.normal(size=(K, N)).astype(np.float32) * np.kron(
+        mask, np.ones((b, b), np.float32))
+    kw = dict(block_k=b, block_n=b, act="silu", quantize=quantize,
+              bias=rng.normal(size=(N,)).astype(np.float32), device="cuda")
+    return pack_weight(w, **kw), pack_weight(w, tp=tp, shard_kind="col",
+                                             **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,wdt", [("float32", "float32"),
+                                     ("bfloat16", "bfloat16"),
+                                     ("bfloat16", "int8")])
+@pytest.mark.parametrize("M", [4, 168])
+@pytest.mark.parametrize("tp", [2, 8])
+def test_col_shards_equal_unsharded_kernel_bit_for_bit(cuda_device, xdt,
+                                                       wdt, M, tp):
+    """A TP col shard of wq's grid (KB 160, NB 256) plans its visit groups
+    from the whole grid (``group_nb``), so its columns equal the
+    unsharded kernel's bit for bit (bias and act fused per shard)."""
+    from repro_torch.core.deploy import packed_matmul
+    from repro_torch.kernels.sasp_gemm import schedule
+    full, shards = _wq_packs(wdt == "int8", tp)
+    K, N = full.shape
+    b = full.block[1]
+    assert schedule.gemm_groups(K // b, N // b // tp) != \
+        schedule.gemm_groups(K // b, N // b)
+    if wdt == "bfloat16":
+        full = dataclasses.replace(full, vals=full.vals.to(torch.bfloat16))
+        shards = dataclasses.replace(shards,
+                                     vals=shards.vals.to(torch.bfloat16))
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(cuda_device).to(
+        getattr(torch, xdt))
+    want = packed_matmul(x, full)
+    ns = N // tp
+    for s in range(tp):
+        got = packed_matmul(x, shards.shard(s), group_nb=N // b)
+        assert torch.equal(got, want[:, s * ns:(s + 1) * ns]), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("tp", [1, 2])
+def test_packing_on_the_card_equals_the_cpu(cuda_device, quantize, tp):
+    """``deploy_packed`` packs on the weights' device: the card's
+    containers (tile gathers, flush visits, padding, int8 scales and
+    rounding by true division) equal the CPU's bit for bit, fused and
+    per-matrix; and the layer-by-layer rank build on the card equals
+    each rank's shard of the whole build."""
+    from repro_torch.configs import SASPConfig
+    from repro_torch.core import deploy as t_deploy
+    from repro_torch.core.pruning import prune_params
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.models import lm
+
+    cfg = reduced(get_config("qwen3-32b"), layers=3, d_model=256,
+                  vocab=512)
+    sasp = SASPConfig(enabled=True, block_k=32, block_n=32, sparsity=0.5,
+                      scope="all", quantize=quantize)
+    cfg = dataclasses.replace(cfg, sasp=sasp)
+    params, _ = prune_params(lm.init_params(cfg, seed=0, device="cpu"),
+                             sasp)
+    from repro_torch.core.pruning import map_leaves
+    on_card = map_leaves(lambda _, t: t.to(cuda_device), params)
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], path + (k,))
+        elif isinstance(tree, (tuple, list)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, path + (i,))
+        elif dataclasses.is_dataclass(tree):
+            for f in dataclasses.fields(tree):
+                yield from leaves(getattr(tree, f.name), path + (f.name,))
+        else:
+            yield path, tree
+
+    def same(a_tree, b_tree):
+        a, b = list(leaves(a_tree)), list(leaves(b_tree))
+        assert [p for p, _ in a] == [p for p, _ in b]
+        for (path, x), (_, y) in zip(a, b):
+            if torch.is_tensor(y):
+                assert x.dtype == y.dtype and torch.equal(
+                    x.cpu(), y.cpu()), path
+            else:
+                assert x == y, path
+
+    for fuse in (True, False):
+        want, _ = t_deploy.deploy_packed(params, cfg, fuse_ffn=fuse, tp=tp)
+        got, _ = t_deploy.deploy_packed(on_card, cfg, fuse_ffn=fuse, tp=tp)
+        same(got, want)
+    # the rank build on the card: each rank's tree equals its shard of
+    # the whole build of the same (card-drawn) weights
+    from repro_torch.distribution.sharding import local_params
+    whole, wcfg = t_serve.build_serving_params(
+        lm.init_params(cfg, seed=0, device=cuda_device), cfg,
+        path="packed", sparsity=0.5, scope="all", int8_weights=quantize,
+        verbose=False, tp=tp)
+    for rank in range(tp):
+        got = t_serve.build_rank_params(
+            cfg, tp=tp, rank=rank, device=cuda_device, sparsity=0.5,
+            scope="all", int8_weights=quantize)[0]
+        same(got, local_params(whole, wcfg, tp, rank))

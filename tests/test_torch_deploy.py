@@ -117,6 +117,22 @@ def test_summary_strip_and_cast():
 
 
 def test_tp_is_not_ported():
-    cfg, tcfg, params, tparams = model(scope="ffn")
-    with pytest.raises(NotImplementedError):
-        t_deploy.deploy_packed(tparams, tcfg, tp=2)
+    """What of TP is still left to port: a sharded container does not
+    run through the single-device entry points (only through the TP
+    paths of models/ffn.py), and an engine on a mesh refuses a drafter
+    (ROADMAP Queue 1 item 6d)."""
+    from repro_torch.distribution.context import Mesh
+    from repro_torch.serve.engine import Engine
+    cfg, tcfg, params, tparams = model(scope="all", sparsity=0.25)
+    tpruned, _ = t_pruning.prune_params(tparams, tcfg.sasp)
+    pp, pcfg = t_deploy.deploy_packed(tpruned, tcfg, tp=2)
+    slot = pp["segments"][0]["slot0"]
+    x = torch.zeros((1, tcfg.d_model))
+    with pytest.raises(ValueError, match="shard by shard"):
+        t_deploy.packed_matmul(x, slot["mixer"]["sasp_packed"]["wq"])
+    with pytest.raises(ValueError, match="shard by shard"):
+        t_deploy.packed_ffn_apply(x, slot["ffn"]["sasp_fused"])
+    mesh = Mesh({"data": 1, "model": 2}, 0, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="item 6d"):
+        Engine(pp, pcfg, cache_len=64, kv_pages=16, kv_page_len=16,
+               draft_sparsity=0.75, mesh=mesh)

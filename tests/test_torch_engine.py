@@ -96,9 +96,9 @@ def test_launcher_cpu_run_and_flags(capsys, tmp_path):
                   "--cache-len", "64", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "packed:" in out and "2 requests, 6 tokens" in out
-    with pytest.raises(SystemExit, match="not ported"):
-        t_serve.main(["--mesh", "1,2"])
-    assert t_serve.NOT_PORTED == ("--mesh",)
+    # --mesh 1,2 is ported (tests/test_torch_tp_mesh.py); DP > 1 is not
+    with pytest.raises(SystemExit, match="Queue 1 item 6b"):
+        t_serve.main(["--mesh", "2,1", "--sasp", "0.5", "--path", "packed"])
     # --ckpt-dir is ported (tests/test_torch_checkpoint.py): an empty
     # directory has nothing to restore
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
