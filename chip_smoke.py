@@ -201,6 +201,35 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 again over NCCL where
                 the machine has a card per rank, else ``nccl: not run``.
                 ``tools/tp_phase.py`` runs it alone.
+  10. depth   — (last, every earlier model freed) qwen3-32b at full width
+                and all 64 layers (seed 0, wo and w2 spread as drawn, 50%
+                of the 32x32 tiles, scope all, bf16, phase 3's 4 requests
+                of 16 tokens on Engine(4 slots, cache 256)), every tree
+                built layer by layer (``build_rank_params``: each layer
+                drawn alone, scored; drawn again, pruned, packed, cut and
+                cast): (a) one card at tp 1, the launcher's packed build:
+                build s, peak GiB building, GiB held serving, prefill ms,
+                decode ms/step; 256 tile-skip GEMMs and 64 fused FFNs a
+                forward, all mma; the first prefill again through the
+                plain versions of both kernels (logit error printed,
+                greedy tokens equal but at printed near-ties); (b) the
+                shard loop at tp 2 (every shard, the table split into 2
+                vocab shards) on this card, then ``--mesh 1,2`` through
+                ``serve_mesh`` (2 ranks sharing the card over gloo,
+                host-staged; each builds its own shard and V/2 table
+                rows): every rank's streams and every decode step's
+                logits bit for bit the loop's; a rank's build s, held and
+                peak GiB; (c) ``--mesh 1,4`` over NCCL where the machine
+                has a card per rank, else ``nccl: not run``; (d) phase
+                3's model (4 layers) saved by the port's
+                ``CheckpointManager``, restored through ``--mesh 1,2
+                --ckpt-dir`` by the launcher's ``serve_rank`` (each rank
+                reading one layer at a time): streams equal the shard
+                loop's tp 2 built from the whole restore; (e) (d) again
+                with ``--stream --trace-out --metrics-dump``: the same
+                streams, one trace and one Prometheus text (every engine
+                counter), both written by rank 0. ``tools/depth_phase.py``
+                runs it alone.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -736,8 +765,8 @@ def serve_phase(torch, counters):
     log(f"  qwen3-32b at full width: d_model {cfg.d_model}, heads "
         f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, "
         f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; depth cut 64 -> "
-        f"{cfg.num_layers} layers (64 layers of fp32 master weights are "
-        f"about 128 GB, more than one 80 GB card holds)")
+        f"{cfg.num_layers} layers (drawn whole: phase 10 builds all 64 "
+        f"layer by layer)")
     t0 = time.time()
     params, cfg = build_serving_params(
         spread_output_scales(lm.init_params(cfg, seed=0, device=DEVICE), cfg),
@@ -3025,7 +3054,7 @@ def tp_shard_loop(torch, params, cfg, counters):
     and served by the shard loop on one card. Returns the results and
     the tp=2 run (what (b) is held to)."""
     from repro_torch.core.deploy import reshard_packed
-    from repro_torch.distribution.sharding import local_params
+    from repro_torch.distribution.sharding import local_params, vocab_config
 
     t_phase = time.time()
     layers = cfg.num_layers
@@ -3045,7 +3074,7 @@ def tp_shard_loop(torch, params, cfg, counters):
         torch.cuda.synchronize()
         reshard_s = time.time() - t0
         n_bits = _col_shard_bits(torch, params, sharded, tp, rows)
-        run = _tp_serve(torch, sharded, cfg, counters)
+        run = _tp_serve(torch, sharded, vocab_config(cfg, tp), counters)
         for name in MAIN_PATH:
             got, want = run["launches"][name], base["launches"][name]
             check(got["total"] == tp * want["total"],
@@ -3145,6 +3174,448 @@ def _tp_mesh(torch, layers: int, a2):
     if "nccl" not in out:
         out["nccl"] = "not run (1 card)"
         log(f"  nccl: not run ({torch.cuda.device_count()} card)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: qwen3-32b at its full depth
+# ---------------------------------------------------------------------------
+
+# (a)-(c) at ``layers``; (d) and (e) restore phase 3's 4-layer model
+DEPTH = dict(layers=64, tp=2, nccl_tp=4, ckpt_layers=4, new=16)
+
+
+def _free(torch):
+    """Collect the engines' reference cycles (their recording hooks),
+    then return the freed blocks: a 64-layer tree must be gone before the
+    next is built."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _visits(params) -> dict:
+    """Layer 0's visits: padded nnz / tiles of each packed matrix (per
+    shard), and the fused FFN's nv / d_ff blocks."""
+    slot = params["segments"][0]["slot0"]
+    out = {}
+    for n, pw in slot["mixer"]["sasp_packed"].items():
+        tiles = (pw.shape[0] // pw.block[0]) * (pw.shape[1] // pw.block[1])
+        out[n] = f"{pw.nnz}/{tiles // pw.shards}"
+    pf = slot["ffn"]["sasp_fused"]
+    out["ffn"] = f"{pf.nv}/{pf.d_ff // pf.block_f // pf.shards}"
+    return out
+
+
+def _plain_kernels():
+    """Route ``core.deploy``'s two main-path calls to the kernels' plain
+    versions (on CUDA tensors too) until the returned function is
+    called; no launch is counted meanwhile."""
+    from repro_torch.core import deploy
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    saved = deploy.sasp_gemm, deploy.fused_ffn
+
+    def plain_gemm(x, vals, kn, col_ptr, n, scales=None, bias=None,
+                   act=None, group_nb=None):
+        return gemm.sasp_gemm_plain(x, vals, kn, n, scales, bias, act)
+
+    def plain_ffn(x, w1v, w3v, w2v, b1, b3, b2, *, act="silu", scales=None):
+        return fused_ffn.fused_ffn_plain(x, w1v, w3v, w2v, b1, b3, b2,
+                                         act=act, scales=scales)
+
+    deploy.sasp_gemm, deploy.fused_ffn = plain_gemm, plain_ffn
+
+    def restore():
+        deploy.sasp_gemm, deploy.fused_ffn = saved
+    return restore
+
+
+def _prefill_vs_plain(torch, params, cfg):
+    """The first prefill of phase 3's 4 requests (one left-padded group,
+    as the engine admits them) through both kernels and again through
+    their plain versions on the same tree: the largest logit error over
+    the logit scale, and the greedy tokens (a difference passes only at
+    a top-2 margin under 1e-2 of the logit scale, printed)."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import lm
+    reqs = synthetic_requests(4, cfg.vocab_size, 1)
+    S = max(len(r.prompt) for r in reqs)
+    toks = torch.zeros((len(reqs), S), dtype=torch.int32, device=DEVICE)
+    pos = torch.empty((len(reqs), S), dtype=torch.int32, device=DEVICE)
+    for i, r in enumerate(reqs):
+        L = len(r.prompt)
+        toks[i, S - L:] = torch.as_tensor(r.prompt, device=DEVICE)
+        pos[i] = torch.arange(-(S - L), L, device=DEVICE)
+    with torch.no_grad():
+        got = lm.prefill(params, cfg, toks, 256, positions=pos)[0][:, 0]
+        restore = _plain_kernels()
+        try:
+            t0 = time.perf_counter()
+            want = lm.prefill(params, cfg, toks, 256, positions=pos)[0][:, 0]
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            restore()
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    top = torch.topk(want, 2, dim=-1)
+    ties = []
+    for i in range(len(reqs)):
+        a, b = int(got[i].argmax()), int(top.indices[i, 0])
+        if a != b:
+            margin = float(top.values[i, 0] - top.values[i, 1])
+            log(f"  (a) request {i}: the kernels' first token {a}, the plain "
+                f"versions' {b}; top-2 margin {margin:.4g}, logit scale "
+                f"{scale:.4g}")
+            check(margin < 1e-2 * scale, f"(a) request {i}: first token "
+                  f"differs from the plain versions' where they are no "
+                  f"near-tie")
+            ties.append(dict(rid=i, margin=margin, got=a, want=b))
+    return dict(rel_err=err, near_ties=ties, plain_s=plain_s, rows=S)
+
+
+def _depth_launches(tag, launches, layers: int, tp: int):
+    """Launches per forward: 4 tile-skip GEMMs and 1 fused FFN a layer a
+    shard, all on the tensor-core variants. Returns the forwards."""
+    ffn, gemm = launches["sasp_fused_ffn"], launches["sasp_gemm"]
+    fwd = ffn["total"] // (layers * tp)
+    check(fwd > 0 and ffn["total"] == fwd * layers * tp
+          and gemm["total"] == 4 * fwd * layers * tp,
+          f"{tag}: launches {gemm['total']} tile-skip GEMMs and "
+          f"{ffn['total']} fused FFNs are not {4 * layers * tp} and "
+          f"{layers * tp} a forward")
+    check(set(gemm["variant"]) == {"mma"}
+          and set(ffn["variant"]) == {"mma/mma"},
+          f"{tag}: variants {gemm['variant']} / {ffn['variant']}, not mma")
+    return fwd
+
+
+def _depth_one_card(torch, counters, cfg0):
+    """(a): the launcher's packed build at tp 1 (``build_rank_params``,
+    layer by layer), served on one card, and its first prefill against
+    the plain versions of both kernels."""
+    from repro_torch.launch.serve import build_rank_params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params, _, lcfg = build_rank_params(
+        cfg0, tp=1, rank=0, device=DEVICE, sparsity=SPARSITY, scope="all",
+        prepare=spread_leaf(cfg0), verbose=True)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               tree_gib=_tree_gib(params), base_gib=base,
+               table_gib=_tree_gib(params["embed"]), visits=_visits(params),
+               ffn_gib=sum(_tree_gib(
+                   seg["slot0"]["ffn"]["sasp_fused"])
+                   for seg in params["segments"]))
+    torch.cuda.reset_peak_memory_stats()
+    run = _tp_serve(torch, params, lcfg, counters)
+    out.update(times=run["times"], launches=run["launches"],
+               held_gib=torch.cuda.memory_allocated() / 2**30,
+               serve_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["forwards"] = _depth_launches("(a)", run["launches"],
+                                      cfg0.num_layers, 1)
+    check(all(len(s) == DEPTH["new"] and all(0 <= t < cfg0.vocab_size
+                                             for t in s)
+              for s in run["streams"].values()) and len(run["streams"]) == 4,
+          "(a): not every request produced its tokens in the vocabulary")
+    out["plain"] = _prefill_vs_plain(torch, params, lcfg)
+    check(math.isfinite(out["plain"]["rel_err"]),
+          "(a): the prefill logits are not finite")
+    t, a = out["times"], out["plain"]
+    log(f"  (a) one card, {cfg0.num_layers} layers: build "
+        f"{out['build_s']:.1f} s (peak {out['build_peak_gib']:.2f} GiB, "
+        f"{base:.2f} held before), tree {out['tree_gib']:.2f} GiB (table "
+        f"{out['table_gib']:.2f}, fused FFNs {out['ffn_gib']:.2f}; layer 0's "
+        f"visits {out['visits']}); serving: held {out['held_gib']:.2f} GiB, "
+        f"peak {out['serve_peak_gib']:.2f}; prefill {t['prefill_ms']:.1f} "
+        f"ms, decode {t['decode_ms_per_step']:.2f} ms/step, "
+        f"{t['tok_s']:.1f} tok/s; launches per forward "
+        f"{run['launches']['sasp_gemm']['total'] // out['forwards']} "
+        f"tile-skip GEMMs, "
+        f"{run['launches']['sasp_fused_ffn']['total'] // out['forwards']} "
+        f"fused FFNs ({out['forwards']} forwards, all mma); first prefill "
+        f"({a['rows']} columns) vs the plain versions: {a['rel_err']:.3g} of "
+        f"the logit scale, {len(a['near_ties'])} near-tie token(s) "
+        f"(plain run {a['plain_s']:.1f} s)")
+    for rid in sorted(run["streams"]):
+        log(f"  (a) req {rid} -> {run['streams'][rid]}")
+    return out, run, params
+
+
+def _parted(streams, a_run) -> list:
+    """Where each stream first parts from (a)'s tp=1 stream, and (a)'s
+    top-2 margin there over its logit scale. At 64 layers in bf16 the
+    shards' split sums move logits by more than phase 3c's near-tie
+    bound, so this is reported, not held: the mesh is held bit for bit
+    to the loop of its own shard count."""
+    out = []
+    for rid, want in a_run["streams"].items():
+        got = streams[rid]
+        t = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if t is not None:
+            margin, scale = a_run["rec"]["margins"][(rid, t)][:2]
+            out.append(dict(rid=rid, token=t, margin_of_scale=margin / scale))
+    return out
+
+
+def _depth_spec(cfg, tp: int, backend=None, **build) -> dict:
+    """A ``serve_mesh`` spec for the launcher's ``serve_rank`` (or
+    ``_depth_rank``): phase 3's requests on ``Engine(4 slots, cache
+    256)``."""
+    return dict(mesh=(1, tp), cfg=cfg, device=DEVICE, backend=backend,
+                build=dict(seed=0, sparsity=SPARSITY, scope="all",
+                           int8_weights=False, **build),
+                requests=dict(n=4, max_new=DEPTH["new"], temperature=0.0,
+                              eos_id=None),
+                engine=dict(batch_slots=TPP["slots"],
+                            cache_len=TPP["cache_len"]))
+
+
+def _depth_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """(b)'s model rank: join the mesh, build its tree layer by layer
+    from the seed (wo and w2 spread as drawn), serve as (a) serves, with
+    every decode step's logits digested."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    # ranks sharing one card build in turn, each releasing its build's
+    # cached transients, so that one rank's transients stand beside the
+    # trees
+    turns = range(spec["mesh"][1]) if mesh.host_staged else [rank]
+    for turn in turns:
+        if turn == rank:
+            t0 = time.perf_counter()
+            params, _, lcfg = launch.build_rank_params(
+                spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank,
+                device=dev, prepare=spread_leaf(spec["cfg"]),
+                **spec["build"])
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+            build_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            torch.cuda.empty_cache()    # the build's transients, cached
+        if mesh.host_staged:
+            dist.barrier()
+    out = dict(rank=rank, transport=mesh.transport, build_s=build_s,
+               build_peak_gib=build_peak,
+               tree_gib=_tree_gib(params),
+               table_gib=_tree_gib(params["embed"]),
+               table_rows=int(params["embed"]["emb"].shape[0]))
+    torch.cuda.reset_peak_memory_stats(dev)
+    run = _tp_serve(torch, params, lcfg, counters, mesh=mesh)
+    out.update({k: run[k] for k in ("streams", "digests", "times",
+                                     "launches")})
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    return out
+
+
+def _depth_tp(torch, counters, cfg0, a_run):
+    """(b): the shard loop at tp 2 (every shard, built layer by layer)
+    on this card, then ``--mesh 1,2`` through ``serve_mesh``, every rank
+    bit for bit the loop; (c) ``--mesh 1,4`` over NCCL where there is a
+    card per rank."""
+    from repro_torch.launch import serve as launch
+    tp, layers = DEPTH["tp"], cfg0.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop, dcfg, _ = launch.build_rank_params(
+        cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
+        scope="all", prepare=spread_leaf(cfg0))
+    torch.cuda.synchronize()
+    out = dict(loop=dict(build_s=time.perf_counter() - t0,
+                         build_peak_gib=torch.cuda.max_memory_allocated()
+                         / 2**30, tree_gib=_tree_gib(loop),
+                         vocab_shards=dcfg.vocab_shards))
+    check(dcfg.vocab_shards == tp, f"(b): the loop's table is not split "
+          f"into {tp} vocab shards")
+    out["loop"]["visits"] = _visits(loop)
+    run = _tp_serve(torch, loop, dcfg, counters)
+    del loop
+    _free(torch)
+    _depth_launches("(b) loop", run["launches"], layers, tp)
+    parted = _parted(run["streams"], a_run)
+    out["loop"].update(times=run["times"], launches=run["launches"],
+                       parted_from_tp1=parted)
+    log(f"  (b) before spawning the ranks this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.time()
+    res = launch.serve_mesh(_depth_spec(cfg0, tp, "gloo"), _depth_rank,
+                            store_dir=OUT_DIR, timeout=600)
+    wall = time.time() - t0
+    for r in res:
+        _check_mesh_run(f"(b) rank {r['rank']}", r, run, tp)
+        check(r["table_rows"] == cfg0.vocab_size // tp,
+              f"(b) rank {r['rank']} holds {r['table_rows']} table rows, "
+              f"not V/{tp}")
+    keep = ("rank", "transport", "build_s", "build_peak_gib", "tree_gib",
+            "table_gib", "table_rows", "peak_gib", "held_gib", "times",
+            "launches")
+    out["mesh"] = dict(wall_s=wall, ranks=[{k: r[k] for k in keep}
+                                           for r in res])
+    r0, lp = res[0], out["loop"]
+    log(f"  (b) shard loop tp={tp}: build {lp['build_s']:.1f} s (peak "
+        f"{lp['build_peak_gib']:.2f} GiB), tree {lp['tree_gib']:.2f} GiB, "
+        f"decode {run['times']['decode_ms_per_step']:.2f} ms/step, prefill "
+        f"{run['times']['prefill_ms']:.1f} ms; parts from (a)'s tp=1 "
+        f"streams at {parted}. --mesh 1,{tp} over {r0['transport']}: "
+        f"{wall:.1f} s wall; every rank's streams and all "
+        f"{len(r0['digests'])} decode steps' logits bit for bit the loop's; "
+        f"by rank (building in turn on the shared card): build "
+        f"{[round(r['build_s'], 1) for r in res]} s, peak "
+        f"building {[round(r['build_peak_gib'], 2) for r in res]} GiB, "
+        f"tree {[round(r['tree_gib'], 2) for r in res]} GiB (table "
+        f"{[round(r['table_gib'], 2) for r in res]}, {r0['table_rows']} of "
+        f"{cfg0.vocab_size} rows), held serving "
+        f"{[round(r['held_gib'], 2) for r in res]}, peak serving "
+        f"{[round(r['peak_gib'], 2) for r in res]}; decode "
+        f"{r0['times']['decode_ms_per_step']:.2f} ms/step, prefill "
+        f"{r0['times']['prefill_ms']:.1f} ms")
+    del run
+    n = DEPTH["nccl_tp"]
+    if torch.cuda.device_count() >= n:
+        t0 = time.time()
+        res = launch.serve_mesh(_depth_spec(cfg0, n, "nccl"), _depth_rank,
+                                store_dir=OUT_DIR, timeout=600)
+        wall = time.time() - t0
+        for r in res:
+            _depth_launches(f"(c) rank {r['rank']}", r["launches"], layers,
+                            1)
+        out["nccl"] = dict(wall_s=wall, ranks=[{k: r[k] for k in keep}
+                                               for r in res],
+                           parted_from_tp1=_parted(res[0]["streams"], a_run))
+        log(f"  (c) --mesh 1,{n} over {res[0]['transport']}: {wall:.1f} s "
+            f"wall, {n} ranks' streams equal; decode "
+            f"{res[0]['times']['decode_ms_per_step']:.2f} ms/step, tree "
+            f"{[round(r['tree_gib'], 2) for r in res]} GiB, held "
+            f"{[round(r['held_gib'], 2) for r in res]} GiB; parts from "
+            f"(a)'s tp=1 streams at {out['nccl']['parted_from_tp1']}")
+    else:
+        out["nccl"] = f"not run ({torch.cuda.device_count()} card)"
+        log(f"  (c) nccl: not run ({torch.cuda.device_count()} card)")
+    return out
+
+
+def _depth_ckpt(torch, counters):
+    """(d) phase 3's model (4 layers, wo and w2 spread) saved by the
+    port's ``CheckpointManager``, restored through ``--mesh 1,2
+    --ckpt-dir`` (the launcher's ``serve_rank``), against the shard loop
+    at tp 2 built from the whole restore; (e) (d) again with
+    ``--stream --trace-out --metrics-dump``."""
+    import shutil
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import _STAT_KEYS
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg = main_config(DEPTH["ckpt_layers"], "bfloat16")
+    ckpt = os.path.join(OUT_DIR, "depth_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            params = spread_output_scales(
+                lm.init_params(cfg, seed=0, device=DEVICE), cfg)
+            CheckpointManager(ckpt).save(3, {"params": params})
+            del params
+            out["save_s"] = time.perf_counter() - t0
+            out["ckpt_gib"] = sum(
+                os.path.getsize(os.path.join(d, f))
+                for d, _, fs in os.walk(ckpt) for f in fs) / 2**30
+            t0 = time.perf_counter()
+            whole = launch.restore_params(
+                ckpt, lm.init_params(cfg, seed=1, device=DEVICE))
+            loop, lcfg = launch.build_serving_params(
+                whole, cfg, path="packed", sparsity=SPARSITY, scope="all",
+                tp=DEPTH["tp"], verbose=False)
+            del whole
+            out["whole_restore_s"] = time.perf_counter() - t0
+        run = _tp_serve(torch, loop, lcfg, counters)
+        del loop
+        _free(torch)
+        spec = _depth_spec(cfg, DEPTH["tp"], ckpt_dir=ckpt)
+        t0 = time.time()
+        d = launch.serve_mesh(spec, store_dir=OUT_DIR, timeout=600)
+        out["d"] = dict(wall_s=time.time() - t0,
+                        build_s=[r["build_s"] for r in d])
+        for r in d:
+            check(r["streams"] == run["streams"],
+                  f"(d) rank {r['rank']}: streams differ from the shard "
+                  f"loop's tp={DEPTH['tp']} on the whole restore")
+        trace = os.path.join(OUT_DIR, "depth_trace.json")
+        prom = os.path.join(OUT_DIR, "depth_metrics.prom")
+        for f in (trace, prom):
+            if os.path.exists(f):
+                os.remove(f)
+        spec["serve"] = dict(stream=True, trace_out=trace, metrics_dump=prom,
+                             metrics_interval=0.0)
+        t0 = time.time()
+        e = launch.serve_mesh(spec, store_dir=OUT_DIR, timeout=600)
+        out["e"] = dict(wall_s=time.time() - t0)
+        for r in e:
+            check(r["streams"] == run["streams"],
+                  f"(e) rank {r['rank']}: streamed and traced streams differ "
+                  f"from (d)'s")
+        check(e[0]["wrote"] == [trace, prom] and not any(
+            r["wrote"] for r in e[1:]),
+            f"(e): files written by rank: {[r['wrote'] for r in e]}, not "
+            f"the trace and the metrics by rank 0 alone")
+        with open(trace, encoding="utf-8") as fh:
+            events = json.load(fh)["traceEvents"]
+        with open(prom, encoding="utf-8") as fh:
+            text = fh.read()
+        missing = [k for k in _STAT_KEYS if f"serve_{k}_total" not in text]
+        check(len(events) > 0 and not missing,
+              f"(e): {len(events)} trace events; Prometheus text lacks "
+              f"{missing}")
+        out["e"].update(trace_events=len(events), prom_bytes=len(text))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"  (d) checkpoint of phase 3's model ({cfg.num_layers} layers, "
+        f"{out['ckpt_gib']:.2f} GiB on disk, saved in {out['save_s']:.1f} "
+        f"s): --mesh 1,{DEPTH['tp']} --ckpt-dir, each rank restoring layer "
+        f"by layer ({[round(b, 1) for b in out['d']['build_s']]} s), "
+        f"{out['d']['wall_s']:.1f} s wall; streams equal the shard loop's "
+        f"tp={DEPTH['tp']} on the whole restore ({out['whole_restore_s']:.1f}"
+        f" s to restore and build). (e) with --stream --trace-out "
+        f"--metrics-dump: {out['e']['wall_s']:.1f} s wall, the same "
+        f"streams; rank 0 alone wrote the trace ({out['e']['trace_events']}"
+        f" events) and the Prometheus text (every engine counter)")
+    return out
+
+
+def depth_phase(torch, counters, layers: int = DEPTH["layers"]):
+    """Phase 10: qwen3-32b at full width and ``layers`` layers (default
+    all 64), built layer by layer: (a) one card, (b) the shard loop and
+    ``--mesh 1,2``, (c) ``--mesh 1,4`` over NCCL where there are cards
+    for it; then (d) and (e) on phase 3's 4-layer model restored from a
+    checkpoint. Run last, with every earlier model freed."""
+    t_phase = time.time()
+    cfg0 = main_config(layers, "bfloat16")
+    log(f"  qwen3-32b at full width and {layers} layers; seed 0, wo and w2 "
+        f"spread, 50% of the 32x32 tiles pruned (scope all), bf16")
+    out = {}
+    out["a"], a_run, params = _depth_one_card(torch, counters, cfg0)
+    del params
+    _free(torch)
+    out["b"] = _depth_tp(torch, counters, cfg0, a_run)
+    del a_run
+    _free(torch)
+    out["d"] = _depth_ckpt(torch, counters)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 10: {out['seconds']:.1f} s")
     return out
 
 
@@ -3295,6 +3766,13 @@ def main() -> int:
     tp["seconds"] = tp["seconds_a"] + time.time() - t0
     log(f"  phase 9: {tp['seconds']:.1f} s")
 
+    log(f"[10] depth: qwen3-32b at all {DEPTH['layers']} layers, one card, "
+        f"the shard loop and --mesh 1,{DEPTH['tp']}, a checkpoint restored "
+        f"on the mesh, streaming and tracing (last, every earlier model "
+        f"freed)")
+    _free(torch)
+    depth = depth_phase(torch, counters)
+
     # each kernel's launches on its own path
     path_launches = {n: (launches if n in MAIN_PATH
                          else ablation["launches"])[n] for n in KERNELS}
@@ -3306,7 +3784,7 @@ def main() -> int:
                        parity=parity,
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
-                       families=families, tp=tp,
+                       families=families, tp=tp, depth=depth,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

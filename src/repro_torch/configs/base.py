@@ -144,6 +144,10 @@ class ModelConfig:
     # (reduce-scatter bf16 + int8 all-gather: 0.75x wire bytes;
     # beyond-paper — see EXPERIMENTS.md §Perf B iter 5)
     tp_comm: str = "ar"
+    # the embedding / head table's rows in this many equal vocab shards
+    # (the reference's ``vocab`` rule; set by a TP deployment): a mesh
+    # rank holds one, the shard loop computes the head shard by shard
+    vocab_shards: int = 1
     # --- SASP ---
     sasp: SASPConfig = field(default_factory=SASPConfig)
     # --- numerics ---

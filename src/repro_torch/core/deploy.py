@@ -28,6 +28,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quantization import dequantize_int8
 from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
+from repro_torch.distribution.sharding import vocab_config
 from repro_torch.kernels.sasp_gemm import pack
 from repro_torch.kernels.sasp_gemm.fused_ffn import fused_ffn
 from repro_torch.kernels.sasp_gemm.gemm import sasp_gemm
@@ -383,7 +384,8 @@ def deploy_packed(params: Params, cfg: ModelConfig, *,
     ``mesh``): shard every visit list into ``tp`` shard-local lists
     (wq/wk/wv col on head boundaries, wo row; w1/w3 col, w2 row; the
     fused FFN by d_ff); a group whose block grid does not divide stays
-    unsharded."""
+    unsharded. ``cfg'.vocab_shards``: the embedding / head table's vocab
+    split at ``tp`` (``distribution.sharding.vocab_config``)."""
     tp = _mesh_tp(mesh, tp)
     quantize = cfg.sasp.quantize if quantize is None else quantize
     attn = (cfg.sasp.scope == "all") if attn is None else attn
@@ -398,7 +400,7 @@ def deploy_packed(params: Params, cfg: ModelConfig, *,
     cfg = dataclasses.replace(
         cfg, sasp=dataclasses.replace(cfg.sasp, enabled=True,
                                       path="kernel"))
-    return out, cfg
+    return out, vocab_config(cfg, tp)
 
 
 def strip_packed(params: Params) -> Params:
@@ -471,57 +473,129 @@ def cast_packed_values(params: Params, dtype: torch.dtype) -> Params:
     return walk(params)
 
 
-def _pad_axis(a: torch.Tensor, n: int, dim: int,
-              value: Optional[float] = 0.0) -> torch.Tensor:
-    """``a`` padded to length ``n`` along ``dim`` with ``value``, or (None)
-    with copies of its last entry."""
-    dim %= a.ndim
-    pad = n - a.shape[dim]
-    if not pad:
-        return a
-    shape = list(a.shape)
-    shape[dim] = pad
-    ext = (a.narrow(dim, a.shape[dim] - 1, 1).expand(shape) if value is None
-           else a.new_full(shape, value))
-    return torch.cat([a, ext], dim)
+# the padded axis (dims from the end) and pad value of each container
+# field, as the packers pad: None pads with copies of the last entry
+_W_PAD = {"vals": (-3, 0.0), "kn": (-1, None), "scale": (-1, 0.0)}
+_F_PAD = {**{f: (-3, 0.0) for f in ("w1v", "w3v", "w2v")},
+          **{f: (-2, 0.0) for f in ("b1", "b3")},
+          **{f: (-1, 0.0) for f in ("s1", "s3", "s2")}, "jv": (-1, -1)}
 
 
-def stack_layers(parts):
+def _pad_fill(dst: torch.Tensor, dim: int, m: int, value) -> None:
+    """Fill ``dst`` from index ``m`` on along ``dim`` with ``value``, or
+    (None) with copies of its entry ``m - 1``."""
+    n = dst.shape[dim]
+    if n > m:
+        pad = dst.narrow(dim, m, n - m)
+        if value is None:
+            pad.copy_(dst.narrow(dim, m - 1, 1).expand(pad.shape))
+        else:
+            pad.fill_(value)
+
+
+class _Stacked:
+    """A container's buffers in a :class:`LayerStack`: its first layer
+    (the fields that are not tensors), the padded axis' length so far."""
+
+    def __init__(self, first, n: int):
+        self.first, self.n, self.bufs = first, n, {}
+
+
+class LayerStack:
     """One layer-stacked tree from trees of one layer each (every leaf's
-    leading layer axis of length 1), containers padded to one nnz / nv
-    as the packers pad them: a visit list by its last visit repeated with
-    zero blocks and scales (``pack.pad_block_list``), a PackedFFN by zero
-    visits with jv -1. Stacking the layers of ``deploy_packed`` run
-    layer by layer gives the containers of one run over every layer."""
-    first = parts[0]
-    if isinstance(first, dict):
-        return {k: stack_layers([p[k] for p in parts]) for k in first}
-    if isinstance(first, torch.Tensor):
-        return torch.cat(parts)
-    if first is None:
-        return None
+    leading layer axis of length 1), added one at a time: each leaf and
+    container field is written into its layer-stacked buffer on
+    ``device`` as its layer comes, so the parts never stand beside their
+    stack. Containers are padded to one nnz / nv as the packers pad them
+    (a visit list by its last visit repeated with zero blocks and
+    scales, ``pack.pad_block_list``; a PackedFFN by zero visits with jv
+    -1): the padded axis grows when a layer needs more than the layers
+    before it. Stacking the layers of ``deploy_packed`` run layer by
+    layer gives the containers of one run over every layer."""
 
-    def cat(name, n=None, dim=-1, value=0.0):
-        ts = [getattr(p, name) for p in parts]
-        if ts[0] is None:
+    def __init__(self, n_layers: int, device):
+        self.L, self.device, self.i = n_layers, device, 0
+        self.root = None
+
+    def add(self, part) -> None:
+        if self.i >= self.L:
+            raise IndexError(f"a stack of {self.L} layers is full")
+        self.root = self._add(self.root, part)
+        self.i += 1
+
+    def _buffer(self, t: torch.Tensor, n=None, dim=None) -> torch.Tensor:
+        shape = [self.L] + list(t.shape[1:])
+        if n is not None:
+            shape[dim % t.ndim] = n
+        return torch.empty(shape, dtype=t.dtype, device=self.device)
+
+    def _add(self, node, part):
+        if isinstance(part, dict):
+            node = {} if node is None else node
+            for k, v in part.items():
+                node[k] = self._add(node.get(k), v)
+            return node
+        if part is None:
             return None
-        return torch.cat(ts if n is None else
-                         [_pad_axis(t, n, dim, value) for t in ts])
+        if isinstance(part, torch.Tensor):
+            node = self._buffer(part) if node is None else node
+            node[self.i:self.i + 1].copy_(part)
+            return node
+        if isinstance(part, PackedSASPWeight):
+            pads, n = _W_PAD, part.nnz
+        elif isinstance(part, PackedFFN):
+            pads, n = _F_PAD, part.nv
+        else:
+            raise TypeError(f"LayerStack: {type(part).__name__}")
+        if node is None:
+            node = _Stacked(part, n)
+        if n > node.n:                          # grow the padded axis
+            for f, (dim, value) in pads.items():
+                old = node.bufs.get(f)
+                if old is None:
+                    continue
+                new = self._buffer(old, n, dim)
+                done = new[:self.i]
+                done.narrow(dim, 0, node.n).copy_(old[:self.i])
+                _pad_fill(done, dim, node.n, value)
+                node.bufs[f] = new
+            node.n = n
+        for fld in dataclasses.fields(part):
+            t = getattr(part, fld.name)
+            if not isinstance(t, torch.Tensor) or fld.name == "col_ptr":
+                continue
+            dim, value = pads.get(fld.name, (None, None))
+            buf = node.bufs.get(fld.name)
+            if buf is None:
+                buf = node.bufs[fld.name] = (
+                    self._buffer(t) if dim is None
+                    else self._buffer(t, node.n, dim))
+            dst = buf[self.i:self.i + 1]
+            if dim is None:
+                dst.copy_(t)
+            else:
+                dst.narrow(dim, 0, t.shape[dim]).copy_(t)
+                _pad_fill(dst, dim, t.shape[dim], value)
+        return node
 
-    if isinstance(first, PackedSASPWeight):
-        n = max(p.nnz for p in parts)
-        return dataclasses.replace(
-            first, vals=cat("vals", n, -3), kn=cat("kn", n, -1, None),
-            scale=cat("scale", n, -1),
-            bias=cat("bias"), col_ptr=None)
-    if isinstance(first, PackedFFN):
-        n = max(p.nv for p in parts)
-        return dataclasses.replace(
-            first, **{f: cat(f, n, -3) for f in ("w1v", "w3v", "w2v")},
-            **{f: cat(f, n, -2) for f in ("b1", "b3")},
-            **{f: cat(f, n, -1) for f in ("s1", "s3", "s2")},
-            jv=cat("jv", n, -1, -1), b2=cat("b2"))
-    raise TypeError(f"stack_layers: {type(first).__name__}")
+    def result(self):
+        """The stacked tree (every layer added)."""
+        if self.i != self.L:
+            raise ValueError(f"{self.i} of {self.L} layers added")
+        return self._result(self.root)
+
+    def _result(self, node):
+        if isinstance(node, dict):
+            return {k: self._result(v) for k, v in node.items()}
+        if not isinstance(node, _Stacked):
+            return node
+        first = node.first
+        kw = {f.name: node.bufs.get(f.name)
+              for f in dataclasses.fields(first)
+              if isinstance(getattr(first, f.name), torch.Tensor)}
+        if isinstance(first, PackedSASPWeight):
+            kw["col_ptr"] = None                # rebuilt from the stacked kn
+        return dataclasses.replace(first, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -58,11 +58,20 @@ def effective_blocks(shape: Tuple[int, int], bk: int, bn: int
 
 
 def tile_l1(w: torch.Tensor, bk: int, bn: int) -> torch.Tensor:
-    """L1 norm per (bk × bn) tile. w: (..., K, N) -> (..., KB, NB)."""
+    """L1 norm per (bk × bn) tile. w: (..., K, N) -> (..., KB, NB). Each
+    (K, N) matrix is summed alone: a reduction's order may depend on the
+    size of the batch it runs in, and a layer-stacked leaf must score as
+    its layers scored one at a time do (``build_rank_params``), or a
+    one-ulp difference could flip a near-tied tile."""
     *lead, K, N = w.shape
     KB, NB = K // bk, N // bn
-    wb = w.reshape(*lead, KB, bk, NB, bn).to(torch.float32).abs()
-    return wb.sum(dim=(-3, -1))
+    flat = w.detach().reshape(-1, K, N)
+    out = torch.empty((flat.shape[0], KB, NB), dtype=torch.float32,
+                      device=w.device)
+    for i in range(flat.shape[0]):
+        out[i] = flat[i].reshape(KB, bk, NB, bn).to(torch.float32).abs() \
+            .sum(dim=(1, 3))
+    return out.reshape(*lead, KB, NB)
 
 
 def apply_block_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -74,6 +83,15 @@ def apply_block_mask(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     wb = w.reshape(*lead, KB, bk, NB, bn)
     wb = wb * mask[..., :, None, :, None].to(w.dtype)
     return wb.reshape(*lead, K, N)
+
+
+def apply_block_mask_(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``apply_block_mask`` in place (the same bits); returns ``w``."""
+    *lead, K, N = w.shape
+    KB, NB = mask.shape[-2], mask.shape[-1]
+    w.view(*lead, KB, K // KB, NB, N // NB).mul_(
+        mask[..., :, None, :, None].to(w.dtype))
+    return w
 
 
 def default_ffn_predicate(path: Path) -> bool:

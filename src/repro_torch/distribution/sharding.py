@@ -16,10 +16,12 @@ cache's capacity axis over 'model'). PyTorch has no GSPMD: each rank
 here runs attention over its own heads — ``local_config`` gives it
 ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, so its
 caches and page pool hold only those heads and attention needs no
-collective; the only collectives are the reductions of the row-sharded
-projections and the fused FFN's d_ff shards. The embedding and the
-lm-head stay replicated in the port (the reference shards their vocab
-with the ``vocab`` rule; not ported, ROADMAP Queue 1 item 6c).
+collective; the collectives are the reductions of the row-sharded
+projections and the fused FFN's d_ff shards, and the vocab-sharded
+embedding and head: the reference's ``vocab`` rule puts the table's rows
+over 'model' (``cfg.vocab_shards``, ``vocab_config``), each rank gathers
+the ids in its rows and the ranks' rows are summed, and each rank's
+logits over its rows are all-gathered in vocab order (``models.lm``).
 """
 from __future__ import annotations
 
@@ -43,11 +45,11 @@ def _maybe(dim: int, sizes: Dict[str, int], axis: str) -> Optional[str]:
 
 def param_rules():
     """(regex on the leaf's path, spec builder fn(shape, sizes)); the
-    first match wins. ``sizes`` maps axis names to their sizes. Only the
-    attention rules: the rest of a rank's tree is packed containers
-    (``packed_sharding``) or replicated. The reference's vocab, expert,
-    shared-FFN and SSM rules come with the slices that shard those
-    leaves (ROADMAP Queue 1 items 6c, 6f)."""
+    first match wins. ``sizes`` maps axis names to their sizes. The
+    reference's vocab and attention rules: the rest of a rank's tree is
+    packed containers (``packed_sharding``) or replicated. Its expert,
+    shared-FFN and SSM rules come with the slice that shards those leaves
+    (ROADMAP Queue 1 item 6f)."""
     def col(shape, sizes):     # (..., d_in, d_out): d_out over 'model'
         return (None,) * (len(shape) - 1) + (
             _maybe(shape[-1], sizes, "model"),)
@@ -56,10 +58,14 @@ def param_rules():
         return (None,) * (len(shape) - 2) + (
             _maybe(shape[-2], sizes, "model"), None)
 
+    def vocab(shape, sizes):   # (V, d) embedding / head table
+        return (_maybe(shape[-2], sizes, "model"), None)
+
     def repl(shape, sizes):
         return (None,) * len(shape)
 
     return [
+        (r"(embed|lm_head)/emb$", vocab),
         (r"mixer/(wq|wk|wv)/(w|b)$", col),
         (r"mixer/wo/w$", row),
         (r".*", repl),
@@ -74,6 +80,17 @@ def spec_for_param(path: Tuple, shape: Tuple[int, ...],
         if re.search(pat, s):
             return tuple(fn(shape, sizes))
     return (None,) * len(shape)
+
+
+def vocab_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """``cfg`` with the vocab split of a TP deployment at ``tp``: the
+    table's rows in ``tp`` shards where the ``vocab`` rule shards them
+    (V divides), else whole. A meshless shard loop serving a tree packed
+    at ``tp`` computes the head shard by shard, as the mesh's ranks do."""
+    spec = spec_for_param(("embed", "emb"), (cfg.vocab_size, cfg.d_model),
+                          {"model": tp})
+    return dataclasses.replace(
+        cfg, vocab_shards=tp if tp > 1 and spec[0] == "model" else 1)
 
 
 def axis_at(rank: int, from_end: int, axis: str) -> Spec:
@@ -121,11 +138,13 @@ def take_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int
     return t.contiguous().clone()
 
 
-def _local_container(node, rank: int, tp: int):
+def _local_container(node, rank: Optional[int], tp: int):
     if node.shards != tp:
         raise ValueError(
             f"a container with {node.shards} shards on a mesh of model "
             f"size {tp}: reshard_packed it to {tp} first")
+    if rank is None:
+        return node
     return dataclasses.replace(node, **{
         f: take_slice(getattr(node, f), spec, rank, tp)
         for f, spec in packed_sharding(node).items()})
@@ -143,8 +162,8 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
                                head_dim=cfg.attn_head_dim)
 
 
-def _local_group(node: Params, group: str, names, rank: int, tp: int,
-                 what: str) -> Params:
+def _local_group(node: Params, group: str, names, rank: Optional[int],
+                 tp: int, what: str) -> Params:
     """A mixer / FFN dict with its packed group localised and the dense
     matrices it replaces dropped."""
     grp = node[group]
@@ -164,20 +183,28 @@ def _local_group(node: Params, group: str, names, rank: int, tp: int,
     return out
 
 
-def local_params(params: Params, cfg: ModelConfig, tp: int, rank: int
-                 ) -> Params:
+def local_params(params: Params, cfg: ModelConfig, tp: int,
+                 rank: Optional[int]) -> Params:
     """Model rank ``rank``'s tree of a packed deployment at ``tp``
     (``deploy_packed(..., tp=tp)`` or ``reshard_packed``): each sharded
     container keeps only shard ``rank`` (its shard axis at length 1),
     the dense matrices a container replaces are dropped, the other dense
     attention leaves are sliced by ``param_rules`` (scope ffn: wq/wk/wv
-    by columns, wo by rows), and the embedding, head and norms stay
-    whole. Serve it with ``local_config(cfg, tp)``."""
+    by columns, wo by rows), the embedding and head table keeps the
+    rank's V/tp rows where ``cfg.vocab_shards`` is tp (``vocab_config``),
+    and the norms stay whole. Serve it with ``local_config(cfg, tp)``.
+    ``rank`` None keeps every shard and the whole table (the shard loop's
+    tree without the dense matrices)."""
     if cfg.moe is not None or any(k != MIXER_ATTN
                                   for k in cfg.layer_mixer_kinds()):
         raise ValueError(
             "MoE and SSM layers on a mesh (distribution/moe_ep.py, the "
             "SSD mesh pins) are not ported: ROADMAP Queue 1 item 6f")
+    if tp > 1 and cfg.vocab_shards != vocab_config(cfg, tp).vocab_shards:
+        raise ValueError(
+            f"cfg.vocab_shards {cfg.vocab_shards} is not the vocab split at "
+            f"tp={tp}: serve a config from deploy_packed(tp=) or "
+            f"vocab_config")
     sizes = {"model": tp}
     segs = []
     for si, seg in enumerate(params["segments"]):
@@ -209,10 +236,16 @@ def local_params(params: Params, cfg: ModelConfig, tp: int, rank: int
         segs.append(new_seg)
     out = dict(params)
     out["segments"] = tuple(segs)
+    if cfg.vocab_shards > 1:
+        for top in ("embed", "lm_head"):
+            if top in params:
+                out[top] = _slice_tree(params[top], (top,), sizes, rank, tp)
     return out
 
 
 def _slice_tree(node, path, sizes, rank, tp):
+    if rank is None:
+        return node
     if isinstance(node, dict):
         return {k: _slice_tree(v, path + (k,), sizes, rank, tp)
                 for k, v in node.items()}

@@ -45,20 +45,33 @@ the latest checkpoint in DIR (written by ``repro_torch.launch.train`` or
 the reference's trainer; the config flags must match the trained model's
 shapes).
 
+``--path packed`` at a sparsity above 0 builds the model layer by layer
+(``build_rank_params`` at tp 1): each layer is drawn from its own
+generators (or read from ``--ckpt-dir``) alone, scored, then drawn again,
+pruned, packed and cast before the next, so one card holds the packed
+model and one layer's masters, not the whole fp32 tree: qwen3-32b serves
+at all 64 layers with ``--no-reduce``. MoE and SSM stacks, ``--sasp 0``,
+a drafter (``--draft-sparsity`` re-prunes the dense masters) and the
+dense, masked, bsr and kernel paths build the whole fp32 tree first (64
+layers of qwen3-32b hold 31.2 B weights, 4 bytes each).
+
 ``--mesh DP,TP`` serves tensor-parallel (``--path packed`` only; with
 ``--sasp 0`` the visit lists keep every tile): the launcher spawns TP
 processes, each a model rank joined by ``torch.distributed`` (file-store
-rendezvous under ``build/mesh``). Every rank draws the same params from
-the seed and builds its own tree layer by layer (``build_rank_params``):
-each layer is pruned, packed into TP-sharded visit lists and cut to the
-rank's shard before the next is drawn, so a card holds its rank's tree
-and one layer's masters, not the model. Model rank 0 samples and
-broadcasts the tokens, and prints. Transport: gloo on the CPU
-(``--device cpu``), nccl where each rank has its own card, gloo staged
-through the host where ranks share one. Not ported, each refused with a
-message naming its ROADMAP item (Queue 1 item 6b-6h): DP > 1 and
+rendezvous under ``build/mesh``). Every rank takes the same params, from
+the seed or from ``--ckpt-dir``, and builds its own tree layer by layer
+(``build_rank_params``): each layer is pruned, packed into TP-sharded
+visit lists and cut to the rank's shard before the next is taken, and
+the embedding / head table keeps the rank's V/TP rows, so a card holds
+its rank's tree and one layer's masters, not the model. Model rank 0
+samples and broadcasts the tokens, prints, streams (``--stream``; every
+rank steps the same loop), and alone writes ``--trace-out`` and
+``--metrics-dump`` and runs ``--metrics-interval``. Transport: gloo on
+the CPU (``--device cpu``), nccl where each rank has its own card, gloo
+staged through the host where ranks share one. Not ported, each refused
+with a message naming its ROADMAP item (Queue 1 item 6b-6f): DP > 1 and
 ``--mesh`` with ``--scheduler`` / ``--hosts``, a drafter, any other
-path, MoE and SSM stacks, ``--ckpt-dir``.
+path, MoE and SSM stacks.
 """
 from __future__ import annotations
 
@@ -218,13 +231,14 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
     ready for the Engine. ``mesh`` / ``tp``: TP-shard the packed visit
     lists over the mesh's 'model' axis, or into ``tp`` shards (packed
     path only; the tree holds every shard, ``distribution.sharding.
-    local_params`` takes a rank's); TP serves from visit lists, so at
-    ``sparsity`` 0 they keep every tile."""
+    local_params`` takes a rank's); a TP deployment (``tp`` 1 too)
+    serves from visit lists, so at ``sparsity`` 0 they keep every
+    tile."""
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
     if _masked_int8_all(path, int8_weights, scope, sparsity):
         raise ValueError(MASKED_INT8_ALL)
-    sharded = mesh is not None or (tp or 1) > 1
+    sharded = path == "packed" and (mesh is not None or tp is not None)
     if path == "dense" or (sparsity <= 0 and not sharded):
         return params, cfg
     sasp = SASPConfig(enabled=True, block_k=block_k, block_n=block_n,
@@ -467,15 +481,6 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
     elif args.draft_sparsity is not None:
         refuse = (f"--mesh with --draft-sparsity (a drafter sharded by "
                   f"reshard_packed) is not ported: {MESH_ITEM}d")
-    elif args.ckpt_dir:
-        refuse = (f"--mesh with --ckpt-dir (each rank restoring the "
-                  f"checkpoint layer by layer, as it builds from the seed) "
-                  f"is not ported: {MESH_ITEM}h")
-    elif (args.stream or args.trace_out or args.metrics_dump
-          or args.metrics_interval):
-        refuse = ("--mesh serves its requests to completion and prints "
-                  "rank 0's summary: --stream, --trace-out, --metrics-dump "
-                  "and --metrics-interval are not served on a mesh")
     elif args.path != "packed":
         refuse = (f"--mesh serves --path packed only; the other paths "
                   f"under TP are not ported: {MESH_ITEM}e")
@@ -545,13 +550,21 @@ def main(argv=None):
         serve_mesh(mesh_spec(args, buckets))
         return
     cfg = model_config(args)
-    with torch.no_grad():
-        params = lm.init_params(cfg, seed=0, device=args.device)
-        if args.ckpt_dir:
-            params = restore_params(args.ckpt_dir, params)
-        params, cfg = build_serving_params(
-            params, cfg, path=args.path, sparsity=args.sasp,
-            int8_weights=args.int8_weights, scope=args.scope)
+    if (args.path == "packed" and args.sasp > 0 and _layer_built(cfg)
+            and args.draft_sparsity is None):
+        # layer by layer: the card holds the packed model, not its masters
+        params, cfg, _ = build_rank_params(
+            cfg, tp=1, rank=0, device=args.device, sparsity=args.sasp,
+            scope=args.scope, int8_weights=args.int8_weights,
+            ckpt_dir=args.ckpt_dir, verbose=True)
+    else:
+        with torch.no_grad():
+            params = lm.init_params(cfg, seed=0, device=args.device)
+            if args.ckpt_dir:
+                params = restore_params(args.ckpt_dir, params)
+            params, cfg = build_serving_params(
+                params, cfg, path=args.path, sparsity=args.sasp,
+                int8_weights=args.int8_weights, scope=args.scope)
     reqs = synthetic_requests(args.requests, cfg.vocab_size, args.max_new,
                               args.temperature, args.eos_id,
                               args.interactive_every)
@@ -670,6 +683,13 @@ def main(argv=None):
 # ---------------------------------------------------------------------------
 
 
+def _layer_built(cfg) -> bool:
+    """Attention and dense-FFN layers only: what ``build_rank_params``
+    takes one layer at a time."""
+    return cfg.moe is None and all(k == MIXER_ATTN
+                                   for k in cfg.layer_mixer_kinds())
+
+
 def model_config(args):
     """The config the flags name: ``--arch``, cut by ``--reduce``, with
     ``--int8-kv``."""
@@ -684,14 +704,18 @@ def model_config(args):
 def mesh_spec(args, buckets=None) -> dict:
     """What every model rank of a ``--mesh`` run serves, from the flags:
     the mesh's (DP, TP), the model's config, ``build_rank_params``'
-    options (``build``), the synthetic requests and the engine's
-    options."""
+    options (``build``: the seed or the checkpoint), the synthetic
+    requests, the engine's options and model rank 0's outputs
+    (``serve``: streaming, the trace, the metrics)."""
     return dict(
         mesh=args.mesh, cfg=model_config(args), device=args.device,
         build=dict(seed=0, sparsity=args.sasp, scope=args.scope,
-                   int8_weights=args.int8_weights),
+                   int8_weights=args.int8_weights, ckpt_dir=args.ckpt_dir),
         requests=dict(n=args.requests, max_new=args.max_new,
                       temperature=args.temperature, eos_id=args.eos_id),
+        serve=dict(stream=args.stream, trace_out=args.trace_out,
+                   metrics_dump=args.metrics_dump,
+                   metrics_interval=args.metrics_interval),
         engine=dict(batch_slots=args.slots, cache_len=args.cache_len,
                     buckets=buckets, kv_pages=args.kv_pages,
                     kv_page_len=args.kv_page_len,
@@ -749,12 +773,17 @@ def join_mesh(rank: int, spec: dict, init_file: str, backend=None):
 
 def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     """One model rank of a ``--mesh`` run: join the mesh, build this
-    rank's tree (``build_rank_params``), serve the requests; model rank 0
-    prints. Returns the streams, the transport and the seconds to build
-    and to serve."""
+    rank's tree (``build_rank_params``), serve the requests. Every rank
+    steps the same loop (``Engine.stream`` under ``--stream``), so the
+    ranks never part; model rank 0 alone prints, streams tokens, owns the
+    tracer and the metrics registry, writes the trace and the Prometheus
+    dump and runs the interval reporter. Returns the streams, the
+    transport, the seconds to build and to serve, and the files this
+    rank wrote."""
     mesh = join_mesh(rank, spec, init_file)
     dp, tp = spec["mesh"]
     lead = mesh.model_rank == 0
+    opts = spec.get("serve") or {}
     t0 = time.perf_counter()
     params, cfg, lcfg = build_rank_params(
         spec["cfg"], tp=tp, rank=mesh.model_rank, device=mesh.device,
@@ -763,14 +792,33 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     if lead:
         print(f"mesh: {mesh.shape} over {dp * tp} processes, transport "
               f"{mesh.transport}; rank heads {lcfg.num_heads}/"
-              f"{lcfg.num_kv_heads} of {cfg.num_heads}/{cfg.num_kv_heads}; "
-              f"build {build_s:.1f} s", flush=True)
-    eng = Engine(params, lcfg, mesh=mesh, **spec["engine"])
+              f"{lcfg.num_kv_heads} of {cfg.num_heads}/{cfg.num_kv_heads}, "
+              f"vocab rows {params['embed']['emb'].shape[0]} of "
+              f"{cfg.vocab_size}; build {build_s:.1f} s", flush=True)
+    tel = Telemetry(trace=bool(opts.get("trace_out"))) if lead else None
+    eng = Engine(params, lcfg, mesh=mesh, telemetry=tel, **spec["engine"])
+    stop_rep = start_metrics_reporter(
+        lambda: eng.telemetry.registry.summary()["counters"],
+        opts.get("metrics_interval", 0.0) if lead else 0.0)
+    reqs = mesh_requests(spec, cfg.vocab_size)
     t0 = time.perf_counter()
-    done = eng.run(mesh_requests(spec, cfg.vocab_size))
+    if opts.get("stream"):
+        n = 0
+        for rid, tok in eng.stream(reqs):
+            if lead and n < 12:
+                print(f"  stream: req {rid} += {tok}", flush=True)
+            n += 1
+        if lead:
+            print(f"  … streamed {n} tokens incrementally", flush=True)
+        done = [r for r in reqs if r.done]
+    else:
+        done = eng.run(reqs)
     _sync(params)
     dt = time.perf_counter() - t0
+    stop_rep.set()
     streams = {r.rid: [int(t) for t in r.out_tokens] for r in done}
+    out = dict(rank=rank, transport=mesh.transport, build_s=build_s,
+               serve_s=dt, streams=streams, wrote=[])
     if lead:
         toks = sum(len(s) for s in streams.values())
         print(f"{len(done)} requests, {toks} tokens in {dt:.1f}s "
@@ -778,82 +826,180 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
               flush=True)
         for rid in sorted(streams)[:3]:
             print(f"  req {rid} -> {streams[rid][:10]}…", flush=True)
-    return dict(rank=rank, transport=mesh.transport, build_s=build_s,
-                serve_s=dt, streams=streams)
+        if opts.get("trace_out"):
+            n_ev = eng.telemetry.write_trace(opts["trace_out"])
+            print(f"trace: {n_ev} events -> {opts['trace_out']} (model "
+                  f"rank 0)", flush=True)
+            out["wrote"].append(opts["trace_out"])
+        if opts.get("metrics_dump"):
+            with open(opts["metrics_dump"], "w", encoding="utf-8") as fh:
+                fh.write(eng.telemetry.prometheus())
+            print(f"metrics -> {opts['metrics_dump']} (model rank 0)",
+                  flush=True)
+            out["wrote"].append(opts["metrics_dump"])
+    return out
 
 
-def build_rank_params(cfg, *, tp: int, rank: int, device, seed: int = 0,
-                      sparsity: float, scope: str = "ffn",
+def _seed_source(cfg, seed: int, device):
+    """(top, layer(si, i)) of the params ``lm.init_params`` draws from
+    ``seed``: the embedding, final norm and head, and layer ``i`` of
+    segment ``si`` drawn alone (``lm.init_layer``)."""
+    return (lm.init_top(cfg, seed=seed, device=device),
+            lambda si, i: lm.init_layer(cfg, si, i, seed=seed, device=device))
+
+
+def _ckpt_source(cfg, ckpt_dir: str, device):
+    """(top, layer(si, i)) of the params of the latest checkpoint in
+    ``ckpt_dir`` (either package's format), each leaf in the param type
+    on ``device`` as ``restore_params`` gives it: the top leaves read
+    whole, layer ``i`` of each stacked leaf read alone
+    (``CheckpointReader.layer``), so the host holds one layer."""
+    reader = CheckpointManager(ckpt_dir).reader()
+    dt = as_dtype(cfg.param_dtype)
+    plan = lm.segment_plan(cfg)
+    names = [n for n in reader.names() if n.startswith("params/")]
+    if not names:
+        raise KeyError(f"checkpoint step {reader.step} in {ckpt_dir} holds "
+                       f"no params")
+
+    def tree(leaves):
+        out: dict = {}
+        for keys, t in leaves:
+            node = out
+            for k in keys[:-1]:
+                node = node.setdefault(k, {})
+            node[keys[-1]] = t.to(device=device, dtype=dt)
+        return out
+
+    def layer(si, i):
+        prefix = f"params/segments/{si}/"
+        mine = [n for n in names if n.startswith(prefix)]
+        for n in mine:
+            if reader.shape(n)[0] != plan[si][1]:
+                raise ValueError(
+                    f"{n!r} holds {reader.shape(n)[0]} layers, the model's "
+                    f"segment {si} {plan[si][1]}")
+        return tree((n[len(prefix):].split("/"), reader.layer(n, i))
+                    for n in mine)
+
+    top = tree((n[len("params/"):].split("/"), reader.leaf(n))
+               for n in names if not n.startswith("params/segments/"))
+    print(f"restored step {reader.step} from {ckpt_dir} (layer by layer)")
+    return top, layer
+
+
+def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
+                      seed: int = 0, sparsity: float, scope: str = "ffn",
                       int8_weights: bool = False, prepare=None,
+                      ckpt_dir: Optional[str] = None,
                       verbose: bool = False):
     """Model rank ``rank``'s tree of the packed TP deployment, built layer
     by layer. It equals ``distribution.sharding.local_params`` of
-    ``build_serving_params(lm.init_params(cfg, seed=seed), cfg,
-    path="packed", tp=tp, ...)``, but the device never holds more than
-    the rank's tree, the replicated embedding and head, one layer's
-    masters and the stacked leaf being drawn. A first pass draws the
-    model leaf by leaf and keeps each prunable matrix's tile scores (the
-    global SASP selection reads them all); then, for each layer, the
-    draw is repeated keeping only that layer, which is pruned, packed
-    into ``tp`` shards (numpy, as ``deploy_packed`` packs) and cut to
-    this rank's shard. ``prepare(path, leaf)``, where given, changes a
-    stacked leaf as it is drawn, before pruning. Returns ``(params, cfg',
+    ``build_serving_params(params, cfg, path="packed", tp=tp, ...)``,
+    where ``params`` are ``lm.init_params(cfg, seed=seed)`` or, with
+    ``ckpt_dir``, the latest checkpoint's there, but neither the host nor
+    the device ever holds the model: a first pass takes each layer alone
+    (drawn from its own generators, or read from the checkpoint) and
+    keeps only its prunable matrices' tile scores (the global SASP
+    selection reads them all, in the whole tree's leaf order); a second
+    pass takes each layer alone again, prunes it with its slice of the
+    global masks, packs it into ``tp`` shards, cuts it to the rank's
+    shard and casts it, and writes it into the layer-stacked tree
+    (``core.deploy.LayerStack``). The device holds the rank's tree, the
+    table, and one layer's masters, their pruned copy and its packing.
+    ``prepare(path, leaf)``, where given, changes each one-layer leaf as
+    it is taken, before scoring and pruning. ``rank`` None keeps every
+    shard (the shard loop's tree, without the dense matrices). ``tp`` 1
+    and ``rank`` 0 is one card's packed model. Returns ``(params, cfg',
     lcfg)``: the tree, the deployed config and the rank's local config."""
-    from repro_torch.core.deploy import (cast_packed_values, deploy_packed,
-                                         stack_layers)
-    from repro_torch.core.pruning import (apply_block_mask, iter_leaves,
-                                          masks_from_scores, prunable_blocks,
-                                          scope_predicate, tile_l1)
-    from repro_torch.distribution.sharding import local_config, local_params
+    from repro_torch.core.deploy import (LayerStack, cast_packed_values,
+                                         deploy_packed)
+    from repro_torch.core.pruning import (apply_block_mask_, iter_leaves,
+                                          map_leaves, masks_from_scores,
+                                          prunable_blocks, scope_predicate,
+                                          tile_l1)
+    from repro_torch.distribution.sharding import (local_config,
+                                                   local_params,
+                                                   vocab_config)
     sasp = SASPConfig(enabled=True, block_k=32, block_n=32,
                       sparsity=sparsity, scope=scope, quantize=int8_weights)
     cfg = dataclasses.replace(cfg, sasp=sasp)
     pred = scope_predicate(sasp)
     prep = prepare or (lambda path, t: t)
     cdt = as_dtype(cfg.compute_dtype)
+    plan = lm.segment_plan(cfg)
 
-    def scores(path, t):
-        if path[0] != "segments":
-            return t                    # replicated, kept whole
-        t = prep(path, t)
-        blocks = prunable_blocks(path, t, sasp, pred)
-        return None if blocks is None else tile_l1(t, *blocks)
+    secs = dict.fromkeys(("scoring", "packing", "stacking"), 0.0)
+
+    def clock(part, t0):
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        secs[part] += now - t0
+        return now
 
     with torch.no_grad():
-        whole = lm.init_params(cfg, seed=seed, device=device,
-                               leaf_fn=scores)
-        masks = masks_from_scores(
-            list(iter_leaves(whole.pop("segments"), ("segments",))),
-            sparsity)
-        segs = []
-        for si, (_, repeat) in enumerate(lm.segment_plan(cfg)):
-            layers = []
-            for i in range(repeat):
-                def one(path, t, si=si, i=i):
-                    if path[:2] != ("segments", si):
-                        return None
-                    t = prep(path, t)[i:i + 1]
-                    m = masks.get(path)
-                    return t.clone() if m is None else \
-                        apply_block_mask(t, m[i:i + 1])
+        t0 = time.perf_counter()
+        top, layer_at = (_seed_source(cfg, seed, device) if ckpt_dir is None
+                         else _ckpt_source(cfg, ckpt_dir, device))
 
-                part = lm.init_params(cfg, seed=seed, device=device,
-                                      leaf_fn=one)
-                tree, dcfg = deploy_packed(
-                    dict(whole, segments=(part["segments"][si],)), cfg,
-                    tp=tp)
-                del part
-                local = local_params(tree, dcfg, tp, rank)["segments"][0]
+        def taken(si, i):
+            """Layer i of segment si, prepared, keyed from the root."""
+            return map_leaves(prep, layer_at(si, i), ("segments", si))
+
+        # pass 1: every prunable matrix's tile scores, layer by layer,
+        # assembled (L, KB, NB) in the whole tree's leaf order
+        scores: dict = {}
+        for si, (_, repeat) in enumerate(plan):
+            for i in range(repeat):
+                for path, t in iter_leaves(taken(si, i), ("segments", si)):
+                    blocks = prunable_blocks(path, t, sasp, pred)
+                    if blocks is not None:
+                        scores.setdefault(path, []).append(
+                            tile_l1(t, *blocks))
+        masks = masks_from_scores(
+            [(path, torch.cat(s)) for path, s in scores.items()], sparsity)
+        del scores
+        t0 = clock("scoring", t0)
+        # pass 2: each layer pruned, packed into tp shards, cut and cast
+        segs = []
+        for si, (_, repeat) in enumerate(plan):
+            stack = LayerStack(repeat, device)
+            for i in range(repeat):
+                # the layer is a fresh draw or read: prune it in place
+                seg = map_leaves(
+                    lambda path, t, i=i: apply_block_mask_(
+                        t, masks[path][i:i + 1]) if path in masks else t,
+                    taken(si, i), ("segments", si))
+                tree, dcfg = deploy_packed(dict(top, segments=(seg,)), cfg,
+                                           tp=tp)
+                del seg
+                local = local_params({"segments": tree["segments"]}, dcfg,
+                                     tp, rank)["segments"][0]
                 del tree
-                layers.append(local if cdt == torch.float32
-                              else cast_packed_values(local, cdt))
-            segs.append(stack_layers(layers))
+                if cdt != torch.float32:
+                    local = cast_packed_values(local, cdt)
+                t0 = clock("packing", t0)
+                stack.add(local)        # written into the layer stack
+                del local
+                t0 = clock("stacking", t0)
+            segs.append(stack.result())
+        dcfg = vocab_config(dcfg, tp)
+        top = local_params(dict(top, segments=()), dcfg, tp, rank)
     if verbose:
+        who = "every shard kept" if rank is None else \
+            f"rank {rank} keeps its shard"
         print(f"SASP deployed: {sparsity:.0%} tile sparsity, scope "
               f"{scope}, {cfg.num_layers} layers packed one at a time into "
-              f"{tp}-way shard-local visit lists; rank {rank} keeps its "
-              f"shard")
-    return dict(whole, segments=tuple(segs)), dcfg, local_config(dcfg, tp)
+              f"{tp}-way shard-local visit lists ({dcfg.vocab_shards} "
+              f"vocab shards); {who}; seconds: "
+              f"{ {k: round(v, 2) for k, v in secs.items()} }")
+        from repro_torch.core.deploy import packed_summary
+        sm = packed_summary(segs)
+        print(f"packed: {sm['n_packed_matrices']} matrices + "
+              f"{sm['n_fused_ffns']} fused FFNs, {sm['compression']:.2f}x "
+              f"dense bytes")
+    return dict(top, segments=tuple(segs)), dcfg, local_config(dcfg, tp)
 
 
 def _sync(params):

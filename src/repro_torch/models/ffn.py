@@ -44,22 +44,26 @@ from repro_torch.models.modules import act_fn, as_dtype
 
 def ffn_init(gen: torch.Generator, cfg: ModelConfig, *, layers: int,
              device, out_scale: float, d_ff: Optional[int] = None,
-             keep=None) -> Dict:
-    """Layer-stacked (layers, …) gated-FFN params from ``gen``; w2 is
-    drawn at ``out_scale``. ``keep(path, leaf)``: what the tree keeps of
-    each leaf as it is drawn (``lm.init_params``'s ``leaf_fn``)."""
+             draw=None) -> Dict:
+    """Layer-stacked (layers, …) gated-FFN params; w2 is drawn at
+    ``out_scale``. ``draw(name, shape, scale)``, where given, makes each
+    matrix's stack (``lm.init_params`` draws a dense FFN layer by layer);
+    otherwise each stack comes whole from ``gen`` (the MoE shared
+    FFN)."""
     dt = as_dtype(cfg.param_dtype)
     d, f = cfg.d_model, d_ff or cfg.d_ff
 
     def normal(name, shape, scale):
-        w = (torch.randn(shape, generator=gen, device=device,
-                         dtype=torch.float32) * scale).to(dt)
-        return {"w": w if keep is None else keep((name, "w"), w)}
+        if draw is not None:
+            return {"w": draw(name, shape, scale)}
+        return {"w": (torch.randn((layers,) + shape, generator=gen,
+                                  device=device, dtype=torch.float32)
+                      * scale).to(dt)}
 
-    p = {"w1": normal("w1", (layers, d, f), 0.02),
-         "w2": normal("w2", (layers, f, d), out_scale)}
+    p = {"w1": normal("w1", (d, f), 0.02),
+         "w2": normal("w2", (f, d), out_scale)}
     if cfg.ffn_gated:
-        p["w3"] = normal("w3", (layers, d, f), 0.02)
+        p["w3"] = normal("w3", (d, f), 0.02)
     return p
 
 

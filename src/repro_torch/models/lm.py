@@ -9,8 +9,10 @@ dispatch is not ported, ROADMAP Queue 1 item 6f), as its ``LayerSpec``
 says; the full
 walk sums the MoE aux loss. ``embeds`` replace the token embedding (the
 audio / VLM stub frontends). Under an active mesh (``distribution.
-context``) the walk is unchanged: the embedding, the final norm and the
-head are replicated on every rank, and the projections and FFNs route
+context``) the walk is unchanged: the final norm is replicated on every
+rank, the embedding and head follow ``cfg.vocab_shards`` (each rank
+holds one row shard of the table: its ids gathered and summed over the
+ranks, its logits all-gathered), and the projections and FFNs route
 themselves by their containers' shards (``models.ffn``); the batch is
 not split while DP is 1.
 
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import functools
 import math
+import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -88,23 +91,54 @@ def segment_plan(cfg: ModelConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 
 
-def _keep_all(path, leaf):
-    return leaf
+def layer_seed(seed: int, path, layer: int) -> int:
+    """The seed of layer ``layer`` of the stacked leaf at ``path``: a
+    CRC-32 of ``seed/path/layer``, the same in every process (Python's
+    ``hash`` of a string is salted per process, so spawned mesh ranks
+    would draw different weights from it)."""
+    key = "/".join(str(k) for k in path)
+    return zlib.crc32(f"{seed}/{key}/{layer}".encode())
 
 
-def _attn_init(gen, cfg: ModelConfig, layers: int, device,
-               out_scale: float, keep=_keep_all) -> Dict:
+def draw_layer(path, layer: int, shape, scale: float, *, seed: int,
+               device, dtype) -> torch.Tensor:
+    """Layer ``layer`` of the stacked matrix at ``path``, drawn alone from
+    its own generator (``layer_seed``): fp32 normals, times ``scale`` in
+    place, cast to ``dtype``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(layer_seed(seed, path, layer))
+    w = torch.randn(tuple(shape), generator=gen, device=device,
+                    dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def _layer_draws(prefix, layers, *, seed: int, device, dtype):
+    """``make(name, shape, scale)``: the (len(layers), *shape) stack of
+    the matrix ``prefix + (name, "w")``, each layer drawn alone and
+    written into its slice of the stack."""
+    def make(name, shape, scale):
+        path = prefix + (name, "w")
+        out = torch.empty((len(layers),) + tuple(shape), dtype=dtype,
+                          device=device)
+        for j, i in enumerate(layers):
+            out[j] = draw_layer(path, i, shape, scale, seed=seed,
+                                device=device, dtype=dtype)
+        return out
+    return make
+
+
+def _attn_init(cfg: ModelConfig, layers: int, device, out_scale: float,
+               draw) -> Dict:
+    """Layer-stacked attention params; ``draw(name, shape, scale)`` makes
+    each projection's stack (``_layer_draws``)."""
     dt = as_dtype(cfg.param_dtype)
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.attn_head_dim
 
     def dense(name, d_in, d_out, scale=0.02, bias=False):
-        w = torch.randn((layers, d_in, d_out), generator=gen, device=device,
-                        dtype=torch.float32) * scale
-        p = {"w": keep((name, "w"), w.to(dt))}
+        p = {"w": draw(name, (d_in, d_out), scale)}
         if bias:
-            p["b"] = keep((name, "b"), torch.zeros(
-                (layers, d_out), dtype=dt, device=device))
+            p["b"] = torch.zeros((layers, d_out), dtype=dt, device=device)
         return p
 
     p = {"wq": dense("wq", d, h * hd, bias=cfg.qkv_bias),
@@ -113,74 +147,102 @@ def _attn_init(gen, cfg: ModelConfig, layers: int, device,
          "wo": dense("wo", h * hd, d, scale=out_scale)}
     if cfg.qk_norm:
         for name in ("q_norm", "k_norm"):
-            p[name] = keep((name,), torch.ones((layers, hd), dtype=dt,
-                                               device=device))
+            p[name] = torch.ones((layers, hd), dtype=dt, device=device)
     return p
 
 
+def _out_scale(cfg: ModelConfig) -> float:
+    return 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
+
+
+def _init_top(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
+    """The embedding, final norm and (untied) head, drawn first from
+    ``gen``."""
+    dt = as_dtype(cfg.param_dtype)
+    d = cfg.d_model
+    def table():
+        return torch.randn((cfg.vocab_size, d), generator=gen,
+                           device=device).mul_(0.02).to(dt)
+
+    top: Dict[str, Any] = {
+        "embed": {"emb": table()},
+        "final_norm": {"scale": torch.ones((d,), dtype=dt, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        top["lm_head"] = {"emb": table()}
+    return top
+
+
+def _init_segment(cfg: ModelConfig, si: int, pattern, layers, gen,
+                  seed: int, device) -> Dict:
+    """Segment ``si``'s slots at the layer indices ``layers`` (stacked
+    in that order): attention and dense-FFN matrices drawn layer by layer
+    (``draw_layer``), SSM and MoE stacks whole from ``gen``."""
+    dt = as_dtype(cfg.param_dtype)
+    d, n = cfg.d_model, len(layers)
+    kw = dict(layers=n, device=device, out_scale=_out_scale(cfg))
+    seg = {}
+    for slot, (mixer, _, ffn_kind) in enumerate(pattern):
+        prefix = ("segments", si, f"slot{slot}")
+        draws = dict(seed=seed, device=device, dtype=dt)
+        seg[f"slot{slot}"] = {
+            "norm1": {"scale": torch.ones((n, d), dtype=dt, device=device)},
+            "norm2": {"scale": torch.ones((n, d), dtype=dt, device=device)},
+            "mixer": (_attn_init(cfg, n, device, kw["out_scale"],
+                                 _layer_draws(prefix + ("mixer",), layers,
+                                              **draws))
+                      if mixer == MIXER_ATTN
+                      else ssm_mod.ssm_init(gen, cfg, **kw)),
+            "ffn": (moe_mod.moe_init(gen, cfg, **kw)
+                    if ffn_kind == FFN_MOE
+                    else ffn_mod.ffn_init(
+                        gen, cfg, draw=_layer_draws(prefix + ("ffn",),
+                                                    layers, **draws),
+                        **kw)),
+        }
+    return seg
+
+
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device="cuda", leaf_fn=None) -> Dict:
+                device="cuda") -> Dict:
     """Random params in the reference layout and at its scales (wo,
     out_proj and every w2 at 0.02 / sqrt(2 L), every other projection at
     0.02; the SSM's and the router's own leaves as the reference draws
-    them), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device``. (The numbers differ from the reference's PRNG; tests
-    bridge the reference's params instead.)
-
-    ``leaf_fn(path, leaf)``, where given, sees every leaf as it is made,
-    with its path in the tree, and returns what the tree keeps there
-    (None drops it): a caller that needs a few layers of a model it
-    cannot hold whole still draws the whole sequence, one leaf at a time
-    (attention and dense-FFN stacks)."""
-    if leaf_fn is not None and (cfg.moe is not None or any(
-            k != MIXER_ATTN for k in cfg.layer_mixer_kinds())):
-        raise ValueError("init_params(leaf_fn=) draws attention and "
-                         "dense-FFN stacks only")
-    keep = leaf_fn or _keep_all
-    dt = as_dtype(cfg.param_dtype)
+    them) on ``device``. The embedding and head, then the SSM and MoE
+    stacks, come in order from one ``torch.Generator`` seeded with
+    ``seed``; each layer of an attention or dense-FFN matrix from its own
+    (``draw_layer``), so that :func:`init_layer` can draw one layer
+    alone. (The numbers differ from the reference's PRNG; tests bridge
+    the reference's params instead.)"""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d = cfg.d_model
-    out_scale = 0.02 / max(1.0, (2 * cfg.num_layers) ** 0.5)
-    params: Dict[str, Any] = {
-        "embed": {"emb": keep(("embed", "emb"), (torch.randn(
-            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
-        ).to(dt))},
-        "final_norm": {"scale": keep(("final_norm", "scale"), torch.ones(
-            (d,), dtype=dt, device=device))},
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {"emb": keep(("lm_head", "emb"), (torch.randn(
-            (cfg.vocab_size, d), generator=gen, device=device) * 0.02
-        ).to(dt))}
-    segs = []
-    for si, (pattern, repeat) in enumerate(segment_plan(cfg)):
-        seg = {}
-        for slot, (mixer, _, ffn_kind) in enumerate(pattern):
-            kw = dict(layers=repeat, device=device, out_scale=out_scale)
-
-            def at(*prefix, _slot=f"slot{slot}"):
-                return lambda path, t: keep(("segments", si, _slot)
-                                            + prefix + path, t)
-
-            norm = at()
-            seg[f"slot{slot}"] = {
-                "norm1": {"scale": norm(("norm1", "scale"), torch.ones(
-                    (repeat, d), dtype=dt, device=device))},
-                "norm2": {"scale": norm(("norm2", "scale"), torch.ones(
-                    (repeat, d), dtype=dt, device=device))},
-                "mixer": (_attn_init(gen, cfg, repeat, device, out_scale,
-                                     keep=at("mixer"))
-                          if mixer == MIXER_ATTN
-                          else ssm_mod.ssm_init(gen, cfg, **kw)),
-                "ffn": (moe_mod.moe_init(gen, cfg, **kw)
-                        if ffn_kind == FFN_MOE
-                        else ffn_mod.ffn_init(gen, cfg, keep=at("ffn"),
-                                              **kw)),
-            }
-        segs.append(seg)
-    params["segments"] = tuple(segs)
+    params = _init_top(cfg, gen, device)
+    params["segments"] = tuple(
+        _init_segment(cfg, si, pattern, range(repeat), gen, seed, device)
+        for si, (pattern, repeat) in enumerate(segment_plan(cfg)))
     return params
+
+
+def init_top(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
+    """:func:`init_params`' embedding, final norm and head alone."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return _init_top(cfg, gen, device)
+
+
+def init_layer(cfg: ModelConfig, si: int, i: int, *, seed: int = 0,
+               device="cuda") -> Dict:
+    """Layer ``i`` of segment ``si`` of :func:`init_params`' tree, drawn
+    alone: the segment's slots with every leaf's layer axis of length 1
+    (attention and dense-FFN layers only; SSM and MoE stacks come whole
+    from the shared generator)."""
+    pattern, repeat = segment_plan(cfg)[si]
+    if not 0 <= i < repeat:
+        raise IndexError(f"segment {si} has {repeat} layers, not {i + 1}")
+    if any(m != MIXER_ATTN or f == FFN_MOE for m, _, f in pattern):
+        raise ValueError("init_layer draws attention and dense-FFN layers "
+                         "only")
+    return _init_segment(cfg, si, pattern, [i], None, seed, device)
 
 
 def layer_params(tree, i: int):
@@ -379,11 +441,35 @@ def _run_segments_prefill_past(params, cfg: ModelConfig, x, positions,
     return x, tuple(new_caches)
 
 
+def _vocab_mesh(cfg: ModelConfig):
+    """The active mesh where its 'model' ranks each hold one of
+    ``cfg.vocab_shards`` row shards of the table, else None."""
+    if cfg.vocab_shards == 1:
+        return None
+    from repro_torch.distribution import context as dctx
+    mesh = dctx.active_mesh()
+    if mesh is not None and mesh.axis_size("model") == cfg.vocab_shards:
+        return mesh
+    return None
+
+
 def _embed_in(params, cfg: ModelConfig, tokens, embeds=None):
+    """The token embedding in the compute type. On a vocab-sharded mesh
+    each rank gathers the ids in its rows (zero rows elsewhere) and the
+    ranks' rows are summed: one non-zero term an element, so the sum is
+    the whole table's gather."""
     cdt = as_dtype(cfg.compute_dtype)
     if embeds is not None:
         return embeds.to(cdt)
-    return embedding_apply(params["embed"], tokens, dtype=cdt)
+    mesh = _vocab_mesh(cfg)
+    if mesh is None:
+        return embedding_apply(params["embed"], tokens, dtype=cdt)
+    emb = params["embed"]["emb"]
+    rows = emb.shape[0]
+    ids = tokens.to(torch.int64) - mesh.model_rank * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = emb[ids.clamp(0, rows - 1)].to(cdt)
+    return mesh.psum(torch.where(mine[..., None], x, torch.zeros_like(x)))
 
 
 def _head_table(params, cfg: ModelConfig):
@@ -393,10 +479,20 @@ def _head_table(params, cfg: ModelConfig):
 
 def logits_fn(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> fp32 logits (B, S, V): the table is rounded to x's
-    type, the product summed in fp32."""
+    type, the product summed in fp32. A vocab-sharded table gives each
+    shard's logits apart, in vocab order: all-gathered from the mesh's
+    ranks, or shard by shard in one process (the shard loop), so both
+    run the same products."""
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    emb = _head_table(params, cfg).to(x.dtype)
-    return matmul_f32(x, emb.t())
+    table = _head_table(params, cfg)
+    mesh = _vocab_mesh(cfg)
+    if mesh is not None:
+        return mesh.all_gather(matmul_f32(x, table.to(x.dtype).t()), dim=-1)
+    n = cfg.vocab_shards
+    rows = table.shape[0] // n
+    return torch.cat([matmul_f32(x, table[s * rows:(s + 1) * rows]
+                                 .to(x.dtype).t()) for s in range(n)],
+                     dim=-1)
 
 
 def forward(params, cfg: ModelConfig, tokens: Optional[torch.Tensor] = None,

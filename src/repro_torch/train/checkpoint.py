@@ -17,6 +17,9 @@ the CRC32 of its stored bytes.
 * ``save_async`` copies every leaf to host memory synchronously (the
   training loop's only stall) and writes in a background thread; at most
   one write is outstanding. ``keep`` most recent checkpoints are kept.
+* ``reader`` reads one leaf, or one layer of a layer-stacked leaf, at a
+  time (:class:`CheckpointReader`), for a caller that cannot hold the
+  whole tree (a mesh rank building its shards layer by layer).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import re
 import shutil
 import threading
 import time
+import zipfile
 import zlib
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -194,15 +198,22 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _step_dir(self, step: Optional[int]) -> Tuple[int, str]:
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        return step, os.path.join(self.directory, f"step_{step:010d}")
+
+    def reader(self, step: Optional[int] = None) -> "CheckpointReader":
+        """The latest (or ``step``'s) checkpoint, read leaf by leaf."""
+        return CheckpointReader(*self._step_dir(step))
+
     def restore(self, like: Any, step: Optional[int] = None,
                 verify: bool = True) -> Tuple[Any, Dict]:
         """Restore into the structure of ``like`` (a tree of tensors):
         each leaf takes its ``like`` leaf's dtype and device. Returns
         (tree, the manifest's ``extra``)."""
-        step = step if step is not None else self.latest_step()
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints in {self.directory}")
-        d = os.path.join(self.directory, f"step_{step:010d}")
+        step, d = self._step_dir(step)
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
@@ -223,3 +234,73 @@ class CheckpointManager:
                 out.append(_from_stored(a, meta["dtype"]).to(
                     device=ref.device, dtype=ref.dtype))
         return _rebuild(like, iter(out)), manifest["extra"]
+
+
+class CheckpointReader:
+    """One checkpoint's leaves, read one at a time: ``leaf(name)`` reads a
+    leaf whole, ``layer(name, i)`` layer ``i`` of a layer-stacked leaf
+    alone (a seek into its archive member, which both packages store
+    uncompressed), so host memory holds one layer. A leaf's CRC-32 is
+    checked when it is read whole, and once its layers have all been
+    read in order."""
+
+    def __init__(self, step: int, step_dir: str):
+        self.step = step
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        self.extra = manifest["extra"]
+        self.meta = {leaf["name"]: leaf for leaf in manifest["leaves"]}
+        self._zip = zipfile.ZipFile(os.path.join(step_dir, "arrays.0.npz"))
+        self._crc: Dict[str, Tuple[int, int]] = {}  # name -> (next, crc)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self) -> None:
+        self._zip.close()
+
+    def names(self) -> List[str]:
+        return list(self.meta)
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(self.meta[name]["shape"])
+
+    def _check(self, name: str, crc: int) -> None:
+        if crc != self.meta[name]["crc32"]:
+            raise IOError(f"CRC mismatch for {name!r} (corrupt checkpoint "
+                          f"step {self.step})")
+
+    def leaf(self, name: str) -> torch.Tensor:
+        """The whole leaf, on the host in its true dtype."""
+        meta = self.meta[name]
+        with self._zip.open(meta["key"] + ".npy") as f:
+            a = np.lib.format.read_array(f)
+        self._check(name, _crc(a))
+        return _from_stored(a, meta["dtype"])
+
+    def layer(self, name: str, i: int) -> torch.Tensor:
+        """Layer ``i`` of a layer-stacked leaf, shape (1, …), on the host
+        in its true dtype."""
+        meta = self.meta[name]
+        with self._zip.open(meta["key"] + ".npy") as f:
+            version = np.lib.format.read_magic(f)
+            read_header = (np.lib.format.read_array_header_1_0
+                           if version == (1, 0)
+                           else np.lib.format.read_array_header_2_0)
+            shape, fortran, dtype = read_header(f)
+            if fortran:
+                raise ValueError(f"{name!r} is stored in Fortran order")
+            row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+            f.seek(f.tell() + i * row)
+            buf = f.read(row)
+        nxt, crc = self._crc.get(name, (0, 0))
+        if nxt == i:                    # chain the CRC over in-order reads
+            crc = zlib.crc32(buf, crc)
+            self._crc[name] = (i + 1, crc)
+            if i + 1 == shape[0]:
+                self._check(name, crc)
+        a = np.frombuffer(buf, dtype=dtype).reshape((1,) + tuple(shape[1:]))
+        return _from_stored(a.copy(), meta["dtype"])

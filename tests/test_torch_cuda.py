@@ -5,7 +5,9 @@ packed engine's streams must not depend on which requests share a batch;
 the serving tier on the card: a 2-rank scheduler against the solo engine,
 tracing on and off bit for bit, and a ``host_worker`` process; one train
 step on the card against the same step on the CPU; TP col shards of wq's
-grid equal to their columns of the unsharded kernel bit for bit.
+grid equal to their columns of the unsharded kernel bit for bit; the
+layer-by-layer build's peak at full width; the vocab-sharded gather and
+head of 2 ranks sharing the card against the replicated ones.
 Imports torch and repro_torch only, so it runs on a machine without jax:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
@@ -1318,3 +1320,99 @@ def test_packing_on_the_card_equals_the_cpu(cuda_device, quantize, tp):
             cfg, tp=tp, rank=rank, device=cuda_device, sparsity=0.5,
             scope="all", int8_weights=quantize)[0]
         same(got, local_params(whole, wcfg, tp, rank))
+
+
+@pytest.mark.cuda
+def test_layer_build_at_full_width_peaks_under_tree_and_three_layers(
+        cuda_device):
+    """``build_rank_params`` at qwen3-32b's full width, 8 layers, tp 1
+    (one card's packed build, taken layer by layer): the device's peak
+    above what it held before stays under the built tree (containers and
+    table) plus 3 layers' fp32 masters."""
+    from repro_torch.launch import serve as t_serve
+    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=8,
+                              compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params, _, _ = t_serve.build_rank_params(
+        cfg, tp=1, rank=0, device=cuda_device, sparsity=0.5, scope="all")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    tree = torch.cuda.memory_allocated() - base
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.num_heads * cfg.attn_head_dim, \
+        cfg.num_kv_heads * cfg.attn_head_dim
+    layer = 4 * (2 * d * q + 2 * d * kv + 3 * d * f)
+    assert tree > 0 and peak <= tree + 3 * layer, (peak, tree, layer)
+    del params
+    torch.cuda.empty_cache()
+
+
+def vocab_rank(rank: int, init_file: str) -> dict:
+    """One of 2 ranks sharing the card (gloo, host-staged): its rows of a
+    tp=2 deployment's table, gathered and through the head under the
+    mesh."""
+    from repro_torch.distribution import context as dctx
+    from repro_torch.distribution.sharding import local_config, local_params
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(1, 2, rank=rank, init_file=init_file, backend="gloo",
+                     device="cuda")
+    params, cfg = _vocab_tree(mesh.device)
+    local, lcfg = local_params(params, cfg, 2, rank), local_config(cfg, 2)
+    toks, x = _vocab_inputs(mesh.device, cfg)
+    from repro_torch.models import lm
+    with torch.no_grad(), dctx.use_mesh(mesh):
+        return dict(rows=int(local["embed"]["emb"].shape[0]),
+                    gather=lm._embed_in(local, lcfg, toks).float().cpu()
+                    .numpy(),
+                    head=lm.logits_fn(local, lcfg, x).cpu().numpy())
+
+
+def _vocab_tree(device):
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(
+        reduced(get_config("qwen3-32b"), layers=2, d_model=256, vocab=4096),
+        compute_dtype="bfloat16")
+    with torch.no_grad():
+        return t_serve.build_serving_params(
+            lm.init_params(cfg, seed=0, device=device), cfg, path="packed",
+            sparsity=0.5, scope="all", verbose=False, tp=2)
+
+
+def _vocab_inputs(device, cfg):
+    gen = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (4, 9), generator=gen,
+                         device=device)
+    x = torch.randn((4, 9, cfg.d_model), generator=gen,
+                    device=device).to(torch.bfloat16)
+    return toks, x
+
+
+@pytest.mark.cuda
+@pytest.mark.timeout(300)
+def test_vocab_sharded_gather_and_head_on_the_card(cuda_device, tmp_path):
+    """2 ranks sharing the card over gloo (host-staged): the sharded
+    gather equals the replicated gather bit for bit, the all-gathered
+    head the shard loop's head bit for bit and the whole table's within
+    1e-5 of its scale."""
+    from repro_torch.launch.mesh import init_file_in, run_ranks
+    from repro_torch.models import lm
+    ranks = run_ranks(vocab_rank, 2, (init_file_in(str(tmp_path)),),
+                      timeout=240)
+    params, cfg = _vocab_tree(cuda_device)
+    toks, x = _vocab_inputs(cuda_device, cfg)
+    whole = dataclasses.replace(cfg, vocab_shards=1)
+    with torch.no_grad():
+        gather = lm._embed_in(params, whole, toks).float().cpu().numpy()
+        loop = lm.logits_fn(params, cfg, x).cpu().numpy()
+        head = lm.logits_fn(params, whole, x).cpu().numpy()
+    assert cfg.vocab_shards == 2
+    for r in ranks:
+        assert r["rows"] == cfg.vocab_size // 2
+        assert np.array_equal(r["gather"], gather)
+        assert np.array_equal(r["head"], loop)
+    assert float(np.abs(loop - head).max()) <= 1e-5 * float(
+        np.abs(head).max())

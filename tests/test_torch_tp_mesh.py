@@ -8,8 +8,11 @@ within 1e-5 with scope ffn (dense attention sliced by the rules); the
 rs+int8-ag reduction within the reference's 2e-2 of the exact one, its
 int8 rows equal to a numpy version of the same formula; a rank's tree
 built layer by layer (``build_rank_params``) equal to its shard of the
-whole build; and the serve launcher's --mesh path. Imports no jax: the
-ranks are spawned processes that import this module."""
+whole build at tp 1, 2 and 4; and the serve launcher's --mesh path, with
+--ckpt-dir (a reference checkpoint, held to the reference's engine) and
+with --stream --trace-out --metrics-dump. Imports no jax at its top
+(only those two tests do, inside): the ranks are spawned processes that
+import this module."""
 import dataclasses
 
 import numpy as np
@@ -226,12 +229,14 @@ RANK_BUILDS = {
 }
 
 
+@pytest.mark.parametrize("tp", [1, 2, 4])
 @pytest.mark.parametrize("name", list(RANK_BUILDS))
-def test_rank_build_equals_local_params(name):
+def test_rank_build_equals_local_params(name, tp):
     """``build_rank_params`` (each layer drawn, pruned, packed and cut to
     the rank's shard before the next) equals ``local_params`` of the
-    whole build, leaf for leaf and bit for bit, on every rank: the
-    global tile selection, the per-layer nnz padding and the casts."""
+    whole build, leaf for leaf and bit for bit, on every rank at tp 1, 2
+    and 4: the global tile selection, the per-layer nnz padding, the
+    casts and the vocab-sharded table."""
     from repro_torch.serve.host_worker import spread_output_scales
     scope, int8, compute, sparsity, spread = RANK_BUILDS[name]
     cfg = dataclasses.replace(
@@ -243,14 +248,16 @@ def test_rank_build_equals_local_params(name):
             params = spread_output_scales(params, cfg)
         whole, wcfg = t_serve.build_serving_params(
             params, cfg, path="packed", sparsity=sparsity, scope=scope,
-            int8_weights=int8, verbose=False, tp=TP)
-    for rank in range(TP):
+            int8_weights=int8, verbose=False, tp=tp)
+    assert wcfg.vocab_shards == tp
+    for rank in range(tp):
         got, gcfg, lcfg = t_serve.build_rank_params(
-            cfg, tp=TP, rank=rank, device="cpu", sparsity=sparsity,
+            cfg, tp=tp, rank=rank, device="cpu", sparsity=sparsity,
             scope=scope, int8_weights=int8,
             prepare=_spread(cfg) if spread else None)
-        assert gcfg == wcfg and lcfg == local_config(wcfg, TP)
-        want = list(_leaves(local_params(whole, wcfg, TP, rank)))
+        assert gcfg == wcfg and lcfg == local_config(wcfg, tp)
+        assert got["embed"]["emb"].shape[0] == cfg.vocab_size // tp
+        want = list(_leaves(local_params(whole, wcfg, tp, rank)))
         have = list(_leaves(got))
         assert [p for p, _ in have] == [p for p, _ in want]
         for (path, a), (_, b) in zip(have, want):
@@ -315,9 +322,108 @@ def test_launcher_mesh_serves_shard_loop_streams(tmp_path, monkeypatch,
                       (["--mesh", "1,2", "--scheduler"], "item 6b"),
                       (["--mesh", "1,2", "--path", "masked"], "item 6e"),
                       (["--mesh", "1,2", "--arch", "mamba2-780m"],
-                       "item 6f"),
-                      (["--mesh", "1,2", "--ckpt-dir", str(tmp_path)],
-                       "item 6h")):
+                       "item 6f")):
         with pytest.raises(SystemExit, match=item):
             t_serve.parse_args(bad + ["--sasp", "0.5"] + (
                 [] if "--path" in bad else ["--path", "packed"]))
+    # a checkpoint, streaming, the trace and the metrics serve on a mesh
+    args = t_serve.parse_args(["--mesh", "1,2", "--sasp", "0.5", "--path",
+                               "packed", "--ckpt-dir", str(tmp_path),
+                               "--stream", "--trace-out", "t.json",
+                               "--metrics-dump", "m.prom",
+                               "--metrics-interval", "1"])
+    spec = t_serve.mesh_spec(args)
+    assert spec["build"]["ckpt_dir"] == str(tmp_path)
+    assert spec["serve"] == dict(stream=True, trace_out="t.json",
+                                 metrics_dump="m.prom", metrics_interval=1.0)
+
+
+def _launcher_argv(*extra):
+    return ["--mesh", "1,2", "--sasp", "0.5", "--path", "packed",
+            "--scope", "all", "--device", "cpu", "--requests", "3",
+            "--max-new", "4", "--slots", "2", "--cache-len", "64",
+            *extra]
+
+
+@pytest.mark.timeout(180)
+def test_launcher_mesh_restores_a_reference_checkpoint(tmp_path,
+                                                       monkeypatch):
+    """``serve --mesh 1,2 --ckpt-dir``: the launcher's reduced qwen3-32b,
+    every weight times 3 (streams that depend on the prompt), written by
+    the reference's ``CheckpointManager``; each of 2 gloo ranks restores
+    it layer by layer, and both serve the greedy streams of the
+    reference's engine on its own packed build of the restored params,
+    resharded to tp=2 (no mesh)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import get_config as r_get_config
+    from repro.configs import reduced as r_reduced
+    from repro.core import deploy as r_deploy
+    from repro.launch.serve import build_serving_params
+    from repro.models import lm as r_lm
+    from repro.serve.engine import Engine as REngine
+    from repro.serve.engine import Request as RRequest
+    from repro.train.checkpoint import CheckpointManager as RManager
+    cfg = r_reduced(r_get_config("qwen3-32b"), layers=4, d_model=128,
+                    vocab=512)
+    params = jax.tree.map(lambda a: a * 3.0,
+                          r_lm.init_params(jax.random.PRNGKey(0), cfg))
+    ckpt = tmp_path / "ckpt"
+    RManager(str(ckpt)).save(9, {"params": params})
+    restored, _ = RManager(str(ckpt)).restore(
+        jax.eval_shape(lambda: {"params": params}))
+    rp, rcfg = build_serving_params(restored["params"], cfg, path="packed",
+                                    sparsity=0.5, scope="all", verbose=False)
+    rp = r_deploy.reshard_packed(rp, rcfg, tp=2)
+    want = REngine(rp, rcfg, batch_slots=2, cache_len=64).run(
+        [RRequest(rid=r.rid, prompt=r.prompt, max_new_tokens=4)
+         for r in t_serve.synthetic_requests(3, cfg.vocab_size, 4)])
+    want = {r.rid: [int(t) for t in r.out_tokens] for r in want}
+    assert len({tuple(s) for s in want.values()}) > 1
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")      # the ranks inherit it
+    spec = t_serve.mesh_spec(t_serve.parse_args(
+        _launcher_argv("--ckpt-dir", str(ckpt))))
+    results = t_serve.serve_mesh(spec, store_dir=str(tmp_path),
+                                 timeout=150)
+    for res in results:
+        assert res["transport"] == "gloo"
+        assert res["streams"] == want
+
+
+@pytest.mark.timeout(180)
+def test_launcher_mesh_streams_traces_and_dumps_metrics(tmp_path,
+                                                        monkeypatch, capfd):
+    """``serve --mesh 1,2 --stream --trace-out --metrics-dump``: every
+    rank steps the streaming loop and serves the streams the shard loop
+    serves without streaming; model rank 0 alone prints the streamed
+    tokens and writes the trace (Chrome trace events) and the Prometheus
+    text (the engine's declared counters)."""
+    import json
+
+    from repro_torch.serve.engine import _STAT_KEYS
+    trace, prom = tmp_path / "trace.json", tmp_path / "metrics.prom"
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")      # the ranks inherit it
+    spec = t_serve.mesh_spec(t_serve.parse_args(_launcher_argv(
+        "--stream", "--trace-out", str(trace), "--metrics-dump", str(prom))))
+    results = t_serve.serve_mesh(spec, store_dir=str(tmp_path),
+                                 timeout=150)
+    cfg = reduced(get_config("qwen3-32b"), layers=4, d_model=128, vocab=512)
+    with torch.no_grad():
+        params, cfg = t_serve.build_serving_params(
+            lm.init_params(cfg, seed=0, device="cpu"), cfg, path="packed",
+            sparsity=0.5, scope="all", verbose=False, tp=2)
+    done = Engine(params, cfg, batch_slots=2, cache_len=64).run(
+        t_serve.synthetic_requests(3, cfg.vocab_size, 4))
+    want = {r.rid: [int(t) for t in r.out_tokens] for r in done}
+    assert [r["streams"] for r in results] == [want, want]
+    assert results[0]["wrote"] == [str(trace), str(prom)]
+    assert results[1]["wrote"] == []
+    out = capfd.readouterr().out
+    assert out.count("streamed 12 tokens incrementally") == 1
+    assert out.count("stream: req") == 12
+    events = json.loads(trace.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    assert any(e.get("name") == "token" for e in events)
+    text = prom.read_text()
+    for key in ("admitted", "decode_steps"):
+        assert key in _STAT_KEYS
+        assert f"serve_{key}_total" in text, key
