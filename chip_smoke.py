@@ -3619,6 +3619,396 @@ def depth_phase(torch, counters, layers: int = DEPTH["layers"]):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallelism
+# ---------------------------------------------------------------------------
+
+# (a) and (b) at ``layers`` on one card, (c) at ``depth_layers`` on four;
+# ``requests`` > 2 ranks x ``slots_per_rank``
+DPP = dict(layers=4, depth_layers=64, tp=2, requests=8, new=16,
+           slots_per_rank=2, cache_len=256, kv_pages=20, engine_slots=4)
+
+
+def _dp_requests(vocab: int, eos=None, new: int = DPP["new"]):
+    """(a)'s traffic: the launcher's first 8 prompts (seed 0), ``new``
+    tokens each, ``eos`` the EOS of every one (the launcher's
+    ``--eos-id``)."""
+    from repro_torch.launch.serve import synthetic_requests
+    return synthetic_requests(DPP["requests"], vocab, new, eos_id=eos)
+
+
+def _dp_sched_config(kv_pages=None):
+    from repro_torch.serve.scheduler import SchedulerConfig
+    return SchedulerConfig(slots_per_rank=DPP["slots_per_rank"],
+                           cache_len=DPP["cache_len"], kv_pages=kv_pages)
+
+
+def _dp_serve(torch, params, cfg, eos=None, kv_pages=None, mesh=None,
+              counters=None):
+    """(a)'s requests through ``ShardedScheduler``: meshless with 2 ranks,
+    or on ``mesh`` (one rank a data index), after an untimed 2-token run
+    of the same prompts. Launch counts set to 0 just before and read
+    just after; this process's engine steps timed with the device
+    synchronised, and the scheduler's steps around them. Returns the
+    streams, the rank that served each request, the refills, tok/s over
+    the run, a data rank's decode ms/step, the scheduler's ms a step
+    beyond its engine's, and on a mesh the ms of its own collectives a
+    step (part of that, with the wait for the slowest rank)."""
+    from repro_torch.serve.scheduler import ShardedScheduler
+    kw = dict(sched=_dp_sched_config(kv_pages))
+    if mesh is None:
+        kw["ranks"] = 2
+    else:
+        kw["mesh"] = mesh
+    ShardedScheduler(params, cfg, **kw).run(
+        _dp_requests(cfg.vocab_size, eos, new=2))
+    sched = ShardedScheduler(params, cfg, **kw)
+    rows, sync_ms = [], []
+    eng_ms = _timed_scheduler(torch, sched, rows) if mesh is None else \
+        _timed_mesh_scheduler(torch, sched, rows, sync_ms)
+    reqs = _dp_requests(cfg.vocab_size, eos)
+    if counters is not None:
+        reset(counters)
+    _sync(torch)
+    t0 = time.perf_counter()
+    done = sched.run(reqs)
+    _sync(torch)
+    wall = time.perf_counter() - t0
+    st = sched.stats()
+    out = dict(streams={r.rid: list(r.out_tokens) for r in done},
+               served={r.rid: r.rank for r in done},
+               refills=sum(r["continuous_refills"] for r in st["per_rank"]),
+               wall_s=wall,
+               tok_s=sum(len(r.out_tokens) for r in done) / wall,
+               decode_ms_per_step=_decode_ms(eng_ms),
+               steps=len(rows),
+               sched_ms_per_step=sum(ms for ms, _ in rows) / len(rows),
+               beyond_engine_ms_per_step=sum(ms - e for ms, e in rows)
+               / len(rows),
+               collectives_ms_per_step=sum(sync_ms) / len(rows))
+    if counters is not None:
+        out["launches"] = _launch_counts(counters)
+    return out
+
+
+def _timed_mesh_scheduler(torch, sched, rows, sync_ms):
+    """``_timed_scheduler`` on a mesh: this process's own engine timed
+    (its peers run elsewhere), and ``sync_ms`` gets the ms of each
+    collective the scheduler adds (the clock's broadcast, the step
+    records' all-gather)."""
+    eng_ms = []
+    for name in ("_now", "_exchange"):
+        def timed(*a, inner=getattr(sched, name)):
+            t = time.perf_counter()
+            try:
+                return inner(*a)
+            finally:
+                sync_ms.append((time.perf_counter() - t) * 1e3)
+        setattr(sched, name, timed)
+    eng = sched.shards[sched._me]
+    inner_eng = eng.step
+
+    def eng_step():
+        adm = eng.stats["admitted"]
+        t = time.perf_counter()
+        try:
+            return inner_eng()
+        finally:
+            _sync(torch)
+            eng_ms.append((eng.rank, (time.perf_counter() - t) * 1e3,
+                           eng.stats["admitted"] - adm))
+    eng.step = eng_step
+    inner = sched.step
+
+    def step():
+        k = len(eng_ms)
+        _sync(torch)
+        t = time.perf_counter()
+        out = inner()
+        _sync(torch)
+        rows.append(((time.perf_counter() - t) * 1e3,
+                     sum(ms for _, ms, _ in eng_ms[k:])))
+        return out
+    sched.step = step
+    return eng_ms
+
+
+def _dp_pick_eos(streams) -> int:
+    """A token some stream first emits mid-decode (index 4 or later, else
+    1 or later) and no stream emits first: with it as every request's
+    EOS, a slot frees while the others decode."""
+    firsts = {s[0] for s in streams.values()}
+    for lo in (4, 1):
+        for rid in sorted(streams):
+            s = streams[rid]
+            for i in range(lo, len(s) - 1):
+                if s[i] not in s[:i] and s[i] not in firsts:
+                    return int(s[i])
+    fail("(a) no stream has a fresh token mid-decode: no EOS can free a "
+         "slot")
+
+
+def _dp_oracle(torch, params, cfg, tag: str, paged: bool = True):
+    """The meshless 2-rank scheduler over ``params`` (the shard loop at
+    the mesh's TP): run once to pick the EOS, then with it, contiguous
+    and (``paged``) paged. Returns the EOS and the runs."""
+    eos = _dp_pick_eos(_dp_serve(torch, params, cfg)["streams"])
+    out = {"eos": eos}
+    for name, pages in (("contiguous", None), ("paged", DPP["kv_pages"])):
+        if name == "paged" and not paged:
+            continue
+        run = _dp_serve(torch, params, cfg, eos, pages)
+        check(any(len(s) < DPP["new"] and s[-1] == eos
+                  for s in run["streams"].values()),
+              f"{tag} {name}: the EOS {eos} stopped no request mid-decode")
+        check(run["refills"] >= 1, f"{tag} {name}: no slot was refilled")
+        check(set(run["served"].values()) == {0, 1},
+              f"{tag} {name}: one rank served every request")
+        out[name] = run
+    return out
+
+
+def _dp_spec(layers: int, tp: int, backend: str, eos: int, paged: bool,
+             engine: bool) -> dict:
+    """A ``serve_mesh`` spec for ``_dp_rank``: phase 11's model on a
+    (2, ``tp``) mesh over ``backend``."""
+    return dict(mesh=(2, tp), cfg=main_config(layers, "bfloat16"),
+                device=DEVICE, backend=backend, eos=eos, paged=paged,
+                engine=engine,
+                build=dict(seed=0, sparsity=SPARSITY, scope="all",
+                           int8_weights=False))
+
+
+def _dp_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """Phase 11's process, spawned by the launcher's ``serve_mesh``: join
+    the (2, TP) mesh over ``spec["backend"]``, build its model rank's tree
+    layer by layer (``build_rank_params``, wo and w2 spread as drawn),
+    serve (a)'s requests through ``ShardedScheduler(mesh=)`` contiguous
+    and (``paged``) paged, and (``engine``) (b)'s requests through one
+    ``Engine`` on the mesh with 4 slots. Returns what the parent checks."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, _, lcfg = launch.build_rank_params(
+        spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank, device=dev,
+        prepare=spread_leaf(spec["cfg"]), **spec["build"])
+    torch.cuda.synchronize(dev)
+    out = dict(rank=rank, data_rank=mesh.data_rank, transport=mesh.transport,
+               build_s=time.perf_counter() - t0,
+               build_peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               tree_gib=_tree_gib(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["contiguous"] = _dp_serve(torch, params, lcfg, spec["eos"],
+                                  mesh=mesh, counters=counters)
+    if spec["paged"]:
+        out["paged"] = _dp_serve(torch, params, lcfg, spec["eos"],
+                                 DPP["kv_pages"], mesh=mesh,
+                                 counters=counters)
+    if spec["engine"]:
+        kw = dict(batch_slots=DPP["engine_slots"],
+                  cache_len=DPP["cache_len"], mesh=mesh)
+        Engine(params, lcfg, **kw).run(
+            synthetic_requests(4, lcfg.vocab_size, 2))
+        eng = Engine(params, lcfg, **kw)
+        reset(counters)
+        streams, steps = _drive_timed(
+            torch, eng, synthetic_requests(4, lcfg.vocab_size, DPP["new"]))
+        out["engine"] = dict(layout=eng.layout, streams=streams,
+                             times=_step_times(steps),
+                             launches=_launch_counts(counters))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+    # what serve_mesh holds equal in every process
+    out["streams"] = out["contiguous"]["streams"]
+    out["served"] = out["contiguous"]["served"]
+    return out
+
+
+def _dp_check(tag, res, oracle, kinds, layers):
+    """Every process's streams and served ranks bit for bit the
+    oracle's; a model rank's launches 16 tile-skip GEMMs and 4 fused FFNs
+    a forward at 4 layers (4 and 1 a layer), all mma."""
+    for r in res:
+        for kind in kinds:
+            got, want = r[kind], oracle[kind]
+            check(got["streams"] == want["streams"],
+                  f"{tag} {kind} process {r['rank']}: streams differ from "
+                  f"the meshless 2-rank scheduler's")
+            check(got["served"] == want["served"],
+                  f"{tag} {kind} process {r['rank']}: requests served on "
+                  f"other ranks than the meshless scheduler's")
+            check(got["refills"] == want["refills"] >= 1,
+                  f"{tag} {kind} process {r['rank']}: refills "
+                  f"{got['refills']}, the meshless scheduler's "
+                  f"{want['refills']}")
+            _depth_launches(f"{tag} {kind} process {r['rank']}",
+                            got["launches"], layers, 1)
+
+
+def _dp_report(tag, res, oracle, kinds, wall):
+    r0 = res[0]
+    for kind in kinds:
+        log(f"  {tag} {kind}: {len(res)} processes over {r0['transport']}, "
+            f"{wall:.1f} s wall; streams and served ranks bit for bit the "
+            f"meshless 2-rank scheduler's (refills {r0[kind]['refills']}); "
+            f"tok/s {r0[kind]['tok_s']:.1f} on the mesh (meshless "
+            f"{oracle[kind]['tok_s']:.1f}); decode ms/step by data rank "
+            f"{ {r['data_rank']: round(r[kind]['decode_ms_per_step'][r['data_rank']], 2) for r in res} } "
+            f"(meshless { {k: round(v, 2) for k, v in oracle[kind]['decode_ms_per_step'].items()} }); "
+            f"scheduler step {r0[kind]['sched_ms_per_step']:.2f} ms, "
+            f"{r0[kind]['beyond_engine_ms_per_step']:.2f} beyond its "
+            f"engine's (meshless "
+            f"{oracle[kind]['beyond_engine_ms_per_step']:.2f}), of which "
+            f"in the scheduler's collectives (with the wait for the slower "
+            f"rank) {r0[kind]['collectives_ms_per_step']:.2f}; launches a "
+            f"process { {n: l['total'] for n, l in r0[kind]['launches'].items()} }")
+    log(f"  {tag}: build s by process "
+        f"{[round(r['build_s'], 1) for r in res]}, GiB held "
+        f"{[round(r['held_gib'], 2) for r in res]}, peak "
+        f"{[round(max(r['peak_gib'], r['build_peak_gib']), 2) for r in res]}"
+        f" (tree {[round(r['tree_gib'], 2) for r in res]})")
+
+
+def _dp_keep(r, kinds):
+    out = {k: r[k] for k in ("rank", "data_rank", "transport", "build_s",
+                             "build_peak_gib", "tree_gib", "peak_gib",
+                             "held_gib")}
+    for kind in kinds:
+        out[kind] = {k: v for k, v in r[kind].items()
+                     if k not in ("streams", "served")}
+    return out
+
+
+def _dp_one_card(torch):
+    """(a) ``--mesh 2,1 --scheduler`` and ``--mesh 2,2 --scheduler`` (the
+    latter with (b) ``--mesh 2,2``'s engine) on this card over gloo,
+    host-staged."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.serve import synthetic_requests
+    layers = DPP["layers"]
+    cfg0 = main_config(layers, "bfloat16")
+    out = {}
+    kinds = ("contiguous", "paged")
+    for tp in (1, DPP["tp"]):
+        tag = f"(a) --mesh 2,{tp} --scheduler"
+        loop, dcfg, _ = launch.build_rank_params(
+            cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
+            scope="all", prepare=spread_leaf(cfg0))
+        oracle = _dp_oracle(torch, loop, dcfg, tag)
+        solo = None
+        if tp == DPP["tp"]:
+            solo = _solo_oracle(torch, loop, dcfg,
+                                synthetic_requests(4, dcfg.vocab_size,
+                                                   DPP["new"]))
+        del loop
+        _free(torch)
+        t0 = time.time()
+        res = launch.serve_mesh(
+            _dp_spec(layers, tp, "gloo", oracle["eos"], True, solo is not None),
+            _dp_rank, store_dir=OUT_DIR, timeout=400)
+        wall = time.time() - t0
+        _dp_check(tag, res, oracle, kinds, layers)
+        _dp_report(tag, res, oracle, kinds, wall)
+        out[f"2,{tp}"] = dict(wall_s=wall, eos=oracle["eos"],
+                              oracle={k: {kk: v for kk, v in oracle[k].items()
+                                          if kk not in ("streams", "served")}
+                                      for k in kinds},
+                              processes=[_dp_keep(r, kinds) for r in res])
+        if solo is not None:
+            out["b"] = _dp_engine_check(res, solo)
+    return out
+
+
+def _dp_engine_check(res, solo):
+    """(b): ``Engine(mesh=(2, 2))`` with 4 slots, split over 'data':
+    every process's streams greedy-equal to each request served alone at
+    tp 2 (phase 3c's near-tie rule)."""
+    streams, margins = solo
+    for r in res:
+        e = r["engine"]
+        check(e["layout"] == "slots split over data",
+              f"(b) process {r['rank']}: layout {e['layout']!r}")
+        check(e["streams"] == res[0]["engine"]["streams"],
+              f"(b) process {r['rank']}: streams differ from process 0's")
+        _depth_launches(f"(b) process {r['rank']}", e["launches"],
+                        DPP["layers"], 1)
+    ties = _greedy_equal("(b) --mesh 2,2", res[0]["engine"]["streams"],
+                         streams, margins, ref="each request alone")
+    e = res[0]["engine"]
+    log(f"  (b) --mesh 2,2, one Engine of {DPP['engine_slots']} slots: "
+        f"layout '{e['layout']}'; streams greedy-equal to each request "
+        f"alone at tp {DPP['tp']}, {len(ties)} near-tie divergence(s); "
+        f"decode ms/step by data rank "
+        f"{ {r['data_rank']: round(r['engine']['times']['decode_ms_per_step'], 2) for r in res[::DPP['tp']]} }, "
+        f"prefill {e['times']['prefill_ms']:.1f} ms, "
+        f"{e['times']['tok_s']:.1f} tok/s; launches a process "
+        f"{ {n: l['total'] for n, l in e['launches'].items()} }")
+    return dict(layout=e["layout"], near_ties=ties,
+                times=[r["engine"]["times"] for r in res],
+                launches=e["launches"])
+
+
+def _dp_four_cards(torch):
+    """(c) ``--mesh 2,2 --scheduler`` at all 64 layers over NCCL, a card a
+    process, against the meshless 2-rank scheduler over the shard loop at
+    tp 2 on card 0 (its 55.5 GiB tree freed before the processes build)."""
+    from repro_torch.launch import serve as launch
+    layers, tp = DPP["depth_layers"], DPP["tp"]
+    if torch.cuda.device_count() < 2 * tp:
+        log(f"  (c) nccl: not run ({torch.cuda.device_count()} card)")
+        return f"not run ({torch.cuda.device_count()} card)"
+    tag = f"(c) --mesh 2,{tp} --scheduler, {layers} layers"
+    cfg0 = main_config(layers, "bfloat16")
+    t0 = time.perf_counter()
+    loop, dcfg, _ = launch.build_rank_params(
+        cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
+        scope="all", prepare=spread_leaf(cfg0))
+    torch.cuda.synchronize()
+    loop_build_s = time.perf_counter() - t0
+    loop_gib = _tree_gib(loop)
+    oracle = _dp_oracle(torch, loop, dcfg, tag, paged=False)
+    del loop
+    _free(torch)
+    t0 = time.time()
+    res = launch.serve_mesh(
+        _dp_spec(layers, tp, "nccl", oracle["eos"], False, False),
+        _dp_rank, store_dir=OUT_DIR, timeout=900)
+    wall = time.time() - t0
+    _dp_check(tag, res, oracle, ("contiguous",), layers)
+    log(f"  {tag}: the meshless oracle's tree {loop_gib:.2f} GiB on card 0, "
+        f"built in {loop_build_s:.1f} s")
+    _dp_report(tag, res, oracle, ("contiguous",), wall)
+    return dict(wall_s=wall, eos=oracle["eos"], loop_gib=loop_gib,
+                loop_build_s=loop_build_s,
+                oracle={k: v for k, v in oracle["contiguous"].items()
+                        if k not in ("streams", "served")},
+                processes=[_dp_keep(r, ("contiguous",)) for r in res])
+
+
+def dp_phase(torch):
+    """Phase 11: data parallelism on phase 3's model, (a) and (b) on one
+    card, (c) on four where the machine has them. Run last, with every
+    earlier model freed."""
+    t_phase = time.time()
+    log(f"  qwen3-32b at full width; seed 0, wo and w2 spread, 50% of the "
+        f"32x32 tiles pruned (scope all), bf16; {DPP['requests']} requests "
+        f"of {DPP['new']} tokens, {DPP['slots_per_rank']} slots a scheduler "
+        f"rank, every request's EOS a token that frees a slot mid-decode")
+    out = _dp_one_card(torch)
+    _free(torch)
+    out["c"] = _dp_four_cards(torch)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -3773,6 +4163,13 @@ def main() -> int:
     _free(torch)
     depth = depth_phase(torch, counters)
 
+    log("[11] dp: --mesh 2,1 and 2,2 with the scheduler and --mesh 2,2 "
+        "with one engine on this card; --mesh 2,2 --scheduler at all 64 "
+        "layers over NCCL where there are four cards (last, every earlier "
+        "model freed)")
+    _free(torch)
+    dp = dp_phase(torch)
+
     # each kernel's launches on its own path
     path_launches = {n: (launches if n in MAIN_PATH
                          else ablation["launches"])[n] for n in KERNELS}
@@ -3784,7 +4181,7 @@ def main() -> int:
                        parity=parity,
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
-                       families=families, tp=tp, depth=depth,
+                       families=families, tp=tp, depth=depth, dp=dp,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

@@ -15,6 +15,15 @@ where the reference's ``shard_map`` body calls ``psum`` /
 sequential loop over the shards runs the same math in one process.
 There is no ``shard_map`` shim: a rank's code is the body itself.
 
+The 'data' axis: each model index has a 'data' group, the processes at
+that model index of every data index. Data parallelism runs one copy of
+the host state in every process (``serve.engine`` / ``serve.scheduler``)
+and moves it in step with two collectives over that group: an all-gather
+of what each data rank computed, and a broadcast from data rank 0.
+``submesh`` is one data rank's mesh (its 'model' axis alone); ``flat`` is
+the mesh seen with every process its own data rank (the reference's
+``dp_only`` profile).
+
 Transport is named, never chosen silently: ``nccl`` where every rank has
 its own card; ``gloo`` on the CPU; ``gloo (host-staged)`` where ranks
 share one card: the mesh copies each CUDA tensor to the host, runs the
@@ -37,14 +46,15 @@ class Mesh:
     """This process's place in a ``(data, model)`` mesh of ``dp * tp``
     ranks: global rank ``rank`` sits at data index ``rank // tp`` and
     model index ``rank % tp``. ``model_group`` is the process group of
-    its 'model' axis; ``host_staged`` runs gloo over host copies of CUDA
-    tensors."""
+    its 'model' axis, ``data_group`` that of its 'data' axis;
+    ``host_staged`` runs gloo over host copies of CUDA tensors."""
     shape: Dict[str, int]
     rank: int
     backend: str
     device: torch.device
     model_group: Any = None
     host_staged: bool = False
+    data_group: Any = None
 
     @property
     def model_rank(self) -> int:
@@ -60,6 +70,22 @@ class Mesh:
 
     def axis_size(self, name: str) -> int:
         return self.shape.get(name, 1)
+
+    def submesh(self) -> "Mesh":
+        """This process's data rank alone: the 'model' axis and its group,
+        a 'data' axis of one (the mesh of one data rank's engine)."""
+        return dataclasses.replace(
+            self, shape={"data": 1, "model": self.shape["model"]},
+            data_group=None)
+
+    def flat(self) -> "Mesh":
+        """The mesh with every process a data rank of its own (the
+        reference's ``dp_only`` profile): a 'data' axis of ``dp * tp``
+        over the whole world, a 'model' axis of one."""
+        return dataclasses.replace(
+            self, shape={"data": self.shape["data"] * self.shape["model"],
+                         "model": 1},
+            model_group=None, data_group=dist.group.WORLD)
 
     # -- collectives over the 'model' axis -----------------------------
     def _run(self, x: torch.Tensor, op) -> torch.Tensor:
@@ -101,12 +127,57 @@ class Mesh:
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Model rank 0's ``x`` on every rank of the model group."""
-        src = self.data_rank * self.shape["model"]
+        if self.shape["model"] == 1:
+            return x
+        src = self.rank - self.model_rank
 
         def op(y):
             dist.broadcast(y, src=src, group=self.model_group)
             return y
         return self._run(x, op)
+
+    # -- collectives over the 'data' axis ------------------------------
+    def data_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's ``x`` at this model index, stacked along a
+        new first dim in data-rank order."""
+        if self.shape["data"] == 1:
+            return x[None]
+
+        def op(y):
+            parts = [torch.empty_like(y) for _ in range(self.shape["data"])]
+            dist.all_gather(parts, y, group=self.data_group)
+            return torch.stack(parts)
+        return self._run(x, op)
+
+    def data_broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Data rank ``src``'s ``x`` on every data rank at this model
+        index."""
+        if self.shape["data"] == 1:
+            return x
+        g_src = src * self.shape["model"] + self.model_rank
+
+        def op(y):
+            dist.broadcast(y, src=g_src, group=self.data_group)
+            return y
+        return self._run(x, op)
+
+    def world_value(self, x: torch.Tensor) -> torch.Tensor:
+        """World rank 0's ``x`` on every process of the mesh (one
+        broadcast over the default group)."""
+        if self.shape["data"] * self.shape["model"] == 1:
+            return x
+
+        def op(y):
+            dist.broadcast(y, src=0)
+            return y
+        return self._run(x, op)
+
+    @property
+    def host_device(self) -> torch.device:
+        """Where host values go for a collective: the card under NCCL,
+        else the host."""
+        return self.device if self.backend == "nccl" else \
+            torch.device("cpu")
 
 
 _ACTIVE_MESH: Optional[Mesh] = None

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -148,6 +148,38 @@ def _local_container(node, rank: Optional[int], tp: int):
     return dataclasses.replace(node, **{
         f: take_slice(getattr(node, f), spec, rank, tp)
         for f, spec in packed_sharding(node).items()})
+
+
+# the reference's placement profiles: "tp" runs data parallelism over the
+# 'data' axis and TP over 'model'; "dp_only" runs it over every axis
+PROFILES = ("tp", "dp_only")
+
+
+def dp_size(shape: Dict[str, int], profile: str = "tp") -> int:
+    """The number of DP ranks of a ``{"data": dp, "model": tp}`` mesh
+    under ``profile``: the 'data' axis, or every axis (``dp_only``)."""
+    if profile not in PROFILES:
+        raise ValueError(f"profile={profile!r} not in {PROFILES}")
+    return shape["data"] * (shape["model"] if profile == "dp_only" else 1)
+
+
+def dp_mesh(mesh, profile: str = "tp"):
+    """``mesh`` (``distribution.context.Mesh``) as the grid of
+    ``profile``'s DP ranks: its 'data' axis the DP ranks, its 'model'
+    axis each rank's TP group (``mesh`` itself, or ``mesh.flat()`` under
+    ``dp_only``)."""
+    return mesh.flat() if dp_size(mesh.shape, profile) > mesh.shape["data"] \
+        else mesh
+
+
+def dp_submeshes(mesh, profile: str = "tp") -> List[Tuple[int, Tuple[int,
+                                                                   ...]]]:
+    """One entry per DP rank, a scheduler rank each (the reference's
+    ``dp_submeshes``): its data index and the world ranks of its
+    processes, one TP group."""
+    tp = mesh.shape["model"] if profile == "tp" else 1
+    return [(d, tuple(range(d * tp, (d + 1) * tp)))
+            for d in range(dp_size(mesh.shape, profile))]
 
 
 def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:

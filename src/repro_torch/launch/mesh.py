@@ -40,7 +40,8 @@ def make_mesh(dp: int, tp: int, *, rank: int, init_file: str,
               backend: Optional[str] = None, device: str = "cuda") -> Mesh:
     """Initialise the default process group of ``dp * tp`` ranks (this is
     ``rank``) over the file store ``init_file`` and build the mesh: one
-    'model' group per data index."""
+    'model' group per data index, then one 'data' group per model
+    index."""
     world = dp * tp
     cuda = device.startswith("cuda")
     backend = backend or choose_backend(world, device)
@@ -58,14 +59,19 @@ def make_mesh(dp: int, tp: int, *, rank: int, init_file: str,
         dev = torch.device("cpu")
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
-    model_group = None
-    for d in range(dp):                 # every rank creates every group
-        g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
+    model_group = data_group = None
+    for d in range(dp):                 # every rank creates every group,
+        g = dist.new_group(list(range(d * tp, (d + 1) * tp)))   # in order
         if rank // tp == d:
             model_group = g
+    for m in range(tp):
+        g = dist.new_group(list(range(m, world, tp)))
+        if rank % tp == m:
+            data_group = g
     return Mesh({"data": dp, "model": tp}, rank, backend, dev,
                 model_group=model_group,
-                host_staged=backend == "gloo" and cuda)
+                host_staged=backend == "gloo" and cuda,
+                data_group=data_group)
 
 
 def make_test_mesh(tp: int, *, rank: int, init_file: str) -> Mesh:

@@ -55,23 +55,29 @@ a drafter (``--draft-sparsity`` re-prunes the dense masters) and the
 dense, masked, bsr and kernel paths build the whole fp32 tree first (64
 layers of qwen3-32b hold 31.2 B weights, 4 bytes each).
 
-``--mesh DP,TP`` serves tensor-parallel (``--path packed`` only; with
-``--sasp 0`` the visit lists keep every tile): the launcher spawns TP
-processes, each a model rank joined by ``torch.distributed`` (file-store
-rendezvous under ``build/mesh``). Every rank takes the same params, from
-the seed or from ``--ckpt-dir``, and builds its own tree layer by layer
-(``build_rank_params``): each layer is pruned, packed into TP-sharded
-visit lists and cut to the rank's shard before the next is taken, and
-the embedding / head table keeps the rank's V/TP rows, so a card holds
-its rank's tree and one layer's masters, not the model. Model rank 0
-samples and broadcasts the tokens, prints, streams (``--stream``; every
-rank steps the same loop), and alone writes ``--trace-out`` and
-``--metrics-dump`` and runs ``--metrics-interval``. Transport: gloo on
-the CPU (``--device cpu``), nccl where each rank has its own card, gloo
-staged through the host where ranks share one. Not ported, each refused
-with a message naming its ROADMAP item (Queue 1 item 6b-6f): DP > 1 and
-``--mesh`` with ``--scheduler`` / ``--hosts``, a drafter, any other
-path, MoE and SSM stacks.
+``--mesh DP,TP`` serves on a (data, model) mesh (``--path packed``
+only; with ``--sasp 0`` the visit lists keep every tile): the launcher
+spawns DP x TP processes joined by ``torch.distributed`` (file-store
+rendezvous under ``build/mesh``). Every process takes the same params,
+from the seed or from ``--ckpt-dir``, and builds its model rank's tree
+layer by layer (``build_rank_params``): each layer is pruned, packed
+into TP-sharded visit lists and cut to the rank's shard before the next
+is taken, and the embedding / head table keeps the rank's V/TP rows, so
+a card holds its rank's tree and one layer's masters, not the model.
+Without ``--scheduler`` one ``Engine`` serves on the whole mesh, its
+slots split over 'data' or replicated (``Engine.layout``, printed);
+with it, ``ShardedScheduler(mesh=)`` runs one scheduler rank per data
+index, each the engine of its TP group (``--ranks``, if given, must
+equal DP: the reference's ``check_ranks``). Model rank 0 of each group
+samples and broadcasts the tokens; world rank 0 alone prints, streams
+(``--stream``; every process steps the same loop), writes
+``--trace-out`` and ``--metrics-dump`` and runs ``--metrics-interval``.
+Every process must serve the same streams, from the same ranks.
+Transport: gloo on the CPU (``--device cpu``), nccl where each process
+has its own card, gloo staged through the host where processes share
+one. ``--mesh`` with ``--hosts`` is the reference's usage error. Not
+ported, each refused with a message naming its ROADMAP item (Queue 1
+item 6d-6f): a drafter, any other path, MoE and SSM stacks.
 """
 from __future__ import annotations
 
@@ -448,9 +454,8 @@ def parse_args(argv):
                     help="print a counter summary every N seconds while "
                          "serving (0 = off)")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="serve tensor-parallel over TP spawned model "
-                         "ranks (packed path; DP must be 1), e.g. "
-                         "--mesh 1,2")
+                    help="serve on a (data, model) mesh of DP x TP spawned "
+                         "processes (packed path), e.g. --mesh 2,2")
     args = ap.parse_args(argv)
     args.mesh = parse_mesh(args)
     return args
@@ -471,14 +476,14 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
         raise SystemExit(f"--mesh expects 'DP,TP', two positive integers "
                          f"(e.g. --mesh 1,2), got {spec!r}")
     dp, tp = int(m.group(1)), int(m.group(2))
+    check_ranks(args.ranks, (dp, tp))
+    if args.hosts:
+        raise SystemExit(
+            "--hosts serves in-process hosts without a mesh; drop "
+            "--mesh (per-host meshes are a multi-process deployment "
+            "concern — see tests/dist_worker.py frontend_host)")
     refuse = None
-    if dp > 1:
-        refuse = (f"--mesh {spec}: data parallelism (DP > 1, scheduler "
-                  f"ranks on submeshes) is not ported: {MESH_ITEM}b")
-    elif args.scheduler or args.hosts:
-        refuse = (f"--mesh with --scheduler / --hosts (scheduler ranks and "
-                  f"hosts as TP groups) is not ported: {MESH_ITEM}b")
-    elif args.draft_sparsity is not None:
+    if args.draft_sparsity is not None:
         refuse = (f"--mesh with --draft-sparsity (a drafter sharded by "
                   f"reshard_packed) is not ported: {MESH_ITEM}d")
     elif args.path != "packed":
@@ -494,6 +499,26 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
     if refuse:
         raise SystemExit(refuse)
     return dp, tp
+
+
+def check_ranks(ranks: Optional[int], mesh: Optional[Tuple[int, int]]):
+    """--ranks against the DP size of the (DP, TP) mesh: the reference's
+    usage errors."""
+    if ranks is None or mesh is None:
+        return
+    dp = mesh[0]
+    shape = {"data": mesh[0], "model": mesh[1]}
+    if ranks > dp:
+        raise SystemExit(
+            f"--ranks {ranks} exceeds the mesh's DP size {dp} "
+            f"(mesh {shape}): each scheduler rank needs its "
+            f"own DP slice of the mesh; drop --ranks or grow the DP "
+            f"axis to >= {ranks}")
+    if ranks != dp:
+        raise SystemExit(
+            f"--ranks {ranks} conflicts with the mesh's DP size {dp}: "
+            f"under a mesh the DP axis decides the rank count; drop "
+            f"--ranks")
 
 
 def validate_tier_flags(args):
@@ -598,26 +623,8 @@ def main(argv=None):
         _sync(params)
         dt = time.time() - t0
         stop_rep.set()
-        st = sched.stats()
-        print(f"scheduler: {st['ranks']} rank(s), "
-              f"{st['accepted']}/{st['submitted']} admitted "
-              f"({st['rejected']} rejected, {st['failed']} failed, "
-              f"{st['preemptions']} preempted), "
-              f"policy={args.admission}"
-              f"{', drain baseline' if args.drain else ''}")
-        for r_st in st["per_rank"]:
-            print(f"  rank stats: {r_st}")
-        if args.interactive_every:
-            for klass in ("interactive", "batch"):
-                lats = sorted(r.latency for r in done
-                              if r.slo == klass and r.latency)
-                if lats:
-                    p50, p95 = pcts_ms(lats)
-                    print(f"  {klass:12s}: n={len(lats)} "
-                          f"p50={p50:.0f}ms p95={p95:.0f}ms")
-        for klass, d in st.get("ttft", {}).items():
-            print(f"  ttft {klass:12s}: n={d['count']} "
-                  f"p50={d['p50_ms']:.1f}ms p95={d['p95_ms']:.1f}ms")
+        print_scheduler_summary(sched, done, args.admission, args.drain,
+                                args.interactive_every)
         tel_trace, tel_prom = (sched.telemetry.write_trace,
                                sched.telemetry.prometheus)
     else:
@@ -702,17 +709,23 @@ def model_config(args):
 
 
 def mesh_spec(args, buckets=None) -> dict:
-    """What every model rank of a ``--mesh`` run serves, from the flags:
+    """What every process of a ``--mesh`` run serves, from the flags:
     the mesh's (DP, TP), the model's config, ``build_rank_params``'
     options (``build``: the seed or the checkpoint), the synthetic
-    requests, the engine's options and model rank 0's outputs
-    (``serve``: streaming, the trace, the metrics)."""
+    requests, the engine's options, the scheduler's (``scheduler``: a
+    ``SchedulerConfig`` under ``--scheduler``, else None; ``ranks``) and
+    world rank 0's outputs (``serve``: streaming, the trace, the
+    metrics)."""
     return dict(
         mesh=args.mesh, cfg=model_config(args), device=args.device,
         build=dict(seed=0, sparsity=args.sasp, scope=args.scope,
                    int8_weights=args.int8_weights, ckpt_dir=args.ckpt_dir),
         requests=dict(n=args.requests, max_new=args.max_new,
-                      temperature=args.temperature, eos_id=args.eos_id),
+                      temperature=args.temperature, eos_id=args.eos_id,
+                      interactive_every=args.interactive_every),
+        scheduler=(scheduler_config(args, buckets) if args.scheduler
+                   else None),
+        ranks=args.ranks,
         serve=dict(stream=args.stream, trace_out=args.trace_out,
                    metrics_dump=args.metrics_dump,
                    metrics_interval=args.metrics_interval),
@@ -728,20 +741,47 @@ def mesh_spec(args, buckets=None) -> dict:
 def mesh_requests(spec: dict, vocab: int):
     r = spec["requests"]
     return synthetic_requests(r["n"], vocab, r["max_new"], r["temperature"],
-                              r["eos_id"])
+                              r["eos_id"], r.get("interactive_every", 0))
+
+
+def print_scheduler_summary(sched, done, policy: str, drain: bool,
+                            interactive_every: int):
+    """The scheduler's summary lines: admission counts, every rank's
+    stats, latency quantiles by SLO class, TTFT."""
+    st = sched.stats()
+    print(f"scheduler: {st['ranks']} rank(s), "
+          f"{st['accepted']}/{st['submitted']} admitted "
+          f"({st['rejected']} rejected, {st['failed']} failed, "
+          f"{st['preemptions']} preempted), "
+          f"policy={policy}{', drain baseline' if drain else ''}")
+    for r_st in st["per_rank"]:
+        print(f"  rank stats: {r_st}")
+    if interactive_every:
+        for klass in ("interactive", "batch"):
+            lats = sorted(r.latency for r in done
+                          if r.slo == klass and r.latency)
+            if lats:
+                p50, p95 = pcts_ms(lats)
+                print(f"  {klass:12s}: n={len(lats)} "
+                      f"p50={p50:.0f}ms p95={p95:.0f}ms")
+    for klass, d in st.get("ttft", {}).items():
+        print(f"  ttft {klass:12s}: n={d['count']} "
+              f"p50={d['p50_ms']:.1f}ms p95={d['p95_ms']:.1f}ms")
 
 
 def serve_mesh(spec: dict, rank_fn=None, *, store_dir=None,
                timeout: float = 900.0) -> list:
-    """Spawn the mesh's TP model ranks, each running ``rank_fn(rank,
+    """Spawn the mesh's DP x TP processes, each running ``rank_fn(rank,
     spec, init_file)`` (default :func:`serve_rank`; a module-level
     function, which a spawned rank imports by name), and return every
-    rank's result, a dict with the rank's ``streams``, in rank order. The
-    ranks' streams must agree; a disagreement raises. The file store
-    lives under ``store_dir`` (default ``build/mesh``)."""
+    process's result, a dict with its ``streams`` (and, under the
+    scheduler, ``served``: each request's scheduler rank), in rank order.
+    The processes' streams and served ranks must agree; a disagreement
+    raises. The file store lives under ``store_dir`` (default
+    ``build/mesh``)."""
     from repro_torch.kernels import build
     from repro_torch.launch.mesh import init_file_in, run_ranks
-    tp = spec["mesh"][1]
+    dp, tp = spec["mesh"]
     store = init_file_in(store_dir or os.path.join(build.REPO_ROOT, "build",
                                                    "mesh"),
                          f"store_{os.getpid()}_{time.time_ns()}")
@@ -749,40 +789,46 @@ def serve_mesh(spec: dict, rank_fn=None, *, store_dir=None,
     fn = rank_fn or importlib.import_module(
         "repro_torch.launch.serve").serve_rank
     try:
-        results = run_ranks(fn, tp, (spec, store), timeout=timeout)
+        results = run_ranks(fn, dp * tp, (spec, store), timeout=timeout)
     finally:
         if os.path.exists(store):
             os.remove(store)
     if any(r["streams"] != results[0]["streams"] for r in results):
-        raise RuntimeError("model ranks served different streams")
-    print(f"mesh: {tp} model ranks served equal streams")
+        raise RuntimeError("the mesh's processes served different streams")
+    if any(r.get("served") != results[0].get("served") for r in results):
+        raise RuntimeError("the mesh's processes served requests on "
+                           "different scheduler ranks")
+    print(f"mesh: {dp * tp} processes ({dp} data x {tp} model ranks) "
+          f"served equal streams")
     return results
 
 
 def join_mesh(rank: int, spec: dict, init_file: str, backend=None):
     """Join ``spec``'s mesh as ``rank`` (``launch.mesh.make_mesh``;
-    ``backend`` None picks by cards); on the CPU each of the TP ranks
-    takes its share of this process's threads."""
+    ``backend`` None picks by cards); on the CPU each of the DP x TP
+    processes takes its share of this process's threads."""
     from repro_torch.launch.mesh import make_mesh
     dp, tp = spec["mesh"]
     if spec["device"] == "cpu":
-        torch.set_num_threads(max(1, torch.get_num_threads() // tp))
+        torch.set_num_threads(max(1, torch.get_num_threads() // (dp * tp)))
     return make_mesh(dp, tp, rank=rank, init_file=init_file,
                      backend=backend, device=spec["device"])
 
 
 def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
-    """One model rank of a ``--mesh`` run: join the mesh, build this
-    rank's tree (``build_rank_params``), serve the requests. Every rank
-    steps the same loop (``Engine.stream`` under ``--stream``), so the
-    ranks never part; model rank 0 alone prints, streams tokens, owns the
-    tracer and the metrics registry, writes the trace and the Prometheus
-    dump and runs the interval reporter. Returns the streams, the
+    """One process of a ``--mesh`` run: join the mesh, build this model
+    rank's tree (``build_rank_params``), serve the requests through one
+    ``Engine`` on the mesh or, with ``spec["scheduler"]``, through
+    ``ShardedScheduler(mesh=)``. Every process steps the same loop
+    (``stream`` under ``--stream``), so the processes never part; world
+    rank 0 alone prints, streams tokens, owns the tracer, writes the trace
+    and the Prometheus dump and runs the interval reporter. Returns the
+    streams, under the scheduler the rank that served each request, the
     transport, the seconds to build and to serve, and the files this
-    rank wrote."""
+    process wrote."""
     mesh = join_mesh(rank, spec, init_file)
     dp, tp = spec["mesh"]
-    lead = mesh.model_rank == 0
+    lead = mesh.rank == 0
     opts = spec.get("serve") or {}
     t0 = time.perf_counter()
     params, cfg, lcfg = build_rank_params(
@@ -795,16 +841,26 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
               f"{lcfg.num_kv_heads} of {cfg.num_heads}/{cfg.num_kv_heads}, "
               f"vocab rows {params['embed']['emb'].shape[0]} of "
               f"{cfg.vocab_size}; build {build_s:.1f} s", flush=True)
-    tel = Telemetry(trace=bool(opts.get("trace_out"))) if lead else None
-    eng = Engine(params, lcfg, mesh=mesh, telemetry=tel, **spec["engine"])
+    tel = Telemetry(trace=bool(opts.get("trace_out")) and lead)
+    sched_cfg = spec.get("scheduler")
+    if sched_cfg is not None:
+        from repro_torch.serve.scheduler import ShardedScheduler
+        server = ShardedScheduler(params, lcfg, mesh=mesh,
+                                  ranks=spec.get("ranks"), telemetry=tel,
+                                  sched=sched_cfg)
+    else:
+        server = Engine(params, lcfg, mesh=mesh, telemetry=tel,
+                        **spec["engine"])
+        if lead and server.layout is not None:
+            print(f"engine: {server.B} slots {server.layout}", flush=True)
     stop_rep = start_metrics_reporter(
-        lambda: eng.telemetry.registry.summary()["counters"],
+        lambda: tel.registry.summary()["counters"],
         opts.get("metrics_interval", 0.0) if lead else 0.0)
     reqs = mesh_requests(spec, cfg.vocab_size)
     t0 = time.perf_counter()
     if opts.get("stream"):
         n = 0
-        for rid, tok in eng.stream(reqs):
+        for rid, tok in server.stream(reqs):
             if lead and n < 12:
                 print(f"  stream: req {rid} += {tok}", flush=True)
             n += 1
@@ -812,29 +868,35 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
             print(f"  … streamed {n} tokens incrementally", flush=True)
         done = [r for r in reqs if r.done]
     else:
-        done = eng.run(reqs)
+        done = server.run(reqs)
     _sync(params)
     dt = time.perf_counter() - t0
     stop_rep.set()
     streams = {r.rid: [int(t) for t in r.out_tokens] for r in done}
     out = dict(rank=rank, transport=mesh.transport, build_s=build_s,
                serve_s=dt, streams=streams, wrote=[])
+    if sched_cfg is not None:
+        out["served"] = {r.rid: r.rank for r in done}
     if lead:
+        if sched_cfg is not None:
+            print_scheduler_summary(server, done, sched_cfg.policy,
+                                    sched_cfg.drain,
+                                    spec["requests"].get("interactive_every"))
         toks = sum(len(s) for s in streams.values())
         print(f"{len(done)} requests, {toks} tokens in {dt:.1f}s "
-              f"({toks / max(dt, 1e-9):.1f} tok/s) on model rank 0",
-              flush=True)
+              f"({toks / max(dt, 1e-9):.1f} tok/s) on the mesh, world rank "
+              f"0's clock", flush=True)
         for rid in sorted(streams)[:3]:
             print(f"  req {rid} -> {streams[rid][:10]}…", flush=True)
         if opts.get("trace_out"):
-            n_ev = eng.telemetry.write_trace(opts["trace_out"])
-            print(f"trace: {n_ev} events -> {opts['trace_out']} (model "
+            n_ev = tel.write_trace(opts["trace_out"])
+            print(f"trace: {n_ev} events -> {opts['trace_out']} (world "
                   f"rank 0)", flush=True)
             out["wrote"].append(opts["trace_out"])
         if opts.get("metrics_dump"):
             with open(opts["metrics_dump"], "w", encoding="utf-8") as fh:
-                fh.write(eng.telemetry.prometheus())
-            print(f"metrics -> {opts['metrics_dump']} (model rank 0)",
+                fh.write(tel.prometheus())
+            print(f"metrics -> {opts['metrics_dump']} (world rank 0)",
                   flush=True)
             out["wrote"].append(opts["metrics_dump"])
     return out

@@ -8,7 +8,11 @@ and empty ring slots carry -1). Decode updates the cache in place.
 
 On a mesh each rank runs attention over its own heads: its config
 (``distribution.sharding.local_config``) holds ``num_heads / tp`` query
-and ``num_kv_heads / tp`` KV heads, and so do its caches.
+and ``num_kv_heads / tp`` KV heads, and so do its caches. The shard
+loop (packed attention holding every TP shard, no mesh) runs the
+attention core shard by shard over each shard's heads, the calls a rank
+makes: the batched fp32 score and value products give other bits for
+half the KV heads than for the same heads inside the whole call.
 
 The int8 cache (``cfg.kv_quant``) stores k / v as int8 with one fp32
 scale per (slot, head); reads dequantize. The paged pool's primitives
@@ -145,6 +149,28 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
+def _loop_head_shards(p: Dict) -> int:
+    """The TP shards of the packed attention projections that this tree
+    holds: all of them in the shard loop, one on a mesh rank (1 without
+    packed attention)."""
+    packed = p.get("sasp_packed") or {}
+    return packed["wq"].held if "wq" in packed else 1
+
+
+def _by_head_shard(n: int, fn, tensors, dims, out_dim: int):
+    """``fn(*tensors)``; with ``n`` head shards, ``fn`` on each shard's
+    contiguous slice of every tensor (``dims``: its head axis), the
+    outputs concatenated along ``out_dim``."""
+    if n == 1:
+        return fn(*tensors)
+    outs = []
+    for s in range(n):
+        outs.append(fn(*(t.narrow(d, s * (t.shape[d] // n),
+                                  t.shape[d] // n).contiguous()
+                         for t, d in zip(tensors, dims))))
+    return torch.cat(outs, dim=out_dim)
+
+
 def attend_chunked(q, k, v, q_pos, kv_pos, *, window, cap: float = 0.0
                    ) -> torch.Tensor:
     """Causal (optionally windowed) attention.
@@ -194,8 +220,12 @@ def attn_apply_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     pos2 = positions[None, :] if positions.ndim == 1 else positions
     q, k, v = _project_qkv(p, cfg, x, pos2)
     qg = q.reshape(B, S, kvh, h // kvh, hd)
-    out = attend_chunked(qg, k, v, positions, positions, window=window,
-                         cap=cfg.logit_softcap)
+    out = _by_head_shard(
+        _loop_head_shards(p),
+        lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, positions,
+                                          window=window,
+                                          cap=cfg.logit_softcap),
+        (qg, k, v), (2, 2, 2), 2)
     out = out.reshape(B, S, h * hd).to(x.dtype)
     return _proj(p, "wo", out, cfg), (k, v)
 
@@ -225,17 +255,22 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
     qg = q.reshape(B, kvh, h // kvh, hd) * (hd ** -0.5)
     k_read, v_read = _read_kv(cache, qg.dtype)
-    s = torch.einsum("bkgd,bckd->bkgc", qg.to(torch.float32),
-                     k_read.to(torch.float32))
-    if cfg.logit_softcap:
-        s = softcap(s, cfg.logit_softcap)
     delta = pos[:, None] - cache.pos
     mask = (cache.pos >= 0) & (delta >= 0) & (delta < window)
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgc,bckd->bkgd",
-                       w.to(qg.dtype).to(torch.float32),
-                       v_read.to(torch.float32))
+
+    def attend(qs, ks, vs):
+        s = torch.einsum("bkgd,bckd->bkgc", qs.to(torch.float32),
+                         ks.to(torch.float32))
+        if cfg.logit_softcap:
+            s = softcap(s, cfg.logit_softcap)
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgc,bckd->bkgd",
+                            w.to(qs.dtype).to(torch.float32),
+                            vs.to(torch.float32))
+
+    out = _by_head_shard(_loop_head_shards(p), attend,
+                         (qg, k_read, v_read), (1, 2, 2), 1)
     out = out.reshape(B, 1, h * hd).to(x.dtype)
     return _proj(p, "wo", out, cfg), cache
 
@@ -325,8 +360,12 @@ def attn_apply_prefill_past(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     v_all = torch.cat([v_past, v_new], dim=1)
     kv_pos = torch.cat([past.pos, positions.to(torch.int32)], dim=1)
     qg = q.reshape(B, S, kvh, h // kvh, hd)
-    out = attend_chunked(qg, k_all, v_all, positions, kv_pos,
-                         window=window, cap=cfg.logit_softcap)
+    out = _by_head_shard(
+        _loop_head_shards(p),
+        lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, kv_pos,
+                                          window=window,
+                                          cap=cfg.logit_softcap),
+        (qg, k_all, v_all), (2, 2, 2), 2)
     out = out.reshape(B, S, h * hd).to(x.dtype)
     cache = build_cache_from_suffix(k_new, v_new, past.k.shape[1],
                                     positions, quant=cfg.kv_quant)

@@ -50,6 +50,19 @@ the (B,) sampled ids and done flags come back to the host.
   decode runs under the mesh, and model rank 0's sampled tokens are
   broadcast, so every rank's host state (slots, pages, EOS) moves in
   step. Only the packed path serves on a mesh, without a drafter.
+* **Data parallelism** — a mesh with a 'data' axis of DP > 1: every
+  process keeps the whole engine's host state (queue, slots, positions,
+  pages, stats) and takes one of two layouts (``layout``). "slots split
+  over data" (contiguous caches, ``batch_slots % DP == 0``): data rank
+  d holds and computes only slots ``[d B/DP, (d+1) B/DP)``; each data
+  rank draws the whole batch's sampling noise, samples its own rows
+  (model rank 0, broadcast in its group), and the rows are all-gathered
+  over 'data'; a kept-KV snapshot lives with its slot's data rank and is
+  broadcast from it if the request resumes in another's slot.
+  "replicated over data" (a paged pool, or ``batch_slots % DP != 0``):
+  every data rank runs the whole engine and data rank 0's tokens are
+  broadcast. The reference splits the page pool's page axis, or the
+  cache's sequence axis, over 'data' instead; the values are the same.
 * **Failure hand-off** — ``dead`` is set by the scheduler when a step
   raises; :meth:`Engine.evacuate_inflight` re-arms in-flight requests
   for an exact re-prefill resume elsewhere, :meth:`Engine.fail_inflight`
@@ -135,6 +148,15 @@ class Request:
                             if self.out_tokens else None)
 
 
+@dataclass
+class _SplitKV:
+    """A kept-KV snapshot of an engine whose slots are split over 'data':
+    the data rank that holds it and, on that rank, the slot's cache rows
+    (None on the others)."""
+    src: int
+    rows: Optional[tuple]
+
+
 # Engine counter keys, declared (declare-if-absent) into the telemetry
 # registry scope of the engine's rank.
 _STAT_KEYS = ("decode_steps", "admitted",
@@ -176,16 +198,18 @@ def _has_packed(p) -> bool:
 
 
 def sample_tokens(logits: torch.Tensor, temps: torch.Tensor,
-                  gen: torch.Generator) -> torch.Tensor:
+                  gen: Optional[torch.Generator],
+                  q: Optional[torch.Tensor] = None) -> torch.Tensor:
     """logits (B, V) -> (B,) int32 on the device: greedy where temp <= 0,
     else categorical at logits / temp (argmax of probs / q, q ~ Exp(1):
     what ``torch.multinomial`` draws for one sample). Draws one (B, V)
-    block of the generator's noise."""
+    block of the generator's noise, unless the caller gives it (``q``)."""
     lg = logits.to(torch.float32)
     greedy = torch.argmax(lg, dim=-1).to(torch.int32)
     t = torch.clamp(temps, min=1e-6)[:, None]
     probs = torch.softmax(lg / t, dim=-1)
-    q = torch.empty_like(probs).exponential_(1.0, generator=gen)
+    if q is None:
+        q = torch.empty_like(probs).exponential_(1.0, generator=gen)
     samp = torch.argmax(probs / q, dim=-1).to(torch.int32)
     return torch.where(temps > 0, samp, greedy)
 
@@ -240,6 +264,18 @@ class Engine:
         self.B = batch_slots
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
+        # data parallelism: None, or the layout over the 'data' axis;
+        # split engines hold slots [_lo, _lo + _per)
+        dp = 1 if mesh is None else mesh.shape["data"]
+        self.layout: Optional[str] = None
+        self._per: Optional[int] = None
+        if dp > 1:
+            if kv_pages or batch_slots % dp:
+                self.layout = "replicated over data"
+            else:
+                self.layout = "slots split over data"
+                self._per = batch_slots // dp
+                self._lo = mesh.data_rank * self._per
         # the stream every device op of step() runs on, whichever thread
         # holds the caller's lock
         self._stream = (torch.cuda.current_stream(self.device)
@@ -272,7 +308,8 @@ class Engine:
                 device=self.device, telemetry=self.telemetry)
             self.caches = None
         else:
-            self.caches = lm.init_caches(params, cfg, batch_slots,
+            self.caches = lm.init_caches(params, cfg,
+                                         self._per or batch_slots,
                                          cache_len, device=self.device)
         self.pos = np.zeros((batch_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
@@ -340,21 +377,49 @@ class Engine:
         return torch.cuda.stream(self._stream)
 
     def _mesh_ctx(self):
-        """The engine's mesh as the active one (a no-op without one)."""
-        if self.mesh is None:
+        """The engine's mesh as the active one (a no-op without one, or
+        where its 'model' axis is one process)."""
+        if self.mesh is None or self.mesh.shape["model"] == 1:
             return contextlib.nullcontext()
         from repro_torch.distribution import context as dctx
         return dctx.use_mesh(self.mesh)
 
-    def _sample(self, logits: torch.Tensor, temps: torch.Tensor
-                ) -> torch.Tensor:
+    def _sample(self, logits: Optional[torch.Tensor], temps: torch.Tensor,
+                slots: Optional[Sequence[int]] = None) -> torch.Tensor:
         """``sample_tokens`` on this rank; on a mesh, model rank 0's
         tokens on every rank, so the ranks cannot part even where
-        sampling is not greedy."""
-        nxt = sample_tokens(logits, temps, self._gen)
-        if self.mesh is not None:
-            nxt = self.mesh.broadcast(nxt)
-        return nxt
+        sampling is not greedy; over 'data', data rank 0's tokens, or,
+        with the slots split, every row from the data rank that holds its
+        slot (``slots``: row i's slot, default i; ``logits``: this data
+        rank's rows only, None when it holds none)."""
+        if self._per is None:
+            nxt = sample_tokens(logits, temps, self._gen)
+            if self.mesh is not None:
+                nxt = self.mesh.data_broadcast(self.mesh.broadcast(nxt))
+            return nxt
+        slots = range(len(temps)) if slots is None else slots
+        mine = self._own_rows(slots)
+        # the whole batch's noise, so that every row samples as it would
+        # in one engine
+        q = torch.empty((len(temps), self.cfg.vocab_size),
+                        dtype=torch.float32, device=self.device
+                        ).exponential_(1.0, generator=self._gen)
+        nxt = torch.zeros((len(temps),), dtype=torch.int32,
+                          device=self.device)
+        if mine:
+            idx = self._t(mine, torch.int64)
+            nxt[idx] = sample_tokens(logits, temps[idx], None, q=q[idx])
+        rows = self.mesh.data_all_gather(self.mesh.broadcast(nxt))
+        owner = self._t([s // self._per for s in slots], torch.int64)
+        return rows.gather(0, owner[None])[0]
+
+    def _own_rows(self, slots: Sequence[int]) -> Optional[List[int]]:
+        """With the slots split: the rows (indices into ``slots``) whose
+        slot this data rank holds; None otherwise (every row)."""
+        if self._per is None:
+            return None
+        return [i for i, s in enumerate(slots)
+                if self._lo <= s < self._lo + self._per]
 
     # -- device passes -------------------------------------------------
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -363,7 +428,11 @@ class Engine:
 
     def _decode_step(self, params, cfg, toks, pos):
         """One decode forward of every slot over the contiguous caches
-        (updated in place): (B, V) logits."""
+        (updated in place): (B, V) logits; with the slots split, this
+        data rank's (B / DP, V)."""
+        if self._per is not None:
+            rows = slice(self._lo, self._lo + self._per)
+            toks, pos = toks[rows], pos[rows]
         logits, self.caches = lm.decode_step(params, cfg, toks, pos,
                                              self.caches)
         return logits[:, 0]
@@ -425,7 +494,18 @@ class Engine:
     def _prefill_and_write(self, toks, poss, all_slots, valid):
         """Contiguous admission: prompt prefill, then the new cache rows
         written into the batch caches at ``all_slots``. ``valid`` (G,)
-        masks bucketed pad rows, which rewrite their slot's own rows."""
+        masks bucketed pad rows, which rewrite their slot's own rows.
+        With the slots split, only the rows of this data rank's slots
+        (None when it holds none)."""
+        rows = self._own_rows(all_slots)
+        if rows is not None:
+            if not rows:
+                return None
+            sel = self._t(rows, torch.int64)
+            toks = toks[sel]
+            poss = None if poss is None else poss[sel]
+            valid = None if valid is None else valid[sel]
+            all_slots = [all_slots[i] - self._lo for i in rows]
         logits, caches1 = lm.prefill(self.params, self.cfg, toks,
                                      cache_len=self.cache_len,
                                      positions=poss)
@@ -527,11 +607,12 @@ class Engine:
         if self.on_token is not None:
             self.on_token(req, tok)
 
-    def _sample_host(self, logits: torch.Tensor, temps: Sequence[float]
-                     ) -> List[int]:
+    def _sample_host(self, logits: Optional[torch.Tensor],
+                     temps: Sequence[float],
+                     slots: Optional[Sequence[int]] = None) -> List[int]:
         t = torch.tensor(list(temps), dtype=torch.float32,
                          device=self.device)
-        return self._sample(logits, t).cpu().tolist()
+        return self._sample(logits, t, slots).cpu().tolist()
 
     # -- preemption ----------------------------------------------------
     def preempt_slot(self, slot: int, *, keep_kv: bool = True) -> Request:
@@ -548,10 +629,7 @@ class Engine:
             else:
                 self.pool.free(req.rid)
         elif keep_kv:
-            with self._on_stream():
-                req._kv = tuple(
-                    {name: cache_map(lambda a: a[:, slot].clone(), c)
-                     for name, c in seg.items()} for seg in self.caches)
+            req._kv = self._snapshot(slot)
         req._resume_pos = int(self.pos[slot])
         req.preemptions += 1
         req.status = "queued"
@@ -569,17 +647,60 @@ class Engine:
         self.stats["resumes"] += 1
         self._trace.instant("resume", tid=self.rank, rid=req.rid)
 
+    def _snapshot(self, slot: int):
+        """A clone of ``slot``'s cache rows. With the slots split, a
+        ``_SplitKV``: the rows on the data rank that holds the slot."""
+        local = slot
+        if self._per is not None:
+            src = slot // self._per
+            if src != self.mesh.data_rank:
+                return _SplitKV(src, None)
+            local = slot - self._lo
+        with self._on_stream():
+            rows = tuple({name: cache_map(lambda a: a[:, local].clone(), c)
+                          for name, c in seg.items()} for seg in self.caches)
+        return rows if self._per is None else _SplitKV(src, rows)
+
     def _restore_slot(self, slot: int, req: Request):
-        """Snapshot resume: the saved cache rows go back, no forward."""
+        """Snapshot resume: the saved cache rows go back, no forward.
+        With the slots split, the rows go from the data rank that saved
+        them to the one that holds ``slot`` (a broadcast over 'data' when
+        the two differ)."""
         assert self.slot_req[slot] is None, \
             f"resume into occupied slot {slot}"
-        for seg, saved in zip(self.caches, req._kv):
-            for name, c in seg.items():
-                for leaf, s in zip(c, saved[name]):
-                    if leaf is not None:
-                        leaf[:, slot] = s
+        saved, local = req._kv, slot
+        if self._per is not None:
+            saved = self._moved_rows(req._kv, slot // self._per)
+            local = slot - self._lo
+        if saved is not None:
+            for seg, rows in zip(self.caches, saved):
+                for name, c in seg.items():
+                    for leaf, s in zip(c, rows[name]):
+                        if leaf is not None:
+                            leaf[:, local] = s
         self.pos[slot] = req._resume_pos
         self._finish_resume(slot, req)
+
+    def _moved_rows(self, kv: "_SplitKV", dst: int):
+        """A split snapshot's rows on data rank ``dst`` (None elsewhere):
+        broadcast over 'data' from the data rank that saved them when
+        that is another, every data rank taking part."""
+        if kv.src == dst:
+            return kv.rows              # None on every other data rank
+
+        def moved(si, name, li, leaf):
+            buf = torch.empty_like(leaf[:, 0]) if kv.rows is None \
+                else kv.rows[si][name][li]
+            return self.mesh.data_broadcast(buf, kv.src)
+
+        with self._on_stream():
+            out = tuple(
+                {name: type(c)(*(None if leaf is None
+                                 else moved(si, name, li, leaf)
+                                 for li, leaf in enumerate(c)))
+                 for name, c in seg.items()}
+                for si, seg in enumerate(self.caches))
+        return out if self.mesh.data_rank == dst else None
 
     def _attach_paged_resume(self, slot: int, req: Request):
         """Paged resume: the pages were just pinned resident (spilled
@@ -660,7 +781,7 @@ class Engine:
         logits_last = self._run_prefill(seq[None, :], None, [slot], [req],
                                         None)
         self._register_prompt([req], [seq])
-        (nxt,) = self._sample_host(logits_last, [req.temperature])
+        (nxt,) = self._sample_host(logits_last, [req.temperature], [slot])
         self._started(slot, req, nxt, len(seq))
 
     def _prefill_group(self, slots: List[int], reqs: List[Request],
@@ -689,7 +810,7 @@ class Engine:
         temps = np.zeros((Gp,), np.float32)
         for g, r in enumerate(reqs):
             temps[g] = r.temperature
-        nxts = self._sample_host(logits_last, temps)[:G]
+        nxts = self._sample_host(logits_last, temps, all_slots)[:G]
         for slot, req, nxt, L in zip(slots, reqs, nxts, lens):
             self._started(slot, req, nxt, L)
 

@@ -24,9 +24,11 @@ continuous batching and QoS over per-rank :class:`Engine` shards.
 * **Per-rank engine shards** — one :class:`Engine` per rank, each with
   its own slots (and page pool), all on one device and all over the
   SAME params tensors (built once by the caller; no rank copies them).
-  Ranks step independently. Ranks on submeshes of a mesh (``mesh=``),
-  each a TP group, are not ported (ROADMAP Queue 1 item 6b); a single
-  ``Engine`` serves on a mesh.
+  Ranks step independently. On a mesh (``mesh=``), one rank per DP rank
+  of the mesh (``distribution.sharding.dp_submeshes``; ``profile``
+  "tp": the 'data' axis, each rank a TP group; "dp_only": every process
+  a rank), each the engine of its own processes: see "Ranks on a mesh"
+  below.
 * **Failure containment** — a rank whose step raises a Python exception
   is marked dead: its queued requests re-route to live ranks, its
   in-flight requests requeue there with an exact re-prefill resume
@@ -63,9 +65,36 @@ different row counts: ``torch.matmul`` orders an M-row product by M.
 lock, so the frontend's heartbeat and reader threads may call them; every
 device op stays inside ``Engine.step`` / ``preempt_slot`` on the engine's
 own stream, and nothing here reads a device value.
+
+Ranks on a mesh: every process runs this same scheduler over the same
+global view, so every process makes the same decisions — routing, queue
+order, preemption, shedding, arrivals — and the collectives of the
+engines never part. The view of another DP rank's engine is a
+:class:`PeerShard`: its queue, slots, positions, counters and pool
+headroom, moved by the bookkeeping the engine itself runs (submit,
+preempt, evacuate, cancel) and, after each step, overwritten by what
+that rank's engine did. ``step`` (1) reads the clock once, world rank
+0's value broadcast (``Mesh.world_value``; ``submit`` and the arrival
+loop read it the same way); (2) sorts and preempts on every live rank
+and steps this process's own engine, a raise caught and kept; (3)
+all-gathers over 'data' one record a rank: the tokens it emitted in
+order, the requests it finished, its queue, slots and positions, the
+state of every request it holds, its counters and pool headroom, and
+the raise's type and message; (4) applies every other rank's record to
+its peer and replays every rank's tokens to the sink in rank order;
+(5) contains each rank that raised, in rank order, as one rank does
+(``_on_rank_failure``: every process marks it dead and requeues the same
+requests). One difference of timing from the meshless loop: ranks step
+at once, so requests requeued off a dead rank join a lower rank's queue
+in the next step, where the meshless loop lets a later rank admit them
+in the same one. A process that dies outright (a signal) ends the run
+through ``launch.mesh.run_ranks``' lost-rank check. The frontend's hosts
+do not run on a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import threading
 import time
 from collections import Counter
@@ -73,7 +102,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
 
-from repro_torch.serve.engine import Engine, Request
+import numpy as np
+import torch
+
+from repro_torch.serve.engine import (_STAT_KEYS, Engine, Request,
+                                      _exec_path_label)
+from repro_torch.serve.memory import MemoryStats
 from repro_torch.serve.telemetry import Telemetry
 
 POLICIES = ("fcfs", "sjf", "edf")
@@ -155,16 +189,144 @@ class SchedulerConfig:
     kv_dedup_every: int = 0
 
 
+class RankStepError(RuntimeError):
+    """A DP rank's step raised, as every process of a mesh sees it: the
+    message is the type and message of what the rank raised."""
+
+
+class PeerShard:
+    """Another DP rank's engine as this process sees it: the host state
+    the scheduler reads (queue, slots, positions, counters, pool
+    headroom), no device state. Submit, preempt, evacuate, fail and
+    cancel run the engine's own bookkeeping on it; :meth:`apply` then
+    sets it to what the rank's engine did in a step."""
+
+    # the engine's host bookkeeping, over this view's queue and slots
+    submit = Engine.submit
+    _free_slots = Engine._free_slots
+    slot_states = Engine.slot_states
+    outstanding_tokens = Engine.outstanding_tokens
+    n_free = Engine.n_free
+    has_work = Engine.has_work
+    _release_slot = Engine._release_slot
+    evacuate_inflight = Engine.evacuate_inflight
+    fail_inflight = Engine.fail_inflight
+    cancel = Engine.cancel
+
+    def __init__(self, rank: int, batch_slots: int, telemetry: Telemetry,
+                 path_label: str):
+        self.rank = rank
+        self.B = batch_slots
+        self.dead = False
+        self.pool = None
+        self.telemetry = telemetry
+        self._trace = telemetry.tracer
+        self.stats = telemetry.engine_stats(rank).declare(_STAT_KEYS)
+        self.path_label = path_label
+        self.queue: List[Request] = []
+        self.slot_req: List[Optional[Request]] = [None] * batch_slots
+        self.pos = np.zeros((batch_slots,), np.int32)
+        self._finished_at_admission: List[Request] = []
+        self.on_token = None
+        self._memory: Optional[dict] = None
+        self._headroom: Optional[int] = None
+        self._admissible: Optional[int] = None
+
+    def preempt_slot(self, slot: int, *, keep_kv: bool = True) -> Request:
+        """``Engine.preempt_slot``'s bookkeeping (the rank's own engine
+        keeps the KV)."""
+        req = self.slot_req[slot]
+        req._resume_pos = int(self.pos[slot])
+        req.preemptions += 1
+        req.status = "queued"
+        self.slot_req[slot] = None
+        self.stats["preemptions"] += 1
+        return req
+
+    def admission_capacity(self) -> int:
+        free = self.n_free()
+        return free if self._admissible is None \
+            else min(free, self._admissible)
+
+    def route_headroom_tokens(self) -> Optional[int]:
+        return self._headroom
+
+    def memory_stats(self) -> Optional[MemoryStats]:
+        if self._memory is None:
+            return None
+        return MemoryStats(**{f.name: self._memory[f.name]
+                              for f in dataclasses.fields(MemoryStats)})
+
+    def apply(self, rec: dict, by_rid: Dict[int, Request]):
+        """Set this view to the rank's ``step_record``: the emitted
+        tokens appended, every request it holds as the rank left it (a
+        first token's TTFT observed), its queue, slots, positions,
+        counters and pool headroom."""
+        for rid, tok in rec["emitted"]:
+            by_rid[rid].out_tokens.append(tok)
+        for rid, status, done, resume, pre, t_first, t_done, error in \
+                rec["requests"]:
+            req = by_rid[rid]
+            if req.t_first is None and t_first is not None \
+                    and req.t_submit is not None:
+                self.telemetry.observe_ttft(req.slo, t_first - req.t_submit)
+            req.status, req.done, req._resume_pos = status, done, resume
+            req.preemptions, req.error = pre, error
+            req.t_first, req.t_done = t_first, t_done
+        self.queue = [by_rid[i] for i in rec["queue"]]
+        self.slot_req = [None if i is None else by_rid[i]
+                         for i in rec["slots"]]
+        self.pos = np.asarray(rec["pos"], np.int32)
+        self._finished_at_admission = [by_rid[i] for i in rec["fin_adm"]]
+        n = rec["stats"]["generated_tokens"] - self.stats["generated_tokens"]
+        if n > 0:
+            self.telemetry.note_tokens(self.path_label, n)
+        for k, v in rec["stats"].items():
+            self.stats[k] = v
+        self._memory = rec["memory"]
+        self._headroom = rec["headroom"]
+        self._admissible = rec["admissible"]
+
+
+def step_record(eng: Engine, emitted: List[Tuple[int, int]],
+                finished: List[Request], err: Optional[BaseException]
+                ) -> dict:
+    """What a DP rank's engine did in a step, as its peers apply it
+    (:meth:`PeerShard.apply`): JSON values only."""
+    held = (list(eng.queue) + [r for r in eng.slot_req if r is not None]
+            + list(finished) + list(eng._finished_at_admission))
+    mem = eng.memory_stats()
+    return dict(
+        raised=None if err is None else f"{type(err).__name__}: {err}",
+        emitted=emitted, finished=[r.rid for r in finished],
+        fin_adm=[r.rid for r in eng._finished_at_admission],
+        queue=[r.rid for r in eng.queue],
+        slots=[None if r is None else r.rid for r in eng.slot_req],
+        pos=[int(p) for p in eng.pos],
+        requests=[[r.rid, r.status, r.done, r._resume_pos, r.preemptions,
+                   r.t_first, r.t_done, r.error] for r in held],
+        stats=dict(eng.stats),
+        memory=None if mem is None else mem.as_dict(),
+        headroom=eng.route_headroom_tokens(),
+        admissible=(None if eng.pool is None
+                    else eng.pool.admissible_requests()))
+
+
 class ShardedScheduler:
     """Admission-controlled request queue over per-rank engine shards.
 
-    ``ranks``: the number of engine shards, all on the device of
-    ``params`` and all over the same params tensors. ``mesh=`` (a rank
-    per data-parallel slice of a mesh, each a TP group) is not ported.
+    ``ranks``: the number of engine shards when meshless, all on the
+    device of ``params`` and all over the same params tensors. ``mesh``
+    (``distribution.context.Mesh``, this process's place): one rank per
+    DP rank of the mesh under ``profile`` ("tp" or "dp_only"), this
+    process's own an engine on its TP group over ``params`` (its local
+    tree), the others :class:`PeerShard` views; ``ranks``, if given, must
+    equal the DP size.
     """
 
     def __init__(self, params, cfg, *, sched: Optional[SchedulerConfig]
                  = None, mesh=None, ranks: Optional[int] = None,
+                 profile: str = "tp",
                  telemetry: Optional[Telemetry] = None):
         # one registry/tracer per scheduler: rank engines share it (the
         # rank label disambiguates), but two schedulers (= two hosts in
@@ -178,15 +340,29 @@ class ShardedScheduler:
                 ("shed", self.sched.shed, SHED_POLICIES)):
             if val not in allowed:
                 raise ValueError(f"{name}={val!r} not in {allowed}")
+        # on a mesh: the grid of DP ranks, this process's rank, its
+        # engine's mesh, every submitted request by rid, and the tokens
+        # its engine emits in a step
+        self._dp = None
         if mesh is not None:
-            raise ValueError(
-                "mesh= ranks (one engine shard per data-parallel slice "
-                "of a mesh, each a TP group) are not ported (ROADMAP "
-                "Queue 1 item 6b); serve one Engine(mesh=...) per TP "
-                "group, or meshless ranks=N on one device")
-        n = 1 if ranks is None else int(ranks)
-        if n < 1:
-            raise ValueError(f"ranks={ranks} must be >= 1")
+            from repro_torch.distribution.sharding import (dp_mesh,
+                                                           dp_submeshes)
+            n = len(dp_submeshes(mesh, profile))
+            if ranks is not None and ranks != n:
+                raise ValueError(
+                    f"ranks={ranks} conflicts with the mesh's {n} DP "
+                    f"rank(s) — under a mesh the DP axis decides; omit "
+                    f"ranks")
+            self._dp = dp_mesh(mesh, profile)
+            self._me = self._dp.data_rank
+            self._engine_mesh = (self._dp.submesh()
+                                 if self._dp.shape["model"] > 1 else None)
+            self._by_rid: Dict[int, Request] = {}
+            self._emitted: List[Tuple[int, int]] = []
+        else:
+            n = 1 if ranks is None else int(ranks)
+            if n < 1:
+                raise ValueError(f"ranks={ranks} must be >= 1")
         self.bucket_tables = self._resolve_buckets(n)
         # kept for engine-raise recovery (revive_rank rebuilds a shard)
         self._params = params
@@ -211,6 +387,9 @@ class ShardedScheduler:
 
     def _build_engine(self, r: int) -> Engine:
         s = self.sched
+        if self._dp is not None and r != self._me:
+            return PeerShard(r, s.slots_per_rank, self.telemetry,
+                             _exec_path_label(self._params, self._cfg))
         eng = Engine(self._params, self._cfg,
                      batch_slots=s.slots_per_rank,
                      cache_len=s.cache_len, rng_seed=s.rng_seed + r,
@@ -225,8 +404,13 @@ class ShardedScheduler:
                      draft_k=s.draft_k, draft_int8=s.draft_int8,
                      draft_interactive=s.draft_interactive,
                      kv_dedup_every=s.kv_dedup_every,
-                     telemetry=self.telemetry)
-        eng.on_token = self._sink
+                     telemetry=self.telemetry,
+                     mesh=None if self._dp is None else self._engine_mesh)
+        if self._dp is None:
+            eng.on_token = self._sink
+        else:                           # replayed in rank order by step
+            eng.on_token = lambda req, tok: self._emitted.append(
+                (req.rid, int(tok)))
         return eng
 
     def revive_rank(self, rank: int) -> Engine:
@@ -306,6 +490,16 @@ class ShardedScheduler:
         self._set_sink(fn)
 
     # -- QoS priorities ------------------------------------------------
+    def _now(self) -> float:
+        """``time.monotonic()``; on a mesh world rank 0's, so that every
+        process stamps, orders, ages and sheds alike."""
+        t = time.monotonic()
+        if self._dp is None:
+            return t
+        x = torch.tensor([t], dtype=torch.float64,
+                         device=self._dp.host_device)
+        return float(self._dp.world_value(x)[0])
+
     def _slo_target(self, req: Request) -> float:
         if req.deadline is not None:
             return req.deadline
@@ -366,7 +560,9 @@ class ShardedScheduler:
         with self._lock:
             self.n_submitted += 1
             self.prompt_hist[len(req.prompt)] += 1
-            now = time.monotonic()
+            now = self._now()
+            if self._dp is not None:
+                self._by_rid[req.rid] = req
             if req.t_submit is None:
                 req.t_submit = now
             if req.t_deadline is None:
@@ -509,20 +705,15 @@ class ShardedScheduler:
         requests retired this step (any rank). Applies queue policy
         (re-sorting time-varying priorities) and preemption first."""
         with self._lock:
+            if self._dp is not None:
+                return self._step_mesh()
             finished: List[Request] = []
             now = time.monotonic()
             for eng in self.shards:
                 if eng.dead:
                     continue
                 try:
-                    if self.sched.policy != "fcfs" \
-                            and len(eng.queue) > 1:
-                        eng.queue.sort(
-                            key=lambda r: self._priority(r, now))
-                    # inside the containment: the KV snapshot in
-                    # preempt_slot is a device op and can raise like a
-                    # step
-                    self._maybe_preempt(eng, now)
+                    self._order_and_preempt(eng, now)
                     if not eng.has_work():
                         continue
                     finished.extend(eng.step())
@@ -530,11 +721,69 @@ class ShardedScheduler:
                     finished.extend(self._on_rank_failure(eng, err))
             return finished
 
+    def _order_and_preempt(self, eng: Engine, now: float):
+        """The queue policy's order, then preemption. Inside the
+        caller's containment: the KV snapshot in ``preempt_slot`` is a
+        device op and can raise like a step."""
+        if self.sched.policy != "fcfs" and len(eng.queue) > 1:
+            eng.queue.sort(key=lambda r: self._priority(r, now))
+        self._maybe_preempt(eng, now)
+
+    def _step_mesh(self) -> List[Request]:
+        """``step`` on a mesh (module docstring, "Ranks on a mesh")."""
+        now = self._now()
+        local = self.shards[self._me]
+        self._emitted = []
+        done: List[Request] = []
+        err = None
+        for eng in self.shards:
+            if eng.dead:
+                continue
+            try:
+                self._order_and_preempt(eng, now)
+                if eng is local and eng.has_work():
+                    done = eng.step()
+            except Exception as e:  # noqa: BLE001 — containment
+                if eng is not local:
+                    raise               # a peer's bookkeeping cannot fail
+                err = e
+        records = self._exchange(step_record(local, self._emitted, done, err))
+        live = [(eng, rec) for eng, rec in zip(self.shards, records)
+                if not eng.dead]
+        for eng, rec in live:
+            if eng is not local:
+                eng.apply(rec, self._by_rid)
+            if self._sink is not None:
+                for rid, tok in rec["emitted"]:
+                    self._sink(self._by_rid[rid], tok)
+        finished: List[Request] = []
+        for eng, rec in live:
+            if rec["raised"] is not None:
+                finished.extend(self._on_rank_failure(
+                    eng, RankStepError(rec["raised"])))
+            else:
+                finished.extend(self._by_rid[i] for i in rec["finished"])
+        return finished
+
+    def _exchange(self, rec: dict) -> List[dict]:
+        """Every DP rank's record, in rank order: JSON bytes all-gathered
+        over 'data' (their lengths first)."""
+        data = json.dumps(rec).encode()
+        dev = self._dp.host_device
+        sizes = self._dp.data_all_gather(torch.tensor(
+            [len(data)], dtype=torch.int64, device=dev))[:, 0].tolist()
+        buf = torch.zeros((max(sizes),), dtype=torch.uint8, device=dev)
+        buf[:len(data)] = torch.frombuffer(bytearray(data),
+                                           dtype=torch.uint8)
+        got = self._dp.data_all_gather(buf).cpu().numpy()
+        return [json.loads(got[r, :n].tobytes()) for r, n in enumerate(sizes)]
+
     # -- serving loops -------------------------------------------------
     def _set_sink(self, fn: Optional[Callable[[Request, int], None]]):
         self._sink = fn                 # revived shards inherit the sink
-        for e in self.shards:
-            e.on_token = fn
+        if self._dp is None:            # on a mesh step replays to it
+            for e in self.shards:
+                e.on_token = fn
 
     def _serve_loop(self, requests: Sequence[Request],
                     arrivals: Optional[Sequence[float]]
@@ -546,7 +795,7 @@ class ShardedScheduler:
         timed = arrivals is not None      # (not truth-tested: numpy ok)
         order = sorted(range(len(requests)),
                        key=lambda i: arrivals[i] if timed else 0.0)
-        t0 = time.monotonic()
+        t0 = self._now() if timed else 0.0
         i = 0
         while i < len(order) or self.has_work():
             if not self._live():
@@ -556,7 +805,7 @@ class ShardedScheduler:
                     self.submit(requests[order[i]])
                     i += 1
                 return
-            now = time.monotonic() - t0
+            now = self._now() - t0 if timed else 0.0
             while i < len(order) and (
                     not timed or arrivals[order[i]] <= now):
                 self.submit(requests[order[i]])

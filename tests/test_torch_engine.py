@@ -96,9 +96,13 @@ def test_launcher_cpu_run_and_flags(capsys, tmp_path):
                   "--cache-len", "64", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "packed:" in out and "2 requests, 6 tokens" in out
-    # --mesh 1,2 is ported (tests/test_torch_tp_mesh.py); DP > 1 is not
-    with pytest.raises(SystemExit, match="Queue 1 item 6b"):
-        t_serve.main(["--mesh", "2,1", "--sasp", "0.5", "--path", "packed"])
+    # --mesh DP,TP is ported (tests/test_torch_tp_mesh.py,
+    # tests/test_torch_dp_mesh.py); with --hosts it is the reference's
+    # usage error
+    with pytest.raises(SystemExit, match="--hosts serves in-process hosts "
+                       "without a mesh; drop --mesh"):
+        t_serve.main(["--mesh", "2,1", "--hosts", "2", "--sasp", "0.5",
+                      "--path", "packed"])
     # --ckpt-dir is ported (tests/test_torch_checkpoint.py): an empty
     # directory has nothing to restore
     with pytest.raises(FileNotFoundError, match="no checkpoints"):

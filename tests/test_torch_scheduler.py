@@ -10,6 +10,8 @@ prefill shapes under buckets. Every greedy stream is held to each
 request alone through the port's ``Engine(batch_slots=1)`` and the
 reference's (``torch_parity.SoloOracle``, which also holds those two
 equal)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -481,13 +483,24 @@ def test_revive_rank_rebuilds_dead_shard_and_serves_again(dense):
 
 
 def test_revive_rank_refuses_live_shard_and_mesh_is_not_ported(dense):
+    """A live rank is not rebuilt; on a mesh (ported since: tests/
+    test_torch_dp_mesh.py) ``ranks=`` other than the DP size is the
+    reference's ValueError."""
+    from repro_torch.distribution.context import Mesh
     cfg, params, _ = dense
     sched = _sched(cfg, params, slots_per_rank=1)
     with pytest.raises(ValueError, match="alive"):
         sched.revive_rank(0)
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        ShardedScheduler(params, cfg, mesh=object(),
+    mesh = Mesh({"data": 2, "model": 1}, 0, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="ranks=3 conflicts with the "
+                       "mesh's 2 DP rank"):
+        ShardedScheduler(params, cfg, mesh=mesh, ranks=3,
                          sched=SchedulerConfig(cache_len=64))
+    with pytest.raises(ValueError, match="ranks=2 conflicts with the "
+                       "mesh's 4 DP rank"):
+        ShardedScheduler(params, cfg, mesh=dataclasses.replace(
+            mesh, shape={"data": 2, "model": 2}), ranks=2,
+            profile="dp_only", sched=SchedulerConfig(cache_len=64))
 
 
 def test_route_steers_away_from_rank_mid_spill(dense):

@@ -6,8 +6,9 @@ through ``bridge.to_numpy``; the shard-loop forward is within the
 reference's 1e-5 of its meshless tp=2 forward; every decode step's logits
 and the greedy streams of the port's ``Engine`` on a tp=2 tree equal the
 reference ``Engine``'s with no mesh (contiguous and paged, the reduced
-qwen3 of tests/dist_worker.py); and a col shard's visit groups come from
-the unsharded block grid (numpy)."""
+qwen3 of tests/dist_worker.py); the shard loop's attention runs once per
+shard on that shard's heads, as a rank does; and a col shard's visit
+groups come from the unsharded block grid (numpy)."""
 import numpy as np
 import pytest
 
@@ -224,6 +225,32 @@ def test_shard_loop_engine_equals_reference_engine(worker_model, kv,
     scale = max(float(np.abs(s).max()) for s in ref_steps)
     for a, b in zip(steps, ref_steps):
         assert float(np.abs(a.numpy() - b).max()) <= 1e-5 * scale
+
+
+def test_shard_loop_attention_runs_each_shards_heads_alone(worker_model,
+                                                          monkeypatch):
+    """The shard loop (every TP shard held, no mesh) runs attention's
+    score products once per shard, on that shard's KV heads alone and
+    contiguous: the calls a mesh rank makes, so the loop and the mesh
+    give the same bits (on the card a batched fp32 product over half the
+    heads differs from the same heads inside the whole call)."""
+    _, _, mp, mcfg = worker_model
+    calls = []
+    einsum = torch.einsum
+
+    def recorded(eq, *ops):
+        if eq in ("bkgd,bckd->bkgc", "bqkgd,bskd->bkgqs"):
+            heads = ops[0].shape[1 if eq.startswith("bkgd") else 2]
+            calls.append((eq, heads, ops[0].is_contiguous()))
+        return einsum(eq, *ops)
+
+    monkeypatch.setattr(torch, "einsum", recorded)
+    TEngine(mp, mcfg, batch_slots=2, cache_len=64).run(
+        _requests(TRequest)[:2])
+    kinds = {eq for eq, _, _ in calls}
+    assert kinds == {"bkgd,bckd->bkgc", "bqkgd,bskd->bkgqs"}
+    assert all(h == mcfg.num_kv_heads // 2 and c for _, h, c in calls)
+    assert len(calls) % 2 == 0
 
 
 # ---------------------------------------------------------------------------

@@ -291,8 +291,9 @@ def test_launcher_mesh_serves_shard_loop_streams(tmp_path, monkeypatch,
     params served meshless at tp=2 (the shard loop); at ``--sasp 0.5``
     every decode step's logits bit for bit too (``launcher_rank``), at
     ``--sasp 0`` (the visit lists keep every tile) through the
-    launcher's own ``serve_rank``. DP > 1 and the other refusals name
-    their ROADMAP item."""
+    launcher's own ``serve_rank``. ``--ranks`` other than the mesh's DP
+    size is the reference's ``check_ranks`` error; the refusals name their
+    ROADMAP item."""
     argv = ["--mesh", "1,2", "--sasp", sasp, "--path", "packed",
             "--scope", "all", "--device", "cpu", "--requests", "3",
             "--max-new", "4", "--slots", "2", "--cache-len", "64"]
@@ -318,8 +319,10 @@ def test_launcher_mesh_serves_shard_loop_streams(tmp_path, monkeypatch,
             for a, b in zip(res["steps"], steps):
                 assert a.dtype == b.numpy().dtype
                 assert np.array_equal(a, b.numpy())
-    for bad, item in ((["--mesh", "2,1"], "item 6b"),
-                      (["--mesh", "1,2", "--scheduler"], "item 6b"),
+    for bad, item in ((["--mesh", "2,1", "--ranks", "3"],
+                       "exceeds the mesh's DP size 2"),
+                      (["--mesh", "2,2", "--scheduler", "--ranks", "1"],
+                       "conflicts with the mesh's DP size 2"),
                       (["--mesh", "1,2", "--path", "masked"], "item 6e"),
                       (["--mesh", "1,2", "--arch", "mamba2-780m"],
                        "item 6f")):
