@@ -3004,7 +3004,7 @@ def _mesh_rank(rank: int, spec: dict, init_file: str) -> dict:
     mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
     dev = mesh.device
     t0 = time.perf_counter()
-    params, cfg, lcfg = launch.build_rank_params(
+    params, cfg, lcfg, _ = launch.build_rank_params(
         spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank, device=dev,
         prepare=spread_leaf(spec["cfg"]), **spec["build"])
     torch.cuda.synchronize(dev)
@@ -3300,7 +3300,7 @@ def _depth_one_card(torch, counters, cfg0):
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    params, _, lcfg = build_rank_params(
+    params, _, lcfg, _ = build_rank_params(
         cfg0, tp=1, rank=0, device=DEVICE, sparsity=SPARSITY, scope="all",
         prepare=spread_leaf(cfg0), verbose=True)
     torch.cuda.synchronize()
@@ -3395,7 +3395,7 @@ def _depth_rank(rank: int, spec: dict, init_file: str) -> dict:
     for turn in turns:
         if turn == rank:
             t0 = time.perf_counter()
-            params, _, lcfg = launch.build_rank_params(
+            params, _, lcfg, _ = launch.build_rank_params(
                 spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank,
                 device=dev, prepare=spread_leaf(spec["cfg"]),
                 **spec["build"])
@@ -3429,7 +3429,7 @@ def _depth_tp(torch, counters, cfg0, a_run):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    loop, dcfg, _ = launch.build_rank_params(
+    loop, dcfg, _, _ = launch.build_rank_params(
         cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
         scope="all", prepare=spread_leaf(cfg0))
     torch.cuda.synchronize()
@@ -3796,7 +3796,7 @@ def _dp_rank(rank: int, spec: dict, init_file: str) -> dict:
     dev = mesh.device
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params, _, lcfg = launch.build_rank_params(
+    params, _, lcfg, _ = launch.build_rank_params(
         spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank, device=dev,
         prepare=spread_leaf(spec["cfg"]), **spec["build"])
     torch.cuda.synchronize(dev)
@@ -3898,7 +3898,7 @@ def _dp_one_card(torch):
     kinds = ("contiguous", "paged")
     for tp in (1, DPP["tp"]):
         tag = f"(a) --mesh 2,{tp} --scheduler"
-        loop, dcfg, _ = launch.build_rank_params(
+        loop, dcfg, _, _ = launch.build_rank_params(
             cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
             scope="all", prepare=spread_leaf(cfg0))
         oracle = _dp_oracle(torch, loop, dcfg, tag)
@@ -3967,7 +3967,7 @@ def _dp_four_cards(torch):
     tag = f"(c) --mesh 2,{tp} --scheduler, {layers} layers"
     cfg0 = main_config(layers, "bfloat16")
     t0 = time.perf_counter()
-    loop, dcfg, _ = launch.build_rank_params(
+    loop, dcfg, _, _ = launch.build_rank_params(
         cfg0, tp=tp, rank=None, device=DEVICE, sparsity=SPARSITY,
         scope="all", prepare=spread_leaf(cfg0))
     torch.cuda.synchronize()
@@ -4006,6 +4006,350 @@ def dp_phase(torch):
     out["c"] = _dp_four_cards(torch)
     out["seconds"] = time.time() - t_phase
     log(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: every serving path of the dense decoder on a mesh
+# ---------------------------------------------------------------------------
+
+# (a) at ``layers`` on one card, (c) at ``depth_layers`` on four
+MPP = dict(layers=4, depth_layers=64, tp=2, nccl_tp=4, slots=4,
+           cache_len=256, kv_pages=32, new=16, draft_k=4)
+# name -> (path, sparsity, int8 weights, scope, paged, drafter: None or
+# (its sparsity, its int8 flag)); at 75% a drafter of random weights
+# accepts nothing (phase 3c), so one more at the target's own 50%
+MESH_PATHS = {
+    "--sasp 0": ("packed", 0.0, False, "all", False, None),
+    "masked": ("masked", SPARSITY, False, "all", False, None),
+    "masked int8": ("masked", SPARSITY, True, "ffn", False, None),
+    "bsr": ("bsr", SPARSITY, False, "all", False, None),
+    "kernel": ("kernel", SPARSITY, False, "all", False, None),
+    "packed paged": ("packed", SPARSITY, False, "all", True, None),
+    "packed drafter": ("packed", SPARSITY, False, "all", True, (0.75, False)),
+    "packed int8 drafter": ("packed", SPARSITY, False, "all", True,
+                            (0.75, True)),
+    "packed drafter 50%": ("packed", SPARSITY, False, "all", True,
+                           (SPARSITY, False)),
+}
+
+def _mp_build(torch, cfg0, name, tp, rank, device):
+    """``build_rank_params`` of case ``name`` (wo and w2 spread as drawn),
+    timed, with the peak GiB the build reached on ``device``."""
+    from repro_torch.launch import serve as launch
+    path, sparsity, int8, scope, _, drafter = MESH_PATHS[name]
+    ds, dq = drafter or (None, False)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, cfg, lcfg, draft = launch.build_rank_params(
+        cfg0, tp=tp, rank=rank, device=device, sparsity=sparsity,
+        scope=scope, int8_weights=int8, path=path, draft_sparsity=ds,
+        draft_int8=dq, prepare=spread_leaf(cfg0))
+    torch.cuda.synchronize(device)
+    # the drafter shares the target's table and norms
+    return params, cfg, lcfg, draft, dict(
+        build_s=time.perf_counter() - t0,
+        build_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+        tree_gib=_tree_gib(params),
+        draft_gib=0.0 if draft is None else _tree_gib(draft[0]["segments"]))
+
+
+def _mp_serve(torch, params, cfg, counters, name, mesh=None, draft=None):
+    """Phase 3's 4 requests of 16 tokens through ``Engine`` (4 slots,
+    cache 256; paged where the case says, with its drafter) after an
+    untimed 2-token run; launch counts set to 0 just before the timed run
+    and read just after. Returns the streams, decode-logit digests, the
+    top-2 margins, step times, launches (with the target forwards) and
+    the speculation counters."""
+    from repro_torch.launch.serve import SPEC_KEYS, synthetic_requests
+    from repro_torch.serve.engine import Engine
+    kw = dict(batch_slots=MPP["slots"], cache_len=MPP["cache_len"],
+              mesh=mesh)
+    if MESH_PATHS[name][4]:
+        kw["kv_pages"] = MPP["kv_pages"]
+    if draft is not None:
+        kw.update(draft=draft, draft_k=MPP["draft_k"])
+    Engine(params, cfg, **kw).run(synthetic_requests(4, cfg.vocab_size, 2))
+    eng = Engine(params, cfg, **kw)
+    rec = _recording(eng)
+    fwd = [0]
+    pre = eng._run_prefill
+
+    def prefill(*a):
+        fwd[0] += 1
+        return pre(*a)
+    eng._run_prefill = prefill
+    reset(counters)
+    streams, steps = _drive_timed(
+        torch, eng, synthetic_requests(4, cfg.vocab_size, MPP["new"]))
+    launches = _launch_counts(counters)
+    return dict(streams=streams, digests=[_digest(x) for x in rec["steps"]],
+                margins=rec["margins"], times=_step_times(steps),
+                launches=launches, forwards=fwd[0] + len(rec["steps"]),
+                spec={k: eng.stats[k] for k in SPEC_KEYS})
+
+
+def _mp_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """Phase 12's model rank, spawned by the launcher's ``serve_mesh``:
+    join the mesh over ``spec["backend"]``, then for each case build its
+    trees layer by layer (``build_rank_params``), hold rs+int8-ag on the
+    dense tree's FFN against the exact reduction, serve, free. Returns
+    what the parent checks (the streams of every case under
+    ``streams``, which ``serve_mesh`` holds equal in every process)."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    cfg0 = main_config(spec["layers"], "bfloat16")
+    out = dict(rank=rank, transport=mesh.transport, cases={}, streams={})
+    for name in spec["cases"]:
+        params, _, lcfg, draft, res = _mp_build(
+            torch, cfg0, name, spec["mesh"][1], mesh.model_rank, dev)
+        res["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        if name == "--sasp 0" and spec["rs_ag"]:
+            res["rs_ag"] = _rs_ag_check(torch, params, lcfg, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = _mp_serve(torch, params, lcfg, counters, name, mesh, draft)
+        run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["streams"][name] = run.pop("streams")
+        res.update(run)
+        out["cases"][name] = res
+        del params, draft
+        _free(torch)
+    return out
+
+
+def _mp_oracles(torch, counters):
+    """For each case on this card: the shard loop at tp 2 (the tree with
+    every shard, ``build_rank_params(rank=None)``) and the one-card
+    engine on the same weights (the loop's tree at tp 1: its dense and
+    BSR leaves whole, its containers ``reshard_packed`` to 1)."""
+    from repro_torch.core.deploy import reshard_packed
+    from repro_torch.distribution.sharding import tp_config
+    cfg0 = main_config(MPP["layers"], "bfloat16")
+    out = {}
+    for name in MESH_PATHS:
+        loop, tcfg, _, draft, res = _mp_build(torch, cfg0, name, MPP["tp"],
+                                              None, DEVICE)
+        res["loop"] = _mp_serve(torch, loop, tcfg, counters, name,
+                                draft=draft)
+        one, ocfg = reshard_packed(loop, tcfg, tp=1), tp_config(tcfg, 1)
+        odraft = None if draft is None else (
+            reshard_packed(draft[0], draft[1], tp=1), tp_config(draft[1], 1))
+        del loop, draft
+        res["one_card"] = _mp_serve(torch, one, ocfg, counters, name,
+                                    draft=odraft)
+        out[name] = res
+        del one, odraft
+        _free(torch)
+    return out
+
+
+def _mp_check(name, r, oracle):
+    """A rank's case: streams, decode logits and speculation counters bit
+    for bit the loop's; the kernels its path runs (none on the dense,
+    masked and bsr paths, whose products are plain, as in the
+    reference), on their tensor-core variants; an int8 drafter's on the
+    int8 forms too."""
+    loop = oracle["loop"]
+    tag = f"(a) {name} rank {r['rank']}"
+    got = r["cases"][name]
+    check(r["streams"][name] == loop["streams"],
+          f"{tag}: streams differ from the shard loop's at tp {MPP['tp']}")
+    check(got["digests"] == loop["digests"],
+          f"{tag}: decode logits are not bit for bit the shard loop's")
+    check(got["spec"] == loop["spec"],
+          f"{tag}: speculation counters {got['spec']}, the loop's "
+          f"{loop['spec']}")
+    path, sparsity, _, _, _, drafter = MESH_PATHS[name]
+    dq = drafter is not None and drafter[1]
+    lg, lf = got["launches"]["sasp_gemm"], got["launches"]["sasp_fused_ffn"]
+    if path in ("masked", "bsr") or sparsity == 0:
+        check(lg["total"] == lf["total"] == 0,
+              f"{tag}: launched {lg['total']} tile-skip GEMMs and "
+              f"{lf['total']} fused FFNs on a path of plain products")
+        return
+    # the kernel path's BSR blocks stay fp32 (as the reference keeps
+    # them): its variant is the one-card engine's, FMAs
+    want = {"mma"} if path == "packed" else \
+        set(loop["launches"]["sasp_gemm"]["variant"])
+    check(lg["total"] > 0 and want and set(lg["variant"]) == want,
+          f"{tag}: sasp_gemm launched {lg}, the loop "
+          f"{loop['launches']['sasp_gemm']}")
+    if path == "packed":
+        # the int8 fused FFN's down projection runs on FMAs (phase 3c)
+        check(lf["total"] > 0 and set(lf["variant"]) == (
+            {"mma/mma", "mma/fma"} if dq else {"mma/mma"}),
+              f"{tag}: sasp_fused_ffn launched {lf}")
+        kinds = {"bfloat16"} | ({"int8"} if dq else set())
+        for n, l in (("sasp_gemm", lg), ("sasp_fused_ffn", lf)):
+            check(set(l["weight"]) == kinds,
+                  f"{tag}: {n} ran weights {l['weight']}, not {kinds}")
+
+
+def _mp_report(name, res, oracle):
+    """One case's lines: ms/step of a rank beside the one-card engine's
+    and the loop's, GiB, build s, launches a forward, spec counters."""
+    r0 = res[0]["cases"][name]
+    one, loop = oracle["one_card"], oracle["loop"]
+    drafted = MESH_PATHS[name][5] is not None
+    # a drafter's steps also run its forwards and the verify pass: count
+    # those by step
+    fwd = max(1, r0["times"]["steps"] if drafted else r0["forwards"])
+    per = {n: {v: round(c / fwd, 2) for v, c in l["variant"].items()}
+           for n, l in r0["launches"].items() if l["total"]}
+    wts = {n: l["weight"] for n, l in r0["launches"].items() if l["total"]}
+    line = (f"  (a) {name}: decode ms/step by rank "
+            f"{[round(r['cases'][name]['times']['decode_ms_per_step'], 2) for r in res]}"
+            f" (one card {one['times']['decode_ms_per_step']:.2f}, the "
+            f"loop at tp {MPP['tp']} {loop['times']['decode_ms_per_step']:.2f}),"
+            f" prefill {r0['times']['prefill_ms']:.1f} ms (one card "
+            f"{one['times']['prefill_ms']:.1f}); GiB a rank: tree "
+            f"{[round(r['cases'][name]['tree_gib'] + r['cases'][name]['draft_gib'], 2) for r in res]}"
+            f", held {[round(r['cases'][name]['held_gib'], 2) for r in res]}"
+            f", peak building "
+            f"{[round(r['cases'][name]['build_peak_gib'], 2) for r in res]}"
+            f"; build s {[round(r['cases'][name]['build_s'], 1) for r in res]}"
+            f"; launches a {'step' if drafted else 'forward'} ({fwd} "
+            f"{'steps' if drafted else 'forwards'}) by variant "
+            f"{per or 'none'}, in all by weight {wts or 'none'}")
+    if drafted:
+        sc = r0["spec"]
+        line += (f"; speculation: {sc['spec_rounds']} rounds, "
+                 f"{sc['spec_accepted_tokens']}/{sc['spec_draft_tokens']} "
+                 f"drafts accepted, {sc['spec_fallbacks']} fallbacks, "
+                 f"{r0['times']['decode_ms_per_step']:.2f} ms a step (one "
+                 f"batched round over the slots), "
+                 f"{r0['times']['tokens_per_decode_step']:.2f} tokens a step")
+    if "rs_ag" in r0:
+        line += (f"; rs+int8-ag FFN "
+                 f"{[r['cases'][name]['rs_ag']['rel_err'] for r in res]} of "
+                 f"the exact reduction")
+    log(line)
+
+
+def _mp_one_card(torch, counters):
+    """(a) and (b): every case on ``--mesh 1,2`` on this card over gloo,
+    host-staged, against its oracles."""
+    from repro_torch.launch import serve as launch
+    t0 = time.time()
+    oracles = _mp_oracles(torch, counters)
+    oracle_s = time.time() - t0
+    _free(torch)
+    t0 = time.time()
+    spec = dict(mesh=(1, MPP["tp"]), layers=MPP["layers"], device=DEVICE,
+                backend="gloo", cases=list(MESH_PATHS), rs_ag=True)
+    res = launch.serve_mesh(spec, _mp_rank, store_dir=OUT_DIR, timeout=600)
+    wall = time.time() - t0
+    log(f"  (a) --mesh 1,{MPP['tp']}: {len(res)} spawned ranks over "
+        f"{res[0]['transport']}, {wall:.1f} s wall for {len(MESH_PATHS)} "
+        f"cases (the oracles {oracle_s:.1f} s)")
+    out = {"wall_s": wall, "oracle_s": oracle_s, "cases": {}}
+    for name in MESH_PATHS:
+        path = MESH_PATHS[name][0]
+        for r in res:
+            _mp_check(name, r, oracles[name])
+            if "rs_ag" in r["cases"][name]:
+                check(r["cases"][name]["rs_ag"]["rel_err"] <= 2e-2,
+                      f"(b) rank {r['rank']}: rs+int8-ag "
+                      f"{r['cases'][name]['rs_ag']['rel_err']:.3g} from the "
+                      f"exact reduction (bound 2e-2)")
+        one = oracles[name]["one_card"]
+        drafted = MESH_PATHS[name][5] is not None
+        margins = one["margins"]
+        if drafted:
+            # a token of a verify pass has no recorded margin: read it
+            # off the one-card engine without a drafter
+            margins = {**oracles["packed paged"]["one_card"]["margins"],
+                       **margins}
+        ties = _greedy_equal(f"(a) {name}", res[0]["streams"][name],
+                             one["streams"], margins,
+                             ref="the one-card engine")
+        if drafted:
+            base = oracles["packed paged"]["loop"]
+            ties += _greedy_equal(f"(a) {name}", res[0]["streams"][name],
+                                  base["streams"], base["margins"],
+                                  ref="the mesh without a drafter")
+        _mp_report(name, res, oracles[name])
+        out["cases"][name] = dict(
+            path=path, near_ties=ties,
+            ranks=[{k: v for k, v in r["cases"][name].items()
+                    if k not in ("digests", "margins")} for r in res],
+            one_card={k: v for k, v in oracles[name]["one_card"].items()
+                      if k not in ("digests", "margins", "streams")},
+            loop={k: v for k, v in oracles[name]["loop"].items()
+                  if k not in ("digests", "margins", "streams")})
+    log(f"  (a) every rank's streams and decode logits bit for bit the "
+        f"shard loop at tp {MPP['tp']} on every path; greedy-equal to the "
+        f"one-card engine but at the near-ties printed")
+    out["launches"] = {n: sum(r["cases"][c]["launches"][n]["total"]
+                              for r in res for c in MESH_PATHS)
+                       for n in MAIN_PATH}
+    return out
+
+
+def _mp_four_cards(torch):
+    """(c) ``--mesh 1,4 --sasp 0`` and packed ``--mesh 1,4`` at all 64
+    layers over NCCL, a card a rank, one after the other in the same
+    processes: decode ms/step of each."""
+    from repro_torch.launch import serve as launch
+    tp, n = MPP["nccl_tp"], torch.cuda.device_count()
+    if n < tp:
+        log(f"  (c) nccl: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    t0 = time.time()
+    spec = dict(mesh=(1, tp), layers=MPP["depth_layers"], device=DEVICE,
+                backend="nccl", cases=["--sasp 0", "packed paged"],
+                rs_ag=False)
+    res = launch.serve_mesh(spec, _mp_rank, store_dir=OUT_DIR, timeout=900)
+    wall = time.time() - t0
+    out = {"wall_s": wall, "cases": {}}
+    for name in spec["cases"]:
+        for r in res:
+            streams = r["streams"][name]
+            check(len(streams) == 4 and all(
+                len(s) == MPP["new"] and all(0 <= t < 151_936 for t in s)
+                for s in streams.values()),
+                f"(c) {name} rank {r['rank']}: not 4 streams of "
+                f"{MPP['new']} tokens in the vocabulary")
+        out["cases"][name] = [{k: v for k, v in r["cases"][name].items()
+                               if k not in ("digests", "margins")}
+                              for r in res]
+    d = [r["cases"]["--sasp 0"]["times"]["decode_ms_per_step"] for r in res]
+    p = [r["cases"]["packed paged"]["times"]["decode_ms_per_step"]
+         for r in res]
+    log(f"  (c) --mesh 1,{tp} at {MPP['depth_layers']} layers over "
+        f"{res[0]['transport']}, {wall:.1f} s wall: --sasp 0 (dense fp32 "
+        f"weights) decode ms/step by rank {[round(v, 2) for v in d]}, tree "
+        f"{[round(r['cases']['--sasp 0']['tree_gib'], 2) for r in res]} GiB"
+        f" (peak building "
+        f"{[round(r['cases']['--sasp 0']['build_peak_gib'], 2) for r in res]}"
+        f", build s "
+        f"{[round(r['cases']['--sasp 0']['build_s'], 1) for r in res]}); "
+        f"packed at {SPARSITY:.0%} (paged) "
+        f"{[round(v, 2) for v in p]} ms/step, tree "
+        f"{[round(r['cases']['packed paged']['tree_gib'], 2) for r in res]}"
+        f" GiB; dense / packed {d[0] / p[0]:.2f}")
+    return out
+
+
+def mesh_paths_phase(torch, counters):
+    """Phase 12: every serving path of the dense decoder on --mesh 1,2 on
+    one card, (a) and (b); (c) on four where the machine has them. Run
+    last, with every earlier model freed."""
+    t_phase = time.time()
+    log(f"  qwen3-32b at full width, {MPP['layers']} layers; seed 0, wo and "
+        f"w2 spread, 50% of the 32x32 tiles where pruned, bf16 compute; "
+        f"phase 3's 4 requests of {MPP['new']} tokens, 4 slots; drafters "
+        f"k {MPP['draft_k']}, paged ({MPP['kv_pages']} pages)")
+    out = _mp_one_card(torch, counters)
+    _free(torch)
+    out["c"] = _mp_four_cards(torch)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 12: {out['seconds']:.1f} s")
     return out
 
 
@@ -4170,9 +4514,19 @@ def main() -> int:
     _free(torch)
     dp = dp_phase(torch)
 
-    # each kernel's launches on its own path
-    path_launches = {n: (launches if n in MAIN_PATH
-                         else ablation["launches"])[n] for n in KERNELS}
+    log("[12] mesh paths: --mesh 1,2 on this card with --sasp 0, masked, "
+        "masked int8, bsr, kernel, packed and packed with fp / int8 "
+        "drafters; the dense rs+int8-ag FFN; --mesh 1,4 --sasp 0 and "
+        "packed at all 64 layers over NCCL where there are four cards "
+        "(last, every earlier model freed)")
+    _free(torch)
+    mesh_paths = mesh_paths_phase(torch, counters)
+
+    # each kernel's launches on its own path: the main path's, phase 3's
+    # and phase 12's mesh ranks' (every path, both ranks)
+    path_launches = {n: launches[n] + mesh_paths["launches"][n]
+                     if n in MAIN_PATH else ablation["launches"][n]
+                     for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w",
               encoding="utf-8") as fh:
@@ -4182,6 +4536,7 @@ def main() -> int:
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
                        families=families, tp=tp, depth=depth, dp=dp,
+                       mesh_paths=mesh_paths,
                        seconds=time.time() - t_start), fh, indent=1)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)

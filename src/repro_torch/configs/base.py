@@ -148,6 +148,10 @@ class ModelConfig:
     # (the reference's ``vocab`` rule; set by a TP deployment): a mesh
     # rank holds one, the shard loop computes the head shard by shard
     vocab_shards: int = 1
+    # the 'model' shards of a TP deployment's dense and BSR matrices
+    # (the reference's col / row / bsr rules; set by a TP deployment): a
+    # mesh rank holds one of each, the shard loop runs them shard by shard
+    tp_shards: int = 1
     # --- SASP ---
     sasp: SASPConfig = field(default_factory=SASPConfig)
     # --- numerics ---

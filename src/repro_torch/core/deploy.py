@@ -26,9 +26,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.quantization import dequantize_int8
-from repro_torch.core.sparse import PackedFFN, PackedSASPWeight
-from repro_torch.distribution.sharding import vocab_config
+from repro_torch.core.quantization import QuantizedWeight, dequantize_int8
+from repro_torch.core.sparse import (BlockSparseWeight, PackedFFN,
+                                     PackedSASPWeight)
+from repro_torch.distribution.sharding import tp_config
 from repro_torch.kernels.sasp_gemm import pack
 from repro_torch.kernels.sasp_gemm.fused_ffn import fused_ffn
 from repro_torch.kernels.sasp_gemm.gemm import sasp_gemm
@@ -385,7 +386,8 @@ def deploy_packed(params: Params, cfg: ModelConfig, *,
     (wq/wk/wv col on head boundaries, wo row; w1/w3 col, w2 row; the
     fused FFN by d_ff); a group whose block grid does not divide stays
     unsharded. ``cfg'.vocab_shards``: the embedding / head table's vocab
-    split at ``tp`` (``distribution.sharding.vocab_config``)."""
+    split at ``tp``, and ``cfg'.tp_shards`` ``tp``
+    (``distribution.sharding.tp_config``)."""
     tp = _mesh_tp(mesh, tp)
     quantize = cfg.sasp.quantize if quantize is None else quantize
     attn = (cfg.sasp.scope == "all") if attn is None else attn
@@ -400,7 +402,7 @@ def deploy_packed(params: Params, cfg: ModelConfig, *,
     cfg = dataclasses.replace(
         cfg, sasp=dataclasses.replace(cfg.sasp, enabled=True,
                                       path="kernel"))
-    return out, vocab_config(cfg, tp)
+    return out, tp_config(cfg, tp)
 
 
 def strip_packed(params: Params) -> Params:
@@ -424,7 +426,8 @@ def strip_packed(params: Params) -> Params:
 
 
 def draft_pack(params: Params, cfg: ModelConfig, *, sparsity: float,
-               quantize: bool = False) -> Tuple[Params, ModelConfig]:
+               quantize: bool = False, mesh=None, tp: Optional[int] = None
+               ) -> Tuple[Params, ModelConfig]:
     """Self-speculation drafter on the sparsity ladder: the deployed
     weights re-pruned at a higher global tile ``sparsity`` and packed
     (int8 with per-block scales with ``quantize``). Same architecture,
@@ -432,7 +435,10 @@ def draft_pack(params: Params, cfg: ModelConfig, *, sparsity: float,
     pool. Greedy exactness never rests on the drafter (every emitted
     token is a target argmax); its fidelity only moves the acceptance.
     Fp blocks are stored in the compute type, as the launcher stores
-    the target's (the kernels round weights to it anyway)."""
+    the target's (the kernels round weights to it anyway). ``mesh`` /
+    ``tp``: the drafter's visit lists in ``tp`` shards (or the 'model'
+    axis of ``mesh``), sharded like a target packed at that count
+    (``deploy_packed``)."""
     if not 0.0 < float(sparsity) < 1.0:
         raise ValueError(
             f"draft sparsity={sparsity} must lie in (0, 1)")
@@ -443,7 +449,8 @@ def draft_pack(params: Params, cfg: ModelConfig, *, sparsity: float,
         quantize=bool(quantize))
     dcfg = dataclasses.replace(cfg, sasp=dsasp)
     pruned, _ = prune_params(strip_packed(params), dsasp)
-    out, dcfg = deploy_packed(pruned, dcfg, quantize=bool(quantize))
+    out, dcfg = deploy_packed(pruned, dcfg, quantize=bool(quantize),
+                              mesh=mesh, tp=tp)
     cdt = as_dtype(cfg.compute_dtype)
     if cdt != torch.float32:
         out = cast_packed_values(out, cdt)
@@ -511,7 +518,9 @@ class LayerStack:
     scales, ``pack.pad_block_list``; a PackedFFN by zero visits with jv
     -1): the padded axis grows when a layer needs more than the layers
     before it. Stacking the layers of ``deploy_packed`` run layer by
-    layer gives the containers of one run over every layer."""
+    layer gives the containers of one run over every layer. BSR and int8
+    ``qw`` containers take one shape every layer (a BSR's depth is the
+    whole stack's ``k_max``) and stack field by field."""
 
     def __init__(self, n_layers: int, device):
         self.L, self.device, self.i = n_layers, device, 0
@@ -545,6 +554,8 @@ class LayerStack:
             pads, n = _W_PAD, part.nnz
         elif isinstance(part, PackedFFN):
             pads, n = _F_PAD, part.nv
+        elif isinstance(part, (BlockSparseWeight, QuantizedWeight)):
+            pads, n = {}, 0             # one shape every layer
         else:
             raise TypeError(f"LayerStack: {type(part).__name__}")
         if node is None:

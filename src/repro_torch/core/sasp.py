@@ -120,11 +120,15 @@ def quantize_params(params: Params, sasp: SASPConfig,
 
 
 def bsr_overlay_from_masks(params: Params, masks: Dict[Tuple, Any],
-                           sasp: SASPConfig) -> Params:
+                           sasp: SASPConfig,
+                           k_max: Optional[Dict[Tuple, int]] = None
+                           ) -> Params:
     """{…, 'sasp_bsr': {matrix: BlockSparseWeight}} overlays, on the
     device of each weight. 2-D weights get one container; (L, K, N)
     layer stacks get per-layer BSRs padded to a shared k_max and stacked.
-    Stacks of more dims (MoE expert grids) stay on the masked path."""
+    Stacks of more dims (MoE expert grids) stay on the masked path.
+    ``k_max`` (path -> depth), where given, pads a stack to that depth:
+    a layer built alone takes its whole stack's."""
     flat = dict(iter_leaves(params))
     overlay: Params = {}
     for path, mask in masks.items():
@@ -139,10 +143,11 @@ def bsr_overlay_from_masks(params: Params, masks: Dict[Tuple, Any],
             bsr = bsr_from_mask(w, m, bk, bn, quantize=sasp.quantize,
                                 device=leaf.device)
         elif w.ndim == 3:
-            k_max = max(1, int(m.sum(axis=-2).max()))
+            depth = (k_max or {}).get(path) or max(1, int(m.sum(axis=-2)
+                                                          .max()))
             bsr = stack_bsr([
                 bsr_from_mask(w[i], m[i], bk, bn, quantize=sasp.quantize,
-                              k_max=k_max, device=leaf.device)
+                              k_max=depth, device=leaf.device)
                 for i in range(w.shape[0])])
         else:
             continue                     # MoE expert stacks: masked path

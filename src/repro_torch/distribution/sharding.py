@@ -1,14 +1,19 @@
 """Sharding rules of the port (``repro.distribution.sharding``): which
 slice of each leaf a TP rank holds, and rank r's local tree.
 
-Rules are the reference's attention rules (path pattern -> spec,
-Megatron layout): wq/wk/wv col-sharded (output dim over 'model'), their
-biases with them, wo row-sharded (input dim; its bias whole, added after
-the reduction), norms replicated; a dim that does not divide the axis
-stays whole. The FFN serves a mesh packed only, so its shards are its
-containers'. A spec here is a tuple with one entry per dim: an
-axis name or None. Packed containers shard along their shard axis
-(``axis_at``): a rank holds one shard-local visit list of each.
+Rules are the reference's (path pattern -> spec, Megatron layout):
+wq/wk/wv col-sharded (output dim over 'model'), their biases with them,
+wo row-sharded (input dim; its bias whole, added after the reduction);
+the dense FFN's w1/w3 col and w2 row; a ``BlockSparseWeight`` of the
+bsr / kernel paths by its column blocks (``vals`` (L, k_max, NB, bk,
+bn), ``idx`` and ``scale`` (L, k_max, NB): NB over 'model'); the
+embedding / head table by rows; everything else replicated, by the
+reference's fall-through ``.*`` rule. That includes the int8 ``qw``
+leaves of the masked int8 path: every rank holds and multiplies the
+whole int8 FFN, as under the reference's GSPMD. A dim that does not
+divide the axis stays whole. A spec here is a tuple with one entry per
+dim: an axis name or None. Packed containers shard along their shard
+axis (``axis_at``): a rank holds one shard-local visit list of each.
 
 Placement differs from the reference, the math does not. The reference
 leaves activations and caches to GSPMD (``cache_shardings`` puts a
@@ -17,11 +22,14 @@ here runs attention over its own heads — ``local_config`` gives it
 ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, so its
 caches and page pool hold only those heads and attention needs no
 collective; the collectives are the reductions of the row-sharded
-projections and the fused FFN's d_ff shards, and the vocab-sharded
+projections (wo, the dense FFN's w2) and the fused FFN's d_ff shards,
+the all-gather of a BSR matrix's output columns, and the vocab-sharded
 embedding and head: the reference's ``vocab`` rule puts the table's rows
 over 'model' (``cfg.vocab_shards``, ``vocab_config``), each rank gathers
 the ids in its rows and the ranks' rows are summed, and each rank's
 logits over its rows are all-gathered in vocab order (``models.lm``).
+A TP deployment's config (``tp_config``) carries the shard counts, so
+that the meshless shard loop runs the same shards in one process.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import MIXER_ATTN, ModelConfig
-from repro_torch.core.sparse import PackedSASPWeight
+from repro_torch.core.sparse import BlockSparseWeight, PackedSASPWeight
 
 Spec = Tuple[Optional[str], ...]
 Params = Dict[str, Any]
@@ -46,10 +54,10 @@ def _maybe(dim: int, sizes: Dict[str, int], axis: str) -> Optional[str]:
 def param_rules():
     """(regex on the leaf's path, spec builder fn(shape, sizes)); the
     first match wins. ``sizes`` maps axis names to their sizes. The
-    reference's vocab and attention rules: the rest of a rank's tree is
-    packed containers (``packed_sharding``) or replicated. Its expert,
-    shared-FFN and SSM rules come with the slice that shards those leaves
-    (ROADMAP Queue 1 item 6f)."""
+    reference's BSR, vocab, attention and dense-FFN rules; packed
+    containers shard by ``packed_sharding``. Its expert, shared-FFN and
+    SSM rules come with the slice that shards those leaves (ROADMAP
+    Queue 1 item 6f)."""
     def col(shape, sizes):     # (..., d_in, d_out): d_out over 'model'
         return (None,) * (len(shape) - 1) + (
             _maybe(shape[-1], sizes, "model"),)
@@ -64,10 +72,23 @@ def param_rules():
     def repl(shape, sizes):
         return (None,) * len(shape)
 
+    def bsr_vals(shape, sizes):   # (..., k_max, NB, bk, bn)
+        return (None,) * (len(shape) - 3) + (
+            _maybe(shape[-3], sizes, "model"), None, None)
+
+    def bsr_idx(shape, sizes):    # (..., k_max, NB) idx / scale
+        return (None,) * (len(shape) - 1) + (
+            _maybe(shape[-1], sizes, "model"),)
+
     return [
+        (r"sasp_bsr/w\d/vals$", bsr_vals),
+        (r"sasp_bsr/w\d/(idx|scale)$", bsr_idx),
+        (r"sasp_bsr/", repl),
         (r"(embed|lm_head)/emb$", vocab),
         (r"mixer/(wq|wk|wv)/(w|b)$", col),
         (r"mixer/wo/w$", row),
+        (r"ffn/w(1|3)/w$", col),
+        (r"ffn/w2/w$", row),
         (r".*", repl),
     ]
 
@@ -91,6 +112,14 @@ def vocab_config(cfg: ModelConfig, tp: int) -> ModelConfig:
                           {"model": tp})
     return dataclasses.replace(
         cfg, vocab_shards=tp if tp > 1 and spec[0] == "model" else 1)
+
+
+def tp_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """``cfg`` of a TP deployment at ``tp``: the vocab split
+    (``vocab_config``) and ``tp_shards``, the shard count of the dense
+    and BSR matrices, which a mesh rank holds one of and the shard loop
+    runs one after another."""
+    return dataclasses.replace(vocab_config(cfg, tp), tp_shards=int(tp))
 
 
 def axis_at(rank: int, from_end: int, axis: str) -> Spec:
@@ -217,16 +246,24 @@ def _local_group(node: Params, group: str, names, rank: Optional[int],
 
 def local_params(params: Params, cfg: ModelConfig, tp: int,
                  rank: Optional[int]) -> Params:
-    """Model rank ``rank``'s tree of a packed deployment at ``tp``
-    (``deploy_packed(..., tp=tp)`` or ``reshard_packed``): each sharded
-    container keeps only shard ``rank`` (its shard axis at length 1),
-    the dense matrices a container replaces are dropped, the other dense
-    attention leaves are sliced by ``param_rules`` (scope ffn: wq/wk/wv
-    by columns, wo by rows), the embedding and head table keeps the
-    rank's V/tp rows where ``cfg.vocab_shards`` is tp (``vocab_config``),
-    and the norms stay whole. Serve it with ``local_config(cfg, tp)``.
-    ``rank`` None keeps every shard and the whole table (the shard loop's
-    tree without the dense matrices)."""
+    """Model rank ``rank``'s tree of a TP deployment at ``tp``, on any
+    serving path: packed (``deploy_packed(..., tp=tp)`` or
+    ``reshard_packed``), dense, masked (pruned in place), masked int8 and
+    bsr / kernel. Each sharded container keeps only shard ``rank`` (its
+    shard axis at length 1); every other leaf is sliced by
+    ``param_rules``: wq/wk/wv by columns and wo by rows where attention
+    is dense, the dense FFN's w1/w3 by columns and w2 by rows, a
+    ``BlockSparseWeight`` by column blocks (its ``shape`` stays the whole
+    matrix's), the embedding and head table to the rank's V/tp rows where
+    ``cfg.vocab_shards`` is tp (``vocab_config``); norms and int8 ``qw``
+    leaves stay whole. The dense matrices a container replaces are
+    dropped: a packed group's, and the ``w`` of each matrix a BSR
+    container replaces (the reference keeps that ``w`` but never reads
+    it). Attention's BSR entries are dropped too: the reference's
+    ``_proj`` reads only ``sasp_packed`` or ``w``, so on the bsr and
+    kernel paths attention runs the pruned dense weights. Serve it with
+    ``local_config(cfg, tp)``. ``rank`` None keeps every shard and every
+    whole leaf (the shard loop's tree without the replaced matrices)."""
     if cfg.moe is not None or any(k != MIXER_ATTN
                                   for k in cfg.layer_mixer_kinds()):
         raise ValueError(
@@ -235,8 +272,7 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
     if tp > 1 and cfg.vocab_shards != vocab_config(cfg, tp).vocab_shards:
         raise ValueError(
             f"cfg.vocab_shards {cfg.vocab_shards} is not the vocab split at "
-            f"tp={tp}: serve a config from deploy_packed(tp=) or "
-            f"vocab_config")
+            f"tp={tp}: serve a config from a TP deployment (tp_config)")
     sizes = {"model": tp}
     segs = []
     for si, seg in enumerate(params["segments"]):
@@ -249,21 +285,21 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
                                      ("wq", "wk", "wv", "wo"), rank, tp,
                                      "attention")
             else:
-                mixer = {k: _slice_tree(v, ("segments", si, name, "mixer",
-                                            k), sizes, rank, tp)
-                         for k, v in mixer.items()}
+                mixer = {k: v for k, v in mixer.items() if k != "sasp_bsr"}
             if "sasp_fused" in ffn:
                 ffn = _local_group(ffn, "sasp_fused", ("w1", "w2", "w3"),
                                    rank, tp, "ffn")
             elif "sasp_packed" in ffn:
                 ffn = _local_group(ffn, "sasp_packed", ("w1", "w2", "w3"),
                                    rank, tp, "ffn")
-            else:
-                raise ValueError(
-                    "a dense FFN on a mesh (the reference's "
-                    "_ffn_tp_rs_ag_int8) is not ported: ROADMAP Queue 1 "
-                    "item 6e; serve --path packed")
-            slot["mixer"], slot["ffn"] = mixer, ffn
+            elif "sasp_bsr" in ffn:
+                ffn = {k: ({kk: vv for kk, vv in v.items() if kk != "w"}
+                           if k in ffn["sasp_bsr"] else v)
+                       for k, v in ffn.items()}
+            base = ("segments", si, name)
+            slot["mixer"] = _slice_tree(mixer, base + ("mixer",), sizes,
+                                        rank, tp)
+            slot["ffn"] = _slice_tree(ffn, base + ("ffn",), sizes, rank, tp)
             new_seg[name] = slot
         segs.append(new_seg)
     out = dict(params)
@@ -276,11 +312,18 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
 
 
 def _slice_tree(node, path, sizes, rank, tp):
+    """``node`` with every tensor leaf cut to rank ``rank``'s slice by
+    ``param_rules`` (a BSR container's arrays too); packed containers,
+    localised already, and int8 ``qw`` leaves pass whole."""
     if rank is None:
         return node
     if isinstance(node, dict):
         return {k: _slice_tree(v, path + (k,), sizes, rank, tp)
                 for k, v in node.items()}
+    if isinstance(node, BlockSparseWeight):
+        return dataclasses.replace(node, **{
+            f: _slice_tree(getattr(node, f), path + (f,), sizes, rank, tp)
+            for f in ("vals", "idx", "scale")})
     if isinstance(node, torch.Tensor):
         return take_slice(node, spec_for_param(path, tuple(node.shape),
                                                sizes), rank, tp)

@@ -208,12 +208,15 @@ def bsr_visit_list(w):
     return vals, kn, col_ptr, scales
 
 
-def sasp_matmul(x: torch.Tensor, w) -> torch.Tensor:
+def sasp_matmul(x: torch.Tensor, w, group_nb: Optional[int] = None
+                ) -> torch.Tensor:
     """(…, K) @ ``BlockSparseWeight`` -> (…, N) through the tile-skip
     kernel, repacking the container into a visit list on every call (the
-    cost the ``kernel`` path pays and the ``packed`` path avoids)."""
+    cost the ``kernel`` path pays and the ``packed`` path avoids).
+    ``group_nb``: the column blocks of the whole weight when ``w`` is a
+    TP column shard of it (``sasp_gemm``)."""
     *lead, K = x.shape
     vals, kn, col_ptr, scales = bsr_visit_list(w)
     y = sasp_gemm(x.reshape(-1, K), vals, kn, col_ptr, w.shape[1],
-                  scales=scales)
+                  scales=scales, group_nb=group_nb)
     return y.reshape(*lead, w.shape[1]).to(x.dtype)

@@ -50,34 +50,40 @@ shapes).
 generators (or read from ``--ckpt-dir``) alone, scored, then drawn again,
 pruned, packed and cast before the next, so one card holds the packed
 model and one layer's masters, not the whole fp32 tree: qwen3-32b serves
-at all 64 layers with ``--no-reduce``. MoE and SSM stacks, ``--sasp 0``,
-a drafter (``--draft-sparsity`` re-prunes the dense masters) and the
-dense, masked, bsr and kernel paths build the whole fp32 tree first (64
-layers of qwen3-32b hold 31.2 B weights, 4 bytes each).
+at all 64 layers with ``--no-reduce``. On one card, MoE and SSM stacks,
+``--sasp 0``, a drafter (``--draft-sparsity`` re-prunes the dense
+masters) and the dense, masked, bsr and kernel paths build the whole
+fp32 tree first (64 layers of qwen3-32b hold 31.2 B weights, 4 bytes
+each); on a mesh every one of them is built layer by layer.
 
-``--mesh DP,TP`` serves on a (data, model) mesh (``--path packed``
-only; with ``--sasp 0`` the visit lists keep every tile): the launcher
-spawns DP x TP processes joined by ``torch.distributed`` (file-store
-rendezvous under ``build/mesh``). Every process takes the same params,
-from the seed or from ``--ckpt-dir``, and builds its model rank's tree
-layer by layer (``build_rank_params``): each layer is pruned, packed
-into TP-sharded visit lists and cut to the rank's shard before the next
-is taken, and the embedding / head table keeps the rank's V/TP rows, so
-a card holds its rank's tree and one layer's masters, not the model.
-Without ``--scheduler`` one ``Engine`` serves on the whole mesh, its
-slots split over 'data' or replicated (``Engine.layout``, printed);
-with it, ``ShardedScheduler(mesh=)`` runs one scheduler rank per data
-index, each the engine of its TP group (``--ranks``, if given, must
-equal DP: the reference's ``check_ranks``). Model rank 0 of each group
-samples and broadcasts the tokens; world rank 0 alone prints, streams
-(``--stream``; every process steps the same loop), writes
-``--trace-out`` and ``--metrics-dump`` and runs ``--metrics-interval``.
-Every process must serve the same streams, from the same ranks.
-Transport: gloo on the CPU (``--device cpu``), nccl where each process
-has its own card, gloo staged through the host where processes share
-one. ``--mesh`` with ``--hosts`` is the reference's usage error. Not
-ported, each refused with a message naming its ROADMAP item (Queue 1
-item 6d-6f): a drafter, any other path, MoE and SSM stacks.
+``--mesh DP,TP`` serves on a (data, model) mesh, on every path (dense,
+``--sasp 0``, masked, masked ``--int8-weights --scope ffn``, bsr, kernel,
+packed) and with a drafter (``--draft-sparsity``, ``--draft-int8``):
+the launcher spawns DP x TP processes joined by ``torch.distributed``
+(file-store rendezvous under ``build/mesh``). Every process takes the
+same params, from the seed or from ``--ckpt-dir``, and builds its model
+rank's tree layer by layer (``build_rank_params``): each layer is
+deployed on the path (pruned, quantized, its BSR built, or packed into
+TP-sharded visit lists) and cut to the rank's slice before the next is
+taken, and the embedding / head table keeps the rank's V/TP rows, so a
+card holds its rank's tree and one layer's masters, not the model; the
+drafter's layers are re-pruned from each deployed layer and packed into
+visit lists sharded like a packed target's. ``--sasp 0`` serves the
+dense params, as the reference does. Without ``--scheduler`` one
+``Engine`` serves on the whole mesh, its slots split over 'data' or
+replicated (``Engine.layout``, printed; a drafter needs the paged pool,
+so "replicated over data"); with it, ``ShardedScheduler(mesh=)`` runs
+one scheduler rank per data index, each the engine of its TP group
+(``--ranks``, if given, must equal DP: the reference's
+``check_ranks``). Model rank 0 of each group samples and broadcasts the
+tokens; world rank 0 alone prints, streams (``--stream``; every process
+steps the same loop), writes ``--trace-out`` and ``--metrics-dump`` and
+runs ``--metrics-interval``. Every process must serve the same streams,
+from the same ranks. Transport: gloo on the CPU (``--device cpu``),
+nccl where each process has its own card, gloo staged through the host
+where processes share one. ``--mesh`` with ``--hosts`` is the
+reference's usage error. MoE and SSM stacks are refused on a mesh, with
+a message naming ROADMAP Queue 1 item 6f.
 """
 from __future__ import annotations
 
@@ -234,19 +240,22 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
                          scope: str = "ffn", verbose: bool = True,
                          mesh=None, tp: Optional[int] = None):
     """Deploy ``params`` along one execution path; returns (params, cfg)
-    ready for the Engine. ``mesh`` / ``tp``: TP-shard the packed visit
-    lists over the mesh's 'model' axis, or into ``tp`` shards (packed
-    path only; the tree holds every shard, ``distribution.sharding.
-    local_params`` takes a rank's); a TP deployment (``tp`` 1 too)
-    serves from visit lists, so at ``sparsity`` 0 they keep every
-    tile."""
+    ready for the Engine. At ``sparsity`` 0 (or ``path`` dense) the dense
+    params serve, as in the reference. ``mesh`` / ``tp``: a TP deployment
+    over the mesh's 'model' axis, or at ``tp``: the packed visit lists in
+    ``tp`` shard-local lists, and on every path the config's shard counts
+    (``distribution.sharding.tp_config``). The tree holds every shard
+    and every whole leaf; ``distribution.sharding.local_params`` takes a
+    rank's."""
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
     if _masked_int8_all(path, int8_weights, scope, sparsity):
         raise ValueError(MASKED_INT8_ALL)
-    sharded = path == "packed" and (mesh is not None or tp is not None)
-    if path == "dense" or (sparsity <= 0 and not sharded):
-        return params, cfg
+    from repro_torch.distribution.sharding import tp_config
+    if tp is None and mesh is not None:
+        tp = mesh.axis_size("model")
+    if path == "dense" or sparsity <= 0:
+        return params, (cfg if tp is None else tp_config(cfg, tp))
     sasp = SASPConfig(enabled=True, block_k=block_k, block_n=block_n,
                       sparsity=sparsity, scope=scope,
                       quantize=int8_weights)
@@ -260,23 +269,23 @@ def build_serving_params(params, cfg, *, path: str, sparsity: float,
             params = quantize_params(params, sasp)
             if verbose:
                 print("weights quantized to INT8 (per-block scales)")
-        return params, cfg
+        return params, (cfg if tp is None else tp_config(cfg, tp))
     if path in ("bsr", "kernel"):
         params = merge_overlay(params,
                                bsr_overlay_from_masks(params, masks, sasp))
         cfg = dataclasses.replace(
             cfg, sasp=dataclasses.replace(sasp, path=path))
-        return params, cfg
+        return params, (cfg if tp is None else tp_config(cfg, tp))
     from repro_torch.core.deploy import (cast_packed_values, deploy_packed,
                                          packed_summary)
-    params, cfg = deploy_packed(params, cfg, mesh=mesh, tp=tp)
+    params, cfg = deploy_packed(params, cfg, tp=tp)
     cdt = as_dtype(cfg.compute_dtype)
     if cdt != torch.float32:
         params = cast_packed_values(params, cdt)
     if verbose:
         s = packed_summary(params)
-        n = tp or (mesh.axis_size("model") if mesh is not None else 1)
-        shard = f", {n}-way shard-local visit lists" if n > 1 else ""
+        shard = f", {tp}-way shard-local visit lists" if (tp or 1) > 1 \
+            else ""
         print(f"packed: {s['n_packed_matrices']} matrices + "
               f"{s['n_fused_ffns']} fused FFNs, "
               f"{s['compression']:.2f}x dense bytes{shard}")
@@ -465,9 +474,9 @@ MESH_ITEM = "ROADMAP Queue 1 item 6"
 
 
 def parse_mesh(args) -> Optional[Tuple[int, int]]:
-    """--mesh 'DP,TP' -> (DP, TP), or None; a usage error, naming the
-    ROADMAP item that would port it, for what the port does not serve on
-    a mesh."""
+    """--mesh 'DP,TP' -> (DP, TP), or None; the reference's usage
+    errors, and MoE and SSM stacks refused, naming the ROADMAP item that
+    would port them."""
     spec = args.mesh
     if not spec:
         return None
@@ -482,22 +491,12 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
             "--hosts serves in-process hosts without a mesh; drop "
             "--mesh (per-host meshes are a multi-process deployment "
             "concern — see tests/dist_worker.py frontend_host)")
-    refuse = None
-    if args.draft_sparsity is not None:
-        refuse = (f"--mesh with --draft-sparsity (a drafter sharded by "
-                  f"reshard_packed) is not ported: {MESH_ITEM}d")
-    elif args.path != "packed":
-        refuse = (f"--mesh serves --path packed only; the other paths "
-                  f"under TP are not ported: {MESH_ITEM}e")
-    else:
-        cfg = get_config(args.arch)
-        if cfg.moe is not None or any(
-                k != MIXER_ATTN for k in cfg.layer_mixer_kinds()):
-            refuse = (f"--mesh with {args.arch}: MoE (expert parallelism) "
-                      f"and SSM layers on a mesh are not ported: "
-                      f"{MESH_ITEM}f")
-    if refuse:
-        raise SystemExit(refuse)
+    cfg = get_config(args.arch)
+    if cfg.moe is not None or any(
+            k != MIXER_ATTN for k in cfg.layer_mixer_kinds()):
+        raise SystemExit(f"--mesh with {args.arch}: MoE (expert "
+                         f"parallelism) and SSM layers on a mesh are not "
+                         f"ported: {MESH_ITEM}f")
     return dp, tp
 
 
@@ -578,7 +577,7 @@ def main(argv=None):
     if (args.path == "packed" and args.sasp > 0 and _layer_built(cfg)
             and args.draft_sparsity is None):
         # layer by layer: the card holds the packed model, not its masters
-        params, cfg, _ = build_rank_params(
+        params, cfg, _, _ = build_rank_params(
             cfg, tp=1, rank=0, device=args.device, sparsity=args.sasp,
             scope=args.scope, int8_weights=args.int8_weights,
             ckpt_dir=args.ckpt_dir, verbose=True)
@@ -719,7 +718,9 @@ def mesh_spec(args, buckets=None) -> dict:
     return dict(
         mesh=args.mesh, cfg=model_config(args), device=args.device,
         build=dict(seed=0, sparsity=args.sasp, scope=args.scope,
-                   int8_weights=args.int8_weights, ckpt_dir=args.ckpt_dir),
+                   int8_weights=args.int8_weights, ckpt_dir=args.ckpt_dir,
+                   path=args.path, draft_sparsity=args.draft_sparsity,
+                   draft_int8=args.draft_int8),
         requests=dict(n=args.requests, max_new=args.max_new,
                       temperature=args.temperature, eos_id=args.eos_id,
                       interactive_every=args.interactive_every),
@@ -735,7 +736,9 @@ def mesh_spec(args, buckets=None) -> dict:
                     kv_watermark=args.kv_watermark,
                     kv_host_pages=args.kv_host_pool, kv_share=args.kv_share,
                     kv_share_min_pages=args.kv_share_min_pages,
-                    kv_dedup_every=args.kv_dedup_every))
+                    kv_dedup_every=args.kv_dedup_every,
+                    draft_k=args.draft_k,
+                    draft_interactive=args.draft_interactive))
 
 
 def mesh_requests(spec: dict, vocab: int):
@@ -815,6 +818,17 @@ def join_mesh(rank: int, spec: dict, init_file: str, backend=None):
                      backend=backend, device=spec["device"])
 
 
+SPEC_KEYS = ("spec_rounds", "spec_draft_tokens", "spec_accepted_tokens",
+             "spec_fallbacks")
+
+
+def spec_counts(engines) -> dict:
+    """The speculation counters summed over the engines of this process
+    (a scheduler's peer views hold none)."""
+    return {k: sum(e.stats[k] for e in engines if isinstance(e, Engine))
+            for k in SPEC_KEYS}
+
+
 def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     """One process of a ``--mesh`` run: join the mesh, build this model
     rank's tree (``build_rank_params``), serve the requests through one
@@ -824,14 +838,14 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     rank 0 alone prints, streams tokens, owns the tracer, writes the trace
     and the Prometheus dump and runs the interval reporter. Returns the
     streams, under the scheduler the rank that served each request, the
-    transport, the seconds to build and to serve, and the files this
-    process wrote."""
+    transport, the seconds to build and to serve, this process's engine's
+    speculation counters and the files this process wrote."""
     mesh = join_mesh(rank, spec, init_file)
     dp, tp = spec["mesh"]
     lead = mesh.rank == 0
     opts = spec.get("serve") or {}
     t0 = time.perf_counter()
-    params, cfg, lcfg = build_rank_params(
+    params, cfg, lcfg, draft = build_rank_params(
         spec["cfg"], tp=tp, rank=mesh.model_rank, device=mesh.device,
         verbose=lead, **spec["build"])
     build_s = time.perf_counter() - t0
@@ -847,9 +861,9 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
         from repro_torch.serve.scheduler import ShardedScheduler
         server = ShardedScheduler(params, lcfg, mesh=mesh,
                                   ranks=spec.get("ranks"), telemetry=tel,
-                                  sched=sched_cfg)
+                                  sched=sched_cfg, draft=draft)
     else:
-        server = Engine(params, lcfg, mesh=mesh, telemetry=tel,
+        server = Engine(params, lcfg, mesh=mesh, telemetry=tel, draft=draft,
                         **spec["engine"])
         if lead and server.layout is not None:
             print(f"engine: {server.B} slots {server.layout}", flush=True)
@@ -874,10 +888,18 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     stop_rep.set()
     streams = {r.rid: [int(t) for t in r.out_tokens] for r in done}
     out = dict(rank=rank, transport=mesh.transport, build_s=build_s,
-               serve_s=dt, streams=streams, wrote=[])
+               serve_s=dt, streams=streams, wrote=[],
+               spec=spec_counts(getattr(server, "shards", [server])))
     if sched_cfg is not None:
         out["served"] = {r.rid: r.rank for r in done}
     if lead:
+        if draft is not None:
+            sc = out["spec"]
+            print(f"speculative: {sc['spec_rounds']} rounds, "
+                  f"{sc['spec_accepted_tokens']}/"
+                  f"{sc['spec_draft_tokens']} drafts accepted, "
+                  f"{sc['spec_fallbacks']} fallbacks (this process's "
+                  f"engine)", flush=True)
         if sched_cfg is not None:
             print_scheduler_summary(server, done, sched_cfg.policy,
                                     sched_cfg.drain,
@@ -952,46 +974,75 @@ def _ckpt_source(cfg, ckpt_dir: str, device):
 
 def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                       seed: int = 0, sparsity: float, scope: str = "ffn",
-                      int8_weights: bool = False, prepare=None,
+                      int8_weights: bool = False, path: str = "packed",
+                      draft_sparsity: Optional[float] = None,
+                      draft_int8: bool = False, prepare=None,
                       ckpt_dir: Optional[str] = None,
                       verbose: bool = False):
-    """Model rank ``rank``'s tree of the packed TP deployment, built layer
-    by layer. It equals ``distribution.sharding.local_params`` of
-    ``build_serving_params(params, cfg, path="packed", tp=tp, ...)``,
-    where ``params`` are ``lm.init_params(cfg, seed=seed)`` or, with
-    ``ckpt_dir``, the latest checkpoint's there, but neither the host nor
-    the device ever holds the model: a first pass takes each layer alone
+    """Model rank ``rank``'s tree of a TP deployment at ``tp`` on
+    ``path``, built layer by layer, and its self-speculation drafter. The
+    tree equals ``distribution.sharding.local_params`` of
+    ``build_serving_params(params, cfg, path=path, tp=tp, ...)``, where
+    ``params`` are ``lm.init_params(cfg, seed=seed)`` or, with
+    ``ckpt_dir``, the latest checkpoint's there; the drafter (with
+    ``draft_sparsity``) equals ``local_params`` of ``core.deploy.
+    draft_pack(that deployment, ..., tp=tp)``. Neither the host nor the
+    device ever holds the model: a first pass takes each layer alone
     (drawn from its own generators, or read from the checkpoint) and
     keeps only its prunable matrices' tile scores (the global SASP
     selection reads them all, in the whole tree's leaf order); a second
-    pass takes each layer alone again, prunes it with its slice of the
-    global masks, packs it into ``tp`` shards, cuts it to the rank's
-    shard and casts it, and writes it into the layer-stacked tree
-    (``core.deploy.LayerStack``). The device holds the rank's tree, the
-    table, and one layer's masters, their pruned copy and its packing.
+    pass takes each layer alone again, deploys it on the path (pruned in
+    place; quantized on the masked int8 path; its BSR at the whole
+    stack's depth on the bsr and kernel paths; packed into ``tp`` shards
+    and cast on the packed path; as drawn on the dense path, or at
+    ``sparsity`` 0), cuts it to the rank's slice and writes it into the
+    layer-stacked tree (``core.deploy.LayerStack``). The drafter's layer
+    is the deployed layer re-pruned at ``draft_sparsity`` and packed: its
+    global selection reads the target's tile scores with the target's
+    pruned tiles set to 0, which is what ``tile_l1`` gives on the pruned
+    weights ``draft_pack`` re-prunes. The device holds the rank's trees,
+    the table, and one layer's masters with their deployed copies.
     ``prepare(path, leaf)``, where given, changes each one-layer leaf as
     it is taken, before scoring and pruning. ``rank`` None keeps every
-    shard (the shard loop's tree, without the dense matrices). ``tp`` 1
-    and ``rank`` 0 is one card's packed model. Returns ``(params, cfg',
-    lcfg)``: the tree, the deployed config and the rank's local config."""
+    shard (the shard loop's tree, without the matrices a container
+    replaces). ``tp`` 1 and ``rank`` 0 is one card's model. Returns
+    ``(params, cfg', lcfg, draft)``: the tree, the deployed config, the
+    rank's local config, and the drafter's ``(tree, config)`` (the rank's
+    local config; with ``rank`` None the shard loop's) or None."""
     from repro_torch.core.deploy import (LayerStack, cast_packed_values,
-                                         deploy_packed)
-    from repro_torch.core.pruning import (apply_block_mask_, iter_leaves,
+                                         deploy_packed, strip_packed)
+    from repro_torch.core.pruning import (apply_block_mask,
+                                          apply_block_mask_, iter_leaves,
                                           map_leaves, masks_from_scores,
                                           prunable_blocks, scope_predicate,
                                           tile_l1)
     from repro_torch.distribution.sharding import (local_config,
-                                                   local_params,
-                                                   vocab_config)
-    sasp = SASPConfig(enabled=True, block_k=32, block_n=32,
-                      sparsity=sparsity, scope=scope, quantize=int8_weights)
-    cfg = dataclasses.replace(cfg, sasp=sasp)
-    pred = scope_predicate(sasp)
+                                                   local_params, tp_config)
+    if path not in PATHS:
+        raise ValueError(f"path {path!r} not in {PATHS}")
+    if _masked_int8_all(path, int8_weights, scope, sparsity):
+        raise ValueError(MASKED_INT8_ALL)
+    tsasp = None                # the target's pruning, None: dense
+    if path != "dense" and sparsity > 0:
+        tsasp = SASPConfig(enabled=True, block_k=32, block_n=32,
+                           sparsity=sparsity, scope=scope,
+                           quantize=int8_weights,
+                           path=path if path in ("bsr", "kernel")
+                           else "masked")
+        cfg = dataclasses.replace(cfg, sasp=tsasp)
+    dsasp = None if draft_sparsity is None else dataclasses.replace(
+        cfg.sasp, enabled=True, sparsity=float(draft_sparsity),
+        quantize=bool(draft_int8))
+    # the scores each selection reads: the target's of its scope, and the
+    # drafter's own only where the target is dense (else the target's,
+    # its pruned tiles 0)
+    scored = [(sasp, scope_predicate(sasp), {}) for sasp in
+              (tsasp, dsasp if tsasp is None else None) if sasp is not None]
     prep = prepare or (lambda path, t: t)
     cdt = as_dtype(cfg.compute_dtype)
     plan = lm.segment_plan(cfg)
 
-    secs = dict.fromkeys(("scoring", "packing", "stacking"), 0.0)
+    secs = dict.fromkeys(("scoring", "deploying", "stacking"), 0.0)
 
     def clock(part, t0):
         if torch.device(device).type == "cuda":
@@ -999,6 +1050,12 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
         now = time.perf_counter()
         secs[part] += now - t0
         return now
+
+    def one_layer(tree, si):
+        """{path keyed from the root: leaf} -> paths keyed in a
+        one-segment tree (segment index 0)."""
+        return {("segments", 0) + p[2:]: v for p, v in tree.items()
+                if p[1] == si}
 
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -1011,57 +1068,116 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
 
         # pass 1: every prunable matrix's tile scores, layer by layer,
         # assembled (L, KB, NB) in the whole tree's leaf order
-        scores: dict = {}
-        for si, (_, repeat) in enumerate(plan):
-            for i in range(repeat):
-                for path, t in iter_leaves(taken(si, i), ("segments", si)):
-                    blocks = prunable_blocks(path, t, sasp, pred)
-                    if blocks is not None:
-                        scores.setdefault(path, []).append(
-                            tile_l1(t, *blocks))
-        masks = masks_from_scores(
-            [(path, torch.cat(s)) for path, s in scores.items()], sparsity)
-        del scores
+        if scored:
+            for si, (_, repeat) in enumerate(plan):
+                for i in range(repeat):
+                    for q, t in iter_leaves(taken(si, i), ("segments", si)):
+                        for sasp, pred, out in scored:
+                            blocks = prunable_blocks(q, t, sasp, pred)
+                            if blocks is not None:
+                                out.setdefault(q, []).append(
+                                    tile_l1(t, *blocks))
+        scores = [[(q, torch.cat(v)) for q, v in out.items()]
+                  for _, _, out in scored]
+        tmasks = {} if tsasp is None else masks_from_scores(scores[0],
+                                                            sparsity)
+        if dsasp is None or (path == "masked" and int8_weights):
+            dmasks = {}         # the int8 path keeps no "w" in its scope
+        else:
+            dmasks = masks_from_scores(
+                scores[-1] if tsasp is None else
+                [(q, torch.where(tmasks[q], v, torch.zeros_like(v)))
+                 for q, v in scores[0]], dsasp.sparsity)
+        k_max = {q: max(1, int(m.sum(dim=-2).max()))
+                 for q, m in tmasks.items()}
+        del scored, scores
         t0 = clock("scoring", t0)
-        # pass 2: each layer pruned, packed into tp shards, cut and cast
-        segs = []
+        # pass 2: each layer deployed on the path, cut, cast and stacked;
+        # its drafter re-pruned from it, packed, cut and cast
+        segs, dsegs = [], []
+        tcfg = dcfg = None
         for si, (_, repeat) in enumerate(plan):
             stack = LayerStack(repeat, device)
+            dstack = None if dsasp is None else LayerStack(repeat,
+                                                           device)
+            tm, dm = one_layer(tmasks, si), one_layer(dmasks, si)
             for i in range(repeat):
                 # the layer is a fresh draw or read: prune it in place
                 seg = map_leaves(
-                    lambda path, t, i=i: apply_block_mask_(
-                        t, masks[path][i:i + 1]) if path in masks else t,
+                    lambda q, t, i=i: apply_block_mask_(
+                        t, tmasks[q][i:i + 1]) if q in tmasks else t,
                     taken(si, i), ("segments", si))
-                tree, dcfg = deploy_packed(dict(top, segments=(seg,)), cfg,
-                                           tp=tp)
-                del seg
-                local = local_params({"segments": tree["segments"]}, dcfg,
+                tree = dict(top, segments=(seg,))
+                if path == "packed" and tsasp is not None:
+                    served, tcfg = deploy_packed(tree, cfg, tp=tp)
+                else:
+                    served, tcfg = tree, tp_config(cfg, tp)
+                    if path == "masked" and int8_weights:
+                        served = quantize_params(served, tsasp)
+                    elif path in ("bsr", "kernel") and tsasp is not None:
+                        served = merge_overlay(served, bsr_overlay_from_masks(
+                            served, {q: m[i:i + 1] for q, m in tm.items()},
+                            tsasp, k_max=one_layer(k_max, si)))
+                local = local_params({"segments": served["segments"]}, tcfg,
                                      tp, rank)["segments"][0]
-                del tree
-                if cdt != torch.float32:
+                if path == "packed" and cdt != torch.float32:
                     local = cast_packed_values(local, cdt)
-                t0 = clock("packing", t0)
+                t0 = clock("deploying", t0)
                 stack.add(local)        # written into the layer stack
                 del local
                 t0 = clock("stacking", t0)
+                if dstack is not None:
+                    dseg = map_leaves(
+                        lambda q, t: apply_block_mask(t, dm[q][i:i + 1])
+                        if q in dm else t,
+                        strip_packed(served)["segments"][0],
+                        ("segments", 0))
+                    dtree, dcfg = deploy_packed(
+                        dict(top, segments=(dseg,)),
+                        dataclasses.replace(tcfg, sasp=dsasp),
+                        quantize=bool(draft_int8), tp=tp)
+                    del dseg
+                    dlocal = local_params({"segments": dtree["segments"]},
+                                          dcfg, tp, rank)["segments"][0]
+                    if cdt != torch.float32:
+                        dlocal = cast_packed_values(dlocal, cdt)
+                    del dtree
+                    t0 = clock("deploying", t0)
+                    dstack.add(dlocal)
+                    del dlocal
+                    t0 = clock("stacking", t0)
+                del seg, tree, served
             segs.append(stack.result())
-        dcfg = vocab_config(dcfg, tp)
-        top = local_params(dict(top, segments=()), dcfg, tp, rank)
+            if dstack is not None:
+                dsegs.append(dstack.result())
+        top = local_params(dict(top, segments=()), tcfg, tp, rank)
     if verbose:
         who = "every shard kept" if rank is None else \
             f"rank {rank} keeps its shard"
-        print(f"SASP deployed: {sparsity:.0%} tile sparsity, scope "
-              f"{scope}, {cfg.num_layers} layers packed one at a time into "
-              f"{tp}-way shard-local visit lists ({dcfg.vocab_shards} "
-              f"vocab shards); {who}; seconds: "
-              f"{ {k: round(v, 2) for k, v in secs.items()} }")
-        from repro_torch.core.deploy import packed_summary
-        sm = packed_summary(segs)
-        print(f"packed: {sm['n_packed_matrices']} matrices + "
-              f"{sm['n_fused_ffns']} fused FFNs, {sm['compression']:.2f}x "
-              f"dense bytes")
-    return dict(top, segments=tuple(segs)), dcfg, local_config(dcfg, tp)
+        if path == "packed" and tsasp is not None:
+            what = (f"SASP deployed: {sparsity:.0%} tile sparsity, scope "
+                    f"{scope}, {cfg.num_layers} layers packed one at a time "
+                    f"into {tp}-way shard-local visit lists")
+        else:
+            how = "dense" if tsasp is None else \
+                f"{sparsity:.0%} tile sparsity, scope {scope}"
+            what = (f"--path {path} deployed ({how}): {cfg.num_layers} "
+                    f"layers one at a time, cut to {tp} TP shards")
+        drafter = "" if dsasp is None else \
+            f", a drafter at {dsasp.sparsity:.0%} packed alike"
+        print(f"{what} ({tcfg.vocab_shards} vocab shards{drafter}); {who}; "
+              f"seconds: { {k: round(v, 2) for k, v in secs.items()} }")
+        if path == "packed" and tsasp is not None:
+            from repro_torch.core.deploy import packed_summary
+            sm = packed_summary(segs)
+            print(f"packed: {sm['n_packed_matrices']} matrices + "
+                  f"{sm['n_fused_ffns']} fused FFNs, "
+                  f"{sm['compression']:.2f}x dense bytes")
+    draft = None if dsasp is None else (
+        dict(top, segments=tuple(dsegs)),
+        dcfg if rank is None else local_config(dcfg, tp))
+    return (dict(top, segments=tuple(segs)), tcfg, local_config(tcfg, tp),
+            draft)
 
 
 def _sync(params):

@@ -9,10 +9,11 @@ and empty ring slots carry -1). Decode updates the cache in place.
 On a mesh each rank runs attention over its own heads: its config
 (``distribution.sharding.local_config``) holds ``num_heads / tp`` query
 and ``num_kv_heads / tp`` KV heads, and so do its caches. The shard
-loop (packed attention holding every TP shard, no mesh) runs the
-attention core shard by shard over each shard's heads, the calls a rank
-makes: the batched fp32 score and value products give other bits for
-half the KV heads than for the same heads inside the whole call.
+loop (no mesh; packed attention holding every TP shard, or dense
+projections of a TP deployment, ``cfg.tp_shards``) runs the projections
+and the attention core shard by shard over each shard's heads, the calls
+a rank makes: the batched fp32 score and value products give other bits
+for half the KV heads than for the same heads inside the whole call.
 
 The int8 cache (``cfg.kv_quant``) stores k / v as int8 with one fp32
 scale per (slot, head); reads dequantize. The paged pool's primitives
@@ -107,9 +108,12 @@ def _proj(p: Dict, name: str, x: torch.Tensor,
     deployment container is attached (bias fused into its flush).
     TP-sharded containers run through ``ffn.packed_mm_sharded``: wq/wk/wv
     col shards give this rank's heads, wo's row shard a partial reduced
-    over 'model'. On a mesh a dense wo holds this rank's rows
-    (``distribution.sharding``): its partial is reduced, then the bias
-    added."""
+    over 'model'. Dense weights split over ``ffn.tp_shards`` the same
+    way (``distribution.sharding``'s col / row rules): on a mesh a rank
+    holds its columns of wq/wk/wv and its rows of wo, whose partial is
+    reduced, then the bias added; with no mesh, the shard loop runs each
+    shard's columns in turn (concatenated) and each shard's rows of wo
+    (the partials summed in fp32 in shard order)."""
     packed = p.get("sasp_packed")
     if packed is not None and name in packed:
         pw = packed[name]
@@ -121,16 +125,30 @@ def _proj(p: Dict, name: str, x: torch.Tensor,
         from repro_torch.core.deploy import packed_matmul
         return packed_matmul(x, pw)
     from repro_torch.distribution import context as dctx
-    if name == "wo" and dctx.axis_size("model") > 1:
-        from repro_torch.models.ffn import _tp_reduce
+    from repro_torch.models.ffn import _sum_partials, _tp_reduce, shard_of, \
+        tp_shards
+    tp = tp_shards(cfg)
+    if tp == 1:
+        return dense_apply(p[name], x)
+    if dctx.active_mesh() is not None:
+        if name != "wo":
+            return dense_apply(p[name], x)
         w = p["wo"]["w"]
         y = matmul(x, w)
         y = _tp_reduce(y.reshape(-1, w.shape[-1]), cfg, y.dtype)
         y = y.reshape(*x.shape[:-1], w.shape[-1])
-        if "b" in p["wo"]:
-            y = y + p["wo"]["b"].to(y.dtype)
-        return y
-    return dense_apply(p[name], x)
+    elif name != "wo":
+        return torch.cat([dense_apply(
+            {k: shard_of(v, -1, s, tp) for k, v in p[name].items()}, x)
+            for s in range(tp)], dim=-1)
+    else:
+        w = p["wo"]["w"]
+        parts = [matmul(shard_of(x, -1, s, tp), shard_of(w, -2, s, tp))
+                 for s in range(tp)]
+        y = _sum_partials(parts, parts[0].dtype)
+    if "b" in p["wo"]:
+        y = y + p["wo"]["b"].to(y.dtype)
+    return y
 
 
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
@@ -149,12 +167,16 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     return q.to(dt), k.to(dt), v.to(dt)
 
 
-def _loop_head_shards(p: Dict) -> int:
-    """The TP shards of the packed attention projections that this tree
-    holds: all of them in the shard loop, one on a mesh rank (1 without
-    packed attention)."""
+def _loop_head_shards(p: Dict, cfg: ModelConfig) -> int:
+    """The TP shards of the attention projections that this tree holds:
+    all of them in the shard loop (a packed wq's, or the dense matrices'
+    ``cfg.tp_shards``), one on a mesh rank."""
     packed = p.get("sasp_packed") or {}
-    return packed["wq"].held if "wq" in packed else 1
+    if "wq" in packed:
+        return packed["wq"].held
+    from repro_torch.models.ffn import tp_shards
+    from repro_torch.distribution import context as dctx
+    return 1 if dctx.active_mesh() is not None else tp_shards(cfg)
 
 
 def _by_head_shard(n: int, fn, tensors, dims, out_dim: int):
@@ -221,7 +243,7 @@ def attn_apply_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     q, k, v = _project_qkv(p, cfg, x, pos2)
     qg = q.reshape(B, S, kvh, h // kvh, hd)
     out = _by_head_shard(
-        _loop_head_shards(p),
+        _loop_head_shards(p, cfg),
         lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, positions,
                                           window=window,
                                           cap=cfg.logit_softcap),
@@ -269,7 +291,7 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
                             w.to(qs.dtype).to(torch.float32),
                             vs.to(torch.float32))
 
-    out = _by_head_shard(_loop_head_shards(p), attend,
+    out = _by_head_shard(_loop_head_shards(p, cfg), attend,
                          (qg, k_read, v_read), (1, 2, 2), 1)
     out = out.reshape(B, 1, h * hd).to(x.dtype)
     return _proj(p, "wo", out, cfg), cache
@@ -361,7 +383,7 @@ def attn_apply_prefill_past(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     kv_pos = torch.cat([past.pos, positions.to(torch.int32)], dim=1)
     qg = q.reshape(B, S, kvh, h // kvh, hd)
     out = _by_head_shard(
-        _loop_head_shards(p),
+        _loop_head_shards(p, cfg),
         lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, kv_pos,
                                           window=window,
                                           cap=cfg.logit_softcap),

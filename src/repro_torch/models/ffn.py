@@ -24,12 +24,21 @@ are summed in fp32, in shard order in the loop (with two shards the
 all-reduce adds the same two terms, so the mesh equals the loop bit for
 bit), then cast to the activation type. ``cfg.tp_comm == "rs_ag_int8"``
 reduces with a reduce-scatter and an int8 all-gather instead
-(``_rs_ag_int8``, plain torch as the reference's is jnp). Not ported:
-``_bsr_mm_sharded`` and the dense ``_ffn_tp_rs_ag_int8`` (ROADMAP Queue 1
-item 6e).
+(``_rs_ag_int8``, plain torch as the reference's is jnp).
+
+The other paths shard the same way under a TP deployment
+(``cfg.tp_shards``; ``distribution.sharding`` slices the leaves): the
+dense and masked FFN runs a rank's w1/w3 columns and w2 rows and reduces
+the partial (``_ffn_tp``; ``_ffn_tp_rs_ag_int8`` where the config opts
+in), and a ``BlockSparseWeight`` of the bsr and kernel paths multiplies
+the whole x by a rank's column blocks, whose outputs are all-gathered
+(``_bsr_mm_sharded``). The int8 ``qw`` matrices of the masked path stay
+whole on every rank, as under the reference's GSPMD. Each has its
+meshless shard loop, the same products in one process.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -37,7 +46,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pruning import apply_block_mask
 from repro_torch.core.quantization import dequantize_int8
-from repro_torch.core.sparse import bsr_matmul
+from repro_torch.core.sparse import BlockSparseWeight, bsr_matmul
 from repro_torch.kernels.sasp_gemm.gemm import sasp_matmul
 from repro_torch.models.modules import act_fn, as_dtype
 
@@ -81,10 +90,66 @@ def _mm(p: Dict, name: str, x2: torch.Tensor, cfg: ModelConfig
     """(M, K) @ weight[name] through whatever SASP view is attached."""
     bsr = p.get("sasp_bsr")
     if bsr is not None and name in bsr:
-        if cfg.sasp.path == "kernel":
-            return sasp_matmul(x2, bsr[name])
-        return bsr_matmul(x2, bsr[name])
+        return _bsr_mm_sharded(x2, bsr[name], cfg,
+                               cfg.sasp.path == "kernel")
     return torch.matmul(x2, _materialize(p, name, x2.dtype))
+
+
+def tp_shards(cfg: Optional[ModelConfig]) -> int:
+    """The 'model' shards the dense and BSR matrices run in: the active
+    mesh's (a rank holds one of each), else ``cfg.tp_shards`` (the shard
+    loop holds them all and runs each in turn)."""
+    from repro_torch.distribution import context as dctx
+    if dctx.active_mesh() is not None:
+        return dctx.axis_size("model")
+    return 1 if cfg is None else cfg.tp_shards
+
+
+def shard_of(t: torch.Tensor, dim: int, s: int, n: int) -> torch.Tensor:
+    """Shard ``s`` of ``n`` along ``dim``, contiguous as a rank holds it
+    (``sharding.take_slice``)."""
+    k = t.shape[dim] // n
+    return t.narrow(dim, s * k, k).contiguous()
+
+
+def _bsr_shard(w: BlockSparseWeight, s: int, tp: int) -> BlockSparseWeight:
+    """Column-block shard ``s`` of ``tp`` of a BSR: (K, N / tp)."""
+    return BlockSparseWeight(
+        shard_of(w.vals, -3, s, tp), shard_of(w.idx, -1, s, tp),
+        (w.shape[0], w.shape[1] // tp), w.block,
+        None if w.scale is None else shard_of(w.scale, -1, s, tp))
+
+
+def _bsr_mm_sharded(x2: torch.Tensor, w: BlockSparseWeight,
+                    cfg: Optional[ModelConfig], kernel: bool
+                    ) -> torch.Tensor:
+    """Block-sparse matmul over ``tp_shards`` column-block shards (the
+    reference's ``shard_map`` over 'model'): on a mesh, a rank multiplies
+    the whole x by its NB / tp column blocks (its slice of ``w``, whose
+    ``shape`` stays the whole matrix's) and the ranks' columns are
+    all-gathered in order (the reference's ``out_specs=P(bax, "model")``,
+    which GSPMD gathers for the next op); with no mesh, every shard in
+    turn, concatenated. Where NB does not split, every rank computes the
+    whole product. The kernel path plans a shard's visit groups from the
+    whole weight's block grid (``group_nb``), so a rank's columns equal
+    the unsharded product's bit for bit."""
+    from repro_torch.distribution import context as dctx
+    nb = w.shape[1] // w.block[1]
+    tp = tp_shards(cfg)
+
+    def compute(ww):
+        if kernel:
+            return sasp_matmul(x2, ww, group_nb=nb)
+        return bsr_matmul(x2, ww)
+
+    if tp <= 1 or nb % tp:
+        return compute(w)
+    if dctx.active_mesh() is not None:
+        local = dataclasses.replace(w, shape=(w.shape[0], w.shape[1] // tp))
+        y = compute(local)
+        return dctx.all_gather(y.to(torch.float32), 1).to(y.dtype)
+    return torch.cat([compute(_bsr_shard(w, s, tp)) for s in range(tp)],
+                     dim=-1)
 
 
 def _rs_ag_int8(y_part: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -218,6 +283,82 @@ def _ffn_apply_packed(p: Dict, cfg: ModelConfig, x2: torch.Tensor
     return None
 
 
+def _ffn_body(p: Dict, cfg: ModelConfig, x2: torch.Tensor
+              ) -> torch.Tensor:
+    """``act(x @ w1) * (x @ w3) @ w2`` without w2's bias: the whole FFN's
+    output, or, on a rank's columns of w1/w3 and rows of w2, its partial."""
+    act = act_fn(cfg.act)
+    h = _mm(p, "w1", x2, cfg)
+    if cfg.ffn_gated:
+        h = act(h) * _mm(p, "w3", x2, cfg)
+    else:
+        h = act(h)
+    return _mm(p, "w2", h, cfg)
+
+
+def _add_b2(p: Dict, y: torch.Tensor) -> torch.Tensor:
+    if "b" in p.get("w2", {}):
+        y = y + p["w2"]["b"].to(y.dtype)
+    return y
+
+
+def _dense_tp(p: Dict, cfg: ModelConfig, tp: int) -> bool:
+    """A dense (or masked, pruned in place) FFN that the rules split over
+    ``tp`` 'model' shards: w1/w3 by columns, w2 by rows (d_ff divides)."""
+    return (tp > 1 and cfg.moe is None and "sasp_bsr" not in p
+            and "sasp_masks" not in p and cfg.d_ff % tp == 0
+            and all("w" in p[n] for n in ("w1", "w2", "w3") if n in p))
+
+
+def _ffn_shard(p: Dict, s: int, tp: int) -> Dict:
+    """Shard ``s`` of ``tp`` of a dense FFN, as a rank holds it: w1/w3's
+    columns, w2's rows (its bias whole)."""
+    out = {n: {"w": shard_of(p[n]["w"], -1, s, tp)} for n in ("w1", "w3")
+           if n in p}
+    out["w2"] = {"w": shard_of(p["w2"]["w"], -2, s, tp)}
+    return out
+
+
+def _can_rs_ag(p: Dict, cfg: ModelConfig, x2: torch.Tensor) -> bool:
+    """The reference's gate of ``_ffn_tp_rs_ag_int8``: the config opts
+    in, a mesh splits d_model and d_ff, and the FFN is dense."""
+    from repro_torch.distribution import context as dctx
+    if cfg.tp_comm != "rs_ag_int8" or cfg.moe is not None:
+        return False
+    if dctx.active_mesh() is None:
+        return False
+    tp = dctx.axis_size("model")
+    return (tp > 1 and x2.shape[-1] % tp == 0 and cfg.d_ff % tp == 0
+            and "sasp_bsr" not in p and "sasp_masks" not in p
+            and "sasp_packed" not in p and "sasp_fused" not in p
+            and isinstance(p["w1"], dict) and "w" in p["w1"])
+
+
+def _ffn_tp_rs_ag_int8(p: Dict, cfg: ModelConfig, x2: torch.Tensor
+                       ) -> torch.Tensor:
+    """The dense FFN on a rank's shard with its partial reduced as a
+    reduce-scatter and an int8 all-gather (``_rs_ag_int8``); as in the
+    reference, w2's bias is not added."""
+    return _rs_ag_int8(_ffn_body(p, cfg, x2), x2.dtype)
+
+
+def _ffn_tp(p: Dict, cfg: ModelConfig, x2: torch.Tensor, tp: int
+            ) -> torch.Tensor:
+    """The dense FFN over ``tp`` 'model' shards: on a mesh, this rank's
+    partial reduced (exactly in fp32, or rs + int8-ag where ``_can_rs_ag``),
+    then w2's bias; with no mesh, every shard's partial in turn, summed in
+    fp32 in shard order (``_sum_partials``), then the bias."""
+    from repro_torch.distribution import context as dctx
+    if dctx.active_mesh() is not None:
+        if _can_rs_ag(p, cfg, x2):
+            return _ffn_tp_rs_ag_int8(p, cfg, x2)
+        y = _tp_reduce(_ffn_body(p, cfg, x2), None, x2.dtype)
+    else:
+        y = _sum_partials([_ffn_body(_ffn_shard(p, s, tp), cfg, x2)
+                           for s in range(tp)], x2.dtype)
+    return _add_b2(p, y)
+
+
 def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
@@ -225,13 +366,9 @@ def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         y = _ffn_apply_packed(p, cfg, x2)
         if y is not None:
             return y.reshape(*lead, d).to(x.dtype)
-    act = act_fn(cfg.act)
-    h = _mm(p, "w1", x2, cfg)
-    if cfg.ffn_gated:
-        h = act(h) * _mm(p, "w3", x2, cfg)
+    tp = tp_shards(cfg)
+    if _dense_tp(p, cfg, tp):
+        y = _ffn_tp(p, cfg, x2, tp)
     else:
-        h = act(h)
-    y = _mm(p, "w2", h, cfg)
-    if "b" in p.get("w2", {}):
-        y = y + p["w2"]["b"].to(y.dtype)
+        y = _add_b2(p, _ffn_body(p, cfg, x2))
     return y.reshape(*lead, d).to(x.dtype)

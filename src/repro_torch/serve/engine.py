@@ -49,7 +49,12 @@ the (B,) sampled ids and done flags come back to the host.
   its local config (``distribution.sharding``); every prefill and
   decode runs under the mesh, and model rank 0's sampled tokens are
   broadcast, so every rank's host state (slots, pages, EOS) moves in
-  step. Only the packed path serves on a mesh, without a drafter.
+  step. Every serving path of the dense decoder serves on a mesh
+  (``distribution.sharding.local_params``). A rank's drafter comes
+  prebuilt (``draft=``, its local tree and config: a rank holds no dense
+  masters to re-prune); its drafts and the verify pass's predictions,
+  argmaxes of all-gathered logits, are model rank 0's (and data rank
+  0's), broadcast, so every rank accepts the same drafts.
 * **Data parallelism** — a mesh with a 'data' axis of DP > 1: every
   process keeps the whole engine's host state (queue, slots, positions,
   pages, stats) and takes one of two layouts (``layout``). "slots split
@@ -232,7 +237,7 @@ class Engine:
                  admission: str = "continuous",
                  rank: int = 0,
                  telemetry: Optional[Telemetry] = None,
-                 mesh=None):
+                 mesh=None, draft=None):
         if admission not in ADMISSION_MODES:
             raise ValueError(f"admission={admission!r} not in "
                              f"{ADMISSION_MODES}")
@@ -250,17 +255,11 @@ class Engine:
         self.params = params
         self.cfg = cfg
         self.mesh = mesh
-        if mesh is not None:
-            if draft_sparsity is not None:
-                raise ValueError(
-                    "speculative decoding on a mesh is not ported: the "
-                    "drafter would need reshard_packed's TP shards "
-                    "(ROADMAP Queue 1 item 6d)")
-            if cfg.sasp.path != "kernel" or not _has_packed(params):
-                raise ValueError(
-                    "only the packed path serves on a mesh; the dense, "
-                    "masked, bsr and kernel paths under TP are not ported "
-                    "(ROADMAP Queue 1 item 6e)")
+        if mesh is not None and draft_sparsity is not None and draft is None:
+            raise ValueError(
+                "a mesh rank's drafter comes prebuilt (draft=(params, cfg), "
+                "e.g. from launch.serve.build_rank_params): its tree holds "
+                "no dense masters to re-prune")
         self.B = batch_slots
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
@@ -322,7 +321,7 @@ class Engine:
         self.draft_k = int(draft_k)
         self.draft_interactive = bool(draft_interactive)
         self._draft = None
-        if draft_sparsity is not None:
+        if draft_sparsity is not None or draft is not None:
             if self.pool is None:
                 raise ValueError(
                     "speculative decoding (draft_sparsity) requires "
@@ -342,11 +341,14 @@ class Engine:
                     f"draft_k={draft_k} needs k+1 <= cache_len="
                     f"{cache_len}: a round's write range must fit the "
                     f"ring without self-overlap")
-            from repro_torch.core.deploy import draft_pack
-            with torch.no_grad():
-                self._draft = draft_pack(
-                    self.params, cfg, sparsity=float(draft_sparsity),
-                    quantize=bool(draft_int8))
+            if draft is not None:
+                self._draft = tuple(draft)
+            else:
+                from repro_torch.core.deploy import draft_pack
+                with torch.no_grad():
+                    self._draft = draft_pack(
+                        self.params, cfg, sparsity=float(draft_sparsity),
+                        quantize=bool(draft_int8))
         self.kv_dedup_every = max(0, int(kv_dedup_every))
         if self.kv_dedup_every and (self.pool is None
                                     or not self.pool.share):
@@ -413,6 +415,14 @@ class Engine:
         owner = self._t([s // self._per for s in slots], torch.int64)
         return rows.gather(0, owner[None])[0]
 
+    def _agree(self, toks: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens every rank computed from the same all-gathered
+        logits, taken from model rank 0 (and data rank 0) on a mesh, so
+        that every rank's host state moves on the same tokens."""
+        if self.mesh is None:
+            return toks
+        return self.mesh.data_broadcast(self.mesh.broadcast(toks))
+
     def _own_rows(self, slots: Sequence[int]) -> Optional[List[int]]:
         """With the slots split: the rows (indices into ``slots``) whose
         slot this data rank holds; None otherwise (every row)."""
@@ -451,8 +461,8 @@ class Engine:
         """One drafter step (greedy, the generator untouched) -> (B,)."""
         dparams, dcfg = self._draft
         logits = self._paged_decode_step(dparams, dcfg, toks, pos, bt)
-        return torch.argmax(logits.to(torch.float32), dim=-1).to(
-            torch.int32)
+        return self._agree(torch.argmax(logits.to(torch.float32), dim=-1)
+                           .to(torch.int32))
 
     def _paged_spec_verify(self, toks, poss, past_bt, dests
                            ) -> torch.Tensor:
@@ -463,8 +473,8 @@ class Engine:
         past = kvmem.gather_block_tables(self.pool.data, past_bt)
         logits, caches1 = lm.prefill_with_past(self.params, self.cfg, toks,
                                                poss, past, all_logits=True)
-        pred = torch.argmax(logits.to(torch.float32), dim=-1).to(
-            torch.int32)
+        pred = self._agree(torch.argmax(logits.to(torch.float32), dim=-1)
+                           .to(torch.int32))
         kvmem.masked_scatter_pages(self.pool.data, caches1, dests)
         return pred
 

@@ -321,13 +321,16 @@ class ShardedScheduler:
     DP rank of the mesh under ``profile`` ("tp" or "dp_only"), this
     process's own an engine on its TP group over ``params`` (its local
     tree), the others :class:`PeerShard` views; ``ranks``, if given, must
-    equal the DP size.
+    equal the DP size. ``draft``: a prebuilt drafter (its tree and
+    config, a mesh rank's local ones) for every engine, where
+    ``sched.draft_sparsity`` would otherwise have each engine build its
+    own from ``params``' dense masters.
     """
 
     def __init__(self, params, cfg, *, sched: Optional[SchedulerConfig]
                  = None, mesh=None, ranks: Optional[int] = None,
                  profile: str = "tp",
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None, draft=None):
         # one registry/tracer per scheduler: rank engines share it (the
         # rank label disambiguates), but two schedulers (= two hosts in
         # the cluster frontend) never share counter scopes
@@ -367,6 +370,7 @@ class ShardedScheduler:
         # kept for engine-raise recovery (revive_rank rebuilds a shard)
         self._params = params
         self._cfg = cfg
+        self._draft = draft
         self._sink: Optional[Callable[[Request, int], None]] = None
         self.shards = [self._build_engine(r) for r in range(n)]
         # guards the shared mutable state below (counters, terminal
@@ -405,7 +409,8 @@ class ShardedScheduler:
                      draft_interactive=s.draft_interactive,
                      kv_dedup_every=s.kv_dedup_every,
                      telemetry=self.telemetry,
-                     mesh=None if self._dp is None else self._engine_mesh)
+                     mesh=None if self._dp is None else self._engine_mesh,
+                     draft=self._draft)
         if self._dp is None:
             eng.on_token = self._sink
         else:                           # replayed in rank order by step

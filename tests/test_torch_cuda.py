@@ -1257,6 +1257,36 @@ def test_col_shards_equal_unsharded_kernel_bit_for_bit(cuda_device, xdt,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("xdt,quantize", [("float32", False),
+                                         ("bfloat16", False),
+                                         ("bfloat16", True)])
+@pytest.mark.parametrize("M", [4, 168])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_bsr_col_shards_equal_unsharded_kernel_bit_for_bit(cuda_device, xdt,
+                                                           quantize, M, tp):
+    """The kernel path on a mesh: a rank's column blocks of a BSR (w1's
+    shape, 5120 -> 25600, half the 32x32 tiles) through ``sasp_matmul``
+    with the whole grid's visit groups (``group_nb``), the product
+    ``models.ffn._bsr_mm_sharded`` gathers, equal bit for bit to the
+    unsharded kernel's columns."""
+    from repro_torch.core.sparse import bsr_from_mask
+    from repro_torch.kernels.sasp_gemm.gemm import sasp_matmul
+    from repro_torch.models.ffn import _bsr_shard
+    rng = np.random.default_rng(6)
+    K, N, b = 5120, 25600, 32
+    mask = rng.random((K // b, N // b)) > 0.5
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    bsr = bsr_from_mask(w, mask, b, b, quantize=quantize, device=cuda_device)
+    x = T(RNG.normal(size=(M, K)).astype(np.float32)).to(cuda_device).to(
+        getattr(torch, xdt))
+    want = sasp_matmul(x, bsr)
+    ns = N // tp
+    for s in range(tp):
+        got = sasp_matmul(x, _bsr_shard(bsr, s, tp), group_nb=N // b)
+        assert torch.equal(got, want[:, s * ns:(s + 1) * ns]), s
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("quantize", [False, True])
 @pytest.mark.parametrize("tp", [1, 2])
 def test_packing_on_the_card_equals_the_cpu(cuda_device, quantize, tp):
@@ -1336,7 +1366,7 @@ def test_layer_build_at_full_width_peaks_under_tree_and_three_layers(
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    params, _, _ = t_serve.build_rank_params(
+    params, _, _, _ = t_serve.build_rank_params(
         cfg, tp=1, rank=0, device=cuda_device, sparsity=0.5, scope="all")
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base

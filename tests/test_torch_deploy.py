@@ -117,12 +117,15 @@ def test_summary_strip_and_cast():
 
 
 def test_tp_is_not_ported():
-    """What of TP is still left to port: a sharded container does not
-    run through the single-device entry points (only through the TP
-    paths of models/ffn.py), and an engine on a mesh refuses a drafter
-    (ROADMAP Queue 1 item 6d)."""
+    """A sharded container does not run through the single-device entry
+    points (only through the TP paths of models/ffn.py); an engine on a
+    mesh takes a prebuilt drafter (a rank's tree holds no dense masters
+    to re-prune) and serves with it: on a one-process mesh, the streams
+    and speculation counters of the meshless engine that builds its
+    own."""
     from repro_torch.distribution.context import Mesh
-    from repro_torch.serve.engine import Engine
+    from repro_torch.distribution.sharding import local_config, local_params
+    from repro_torch.serve.engine import Engine, Request
     cfg, tcfg, params, tparams = model(scope="all", sparsity=0.25)
     tpruned, _ = t_pruning.prune_params(tparams, tcfg.sasp)
     pp, pcfg = t_deploy.deploy_packed(tpruned, tcfg, tp=2)
@@ -133,6 +136,24 @@ def test_tp_is_not_ported():
     with pytest.raises(ValueError, match="shard by shard"):
         t_deploy.packed_ffn_apply(x, slot["ffn"]["sasp_fused"])
     mesh = Mesh({"data": 1, "model": 2}, 0, "gloo", torch.device("cpu"))
-    with pytest.raises(ValueError, match="item 6d"):
+    with pytest.raises(ValueError, match="prebuilt"):
         Engine(pp, pcfg, cache_len=64, kv_pages=16, kv_page_len=16,
                draft_sparsity=0.75, mesh=mesh)
+    p1, c1 = t_deploy.deploy_packed(tpruned, tcfg)
+    d1, dc1 = t_deploy.draft_pack(p1, c1, sparsity=0.75, tp=1)
+    one = Mesh({"data": 1, "model": 1}, 0, "gloo", torch.device("cpu"))
+    kw = dict(batch_slots=2, cache_len=64, kv_pages=16, kv_page_len=16,
+              draft_sparsity=0.75, draft_k=2)
+    runs = []
+    for eng in (Engine(p1, c1, **kw),
+                Engine(local_params(p1, c1, 1, 0), local_config(c1, 1),
+                       mesh=one, draft=(local_params(d1, dc1, 1, 0),
+                                        local_config(dc1, 1)), **kw)):
+        rng = np.random.default_rng(0)
+        done = eng.run([Request(rid=i, prompt=rng.integers(
+            0, tcfg.vocab_size, size=(5 + 4 * i,)).astype(np.int32),
+            max_new_tokens=6) for i in range(3)])
+        runs.append(({r.rid: r.out_tokens for r in done},
+                     {k: eng.stats[k] for k in ("spec_rounds",
+                                                "spec_accepted_tokens")}))
+    assert runs[0] == runs[1] and runs[0][1]["spec_rounds"] > 0
