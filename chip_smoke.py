@@ -4353,6 +4353,379 @@ def mesh_paths_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: MoE, SSM and hybrid layers on a mesh
+# ---------------------------------------------------------------------------
+
+# (a)-(c) on one card; (d) on four: jamba at full width, moonshot at all
+# 48 layers
+FMP = dict(moonshot_layers=4, moonshot_depth=48, slots=4, cache_len=256,
+           new=16)
+# the one-card meshes: (DP, TP) -> [(model, --scheduler)], one spawn each
+FAMILY_MESHES = {
+    (2, 1): (("moonshot", False),),
+    (1, 2): (("moonshot", False), ("mamba2", False)),
+    (2, 2): (("moonshot", False), ("moonshot", True), ("jamba", False)),
+}
+
+
+def _fm_config(model: str, full: bool = False):
+    """moonshot-v1-16b-a3b at full width (4 layers; ``full``: all 48),
+    mamba2-780m whole, jamba's 8-layer super-block at phase 8 (c)'s
+    widths with bf16 weights (``full``: at full width, the launcher's
+    fp32 masters); bf16 compute."""
+    from repro_torch.configs import get_config
+    if model == "moonshot":
+        return moonshot_config(FMP["moonshot_depth"] if full
+                               else FMP["moonshot_layers"], "bfloat16")
+    if model == "mamba2":
+        return mamba_config(48, "bfloat16")
+    if full:
+        return dataclasses.replace(get_config("jamba-1.5-large-398b"),
+                                   num_layers=8, compute_dtype="bfloat16")
+    return jamba_config("bfloat16")
+
+
+def _fm_key(mesh, model, sched) -> str:
+    return f"{model} --mesh {mesh[0]},{mesh[1]}" + (" --scheduler"
+                                                    if sched else "")
+
+
+def _fm_build(torch, cfg0, mesh, sched, rank, data_rank, device):
+    """``build_rank_params`` of a case (50% of the 32x32 tiles, scope
+    all, packed; wo and w2 spread as drawn), timed, with the peak GiB the
+    build reached on ``device``."""
+    from repro_torch.launch import serve as launch
+    ep = launch.expert_shards(cfg0, mesh, scheduler=sched,
+                              slots=FMP["slots"], kv_pages=None)
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params, cfg, lcfg, _ = launch.build_rank_params(
+        cfg0, tp=mesh[1], rank=rank, device=device, sparsity=SPARSITY,
+        scope="all", path="packed", prepare=spread_leaf(cfg0), ep=ep,
+        data_rank=data_rank)
+    torch.cuda.synchronize(device)
+    return params, cfg, lcfg, dict(
+        ep=ep, build_s=time.perf_counter() - t0,
+        build_peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+        tree_gib=_tree_gib(params))
+
+
+def _fm_serve(torch, params, cfg, counters, *, mesh=None, data_shards=1,
+              sched_ranks=0, keep=False):
+    """Phase 3's 4 requests of 16 tokens: through ``Engine`` (4 slots,
+    cache 256, on ``mesh`` or ``data_shards`` groups) or, with
+    ``sched_ranks``, ``ShardedScheduler`` (2 slots a rank), after an
+    untimed 2-token run. Launch counts and the 'data' all-to-all bytes
+    set to 0 just before the timed run and read just after. An engine's
+    steps are timed with the device synchronised and every decode step's
+    logits kept (``keep``) or digested; the all-to-all bytes of a decode
+    step are read apart."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.scheduler import SchedulerConfig, ShardedScheduler
+    V = cfg.vocab_size
+
+    def make():
+        if sched_ranks:
+            return ShardedScheduler(
+                params, cfg, mesh=mesh,
+                ranks=None if mesh is not None else sched_ranks,
+                sched=SchedulerConfig(slots_per_rank=FMP["slots"] // 2,
+                                      cache_len=FMP["cache_len"]))
+        return Engine(params, cfg, batch_slots=FMP["slots"],
+                      cache_len=FMP["cache_len"], mesh=mesh,
+                      data_shards=data_shards)
+    make().run(synthetic_requests(4, V, 2))
+    server = make()
+    reqs = synthetic_requests(4, V, FMP["new"])
+    a2a = mesh.a2a if mesh is not None else {"calls": 0, "bytes": 0}
+    out = {}
+    reset(counters)
+    a2a.update(calls=0, bytes=0)
+    if sched_ranks:
+        _sync(torch)
+        t0 = time.perf_counter()
+        done = server.run(reqs)
+        _sync(torch)
+        wall = time.perf_counter() - t0
+        out.update(streams={r.rid: list(r.out_tokens) for r in done},
+                   served={r.rid: r.rank for r in done}, wall_s=wall,
+                   tok_s=sum(len(r.out_tokens) for r in done) / wall)
+    else:
+        logits, step_a2a = [], []
+        dec = server._decode_step
+
+        def recorded(p, c, *a):
+            x = dec(p, c, *a)
+            logits.append(x.clone() if keep else _digest(x))
+            return x
+        server._decode_step = recorded
+        step = server.step
+
+        def counted():
+            b = a2a["bytes"]
+            adm = server.stats["admitted"]
+            res = step()
+            if server.stats["admitted"] == adm:
+                step_a2a.append(a2a["bytes"] - b)
+            return res
+        server.step = counted
+        streams, steps = _drive_timed(torch, server, reqs)
+        out.update(streams=streams, logits=logits,
+                   times=_step_times(steps), layout=server.layout,
+                   a2a_decode_bytes=(max(step_a2a) if step_a2a else 0))
+    out["launches"] = _launch_counts(counters)
+    out["a2a"] = dict(a2a)
+    return out
+
+
+def _fm_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """Phase 13's process, spawned by the launcher's ``serve_mesh``: join
+    the mesh over ``spec["backend"]``, then for each case build this
+    rank's tree layer by layer (its experts over 'data' where one engine
+    splits its slots, d_ff and SSM heads over 'model'), serve, free.
+    Returns what the parent checks (every case's streams under
+    ``streams``, which ``serve_mesh`` holds equal in every process)."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    out = dict(rank=rank, data_rank=mesh.data_rank,
+               model_rank=mesh.model_rank, transport=mesh.transport,
+               cases={}, streams={})
+    for model, sched in spec["cases"]:
+        key = _fm_key(spec["mesh"], model, sched)
+        cfg0 = _fm_config(model, spec.get("full", False))
+        params, _, lcfg, res = _fm_build(torch, cfg0, spec["mesh"], sched,
+                                         mesh.model_rank, mesh.data_rank,
+                                         dev)
+        res["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = _fm_serve(torch, params, lcfg, counters, mesh=mesh,
+                        sched_ranks=spec["mesh"][0] if sched else 0)
+        run["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["streams"][key] = run.pop("streams")
+        res.update(run)
+        out["cases"][key] = res
+        del params
+        _free(torch)
+    return out
+
+
+def _fm_oracles(torch, counters):
+    """On this card, for every model: the one-card engine (the tree at tp
+    1, every expert) and each mesh case's meshless loop of its shard
+    counts (``build_rank_params(rank=None)``: every shard and expert,
+    ``Engine(data_shards=DP)`` where the slots split over 'data', the
+    meshless ``ShardedScheduler`` for ``--scheduler``). Decode logits
+    kept: a split engine's rank holds its rows of them."""
+    out = {}
+    for model in ("moonshot", "mamba2", "jamba"):
+        cfg0 = _fm_config(model)
+        cases = [(m, s) for m, cs in FAMILY_MESHES.items()
+                 for md, s in cs if md == model]
+        for tp in sorted({m[1] for m, _ in cases} | {1}):
+            tree, tcfg, _, res = _fm_build(torch, cfg0, (1, tp), False,
+                                           None, 0, DEVICE)
+            if tp == 1:
+                out[model, "one card"] = dict(res, **_fm_serve(
+                    torch, tree, tcfg, counters, keep=True))
+            for mesh, sched in cases:
+                if mesh[1] != tp:
+                    continue
+                ep = 1 if sched else mesh[0] if cfg0.moe else 1
+                cfg = dataclasses.replace(tcfg, ep_shards=ep)
+                out[_fm_key(mesh, model, sched)] = dict(res, **_fm_serve(
+                    torch, tree, cfg, counters, keep=True,
+                    data_shards=1 if sched else mesh[0],
+                    sched_ranks=mesh[0] if sched else 0))
+            del tree
+            _free(torch)
+    return out
+
+
+# the kernels each model's packed path launches (scope all): moonshot
+# its attention projections, mamba2 nothing (its SSM projections stay
+# pruned-dense, its d_ff is 0), jamba both
+FM_KERNELS = {"moonshot": {"sasp_gemm": "mma"}, "mamba2": {},
+              "jamba": {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"}}
+
+
+def _fm_check(key, model, r, loop, mesh, sched):
+    """A rank's case bit for bit its loop: streams (and served ranks), a
+    split engine's decode logits its rows of the loop's; the main-path
+    kernels its model runs, on their tensor-core variants, none else."""
+    tag = f"(a) {key} rank {r['rank']}"
+    got = r["cases"][key]
+    check(r["streams"][key] == loop["streams"],
+          f"{tag}: streams differ from the meshless loop's")
+    if sched:
+        check(got["served"] == loop["served"],
+              f"{tag}: served ranks differ from the meshless loop's")
+    else:
+        per = FMP["slots"] // mesh[0] if got["layout"] else FMP["slots"]
+        lo = r["data_rank"] * per if got["layout"] else 0
+        want = [_digest(x[lo:lo + per]) for x in loop["logits"]]
+        check(got["logits"] == want,
+              f"{tag}: decode logits are not bit for bit the loop's "
+              f"(layout {got['layout']}, loop {loop['layout']})")
+    for k in MAIN_PATH:
+        lk = got["launches"][k]
+        if k in FM_KERNELS[model]:
+            check(lk["total"] > 0 and set(lk["variant"]) == {
+                FM_KERNELS[model][k]}, f"{tag}: {k} launched {lk}")
+        else:
+            check(lk["total"] == 0, f"{tag}: {k} launched {lk}")
+
+
+def _fm_agreement(got, one) -> str:
+    """How a case's streams compare with the one-card engine's: equal, or
+    the first token that differs (EP's per-source capacity drops other
+    tokens than one card's global capacity where it binds)."""
+    diff = [(rid, next(i for i, (a, b) in enumerate(zip(s, one[rid]))
+                       if a != b)) for rid, s in got.items()
+            if s != one[rid]]
+    if not diff:
+        return "equal to the one-card engine's"
+    return (f"{len(got) - len(diff)}/{len(got)} equal to the one-card "
+            f"engine's (first differences (request, token) {diff})")
+
+
+def _fm_report(key, res, loop, one):
+    r0 = res[0]["cases"][key]
+    ms = ([round(r["cases"][key]["times"]["decode_ms_per_step"], 2)
+           for r in res] if "times" in r0 else None)
+    lms = loop.get("times", {}).get("decode_ms_per_step")
+    line = (f"  {key}: " + (
+        f"decode ms/step by rank {ms} (the loop {lms:.2f}, one card "
+        f"{one['times']['decode_ms_per_step']:.2f}), prefill "
+        f"{r0['times']['prefill_ms']:.1f} ms" if ms else
+        f"{r0['tok_s']:.1f} tok/s (the loop {loop['tok_s']:.1f}), served "
+        f"ranks {sorted(set(r0['served'].values()))}") +
+        f"; experts in {r0['ep']} EP shard(s); GiB a rank: tree "
+        f"{[round(r['cases'][key]['tree_gib'], 2) for r in res]}, held "
+        f"{[round(r['cases'][key]['held_gib'], 2) for r in res]}, peak "
+        f"serving {[round(r['cases'][key]['peak_gib'], 2) for r in res]}, "
+        f"peak building "
+        f"{[round(r['cases'][key]['build_peak_gib'], 2) for r in res]}; "
+        f"build s {[round(r['cases'][key]['build_s'], 1) for r in res]}; "
+        f"launches {({k: l['variant'] for k, l in r0['launches'].items() if l['total']}) or 'none'}"
+        f"; all-to-all {r0['a2a']['calls']} calls, {r0['a2a']['bytes']} "
+        f"bytes a rank in the run"
+        + (f", {r0['a2a_decode_bytes']} a decode step" if ms else "")
+        + f"; streams {_fm_agreement(res[0]['streams'][key], one['streams'])}")
+    log(line)
+
+
+def _fm_one_card(torch, counters):
+    """(a)-(c): every case on this card over gloo, host-staged, one spawn
+    a mesh shape, against its loop."""
+    from repro_torch.launch import serve as launch
+    t0 = time.time()
+    oracles = _fm_oracles(torch, counters)
+    oracle_s = time.time() - t0
+    _free(torch)
+    out = {"oracle_s": oracle_s, "cases": {}, "launches": dict.fromkeys(
+        MAIN_PATH, 0)}
+    for mesh, cases in FAMILY_MESHES.items():
+        t0 = time.time()
+        spec = dict(mesh=mesh, device=DEVICE, backend="gloo",
+                    cases=list(cases))
+        res = launch.serve_mesh(spec, _fm_rank, store_dir=OUT_DIR,
+                                timeout=600)
+        wall = time.time() - t0
+        log(f"  --mesh {mesh[0]},{mesh[1]}: {len(res)} spawned processes "
+            f"over {res[0]['transport']}, {wall:.1f} s wall")
+        for model, sched in cases:
+            key = _fm_key(mesh, model, sched)
+            for r in res:
+                _fm_check(key, model, r, oracles[key], mesh, sched)
+            _fm_report(key, res, oracles[key], oracles[model, "one card"])
+            out["cases"][key] = dict(
+                wall_s=wall, ranks=[{k: v for k, v in
+                                     r["cases"][key].items()
+                                     if k != "logits"} for r in res],
+                loop={k: v for k, v in oracles[key].items()
+                      if k not in ("logits", "streams")},
+                one_card_streams_agree=_fm_agreement(
+                    res[0]["streams"][key],
+                    oracles[model, "one card"]["streams"]))
+            for n in MAIN_PATH:
+                out["launches"][n] += sum(r["cases"][key]["launches"][n][
+                    "total"] for r in res)
+    log(f"  (a)-(c) every process bit for bit its meshless loop (streams, "
+        f"served ranks, decode logits) in oracles {oracle_s:.1f} s")
+    return out
+
+
+def _fm_four_cards(torch):
+    """(d) over NCCL, a card a process: jamba-1.5-large at full width
+    (one 8-layer super-block, the launcher's fp32 masters) on --mesh 2,2,
+    then moonshot at all 48 layers on --mesh 4,1: decode ms/step, GiB a
+    rank, build s, all-to-all bytes a decode step."""
+    from repro_torch.launch import serve as launch
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  (d) nccl: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    out = {}
+    for model, mesh in (("jamba", (2, 2)), ("moonshot", (4, 1))):
+        t0 = time.time()
+        spec = dict(mesh=mesh, device=DEVICE, backend="nccl", full=True,
+                    cases=[(model, False)])
+        res = launch.serve_mesh(spec, _fm_rank, store_dir=OUT_DIR,
+                                timeout=600)
+        wall = time.time() - t0
+        key = _fm_key(mesh, model, False)
+        cfg0 = _fm_config(model, True)
+        for r in res:
+            s = r["streams"][key]
+            check(len(s) == 4 and all(
+                len(t) == FMP["new"] and all(0 <= v < cfg0.vocab_size
+                                             for v in t)
+                for t in s.values()),
+                f"(d) {key} rank {r['rank']}: not 4 streams of "
+                f"{FMP['new']} tokens in the vocabulary")
+        c = [r["cases"][key] for r in res]
+        log(f"  (d) {key} ({cfg0.num_layers} layers, d_model "
+            f"{cfg0.d_model}) over {res[0]['transport']}, {wall:.1f} s "
+            f"wall: decode ms/step by rank "
+            f"{[round(x['times']['decode_ms_per_step'], 2) for x in c]}, "
+            f"prefill {c[0]['times']['prefill_ms']:.1f} ms; GiB a rank: "
+            f"tree {[round(x['tree_gib'], 2) for x in c]}, held "
+            f"{[round(x['held_gib'], 2) for x in c]}, peak serving "
+            f"{[round(x['peak_gib'], 2) for x in c]}, peak building "
+            f"{[round(x['build_peak_gib'], 2) for x in c]}; build s "
+            f"{[round(x['build_s'], 1) for x in c]}; launches "
+            f"{ {k: l['variant'] for k, l in c[0]['launches'].items() if l['total']} }"
+            f"; all-to-all {c[0]['a2a_decode_bytes']} bytes a decode step")
+        out[key] = dict(wall_s=wall, ranks=[{k: v for k, v in x.items()
+                                             if k != "logits"} for x in c])
+    return out
+
+
+def family_mesh_phase(torch, counters):
+    """Phase 13: MoE, SSM and hybrid layers on a mesh, (a)-(c) on this
+    card, (d) on four where the machine has them. Run last, with every
+    earlier model freed."""
+    t_phase = time.time()
+    log(f"  moonshot-v1-16b-a3b at full width, {FMP['moonshot_layers']} "
+        f"layers; mamba2-780m whole; jamba's super-block at phase 8 (c)'s "
+        f"widths, bf16 weights; seed 0, wo and w2 spread, 50% of the "
+        f"32x32 tiles (scope all), bf16 compute; phase 3's 4 requests of "
+        f"{FMP['new']} tokens, 4 slots")
+    out = _fm_one_card(torch, counters)
+    _free(torch)
+    out["d"] = _fm_four_cards(torch)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -4522,9 +4895,20 @@ def main() -> int:
     _free(torch)
     mesh_paths = mesh_paths_phase(torch, counters)
 
-    # each kernel's launches on its own path: the main path's, phase 3's
-    # and phase 12's mesh ranks' (every path, both ranks)
+    log("[13] families on a mesh: moonshot at full width on --mesh 2,1, "
+        "1,2, 2,2 and 2,2 --scheduler, mamba2-780m whole on --mesh 1,2, "
+        "jamba's super-block on --mesh 2,2, each bit for bit its meshless "
+        "loop; jamba at full width on --mesh 2,2 and moonshot at 48 layers "
+        "on --mesh 4,1 over NCCL where there are four cards (last, every "
+        "earlier model freed)")
+    _free(torch)
+    family_mesh = family_mesh_phase(torch, counters)
+
+    # each kernel's launches on its own path: the main path's, phase 3's,
+    # phase 12's mesh ranks' (every path, both ranks) and phase 13's (every
+    # family case, every process)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
+                     + family_mesh["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4536,8 +4920,9 @@ def main() -> int:
                        paths=paths,
                        ablation=ablation, int8=int8_res, train=train,
                        families=families, tp=tp, depth=depth, dp=dp,
-                       mesh_paths=mesh_paths,
-                       seconds=time.time() - t_start), fh, indent=1)
+                       mesh_paths=mesh_paths, family_mesh=family_mesh,
+                       seconds=time.time() - t_start), fh, indent=1,
+                  default=str)
     log(f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps(kernels_line(res, path_launches)))

@@ -75,6 +75,9 @@ class SSMConfig:
     chunk_size: int = 256         # SSD chunked-scan block length
     dt_min: float = 0.001
     dt_max: float = 0.1
+    # a TP rank's local config holds 1/head_shards of the heads and of
+    # the x channels (``distribution.sharding.local_config``)
+    head_shards: int = 1
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -152,6 +155,10 @@ class ModelConfig:
     # (the reference's col / row / bsr rules; set by a TP deployment): a
     # mesh rank holds one of each, the shard loop runs them shard by shard
     tp_shards: int = 1
+    # the 'data' shards of a MoE deployment's expert stacks (expert
+    # parallelism, ``distribution.moe_ep``): a mesh rank holds E / ep
+    # experts, the meshless loop runs the ep shards one after another
+    ep_shards: int = 1
     # --- SASP ---
     sasp: SASPConfig = field(default_factory=SASPConfig)
     # --- numerics ---

@@ -22,7 +22,9 @@ and moves it in step with two collectives over that group: an all-gather
 of what each data rank computed, and a broadcast from data rank 0.
 ``submesh`` is one data rank's mesh (its 'model' axis alone); ``flat`` is
 the mesh seen with every process its own data rank (the reference's
-``dp_only`` profile).
+``dp_only`` profile, ``profile``). Expert parallelism adds a third
+collective over that group, ``data_all_to_all``: block j of a rank's
+tensor goes to data rank j (``jax.lax.all_to_all`` over 'data').
 
 Transport is named, never chosen silently: ``nccl`` where every rank has
 its own card; ``gloo`` on the CPU; ``gloo (host-staged)`` where ranks
@@ -47,7 +49,9 @@ class Mesh:
     ranks: global rank ``rank`` sits at data index ``rank // tp`` and
     model index ``rank % tp``. ``model_group`` is the process group of
     its 'model' axis, ``data_group`` that of its 'data' axis;
-    ``host_staged`` runs gloo over host copies of CUDA tensors."""
+    ``host_staged`` runs gloo over host copies of CUDA tensors;
+    ``profile`` is the reference's placement profile ("tp", or "dp_only"
+    for ``flat``'s view)."""
     shape: Dict[str, int]
     rank: int
     backend: str
@@ -55,6 +59,10 @@ class Mesh:
     model_group: Any = None
     host_staged: bool = False
     data_group: Any = None
+    profile: str = "tp"
+    # the 'data' all-to-alls so far: calls and bytes this rank sent
+    a2a: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"calls": 0, "bytes": 0})
 
     @property
     def model_rank(self) -> int:
@@ -85,7 +93,8 @@ class Mesh:
         return dataclasses.replace(
             self, shape={"data": self.shape["data"] * self.shape["model"],
                          "model": 1},
-            model_group=None, data_group=dist.group.WORLD)
+            model_group=None, data_group=dist.group.WORLD,
+            profile="dp_only")
 
     # -- collectives over the 'model' axis -----------------------------
     def _run(self, x: torch.Tensor, op) -> torch.Tensor:
@@ -147,6 +156,24 @@ class Mesh:
             parts = [torch.empty_like(y) for _ in range(self.shape["data"])]
             dist.all_gather(parts, y, group=self.data_group)
             return torch.stack(parts)
+        return self._run(x, op)
+
+    def data_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """x (dp, …): block j to data rank j at this model index; returns
+        (dp, …) whose block i came from data rank i (the reference's
+        ``jax.lax.all_to_all(x, "data", split_axis=0, concat_axis=0)``).
+        On gloo a 16-bit tensor moves as fp32, which holds it exactly."""
+        if self.shape["data"] == 1:
+            return x
+        self.a2a["calls"] += 1
+        self.a2a["bytes"] += x.numel() * x.element_size()
+        wide = self.backend == "gloo" and x.element_size() == 2
+
+        def op(y):
+            y = y.to(torch.float32) if wide else y
+            out = torch.empty_like(y)
+            dist.all_to_all_single(out, y, group=self.data_group)
+            return out.to(x.dtype)
         return self._run(x, op)
 
     def data_broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:

@@ -15,21 +15,39 @@ divide the axis stays whole. A spec here is a tuple with one entry per
 dim: an axis name or None. Packed containers shard along their shard
 axis (``axis_at``): a rank holds one shard-local visit list of each.
 
+MoE and SSM layers (``distribution.moe_ep``, ``models.ssm``): an expert
+stack (L, E, din, dout) puts E over 'data' (expert parallelism, data
+rank d holding experts [d E/ep, (d+1) E/ep) where ``ep`` > 1) and d_ff
+over 'model' (the reference's ``expert_col`` / ``expert_row``); the
+router stays whole; the shared experts are a dense FFN, col / row. The
+rule of an FFN's w1/w2/w3 is chosen by the slot's FFN kind (a router
+makes it an expert stack), not by the tensor's rank: the reference maps
+a jamba dense-FFN slot onto ``expert_col`` by rank (``_rerank``), which
+in the port's layer-stacked trees would split a dense (L, d, f) stack's
+layer axis over 'data'. A Mamba-2 mixer splits by heads: in_z, in_dt
+col, out_proj row, the (H,) and (d_inner,) vectors with the heads (the
+reference replicates dt_bias, A_log and D), and in_xbc / conv_w / conv_b
+by their x channels with B and C whole on every rank (``models.ssm.
+xbc_shard``; the reference's ``col`` rule shards all of conv_dim, which
+only GSPMD can honour).
+
 Placement differs from the reference, the math does not. The reference
 leaves activations and caches to GSPMD (``cache_shardings`` puts a
 cache's capacity axis over 'model'). PyTorch has no GSPMD: each rank
 here runs attention over its own heads — ``local_config`` gives it
-``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, so its
-caches and page pool hold only those heads and attention needs no
-collective; the collectives are the reductions of the row-sharded
-projections (wo, the dense FFN's w2) and the fused FFN's d_ff shards,
-the all-gather of a BSR matrix's output columns, and the vocab-sharded
-embedding and head: the reference's ``vocab`` rule puts the table's rows
-over 'model' (``cfg.vocab_shards``, ``vocab_config``), each rank gathers
-the ids in its rows and the ranks' rows are summed, and each rank's
-logits over its rows are all-gathered in vocab order (``models.lm``).
-A TP deployment's config (``tp_config``) carries the shard counts, so
-that the meshless shard loop runs the same shards in one process.
+``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, and
+``H / tp`` SSM heads, so its caches and page pool hold only those heads
+and attention needs no collective; the collectives are the reductions of
+the row-sharded projections (wo, the dense FFN's w2, out_proj), the
+fused FFN's d_ff shards and the experts' w2, the SSM's gated-norm
+squares, the all-gather of a BSR matrix's output columns, the experts'
+all-to-alls over 'data', and the vocab-sharded embedding and head: the
+reference's ``vocab`` rule puts the table's rows over 'model'
+(``cfg.vocab_shards``, ``vocab_config``), each rank gathers the ids in
+its rows and the ranks' rows are summed, and each rank's logits over its
+rows are all-gathered in vocab order (``models.lm``). A TP deployment's
+config (``tp_config``) carries the shard counts, so that the meshless
+shard loop runs the same shards in one process.
 """
 from __future__ import annotations
 
@@ -51,13 +69,12 @@ def _maybe(dim: int, sizes: Dict[str, int], axis: str) -> Optional[str]:
     return axis if dim % sizes.get(axis, 1) == 0 else None
 
 
-def param_rules():
+def param_rules(expert: bool = False):
     """(regex on the leaf's path, spec builder fn(shape, sizes)); the
-    first match wins. ``sizes`` maps axis names to their sizes. The
-    reference's BSR, vocab, attention and dense-FFN rules; packed
-    containers shard by ``packed_sharding``. Its expert, shared-FFN and
-    SSM rules come with the slice that shards those leaves (ROADMAP
-    Queue 1 item 6f)."""
+    first match wins. ``sizes`` maps axis names to their sizes; ``expert``
+    picks the expert-stack rules for an FFN's w1/w2/w3 (a MoE slot). The
+    reference's BSR, vocab, attention, dense-FFN, expert, shared-FFN and
+    SSM rules; packed containers shard by ``packed_sharding``."""
     def col(shape, sizes):     # (..., d_in, d_out): d_out over 'model'
         return (None,) * (len(shape) - 1) + (
             _maybe(shape[-1], sizes, "model"),)
@@ -80,6 +97,17 @@ def param_rules():
         return (None,) * (len(shape) - 1) + (
             _maybe(shape[-1], sizes, "model"),)
 
+    def expert_col(shape, sizes):  # (..., E, d_in, d_out)
+        return (None,) * (len(shape) - 3) + (
+            _maybe(shape[-3], sizes, "data"), None,
+            _maybe(shape[-1], sizes, "model"))
+
+    def expert_row(shape, sizes):
+        return (None,) * (len(shape) - 3) + (
+            _maybe(shape[-3], sizes, "data"),
+            _maybe(shape[-2], sizes, "model"), None)
+
+    ffn13, ffn2 = (expert_col, expert_row) if expert else (col, row)
     return [
         (r"sasp_bsr/w\d/vals$", bsr_vals),
         (r"sasp_bsr/w\d/(idx|scale)$", bsr_idx),
@@ -87,17 +115,31 @@ def param_rules():
         (r"(embed|lm_head)/emb$", vocab),
         (r"mixer/(wq|wk|wv)/(w|b)$", col),
         (r"mixer/wo/w$", row),
-        (r"ffn/w(1|3)/w$", col),
-        (r"ffn/w2/w$", row),
+        (r"ffn/router/w$", repl),
+        (r"ffn/shared/w(1|3)/w$", col),
+        (r"ffn/shared/w2/w$", row),
+        (r"ffn/w(1|3)/w$", ffn13),
+        (r"ffn/w2/w$", ffn2),
+        (r"ffn/sasp_masks/w(1|3)$", ffn13),
+        (r"ffn/sasp_masks/w2$", ffn2),
+        # mamba: x channels and heads over 'model' (in_xbc / conv split
+        # [x | B | C] by xbc_shard)
+        (r"mixer/(in_z|in_xbc|in_dt)/w$", col),
+        (r"mixer/(conv_w|conv_b|norm|A_log|D|dt_bias)$", col),
+        (r"mixer/out_proj/w$", row),
         (r".*", repl),
     ]
 
 
+_XBC = re.compile(r"mixer/(in_xbc/w|conv_w|conv_b)$")
+
+
 def spec_for_param(path: Tuple, shape: Tuple[int, ...],
-                   sizes: Dict[str, int]) -> Spec:
-    """The spec of the leaf at ``path`` (keys joined by '/')."""
+                   sizes: Dict[str, int], expert: bool = False) -> Spec:
+    """The spec of the leaf at ``path`` (keys joined by '/'); ``expert``:
+    the leaf is in a MoE slot's FFN."""
     s = "/".join(str(k) for k in path)
-    for pat, fn in param_rules():
+    for pat, fn in param_rules(expert):
         if re.search(pat, s):
             return tuple(fn(shape, sizes))
     return (None,) * len(shape)
@@ -114,12 +156,15 @@ def vocab_config(cfg: ModelConfig, tp: int) -> ModelConfig:
         cfg, vocab_shards=tp if tp > 1 and spec[0] == "model" else 1)
 
 
-def tp_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+def tp_config(cfg: ModelConfig, tp: int, ep: int = 1) -> ModelConfig:
     """``cfg`` of a TP deployment at ``tp``: the vocab split
-    (``vocab_config``) and ``tp_shards``, the shard count of the dense
-    and BSR matrices, which a mesh rank holds one of and the shard loop
-    runs one after another."""
-    return dataclasses.replace(vocab_config(cfg, tp), tp_shards=int(tp))
+    (``vocab_config``), ``tp_shards``, the shard count of the dense and
+    BSR matrices, the experts' d_ff and the SSM heads, which a mesh rank
+    holds one of and the shard loop runs one after another, and
+    ``ep_shards``, the expert stacks' shards over 'data' (1 for a
+    config without experts)."""
+    return dataclasses.replace(vocab_config(cfg, tp), tp_shards=int(tp),
+                               ep_shards=int(ep) if cfg.moe else 1)
 
 
 def axis_at(rank: int, from_end: int, axis: str) -> Spec:
@@ -156,14 +201,16 @@ def packed_sharding(node) -> Dict[str, Spec]:
     return out
 
 
-def take_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int
-               ) -> torch.Tensor:
-    """Model rank ``rank``'s slice of ``t`` under ``spec`` (a copy, so
-    the whole leaf can be freed)."""
+def take_slice(t: torch.Tensor, spec: Spec, rank: int, tp: int,
+               data_rank: int = 0, ep: int = 1) -> torch.Tensor:
+    """Model rank ``rank``'s (and data rank ``data_rank``'s, of ``ep``)
+    slice of ``t`` under ``spec`` (a copy, so the whole leaf can be
+    freed)."""
     for dim, ax in enumerate(spec):
-        if ax == "model":
-            n = t.shape[dim] // tp
-            t = t.narrow(dim, rank * n, n)
+        if ax in ("model", "data"):
+            r, n = (rank, tp) if ax == "model" else (data_rank, ep)
+            k = t.shape[dim] // n
+            t = t.narrow(dim, r * k, k)
     return t.contiguous().clone()
 
 
@@ -213,14 +260,47 @@ def dp_submeshes(mesh, profile: str = "tp") -> List[Tuple[int, Tuple[int,
 
 def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The config a model rank serves with: ``num_heads / tp`` query and
-    ``num_kv_heads / tp`` KV heads (head_dim pinned), so its attention
-    and its caches hold its own heads."""
+    ``num_kv_heads / tp`` KV heads (head_dim pinned), and ``H / tp`` SSM
+    heads (``ssm.head_shards``), so its attention, its SSM and their
+    caches hold its own heads."""
     if cfg.num_heads % tp or cfg.num_kv_heads % tp:
         raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} do "
                          f"not split over {tp} model ranks")
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                               num_kv_heads=cfg.num_kv_heads // tp,
-                               head_dim=cfg.attn_head_dim)
+    out = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                              num_kv_heads=cfg.num_kv_heads // tp,
+                              head_dim=cfg.attn_head_dim)
+    if tp > 1 and _has_ssm(cfg):
+        from repro_torch.models.ssm import local_ssm
+        out = local_ssm(out, tp)
+    return out
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return any(k != MIXER_ATTN for k in cfg.layer_mixer_kinds())
+
+
+def check_placement(cfg: ModelConfig, tp: int, ep: int = 1) -> None:
+    """Refuse, with a message, a mesh that cannot place ``cfg``: experts
+    that do not split over ``ep`` data ranks, an expert d_ff or SSM heads
+    that do not split over ``tp`` model ranks (nothing is quietly
+    replicated)."""
+    from repro_torch.models.ssm import ssm_splits
+    if cfg.moe is not None:
+        E = cfg.moe.num_experts
+        if ep > 1 and E % ep:
+            raise ValueError(f"{cfg.name}: {E} experts do not split over "
+                             f"{ep} data ranks")
+        if tp > 1 and cfg.d_ff % tp:
+            raise ValueError(f"{cfg.name}: the experts' d_ff {cfg.d_ff} "
+                             f"does not split over {tp} model ranks")
+    elif ep > 1:
+        raise ValueError(f"{cfg.name} has no experts to split over "
+                         f"{ep} data ranks")
+    if tp > 1 and _has_ssm(cfg) and not ssm_splits(cfg, tp):
+        raise ValueError(
+            f"{cfg.name}: {cfg.ssm.num_heads(cfg.d_model)} SSM heads "
+            f"(ngroups {cfg.ssm.ngroups}) do not split over {tp} model "
+            f"ranks")
 
 
 def _local_group(node: Params, group: str, names, rank: Optional[int],
@@ -245,8 +325,10 @@ def _local_group(node: Params, group: str, names, rank: Optional[int],
 
 
 def local_params(params: Params, cfg: ModelConfig, tp: int,
-                 rank: Optional[int]) -> Params:
-    """Model rank ``rank``'s tree of a TP deployment at ``tp``, on any
+                 rank: Optional[int], ep: int = 1,
+                 data_rank: int = 0) -> Params:
+    """Model rank ``rank``'s (at data rank ``data_rank`` of ``ep`` expert
+    shards) tree of a TP deployment at ``tp``, on any
     serving path: packed (``deploy_packed(..., tp=tp)`` or
     ``reshard_packed``), dense, masked (pruned in place), masked int8 and
     bsr / kernel. Each sharded container keeps only shard ``rank`` (its
@@ -255,25 +337,25 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
     is dense, the dense FFN's w1/w3 by columns and w2 by rows, a
     ``BlockSparseWeight`` by column blocks (its ``shape`` stays the whole
     matrix's), the embedding and head table to the rank's V/tp rows where
-    ``cfg.vocab_shards`` is tp (``vocab_config``); norms and int8 ``qw``
-    leaves stay whole. The dense matrices a container replaces are
+    ``cfg.vocab_shards`` is tp (``vocab_config``), an expert stack to the
+    data rank's experts and the model rank's d_ff, a Mamba-2 mixer to the
+    rank's heads; norms and int8 ``qw`` leaves stay whole. The dense
+    matrices a container replaces are
     dropped: a packed group's, and the ``w`` of each matrix a BSR
     container replaces (the reference keeps that ``w`` but never reads
     it). Attention's BSR entries are dropped too: the reference's
     ``_proj`` reads only ``sasp_packed`` or ``w``, so on the bsr and
-    kernel paths attention runs the pruned dense weights. Serve it with
+    kernel paths attention runs the pruned dense weights (so does a
+    Mamba-2 mixer). Serve it with
     ``local_config(cfg, tp)``. ``rank`` None keeps every shard and every
     whole leaf (the shard loop's tree without the replaced matrices)."""
-    if cfg.moe is not None or any(k != MIXER_ATTN
-                                  for k in cfg.layer_mixer_kinds()):
-        raise ValueError(
-            "MoE and SSM layers on a mesh (distribution/moe_ep.py, the "
-            "SSD mesh pins) are not ported: ROADMAP Queue 1 item 6f")
+    check_placement(cfg, tp, ep)
     if tp > 1 and cfg.vocab_shards != vocab_config(cfg, tp).vocab_shards:
         raise ValueError(
             f"cfg.vocab_shards {cfg.vocab_shards} is not the vocab split at "
             f"tp={tp}: serve a config from a TP deployment (tp_config)")
-    sizes = {"model": tp}
+    sizes = {"model": tp, "data": ep}
+    cut = _Cut(cfg, rank, tp, data_rank, ep)
     segs = []
     for si, seg in enumerate(params["segments"]):
         new_seg = {}
@@ -297,9 +379,8 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
                            if k in ffn["sasp_bsr"] else v)
                        for k, v in ffn.items()}
             base = ("segments", si, name)
-            slot["mixer"] = _slice_tree(mixer, base + ("mixer",), sizes,
-                                        rank, tp)
-            slot["ffn"] = _slice_tree(ffn, base + ("ffn",), sizes, rank, tp)
+            slot["mixer"] = cut(mixer, base + ("mixer",), sizes, False)
+            slot["ffn"] = cut(ffn, base + ("ffn",), sizes, "router" in ffn)
             new_seg[name] = slot
         segs.append(new_seg)
     out = dict(params)
@@ -307,24 +388,38 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
     if cfg.vocab_shards > 1:
         for top in ("embed", "lm_head"):
             if top in params:
-                out[top] = _slice_tree(params[top], (top,), sizes, rank, tp)
+                out[top] = cut(params[top], (top,), sizes, False)
     return out
 
 
-def _slice_tree(node, path, sizes, rank, tp):
-    """``node`` with every tensor leaf cut to rank ``rank``'s slice by
-    ``param_rules`` (a BSR container's arrays too); packed containers,
-    localised already, and int8 ``qw`` leaves pass whole."""
-    if rank is None:
-        return node
-    if isinstance(node, dict):
-        return {k: _slice_tree(v, path + (k,), sizes, rank, tp)
-                for k, v in node.items()}
-    if isinstance(node, BlockSparseWeight):
-        return dataclasses.replace(node, **{
-            f: _slice_tree(getattr(node, f), path + (f,), sizes, rank, tp)
-            for f in ("vals", "idx", "scale")})
-    if isinstance(node, torch.Tensor):
+class _Cut:
+    """``cut(node, path, sizes, expert)``: ``node`` with every tensor leaf
+    cut to the rank's slice by ``param_rules`` (a BSR container's arrays
+    too; an SSM's [x | B | C] leaves by ``xbc_shard``); packed
+    containers, localised already, and int8 ``qw`` leaves pass whole."""
+
+    def __init__(self, cfg: ModelConfig, rank, tp, data_rank, ep):
+        self.cfg, self.rank, self.tp = cfg, rank, tp
+        self.data_rank, self.ep = data_rank, ep
+
+    def __call__(self, node, path, sizes, expert):
+        if self.rank is None:
+            return node
+        if isinstance(node, dict):
+            return {k: self(v, path + (k,), sizes, expert)
+                    for k, v in node.items()}
+        if isinstance(node, BlockSparseWeight):
+            return dataclasses.replace(node, **{
+                f: self(getattr(node, f), path + (f,), sizes, expert)
+                for f in ("vals", "idx", "scale")})
+        if not isinstance(node, torch.Tensor):
+            return node
+        if self.tp > 1 and _XBC.search("/".join(str(k) for k in path)):
+            from repro_torch.models.ssm import xbc_shard
+            s = self.cfg.ssm
+            return xbc_shard(node, self.rank, self.tp,
+                             s.d_inner(self.cfg.d_model),
+                             s.ngroups * s.state_dim)
         return take_slice(node, spec_for_param(path, tuple(node.shape),
-                                               sizes), rank, tp)
-    return node
+                                               sizes, expert),
+                          self.rank, self.tp, self.data_rank, self.ep)

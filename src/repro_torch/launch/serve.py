@@ -48,13 +48,14 @@ shapes).
 ``--path packed`` at a sparsity above 0 builds the model layer by layer
 (``build_rank_params`` at tp 1): each layer is drawn from its own
 generators (or read from ``--ckpt-dir``) alone, scored, then drawn again,
-pruned, packed and cast before the next, so one card holds the packed
-model and one layer's masters, not the whole fp32 tree: qwen3-32b serves
-at all 64 layers with ``--no-reduce``. On one card, MoE and SSM stacks,
-``--sasp 0``, a drafter (``--draft-sparsity`` re-prunes the dense
-masters) and the dense, masked, bsr and kernel paths build the whole
-fp32 tree first (64 layers of qwen3-32b hold 31.2 B weights, 4 bytes
-each); on a mesh every one of them is built layer by layer.
+pruned, packed and cast before the next (an expert stack's experts one at
+a time), so one card holds the packed model and one layer's masters, not
+the whole fp32 tree: qwen3-32b serves at all 64 layers with
+``--no-reduce``. On one card, ``--sasp 0``, a drafter
+(``--draft-sparsity`` re-prunes the dense masters) and the dense,
+masked, bsr and kernel paths build the whole fp32 tree first (64 layers
+of qwen3-32b hold 31.2 B weights, 4 bytes each); on a mesh every one of
+them is built layer by layer.
 
 ``--mesh DP,TP`` serves on a (data, model) mesh, on every path (dense,
 ``--sasp 0``, masked, masked ``--int8-weights --scope ffn``, bsr, kernel,
@@ -82,8 +83,19 @@ runs ``--metrics-interval``. Every process must serve the same streams,
 from the same ranks. Transport: gloo on the CPU (``--device cpu``),
 nccl where each process has its own card, gloo staged through the host
 where processes share one. ``--mesh`` with ``--hosts`` is the
-reference's usage error. MoE and SSM stacks are refused on a mesh, with
-a message naming ROADMAP Queue 1 item 6f.
+reference's usage error.
+
+MoE, SSM and hybrid stacks serve on a mesh too. One ``Engine`` with its
+slots split over 'data' holds its experts in EP: data rank d the experts
+[d E/DP, (d+1) E/DP), each expert's d_ff over 'model'
+(``distribution.moe_ep``; ``expert_shards``). ``--scheduler`` ranks and
+an engine replicated over 'data' (``--kv-pages``, or ``--slots`` not
+divisible by DP) keep every expert on every data rank, d_ff over
+'model'. SSM layers split their heads over 'model'. A mesh that cannot
+place the arch (experts not divisible by DP where they split, an expert
+d_ff or SSM heads not divisible by TP) is refused with the reason; a
+drafter for MoE experts on a mesh and ``--path masked --int8-weights``
+for MoE experts are refused too.
 """
 from __future__ import annotations
 
@@ -100,7 +112,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import MIXER_ATTN, SASPConfig, get_config, reduced
+from repro_torch.configs import SASPConfig, get_config, reduced
+from repro_torch.configs.base import FFN_MOE, MIXER_ATTN
 from repro_torch.core.pruning import prune_params
 from repro_torch.core.sasp import (bsr_overlay_from_masks, merge_overlay,
                                    quantize_params)
@@ -117,6 +130,16 @@ MASKED_INT8_ALL = (
     "quantizes wq/wk/wv/wo to {'qw'} there and its attention then fails "
     "with KeyError: 'w' (repro/models/attention.py:133 -> "
     "repro/models/modules.py:36); use --scope ffn, or --path packed")
+
+
+MOE_DRAFT_MESH = (
+    "a drafter (--draft-sparsity) for MoE experts on a mesh is not served: "
+    "the layer-by-layer build keeps no whole expert stack to re-prune; "
+    "serve the drafter on one card, or the target alone on the mesh")
+MOE_INT8 = (
+    "--path masked --int8-weights with MoE experts is not served: the "
+    "expert products read only the dense 'w' (models/moe.py, as the "
+    "reference's _expert_mm); use --path masked or --path packed")
 
 
 def _masked_int8_all(path, int8_weights, scope, sparsity) -> bool:
@@ -470,13 +493,11 @@ def parse_args(argv):
     return args
 
 
-MESH_ITEM = "ROADMAP Queue 1 item 6"
-
-
 def parse_mesh(args) -> Optional[Tuple[int, int]]:
     """--mesh 'DP,TP' -> (DP, TP), or None; the reference's usage
-    errors, and MoE and SSM stacks refused, naming the ROADMAP item that
-    would port them."""
+    errors, and a mesh that cannot place the arch (experts that do not
+    split over DP where they are sharded, SSM heads or an expert d_ff
+    that do not split over TP) refused with the reason."""
     spec = args.mesh
     if not spec:
         return None
@@ -491,12 +512,16 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
             "--hosts serves in-process hosts without a mesh; drop "
             "--mesh (per-host meshes are a multi-process deployment "
             "concern — see tests/dist_worker.py frontend_host)")
-    cfg = get_config(args.arch)
-    if cfg.moe is not None or any(
-            k != MIXER_ATTN for k in cfg.layer_mixer_kinds()):
-        raise SystemExit(f"--mesh with {args.arch}: MoE (expert "
-                         f"parallelism) and SSM layers on a mesh are not "
-                         f"ported: {MESH_ITEM}f")
+    from repro_torch.distribution.sharding import check_placement
+    cfg = model_config(args)
+    try:
+        check_placement(cfg, tp, expert_shards(
+            cfg, (dp, tp), scheduler=args.scheduler, slots=args.slots,
+            kv_pages=args.kv_pages))
+    except ValueError as e:
+        raise SystemExit(f"--mesh {dp},{tp}: {e}")
+    if cfg.moe is not None and args.draft_sparsity is not None:
+        raise SystemExit(MOE_DRAFT_MESH)
     return dp, tp
 
 
@@ -574,7 +599,7 @@ def main(argv=None):
         serve_mesh(mesh_spec(args, buckets))
         return
     cfg = model_config(args)
-    if (args.path == "packed" and args.sasp > 0 and _layer_built(cfg)
+    if (args.path == "packed" and args.sasp > 0
             and args.draft_sparsity is None):
         # layer by layer: the card holds the packed model, not its masters
         params, cfg, _, _ = build_rank_params(
@@ -687,13 +712,6 @@ def main(argv=None):
 # ---------------------------------------------------------------------------
 # --mesh: one spawned process per model rank
 # ---------------------------------------------------------------------------
-
-
-def _layer_built(cfg) -> bool:
-    """Attention and dense-FFN layers only: what ``build_rank_params``
-    takes one layer at a time."""
-    return cfg.moe is None and all(k == MIXER_ATTN
-                                   for k in cfg.layer_mixer_kinds())
 
 
 def model_config(args):
@@ -845,16 +863,18 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     lead = mesh.rank == 0
     opts = spec.get("serve") or {}
     t0 = time.perf_counter()
+    ep = expert_shards(spec["cfg"], spec["mesh"],
+                       scheduler=spec.get("scheduler") is not None,
+                       slots=spec["engine"]["batch_slots"],
+                       kv_pages=spec["engine"].get("kv_pages"))
     params, cfg, lcfg, draft = build_rank_params(
         spec["cfg"], tp=tp, rank=mesh.model_rank, device=mesh.device,
-        verbose=lead, **spec["build"])
+        ep=ep, data_rank=mesh.data_rank, verbose=lead, **spec["build"])
     build_s = time.perf_counter() - t0
     if lead:
         print(f"mesh: {mesh.shape} over {dp * tp} processes, transport "
-              f"{mesh.transport}; rank heads {lcfg.num_heads}/"
-              f"{lcfg.num_kv_heads} of {cfg.num_heads}/{cfg.num_kv_heads}, "
-              f"vocab rows {params['embed']['emb'].shape[0]} of "
-              f"{cfg.vocab_size}; build {build_s:.1f} s", flush=True)
+              f"{mesh.transport}; {rank_layout(cfg, lcfg, params, ep)}; "
+              f"build {build_s:.1f} s", flush=True)
     tel = Telemetry(trace=bool(opts.get("trace_out")) and lead)
     sched_cfg = spec.get("scheduler")
     if sched_cfg is not None:
@@ -924,20 +944,62 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     return out
 
 
-def _seed_source(cfg, seed: int, device):
-    """(top, layer(si, i)) of the params ``lm.init_params`` draws from
-    ``seed``: the embedding, final norm and head, and layer ``i`` of
-    segment ``si`` drawn alone (``lm.init_layer``)."""
-    return (lm.init_top(cfg, seed=seed, device=device),
-            lambda si, i: lm.init_layer(cfg, si, i, seed=seed, device=device))
+class _Source:
+    """Where ``build_rank_params`` takes the params from, a piece at a
+    time: ``top`` (the embedding, final norm and head), ``layer(si, i,
+    experts, slot)`` (slot ``slot`` of layer ``i`` of segment ``si``,
+    each expert stack cut to the experts (lo, hi), (0, 0) for none) and
+    ``expert(q, i, e)``
+    (expert ``e`` of layer ``i`` of the expert stack at path ``q``, (1,
+    1, din, dout))."""
+
+    def __init__(self, top, layer, expert):
+        self.top, self.layer, self.expert = top, layer, expert
 
 
-def _ckpt_source(cfg, ckpt_dir: str, device):
-    """(top, layer(si, i)) of the params of the latest checkpoint in
-    ``ckpt_dir`` (either package's format), each leaf in the param type
-    on ``device`` as ``restore_params`` gives it: the top leaves read
-    whole, layer ``i`` of each stacked leaf read alone
-    (``CheckpointReader.layer``), so the host holds one layer."""
+def rank_layout(cfg, lcfg, params, ep: int) -> str:
+    """What a rank holds of ``cfg``: its heads, SSM heads, experts and
+    vocab rows."""
+    parts = []
+    if cfg.num_heads:
+        parts.append(f"rank heads {lcfg.num_heads}/{lcfg.num_kv_heads} of "
+                     f"{cfg.num_heads}/{cfg.num_kv_heads}")
+    if cfg.ssm is not None and any(k != MIXER_ATTN
+                                   for k in cfg.layer_mixer_kinds()):
+        H = cfg.ssm.num_heads(cfg.d_model)
+        parts.append(f"SSM heads {H // lcfg.ssm.head_shards} of {H}")
+    if cfg.moe is not None:
+        E = cfg.moe.num_experts
+        parts.append(f"experts {E // ep} of {E} (d_ff "
+                     f"{cfg.d_ff // cfg.tp_shards} of {cfg.d_ff})")
+    parts.append(f"vocab rows {params['embed']['emb'].shape[0]} of "
+                 f"{cfg.vocab_size}")
+    return ", ".join(parts)
+
+
+def _seed_source(cfg, seed: int, device) -> _Source:
+    """The params ``lm.init_params`` draws from ``seed``: the top from the
+    seeded generator, each layer (``lm.init_layer``) and each expert
+    (``lm.draw_expert``) alone from its own generators."""
+    def expert(q, i, e):
+        slot = int(str(q[2])[len("slot"):])
+        return lm.draw_expert(cfg, q[1], slot, q[4], i, e, seed=seed,
+                              device=device)[None, None]
+    return _Source(
+        lm.init_top(cfg, seed=seed, device=device),
+        lambda si, i, experts, slot: lm.init_layer(
+            cfg, si, i, seed=seed, device=device, experts=experts,
+            slots=(int(slot[len("slot"):]),)),
+        expert)
+
+
+def _ckpt_source(cfg, ckpt_dir: str, device) -> _Source:
+    """The params of the latest checkpoint in ``ckpt_dir`` (either
+    package's format), each leaf in the param type on ``device`` as
+    ``restore_params`` gives it: the top leaves read whole, layer ``i``
+    of each stacked leaf read alone (``CheckpointReader.layer``), an
+    expert stack's layer only for the experts asked for, so the host
+    holds one layer and no whole expert stack."""
     reader = CheckpointManager(ckpt_dir).reader()
     dt = as_dtype(cfg.param_dtype)
     plan = lm.segment_plan(cfg)
@@ -955,21 +1017,46 @@ def _ckpt_source(cfg, ckpt_dir: str, device):
             node[keys[-1]] = t.to(device=device, dtype=dt)
         return out
 
-    def layer(si, i):
+    def path_of(n):
+        keys = n[len("params/"):].split("/")
+        return (keys[0], int(keys[1])) + tuple(keys[2:])
+
+    def layer(si, i, experts, slot):
         prefix = f"params/segments/{si}/"
-        mine = [n for n in names if n.startswith(prefix)]
+        mine = [n for n in names if n.startswith(prefix + slot + "/")]
         for n in mine:
             if reader.shape(n)[0] != plan[si][1]:
                 raise ValueError(
                     f"{n!r} holds {reader.shape(n)[0]} layers, the model's "
                     f"segment {si} {plan[si][1]}")
-        return tree((n[len(prefix):].split("/"), reader.layer(n, i))
-                    for n in mine)
+
+        def read(n):
+            if experts is not None and lm.expert_leaf(cfg, path_of(n)):
+                return reader.layer(n, i, rows=experts)
+            return reader.layer(n, i)
+        return tree((n[len(prefix):].split("/"), read(n)) for n in mine)
+
+    def expert(q, i, e):
+        n = "params/" + "/".join(str(k) for k in q)
+        return reader.layer(n, i, rows=(e, e + 1)).to(device=device,
+                                                     dtype=dt)
 
     top = tree((n[len("params/"):].split("/"), reader.leaf(n))
                for n in names if not n.startswith("params/segments/"))
     print(f"restored step {reader.step} from {ckpt_dir} (layer by layer)")
-    return top, layer
+    return _Source(top, layer, expert)
+
+
+def expert_shards(cfg, mesh, *, scheduler: bool, slots: int,
+                  kv_pages) -> int:
+    """The experts' shards over 'data' that a (DP, TP) mesh serves with:
+    DP where one ``Engine`` splits its slots over 'data' (expert
+    parallelism), else 1 (every expert on every data rank: the
+    scheduler's ranks, an engine replicated over 'data')."""
+    dp = mesh[0]
+    if cfg.moe is None or dp == 1 or scheduler or kv_pages or slots % dp:
+        return 1
+    return dp
 
 
 def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
@@ -977,9 +1064,10 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                       int8_weights: bool = False, path: str = "packed",
                       draft_sparsity: Optional[float] = None,
                       draft_int8: bool = False, prepare=None,
-                      ckpt_dir: Optional[str] = None,
-                      verbose: bool = False):
-    """Model rank ``rank``'s tree of a TP deployment at ``tp`` on
+                      ckpt_dir: Optional[str] = None, ep: int = 1,
+                      data_rank: int = 0, verbose: bool = False):
+    """Model rank ``rank``'s tree (at data rank ``data_rank`` of ``ep``
+    expert shards) of a TP deployment at ``tp`` on
     ``path``, built layer by layer, and its self-speculation drafter. The
     tree equals ``distribution.sharding.local_params`` of
     ``build_serving_params(params, cfg, path=path, tp=tp, ...)``, where
@@ -988,27 +1076,32 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
     ``draft_sparsity``) equals ``local_params`` of ``core.deploy.
     draft_pack(that deployment, ..., tp=tp)``. Neither the host nor the
     device ever holds the model: a first pass takes each layer alone
-    (drawn from its own generators, or read from the checkpoint) and
-    keeps only its prunable matrices' tile scores (the global SASP
+    (drawn from its own generators, or read from the checkpoint), each
+    expert of an expert stack alone again, and keeps only its prunable
+    matrices' tile scores (the global SASP
     selection reads them all, in the whole tree's leaf order); a second
     pass takes each layer alone again, deploys it on the path (pruned in
     place; quantized on the masked int8 path; its BSR at the whole
     stack's depth on the bsr and kernel paths; packed into ``tp`` shards
     and cast on the packed path; as drawn on the dense path, or at
     ``sparsity`` 0), cuts it to the rank's slice and writes it into the
-    layer-stacked tree (``core.deploy.LayerStack``). The drafter's layer
+    layer-stacked tree (``core.deploy.LayerStack``). Expert stacks stay
+    masked-dense: the rank's experts (all of them where ``ep`` is 1) are
+    taken one at a time, pruned and cut to its d_ff before the next, so
+    no rank holds a whole expert stack. The drafter's layer
     is the deployed layer re-pruned at ``draft_sparsity`` and packed: its
     global selection reads the target's tile scores with the target's
     pruned tiles set to 0, which is what ``tile_l1`` gives on the pruned
     weights ``draft_pack`` re-prunes. The device holds the rank's trees,
     the table, and one layer's masters with their deployed copies.
-    ``prepare(path, leaf)``, where given, changes each one-layer leaf as
-    it is taken, before scoring and pruning. ``rank`` None keeps every
-    shard (the shard loop's tree, without the matrices a container
-    replaces). ``tp`` 1 and ``rank`` 0 is one card's model. Returns
-    ``(params, cfg', lcfg, draft)``: the tree, the deployed config, the
-    rank's local config, and the drafter's ``(tree, config)`` (the rank's
-    local config; with ``rank`` None the shard loop's) or None."""
+    ``prepare(path, leaf)``, where given, changes each one-layer leaf (and
+    each expert) as it is taken, before scoring and pruning. ``rank``
+    None keeps every shard and every expert (the shard loop's tree,
+    without the matrices a container replaces). ``tp`` 1 and ``rank`` 0
+    is one card's model. Returns ``(params, cfg', lcfg, draft)``: the
+    tree, the deployed config, the rank's local config, and the drafter's
+    ``(tree, config)`` (the rank's local config; with ``rank`` None the
+    shard loop's) or None."""
     from repro_torch.core.deploy import (LayerStack, cast_packed_values,
                                          deploy_packed, strip_packed)
     from repro_torch.core.pruning import (apply_block_mask,
@@ -1016,12 +1109,21 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                                           map_leaves, masks_from_scores,
                                           prunable_blocks, scope_predicate,
                                           tile_l1)
-    from repro_torch.distribution.sharding import (local_config,
-                                                   local_params, tp_config)
+    from repro_torch.distribution.sharding import (check_placement,
+                                                   local_config,
+                                                   local_params,
+                                                   spec_for_param,
+                                                   take_slice, tp_config)
     if path not in PATHS:
         raise ValueError(f"path {path!r} not in {PATHS}")
     if _masked_int8_all(path, int8_weights, scope, sparsity):
         raise ValueError(MASKED_INT8_ALL)
+    check_placement(cfg, tp, ep)
+    moe = cfg.moe is not None
+    if moe and draft_sparsity is not None:
+        raise ValueError(MOE_DRAFT_MESH)
+    if moe and path == "masked" and int8_weights and sparsity > 0:
+        raise ValueError(MOE_INT8)
     tsasp = None                # the target's pruning, None: dense
     if path != "dense" and sparsity > 0:
         tsasp = SASPConfig(enabled=True, block_k=32, block_n=32,
@@ -1041,6 +1143,11 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
     prep = prepare or (lambda path, t: t)
     cdt = as_dtype(cfg.compute_dtype)
     plan = lm.segment_plan(cfg)
+    E = cfg.moe.num_experts if moe else 0
+    # the experts this rank holds, and none in a layer as first taken
+    lo, hi = (0, E) if rank is None or ep == 1 else \
+        (data_rank * E // ep, (data_rank + 1) * E // ep)
+    no_experts = (0, 0) if moe else None
 
     secs = dict.fromkeys(("scoring", "deploying", "stacking"), 0.0)
 
@@ -1059,24 +1166,44 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        top, layer_at = (_seed_source(cfg, seed, device) if ckpt_dir is None
-                         else _ckpt_source(cfg, ckpt_dir, device))
+        src = (_seed_source(cfg, seed, device) if ckpt_dir is None
+               else _ckpt_source(cfg, ckpt_dir, device))
+        top = src.top
 
-        def taken(si, i):
-            """Layer i of segment si, prepared, keyed from the root."""
-            return map_leaves(prep, layer_at(si, i), ("segments", si))
+        def slots(si):
+            """Segment si's slots in the tree's leaf order: a hybrid
+            pattern's layers are taken one at a time too."""
+            return sorted(f"slot{j}" for j in range(len(plan[si][0])))
 
-        # pass 1: every prunable matrix's tile scores, layer by layer,
-        # assembled (L, KB, NB) in the whole tree's leaf order
+        def taken(si, i, s):
+            """Slot s of layer i of segment si without its experts,
+            prepared, keyed from the root."""
+            return map_leaves(prep, src.layer(si, i, no_experts, s),
+                              ("segments", si))
+
+        def expert(q, i, e):
+            return prep(q, src.expert(q, i, e))
+
+        # pass 1: every prunable matrix's tile scores, layer by layer
+        # (expert by expert), assembled (L, [E,] KB, NB) in the whole
+        # tree's leaf order
         if scored:
             for si, (_, repeat) in enumerate(plan):
-                for i in range(repeat):
-                    for q, t in iter_leaves(taken(si, i), ("segments", si)):
+                for i, s in ((i, s) for i in range(repeat)
+                             for s in slots(si)):
+                    for q, t in iter_leaves(taken(si, i, s),
+                                            ("segments", si)):
                         for sasp, pred, out in scored:
                             blocks = prunable_blocks(q, t, sasp, pred)
-                            if blocks is not None:
-                                out.setdefault(q, []).append(
-                                    tile_l1(t, *blocks))
+                            if blocks is None:
+                                continue
+                            if lm.expert_leaf(cfg, q):
+                                sc = torch.cat([tile_l1(expert(q, i, e),
+                                                        *blocks)
+                                                for e in range(E)], dim=1)
+                            else:
+                                sc = tile_l1(t, *blocks)
+                            out.setdefault(q, []).append(sc)
         scores = [[(q, torch.cat(v)) for q, v in out.items()]
                   for _, _, out in scored]
         tmasks = {} if tsasp is None else masks_from_scores(scores[0],
@@ -1092,21 +1219,55 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                  for q, m in tmasks.items()}
         del scored, scores
         t0 = clock("scoring", t0)
-        # pass 2: each layer deployed on the path, cut, cast and stacked;
-        # its drafter re-pruned from it, packed, cut and cast
+
+        def rank_experts(q, i):
+            """The rank's experts of layer i of the stack at q: each taken
+            alone, pruned, cut to the rank's d_ff, stacked (1, E', …)."""
+            parts = []
+            for e in range(lo, hi):
+                w = expert(q, i, e)
+                if q in tmasks:
+                    apply_block_mask_(w, tmasks[q][i:i + 1, e:e + 1])
+                if rank is not None and tp > 1:
+                    w = take_slice(w, spec_for_param(
+                        q, tuple(w.shape), {"model": tp}, True), rank, tp)
+                parts.append(w)
+            return torch.cat(parts, dim=1)
+
+        def with_experts(seg, si, i):
+            """A one-layer local segment with its experts written in."""
+            seg = dict(seg)
+            for j, spec in enumerate(plan[si][0]):
+                s = f"slot{j}"
+                if spec[2] != FFN_MOE or s not in seg:
+                    continue
+                slot = dict(seg[s])
+                ffn = dict(slot["ffn"])
+                for n in ("w1", "w2", "w3"):
+                    if n in ffn:
+                        ffn[n] = dict(ffn[n], w=rank_experts(
+                            ("segments", si, s, "ffn", n, "w"), i))
+                slot["ffn"] = ffn
+                seg[s] = slot
+            return seg
+
+        # pass 2: each layer (each slot of a pattern) deployed on the
+        # path, cut, cast and stacked; its drafter re-pruned from it,
+        # packed, cut and cast
         segs, dsegs = [], []
         tcfg = dcfg = None
         for si, (_, repeat) in enumerate(plan):
-            stack = LayerStack(repeat, device)
-            dstack = None if dsasp is None else LayerStack(repeat,
-                                                           device)
+            stacks = {s: LayerStack(repeat, device) for s in slots(si)}
+            dstacks = None if dsasp is None else {
+                s: LayerStack(repeat, device) for s in slots(si)}
             tm, dm = one_layer(tmasks, si), one_layer(dmasks, si)
-            for i in range(repeat):
+            for i, s in ((i, s) for i in range(repeat) for s in slots(si)):
                 # the layer is a fresh draw or read: prune it in place
                 seg = map_leaves(
                     lambda q, t, i=i: apply_block_mask_(
-                        t, tmasks[q][i:i + 1]) if q in tmasks else t,
-                    taken(si, i), ("segments", si))
+                        t, tmasks[q][i:i + 1]) if (
+                            q in tmasks and not lm.expert_leaf(cfg, q))
+                    else t, taken(si, i, s), ("segments", si))
                 tree = dict(top, segments=(seg,))
                 if path == "packed" and tsasp is not None:
                     served, tcfg = deploy_packed(tree, cfg, tp=tp)
@@ -1116,17 +1277,22 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                         served = quantize_params(served, tsasp)
                     elif path in ("bsr", "kernel") and tsasp is not None:
                         served = merge_overlay(served, bsr_overlay_from_masks(
-                            served, {q: m[i:i + 1] for q, m in tm.items()},
+                            served, {q: m[i:i + 1] for q, m in tm.items()
+                                     if q[2] == s
+                                     and not lm.expert_leaf(cfg, q)},
                             tsasp, k_max=one_layer(k_max, si)))
+                tcfg = tp_config(tcfg, tp, ep)
                 local = local_params({"segments": served["segments"]}, tcfg,
-                                     tp, rank)["segments"][0]
+                                     tp, rank, ep, data_rank)["segments"][0]
+                if moe:
+                    local = with_experts(local, si, i)
                 if path == "packed" and cdt != torch.float32:
                     local = cast_packed_values(local, cdt)
                 t0 = clock("deploying", t0)
-                stack.add(local)        # written into the layer stack
+                stacks[s].add(local)    # written into the layer stack
                 del local
                 t0 = clock("stacking", t0)
-                if dstack is not None:
+                if dstacks is not None:
                     dseg = map_leaves(
                         lambda q, t: apply_block_mask(t, dm[q][i:i + 1])
                         if q in dm else t,
@@ -1143,17 +1309,23 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                         dlocal = cast_packed_values(dlocal, cdt)
                     del dtree
                     t0 = clock("deploying", t0)
-                    dstack.add(dlocal)
+                    dstacks[s].add(dlocal)
                     del dlocal
                     t0 = clock("stacking", t0)
                 del seg, tree, served
-            segs.append(stack.result())
-            if dstack is not None:
-                dsegs.append(dstack.result())
-        top = local_params(dict(top, segments=()), tcfg, tp, rank)
+            segs.append({k: v for st in stacks.values()
+                         for k, v in st.result().items()})
+            if dstacks is not None:
+                dsegs.append({k: v for st in dstacks.values()
+                              for k, v in st.result().items()})
+        top = local_params(dict(top, segments=()), tcfg, tp, rank, ep,
+                           data_rank)
     if verbose:
         who = "every shard kept" if rank is None else \
             f"rank {rank} keeps its shard"
+        if moe:
+            who += (f", experts {lo}-{hi - 1} of {E}" if ep > 1
+                    else f", all {E} experts")
         if path == "packed" and tsasp is not None:
             what = (f"SASP deployed: {sparsity:.0%} tile sparsity, scope "
                     f"{scope}, {cfg.num_layers} layers packed one at a time "

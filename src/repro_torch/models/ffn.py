@@ -302,11 +302,12 @@ def _add_b2(p: Dict, y: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _dense_tp(p: Dict, cfg: ModelConfig, tp: int) -> bool:
-    """A dense (or masked, pruned in place) FFN that the rules split over
-    ``tp`` 'model' shards: w1/w3 by columns, w2 by rows (d_ff divides)."""
-    return (tp > 1 and cfg.moe is None and "sasp_bsr" not in p
-            and "sasp_masks" not in p and cfg.d_ff % tp == 0
+def _dense_tp(p: Dict, tp: int, d_ff: int) -> bool:
+    """A dense (or masked, pruned in place) FFN of ``d_ff`` that the rules
+    split over ``tp`` 'model' shards: w1/w3 by columns, w2 by rows (d_ff
+    divides; an empty FFN stays whole)."""
+    return (tp > 1 and "sasp_bsr" not in p and "sasp_masks" not in p
+            and d_ff > 0 and d_ff % tp == 0
             and all("w" in p[n] for n in ("w1", "w2", "w3") if n in p))
 
 
@@ -359,7 +360,10 @@ def _ffn_tp(p: Dict, cfg: ModelConfig, x2: torch.Tensor, tp: int
     return _add_b2(p, y)
 
 
-def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The dense FFN of ``d_ff`` (default ``cfg.d_ff``; the MoE shared
+    experts' is wider) on any path, TP where its deployment splits it."""
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     if "sasp_fused" in p or "sasp_packed" in p:
@@ -367,7 +371,7 @@ def ffn_apply(p: Dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         if y is not None:
             return y.reshape(*lead, d).to(x.dtype)
     tp = tp_shards(cfg)
-    if _dense_tp(p, cfg, tp):
+    if _dense_tp(p, tp, cfg.d_ff if d_ff is None else d_ff):
         y = _ffn_tp(p, cfg, x2, tp)
     else:
         y = _add_b2(p, _ffn_body(p, cfg, x2))

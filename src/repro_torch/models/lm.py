@@ -4,17 +4,26 @@ Params keep the reference layout: ``segments`` is a tuple following the
 segment plan, each ``{"slot<j>": params}`` with a leading layer axis
 (the reference's ``lax.scan`` layout); here a Python loop walks the
 layers. A layer's mixer is attention or Mamba-2 (``models.ssm``) and its
-FFN dense or MoE (``models.moe``, single device: the expert-parallel
-dispatch is not ported, ROADMAP Queue 1 item 6f), as its ``LayerSpec``
-says; the full
-walk sums the MoE aux loss. ``embeds`` replace the token embedding (the
-audio / VLM stub frontends). Under an active mesh (``distribution.
+FFN dense or MoE, as its ``LayerSpec`` says; a MoE layer dispatches as
+the reference's ``_moe_dispatch`` does (``distribution.moe_ep.
+moe_dispatch``: the dp_only profile, expert parallelism over 'data'
+where ``cfg.ep_shards`` > 1, else ``models.moe.moe_ffn_local``). The
+full walk sums the MoE aux loss. ``embeds`` replace the token embedding
+(the audio / VLM stub frontends). Under an active mesh (``distribution.
 context``) the walk is unchanged: the final norm is replicated on every
 rank, the embedding and head follow ``cfg.vocab_shards`` (each rank
 holds one row shard of the table: its ids gathered and summed over the
-ranks, its logits all-gathered), and the projections and FFNs route
-themselves by their containers' shards (``models.ffn``); the batch is
-not split while DP is 1.
+ranks, its logits all-gathered), the projections, FFNs, experts and SSM
+heads route themselves by their shards (``models.ffn``, ``models.moe``,
+``models.ssm``), and a data rank runs its own rows. An expert-parallel
+mesh needs every data rank in every MoE call: ``moe_bystander`` walks a
+rank with no rows through the MoE layers' collectives alone, and
+``prefill_groups`` / ``decode_step_groups`` are the meshless twins that
+run every data rank's rows in one process, layer by layer in lock step.
+
+Every layer of every layer-stacked leaf, and every expert of an expert
+stack, is drawn from its own generator (``draw_layer``, ``draw_expert``),
+so that a rank draws one layer, or its own experts, alone.
 
 Training (``loss_fn``): under autograd each layer repeat runs through
 ``cfg.remat`` (``none``; ``full``: recomputed in backward; ``dots``:
@@ -31,6 +40,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint as torch_ckpt
+
+from repro_torch.distribution import moe_ep
 
 from repro_torch.configs.base import (
     ATTN_LOCAL,
@@ -112,25 +123,60 @@ def draw_layer(path, layer: int, shape, scale: float, *, seed: int,
     return w.mul_(scale).to(dtype)
 
 
-def _layer_draws(prefix, layers, *, seed: int, device, dtype):
-    """``make(name, shape, scale)``: the (len(layers), *shape) stack of
-    the matrix ``prefix + (name, "w")``, each layer drawn alone and
-    written into its slice of the stack."""
-    def make(name, shape, scale):
-        path = prefix + (name, "w")
-        out = torch.empty((len(layers),) + tuple(shape), dtype=dtype,
-                          device=device)
-        for j, i in enumerate(layers):
-            out[j] = draw_layer(path, i, shape, scale, seed=seed,
-                                device=device, dtype=dtype)
+class _Draws:
+    """``draw(name, shape, scale)``: the (len(layers), *shape) stack of
+    the matrix ``prefix + (name, "w")`` in ``dtype``, each layer drawn
+    alone (``draw_layer``); ``expert=e`` draws expert e of an expert
+    stack from its own generators too, ``uniform`` a stack of fp32
+    U[0, 1) vectors alike, and ``under(name)`` the draws of a sub-dict."""
+
+    def __init__(self, prefix, layers, *, seed: int, device, dtype):
+        self.prefix, self.layers = tuple(prefix), list(layers)
+        self.seed, self.device, self.dtype = seed, device, dtype
+
+    def __call__(self, name, shape, scale, dtype=None, expert=None):
+        path = self.prefix + (name, "w") + (() if expert is None
+                                            else (expert,))
+        dt = dtype or self.dtype
+        out = torch.empty((len(self.layers),) + tuple(shape), dtype=dt,
+                          device=self.device)
+        for j, i in enumerate(self.layers):
+            out[j] = draw_layer(path, i, shape, scale, seed=self.seed,
+                                device=self.device, dtype=dt)
         return out
-    return make
+
+    def uniform(self, name, shape):
+        out = torch.empty((len(self.layers),) + tuple(shape),
+                          dtype=torch.float32, device=self.device)
+        for j, i in enumerate(self.layers):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(layer_seed(self.seed, self.prefix + (name,), i))
+            out[j] = torch.rand(tuple(shape), generator=gen,
+                                device=self.device, dtype=torch.float32)
+        return out
+
+    def under(self, name) -> "_Draws":
+        return _Draws(self.prefix + (name,), self.layers, seed=self.seed,
+                      device=self.device, dtype=self.dtype)
+
+
+def draw_expert(cfg: ModelConfig, si: int, slot: int, name: str, i: int,
+                e: int, *, seed: int = 0, device="cuda") -> torch.Tensor:
+    """Expert ``e`` of layer ``i`` of the expert stack ``name`` (w1 / w2
+    / w3) of segment ``si``'s slot ``slot``, drawn alone as
+    :func:`init_params` draws it: a (d, f) or (f, d) matrix."""
+    d, f = cfg.d_model, cfg.d_ff
+    shape, scale = ((f, d), _out_scale(cfg)) if name == "w2" else \
+        ((d, f), 0.02)
+    return draw_layer(("segments", si, f"slot{slot}", "ffn", name, "w", e),
+                      i, shape, scale, seed=seed, device=device,
+                      dtype=as_dtype(cfg.param_dtype))
 
 
 def _attn_init(cfg: ModelConfig, layers: int, device, out_scale: float,
                draw) -> Dict:
     """Layer-stacked attention params; ``draw(name, shape, scale)`` makes
-    each projection's stack (``_layer_draws``)."""
+    each projection's stack (``_Draws``)."""
     dt = as_dtype(cfg.param_dtype)
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.attn_head_dim
@@ -173,32 +219,34 @@ def _init_top(cfg: ModelConfig, gen: torch.Generator, device) -> Dict:
     return top
 
 
-def _init_segment(cfg: ModelConfig, si: int, pattern, layers, gen,
-                  seed: int, device) -> Dict:
-    """Segment ``si``'s slots at the layer indices ``layers`` (stacked
-    in that order): attention and dense-FFN matrices drawn layer by layer
-    (``draw_layer``), SSM and MoE stacks whole from ``gen``."""
+def _init_segment(cfg: ModelConfig, si: int, pattern, layers, seed: int,
+                  device, experts=None, slots=None) -> Dict:
+    """Segment ``si``'s slots (those of ``slots``, default all) at the
+    layer indices ``layers`` (stacked in that order), every matrix and
+    drawn vector layer by layer (and expert by expert) from its own
+    generator (``draw_layer``); ``experts`` (lo, hi) keeps only those
+    experts of each expert stack."""
     dt = as_dtype(cfg.param_dtype)
     d, n = cfg.d_model, len(layers)
     kw = dict(layers=n, device=device, out_scale=_out_scale(cfg))
     seg = {}
     for slot, (mixer, _, ffn_kind) in enumerate(pattern):
+        if slots is not None and slot not in slots:
+            continue
         prefix = ("segments", si, f"slot{slot}")
         draws = dict(seed=seed, device=device, dtype=dt)
+        mdraw = _Draws(prefix + ("mixer",), layers, **draws)
+        fdraw = _Draws(prefix + ("ffn",), layers, **draws)
         seg[f"slot{slot}"] = {
             "norm1": {"scale": torch.ones((n, d), dtype=dt, device=device)},
             "norm2": {"scale": torch.ones((n, d), dtype=dt, device=device)},
-            "mixer": (_attn_init(cfg, n, device, kw["out_scale"],
-                                 _layer_draws(prefix + ("mixer",), layers,
-                                              **draws))
+            "mixer": (_attn_init(cfg, n, device, kw["out_scale"], mdraw)
                       if mixer == MIXER_ATTN
-                      else ssm_mod.ssm_init(gen, cfg, **kw)),
-            "ffn": (moe_mod.moe_init(gen, cfg, **kw)
+                      else ssm_mod.ssm_init(None, cfg, draw=mdraw, **kw)),
+            "ffn": (moe_mod.moe_init(None, cfg, draw=fdraw, experts=experts,
+                                     **kw)
                     if ffn_kind == FFN_MOE
-                    else ffn_mod.ffn_init(
-                        gen, cfg, draw=_layer_draws(prefix + ("ffn",),
-                                                    layers, **draws),
-                        **kw)),
+                    else ffn_mod.ffn_init(None, cfg, draw=fdraw, **kw)),
         }
     return seg
 
@@ -208,17 +256,17 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     """Random params in the reference layout and at its scales (wo,
     out_proj and every w2 at 0.02 / sqrt(2 L), every other projection at
     0.02; the SSM's and the router's own leaves as the reference draws
-    them) on ``device``. The embedding and head, then the SSM and MoE
-    stacks, come in order from one ``torch.Generator`` seeded with
-    ``seed``; each layer of an attention or dense-FFN matrix from its own
-    (``draw_layer``), so that :func:`init_layer` can draw one layer
-    alone. (The numbers differ from the reference's PRNG; tests bridge
-    the reference's params instead.)"""
+    them) on ``device``. The embedding and head come from one
+    ``torch.Generator`` seeded with ``seed``; each layer of every layer-
+    stacked matrix (each expert of an expert stack apart) from its own
+    (``draw_layer``), so that :func:`init_layer` can draw one layer, and
+    :func:`draw_expert` one expert, alone. (The numbers differ from the
+    reference's PRNG; tests bridge the reference's params instead.)"""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = _init_top(cfg, gen, device)
     params["segments"] = tuple(
-        _init_segment(cfg, si, pattern, range(repeat), gen, seed, device)
+        _init_segment(cfg, si, pattern, range(repeat), seed, device)
         for si, (pattern, repeat) in enumerate(segment_plan(cfg)))
     return params
 
@@ -231,18 +279,30 @@ def init_top(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
 
 
 def init_layer(cfg: ModelConfig, si: int, i: int, *, seed: int = 0,
-               device="cuda") -> Dict:
+               device="cuda", experts: Optional[Tuple[int, int]] = None,
+               slots: Optional[Tuple[int, ...]] = None) -> Dict:
     """Layer ``i`` of segment ``si`` of :func:`init_params`' tree, drawn
-    alone: the segment's slots with every leaf's layer axis of length 1
-    (attention and dense-FFN layers only; SSM and MoE stacks come whole
-    from the shared generator)."""
+    alone: the segment's slots (those of ``slots``, default all: a
+    hybrid pattern's repeat holds several layers) with every leaf's
+    layer axis of length 1. ``experts`` (lo, hi) draws only those experts
+    of each expert stack (an expert-parallel rank's; (0, 0): none, for a
+    build that takes the experts one at a time with
+    :func:`draw_expert`)."""
     pattern, repeat = segment_plan(cfg)[si]
     if not 0 <= i < repeat:
         raise IndexError(f"segment {si} has {repeat} layers, not {i + 1}")
-    if any(m != MIXER_ATTN or f == FFN_MOE for m, _, f in pattern):
-        raise ValueError("init_layer draws attention and dense-FFN layers "
-                         "only")
-    return _init_segment(cfg, si, pattern, [i], None, seed, device)
+    return _init_segment(cfg, si, pattern, [i], seed, device, experts,
+                         slots)
+
+
+def expert_leaf(cfg: ModelConfig, path) -> bool:
+    """Is ``path`` (keys from the root) an expert stack's matrix?"""
+    if len(path) != 6 or path[0] != "segments" or path[3] != "ffn":
+        return False
+    pattern, _ = segment_plan(cfg)[path[1]]
+    slot = int(str(path[2])[len("slot"):])
+    return (pattern[slot][2] == FFN_MOE and path[4] in ("w1", "w2", "w3")
+            and path[5] == "w")
 
 
 def layer_params(tree, i: int):
@@ -286,17 +346,16 @@ def _ffn(sp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor):
     loss, or None for a dense FFN)."""
     h2 = rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps)
     if spec[2] == FFN_MOE:
-        y2, aux = moe_mod.moe_ffn_local(sp["ffn"], cfg, h2)
+        y2, aux = moe_ep.moe_dispatch(sp["ffn"], cfg, h2)
         return x + y2, aux
     return x + ffn_mod.ffn_apply(sp["ffn"], cfg, h2), None
 
 
-def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
-                     x: torch.Tensor, positions: torch.Tensor,
-                     want_cache: bool, cache_len: int,
-                     uniform_cache: bool = False):
-    """One layer over the whole sequence -> (x, aux or None, cache or
-    None)."""
+def _mixer_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                x: torch.Tensor, positions: torch.Tensor, want_cache: bool,
+                cache_len: int, uniform_cache: bool = False):
+    """The residual block's first half over the whole sequence -> (x +
+    mixer(norm1(x)), cache or None)."""
     S = x.shape[1]
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
     cache = None
@@ -318,13 +377,24 @@ def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
         y, ssm_cache = ssm_mod.ssm_apply_full(sp["mixer"], cfg, h)
         if want_cache:
             cache = ssm_cache
-    x, aux = _ffn(sp, spec, cfg, x + y)
+    return x + y, cache
+
+
+def _apply_slot_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                     x: torch.Tensor, positions: torch.Tensor,
+                     want_cache: bool, cache_len: int,
+                     uniform_cache: bool = False):
+    """One layer over the whole sequence -> (x, aux or None, cache or
+    None)."""
+    x, cache = _mixer_full(sp, spec, cfg, x, positions, want_cache,
+                           cache_len, uniform_cache)
+    x, aux = _ffn(sp, spec, cfg, x)
     return x, aux, cache
 
 
-def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
-                       x: torch.Tensor, pos: torch.Tensor, cache):
-    """One layer of a decode step; the layer's cache is written in
+def _mixer_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                  x: torch.Tensor, pos: torch.Tensor, cache):
+    """The first half of a decode step's layer; the cache is written in
     place."""
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
     if spec[0] == MIXER_ATTN:
@@ -333,7 +403,15 @@ def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
                                               cache, window)
     else:
         y, cache = ssm_mod.ssm_apply_decode(sp["mixer"], cfg, h, cache)
-    x, _ = _ffn(sp, spec, cfg, x + y)
+    return x + y, cache
+
+
+def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                       x: torch.Tensor, pos: torch.Tensor, cache):
+    """One layer of a decode step; the layer's cache is written in
+    place."""
+    x, cache = _mixer_decode(sp, spec, cfg, x, pos, cache)
+    x, _ = _ffn(sp, spec, cfg, x)
     return x, cache
 
 
@@ -604,6 +682,110 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
                                           _layer_cache(seg_caches[name], r))
     logits = logits_fn(params, cfg, x)
     return softcap(logits, cfg.logit_softcap), caches
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: the data ranks' row groups in one process, and a data
+# rank with no rows on the mesh
+# ---------------------------------------------------------------------------
+
+
+def _ffn_groups(sp: Dict, spec: LayerSpec, cfg: ModelConfig, xs: List):
+    """``_ffn`` over every group at once: a MoE layer's groups through
+    ``moe_ep.moe_ffn_groups`` (the EP mesh's math), a dense FFN group by
+    group; an empty group stays empty."""
+    hs = [rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps) for x in xs]
+    if spec[2] == FFN_MOE:
+        ys, _ = moe_ep.moe_ffn_groups(sp["ffn"], cfg, hs)
+        return [x + y for x, y in zip(xs, ys)]
+    return [x + ffn_mod.ffn_apply(sp["ffn"], cfg, h) if x.shape[0] else x
+            for x, h in zip(xs, hs)]
+
+
+def _walk_groups(params, cfg: ModelConfig, xs: List, mixer):
+    """Every layer in order: ``mixer(sp, spec, g, x, seg_idx, name, r)``
+    on each non-empty group, then the FFN over all groups at once."""
+    for si, (seg_params, (pattern, repeat)) in enumerate(
+            zip(params["segments"], segment_plan(cfg))):
+        for r in range(repeat):
+            for slot, spec in enumerate(pattern):
+                name = f"slot{slot}"
+                sp = layer_params(seg_params[name], r)
+                xs = [mixer(sp, spec, g, x, si, name, r) if x.shape[0]
+                      else x for g, x in enumerate(xs)]
+                xs = _ffn_groups(sp, spec, cfg, xs)
+    return xs
+
+
+def prefill_groups(params, cfg: ModelConfig, tokens: List, positions: List,
+                   cache_len: int):
+    """The meshless twin of a prefill on an expert-parallel mesh whose
+    data ranks hold the row groups ``tokens`` (each (b_g, S), b_g may be
+    0; ``positions`` each (b_g, S) or None): every layer's mixer group
+    by group, each MoE layer over every group at once, at the mesh's
+    shapes. Returns each group's (last-token logits, caches), None for
+    an empty group."""
+    xs = [_embed_in(params, cfg, t) for t in tokens]
+    S = tokens[0].shape[1]
+    poss = [torch.arange(S, dtype=torch.int32, device=x.device)
+            if p is None else p.to(torch.int32)
+            for x, p in zip(xs, positions)]
+    got: List[Dict] = [{} for _ in xs]
+
+    def mixer(sp, spec, g, x, si, name, r):
+        x, c = _mixer_full(sp, spec, cfg, x, poss[g], True, cache_len)
+        got[g].setdefault((si, name), []).append(c)
+        return x
+
+    xs = _walk_groups(params, cfg, xs, mixer)
+    out = []
+    for g, x in enumerate(xs):
+        if not x.shape[0]:
+            out.append(None)
+            continue
+        caches = tuple({f"slot{s}": _stack_caches(got[g][(si, f"slot{s}")])
+                        for s in range(len(pattern))}
+                       for si, (pattern, _) in enumerate(segment_plan(cfg)))
+        logits = softcap(logits_fn(params, cfg, x[:, -1:]),
+                         cfg.logit_softcap)
+        out.append((logits, caches))
+    return out
+
+
+def decode_step_groups(params, cfg: ModelConfig, tokens: torch.Tensor,
+                       pos: torch.Tensor, caches, groups: int):
+    """The meshless twin of a decode step on an expert-parallel mesh whose
+    ``groups`` data ranks each hold an equal block of the batch's rows
+    (and of ``caches``, updated in place): each block's mixers apart,
+    each MoE layer over every block at once. Returns logits (B, 1, V)."""
+    n = tokens.shape[0] // groups
+    rows = [slice(g * n, (g + 1) * n) for g in range(groups)]
+    xs = [_embed_in(params, cfg, tokens[r]) for r in rows]
+
+    def mixer(sp, spec, g, x, si, name, r):
+        c = attn_mod.cache_map(lambda a: a[r][rows[g]],
+                               caches[si][name])
+        return _mixer_decode(sp, spec, cfg, x, pos[rows[g]], c)[0]
+
+    xs = _walk_groups(params, cfg, xs, mixer)
+    return torch.cat([softcap(logits_fn(params, cfg, x), cfg.logit_softcap)
+                      for x in xs], dim=0)
+
+
+def moe_bystander(params, cfg: ModelConfig, S: int, device, dtype):
+    """A data rank with no rows in a call on an expert-parallel mesh:
+    it enters every MoE layer's collectives, in layer order, with zero
+    rows (its experts still serve the other ranks' tokens) and runs
+    nothing else."""
+    x = torch.zeros((0, S, cfg.d_model), dtype=dtype, device=device)
+    for seg_params, (pattern, repeat) in zip(params["segments"],
+                                             segment_plan(cfg)):
+        for r in range(repeat):
+            for slot, spec in enumerate(pattern):
+                if spec[2] == FFN_MOE:
+                    moe_ep.moe_dispatch(
+                        layer_params(seg_params[f"slot{slot}"]["ffn"], r),
+                        cfg, x)
 
 
 def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,

@@ -1,5 +1,4 @@
-"""Top-k MoE with capacity-bounded sort-based dispatch (``repro.models.moe``),
-single device.
+"""Top-k MoE with capacity-bounded sort-based dispatch (``repro.models.moe``).
 
 Tokens are routed with a stable sort by expert id, gathered into a
 capacity-padded (E, C, d) buffer, pushed through batched expert products
@@ -16,6 +15,16 @@ row C of their expert, which is cut off; no kept slot shares an index.
 SASP: expert weights are (E, din, dout) stacks; ``sasp_masks`` with a
 leading E axis apply through ``apply_block_mask``. Packed deployment
 leaves the expert grids masked-dense, as the reference does.
+
+Experts under TP without EP (a DP = 1 mesh, a scheduler rank's TP group,
+an engine replicated over 'data'): a rank holds its d_ff columns of every
+expert's w1/w3 and its rows of w2 (the reference's ``expert_col`` /
+``expert_row``), routes all of its tokens itself (the router is
+replicated) and all-reduces its w2 partial over 'model' in fp32; the
+shared experts go through the dense TP FFN. With no mesh, ``cfg.tp_shards``
+runs the d_ff shards one after another and sums the partials in fp32 in
+shard order (``models.ffn._sum_partials``), so the mesh equals its loop.
+Expert parallelism (experts over 'data') is ``distribution.moe_ep``.
 """
 from __future__ import annotations
 
@@ -36,35 +45,61 @@ class Routing(NamedTuple):
     pos_in_expert: torch.Tensor  # (N*k,) position within expert, sorted
 
 
-def moe_init(gen: torch.Generator, cfg: ModelConfig, *, layers: int,
-             device, out_scale: float, d_ff: Optional[int] = None) -> Dict:
+def moe_init(gen: Optional[torch.Generator], cfg: ModelConfig, *,
+             layers: int, device, out_scale: float,
+             d_ff: Optional[int] = None, draw=None,
+             experts: Optional[Tuple[int, int]] = None) -> Dict:
     """Layer-stacked (layers, …) MoE params: an fp32 router (d, E) and
     (E, din, dout) expert stacks at 0.02 (w2 at ``out_scale``), plus the
     ``shared`` FFN (w2 at ``out_scale`` too) when the config has shared
-    experts."""
+    experts. With ``draw`` (``models.lm``'s per-layer draws) every layer
+    of the router and the shared FFN, and every layer of each expert,
+    comes from its own generator, and ``experts`` (lo, hi) draws only
+    those experts (an expert-parallel rank's; (lo, lo): none); else
+    every stack comes whole from ``gen``."""
     dt = as_dtype(cfg.param_dtype)
     d, f = cfg.d_model, d_ff or cfg.d_ff
     E = cfg.moe.num_experts
-
-    def normal(shape, scale, dtype=dt):
-        return (torch.randn((layers,) + shape, generator=gen, device=device,
-                            dtype=torch.float32) * scale).to(dtype)
-
-    p = {"router": {"w": normal((d, E), 0.02, torch.float32)},
-         "w1": {"w": normal((E, d, f), 0.02)},
-         "w2": {"w": normal((E, f, d), out_scale)}}
+    shapes = {"w1": ((d, f), 0.02), "w2": ((f, d), out_scale)}
     if cfg.ffn_gated:
-        p["w3"] = {"w": normal((E, d, f), 0.02)}
+        shapes["w3"] = ((d, f), 0.02)
+    if draw is None:
+        def normal(shape, scale, dtype=dt):
+            return (torch.randn((layers,) + shape, generator=gen,
+                                device=device, dtype=torch.float32)
+                    * scale).to(dtype)
+        p = {"router": {"w": normal((d, E), 0.02, torch.float32)}}
+        for n in ("w1", "w2", "w3"):
+            if n in shapes:
+                p[n] = {"w": normal((E,) + shapes[n][0], shapes[n][1])}
+    else:
+        lo, hi = experts or (0, E)
+        p = {"router": {"w": draw("router", (d, E), 0.02,
+                                  dtype=torch.float32)}}
+        for n, (shape, scale) in shapes.items():
+            w = torch.empty((layers, hi - lo) + shape, dtype=dt,
+                            device=device)
+            for e in range(lo, hi):
+                w[:, e - lo] = draw(n, shape, scale, expert=e)
+            p[n] = {"w": w}
     if cfg.moe.num_shared_experts:
         from repro_torch.models.ffn import ffn_init
         p["shared"] = ffn_init(gen, cfg, layers=layers, device=device,
                                out_scale=out_scale,
-                               d_ff=f * cfg.moe.num_shared_experts)
+                               d_ff=f * cfg.moe.num_shared_experts,
+                               draw=None if draw is None
+                               else draw.under("shared"))
     return p
 
 
 def route(p: Dict, cfg: ModelConfig, x2: torch.Tensor) -> Routing:
     """x2 (N, d) -> the routing decision."""
+    return route_probs(p, cfg, x2)[0]
+
+
+def route_probs(p: Dict, cfg: ModelConfig, x2: torch.Tensor):
+    """x2 (N, d) -> (the routing decision, the router's fp32 probs (N,
+    E))."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     N = x2.shape[0]
@@ -85,7 +120,8 @@ def route(p: Dict, cfg: ModelConfig, x2: torch.Tensor) -> Routing:
     sorted_e = flat_e[sort_idx]
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(N * k, device=x2.device) - starts[sorted_e]
-    return Routing(expert_idx, gate_w.to(x2.dtype), aux, sort_idx, pos)
+    return Routing(expert_idx, gate_w.to(x2.dtype), aux, sort_idx,
+                   pos), probs
 
 
 def _expert_mm(p: Dict, name: str, h: torch.Tensor) -> torch.Tensor:
@@ -99,9 +135,68 @@ def _expert_mm(p: Dict, name: str, h: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, w.to(h.dtype))
 
 
+def experts_apply(p: Dict, cfg: ModelConfig, buf: torch.Tensor
+                  ) -> torch.Tensor:
+    """buf (E', C, d) through the expert stacks ``p`` holds (E' experts,
+    their d_ff or a shard of it): ``act(buf @ w1) * (buf @ w3) @ w2``,
+    the whole product or a d_ff shard's partial."""
+    act = act_fn(cfg.act)
+    h = _expert_mm(p, "w1", buf)
+    if cfg.ffn_gated:
+        h = act(h) * _expert_mm(p, "w3", buf)
+    else:
+        h = act(h)
+    return _expert_mm(p, "w2", h)
+
+
+def expert_shard(p: Dict, e0: int, e1: int, s: int, tp: int) -> Dict:
+    """Experts [e0, e1) of the stacks, d_ff shard ``s`` of ``tp``, as a
+    mesh rank holds them: w1/w3 columns, w2 rows, their block masks
+    alike (contiguous copies)."""
+    from repro_torch.models.ffn import shard_of
+    dims = {"w1": -1, "w3": -1, "w2": -2}
+    out: Dict = {n: {"w": shard_of(p[n]["w"][e0:e1], dims[n], s, tp)}
+                 for n in dims if n in p}
+    masks = p.get("sasp_masks")
+    if masks is not None:
+        out["sasp_masks"] = {n: shard_of(m[e0:e1], dims[n], s, tp)
+                             for n, m in masks.items() if n in dims}
+    return out
+
+
+def experts_tp(p: Dict, cfg: ModelConfig, buf: torch.Tensor
+               ) -> torch.Tensor:
+    """``experts_apply`` over the d_ff shards of a TP deployment: on a
+    mesh whose 'model' axis splits d_ff, this rank's partial all-reduced
+    in fp32; with no mesh, ``cfg.tp_shards`` partials summed in fp32 in
+    shard order; else the whole product."""
+    from repro_torch.distribution import context as dctx
+    from repro_torch.models.ffn import _sum_partials, tp_shards
+    tp = tp_shards(cfg)
+    if tp <= 1:
+        return experts_apply(p, cfg, buf)
+    if dctx.active_mesh() is not None:
+        part = experts_apply(p, cfg, buf)
+        return dctx.psum(part.to(torch.float32)).to(part.dtype)
+    E = buf.shape[0]
+    return _sum_partials([experts_apply(expert_shard(p, 0, E, s, tp), cfg,
+                                        buf) for s in range(tp)], buf.dtype)
+
+
+def shared_apply(p: Dict, cfg: ModelConfig, x2: torch.Tensor
+                 ) -> torch.Tensor:
+    """The shared experts, a dense FFN of ``num_shared_experts`` d_ff
+    (TP like the dense FFN)."""
+    from repro_torch.models.ffn import ffn_apply
+    return ffn_apply(p["shared"], cfg, x2,
+                     d_ff=cfg.d_ff * cfg.moe.num_shared_experts)
+
+
 def moe_ffn_local(p: Dict, cfg: ModelConfig, x: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (…, d) -> (y, aux_loss)."""
+    """x (…, d) -> (y, aux_loss): every token routed here, the experts'
+    products whole or over the d_ff shards of a TP deployment
+    (``experts_tp``)."""
     *lead, d = x.shape
     x2 = x.reshape(-1, d)
     N = x2.shape[0]
@@ -118,13 +213,7 @@ def moe_ffn_local(p: Dict, cfg: ModelConfig, x: torch.Tensor
     buf = torch.zeros((E, C + 1, d), dtype=x2.dtype, device=x2.device)
     buf = buf.index_put((sorted_e, pos_c), x2[token_of_slot])[:, :C]
 
-    act = act_fn(cfg.act)
-    h = _expert_mm(p, "w1", buf)
-    if cfg.ffn_gated:
-        h = act(h) * _expert_mm(p, "w3", buf)
-    else:
-        h = act(h)
-    out = _expert_mm(p, "w2", h)                              # (E, C, d)
+    out = experts_tp(p, cfg, buf)                             # (E, C, d)
 
     # combine: expert rows back to the (N*k) slots, weighted and summed
     out_pad = torch.cat([out, out.new_zeros((E, 1, d))], dim=1)
@@ -134,6 +223,5 @@ def moe_ffn_local(p: Dict, cfg: ModelConfig, x: torch.Tensor
     y = torch.sum(y_flat * r.gate_w[..., None].to(y_flat.dtype), dim=1)
 
     if "shared" in p:
-        from repro_torch.models.ffn import ffn_apply
-        y = y + ffn_apply(p["shared"], cfg, x2)
+        y = y + shared_apply(p, cfg, x2)
     return y.reshape(*lead, d).to(x.dtype), r.aux_loss

@@ -68,6 +68,12 @@ the (B,) sampled ids and done flags come back to the host.
   every data rank runs the whole engine and data rank 0's tokens are
   broadcast. The reference splits the page pool's page axis, or the
   cache's sequence axis, over 'data' instead; the values are the same.
+  With the experts in EP over 'data' (``cfg.ep_shards``, split layout
+  only) a data rank with no rows in an admission still enters every MoE
+  layer's collectives (``lm.moe_bystander``). ``data_shards`` with no
+  mesh is the meshless twin of a split engine: every data rank's rows in
+  one process, layer by layer in lock step (``lm.prefill_groups``,
+  ``lm.decode_step_groups``), bit for bit the mesh's processes.
 * **Failure hand-off** — ``dead`` is set by the scheduler when a step
   raises; :meth:`Engine.evacuate_inflight` re-arms in-flight requests
   for an exact re-prefill resume elsewhere, :meth:`Engine.fail_inflight`
@@ -92,6 +98,7 @@ import torch
 from repro_torch.configs.base import MIXER_ATTN, ModelConfig
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_map
+from repro_torch.models.modules import as_dtype
 from repro_torch.serve import memory as kvmem
 from repro_torch.serve.telemetry import Telemetry
 
@@ -237,7 +244,7 @@ class Engine:
                  admission: str = "continuous",
                  rank: int = 0,
                  telemetry: Optional[Telemetry] = None,
-                 mesh=None, draft=None):
+                 mesh=None, draft=None, data_shards: int = 1):
         if admission not in ADMISSION_MODES:
             raise ValueError(f"admission={admission!r} not in "
                              f"{ADMISSION_MODES}")
@@ -264,10 +271,14 @@ class Engine:
         self.cache_len = cache_len
         self.device = params["embed"]["emb"].device
         # data parallelism: None, or the layout over the 'data' axis;
-        # split engines hold slots [_lo, _lo + _per)
+        # split engines hold slots [_lo, _lo + _per); the meshless twin
+        # of a split engine (_groups data ranks) computes every rank's
+        # block in one process
         dp = 1 if mesh is None else mesh.shape["data"]
+        ep = cfg.ep_shards if cfg.moe is not None else 1
         self.layout: Optional[str] = None
         self._per: Optional[int] = None
+        self._groups: Optional[int] = None
         if dp > 1:
             if kv_pages or batch_slots % dp:
                 self.layout = "replicated over data"
@@ -275,6 +286,24 @@ class Engine:
                 self.layout = "slots split over data"
                 self._per = batch_slots // dp
                 self._lo = mesh.data_rank * self._per
+        groups = data_shards if mesh is None else dp
+        if groups > 1 and mesh is None and (kv_pages
+                                            or batch_slots % groups):
+            raise ValueError(
+                f"data_shards={groups}: the meshless twin of an engine "
+                f"whose contiguous slots split over {groups} data ranks "
+                f"(batch_slots % {groups} == 0, no page pool)")
+        if ep > 1 and (ep != groups or (mesh is not None and self.layout
+                                        != "slots split over data")):
+            raise ValueError(
+                f"experts in {ep} EP shards serve one engine with its "
+                f"contiguous slots split over 'data' ({ep} data ranks, "
+                f"batch_slots % {ep} == 0, no page pool); build the "
+                f"experts whole on every data rank otherwise")
+        if mesh is None and groups > 1:
+            self.layout = "slots split over data (meshless)"
+            self._groups, self._per, self._lo = (groups,
+                                                 batch_slots // groups, 0)
         # the stream every device op of step() runs on, whichever thread
         # holds the caller's lock
         self._stream = (torch.cuda.current_stream(self.device)
@@ -307,9 +336,9 @@ class Engine:
                 device=self.device, telemetry=self.telemetry)
             self.caches = None
         else:
-            self.caches = lm.init_caches(params, cfg,
-                                         self._per or batch_slots,
-                                         cache_len, device=self.device)
+            self.caches = lm.init_caches(
+                params, cfg, batch_slots if self._groups else
+                self._per or batch_slots, cache_len, device=self.device)
         self.pos = np.zeros((batch_slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
@@ -380,8 +409,9 @@ class Engine:
 
     def _mesh_ctx(self):
         """The engine's mesh as the active one (a no-op without one, or
-        where its 'model' axis is one process)."""
-        if self.mesh is None or self.mesh.shape["model"] == 1:
+        where the mesh is one process)."""
+        if self.mesh is None or (self.mesh.shape["model"] == 1
+                                 and self.mesh.shape["data"] == 1):
             return contextlib.nullcontext()
         from repro_torch.distribution import context as dctx
         return dctx.use_mesh(self.mesh)
@@ -408,6 +438,13 @@ class Engine:
                         ).exponential_(1.0, generator=self._gen)
         nxt = torch.zeros((len(temps),), dtype=torch.int32,
                           device=self.device)
+        if self._groups:                # every data rank's rows, here
+            for g in range(self._groups):
+                idx = self._t(self._own_rows(slots, g), torch.int64)
+                if len(idx):
+                    nxt[idx] = sample_tokens(logits[idx], temps[idx], None,
+                                             q=q[idx])
+            return nxt
         if mine:
             idx = self._t(mine, torch.int64)
             nxt[idx] = sample_tokens(logits, temps[idx], None, q=q[idx])
@@ -423,13 +460,15 @@ class Engine:
             return toks
         return self.mesh.data_broadcast(self.mesh.broadcast(toks))
 
-    def _own_rows(self, slots: Sequence[int]) -> Optional[List[int]]:
+    def _own_rows(self, slots: Sequence[int], g: Optional[int] = None
+                  ) -> Optional[List[int]]:
         """With the slots split: the rows (indices into ``slots``) whose
-        slot this data rank holds; None otherwise (every row)."""
+        slot this data rank (or data rank ``g``) holds; None otherwise
+        (every row)."""
         if self._per is None:
             return None
-        return [i for i, s in enumerate(slots)
-                if self._lo <= s < self._lo + self._per]
+        lo = self._lo if g is None else g * self._per
+        return [i for i, s in enumerate(slots) if lo <= s < lo + self._per]
 
     # -- device passes -------------------------------------------------
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -440,6 +479,9 @@ class Engine:
         """One decode forward of every slot over the contiguous caches
         (updated in place): (B, V) logits; with the slots split, this
         data rank's (B / DP, V)."""
+        if self._groups:
+            return lm.decode_step_groups(params, cfg, toks, pos,
+                                         self.caches, self._groups)[:, 0]
         if self._per is not None:
             rows = slice(self._lo, self._lo + self._per)
             toks, pos = toks[rows], pos[rows]
@@ -507,9 +549,16 @@ class Engine:
         masks bucketed pad rows, which rewrite their slot's own rows.
         With the slots split, only the rows of this data rank's slots
         (None when it holds none)."""
+        if self._groups:
+            return self._prefill_groups(toks, poss, all_slots, valid)
         rows = self._own_rows(all_slots)
         if rows is not None:
             if not rows:
+                if self.cfg.moe is not None and self.cfg.ep_shards > 1:
+                    # its experts serve the other data ranks' tokens
+                    lm.moe_bystander(self.params, self.cfg, toks.shape[1],
+                                     self.device,
+                                     as_dtype(self.cfg.compute_dtype))
                 return None
             sel = self._t(rows, torch.int64)
             toks = toks[sel]
@@ -519,6 +568,36 @@ class Engine:
         logits, caches1 = lm.prefill(self.params, self.cfg, toks,
                                      cache_len=self.cache_len,
                                      positions=poss)
+        self._write_rows(caches1, all_slots, valid)
+        return logits[:, 0]
+
+    def _prefill_groups(self, toks, poss, all_slots, valid):
+        """The meshless twin of a split engine's admission: each data
+        rank's rows (those of its slots) as its own group, in lock step
+        (``lm.prefill_groups``), written into the whole caches; the
+        last-token logits of every row, in the call's order."""
+        rows = [self._own_rows(all_slots, g) for g in range(self._groups)]
+        sels = [self._t(r, torch.int64) for r in rows]
+        outs = lm.prefill_groups(
+            self.params, self.cfg, [toks[s] for s in sels],
+            [None if poss is None else poss[s] for s in sels],
+            self.cache_len)
+        logits = None
+        for r, sel, out in zip(rows, sels, outs):
+            if out is None:
+                continue
+            lg, caches1 = out
+            if logits is None:
+                logits = lg.new_zeros((len(all_slots),) + lg.shape[1:])
+            logits[sel] = lg
+            self._write_rows(caches1, [all_slots[i] for i in r],
+                             None if valid is None else valid[sel])
+        return logits[:, 0]
+
+    def _write_rows(self, caches1, all_slots, valid):
+        """Prefilled cache rows into the batch caches at ``all_slots``
+        (local slot indices); ``valid`` masks pad rows, which keep their
+        slot's rows."""
         idx = self._t(all_slots, torch.int64)
         for seg, new_seg in zip(self.caches, caches1):
             for name, c in seg.items():
@@ -530,7 +609,6 @@ class Engine:
                         vm = valid.reshape((1, -1) + (1,) * (new.ndim - 2))
                         new = torch.where(vm, new, leaf[:, idx])
                     leaf[:, idx] = new
-        return logits[:, 0]
 
     def _run_prefill(self, toks, poss, all_slots, reqs, valid):
         """One admission pass; returns the last-token logits (G, V).

@@ -281,9 +281,12 @@ class CheckpointReader:
         self._check(name, _crc(a))
         return _from_stored(a, meta["dtype"])
 
-    def layer(self, name: str, i: int) -> torch.Tensor:
+    def layer(self, name: str, i: int,
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """Layer ``i`` of a layer-stacked leaf, shape (1, …), on the host
-        in its true dtype."""
+        in its true dtype; ``rows`` (lo, hi): only those entries of the
+        layer's first axis (an expert-parallel rank's experts), (1, hi -
+        lo, …), not CRC-checked."""
         meta = self.meta[name]
         with self._zip.open(meta["key"] + ".npy") as f:
             version = np.lib.format.read_magic(f)
@@ -294,6 +297,13 @@ class CheckpointReader:
             if fortran:
                 raise ValueError(f"{name!r} is stored in Fortran order")
             row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+            if rows is not None:
+                sub = row // shape[1]
+                f.seek(f.tell() + i * row + rows[0] * sub)
+                buf = f.read((rows[1] - rows[0]) * sub)
+                a = np.frombuffer(buf, dtype=dtype).reshape(
+                    (1, rows[1] - rows[0]) + tuple(shape[2:]))
+                return _from_stored(a.copy(), meta["dtype"])
             f.seek(f.tell() + i * row)
             buf = f.read(row)
         nxt, crc = self._crc.get(name, (0, 0))

@@ -427,10 +427,25 @@ def test_launchers_run_every_architecture(arch, tmp_path, capsys):
                   "2", "--seq", "16", "--device", "cpu", "--ckpt-dir",
                   str(tmp_path / "ckpt")])
     assert "done" in capsys.readouterr().out
+    # every architecture parses on a mesh; MoE and SSM layers build a
+    # rank's slice (experts' d_ff and SSM heads over 'model')
+    args = t_serve.parse_args(["--arch", arch, "--mesh", "1,2"])
+    spec = t_serve.mesh_spec(args)
+    assert spec["mesh"] == (1, 2)
     if arch in FRONTENDS:
-        # dense decoders: every path serves on a mesh
-        args = t_serve.parse_args(["--arch", arch, "--mesh", "1,2"])
-        assert t_serve.mesh_spec(args)["mesh"] == (1, 2)
         return
-    with pytest.raises(SystemExit, match="item 6f"):
-        t_serve.parse_args(["--arch", arch, "--mesh", "1,2"])
+    with torch.no_grad():
+        params, cfg, lcfg, _ = t_serve.build_rank_params(
+            spec["cfg"], tp=2, rank=1, device="cpu", **spec["build"])
+    assert cfg.tp_shards == 2
+    slots = [sl for seg in params["segments"] for sl in seg.values()]
+    if cfg.moe is not None:
+        w1 = next(sl["ffn"]["w1"]["w"] for sl in slots
+                  if "router" in sl["ffn"])
+        assert w1.shape[-3:] == (cfg.moe.num_experts, cfg.d_model,
+                                 cfg.d_ff // 2)
+    if cfg.ssm is not None:
+        assert lcfg.ssm.head_shards == 2
+        mx = next(sl["mixer"] for sl in slots if "in_z" in sl["mixer"])
+        assert mx["in_z"]["w"].shape[-1] == cfg.ssm.d_inner(
+            cfg.d_model) // 2

@@ -321,10 +321,16 @@ def test_launcher_mesh_serves_shard_loop_streams(tmp_path, monkeypatch,
                        "exceeds the mesh's DP size 2"),
                       (["--mesh", "2,2", "--scheduler", "--ranks", "1"],
                        "conflicts with the mesh's DP size 2"),
-                      (["--mesh", "1,2", "--arch", "mamba2-780m"],
-                       "item 6f")):
+                      (["--mesh", "3,1", "--slots", "3", "--arch",
+                        "granite-moe-1b-a400m"],
+                       "4 experts do not split over 3 data ranks")):
         with pytest.raises(SystemExit, match=item):
             t_serve.parse_args(bad + ["--sasp", "0.5", "--path", "packed"])
+    # MoE and SSM stacks parse on a mesh (their serving:
+    # tests/test_torch_family_mesh.py)
+    for arch in ("mamba2-780m", "granite-moe-1b-a400m"):
+        args = t_serve.parse_args(["--mesh", "1,2", "--arch", arch])
+        assert t_serve.mesh_spec(args)["mesh"] == (1, 2)
     for path in ("masked", "dense", "bsr", "kernel"):
         args = t_serve.parse_args(["--mesh", "1,2", "--sasp", "0.5",
                                    "--path", path])
