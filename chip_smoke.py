@@ -4726,6 +4726,529 @@ def family_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training under a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# (a) full width on --mesh 1,2; (b) a narrower qwen3 (fp32 compute) on
+# --mesh 2,1 and 2,2; (c) (b)'s checkpoint served on --mesh 1,2; (d) full
+# width, 8 layers, on 2,2 and 1,4 over NCCL with four cards
+TMP = dict(layers=2, batch=4, seq=256, steps=3, lr=3e-4, warmup=3,
+           total=20, narrow=dict(layers=4, d_model=512, vocab=8192),
+           nbatch=8, nseq=128, nccl_layers=8, probe=65536)
+# (b)'s cases by mesh: (name, int8 moments, micro-batches); the last
+# (2, 2) case saves the checkpoint that (c) resumes and serves
+TM_CASES = {
+    (2, 1): (("fp32", False, 1), ("int8 mb2", True, 2)),
+    (2, 2): (("fp32 mb2", False, 2), ("int8", True, 1)),
+}
+
+
+def tm_config(narrow: bool, layers=None):
+    """(a) / (d): qwen3-32b at full width, ``layers`` (default 2), as
+    phase 7 trains it (fp32 masters, bf16 compute, remat full, the
+    overlay at 50% of the 32x32 FFN tiles); (b): the narrower qwen3 of
+    ``TMP["narrow"]``, fp32 compute, the same overlay."""
+    from repro_torch.configs import get_config, reduced
+    if not narrow:
+        return train_config(layers or TMP["layers"])
+    cfg = reduced(get_config("qwen3-32b"), **TMP["narrow"])
+    return dataclasses.replace(cfg, sasp=train_config(1).sasp)
+
+
+def _dev_sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _probe(t, n: int):
+    """(fp64 norm, largest |x|, up to ``n`` strided elements) of a
+    tensor, on the host."""
+    import numpy as np
+    flat = t.detach().reshape(-1)
+    k = max(1, flat.numel() // n)
+    return (float(flat.double().norm()), float(flat.abs().max()),
+            flat[::k][:n].float().cpu().numpy().copy())
+
+
+def _tm_slices(tree_items, specs, tp, dp, n):
+    """Probes of every (model rank, data rank)'s slice of each whole leaf
+    of the meshless loop: what each mesh rank probes of its own."""
+    from repro_torch.distribution.sharding import take_slice
+    out = {}
+    for path, t in tree_items:
+        for r in range(tp):
+            for d in range(dp):
+                out[path, r, d] = _probe(take_slice(t, specs[path], r, tp, d,
+                                                    dp), n)
+    return out
+
+
+def _tm_loop(torch, cfg, mesh_shape, quantized, mb):
+    """The meshless loop at ``mesh_shape`` (a TP config's shard loop, the
+    data ranks' rows in turn), run in this process: its overlay masks,
+    step 1's mean gradient and the params after step 1, probed as each
+    mesh rank holds them, and the losses of TMP["steps"] steps."""
+    from repro_torch.core.pruning import iter_leaves, map_leaves
+    from repro_torch.core.sasp import build_sasp_overlay
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distribution.sharding import tp_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    dp, tp = mesh_shape
+    narrow = cfg.compute_dtype == "float32"
+    B, S = (TMP["nbatch"], TMP["nseq"]) if narrow else (TMP["batch"],
+                                                         TMP["seq"])
+    t0 = time.time()
+    with torch.no_grad():
+        params = spread_output_scales(lm.init_params(cfg, seed=0,
+                                                     device=DEVICE), cfg)
+    oc = AdamWConfig(lr=TMP["lr"], quantized=quantized)
+    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    overlay, got = build_sasp_overlay(params, cfg.sasp)
+    masks = {k: m.cpu().numpy() for k, m in _overlay_masks(overlay)}
+    tcfg = tp_config(cfg, tp)
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    batches = [_batch(torch, pipe) for _ in range(TMP["steps"])]
+    acc = None
+    for d in range(dp):
+        g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp), overlay,
+                      mb, None)[2]
+        acc = g if acc is None else map_leaves(
+            lambda path, x, a=dict(iter_leaves(acc)): a[path] + x, g)
+    grads = _tm_slices([(p, x / dp) for p, x in iter_leaves(acc)],
+                       layout.zero, tp, dp, TMP["probe"])
+    del acc, g
+    step = ts.make_train_step(tcfg, oc, overlay=overlay, n_microbatches=mb,
+                              data_shards=dp, lr_schedule=_tm_schedule())
+    opt = adamw_init(params, oc)
+    losses = []
+    for i, b in enumerate(batches):
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            p1 = _tm_slices(list(iter_leaves(params)), layout.params, tp, 1,
+                            TMP["probe"])
+    out = dict(losses=losses, grads=grads, params1=p1, masks=masks,
+               sparsity=got, seconds=time.time() - t0)
+    del params, opt, overlay, step
+    return out
+
+
+def _overlay_masks(overlay):
+    """((segment, slot, matrix), mask) of every FFN mask of an
+    overlay."""
+    for si, seg in overlay["segments"].items():
+        for slot, sp in seg.items():
+            for mat, m in sp["ffn"]["sasp_masks"].items():
+                yield (int(si), slot, mat), m
+
+
+def _tm_case(torch, mesh, spec, case):
+    """One training case on this rank: its TP slices drawn layer by
+    layer (wo and w2 spread as drawn), ZeRO moments, the overlay ranked
+    over the whole tree and gathered back for the check, step 1's mean
+    gradient and the params after step 1 probed, TMP["steps"] timed mesh
+    steps; with ``case["save"]``, the state saved (``save_on_mesh``) after
+    them, one more step, and the same step again from the checkpoint
+    restored into a fresh state."""
+    from repro_torch.core.pruning import iter_leaves
+    from repro_torch.core.sasp import mesh_overlay
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distribution.context import use_mesh
+    from repro_torch.distribution.sharding import local_config, tp_config
+    from repro_torch.launch.train import rank_params
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              gather_whole, named_leaves,
+                                              restore_on_mesh, save_on_mesh)
+    from repro_torch.train.optimizer import (AdamWConfig, reduce_grads,
+                                             zero_adamw_init)
+    dev = mesh.device
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    cfg = spec["cfg"]
+    narrow = cfg.compute_dtype == "float32"
+    B, S = (TMP["nbatch"], TMP["nseq"]) if narrow else (TMP["batch"],
+                                                         TMP["seq"])
+    q, mb = case["int8"], case["mb"]
+    oc = AdamWConfig(lr=TMP["lr"], quantized=q)
+    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = rank_params(cfg, layout, mesh, prepare=spread_leaf(cfg))
+    opt = zero_adamw_init(params, layout.zero, oc, mesh)
+    overlay, got = mesh_overlay(params, cfg.sasp, mesh, layout.params)
+    _dev_sync(torch, dev)
+    out = dict(init_s=time.perf_counter() - t0, sparsity=got)
+    out["masks"] = {
+        k: gather_whole(m.to(torch.uint8), layout.params[
+            ("segments", k[0], k[1], "ffn", k[2], "w")], mesh).bool().cpu()
+        .numpy() for k, m in _overlay_masks(overlay)}
+    lcfg = local_config(tp_config(cfg, tp), tp)
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    batches = [_batch_on(torch, pipe, dev) for _ in range(TMP["steps"] + 1)]
+    with use_mesh(mesh):
+        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp),
+                      overlay, mb, None)[2]
+        gs = reduce_grads(g, layout.zero, mesh)
+    del g
+    n = TMP["probe"]
+    out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
+    del gs
+    step = ts.make_mesh_train_step(lcfg, opt_cfg=oc, mesh=mesh,
+                                   layout=layout, overlay=overlay,
+                                   n_microbatches=mb,
+                                   lr_schedule=_tm_schedule())
+    losses, ms = [], []
+    for i in range(TMP["steps"]):
+        _dev_sync(torch, dev)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        _dev_sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            out["params1"] = {p: _probe(x, n) for p, x in
+                              iter_leaves(params)}
+    out.update(losses=losses, step_ms=ms,
+               tok_s=B * S / (sum(ms[1:]) / max(1, len(ms) - 1) / 1e3))
+    cuda = torch.device(dev).type == "cuda"     # (not measured on the CPU)
+    out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30 if cuda \
+        else float("nan")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda \
+        else float("nan")
+    if case.get("save"):
+        specs = ts.state_specs(params, layout)
+        mgr = CheckpointManager(spec["ckpt_dir"])
+        t = time.perf_counter()
+        save_on_mesh(mgr, TMP["steps"], {"params": params, "opt": opt},
+                     specs, mesh, extra={"step": TMP["steps"]})
+        out["save_s"] = time.perf_counter() - t
+        params, opt, m = step(params, opt, batches[-1])
+        want = [float(m["loss"])] + [x.cpu() for _, x in named_leaves(
+            {"params": params, "opt": opt})]
+        del params, opt
+        with torch.no_grad():
+            fresh = rank_params(cfg, layout, mesh)
+        with mgr.reader() as reader:
+            state = restore_on_mesh(reader, {"params": fresh, "opt":
+                                             zero_adamw_init(fresh,
+                                                             layout.zero, oc,
+                                                             mesh)},
+                                    specs, mesh)
+        p2, o2, m2 = step(state["params"], state["opt"], batches[-1])
+        got_ = [float(m2["loss"])] + [x.cpu() for _, x in named_leaves(
+            {"params": p2, "opt": o2})]
+        out["resume_equal"] = got_[0] == want[0] and all(
+            torch.equal(a, b) for a, b in zip(got_[1:], want[1:]))
+        out["resume_loss"] = (want[0], got_[0])
+    return out
+
+
+def _tm_schedule():
+    """Phase 7's warmup_cosine(3, 20) from its second step (its first
+    scales lr by 0, which would leave step 1's params unchecked), on the
+    loop and the mesh alike."""
+    from repro_torch.train.schedule import warmup_cosine
+    f = warmup_cosine(TMP["warmup"], TMP["total"])
+    return lambda step: f(step + 1)
+
+
+def _batch_on(torch, pipe, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next().items()}
+
+
+def _tm_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """A training mesh's rank, spawned: join the mesh over
+    ``spec["backend"]``, run ``spec["cases"]`` in turn (``_tm_case``)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    dp, tp = spec["mesh"]
+    if spec["device"] == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // (dp * tp)))
+    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+                     backend=spec["backend"], device=spec["device"])
+    out = dict(rank=rank, model_rank=mesh.model_rank,
+               data_rank=mesh.data_rank, transport=mesh.transport,
+               cases={})
+    for case in spec["cases"]:
+        out["cases"][case["name"]] = _tm_case(torch, mesh, spec, case)
+        _free(torch)
+    return out
+
+
+def _tm_spawn(spec, timeout=900):
+    from repro_torch.launch.mesh import init_file_in, run_ranks
+    store = init_file_in(OUT_DIR, f"tm_store_{os.getpid()}_{time.time_ns()}")
+    try:
+        return run_ranks(_tm_rank, spec["mesh"][0] * spec["mesh"][1],
+                         (spec, store), timeout=timeout)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def _probe_err(got, want, absolute: bool = False) -> float:
+    """Largest |got - want| over the probed elements, over the slice's
+    largest |want| (or as it is: ``absolute``); and the norms' relative
+    difference, whichever is larger."""
+    import numpy as np
+    scale = 1.0 if absolute else max(want[1], 1e-30)
+    return max(float(np.abs(got[2] - want[2]).max()) / scale,
+               abs(got[0] - want[0]) / max(want[0], 1e-30))
+
+
+def _tm_check(tag, res, loop, tol):
+    """Every rank against the loop: masks equal, step 1's loss, the
+    losses, step 1's gradient slices and the params after step 1 within
+    ``tol`` (dict: loss, losses, grads, params). Returns the largest
+    errors found."""
+    worst = dict(loss1=0.0, losses=0.0, grads=0.0, params1=0.0,
+                 mask_tiles=0)
+    for r in res:
+        c = r["case"]
+        diff = sum(int((c["masks"][k] != m).sum())
+                   for k, m in loop["masks"].items())
+        worst["mask_tiles"] = max(worst["mask_tiles"], diff)
+        l1 = abs(c["losses"][0] - loop["losses"][0]) / abs(loop["losses"][0])
+        ls = max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                     loop["losses"]))
+        ge = max(_probe_err(g, loop["grads"][p, r["model_rank"],
+                                             r["data_rank"]])
+                 for p, g in c["grads"].items())
+        pe = max(_probe_err(x, loop["params1"][p, r["model_rank"], 0],
+                            "params1_abs" in tol)
+                 for p, x in c["params1"].items())
+        for k, v in (("loss1", l1), ("losses", ls), ("grads", ge),
+                     ("params1", pe)):
+            worst[k] = max(worst[k], v)
+    check(worst["mask_tiles"] == 0,
+          f"{tag}: {worst['mask_tiles']} overlay tiles differ from the "
+          f"loop's (a near-tie of the tile L1?)")
+    tol = dict(tol, params1=tol.get("params1_abs", tol.get("params1")))
+    for k in ("loss1", "losses", "grads", "params1"):
+        check(worst[k] <= tol[k], f"{tag}: {k} {worst[k]:.3e} from the "
+              f"meshless loop, bound {tol[k]}")
+    return worst
+
+
+def _tm_full(torch):
+    """(a): qwen3-32b at full width, 2 layers, on --mesh 1,2 (this card,
+    gloo host-staged), held to the loop at tp 2 run first here."""
+    cfg = tm_config(False)
+    t0 = time.time()
+    loop = _tm_loop(torch, cfg, (1, 2), False, 1)
+    _free(torch)
+    loop_s = time.time() - t0
+    spec = dict(mesh=(1, 2), cfg=cfg, device=DEVICE, backend="gloo",
+                cases=[dict(name="a", int8=False, mb=1)])
+    t0 = time.time()
+    res = _tm_spawn(spec)
+    wall = time.time() - t0
+    for r in res:
+        r["case"] = r["cases"]["a"]
+    # bf16 compute: the forward is the loop's bit for bit (partials summed
+    # in fp32 in shard order), the backward sums a column region's input
+    # gradient in another order (bf16 rounding); AdamW's first step moves
+    # an element by lr times the gradient's sign (and the decay), so two
+    # near-equal gradients leave params at most 2 lr apart (lr: step 1's)
+    lr1 = TMP["lr"] * float(_tm_schedule()(0))
+    worst = _tm_check("(a)", res, loop, dict(
+        loss1=0.0, losses=1e-3, grads=5e-2, params1_abs=2.5 * lr1))
+    c = [r["case"] for r in res]
+    log(f"  (a) qwen3-32b full width, {cfg.num_layers} layers, --mesh 1,2 "
+        f"over {res[0]['transport']}: loop {loop_s:.1f} s, mesh "
+        f"{wall:.1f} s wall; losses {[round(x, 5) for x in c[0]['losses']]}"
+        f" (loop {[round(x, 5) for x in loop['losses']]}); step ms by rank "
+        f"{[[round(x, 1) for x in r['step_ms']] for r in c]}, "
+        f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
+        f"{[round(r['held_gib'], 2) for r in c]}, peak "
+        f"{[round(r['peak_gib'], 2) for r in c]}; against the loop: step 1 "
+        f"loss {worst['loss1']:.2e}, losses {worst['losses']:.2e}, step 1 "
+        f"gradient slices {worst['grads']:.2e} (of each slice's largest), "
+        f"params after step 1 {worst['params1']:.2e} (absolute; step 1's "
+        f"lr {lr1:.3g}), overlay tiles differing {worst['mask_tiles']}")
+    return dict(wall_s=wall, loop_s=loop_s, worst=worst, ranks=[
+        {k: v for k, v in r.items() if k not in ("masks", "grads",
+                                                  "params1")} for r in c],
+        loop_losses=loop["losses"])
+
+
+def _tm_narrow(torch, ckpt):
+    """(b): the narrower qwen3 (fp32 compute) on --mesh 2,1 and 2,2 with
+    ZeRO, fp32 and int8 moments, 1 and 2 micro-batches, each held to its
+    loop; the last (2,2) case saves the checkpoint (c) uses."""
+    cfg = tm_config(True)
+    out = {}
+    for shape, cases in TM_CASES.items():
+        loops = {}
+        t0 = time.time()
+        for name, q, mb in cases:
+            loops[name] = _tm_loop(torch, cfg, shape, q, mb)
+            _free(torch)
+        loop_s = time.time() - t0
+        spec = dict(mesh=shape, cfg=cfg, device=DEVICE, backend="gloo",
+                    ckpt_dir=ckpt, cases=[
+                        dict(name=n, int8=q, mb=mb,
+                             save=shape == (2, 2) and n == cases[-1][0])
+                        for n, q, mb in cases])
+        t0 = time.time()
+        res = _tm_spawn(spec)
+        wall = time.time() - t0
+        for name, q, mb in cases:
+            for r in res:
+                r["case"] = r["cases"][name]
+            tag = f"(b) --mesh {shape[0]},{shape[1]} {name}"
+            # fp32 compute: as on the CPU (tests/test_torch_train_mesh.py);
+            # int8 moments part after step 1 (a .5 tie of q, amplified)
+            worst = _tm_check(tag, res, loops[name], dict(
+                loss1=1e-5, losses=1e-5 if not q else 1e-3, grads=1e-5,
+                params1=1e-4))
+            c = [r["case"] for r in res]
+            log(f"  {tag}: {[round(x, 5) for x in c[0]['losses']]}; step ms "
+                f"{[round(x, 1) for x in c[0]['step_ms']]}, "
+                f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
+                f"{[round(r['held_gib'], 3) for r in c]}, peak "
+                f"{[round(r['peak_gib'], 3) for r in c]}; against the loop:"
+                f" losses {worst['losses']:.2e}, gradient slices "
+                f"{worst['grads']:.2e}, params after step 1 "
+                f"{worst['params1']:.2e}")
+            if "resume_equal" in c[0]:
+                check(all(r["case"]["resume_equal"] for r in res),
+                      f"{tag}: step {TMP['steps'] + 1} from the restored "
+                      f"checkpoint differs from the uninterrupted run "
+                      f"({[r['case']['resume_loss'] for r in res]})")
+                log(f"  {tag}: saved by world rank 0 in "
+                    f"{c[0]['save_s']:.2f} s, restored on the mesh: step "
+                    f"{TMP['steps'] + 1} bit for bit the uninterrupted run's"
+                    f" on every rank (loss, params, moments)")
+            out[tag] = dict(worst=worst, ranks=[{
+                k: v for k, v in r["case"].items()
+                if k not in ("masks", "grads", "params1")} for r in res])
+        out[f"--mesh {shape[0]},{shape[1]}"] = dict(wall_s=wall,
+                                                    loop_s=loop_s)
+    return out
+
+
+def _tm_serve_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """(c)'s model rank: the mesh-trained checkpoint read layer by layer
+    (``build_rank_params(ckpt_dir=)``), packed, served as phase 9
+    serves."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    params, _, lcfg, _ = launch.build_rank_params(
+        spec["cfg"], tp=spec["mesh"][1], rank=mesh.model_rank,
+        device=mesh.device, **spec["build"])
+    run = _tp_serve(torch, params, lcfg, counters, mesh=mesh)
+    return dict(rank=rank, transport=mesh.transport,
+                **{k: run[k] for k in ("streams", "launches", "times")})
+
+
+def _tm_serve(torch, counters, ckpt):
+    """(c): (b)'s checkpoint through --mesh 1,2 --ckpt-dir (packed, 50% of
+    the 32x32 tiles, scope all, bf16), against the shard loop at tp 2
+    built from the whole restore; both main-path kernels on mma."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(tm_config(True), compute_dtype="bfloat16")
+    build = dict(sparsity=SPARSITY, scope="all", int8_weights=False,
+                 ckpt_dir=ckpt)
+    t0 = time.time()
+    whole = launch.restore_params(ckpt, lm.init_params(cfg, seed=1,
+                                                       device=DEVICE))
+    loop, lcfg = launch.build_serving_params(
+        whole, cfg, path="packed", sparsity=SPARSITY, scope="all", tp=2,
+        verbose=False)
+    del whole
+    want = _tp_serve(torch, loop, lcfg, counters)
+    del loop
+    _free(torch)
+    spec = dict(mesh=(1, 2), cfg=cfg, device=DEVICE, backend="gloo",
+                build=build)
+    res = launch.serve_mesh(spec, _tm_serve_rank, store_dir=OUT_DIR,
+                            timeout=600)
+    wall = time.time() - t0
+    launches = dict.fromkeys(MAIN_PATH, 0)
+    for r in res:
+        check(r["streams"] == want["streams"],
+              f"(c) rank {r['rank']}: streams differ from the shard loop's "
+              f"tp 2 on the whole restore")
+        for n in MAIN_PATH:
+            lc = r["launches"][n]
+            check(lc["total"] > 0 and all(
+                part == "mma" for v in lc["variant"] for part in v.split("/")),
+                f"(c) rank {r['rank']}: {n} launched {lc}, not on mma")
+            launches[n] += lc["total"]
+    log(f"  (c) (b)'s checkpoint served packed through --mesh 1,2 "
+        f"--ckpt-dir over {res[0]['transport']}: streams equal the shard "
+        f"loop's tp 2 on the whole restore; launches "
+        f"{ {n: res[0]['launches'][n]['variant'] for n in MAIN_PATH} } a "
+        f"rank; decode {res[0]['times']['decode_ms_per_step']:.2f} ms/step;"
+        f" {wall:.1f} s")
+    return dict(wall_s=wall, launches=launches,
+                times=[r["times"] for r in res])
+
+
+def _tm_four_cards(torch):
+    """(d) over NCCL, a card a rank: full width, 8 layers, --mesh 2,2 and
+    1,4: step ms, tokens/s, GiB held and peak a rank, losses finite."""
+    import numpy as np
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  (d) nccl: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    out = {}
+    cfg = tm_config(False, TMP["nccl_layers"])
+    for shape in ((2, 2), (1, 4)):
+        spec = dict(mesh=shape, cfg=cfg, device=DEVICE, backend="nccl",
+                    cases=[dict(name="d", int8=False, mb=1)])
+        t0 = time.time()
+        res = _tm_spawn(spec)
+        c = [r["cases"]["d"] for r in res]
+        check(all(np.isfinite(r["losses"]).all() for r in c),
+              f"(d) --mesh {shape}: a loss is not finite")
+        key = f"--mesh {shape[0]},{shape[1]}"
+        log(f"  (d) {key} over {res[0]['transport']}, {cfg.num_layers} "
+            f"layers: losses {[round(x, 5) for x in c[0]['losses']]}; step "
+            f"ms {[round(x, 1) for x in c[0]['step_ms']]}, "
+            f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
+            f"{[round(r['held_gib'], 2) for r in c]}, peak "
+            f"{[round(r['peak_gib'], 2) for r in c]}; "
+            f"{time.time() - t0:.1f} s")
+        out[key] = [{k: v for k, v in r.items()
+                     if k not in ("masks", "grads", "params1")} for r in c]
+    return out
+
+
+def train_mesh_phase(torch, counters):
+    """Phase 14: training under a (data, model) mesh; run last, with
+    every earlier model freed."""
+    import shutil
+    t_phase = time.time()
+    ckpt = os.path.join(OUT_DIR, "train_mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"a": _tm_full(torch)}
+    _free(torch)
+    try:
+        out["b"] = _tm_narrow(torch, ckpt)
+        _free(torch)
+        out["c"] = _tm_serve(torch, counters, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _free(torch)
+    out["d"] = _tm_four_cards(torch)
+    out["launches"] = out["c"]["launches"]
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -4904,11 +5427,22 @@ def main() -> int:
     _free(torch)
     family_mesh = family_mesh_phase(torch, counters)
 
+    log("[14] train on a mesh: qwen3-32b at full width on --mesh 1,2 "
+        "against its meshless loop; a narrower qwen3 on --mesh 2,1 and 2,2 "
+        "with ZeRO, fp32 and int8 moments; its mesh checkpoint resumed and "
+        "served packed through --mesh 1,2 --ckpt-dir; full width, 8 "
+        "layers, on 2,2 and 1,4 over NCCL where there are four cards "
+        "(last, every earlier model freed)")
+    _free(torch)
+    train_mesh = train_mesh_phase(torch, counters)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
-    # phase 12's mesh ranks' (every path, both ranks) and phase 13's (every
-    # family case, every process)
+    # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
+    # family case, every process) and phase 14's (the mesh-trained
+    # checkpoint served, both ranks)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
                      + family_mesh["launches"][n]
+                     + train_mesh["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -4921,6 +5455,7 @@ def main() -> int:
                        ablation=ablation, int8=int8_res, train=train,
                        families=families, tp=tp, depth=depth, dp=dp,
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
+                       train_mesh=train_mesh,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

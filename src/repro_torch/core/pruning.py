@@ -94,6 +94,21 @@ def apply_block_mask_(w: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return w
 
 
+def mask_shard(mask: torch.Tensor, dim: int, s: int, tp: int,
+               name: str = "") -> torch.Tensor:
+    """Shard ``s`` of ``tp`` of a mask along its tile axis ``dim``: the
+    tiles of a model rank's columns (w1/w3) or rows (w2), contiguous. A
+    tile may not straddle two ranks: the cut dim over tp must be a
+    multiple of the tile."""
+    if mask.shape[dim] % tp:
+        raise ValueError(
+            f"SASP mask {name}: {mask.shape[dim]} tiles do not split over "
+            f"{tp} model ranks (the cut dim over tp must be a multiple of "
+            f"the tile)")
+    k = mask.shape[dim] // tp
+    return mask.narrow(dim, s * k, k).contiguous()
+
+
 def default_ffn_predicate(path: Path) -> bool:
     """Paper scope: feed-forward GEMMs only."""
     keys = path_str(path)

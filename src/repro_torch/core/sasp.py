@@ -23,15 +23,18 @@ import torch
 
 from repro_torch.configs.base import SASPConfig
 from repro_torch.core.pruning import (compute_sasp_masks, iter_leaves,
-                                     mask_sparsity, scope_predicate)
+                                     mask_shard, mask_sparsity,
+                                     masks_from_scores, path_str,
+                                     prunable_blocks, scope_predicate,
+                                     tile_l1)
 from repro_torch.core.quantization import quantize_int8
 from repro_torch.core.sparse import bsr_from_mask, stack_bsr
 
 Params = Dict[str, Any]
 
 __all__ = ["bsr_overlay_from_masks", "build_sasp_overlay",
-           "masks_to_overlay", "merge_overlay", "quantize_params",
-           "sasp_summary", "scope_predicate"]
+           "masks_to_overlay", "merge_overlay", "mesh_overlay",
+           "quantize_params", "sasp_summary", "scope_predicate"]
 
 
 def _path_keys(path: Tuple) -> Tuple[str, ...]:
@@ -87,6 +90,50 @@ def build_sasp_overlay(params: Params, sasp: SASPConfig,
     ignore masks placed beside them under scope ``all``."""
     masks = compute_sasp_masks(params, sasp, is_prunable)
     return masks_to_overlay(masks), mask_sparsity(masks)
+
+
+def mesh_overlay(params: Params, sasp: SASPConfig, mesh,
+                 param_specs: Dict[Tuple, Tuple],
+                 is_prunable: Optional[Callable] = None
+                 ) -> Tuple[Params, float]:
+    """``build_sasp_overlay`` on a mesh rank: the whole tree's masks, the
+    rank's slice of each. ``params`` are the rank's TP slices, whose
+    specs ``param_specs`` gives ({path: spec}, 'model' on a cut dim).
+    Each rank scores the tiles of its slices; each leaf's grid is
+    all-gathered over 'model' into the whole leaf's, the grids ranked in
+    the whole tree's leaf order (the same stable sort on every rank), and
+    each mask cut back to the rank's tiles (``pruning.mask_shard``: a
+    tile may not straddle two ranks). Returns (the rank's overlay, the
+    whole tree's sparsity)."""
+    pred = is_prunable or scope_predicate(sasp)
+    tp = mesh.shape["model"]
+    scores, cut = [], {}
+    for path, leaf in iter_leaves(params):
+        spec = param_specs[path]
+        md = spec.index("model") if "model" in spec and tp > 1 else None
+        shape = list(leaf.shape)
+        if md is not None:
+            shape[md] *= tp
+        blocks = prunable_blocks(path, torch.empty(shape, device="meta"),
+                                 sasp, pred)
+        if blocks is None:
+            continue
+        bk, bn = blocks
+        if md is not None and leaf.shape[md] % (
+                bk if md == leaf.ndim - 2 else bn):
+            raise ValueError(
+                f"SASP tiles of {path_str(path)}: a {bk}x{bn} tile "
+                f"straddles two model ranks ({tuple(leaf.shape)} on each)")
+        grid = tile_l1(leaf, bk, bn)
+        if md is not None:
+            grid = mesh.gather(grid, "model", md)
+            cut[path] = md
+        scores.append((path, grid))
+    masks = masks_from_scores(scores, sasp.sparsity)
+    local = {path: (mask_shard(m, cut[path], mesh.model_rank, tp,
+                               path_str(path)) if path in cut else m)
+             for path, m in masks.items()}
+    return masks_to_overlay(local), mask_sparsity(masks)
 
 
 def quantize_params(params: Params, sasp: SASPConfig,

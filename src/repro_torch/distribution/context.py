@@ -32,6 +32,20 @@ share one card: the mesh copies each CUDA tensor to the host, runs the
 gloo collective there and copies the result back. On gloo a
 ``psum_scatter`` is an all-reduce followed by the rank's own slice, and
 an ``all_gather`` a gather of host tensors: the same values.
+
+Under autograd (training) the 'model' collectives have backward rules,
+by the convention that the reference's ``shard_map`` bodies and GSPMD
+imply: everything outside a TP region is computed identically on every
+model rank, so the gradient of a replicated value is the same on every
+rank. The sum that leaves a region (``psum``) is the identity in
+backward; the entry to a column region (``copy_to_model``: identity
+forward) sums the ranks' partial gradients; an ``all_gather`` followed
+by replicated compute takes the rank's own slice of the gradient; a
+``psum_scatter``'s backward is an ``all_gather``. They apply only where
+the input requires grad: the no-grad serving path runs exactly the
+collectives above. ``allreduce`` / ``gather`` / ``reduce_scatter`` over
+'data' or the whole world (``axis="world"``) serve the optimizer
+(gradient reduction, ZeRO, the global norm) and take no gradient.
 """
 from __future__ import annotations
 
@@ -77,6 +91,8 @@ class Mesh:
         return self.backend + (" (host-staged)" if self.host_staged else "")
 
     def axis_size(self, name: str) -> int:
+        if name == "world":
+            return self.shape["data"] * self.shape["model"]
         return self.shape.get(name, 1)
 
     def submesh(self) -> "Mesh":
@@ -106,33 +122,86 @@ class Mesh:
         return y.to(x.device)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every model rank's ``x``."""
-        def op(y):
-            dist.all_reduce(y, group=self.model_group)
-            return y
-        return self._run(x, op)
+        """The sum of every model rank's ``x`` (identity in backward)."""
+        if _traced(x):
+            return _PSum.apply(x, self)
+        return self.allreduce(x, "model")
 
     def psum_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's 1/tp slice along ``dim`` of the sum of every model
-        rank's ``x`` (the reference's tiled ``psum_scatter``)."""
-        tp = self.shape["model"]
-        n = x.shape[dim] // tp
-        if self.backend == "nccl":
-            parts = list(torch.chunk(x.contiguous(), tp, dim=dim))
-            out = torch.empty_like(parts[0])
-            dist.reduce_scatter(out, [p.contiguous() for p in parts],
-                                group=self.model_group)
-            return out
-        return self.psum(x).narrow(dim, self.model_rank * n, n).contiguous()
+        rank's ``x`` (the reference's tiled ``psum_scatter``; an
+        ``all_gather`` in backward)."""
+        if _traced(x):
+            return _ReduceScatter.apply(x, self, dim)
+        return self.reduce_scatter(x, "model", dim)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Every model rank's ``x`` concatenated along ``dim``, in rank
-        order (the reference's tiled ``all_gather``)."""
-        def op(y):
-            parts = [torch.empty_like(y) for _ in range(self.shape["model"])]
-            dist.all_gather(parts, y, group=self.model_group)
+        order (the reference's tiled ``all_gather``; the rank's own slice
+        of the gradient in backward)."""
+        if _traced(x):
+            return _AllGather.apply(x, self, dim)
+        return self.gather(x, "model", dim)
+
+    def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The entry to a column region: ``x`` itself, whose gradient is
+        the sum of every model rank's (each rank's columns give a
+        partial)."""
+        if _traced(x) and self.shape["model"] > 1:
+            return _CopyToModel.apply(x, self)
+        return x
+
+    # -- collectives over any axis, no gradient -------------------------
+    def _axis(self, axis: str):
+        """(group, size, this rank's index) of 'model', 'data' or
+        'world' (every process)."""
+        if axis == "model":
+            return self.model_group, self.shape["model"], self.model_rank
+        if axis == "data":
+            return self.data_group, self.shape["data"], self.data_rank
+        if axis == "world":
+            return None, self.shape["data"] * self.shape["model"], self.rank
+        raise ValueError(f"axis {axis!r} not in model|data|world")
+
+    def axis_index(self, axis: str) -> int:
+        return self._axis(axis)[2]
+
+    def allreduce(self, x: torch.Tensor, axis: str = "model",
+                  op: str = "sum") -> torch.Tensor:
+        """Every rank of ``axis``'s ``x`` reduced by ``op`` (sum or
+        max)."""
+        group = self._axis(axis)[0]
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+        def run(y):
+            dist.all_reduce(y, op=rop, group=group)
+            return y
+        return self._run(x, run)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """This rank's slice along ``dim`` of the sum over ``axis``: a
+        reduce-scatter on NCCL, an all-reduce and the slice on gloo."""
+        group, n, idx = self._axis(axis)
+        if self.backend == "nccl":
+            parts = list(torch.chunk(x.contiguous(), n, dim=dim))
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, [p.contiguous() for p in parts],
+                                group=group)
+            return out
+        k = x.shape[dim] // n
+        return self.allreduce(x, axis).narrow(dim, idx * k, k).contiguous()
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """Every rank of ``axis``'s ``x`` concatenated along ``dim`` in
+        rank order."""
+        group, n, _ = self._axis(axis)
+
+        def run(y):
+            parts = [torch.empty_like(y) for _ in range(n)]
+            dist.all_gather(parts, y, group=group)
             return torch.cat(parts, dim=dim)
-        return self._run(x, op)
+        return self._run(x, run)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Model rank 0's ``x`` on every rank of the model group."""
@@ -207,6 +276,62 @@ class Mesh:
             torch.device("cpu")
 
 
+def _traced(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _PSum(torch.autograd.Function):
+    """psum: the sum that leaves a TP region; identity in backward."""
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return mesh.allreduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The entry to a column region: identity forward, psum backward."""
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # summed in fp32, as the forward reductions are, then cast
+        return ctx.mesh.allreduce(g.to(torch.float32), "model").to(
+            g.dtype), None
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather before replicated compute: the rank's own slice of the
+    gradient in backward (a reduce-scatter would count it tp times)."""
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.gather(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.mesh.shape["model"]
+        return (g.narrow(ctx.dim, ctx.mesh.model_rank * n, n).contiguous(),
+                None, None)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """psum_scatter; an all_gather in backward."""
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return mesh.reduce_scatter(x, "model", dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.gather(g, "model", ctx.dim), None, None
+
+
 _ACTIVE_MESH: Optional[Mesh] = None
 
 
@@ -250,3 +375,9 @@ def psum_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
 def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``jax.lax.all_gather(x, 'model', axis=dim, tiled=True)``."""
     return _model_mesh().all_gather(x, dim)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``Mesh.copy_to_model`` under the active mesh; ``x`` itself with no
+    mesh (the shard loop sums the shards' gradients itself)."""
+    return x if _ACTIVE_MESH is None else _ACTIVE_MESH.copy_to_model(x)

@@ -15,13 +15,28 @@ mamba2-780m: at mamba2-780m's own widths the reference's SSD backward
 gives NaN gradients (``_segsum_decay`` takes ``exp`` of positive sums
 above the diagonal, which overflow to inf, before masking them to 0),
 and the port, which computes what the reference computes, gives the same
-NaNs. ``--mesh single|multi`` is not ported.
+NaNs.
+
+``--mesh DP,TP`` trains on a (data, model) mesh of DP x TP spawned
+processes (``launch.mesh.run_ranks``; NCCL where every rank has a card,
+gloo otherwise, host-staged where ranks share a card): each rank holds
+its TP slices of the params, its ZeRO slices of the moments, and its
+rows of every global batch (``train.train_step.make_mesh_train_step``);
+checkpoints are the reference's format, written by world rank 0 one
+gathered leaf at a time, and ``--resume`` reads each rank's slices back.
+``--mesh single`` is the reference's (16, 16) mesh (256 ranks, refused
+where they are missing); ``--mesh multi`` (a 'pod' axis), MoE / SSM /
+hybrid families and the int8 TP reduction are refused with the reason.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2,2 --reduce \\
+      --sasp 0.5 --device cpu --steps 4 --ckpt-every 2 [--resume]
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import re
 import sys
 import tempfile
 import time
@@ -32,18 +47,31 @@ from repro_torch.configs import SASPConfig, get_config, reduced
 from repro_torch.core.sasp import build_sasp_overlay
 from repro_torch.data.pipeline import DataConfig, DataState, Pipeline
 from repro_torch.models import lm
-from repro_torch.train.checkpoint import CheckpointManager
-from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.checkpoint import (CheckpointManager, restore_on_mesh,
+                                         save_on_mesh)
+from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                         zero_adamw_init)
 from repro_torch.train.schedule import (PreemptionHook, StragglerWatchdog,
                                         warmup_cosine)
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import (make_mesh_train_step,
+                                         make_train_step, mesh_layout,
+                                         state_specs)
 
-MESH_NOT_PORTED = (
-    "--mesh {} is not ported to repro_torch yet: training under a mesh "
-    "(grad_compress, ZeRO) waits for ROADMAP Queue 1 item 6g; train "
-    "with --mesh local, or with python -m repro.launch.train")
-
-
+MESH_MULTI = (
+    "--mesh multi adds a 'pod' axis ((2, 16, 16)), which repro_torch does "
+    "not have yet: ROADMAP Queue 1 item 6k (the 'pod' axis and --mesh "
+    "multi); train with --mesh DP,TP or --mesh single")
+MESH_FAMILY = (
+    "{}: training on a mesh covers the dense decoder; MoE, SSM and hybrid "
+    "families wait for ROADMAP Queue 1 item 6j (expert-parallel all-to-"
+    "all with a backward and the global aux statistics); train them with "
+    "--mesh local")
+MESH_RS_AG = (
+    "tp_comm='rs_ag_int8' rounds the TP reduction to int8 and has no "
+    "backward in repro_torch: train with the exact all-reduce "
+    "(tp_comm='ar')")
+# the reference's production mesh (repro/launch/mesh.py)
+SINGLE_POD = (16, 16)
 def parse_args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b")
@@ -60,9 +88,93 @@ def parse_args(argv):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default="local",
-                    choices=["local", "single", "multi"])
+                    help="local (one process), DP,TP (a (data, model) "
+                         "mesh of DP x TP spawned processes, e.g. 2,2), "
+                         "single (the reference's (16, 16)) or multi")
+    ap.add_argument("--backend", choices=("auto", "nccl", "gloo"),
+                    default="auto",
+                    help="a mesh's transport: auto is nccl where every "
+                         "rank has a card, else gloo")
     ap.add_argument("--device", default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    args.mesh_shape = parse_mesh(args)
+    return args
+
+
+def model_config(args):
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
+    if args.sasp:
+        cfg = dataclasses.replace(
+            cfg, sasp=SASPConfig(enabled=True, block_k=32, block_n=32,
+                                 sparsity=args.sasp))
+    return cfg
+
+
+def check_mesh_config(cfg, dp: int, tp: int) -> None:
+    """Refuse, with the reason, what a training mesh cannot run: MoE,
+    SSM and hybrid families, the int8 TP reduction, heads, d_ff or SASP
+    tiles that do not split over ``tp``."""
+    from repro_torch.configs.base import MIXER_ATTN
+    if cfg.moe is not None or any(k != MIXER_ATTN
+                                  for k in cfg.layer_mixer_kinds()):
+        raise ValueError(MESH_FAMILY.format(cfg.name))
+    if cfg.tp_comm == "rs_ag_int8":
+        raise ValueError(MESH_RS_AG)
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} do not "
+                         f"split over {tp} model ranks")
+    if cfg.d_ff % tp:
+        raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} model "
+                         f"ranks")
+    if cfg.sasp.enabled and (cfg.d_ff // tp) % cfg.sasp.block_n:
+        raise ValueError(
+            f"d_ff / tp = {cfg.d_ff // tp} is not a multiple of the "
+            f"{cfg.sasp.block_n}-wide SASP tile: a tile would straddle two "
+            f"model ranks")
+
+
+def parse_mesh(args):
+    """--mesh -> None (local) or (DP, TP); the usage errors, with the
+    reason: ``multi``, a family or option a training mesh does not run,
+    ``single`` where its 256 ranks are missing."""
+    spec = args.mesh.strip()
+    if spec == "local":
+        return None
+    if spec == "multi":
+        raise SystemExit(MESH_MULTI)
+    if spec == "single":
+        dp, tp = SINGLE_POD
+        have = (torch.cuda.device_count() if args.device.startswith("cuda")
+                else os.cpu_count() or 1)
+        what = "cards" if args.device.startswith("cuda") else "CPU cores"
+        if have < dp * tp:
+            raise SystemExit(
+                f"--mesh single is the reference's ({dp}, {tp}) mesh: it "
+                f"needs {dp * tp} ranks ({dp} data x {tp} model), one a "
+                f"card (or a core on the CPU); this machine has {have} "
+                f"{what}. Train with --mesh DP,TP")
+    else:
+        m = re.fullmatch(r"(\d+)\s*,\s*(\d+)", spec)
+        if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+            raise SystemExit(f"--mesh expects local, single, multi or "
+                             f"'DP,TP' (two positive integers, e.g. 2,2), "
+                             f"got {spec!r}")
+        dp, tp = int(m.group(1)), int(m.group(2))
+    try:
+        check_mesh_config(model_config(args), dp, tp)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {dp},{tp}: {e}")
+    if args.batch % (dp * args.microbatches):
+        raise SystemExit(f"--batch {args.batch} does not split into {dp} "
+                         f"data ranks of {args.microbatches} micro-batches")
+    if (args.backend == "nccl" and dp * tp > (
+            torch.cuda.device_count() if args.device.startswith("cuda")
+            else 0)):
+        raise SystemExit(f"--backend nccl needs a card per rank: {dp * tp} "
+                         f"ranks, {torch.cuda.device_count()} cards")
+    return dp, tp
 
 
 def _sync(device) -> None:
@@ -72,16 +184,9 @@ def _sync(device) -> None:
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    if args.mesh != "local":
-        raise SystemExit(MESH_NOT_PORTED.format(args.mesh))
-
-    cfg = get_config(args.arch)
-    if args.reduce:
-        cfg = reduced(cfg, layers=4, d_model=128, vocab=512)
-    if args.sasp:
-        cfg = dataclasses.replace(
-            cfg, sasp=SASPConfig(enabled=True, block_k=32, block_n=32,
-                                 sparsity=args.sasp))
+    if args.mesh_shape is not None:
+        return train_mesh(args)
+    cfg = model_config(args)
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
@@ -134,6 +239,162 @@ def main(argv=None):
     mgr.save(args.steps, {"params": params, "opt": opt},
              extra=pipe.state.to_dict())
     print("done")
+
+
+# ---------------------------------------------------------------------------
+# --mesh DP,TP
+# ---------------------------------------------------------------------------
+
+
+def rank_params(cfg, layout, mesh, *, seed: int = 0, prepare=None):
+    """This rank's TP slices of ``lm.init_params(cfg, seed=seed)``, drawn
+    layer by layer (``lm.init_layer``: each layer from its own
+    generators) and cut before the next is drawn, so no rank holds the
+    whole tree; the embedding, final norm and head come whole from
+    ``lm.init_top`` and are cut the same way (``layout.params``).
+    ``prepare(path, leaf)``, where given, changes each whole leaf (a
+    layer's, or a top leaf) before it is cut."""
+    from repro_torch.core.pruning import map_leaves
+    from repro_torch.distribution.sharding import take_slice
+    device = mesh.device
+    tp, r = mesh.shape["model"], mesh.model_rank
+
+    def cut(prefix):
+        def one(path, t):
+            path = prefix + path
+            if prepare is not None:
+                t = prepare(path, t)
+            return take_slice(t, layout.params[path], r, tp)
+        return one
+    params = map_leaves(cut(()), lm.init_top(cfg, seed=seed, device=device))
+    segs = []
+    for si, (_, repeat) in enumerate(lm.segment_plan(cfg)):
+        layers = [map_leaves(cut(("segments", si)), lm.init_layer(
+            cfg, si, i, seed=seed, device=device)) for i in range(repeat)]
+        segs.append(_stack(layers))
+    params["segments"] = tuple(segs)
+    return params
+
+
+def _stack(trees):
+    """One-layer trees -> their layer-stacked tree."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.cat(trees)
+
+
+def train_mesh(args) -> list:
+    """--mesh DP,TP: spawn DP x TP processes (``launch.mesh.run_ranks``,
+    a file store under the checkpoint directory), each ``train_rank``;
+    return every rank's result."""
+    from repro_torch.launch.mesh import init_file_in, run_ranks
+    dp, tp = args.mesh_shape
+    spec = dict(mesh=(dp, tp), device=args.device,
+                backend=None if args.backend == "auto" else args.backend,
+                cfg=model_config(args), steps=args.steps, batch=args.batch,
+                seq=args.seq, microbatches=args.microbatches, lr=args.lr,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                resume=args.resume)
+    store = init_file_in(args.ckpt_dir,
+                         f"mesh_store_{os.getpid()}_{time.time_ns()}")
+    try:
+        out = run_ranks(train_rank, dp * tp, (spec, store), timeout=86400)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+    print(f"mesh: {dp * tp} processes ({dp} data x {tp} model ranks) "
+          f"trained to step {out[0]['step']}")
+    return out
+
+
+def train_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """One process of ``--mesh DP,TP``: join the mesh, take its TP slices
+    (drawn from seed 0, or its slices of the latest checkpoint with
+    ``resume``) and ZeRO moments, build the SASP overlay on the mesh
+    (``core.sasp.mesh_overlay``) and run the mesh train step on the
+    pipeline's global batches; world rank 0 decides when to checkpoint
+    (the watchdog's cadence, a preemption) and prints. Returns the
+    losses and gradient norms of the steps it ran and its last step."""
+    from repro_torch.core.sasp import mesh_overlay
+    from repro_torch.distribution.sharding import local_config, tp_config
+    from repro_torch.launch.mesh import make_mesh
+    dp, tp = spec["mesh"]
+    if spec["device"] == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // (dp * tp)))
+    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+                     backend=spec["backend"], device=spec["device"])
+    lead = mesh.rank == 0
+    cfg = spec["cfg"]
+    lcfg = local_config(tp_config(cfg, tp), tp)
+    opt_cfg = AdamWConfig(lr=spec["lr"])
+    layout = mesh_layout(cfg, dp, tp, opt_cfg)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+                      global_batch=spec["batch"])
+    pipe = Pipeline(dcfg, kind="lm")
+    mgr = CheckpointManager(spec["ckpt_dir"], keep=3)
+    hook, wd = PreemptionHook(), StragglerWatchdog()
+    sched = warmup_cosine(min(30, spec["steps"] // 10 + 1), spec["steps"])
+
+    params = rank_params(cfg, layout, mesh)
+    opt = zero_adamw_init(params, layout.zero, opt_cfg, mesh)
+    specs = state_specs(params, layout)
+    start = 0
+    if spec["resume"] and mgr.latest_step() is not None:
+        with mgr.reader() as reader:
+            state = restore_on_mesh(reader, {"params": params, "opt": opt},
+                                    specs, mesh)
+            extra = reader.extra
+        params, opt = state["params"], state["opt"]
+        pipe = Pipeline(dcfg, kind="lm", state=DataState.from_dict(extra))
+        start = reader.step
+        if lead:
+            print(f"resumed from step {start} (each rank its slices)")
+    overlay = None
+    if cfg.sasp.enabled:
+        overlay, got = mesh_overlay(params, cfg.sasp, mesh, layout.params)
+        if lead:
+            print(f"SASP masks: {got:.1%} sparsity (tile "
+                  f"{cfg.sasp.block_k}x{cfg.sasp.block_n}), ranked over "
+                  f"the whole tree")
+    step_fn = make_mesh_train_step(lcfg, opt_cfg, mesh, layout,
+                                   overlay=overlay, lr_schedule=sched,
+                                   n_microbatches=spec["microbatches"])
+    if lead:
+        print(f"mesh: {mesh.shape} over {dp * tp} processes, transport "
+              f"{mesh.transport}", flush=True)
+    losses, gnorms = [], []
+
+    def save(step):
+        save_on_mesh(mgr, step, {"params": params, "opt": opt}, specs,
+                     mesh, extra=pipe.state.to_dict())
+
+    for i in range(start, spec["steps"]):
+        batch = {k: torch.from_numpy(v).to(mesh.device)
+                 for k, v in pipe.next().items()}
+        t0 = time.time()
+        params, opt, m = step_fn(params, opt, batch)
+        _sync(mesh.device)
+        slow = wd.observe(time.time() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        if lead and (i + 1) % 10 == 0:
+            print(f"step {i+1:5d} loss {losses[-1]:.4f} "
+                  f"gnorm {gnorms[-1]:.3f}{'  [SLOW]' if slow else ''}",
+                  flush=True)
+        # world rank 0's cadence and preemption, so every rank gathers
+        flags = mesh.world_value(torch.tensor(
+            [(i + 1) % wd.checkpoint_every(spec["ckpt_every"]) == 0,
+             hook.requested], dtype=torch.int32, device=mesh.host_device))
+        if bool(flags[0]) or bool(flags[1]):
+            save(i + 1)
+            if bool(flags[1]):
+                if lead:
+                    print("preemption requested: checkpointed, exiting")
+                return dict(step=i + 1, losses=losses, grad_norms=gnorms)
+    save(spec["steps"])
+    if lead:
+        print("done")
+    return dict(step=spec["steps"], losses=losses, grad_norms=gnorms)
 
 
 if __name__ == "__main__":

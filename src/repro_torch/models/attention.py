@@ -152,16 +152,21 @@ def _proj(p: Dict, name: str, x: torch.Tensor,
 
 
 def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
-    """x (B, S, d) -> q (B,S,H,D), k/v (B,S,KH,D), qk-normed + RoPE'd."""
+    """x (B, S, d) -> q (B,S,H,D), k/v (B,S,KH,D), qk-normed + RoPE'd.
+    On a mesh under autograd, x and the replicated q/k norms enter the
+    rank's heads through ``copy_to_model``: their gradients are the sum
+    of every rank's partial."""
+    from repro_torch.distribution.context import copy_to_model
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
     dt = x.dtype
+    x = copy_to_model(x)
     q = _proj(p, "wq", x, cfg).reshape(B, S, h, hd)
     k = _proj(p, "wk", x, cfg).reshape(B, S, kvh, hd)
     v = _proj(p, "wv", x, cfg).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
-        q = qknorm_apply(p["q_norm"], q, eps=cfg.norm_eps)
-        k = qknorm_apply(p["k_norm"], k, eps=cfg.norm_eps)
+        q = qknorm_apply(copy_to_model(p["q_norm"]), q, eps=cfg.norm_eps)
+        k = qknorm_apply(copy_to_model(p["k_norm"]), k, eps=cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.to(dt), k.to(dt), v.to(dt)

@@ -44,7 +44,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.pruning import apply_block_mask
+from repro_torch.core.pruning import apply_block_mask, mask_shard
 from repro_torch.core.quantization import dequantize_int8
 from repro_torch.core.sparse import BlockSparseWeight, bsr_matmul
 from repro_torch.kernels.sasp_gemm.gemm import sasp_matmul
@@ -303,20 +303,27 @@ def _add_b2(p: Dict, y: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_tp(p: Dict, tp: int, d_ff: int) -> bool:
-    """A dense (or masked, pruned in place) FFN of ``d_ff`` that the rules
-    split over ``tp`` 'model' shards: w1/w3 by columns, w2 by rows (d_ff
-    divides; an empty FFN stays whole)."""
-    return (tp > 1 and "sasp_bsr" not in p and "sasp_masks" not in p
+    """A dense FFN of ``d_ff`` (masked: pruned in place, or under a
+    ``sasp_masks`` overlay) that the rules split over ``tp`` 'model'
+    shards: w1/w3 by columns, w2 by rows (d_ff divides; an empty FFN
+    stays whole)."""
+    return (tp > 1 and "sasp_bsr" not in p
             and d_ff > 0 and d_ff % tp == 0
             and all("w" in p[n] for n in ("w1", "w2", "w3") if n in p))
 
 
 def _ffn_shard(p: Dict, s: int, tp: int) -> Dict:
     """Shard ``s`` of ``tp`` of a dense FFN, as a rank holds it: w1/w3's
-    columns, w2's rows (its bias whole)."""
+    columns, w2's rows (its bias whole), and their overlay masks'
+    tiles."""
     out = {n: {"w": shard_of(p[n]["w"], -1, s, tp)} for n in ("w1", "w3")
            if n in p}
     out["w2"] = {"w": shard_of(p["w2"]["w"], -2, s, tp)}
+    masks = p.get("sasp_masks")
+    if masks is not None:
+        out["sasp_masks"] = {
+            n: mask_shard(m, -2 if n == "w2" else -1, s, tp, n)
+            for n, m in masks.items()}
     return out
 
 
@@ -348,12 +355,16 @@ def _ffn_tp(p: Dict, cfg: ModelConfig, x2: torch.Tensor, tp: int
     """The dense FFN over ``tp`` 'model' shards: on a mesh, this rank's
     partial reduced (exactly in fp32, or rs + int8-ag where ``_can_rs_ag``),
     then w2's bias; with no mesh, every shard's partial in turn, summed in
-    fp32 in shard order (``_sum_partials``), then the bias."""
+    fp32 in shard order (``_sum_partials``), then the bias. Under
+    autograd x enters the rank's columns through ``copy_to_model`` (its
+    gradient summed over 'model'); the loop's shards, views of the whole
+    weights and masks (``shard_of``), take their gradients directly."""
     from repro_torch.distribution import context as dctx
     if dctx.active_mesh() is not None:
         if _can_rs_ag(p, cfg, x2):
             return _ffn_tp_rs_ag_int8(p, cfg, x2)
-        y = _tp_reduce(_ffn_body(p, cfg, x2), None, x2.dtype)
+        y = _tp_reduce(_ffn_body(p, cfg, dctx.copy_to_model(x2)), None,
+                       x2.dtype)
     else:
         y = _sum_partials([_ffn_body(_ffn_shard(p, s, tp), cfg, x2)
                            for s in range(tp)], x2.dtype)

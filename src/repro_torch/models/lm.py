@@ -271,6 +271,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """:func:`init_params`' tree with each leaf a ``meta`` tensor of its
+    shape and dtype: drawn under a fake-tensor mode, so nothing is
+    allocated (a mesh's placement reads the whole tree's shapes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = init_params(cfg, device="cpu")
+    return _map_tensors(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), tree)
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def init_top(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict:
     """:func:`init_params`' embedding, final norm and head alone."""
     gen = torch.Generator(device=device)
@@ -598,12 +617,54 @@ def _xent_chunk(x_chunk, targets, emb, cfg: ModelConfig) -> torch.Tensor:
     return (lse - tgt[..., 0]).sum()
 
 
+def _xent_chunk_vocab(cfg: ModelConfig, mesh, x_chunk, targets, *tables
+                      ) -> torch.Tensor:
+    """The chunk's cross-entropy over a vocab-sharded head, vocab-parallel
+    (no rank holds a (B, c, V) logit block): each shard's fp32 logits,
+    their max (no gradient: the log-sum-exp does not depend on the
+    shift), the shards' sums of exp and their target logits (each target
+    is in one shard's rows; zero elsewhere) summed. On ``mesh`` the rank
+    holds one shard: x enters through ``copy_to_model``, the max is
+    all-reduced and the sums ``psum``-ed over 'model'; with no mesh
+    ``tables`` are every shard's rows and the sums run in shard order."""
+    ids = targets.to(torch.int64)
+    if mesh is not None:
+        x_chunk = mesh.copy_to_model(x_chunk)
+    rows = tables[0].shape[0]
+    first = mesh.model_rank if mesh is not None else 0
+    logits = [softcap(matmul_f32(x_chunk, t.t()), cfg.logit_softcap)
+              for t in tables]
+    m = logits[0].detach().amax(dim=-1)
+    for lg in logits[1:]:
+        m = torch.maximum(m, lg.detach().amax(dim=-1))
+    if mesh is not None:
+        m = mesh.allreduce(m, "model", "max")
+    sums, tgts = [], []
+    for s, lg in enumerate(logits):
+        local = ids - (first + s) * rows
+        mine = (local >= 0) & (local < rows)
+        t = torch.gather(lg, -1, local.clamp(0, rows - 1)[..., None])[..., 0]
+        tgts.append(torch.where(mine, t, torch.zeros_like(t)))
+        sums.append(torch.exp(lg - m[..., None]).sum(dim=-1))
+    if mesh is not None:
+        total, tgt = mesh.psum(sums[0]), mesh.psum(tgts[0])
+    else:
+        total, tgt = sums[0], tgts[0]
+        for a, b in zip(sums[1:], tgts[1:]):
+            total, tgt = total + a, tgt + b
+    return (torch.log(total) + m - tgt).sum()
+
+
 def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             xent_chunk: int = 512):
     """batch: tokens (B, S) [+ embeds (B, S, d)]. Next-token CE + the
     MoE aux loss summed over layers (0 without MoE). Returns (loss,
     {"ce", "aux"}). Each chunk of positions is checkpointed: backward
-    recomputes its (B, chunk, V) fp32 logits instead of keeping them."""
+    recomputes its (B, chunk, V) fp32 logits instead of keeping them
+    (and, on a mesh, the chunk's collectives, in the same order on every
+    rank). A vocab-sharded head (``cfg.vocab_shards``: a mesh rank's
+    rows, or the shard loop's shards) scores through
+    ``_xent_chunk_vocab``."""
     tokens = batch["tokens"]
     x = _embed_in(params, cfg, tokens, batch.get("embeds"))
     B, S = tokens.shape
@@ -611,20 +672,31 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     x, aux, _ = _run_segments_full(params, cfg, x, positions, False, 0)
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     emb = _head_table(params, cfg).to(x.dtype)
+    mesh = _vocab_mesh(cfg)
+    if mesh is not None or cfg.vocab_shards > 1:
+        n = 1 if mesh is not None else cfg.vocab_shards
+        rows = emb.shape[0] // n
+        tables = tuple(emb[s * rows:(s + 1) * rows] for s in range(n))
+        fn = functools.partial(_xent_chunk_vocab, cfg, mesh)
+    else:
+        tables = (emb,)
+
+        def fn(xc, tc, table):
+            return _xent_chunk(xc, tc, table, cfg)
+
+    def chunk(xc, tc):
+        if torch.is_grad_enabled():
+            return torch_ckpt.checkpoint(fn, xc, tc, *tables,
+                                         use_reentrant=False,
+                                         preserve_rng_state=False)
+        return fn(xc, tc, *tables)
     n = S - 1
     c = min(xent_chunk, n)
     while n % c:
         c -= 1
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, n, c):
-        xc, tc = x[:, i:i + c], tokens[:, i + 1:i + 1 + c]
-        if torch.is_grad_enabled():
-            part = torch_ckpt.checkpoint(_xent_chunk, xc, tc, emb, cfg,
-                                         use_reentrant=False,
-                                         preserve_rng_state=False)
-        else:
-            part = _xent_chunk(xc, tc, emb, cfg)
-        total = total + part
+        total = total + chunk(x[:, i:i + c], tokens[:, i + 1:i + 1 + c])
     ce = total / (B * n)
     return ce + aux, {"ce": ce, "aux": aux}
 

@@ -154,23 +154,31 @@ class CheckpointManager:
             raise e
 
     # ------------------------------------------------------------------
-    def _write(self, step: int, host: List[HostLeaf], extra: Dict):
+    def _write(self, step: int, host, extra: Dict):
+        """Write the leaves of ``host`` (an iterable of ``HostLeaf``,
+        taken one at a time: a mesh's writer gathers each as it goes)."""
         tmp = os.path.join(self.directory, f"tmp.{step}.{os.getpid()}")
         final = os.path.join(self.directory, f"step_{step:010d}")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "arrays.0.npz"),
-                 **{f"a{i}": a for i, (_, a, _) in enumerate(host)})
+        leaves = []
+        # np.savez's layout: an uncompressed zip of a<i>.npy members
+        with zipfile.ZipFile(os.path.join(tmp, "arrays.0.npz"), "w",
+                             compression=zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for i, (n, a, dt) in enumerate(host):
+                a = np.asarray(a, order="C")      # keeps a 0-d leaf 0-d
+                with zf.open(f"a{i}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, a, allow_pickle=False)
+                leaves.append({"name": n, "key": f"a{i}",
+                               "shape": list(a.shape), "dtype": dt,
+                               "crc32": _crc(a)})
         manifest = {
             "step": step,
             "time": time.time(),
             "extra": extra,
-            "leaves": [
-                {"name": n, "key": f"a{i}", "shape": list(a.shape),
-                 "dtype": dt, "crc32": _crc(a)}
-                for i, (n, a, dt) in enumerate(host)
-            ],
+            "leaves": leaves,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -314,3 +322,83 @@ class CheckpointReader:
                 self._check(name, crc)
         a = np.frombuffer(buf, dtype=dtype).reshape((1,) + tuple(shape[1:]))
         return _from_stored(a.copy(), meta["dtype"])
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+class Placed:
+    """A leaf of a spec tree: the spec of the state leaf at its place (a
+    tuple with one entry per dim: 'model', 'data' or None). Wrapped, so
+    that tree walks take it as one leaf."""
+
+    def __init__(self, spec: Tuple):
+        self.spec = tuple(spec)
+
+
+def gather_whole(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
+    """The whole leaf of a rank's slice ``t``: gathered over every mesh
+    axis that cuts it, on every rank (collectives: every rank calls)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None and mesh.shape[axis] > 1:
+            t = mesh.gather(t, axis, dim)
+    return t
+
+
+def save_on_mesh(mgr: CheckpointManager, step: int, state, specs, mesh,
+                 extra: Optional[Dict] = None) -> None:
+    """Save a mesh's state in the reference's format: each leaf gathered
+    whole over 'model' and 'data' (``gather_whole``), one leaf at a
+    time, and written by world rank 0 as it comes, so neither a card nor
+    the host holds the whole tree. ``specs``: ``state``'s structure with
+    a ``Placed`` at each leaf. Every rank calls; they leave together."""
+    def leaves():
+        for (name, t), (_, placed) in zip(named_leaves(state),
+                                          named_leaves(specs)):
+            whole = gather_whole(t, placed.spec, mesh)
+            if mesh.rank == 0:
+                yield (name, *_to_host(whole))
+    if mesh.rank == 0:
+        mgr._write(step, leaves(), extra or {})
+    else:
+        for _ in leaves():
+            pass
+    mesh.allreduce(torch.zeros((), device=mesh.host_device), "world")
+
+
+def restore_on_mesh(reader: CheckpointReader, like, specs, mesh):
+    """This rank's slices of a checkpoint (either package's, written whole
+    or by ``save_on_mesh``) in ``like``'s structure, dtypes and device
+    (``like``: the rank's own state; ``specs`` as in ``save_on_mesh``).
+    A layer-stacked leaf (under ``segments``) is read one layer at a
+    time (``CheckpointReader.layer``), only the rank's layers where its
+    layer axis is cut, each cut before the next is read."""
+    from repro_torch.distribution.sharding import take_slice
+    ranks = dict(rank=mesh.model_rank, tp=mesh.shape["model"],
+                 data_rank=mesh.data_rank, ep=mesh.shape["data"])
+    out = []
+    for (name, ref), (_, placed) in zip(named_leaves(like),
+                                        named_leaves(specs)):
+        spec = placed.spec
+        if name not in reader.meta:
+            raise KeyError(f"checkpoint missing leaf {name!r}")
+        if "/segments/" in name and spec:
+            n = reader.shape(name)[0]
+            layers = range(n)
+            if spec[0] is not None:
+                k = n // mesh.shape[spec[0]]
+                first = mesh.axis_index(spec[0]) * k
+                layers = range(first, first + k)
+            rest = (None,) + spec[1:]
+            t = torch.cat([take_slice(reader.layer(name, i), rest, **ranks)
+                           for i in layers])
+        else:
+            t = take_slice(reader.leaf(name), spec, **ranks)
+        if tuple(t.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch for {name!r}: checkpoint "
+                             f"slice {tuple(t.shape)} vs rank "
+                             f"{tuple(ref.shape)}")
+        out.append(t.to(device=ref.device, dtype=ref.dtype))
+    return _rebuild(like, iter(out))

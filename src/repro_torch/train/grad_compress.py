@@ -1,0 +1,80 @@
+"""INT8 error-feedback gradient compression over a mesh axis
+(``repro.train.grad_compress``): the paper's quantization theme applied
+to distributed training, beyond the paper.
+
+``compressed_psum(x, mesh, axis, residual)``: quantize ``x + residual``
+to int8 with one fp32 scale per 256-wide block, sum the int8 payloads
+over the axis's process group, dequantize to the mean; the quantization
+error is carried in the returned residual (error feedback), so the
+compression's bias vanishes over steps. On the wire an int8 payload and
+1/256-dense scales replace fp32 gradients (about 4x fewer bytes).
+
+The reference wires it into no launcher; neither does the port. The
+reference reduces over its 'pod' axis inside a ``shard_map``; the port's
+mesh has no 'pod' axis, so ``axis`` names one of the mesh's own
+('data' by default, 'model' or 'world'), and the collectives run over
+that axis's process group.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.pruning import iter_leaves, map_leaves
+
+QBLOCK = 256
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, n: int,
+                shape) -> torch.Tensor:
+    x = q.to(torch.float32) * scale[:, None]
+    return x.reshape(-1)[:n].reshape(shape)
+
+
+def compressed_psum(x: torch.Tensor, mesh, axis: str = "data",
+                    residual: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mean of ``x`` over the mesh axis ``axis`` with int8 payloads
+    and error feedback; returns (the mean in x's dtype, the new fp32
+    residual). Every rank of the axis must call it.
+
+    Protocol (the reference's): (1) a max-reduce of the per-block amax
+    (fp32, 1/256 of the payload), so every rank quantizes against one
+    shared scale; (2) a sum of the int8 payload, carried as int32 so it
+    cannot overflow; (3) the sum dequantized with the shared scale and
+    divided by the axis size. Exact up to the shared-scale quantization
+    error, which the residual carries to the next step."""
+    if residual is None:
+        residual = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    v = x.to(torch.float32) + residual
+    flat = v.reshape(-1)
+    n = flat.numel()
+    fb = torch.nn.functional.pad(flat, (0, (-n) % QBLOCK)).reshape(-1,
+                                                                   QBLOCK)
+    amax = mesh.allreduce(torch.amax(torch.abs(fb), dim=-1), axis, "max")
+    # divided by tensors: a Python divisor is a product with its
+    # reciprocal on CUDA, one rounding away from the reference
+    scale = torch.clamp(amax, min=1e-20) / amax.new_tensor(127.0)
+    q = torch.clamp(torch.round(fb / scale[:, None]), -127, 127
+                    ).to(torch.int8)
+    new_residual = v - _dequantize(q, scale, n, x.shape)
+    q_sum = mesh.allreduce(q.to(torch.int32), axis)
+    size = amax.new_tensor(float(mesh.axis_size(axis)))
+    mean = _dequantize(q_sum, scale, n, x.shape) / size
+    return mean.to(x.dtype), new_residual
+
+
+def compressed_allreduce_tree(grads, mesh, axis: str = "data",
+                              residuals=None):
+    """``compressed_psum`` over every leaf of ``grads`` (in the
+    reference's leaf order, the same on every rank); returns (the mean
+    tree, the residual tree)."""
+    if residuals is None:
+        residuals = map_leaves(lambda _, g: torch.zeros(
+            g.shape, dtype=torch.float32, device=g.device), grads)
+    res = dict(iter_leaves(residuals))
+    out = {path: compressed_psum(g, mesh, axis, res[path])
+           for path, g in iter_leaves(grads)}
+    return (map_leaves(lambda path, _: out[path][0], grads),
+            map_leaves(lambda path, _: out[path][1], grads))

@@ -12,17 +12,18 @@
 
 ``adamw_update`` writes the new params and moments into the given
 tensors (the reference's launcher donates them to its jitted step), and
-returns them. The ZeRO sharding helpers of the reference wait for the
-port's TP slice.
+returns them. The reference's ZeRO helpers (``zero_spec_from_param_spec``,
+``opt_state_shardings``) place the moments of a mesh's ranks; the
+``zero_*`` functions run the update on a rank's slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.pruning import iter_leaves
+from repro_torch.core.pruning import iter_leaves, map_leaves
 
 Params = Any
 QBLOCK = 256
@@ -50,35 +51,51 @@ class AdamWState(NamedTuple):
     v: Params
 
 
-def _quantize_moment(x: torch.Tensor) -> QMoment:
+def _quantize_moment(x: torch.Tensor, lo: int = 0, nb: Optional[int] = None,
+                     amax_reduce=None) -> QMoment:
     """fp32 -> int8 per 256-wide block of the last axis: scale =
-    max(amax, 1e-20) / 127, q = round-half-even(x / scale)."""
+    max(amax, 1e-20) / 127, q = round-half-even(x / scale). ``x`` may be
+    the columns [lo, lo + n) of a leaf of ``nb`` blocks (a ZeRO or TP
+    slice): the blocks are the whole leaf's, the scale (…, nb) covers
+    them all, and ``amax_reduce`` takes the max over the ranks holding
+    the leaf's other columns, so q and the scale equal the whole leaf's
+    at every place."""
     shape = tuple(x.shape)
-    last = shape[-1] if shape else 1
-    nb = -(-last // QBLOCK)
-    xf = x.to(torch.float32).reshape(*shape[:-1], last)
-    xf = torch.nn.functional.pad(xf, (0, nb * QBLOCK - last))
-    xb = xf.reshape(*shape[:-1], nb, QBLOCK)
+    lead, last = shape[:-1], (shape[-1] if shape else 1)
+    b0, pre = divmod(lo, QBLOCK)
+    nblk = -(-(pre + last) // QBLOCK)
+    nb = b0 + nblk if nb is None else nb
+    xf = x.to(torch.float32).reshape(*lead, last)
+    xf = torch.nn.functional.pad(xf, (pre, nblk * QBLOCK - pre - last))
+    xb = xf.reshape(*lead, nblk, QBLOCK)
     amax = torch.amax(torch.abs(xb), dim=-1)
+    if nb != nblk or amax_reduce is not None:
+        whole = amax.new_zeros(lead + (nb,))
+        whole[..., b0:b0 + nblk] = amax
+        amax = whole if amax_reduce is None else amax_reduce(whole)
     # divided by a tensor: a scalar divisor is a product with its
     # reciprocal on CUDA, one rounding away from the reference's scale
     scale = torch.clamp(amax, min=1e-20) / amax.new_tensor(127.0)
-    q = torch.clamp(torch.round(xb / scale[..., None]), -127, 127
-                    ).to(torch.int8)
-    q = q.reshape(*shape[:-1], nb * QBLOCK)[..., :last].reshape(shape)
+    q = torch.clamp(torch.round(xb / scale[..., b0:b0 + nblk, None]),
+                    -127, 127).to(torch.int8)
+    q = q.reshape(*lead, nblk * QBLOCK)[..., pre:pre + last].reshape(shape)
     return QMoment(q=q, scale=scale)
 
 
-def _dequantize_moment(m: QMoment, shape) -> torch.Tensor:
+def _dequantize_moment(m: QMoment, shape, lo: int = 0) -> torch.Tensor:
+    """The fp32 moment of ``m``; ``lo``: q holds the columns [lo, lo +
+    n) of its leaf, whose every block ``m.scale`` holds."""
     shape = tuple(shape)
     if not shape:
         return m.q.to(torch.float32) * m.scale.reshape(())
     last = shape[-1]
-    nb = m.scale.shape[-1]
+    b0, pre = divmod(lo, QBLOCK)
+    nblk = -(-(pre + last) // QBLOCK)
     q = torch.nn.functional.pad(m.q.to(torch.float32),
-                                (0, nb * QBLOCK - last))
-    x = q.reshape(*shape[:-1], nb, QBLOCK) * m.scale[..., None]
-    return x.reshape(*shape[:-1], nb * QBLOCK)[..., :last]
+                                (pre, nblk * QBLOCK - pre - last))
+    x = q.reshape(*shape[:-1], nblk, QBLOCK) * \
+        m.scale[..., b0:b0 + nblk, None]
+    return x.reshape(*shape[:-1], nblk * QBLOCK)[..., pre:pre + last]
 
 
 def tree_map(fn, tree, *rest):
@@ -117,17 +134,9 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(grads: Params, state: AdamWState, params: Params,
-                 cfg: AdamWConfig, lr_scale=1.0,
-                 gnorm: Optional[torch.Tensor] = None
-                 ) -> Tuple[Params, AdamWState]:
-    """One AdamW step; ``lr_scale`` is a number or a 0-d fp32 tensor;
-    ``gnorm`` is ``global_norm(grads)`` where the caller has it already.
-    Params and moments are updated in place (and returned); ``grads`` are
-    left as they are."""
+def _step_scalars(state: AdamWState, gnorm, cfg: AdamWConfig, lr_scale):
+    """(step + 1, clip, b1c, b2c, lr) of one update."""
     step = state.step + 1
-    if gnorm is None:
-        gnorm = global_norm(grads)
     dev = step.device
 
     def f32(x):
@@ -140,25 +149,226 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
     stepf = step.to(torch.float32)
     b1c = 1.0 - torch.pow(f32(cfg.b1), stepf)
     b2c = 1.0 - torch.pow(f32(cfg.b2), stepf)
-    lr = cfg.lr * f32(lr_scale)
+    return step, clip, b1c, b2c, cfg.lr * f32(lr_scale)
+
+
+def _adamw_leaf(p, g, mf, vf, cfg: AdamWConfig, scalars, decay: bool):
+    """The new value of ``p`` (its dtype); the fp32 moments ``mf`` and
+    ``vf`` are updated in place. ``decay``: the whole leaf has two or
+    more dims."""
+    _, clip, b1c, b2c, lr = scalars
+    g = g.to(torch.float32) * clip
+    mf = mf.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
+    vf = vf.mul_(cfg.b2).add_(torch.square(g).mul_(1.0 - cfg.b2))
+    delta = (mf / b1c).div_(torch.sqrt(vf / b2c).add_(cfg.eps))
+    if cfg.weight_decay and decay:
+        delta = delta.add_(cfg.weight_decay * p.to(torch.float32))
+    return (p.to(torch.float32) - lr * delta).to(p.dtype)
+
+
+def _store(old: QMoment, new: QMoment) -> None:
+    old.q.copy_(new.q)
+    old.scale.copy_(new.scale)
+
+
+def adamw_update(grads: Params, state: AdamWState, params: Params,
+                 cfg: AdamWConfig, lr_scale=1.0,
+                 gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Params, AdamWState]:
+    """One AdamW step; ``lr_scale`` is a number or a 0-d fp32 tensor;
+    ``gnorm`` is ``global_norm(grads)`` where the caller has it already.
+    Params and moments are updated in place (and returned); ``grads`` are
+    left as they are."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    scalars = _step_scalars(state, gnorm, cfg, lr_scale)
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32) * clip
         mf = _dequantize_moment(m, p.shape) if cfg.quantized else m
         vf = _dequantize_moment(v, p.shape) if cfg.quantized else v
-        mf = mf.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
-        vf = vf.mul_(cfg.b2).add_(torch.square(g).mul_(1.0 - cfg.b2))
-        delta = (mf / b1c).div_(torch.sqrt(vf / b2c).add_(cfg.eps))
-        if cfg.weight_decay and p.ndim >= 2:
-            delta = delta.add_(cfg.weight_decay * p.to(torch.float32))
-        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        p.copy_(new_p)
+        p.copy_(_adamw_leaf(p, g, mf, vf, cfg, scalars, p.ndim >= 2))
         if cfg.quantized:
-            for old, new in ((m, _quantize_moment(mf)),
-                             (v, _quantize_moment(vf))):
-                old.q.copy_(new.q)
-                old.scale.copy_(new.scale)
+            _store(m, _quantize_moment(mf))
+            _store(v, _quantize_moment(vf))
 
     with torch.no_grad():
         tree_map(upd, params, grads, state.m, state.v)
-    return params, AdamWState(step=step, m=state.m, v=state.v)
+    return params, AdamWState(step=scalars[0], m=state.m, v=state.v)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO over 'data' (the reference's ZeRO sharding helpers)
+# ---------------------------------------------------------------------------
+#
+# A spec is a tuple with one entry per dim: 'model', 'data' or None
+# (``distribution.sharding``). On a (data, model) mesh a rank holds its
+# TP slice of every param (replicated over 'data') and its ZeRO slice of
+# every moment: the param's TP slice cut again over 'data' on the dim
+# ``zero_spec_from_param_spec`` picks. Int8 moments keep the whole
+# leaf's 256-wide blocks: q is cut like an fp32 moment, the scale on its
+# dims before the last only (the reference's placement); where the last
+# dim is cut, each rank holds every block's scale, taken as the max over
+# the ranks that share the block (``_quantize_moment``), so the state
+# equals the single-device state at every place.
+
+Spec = Tuple[Optional[str], ...]
+
+
+def zero_spec_from_param_spec(spec: Spec, shape, sizes: Dict[str, int]
+                              ) -> Spec:
+    """The param's spec plus a 'data' shard on the largest dim not
+    already sharded that 'data' divides (the first such dim on a tie;
+    ZeRO-1)."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    if "data" in axes:
+        return tuple(axes)
+    dsz = sizes.get("data", 1)
+    for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if axes[i] is None and shape[i] % dsz == 0:
+            axes[i] = "data"
+            break
+    return tuple(axes)
+
+
+def opt_state_shardings(params, sizes: Dict[str, int], opt_cfg: AdamWConfig,
+                        param_specs: Dict[Tuple, Spec]) -> AdamWState:
+    """Specs of ``adamw_init``'s output for the whole tree ``params``
+    (tensors, or shapes' stand-ins: only ``.shape`` is read) whose param
+    specs are ``param_specs`` ({path: spec}): the step replicated, and
+    ``m`` / ``v`` as {path: spec}, a ``QMoment`` of specs with int8
+    moments (q the moment's spec, the scale without a shard on its last
+    dim)."""
+    def one(path, leaf):
+        spec = zero_spec_from_param_spec(param_specs[path],
+                                         tuple(leaf.shape), sizes)
+        if not opt_cfg.quantized:
+            return spec
+        return QMoment(q=spec, scale=spec[:-1] + (None,))
+
+    moments = {path: one(path, leaf) for path, leaf in iter_leaves(params)}
+    return AdamWState(step=(), m=moments, v=moments)
+
+
+def _dim_of(spec: Spec, axis: str) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
+
+
+def local_slice(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The view of ``t`` that this rank's data index holds under
+    ``spec``'s 'data' entry (``t`` already cut over 'model')."""
+    z = _dim_of(spec, "data")
+    if z is None:
+        return t
+    k = t.shape[z] // mesh.shape["data"]
+    return t.narrow(z, mesh.data_rank * k, k)
+
+
+def _last_cut(spec: Spec, n: int, mesh):
+    """(lo, amax_reduce) of a moment slice of width ``n`` along the last
+    dim: its first column in the whole leaf and the max over the axis
+    that cuts the last dim (None where it is whole)."""
+    axis = spec[-1] if spec else None
+    if axis is None or mesh.shape[axis] == 1:
+        return 0, None
+    return (mesh.axis_index(axis) * n,
+            lambda a: mesh.allreduce(a, axis, "max"))
+
+
+def zero_adamw_init(params, zero_specs: Dict, cfg: AdamWConfig, mesh
+                    ) -> AdamWState:
+    """``adamw_init`` of a rank's ZeRO slices: zero moments of each TP
+    slice in ``params`` cut over 'data' by ``zero_specs`` ({path: the
+    moment's spec}, ``opt_state_shardings``' q under int8 moments); int8
+    scales hold every block of a cut last dim."""
+    def zero(path, p):
+        spec = zero_specs[path]
+        z = torch.zeros(local_slice(p, spec, mesh).shape,
+                        dtype=torch.float32, device=p.device)
+        if not cfg.quantized:
+            return z
+        lo, _ = _last_cut(spec, z.shape[-1] if z.ndim else 1, mesh)
+        width = (z.shape[-1] if z.ndim else 1) * (
+            mesh.shape[spec[-1]] if spec and spec[-1] else 1)
+        return _quantize_moment(z, lo, -(-width // QBLOCK))
+
+    step = torch.zeros((), dtype=torch.int32,
+                       device=next(iter_leaves(params))[1].device)
+    return AdamWState(step=step, m=map_leaves(zero, params),
+                      v=map_leaves(zero, params))
+
+
+def reduce_grads(grads, zero_specs: Dict, mesh):
+    """{path: this rank's ZeRO slice of the mean over 'data'} of a
+    rank's TP-slice gradients: a reduce-scatter on the ZeRO dim, or an
+    all-reduce where the moment is whole over 'data'."""
+    dp = mesh.shape["data"]
+    out = {}
+    for path, g in iter_leaves(grads):
+        z = _dim_of(zero_specs[path], "data")
+        if dp == 1:
+            out[path] = g
+        elif z is None:
+            out[path] = mesh.allreduce(g, "data") / dp
+        else:
+            out[path] = mesh.reduce_scatter(g, "data", z) / dp
+    return out
+
+
+def zero_global_norm(grads: Dict, param_specs: Dict, zero_specs: Dict,
+                     mesh) -> torch.Tensor:
+    """The global gradient norm from every rank's ZeRO slices: each
+    slice's squares summed in fp32, a leaf whole over 'model' counted on
+    model rank 0 and one whole over 'data' on data rank 0, then summed
+    over the world."""
+    total = None
+    for path, g in grads.items():
+        if ("model" not in param_specs[path] and mesh.model_rank) or \
+                ("data" not in zero_specs[path] and mesh.data_rank):
+            continue
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        total = s if total is None else total + s
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    return torch.sqrt(mesh.allreduce(total, "world"))
+
+
+def zero_adamw_update(grads: Dict, state: AdamWState, params,
+                      zero_specs: Dict, cfg: AdamWConfig, mesh,
+                      lr_scale=1.0, gnorm: Optional[torch.Tensor] = None):
+    """AdamW on this rank's ZeRO slices (``grads`` from ``reduce_grads``,
+    clipped by ``gnorm`` from ``zero_global_norm``), then each updated
+    param slice all-gathered over 'data' into the rank's TP slice
+    (in place). Weight decay keys on the whole leaf's rank, which every
+    slice keeps."""
+    scalars = _step_scalars(state, gnorm, cfg, lr_scale)
+    with torch.no_grad():
+        for path, p in iter_leaves(params):
+            spec = zero_specs[path]
+            ps = local_slice(p, spec, mesh)
+            m, v = _leaf_at(state.m, path), _leaf_at(state.v, path)
+            if cfg.quantized:
+                lo, red = _last_cut(spec, ps.shape[-1] if ps.ndim else 1,
+                                    mesh)
+                mf = _dequantize_moment(m, ps.shape, lo)
+                vf = _dequantize_moment(v, ps.shape, lo)
+            else:
+                mf, vf = m, v
+            new = _adamw_leaf(ps, grads[path], mf, vf, cfg, scalars,
+                              p.ndim >= 2)
+            if cfg.quantized:
+                nb = m.scale.shape[-1] if m.scale.ndim else 1
+                _store(m, _quantize_moment(mf, lo, nb, red))
+                _store(v, _quantize_moment(vf, lo, nb, red))
+            z = _dim_of(spec, "data")
+            if z is None or mesh.shape["data"] == 1:
+                p.copy_(new)
+            else:
+                p.copy_(mesh.gather(new, "data", z))
+    return params, AdamWState(step=scalars[0], m=state.m, v=state.v)
+
+
+def _leaf_at(tree, path):
+    """The node at ``path`` (a moment: a tensor, or a ``QMoment``)."""
+    for k in path:
+        tree = tree[k]
+    return tree

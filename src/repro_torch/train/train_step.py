@@ -6,10 +6,17 @@ params inside the loss, so the masks apply straight through: gradients
 reach the surviving tiles only. The step updates params and moments in
 place and returns them (the reference's launcher donates both to its
 jitted step).
+
+Under a (data, model) mesh (``make_mesh_train_step``) one process runs
+each rank: the reference's GSPMD step reduces the gradients over 'data'
+implicitly and keeps the moments ZeRO-sharded by its shardings; here
+the step does both by hand (``train.optimizer``'s ``zero_*``), and
+``make_train_step(data_shards=)`` with a TP config (``cfg.tp_shards``)
+is its meshless twin.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -20,9 +27,14 @@ from repro_torch.models import lm
 from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
+    QMoment,
     adamw_init,
     adamw_update,
     global_norm,
+    opt_state_shardings,
+    reduce_grads,
+    zero_adamw_update,
+    zero_global_norm,
 )
 
 
@@ -45,45 +57,76 @@ def value_and_grad(cfg: ModelConfig, params, batch: Dict,
             map_leaves(lambda path, _: grads[path], params))
 
 
+def _grads(cfg: ModelConfig, params, batch: Dict, overlay,
+           n_microbatches: int, accum_dtype):
+    """(loss, metrics, grads) of one batch, accumulated over
+    ``n_microbatches`` row slices (rows [k B/K, (k+1) B/K) form
+    micro-batch k) in ``accum_dtype`` (default fp32), then averaged."""
+    if n_microbatches <= 1:
+        return value_and_grad(cfg, params, batch, overlay)
+    K = n_microbatches
+    adt = accum_dtype or torch.float32
+    grads = map_leaves(lambda _, p: torch.zeros(
+        p.shape, dtype=adt, device=p.device), params)
+    flat_acc = dict(iter_leaves(grads))
+    loss = torch.zeros((), dtype=torch.float32,
+                       device=next(iter(flat_acc.values())).device)
+    ms = []
+    for k in range(K):
+        mb = {n: v.reshape(K, v.shape[0] // K, *v.shape[1:])[k]
+              for n, v in batch.items()}
+        lk, mk, gk = value_and_grad(cfg, params, mb, overlay)
+        for path, g in iter_leaves(gk):
+            flat_acc[path].add_(g.to(adt))
+        loss = loss + lk
+        ms.append(mk)
+    for g in flat_acc.values():
+        g.div_(K)
+    return loss / K, {n: torch.stack([m[n] for m in ms]).mean()
+                      for n in ms[0]}, grads
+
+
+def _rows(batch: Dict, d: int, n: int) -> Dict:
+    """Data rank ``d``'s rows of ``n``: [d B/n, (d+1) B/n) (the
+    reference's ``P('data', None)``)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % n:
+        raise ValueError(f"a batch of {B} rows does not split over {n} "
+                         f"data ranks")
+    return {k: v.narrow(0, d * (B // n), B // n) for k, v in batch.items()}
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     overlay: Optional[Any] = None,
                     lr_schedule: Optional[Callable] = None,
                     n_microbatches: int = 1,
-                    accum_dtype=None):
+                    accum_dtype=None, data_shards: int = 1):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics {"ce", "aux", "loss", "grad_norm"}, 0-d tensors).
 
     ``n_microbatches > 1``: gradient accumulation over batch slices
     (rows [k B/K, (k+1) B/K) form micro-batch k), in ``accum_dtype``
     (default fp32); the activations held shrink by K at the cost of K
-    sequential passes."""
+    sequential passes. ``data_shards`` > 1 is the meshless twin of a
+    mesh step's 'data' axis (``make_mesh_train_step``): each data
+    rank's rows in turn (their own micro-batches), the gradients and
+    metrics averaged in data-rank order."""
 
     def step(params, opt_state: AdamWState, batch: Dict):
-        if n_microbatches <= 1:
-            loss, metrics, grads = value_and_grad(cfg, params, batch,
-                                                  overlay)
-        else:
-            K = n_microbatches
-            adt = accum_dtype or torch.float32
-            grads = map_leaves(lambda _, p: torch.zeros(
-                p.shape, dtype=adt, device=p.device), params)
-            flat_acc = dict(iter_leaves(grads))
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=opt_state.step.device)
-            ms = []
-            for k in range(K):
-                mb = {n: v.reshape(K, v.shape[0] // K, *v.shape[1:])[k]
-                      for n, v in batch.items()}
-                lk, mk, gk = value_and_grad(cfg, params, mb, overlay)
-                for path, g in iter_leaves(gk):
-                    flat_acc[path].add_(g.to(adt))
-                loss = loss + lk
-                ms.append(mk)
-            for g in flat_acc.values():
-                g.div_(K)
-            loss = loss / K
-            metrics = {n: torch.stack([m[n] for m in ms]).mean()
-                       for n in ms[0]}
+        parts = [_grads(cfg, params, _rows(batch, d, data_shards), overlay,
+                        n_microbatches, accum_dtype)
+                 for d in range(data_shards)]
+        loss, metrics, grads = parts[0]
+        if data_shards > 1:
+            acc = dict(iter_leaves(grads))
+            for _, _, g in parts[1:]:
+                for path, x in iter_leaves(g):
+                    acc[path] = acc[path] + x
+            grads = map_leaves(lambda path, _: acc[path] / data_shards,
+                               grads)
+            loss = torch.stack([p[0] for p in parts]).sum() / data_shards
+            metrics = {n: torch.stack([p[1][n] for p in parts]).sum()
+                       / data_shards for n in metrics}
 
         lr_scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
         gnorm = global_norm(grads)
@@ -94,6 +137,92 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         out["loss"] = loss
         out["grad_norm"] = gnorm
         return new_params, new_opt, out
+
+    return step
+
+
+class MeshLayout(NamedTuple):
+    """Where a mesh's ranks hold the training state: ``params`` {path:
+    TP spec} (``distribution.sharding.spec_for_param``), ``opt`` the
+    moments' specs (``optimizer.opt_state_shardings``), ``zero`` {path:
+    the moment's spec} (q's with int8 moments: where a rank's slice
+    sits)."""
+    params: Dict
+    opt: AdamWState
+    zero: Dict
+
+
+def mesh_layout(cfg: ModelConfig, dp: int, tp: int,
+                opt_cfg: AdamWConfig) -> MeshLayout:
+    """The layout of ``cfg``'s training state on a (dp, tp) mesh, from
+    the whole tree's shapes (``lm.param_shapes``: nothing is
+    allocated)."""
+    from repro_torch.distribution.sharding import spec_for_param
+    shapes = lm.param_shapes(cfg)
+    sizes = {"data": dp, "model": tp}
+    pspecs = {path: spec_for_param(path, tuple(t.shape), {"model": tp})
+              for path, t in iter_leaves(shapes)}
+    opt = opt_state_shardings(shapes, sizes, opt_cfg, pspecs)
+    return MeshLayout(pspecs, opt, {
+        path: s.q if isinstance(s, QMoment) else s
+        for path, s in opt.m.items()})
+
+
+def state_specs(params, layout: MeshLayout):
+    """{"params", "opt"}'s structure (the checkpoint's state) with a
+    ``checkpoint.Placed`` spec at each leaf."""
+    from repro_torch.train.checkpoint import Placed
+
+    def moment(path, _):
+        s = layout.opt.m[path]
+        return QMoment(Placed(s.q), Placed(s.scale)) \
+            if isinstance(s, QMoment) else Placed(s)
+    return {"params": map_leaves(lambda path, _: Placed(layout.params[path]),
+                                 params),
+            "opt": AdamWState(step=Placed(()), m=map_leaves(moment, params),
+                              v=map_leaves(moment, params))}
+
+
+def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                         layout: MeshLayout,
+                         overlay: Optional[Any] = None,
+                         lr_schedule: Optional[Callable] = None,
+                         n_microbatches: int = 1, accum_dtype=None):
+    """The train step of one rank of a (data, model) mesh: step(params,
+    opt_state, batch) -> (params, opt_state, metrics), ``batch`` the
+    global batch. ``cfg`` is the rank's config (``sharding.local_config``
+    of a ``tp_config``), ``params`` its TP slices, ``opt_state`` its ZeRO
+    slices (``optimizer.zero_adamw_init``), ``overlay`` its masks
+    (``core.sasp.mesh_overlay``). The data rank takes its rows of the
+    batch, runs forward and backward under the mesh (and its
+    micro-batches, accumulated locally), reduces the gradients to the
+    mean over 'data' on its ZeRO slices (``reduce_grads``), clips by the
+    global norm (``zero_global_norm``), runs AdamW on its slices and
+    all-gathers the params over 'data' (``zero_adamw_update``). Metrics
+    are the mean over 'data', on every rank."""
+    from repro_torch.distribution.context import use_mesh
+    dp = mesh.shape["data"]
+
+    def step(params, opt_state: AdamWState, batch: Dict):
+        mine = _rows(batch, mesh.data_rank, dp)
+        with use_mesh(mesh):
+            loss, metrics, grads = _grads(cfg, params, mine, overlay,
+                                          n_microbatches, accum_dtype)
+            gs = reduce_grads(grads, layout.zero, mesh)
+            del grads
+            gnorm = zero_global_norm(gs, layout.params, layout.zero, mesh)
+            lr_scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
+            params, opt_state = zero_adamw_update(
+                gs, opt_state, params, layout.zero, opt_cfg, mesh,
+                lr_scale=lr_scale, gnorm=gnorm)
+        names = sorted(metrics)
+        vals = torch.stack([loss] + [metrics[n] for n in names])
+        if dp > 1:
+            vals = mesh.allreduce(vals, "data") / dp
+        out = {n: vals[i + 1] for i, n in enumerate(names)}
+        out["loss"] = vals[0]
+        out["grad_norm"] = gnorm
+        return params, opt_state, out
 
     return step
 
