@@ -230,6 +230,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 streams, one trace and one Prometheus text (every engine
                 counter), both written by rank 0. ``tools/depth_phase.py``
                 runs it alone.
+  11-14.      — dp, mesh paths, families on a mesh, training on a mesh
+                (each phase's function and its ``tools/*_phase.py``
+                describe it).
+  15. analysis — (last, every earlier model freed) (a) FlopCounterMode
+                over one full-width qwen3-32b layer's forward (dense,
+                bf16, phase 3's prompts left-padded) within 0.65-1.55 of
+                ``analysis.counters``; (b) the H100 roofline
+                (``core/h100_model.py``) of phase 3's decode step and
+                prefill beside their measured times, at most 1.05 of
+                them; (c) phase 14 (a)'s configuration traced on a dry
+                1,2 mesh (``launch/dryrun.py::trace_step``): a rank's
+                held GiB within 10% of (a)'s measured, peak printed with
+                its ratio, the step's collective record equal to the real
+                rank's; (d) phase 3's packed model at 2 layers served by
+                the shard loop at tp 8 and 16 (16: every KV head on every
+                shard), greedy-equal to tp 1 up to printed near-ties; the
+                card's ``total_memory`` equal to
+                ``h100_model.HBM_BYTES``. ``tools/analysis_phase.py`` runs
+                it alone.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -251,9 +270,14 @@ SRC = os.path.join(ROOT, "src")
 # full results (chip_smoke.json) and profiler traces; gitignored
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and FLOP/s by type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+def h100():
+    """The card's peaks (bytes/s, FLOP/s by type, NVIDIA data sheet,
+    dense): ``repro_torch.core.h100_model``, the one source of them."""
+    from repro_torch.core import h100_model
+    return h100_model
+
+
 N_LAYERS = 4
 SPARSITY = 0.5
 DEVICE = "cuda"
@@ -338,8 +362,8 @@ def bound_ms(n_bytes: int, ops):
     operations over their type's peak. ``ops`` is a list of (FLOPs, type):
     a product runs at the bf16 peak where both operands are exact in bf16
     (bf16 x with bf16 or int8 weights; fp32 accumulation), else at fp32."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(f / PEAK_FLOPS[kind] for f, kind in ops) * 1e3
+    t_bytes = n_bytes / h100().HBM_BW * 1e3
+    t_ops = sum(f / h100().PEAK_FLOPS[kind] for f, kind in ops) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2242,7 +2266,7 @@ def train_full_width(torch):
     step_ms = sum(e2e) / len(e2e)
     tok_s = B * S / (step_ms / 1e3)
     flops = _model_flops(cfg, params, B, S)
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS["bfloat16"]
+    mfu = flops / (step_ms / 1e3) / h100().PEAK_FLOPS["bfloat16"]
     first, last5 = rows[1]["loss"], [r["loss"] for r in rows[-5:]]
     log(f"  {len(timed_rows)} timed steps in halves: forward + backward "
         f"{fwd_bwd_ms:.1f} ms, optimizer {opt_ms:.1f} ms (sum "
@@ -4440,10 +4464,12 @@ def _fm_serve(torch, params, cfg, counters, *, mesh=None, data_shards=1,
     make().run(synthetic_requests(4, V, 2))
     server = make()
     reqs = synthetic_requests(4, V, FMP["new"])
-    a2a = mesh.a2a if mesh is not None else {"calls": 0, "bytes": 0}
+    def a2a():
+        return mesh.a2a if mesh is not None else {"calls": 0, "bytes": 0}
     out = {}
     reset(counters)
-    a2a.update(calls=0, bytes=0)
+    if mesh is not None:
+        mesh.reset_record()
     if sched_ranks:
         _sync(torch)
         t0 = time.perf_counter()
@@ -4465,11 +4491,11 @@ def _fm_serve(torch, params, cfg, counters, *, mesh=None, data_shards=1,
         step = server.step
 
         def counted():
-            b = a2a["bytes"]
+            b = a2a()["bytes"]
             adm = server.stats["admitted"]
             res = step()
             if server.stats["admitted"] == adm:
-                step_a2a.append(a2a["bytes"] - b)
+                step_a2a.append(a2a()["bytes"] - b)
             return res
         server.step = counted
         streams, steps = _drive_timed(torch, server, reqs)
@@ -4477,7 +4503,7 @@ def _fm_serve(torch, params, cfg, counters, *, mesh=None, data_shards=1,
                    times=_step_times(steps), layout=server.layout,
                    a2a_decode_bytes=(max(step_a2a) if step_a2a else 0))
     out["launches"] = _launch_counts(counters)
-    out["a2a"] = dict(a2a)
+    out["a2a"] = a2a()
     return out
 
 
@@ -4905,12 +4931,17 @@ def _tm_case(torch, mesh, spec, case):
     losses, ms = [], []
     for i in range(TMP["steps"]):
         _dev_sync(torch, dev)
+        if i == 0:
+            mesh.reset_record()
         t = time.perf_counter()
         params, opt, m = step(params, opt, batches[i])
         _dev_sync(torch, dev)
         ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
         if i == 0:
+            # the collectives of one step, by kind and axis (phase 15 (c)
+            # holds the dry run's record to it)
+            out["record"] = mesh.record()
             out["params1"] = {p: _probe(x, n) for p, x in
                               iter_leaves(params)}
     out.update(losses=losses, step_ms=ms,
@@ -5249,6 +5280,191 @@ def train_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the analysis tier on the H100 model
+# ---------------------------------------------------------------------------
+
+# (a) FlopCounterMode's count of one layer within this band of the
+# analytic one (the reference's band against XLA, test_counters_hlo.py);
+# (b) a step's bound over its measured time at most this (the counters
+# would undercount); (c) the dry run's held bytes within this of the rank's
+AN = dict(flop_band=(0.65, 1.55), max_share=1.05, held_tol=0.10,
+          tps=(8, 16), layers=2)
+
+
+def analysis_phase(torch, counters, e2e, train_mesh):
+    """Phase 15: (a) FlopCounterMode over one full-width layer's forward
+    on the card against ``analysis.counters``; (b) the H100 roofline of
+    phase 3's decode step and prefill beside their measured times; (c)
+    the dry run of phase 14 (a)'s configuration on a dry 1,2 mesh beside
+    phase 14 (a)'s measured GiB and its ranks' collective records; (d)
+    the shard loop at tp 16 with every KV head on every shard (8 KV heads
+    do not divide 16) against tp 1 and tp 8."""
+    from repro_torch.core import h100_model
+    t_phase = time.time()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"  the card: {card_line()}, total_memory {total} B; "
+        f"h100_model.HBM_BYTES {h100_model.HBM_BYTES}, CHIP_POWER_W "
+        f"{h100_model.CHIP_POWER_W}")
+    out = {"total_memory": total, "a": _an_flops(torch),
+           "b": _an_roofline(e2e)}
+    _free(torch)
+    out["c"] = _an_dry(torch, train_mesh["a"])
+    out["d"] = _an_tp16(torch, counters)
+    _free(torch)
+    check(total == h100_model.HBM_BYTES, f"h100_model.HBM_BYTES "
+          f"{h100_model.HBM_BYTES} is not this card's total_memory {total}")
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def _an_flops(torch):
+    """(a): one layer of qwen3-32b at full width, dense (--sasp 0), bf16,
+    the forward of phase 3's 4 prompts left-padded into one prefill group
+    (every position's logits, as the counters count the head)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.counters import step_costs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.models import lm
+    cfg = main_config(1, "bfloat16")
+    params = lm.init_params(cfg, seed=0, device=DEVICE)
+    reqs = synthetic_requests(4, cfg.vocab_size, 16)
+    S = max(len(r.prompt) for r in reqs)
+    toks = torch.zeros((len(reqs), S), dtype=torch.int32, device=DEVICE)
+    for i, r in enumerate(reqs):
+        toks[i, S - len(r.prompt):] = torch.as_tensor(r.prompt,
+                                                      device=DEVICE)
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        lm.forward(params, cfg, toks)
+    counted = fc.get_total_flops()
+    ours = step_costs(cfg, ShapeConfig("p3", "prefill", S, len(reqs))
+                      ).flops_fwd
+    ratio = ours / counted
+    lo, hi = AN["flop_band"]
+    log(f"  (a) one qwen3-32b layer, dense, bf16, prefill group 4 x {S}: "
+        f"FlopCounterMode {counted:.4e} FLOP, analytic {ours:.4e}, ratio "
+        f"{ratio:.4f} (band {lo}-{hi}); on {card_line()}")
+    check(lo < ratio < hi, f"(a) analytic / counted FLOPs {ratio:.4f} "
+          f"outside {lo}-{hi}")
+    del params
+    return dict(counted=counted, analytic=ours, ratio=ratio, rows=S)
+
+
+def _an_roofline(e2e):
+    """(b): step_costs and the H100 roofline of phase 3's decode step (4
+    slots, cache 256) and prefill (4 x the longest prompt), 4 layers,
+    50% sparsity, bf16, beside what phase 3 measured in this run."""
+    from repro_torch.analysis.counters import step_costs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.h100_model import roofline
+    cfg = main_config(N_LAYERS, "bfloat16")
+    rows = e2e["prefill_rows"] // 4
+    out = {}
+    for kind, shape, ms in (
+            ("decode", ShapeConfig("p3_decode", "decode", 256, 4),
+             e2e["decode_ms_per_step"]),
+            ("prefill", ShapeConfig("p3_prefill", "prefill", rows, 4),
+             e2e["prefill_ms"])):
+        c = step_costs(cfg, shape, sparsity=SPARSITY)
+        t = roofline(c.flops, c.bytes_hbm, 0.0, 1)
+        share = t.bound_s * 1e3 / ms
+        out[kind] = dict(flops=c.flops, bytes_hbm=c.bytes_hbm,
+                         bound_ms=t.bound_s * 1e3, bottleneck=t.bottleneck,
+                         measured_ms=ms, share=share)
+        log(f"  (b) {kind}: bound {t.bound_s * 1e3:.4f} ms ({t.bottleneck};"
+            f" {c.flops:.4e} FLOP, {c.bytes_hbm:.4e} B) against phase 3's "
+            f"{ms:.3f} ms: {share:.2%} of the measured time, on "
+            f"{card_line()}")
+        check(share <= AN["max_share"], f"(b) {kind}: the bound is "
+              f"{share:.3f} of the measured time: the counters undercount")
+    return out
+
+
+def _an_dry(torch, tm_a):
+    """(c): phase 14 (a)'s configuration traced on a dry 1,2 mesh (fake
+    tensors, on the host): each rank's held and peak GiB beside what
+    phase 14 (a) measured, and its step's collective record equal to the
+    real rank's, kind for kind, calls and bytes."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import trace_step
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = tm_config(False)
+    shape = ShapeConfig("tm", "train", TMP["seq"], TMP["batch"])
+    out = []
+    for r, real in enumerate(tm_a["ranks"]):
+        t0 = time.time()
+        tr = trace_step(cfg, shape, 1, 2, r,
+                        opt_cfg=AdamWConfig(lr=TMP["lr"]), overlay=True,
+                        lr_schedule=_tm_schedule())
+        held, peak = tr["held"] / 2**30, tr["peak"] / 2**30
+        err = abs(held - real["held_gib"]) / real["held_gib"]
+        same = tr["record"] == real["record"]
+        out.append(dict(rank=r, held_gib=held, peak_gib=peak,
+                        real_held_gib=real["held_gib"],
+                        real_peak_gib=real["peak_gib"], held_err=err,
+                        peak_ratio=peak / real["peak_gib"],
+                        record=tr["record"], record_equal=same,
+                        trace_s=time.time() - t0))
+        log(f"  (c) rank {r}: dry run held {held:.2f} GiB, peak {peak:.2f} "
+            f"(phase 14 (a) measured {real['held_gib']:.2f}, "
+            f"{real['peak_gib']:.2f}: held {err:.2%} off, peak ratio "
+            f"{peak / real['peak_gib']:.3f}); record "
+            f"{'equal to' if same else 'NOT equal to'} the real rank's: "
+            f"{tr['record']}; traced in {time.time() - t0:.1f} s; on "
+            f"{card_line()}")
+        check(same, f"(c) rank {r}: the dry record {tr['record']} is not "
+              f"the real rank's {real['record']}")
+        check(err <= AN["held_tol"], f"(c) rank {r}: held {held:.2f} GiB "
+              f"predicted, {real['held_gib']:.2f} measured")
+    return out
+
+
+def _an_tp16(torch, counters):
+    """(d): phase 3's packed model at 2 layers, served by the shard loop
+    at tp 1, 8 and 16 (``reshard_packed``); at 16 the 8 KV heads do not
+    split, so attention stays whole on every shard (the reference's
+    replicated SDPA). Greedy streams equal tp 1's but at printed
+    near-ties."""
+    from repro_torch.core.deploy import reshard_packed
+    from repro_torch.distribution.sharding import (heads_split, local_params,
+                                                   vocab_config)
+    from repro_torch.launch.serve import build_serving_params
+    from repro_torch.models import lm
+    cfg = main_config(AN["layers"], "bfloat16")
+    params, cfg = build_serving_params(
+        spread_output_scales(lm.init_params(cfg, seed=0, device=DEVICE),
+                             cfg), cfg, path="packed", sparsity=SPARSITY,
+        scope="all")
+    params = local_params(params, cfg, 1, 0)
+    base = _tp_serve(torch, params, cfg, counters)
+    out = {1: dict(times=base["times"], launches=base["launches"])}
+    for tp in AN["tps"]:
+        sharded = reshard_packed(params, cfg, tp=tp)
+        wq = sharded["segments"][0]["slot0"]["mixer"]["sasp_packed"]["wq"]
+        split = heads_split(cfg, tp)
+        check(wq.shards == (tp if split else 1),
+              f"(d) tp={tp}: wq in {wq.shards} shards")
+        run = _tp_serve(torch, sharded, vocab_config(cfg, tp), counters)
+        ties = _greedy_equal(f"(d) tp={tp}", run["streams"], base["streams"],
+                             base["rec"]["margins"], ref="the tp=1 run")
+        out[tp] = dict(times=run["times"], launches=run["launches"],
+                       near_ties=ties, heads="split" if split else
+                       "every KV head on every shard")
+        log(f"  (d) tp={tp} ({out[tp]['heads']}): decode "
+            f"{run['times']['decode_ms_per_step']:.2f} ms/step (tp 1 "
+            f"{base['times']['decode_ms_per_step']:.2f}), prefill "
+            f"{run['times']['prefill_ms']:.1f} ms; {len(ties)} near-tie "
+            f"divergences from tp 1; launches "
+            f"{ {n: l['total'] for n, l in run['launches'].items()} }; on "
+            f"{card_line()}")
+        del sharded, run
+    del params
+    return out
+
+
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
 KERNELS = {
@@ -5436,6 +5652,14 @@ def main() -> int:
     _free(torch)
     train_mesh = train_mesh_phase(torch, counters)
 
+    log("[15] analysis: FlopCounterMode over one full-width layer against "
+        "the analytic counters; the H100 roofline of phase 3's decode and "
+        "prefill; the dry run of phase 14 (a) on a dry 1,2 mesh against its "
+        "measured GiB and collective record; the shard loop at tp 16 with "
+        "every KV head on every shard (last, every earlier model freed)")
+    _free(torch)
+    analysis = analysis_phase(torch, counters, e2e, train_mesh)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
@@ -5455,7 +5679,7 @@ def main() -> int:
                        ablation=ablation, int8=int8_res, train=train,
                        families=families, tp=tp, depth=depth, dp=dp,
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
-                       train_mesh=train_mesh,
+                       train_mesh=train_mesh, analysis=analysis,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

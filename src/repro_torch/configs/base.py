@@ -159,6 +159,10 @@ class ModelConfig:
     # parallelism, ``distribution.moe_ep``): a mesh rank holds E / ep
     # experts, the meshless loop runs the ep shards one after another
     ep_shards: int = 1
+    # a mesh rank's config whose head counts do not divide 'model': the
+    # rank holds every head and runs the whole attention core (the
+    # reference's replicated SDPA; ``distribution.sharding.local_config``)
+    heads_replicated: bool = False
     # --- SASP ---
     sasp: SASPConfig = field(default_factory=SASPConfig)
     # --- numerics ---

@@ -33,7 +33,7 @@ from repro_torch.core.sparse import bsr_from_mask, stack_bsr
 Params = Dict[str, Any]
 
 __all__ = ["bsr_overlay_from_masks", "build_sasp_overlay",
-           "masks_to_overlay", "merge_overlay", "mesh_overlay",
+           "masks_to_overlay", "merge_overlay", "mesh_masks", "mesh_overlay",
            "quantize_params", "sasp_summary", "scope_predicate"]
 
 
@@ -105,6 +105,16 @@ def mesh_overlay(params: Params, sasp: SASPConfig, mesh,
     each mask cut back to the rank's tiles (``pruning.mask_shard``: a
     tile may not straddle two ranks). Returns (the rank's overlay, the
     whole tree's sparsity)."""
+    local, masks = mesh_masks(params, sasp, mesh, param_specs, is_prunable)
+    return masks_to_overlay(local), mask_sparsity(masks)
+
+
+def mesh_masks(params: Params, sasp: SASPConfig, mesh,
+               param_specs: Dict[Tuple, Tuple],
+               is_prunable: Optional[Callable] = None):
+    """``mesh_overlay``'s masks: ({path: the rank's mask}, {path: the
+    whole leaf's mask}), with no read of their values on the host (the
+    dry run traces it on fake tensors)."""
     pred = is_prunable or scope_predicate(sasp)
     tp = mesh.shape["model"]
     scores, cut = [], {}
@@ -133,7 +143,7 @@ def mesh_overlay(params: Params, sasp: SASPConfig, mesh,
     local = {path: (mask_shard(m, cut[path], mesh.model_rank, tp,
                                path_str(path)) if path in cut else m)
              for path, m in masks.items()}
-    return masks_to_overlay(local), mask_sparsity(masks)
+    return local, masks
 
 
 def quantize_params(params: Params, sasp: SASPConfig,

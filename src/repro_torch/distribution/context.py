@@ -41,11 +41,27 @@ rank. The sum that leaves a region (``psum``) is the identity in
 backward; the entry to a column region (``copy_to_model``: identity
 forward) sums the ranks' partial gradients; an ``all_gather`` followed
 by replicated compute takes the rank's own slice of the gradient; a
-``psum_scatter``'s backward is an ``all_gather``. They apply only where
+``psum_scatter``'s backward is an ``all_gather``; ``take_shard`` (a
+rank's slice of replicated compute, entering a row region) all-gathers
+the slices' gradients. They apply only where
 the input requires grad: the no-grad serving path runs exactly the
 collectives above. ``allreduce`` / ``gather`` / ``reduce_scatter`` over
 'data' or the whole world (``axis="world"``) serve the optimizer
 (gradient reduction, ZeRO, the global norm) and take no gradient.
+
+Every collective that communicates is recorded on the mesh
+(``Mesh.comms``): calls and bytes by kind (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``, ``broadcast``) and
+axis ('model', 'data', 'world'). The bytes are those of the result on
+this rank, in the tensor's own type (the reference's HLO count reads the
+result shape the same way; gloo's fp32 widening of a 16-bit all-to-all
+is transport, not counted). A mesh's ``submesh`` / ``flat`` views share
+their parent's record. ``DryMesh`` is rank r's view of a mesh with no
+process group (``dry_mesh``): each collective records itself exactly so
+and returns zeros of its result's shape and type, so that a step traced
+under ``FakeTensorMode`` (``launch/dryrun.py``) yields the collective record
+of the real step without a process or a card. ``launch/mesh.py``
+builds only real meshes (nccl or gloo).
 """
 from __future__ import annotations
 
@@ -74,9 +90,10 @@ class Mesh:
     host_staged: bool = False
     data_group: Any = None
     profile: str = "tp"
-    # the 'data' all-to-alls so far: calls and bytes this rank sent
-    a2a: Dict[str, int] = dataclasses.field(
-        default_factory=lambda: {"calls": 0, "bytes": 0})
+    # {kind: {axis: {"calls", "bytes"}}} of every collective this rank
+    # ran (``record``); shared by ``submesh`` / ``flat`` views
+    comms: Dict[str, Dict[str, Dict[str, int]]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def model_rank(self) -> int:
@@ -112,6 +129,31 @@ class Mesh:
             model_group=None, data_group=dist.group.WORLD,
             profile="dp_only")
 
+    # -- the record ------------------------------------------------------
+    def _note(self, kind: str, axis: str, shape, dtype) -> None:
+        n = 1
+        for d in shape:
+            n *= int(d)
+        rec = self.comms.setdefault(kind, {}).setdefault(
+            axis, {"calls": 0, "bytes": 0})
+        rec["calls"] += 1
+        rec["bytes"] += n * dtype.itemsize
+
+    def record(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """A copy of the collective record: {kind: {axis: {"calls",
+        "bytes"}}}."""
+        return {k: {a: dict(v) for a, v in axes.items()}
+                for k, axes in self.comms.items()}
+
+    def reset_record(self) -> None:
+        self.comms.clear()
+
+    @property
+    def a2a(self) -> Dict[str, int]:
+        """The 'data' all-to-alls so far: calls and bytes."""
+        return dict(self.comms.get("all-to-all", {}).get(
+            "data", {"calls": 0, "bytes": 0}))
+
     # -- collectives over the 'model' axis -----------------------------
     def _run(self, x: torch.Tensor, op) -> torch.Tensor:
         """``op`` on a contiguous copy of x (on the host when staged),
@@ -120,6 +162,13 @@ class Mesh:
                           copy=True).contiguous()
         y = op(y)
         return y.to(x.device)
+
+    def _comm(self, kind: str, axis: str, x: torch.Tensor, shape,
+              op) -> torch.Tensor:
+        """Record one collective whose result on this rank has ``shape``
+        (x's type), then run ``op`` through ``_run``."""
+        self._note(kind, axis, shape, x.dtype)
+        return self._run(x, op)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every model rank's ``x`` (identity in backward)."""
@@ -142,6 +191,16 @@ class Mesh:
         if _traced(x):
             return _AllGather.apply(x, self, dim)
         return self.gather(x, "model", dim)
+
+    def take_shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This model rank's 1/tp slice along ``dim`` of a replicated
+        ``x`` (no communication); its gradient is every rank's slice's
+        all-gathered, so that the replicated compute before it receives
+        the same gradient on every rank."""
+        if _traced(x) and self.shape["model"] > 1:
+            return _TakeShard.apply(x, self, dim)
+        n = x.shape[dim] // self.shape["model"]
+        return x.narrow(dim, self.model_rank * n, n)
 
     def copy_to_model(self, x: torch.Tensor) -> torch.Tensor:
         """The entry to a column region: ``x`` itself, whose gradient is
@@ -176,32 +235,40 @@ class Mesh:
         def run(y):
             dist.all_reduce(y, op=rop, group=group)
             return y
-        return self._run(x, run)
+        return self._comm("all-reduce", axis, x, x.shape, run)
 
     def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
                        ) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum over ``axis``: a
         reduce-scatter on NCCL, an all-reduce and the slice on gloo."""
         group, n, idx = self._axis(axis)
-        if self.backend == "nccl":
-            parts = list(torch.chunk(x.contiguous(), n, dim=dim))
-            out = torch.empty_like(parts[0])
-            dist.reduce_scatter(out, [p.contiguous() for p in parts],
-                                group=group)
-            return out
+        dim %= x.ndim
         k = x.shape[dim] // n
-        return self.allreduce(x, axis).narrow(dim, idx * k, k).contiguous()
+        shape = x.shape[:dim] + (k,) + x.shape[dim + 1:]
+
+        def run(y):
+            if self.backend == "nccl":
+                out = y.new_empty(shape)
+                dist.reduce_scatter(
+                    out, [p.contiguous() for p in torch.chunk(y, n, dim)],
+                    group=group)
+                return out
+            dist.all_reduce(y, group=group)
+            return y.narrow(dim, idx * k, k).contiguous()
+        return self._comm("reduce-scatter", axis, x, shape, run)
 
     def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """Every rank of ``axis``'s ``x`` concatenated along ``dim`` in
         rank order."""
         group, n, _ = self._axis(axis)
+        dim %= x.ndim
+        shape = x.shape[:dim] + (x.shape[dim] * n,) + x.shape[dim + 1:]
 
         def run(y):
             parts = [torch.empty_like(y) for _ in range(n)]
             dist.all_gather(parts, y, group=group)
             return torch.cat(parts, dim=dim)
-        return self._run(x, run)
+        return self._comm("all-gather", axis, x, shape, run)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Model rank 0's ``x`` on every rank of the model group."""
@@ -212,7 +279,7 @@ class Mesh:
         def op(y):
             dist.broadcast(y, src=src, group=self.model_group)
             return y
-        return self._run(x, op)
+        return self._comm("broadcast", "model", x, x.shape, op)
 
     # -- collectives over the 'data' axis ------------------------------
     def data_all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -225,7 +292,8 @@ class Mesh:
             parts = [torch.empty_like(y) for _ in range(self.shape["data"])]
             dist.all_gather(parts, y, group=self.data_group)
             return torch.stack(parts)
-        return self._run(x, op)
+        return self._comm("all-gather", "data", x,
+                          (self.shape["data"],) + tuple(x.shape), op)
 
     def data_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """x (dp, …): block j to data rank j at this model index; returns
@@ -234,8 +302,6 @@ class Mesh:
         On gloo a 16-bit tensor moves as fp32, which holds it exactly."""
         if self.shape["data"] == 1:
             return x
-        self.a2a["calls"] += 1
-        self.a2a["bytes"] += x.numel() * x.element_size()
         wide = self.backend == "gloo" and x.element_size() == 2
 
         def op(y):
@@ -243,7 +309,7 @@ class Mesh:
             out = torch.empty_like(y)
             dist.all_to_all_single(out, y, group=self.data_group)
             return out.to(x.dtype)
-        return self._run(x, op)
+        return self._comm("all-to-all", "data", x, x.shape, op)
 
     def data_broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Data rank ``src``'s ``x`` on every data rank at this model
@@ -255,7 +321,7 @@ class Mesh:
         def op(y):
             dist.broadcast(y, src=g_src, group=self.data_group)
             return y
-        return self._run(x, op)
+        return self._comm("broadcast", "data", x, x.shape, op)
 
     def world_value(self, x: torch.Tensor) -> torch.Tensor:
         """World rank 0's ``x`` on every process of the mesh (one
@@ -266,7 +332,7 @@ class Mesh:
         def op(y):
             dist.broadcast(y, src=0)
             return y
-        return self._run(x, op)
+        return self._comm("broadcast", "world", x, x.shape, op)
 
     @property
     def host_device(self) -> torch.device:
@@ -274,6 +340,28 @@ class Mesh:
         else the host."""
         return self.device if self.backend == "nccl" else \
             torch.device("cpu")
+
+
+@dataclasses.dataclass
+class DryMesh(Mesh):
+    """A mesh with no process group (``dry_mesh``): every collective is
+    recorded as a real mesh records it and returns zeros of its result's
+    shape and type. Nothing is sent."""
+
+    def _comm(self, kind, axis, x, shape, op):
+        self._note(kind, axis, shape, x.dtype)
+        return x.new_zeros(tuple(shape))
+
+
+def dry_mesh(dp: int, tp: int, rank: int = 0,
+             device: Optional[torch.device] = None) -> DryMesh:
+    """Rank ``rank``'s view of a ``(dp, tp)`` mesh, with no process group
+    (``launch/dryrun.py`` traces a step with one under
+    ``FakeTensorMode``)."""
+    if not 0 <= rank < dp * tp:
+        raise ValueError(f"rank {rank} not in a ({dp}, {tp}) mesh")
+    return DryMesh({"data": dp, "model": tp}, rank, "dry",
+                   device or torch.device("cpu"))
 
 
 def _traced(x: torch.Tensor) -> bool:
@@ -318,6 +406,20 @@ class _AllGather(torch.autograd.Function):
         n = g.shape[ctx.dim] // ctx.mesh.shape["model"]
         return (g.narrow(ctx.dim, ctx.mesh.model_rank * n, n).contiguous(),
                 None, None)
+
+
+class _TakeShard(torch.autograd.Function):
+    """A rank's slice of replicated compute (entering a row region); an
+    all_gather of the slices' gradients in backward."""
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = x.shape[dim] // mesh.shape["model"]
+        return x.narrow(dim, mesh.model_rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.gather(g.contiguous(), "model", ctx.dim), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):

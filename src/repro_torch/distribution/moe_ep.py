@@ -109,8 +109,8 @@ class _Routed:
         self.r, probs = moe_mod.route_probs(p, cfg, self.x2)
         E = cfg.moe.num_experts
         self.sorted_e = self.r.expert_idx.reshape(-1)[self.r.sort_idx]
-        self.counts = torch.bincount(self.r.expert_idx.reshape(-1),
-                                     minlength=E)
+        self.counts = moe_mod.expert_counts(self.r.expert_idx.reshape(-1),
+                                            E)
         self.prob_sum = probs.sum(dim=0)
 
     @property

@@ -37,7 +37,12 @@ cache's capacity axis over 'model'). PyTorch has no GSPMD: each rank
 here runs attention over its own heads — ``local_config`` gives it
 ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, and
 ``H / tp`` SSM heads, so its caches and page pool hold only those heads
-and attention needs no collective; the collectives are the reductions of
+and attention needs no collective. Where the head counts do not divide
+'model' (``heads_split``), a rank holds every head, as the reference
+pins SDPA replicated over 'model': its caches hold every KV head, its
+q / k / v column slices are all-gathered and the whole core runs on
+every rank, which then takes its rows' slice of the core's output into
+wo's row shard. The other collectives are the reductions of
 the row-sharded projections (wo, the dense FFN's w2, out_proj), the
 fused FFN's d_ff shards and the experts' w2, the SSM's gated-norm
 squares, the all-gather of a BSR matrix's output columns, the experts'
@@ -258,17 +263,30 @@ def dp_submeshes(mesh, profile: str = "tp") -> List[Tuple[int, Tuple[int,
             for d in range(dp_size(mesh.shape, profile))]
 
 
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Do the attention heads split over ``tp`` model ranks (query and KV
+    head counts both divisible)? Where they do not, every model rank runs
+    the attention core on every head, as the reference pins SDPA
+    replicated over 'model' (``models/attention.py``); the projections
+    still split wherever the axis divides their dim (``param_rules``)."""
+    return tp <= 1 or (cfg.num_heads % tp == 0
+                       and cfg.num_kv_heads % tp == 0)
+
+
 def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
     """The config a model rank serves with: ``num_heads / tp`` query and
-    ``num_kv_heads / tp`` KV heads (head_dim pinned), and ``H / tp`` SSM
-    heads (``ssm.head_shards``), so its attention, its SSM and their
-    caches hold its own heads."""
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} do "
-                         f"not split over {tp} model ranks")
-    out = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
-                              num_kv_heads=cfg.num_kv_heads // tp,
-                              head_dim=cfg.attn_head_dim)
+    ``num_kv_heads / tp`` KV heads (head_dim pinned) where the heads
+    split (``heads_split``), else every head with ``heads_replicated``
+    (its caches hold every KV head, its attention core runs every head),
+    and ``H / tp`` SSM heads (``ssm.head_shards``), so its attention, its
+    SSM and their caches hold its own heads."""
+    if heads_split(cfg, tp):
+        out = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                                  num_kv_heads=cfg.num_kv_heads // tp,
+                                  head_dim=cfg.attn_head_dim)
+    else:
+        out = dataclasses.replace(cfg, head_dim=cfg.attn_head_dim,
+                                  heads_replicated=True)
     if tp > 1 and _has_ssm(cfg):
         from repro_torch.models.ssm import local_ssm
         out = local_ssm(out, tp)
@@ -304,9 +322,10 @@ def check_placement(cfg: ModelConfig, tp: int, ep: int = 1) -> None:
 
 
 def _local_group(node: Params, group: str, names, rank: Optional[int],
-                 tp: int, what: str) -> Params:
+                 tp: int, what: str, cfg: ModelConfig) -> Params:
     """A mixer / FFN dict with its packed group localised and the dense
-    matrices it replaces dropped."""
+    matrices it replaces dropped (attention's group whole on every rank
+    where the heads do not split)."""
     grp = node[group]
     if isinstance(grp, dict):
         shards = {w.shards for w in grp.values()}
@@ -315,7 +334,8 @@ def _local_group(node: Params, group: str, names, rank: Optional[int],
     else:
         shards = {grp.shards}
         local = _local_container(grp, rank, tp) if grp.shards > 1 else grp
-    if what == "attention" and shards != {tp}:
+    if what == "attention" and shards != {tp} and not (
+            shards == {1} and not heads_split(cfg, tp)):
         raise ValueError(
             f"attention projections packed with {shards} shards on a mesh "
             f"of model size {tp}: their block grid must split into {tp}")
@@ -365,15 +385,15 @@ def local_params(params: Params, cfg: ModelConfig, tp: int,
             if "sasp_packed" in mixer:
                 mixer = _local_group(mixer, "sasp_packed",
                                      ("wq", "wk", "wv", "wo"), rank, tp,
-                                     "attention")
+                                     "attention", cfg)
             else:
                 mixer = {k: v for k, v in mixer.items() if k != "sasp_bsr"}
             if "sasp_fused" in ffn:
                 ffn = _local_group(ffn, "sasp_fused", ("w1", "w2", "w3"),
-                                   rank, tp, "ffn")
+                                   rank, tp, "ffn", cfg)
             elif "sasp_packed" in ffn:
                 ffn = _local_group(ffn, "sasp_packed", ("w1", "w2", "w3"),
-                                   rank, tp, "ffn")
+                                   rank, tp, "ffn", cfg)
             elif "sasp_bsr" in ffn:
                 ffn = {k: ({kk: vv for kk, vv in v.items() if kk != "w"}
                            if k in ffn["sasp_bsr"] else v)

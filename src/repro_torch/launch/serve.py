@@ -91,9 +91,12 @@ slots split over 'data' holds its experts in EP: data rank d the experts
 (``distribution.moe_ep``; ``expert_shards``). ``--scheduler`` ranks and
 an engine replicated over 'data' (``--kv-pages``, or ``--slots`` not
 divisible by DP) keep every expert on every data rank, d_ff over
-'model'. SSM layers split their heads over 'model'. A mesh that cannot
-place the arch (experts not divisible by DP where they split, an expert
-d_ff or SSM heads not divisible by TP) is refused with the reason; a
+'model'. SSM layers split their heads over 'model'. Attention heads
+whose counts do not divide TP run whole on every model rank (the
+reference's replicated SDPA; ``distribution.sharding.heads_split``). A
+mesh that cannot place the arch (experts not divisible by DP where they
+split, an expert d_ff or SSM heads not divisible by TP) is refused with
+the reason; a
 drafter for MoE experts on a mesh and ``--path masked --int8-weights``
 for MoE experts are refused too.
 """

@@ -1,0 +1,138 @@
+"""Abstract params, state and inputs of one mesh rank for the dry run
+(``launch/dryrun.py``; the reference's ``launch/specs.py``, which hands
+``jax.ShapeDtypeStruct`` stand-ins to ``jit(...).lower``).
+
+Every function here is called under a ``FakeTensorMode``: the tensors it
+returns are fake CPU tensors (shapes, types, no storage), so a whole
+production model costs no memory, and a step traced on them runs the
+plain PyTorch path of every kernel wrapper (a wrapper launches its CUDA
+kernel only for a CUDA tensor). The rank's view follows the port's
+placement: ``models/lm.py::param_shapes``' tree cut to the rank by
+``distribution/sharding.py::local_params`` at ``tp_config``, the ZeRO
+slices of the AdamW moments (``train/optimizer.py::zero_adamw_init``),
+and the rank's rows and cache slice of each input.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distribution import sharding as shd
+from repro_torch.models import lm
+from repro_torch.train import train_step as ts
+from repro_torch.train.optimizer import AdamWConfig, zero_adamw_init
+
+
+def abstract_params(cfg: ModelConfig, mesh, ep: int = 1,
+                    whole: Optional[Dict] = None):
+    """(the rank's params, the TP deployment's config, the rank's
+    config): the whole tree drawn as fake tensors (``lm.init_params``
+    under the active fake mode, or ``whole``), cut to ``mesh``'s model
+    (and data, for ``ep`` expert shards) rank."""
+    tp = mesh.shape["model"]
+    tcfg = shd.tp_config(cfg, tp, ep)
+    if whole is None:
+        whole = lm.init_params(cfg, device="cpu")
+    params = shd.local_params(whole, tcfg, tp, mesh.model_rank, ep=ep,
+                              data_rank=mesh.data_rank if ep > 1 else 0)
+    return params, tcfg, shd.local_config(tcfg, tp)
+
+
+def abstract_opt_state(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
+                       mesh):
+    """(the rank's ZeRO slice of the AdamW moments, the mesh layout); the
+    reference's dry run uses ``AdamWConfig(quantized=True)``: int8
+    moments with fp32 block scales."""
+    layout = ts.mesh_layout(cfg, mesh.shape["data"], mesh.shape["model"],
+                            opt_cfg)
+    return zero_adamw_init(params, layout.zero, opt_cfg, mesh), layout
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """The global inputs of one step of the shape's kind.
+
+    train:   {tokens (B, S) int32 [, embeds (B, S, d)]}
+    prefill: {tokens (B, S) int32}
+    decode:  {tokens (B, 1) int32, pos (B,) int32}; the caches are the
+             rank's own (``input_shardings``).
+    The port's prefill and decode take no ``embeds`` (a frontend's
+    stand-in embeddings enter the loss only)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        return {"tokens": torch.zeros((B, 1), dtype=torch.int32),
+                "pos": torch.full((B,), S - 1, dtype=torch.int32)}
+    out = {"tokens": torch.zeros((B, S), dtype=torch.int32)}
+    if shape.kind == "train" and cfg.frontend != "none":
+        out["embeds"] = torch.zeros((B, S, cfg.d_model),
+                                    dtype=_dtype(cfg.compute_dtype))
+    return out
+
+
+def batch_split(shape: ShapeConfig, dp: int) -> bool:
+    """Are the batch's rows split over the ``dp`` data ranks (the
+    reference's rule: B divides and B > 1)? Otherwise every data rank
+    runs the whole batch."""
+    B = shape.global_batch
+    return dp > 1 and B > 1 and B % dp == 0
+
+
+def input_shardings(cfg: ModelConfig, lcfg: ModelConfig, shape: ShapeConfig,
+                    mesh, inputs: Dict[str, Any]) -> Dict[str, Any]:
+    """The rank's inputs: a train step takes the global batch (the mesh
+    step takes its data rank's rows, ``train_step._rows``); prefill and
+    decode take the rank's rows where the batch splits over 'data'
+    (``batch_split``), and decode the rank's caches, its rows of a cache
+    of ``seq_len`` holding its own KV heads (or every head,
+    ``heads_replicated``) and SSM heads."""
+    if shape.kind == "train":
+        return dict(inputs)
+    dp = mesh.shape["data"]
+    n = shape.global_batch // dp if batch_split(shape, dp) else \
+        shape.global_batch
+    out = {k: v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+           if batch_split(shape, dp) else v for k, v in inputs.items()}
+    if shape.kind == "decode":
+        out["caches"] = lm.init_caches(None, lcfg, n, shape.seq_len,
+                                       device="cpu")
+    return out
+
+
+def make_step_fn(lcfg: ModelConfig, shape: ShapeConfig, mesh,
+                 layout: Optional[ts.MeshLayout] = None,
+                 opt_cfg: Optional[AdamWConfig] = None, overlay=None,
+                 n_microbatches: int = 1, lr_schedule=None):
+    """The step the dry run traces, on the rank's config ``lcfg``:
+
+    train:   ``train_step.make_mesh_train_step`` (params, opt_state,
+             batch) -> (params, opt_state, metrics);
+    prefill: one prefill forward (params, batch) -> (greedy ids, caches);
+    decode:  one decode step against the rank's cache of ``seq_len``
+             (params, batch) -> (greedy ids, caches), as the reference's
+             ``serve_step``."""
+    from repro_torch.distribution.context import use_mesh
+    if shape.kind == "train":
+        return ts.make_mesh_train_step(
+            lcfg, opt_cfg or AdamWConfig(quantized=True), mesh, layout,
+            overlay=overlay, n_microbatches=n_microbatches,
+            lr_schedule=lr_schedule)
+
+    if shape.kind == "prefill":
+        def prefill_step(params, batch):
+            with use_mesh(mesh), torch.no_grad():
+                logits, caches = lm.prefill(params, lcfg, batch["tokens"],
+                                            cache_len=shape.seq_len)
+                return torch.argmax(logits, dim=-1), caches
+        return prefill_step
+
+    def serve_step(params, batch):
+        with use_mesh(mesh), torch.no_grad():
+            logits, caches = lm.decode_step(params, lcfg, batch["tokens"],
+                                            batch["pos"], batch["caches"])
+            return torch.argmax(logits, dim=-1), caches
+    return serve_step
+
+
+def _dtype(name: str):
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]

@@ -114,25 +114,24 @@ def model_config(args):
 
 def check_mesh_config(cfg, dp: int, tp: int) -> None:
     """Refuse, with the reason, what a training mesh cannot run: MoE,
-    SSM and hybrid families, the int8 TP reduction, heads, d_ff or SASP
-    tiles that do not split over ``tp``."""
+    SSM and hybrid families, the int8 TP reduction, a d_ff or SASP tiles
+    that do not split over ``tp`` (heads that do not split run on every
+    model rank, ``distribution.sharding.heads_split``)."""
     from repro_torch.configs.base import MIXER_ATTN
     if cfg.moe is not None or any(k != MIXER_ATTN
                                   for k in cfg.layer_mixer_kinds()):
         raise ValueError(MESH_FAMILY.format(cfg.name))
     if cfg.tp_comm == "rs_ag_int8":
         raise ValueError(MESH_RS_AG)
-    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
-        raise ValueError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} do not "
-                         f"split over {tp} model ranks")
     if cfg.d_ff % tp:
         raise ValueError(f"d_ff {cfg.d_ff} does not split over {tp} model "
                          f"ranks")
     if cfg.sasp.enabled and (cfg.d_ff // tp) % cfg.sasp.block_n:
         raise ValueError(
-            f"d_ff / tp = {cfg.d_ff // tp} is not a multiple of the "
-            f"{cfg.sasp.block_n}-wide SASP tile: a tile would straddle two "
-            f"model ranks")
+            f"the {cfg.sasp.block_n}-wide SASP tiles of d_ff {cfg.d_ff} do "
+            f"not split over {tp} model ranks: d_ff / tp = "
+            f"{cfg.d_ff // tp} is not a multiple of the tile, so a tile "
+            f"would straddle two model ranks")
 
 
 def parse_mesh(args):

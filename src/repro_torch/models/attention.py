@@ -8,7 +8,11 @@ and empty ring slots carry -1). Decode updates the cache in place.
 
 On a mesh each rank runs attention over its own heads: its config
 (``distribution.sharding.local_config``) holds ``num_heads / tp`` query
-and ``num_kv_heads / tp`` KV heads, and so do its caches. The shard
+and ``num_kv_heads / tp`` KV heads, and so do its caches. Where the head
+counts do not divide 'model' (``heads_replicated``), every rank holds
+and runs every head, as the reference pins SDPA replicated over 'model':
+q / k / v are all-gathered after the split projections, and wo's row
+shard takes the rank's slice of the core's output. The shard
 loop (no mesh; packed attention holding every TP shard, or dense
 projections of a TP deployment, ``cfg.tp_shards``) runs the projections
 and the attention core shard by shard over each shard's heads, the calls
@@ -102,6 +106,38 @@ def _read_kv(cache: KVCache, dtype):
     return cache.k.to(dtype), cache.v.to(dtype)
 
 
+def _heads_replicated(cfg: Optional[ModelConfig]) -> bool:
+    """Does every model rank run the attention core on every head (the
+    reference's replicated SDPA, where the head counts do not divide
+    'model')? A mesh rank's config says so (``sharding.local_config``);
+    the shard loop reads its head counts at ``cfg.tp_shards``."""
+    if cfg is None:
+        return False
+    from repro_torch.distribution import context as dctx
+    if dctx.active_mesh() is not None:
+        return cfg.heads_replicated
+    from repro_torch.distribution.sharding import heads_split
+    return not heads_split(cfg, cfg.tp_shards)
+
+
+def _split(p: Dict, name: str, cfg: Optional[ModelConfig]) -> bool:
+    """Are the projection's columns (wo: its rows) split over the model
+    ranks? A packed container by its shards; a dense matrix wherever the
+    heads split, else where the axis divides its dim (``sharding``'s col
+    / row rules)."""
+    packed = p.get("sasp_packed")
+    if packed is not None and name in packed:
+        return packed[name].shards > 1
+    from repro_torch.models.ffn import tp_shards
+    tp = tp_shards(cfg)
+    if tp == 1:
+        return False
+    if not _heads_replicated(cfg):
+        return True
+    heads = cfg.num_kv_heads if name in ("wk", "wv") else cfg.num_heads
+    return heads * cfg.attn_head_dim % tp == 0
+
+
 def _proj(p: Dict, name: str, x: torch.Tensor,
           cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """One projection, through the packed tile-skip kernel when a
@@ -113,7 +149,11 @@ def _proj(p: Dict, name: str, x: torch.Tensor,
     holds its columns of wq/wk/wv and its rows of wo, whose partial is
     reduced, then the bias added; with no mesh, the shard loop runs each
     shard's columns in turn (concatenated) and each shard's rows of wo
-    (the partials summed in fp32 in shard order)."""
+    (the partials summed in fp32 in shard order). Where the heads do not
+    split (``_heads_replicated``), a rank's q / k / v columns are
+    all-gathered (in fp32, exact) into every head, and wo takes the rank's
+    rows' slice of the whole core's output (``Mesh.take_shard``); a matrix
+    whose dim the axis does not divide is whole on every rank."""
     packed = p.get("sasp_packed")
     if packed is not None and name in packed:
         pw = packed[name]
@@ -128,11 +168,17 @@ def _proj(p: Dict, name: str, x: torch.Tensor,
     from repro_torch.models.ffn import _sum_partials, _tp_reduce, shard_of, \
         tp_shards
     tp = tp_shards(cfg)
-    if tp == 1:
+    if not _split(p, name, cfg):
         return dense_apply(p[name], x)
-    if dctx.active_mesh() is not None:
+    mesh = dctx.active_mesh()
+    if mesh is not None:
         if name != "wo":
-            return dense_apply(p[name], x)
+            y = dense_apply(p[name], x)
+            if _heads_replicated(cfg):
+                y = mesh.all_gather(y.to(torch.float32), -1).to(y.dtype)
+            return y
+        if _heads_replicated(cfg):
+            x = mesh.take_shard(x, -1)
         w = p["wo"]["w"]
         y = matmul(x, w)
         y = _tp_reduce(y.reshape(-1, w.shape[-1]), cfg, y.dtype)
@@ -155,18 +201,27 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
     """x (B, S, d) -> q (B,S,H,D), k/v (B,S,KH,D), qk-normed + RoPE'd.
     On a mesh under autograd, x and the replicated q/k norms enter the
     rank's heads through ``copy_to_model``: their gradients are the sum
-    of every rank's partial."""
+    of every rank's partial. Where every rank runs every head, x enters
+    only the split projections that way, and the norms act on the whole
+    heads (their gradient is the same on every rank)."""
     from repro_torch.distribution.context import copy_to_model
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
     dt = x.dtype
-    x = copy_to_model(x)
-    q = _proj(p, "wq", x, cfg).reshape(B, S, h, hd)
-    k = _proj(p, "wk", x, cfg).reshape(B, S, kvh, hd)
-    v = _proj(p, "wv", x, cfg).reshape(B, S, kvh, hd)
+    rep = _heads_replicated(cfg)
+    xc = copy_to_model(x)
+
+    def entry(name):
+        return xc if not rep or _split(p, name, cfg) else x
+    q = _proj(p, "wq", entry("wq"), cfg).reshape(B, S, h, hd)
+    k = _proj(p, "wk", entry("wk"), cfg).reshape(B, S, kvh, hd)
+    v = _proj(p, "wv", entry("wv"), cfg).reshape(B, S, kvh, hd)
     if cfg.qk_norm:
-        q = qknorm_apply(copy_to_model(p["q_norm"]), q, eps=cfg.norm_eps)
-        k = qknorm_apply(copy_to_model(p["k_norm"]), k, eps=cfg.norm_eps)
+        nq, nk = p["q_norm"], p["k_norm"]
+        if not rep:
+            nq, nk = copy_to_model(nq), copy_to_model(nk)
+        q = qknorm_apply(nq, q, eps=cfg.norm_eps)
+        k = qknorm_apply(nk, k, eps=cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.to(dt), k.to(dt), v.to(dt)
@@ -175,13 +230,16 @@ def _project_qkv(p: Dict, cfg: ModelConfig, x: torch.Tensor, positions):
 def _loop_head_shards(p: Dict, cfg: ModelConfig) -> int:
     """The TP shards of the attention projections that this tree holds:
     all of them in the shard loop (a packed wq's, or the dense matrices'
-    ``cfg.tp_shards``), one on a mesh rank."""
+    ``cfg.tp_shards``), one on a mesh rank or where every rank runs every
+    head."""
     packed = p.get("sasp_packed") or {}
     if "wq" in packed:
         return packed["wq"].held
     from repro_torch.models.ffn import tp_shards
     from repro_torch.distribution import context as dctx
-    return 1 if dctx.active_mesh() is not None else tp_shards(cfg)
+    if dctx.active_mesh() is not None or _heads_replicated(cfg):
+        return 1
+    return tp_shards(cfg)
 
 
 def _by_head_shard(n: int, fn, tensors, dims, out_dim: int):

@@ -92,6 +92,17 @@ def moe_init(gen: Optional[torch.Generator], cfg: ModelConfig, *,
     return p
 
 
+def expert_counts(flat_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Slots routed to each of the ``E`` experts (int64, (E,)):
+    ``bincount(flat_e, minlength=E)`` with a shape that does not depend
+    on the values, so that a fake-tensor trace (``launch/dryrun.py``)
+    runs it; integer sums, so the counts are the same."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device
+                       ).scatter_add_(0, flat_e.to(torch.int64),
+                                      torch.ones_like(flat_e,
+                                                      dtype=torch.int64))
+
+
 def route(p: Dict, cfg: ModelConfig, x2: torch.Tensor) -> Routing:
     """x2 (N, d) -> the routing decision."""
     return route_probs(p, cfg, x2)[0]
@@ -111,7 +122,7 @@ def route_probs(p: Dict, cfg: ModelConfig, x2: torch.Tensor):
 
     # GShard aux loss: E * sum_e f_e * P_e
     flat_e = expert_idx.reshape(-1)
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = expert_counts(flat_e, E)
     f_e = counts.to(torch.float32) / (N * k)
     P_e = probs.mean(dim=0)
     aux = E * torch.sum(f_e * P_e) * m.router_aux_weight
