@@ -249,6 +249,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 card's ``total_memory`` equal to
                 ``h100_model.HBM_BYTES``. ``tools/analysis_phase.py`` runs
                 it alone.
+  16. family train — (last) MoE, SSM and hybrid families trained on a
+                (data, model) mesh: (a) moonshot-v1-16b-a3b at full
+                width (2 layers, fp32 masters, bf16 compute, remat full,
+                the 50% FFN overlay on the expert stacks too, batch 4 x
+                256, 3 steps) on ``--mesh 2,2`` (4 gloo processes on this
+                card, host-staged; experts in EP over 'data', their d_ff
+                over 'model'), held to the meshless loop at the same
+                shard counts run first (step 1's loss bit for bit, later
+                losses and aux 1e-3, gradient slices 5e-2, params after
+                step 1 within 2.5 lr); (b) jamba's reduced stack (8
+                layers, d 256, attention / SSM / MoE / dense-FFN slots)
+                on 2,2 and mamba2's (4 layers) on 1,2 at widths whose SSD
+                gradients are finite (asserted), each its loop's within
+                1e-5; (c) (a)'s checkpoint served packed on one card
+                (its sasp_gemm launches join the ``kernels`` line); (d)
+                four NCCL cards: moonshot, 8 layers, on 2,2 and 4,1.
+                ``tools/train_family_mesh_phase.py`` runs it alone.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -4038,7 +4055,7 @@ def dp_phase(torch):
 # ---------------------------------------------------------------------------
 
 # (a) at ``layers`` on one card, (c) at ``depth_layers`` on four
-MPP = dict(layers=4, depth_layers=64, tp=2, nccl_tp=4, slots=4,
+MPP = dict(layers=2, depth_layers=64, tp=2, nccl_tp=4, slots=4,
            cache_len=256, kv_pages=32, new=16, draft_k=4)
 # name -> (path, sparsity, int8 weights, scope, paged, drafter: None or
 # (its sparsity, its int8 flag)); at 75% a drafter of random weights
@@ -4383,7 +4400,7 @@ def mesh_paths_phase(torch, counters):
 
 # (a)-(c) on one card; (d) on four: jamba at full width, moonshot at all
 # 48 layers
-FMP = dict(moonshot_layers=4, moonshot_depth=48, slots=4, cache_len=256,
+FMP = dict(moonshot_layers=2, moonshot_depth=48, slots=4, cache_len=256,
            new=16)
 # the one-card meshes: (DP, TP) -> [(model, --scheduler)], one spawn each
 FAMILY_MESHES = {
@@ -4394,7 +4411,7 @@ FAMILY_MESHES = {
 
 
 def _fm_config(model: str, full: bool = False):
-    """moonshot-v1-16b-a3b at full width (4 layers; ``full``: all 48),
+    """moonshot-v1-16b-a3b at full width (2 layers; ``full``: all 48),
     mamba2-780m whole, jamba's 8-layer super-block at phase 8 (c)'s
     widths with bf16 weights (``full``: at full width, the launcher's
     fp32 masters); bf16 compute."""
@@ -4792,6 +4809,8 @@ def _probe(t, n: int):
     tensor, on the host."""
     import numpy as np
     flat = t.detach().reshape(-1)
+    if not flat.numel():                  # mamba2's d_ff = 0 FFN
+        return 0.0, 0.0, np.zeros(0, np.float32)
     k = max(1, flat.numel() // n)
     return (float(flat.double().norm()), float(flat.abs().max()),
             flat[::k][:n].float().cpu().numpy().copy())
@@ -4839,8 +4858,8 @@ def _tm_loop(torch, cfg, mesh_shape, quantized, mb):
     batches = [_batch(torch, pipe) for _ in range(TMP["steps"])]
     acc = None
     for d in range(dp):
-        g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp), overlay,
-                      mb, None)[2]
+        g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp, mb),
+                      overlay, mb, None)[2]
         acc = g if acc is None else map_leaves(
             lambda path, x, a=dict(iter_leaves(acc)): a[path] + x, g)
     grads = _tm_slices([(p, x / dp) for p, x in iter_leaves(acc)],
@@ -4917,8 +4936,8 @@ def _tm_case(torch, mesh, spec, case):
     pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
     batches = [_batch_on(torch, pipe, dev) for _ in range(TMP["steps"] + 1)]
     with use_mesh(mesh):
-        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp),
-                      overlay, mb, None)[2]
+        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp,
+                                             mb), overlay, mb, None)[2]
         gs = reduce_grads(g, layout.zero, mesh)
     del g
     n = TMP["probe"]
@@ -5028,6 +5047,8 @@ def _probe_err(got, want, absolute: bool = False) -> float:
     difference, whichever is larger."""
     import numpy as np
     scale = 1.0 if absolute else max(want[1], 1e-30)
+    if not want[2].size:
+        return abs(got[0] - want[0])
     return max(float(np.abs(got[2] - want[2]).max()) / scale,
                abs(got[0] - want[0]) / max(want[0], 1e-30))
 
@@ -5467,6 +5488,455 @@ def _an_tp16(torch, counters):
 
 # name -> (source, TPU kernel it replaces); the first two run on the
 # packed main path, the other three on the ablation path of phase 5b
+# ---------------------------------------------------------------------------
+# phase 16: MoE, SSM and hybrid families trained on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# (a) moonshot-v1-16b-a3b at full width on --mesh 2,2 (experts in EP over
+# 'data', each expert's d_ff over 'model'); (b) jamba's reduced stack on
+# 2,2 and mamba2 on 1,2 at widths whose SSD gradients are finite; (c) (a)'s
+# checkpoint served packed on one card; (d) four NCCL cards: moonshot at
+# full width, 8 layers, on 2,2 and 4,1
+TFM = dict(layers=2, batch=4, seq=256, steps=3, lr=3e-4, probe=65536,
+           nbatch=8, nseq=128, nccl_layers=8,
+           narrow=dict(d_model=256, vocab=8192),
+           ssm=dict(head_dim=64, state_dim=64, chunk_size=16))
+# (b)'s widths: 256 wide, 8 SSM heads of 64 (state 64, chunks of 16):
+# above the diagonal the SSD takes exp of sums of up to 15 steps of
+# dt |A| <= 8 x 0.3, which stay finite, where mamba2-780m's 48 heads over
+# 256-step chunks overflow to inf and its backward gives NaN (the
+# reference's _segsum_decay, in both packages)
+TFM_NARROW = {"jamba": ((2, 2), 8), "mamba2": ((1, 2), 4)}
+
+
+def tfm_config(model: str, layers=None):
+    """(a) / (d): moonshot-v1-16b-a3b at full width (``layers``, default
+    2), fp32 masters, bf16 compute, remat full, the 50% overlay of the
+    32x32 FFN tiles, expert stacks included; (b): jamba's (8 layers:
+    attention, SSM, MoE and dense-FFN slots, remat full) or mamba2's (4
+    layers) reduced stack at ``TFM["narrow"]`` with ``TFM["ssm"]``'s
+    heads, fp32 compute, jamba with the overlay."""
+    from repro_torch.configs import get_config, reduced
+    sasp = train_config(1).sasp
+    if model == "moonshot":
+        return dataclasses.replace(
+            moonshot_config(layers or TFM["layers"], "bfloat16"),
+            remat="full", sasp=sasp)
+    arch = {"jamba": "jamba-1.5-large-398b", "mamba2": "mamba2-780m"}[model]
+    cfg = reduced(get_config(arch), layers=TFM_NARROW[model][1],
+                  **TFM["narrow"])
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                           **TFM["ssm"]))
+    if model == "jamba":
+        cfg = dataclasses.replace(cfg, remat="full", sasp=sasp)
+    return cfg
+
+
+def _tfm_shape(cfg):
+    return (TFM["nbatch"], TFM["nseq"]) if cfg.compute_dtype == "float32" \
+        else (TFM["batch"], TFM["seq"])
+
+
+def _tfm_loop(torch, cfg, mesh_shape, mb=1):
+    """The meshless loop at ``mesh_shape`` run in this process: the data
+    ranks' rows in lock step through every MoE layer where experts split
+    over 'data' (``train_step._grads_groups``), else in turn; its masks,
+    step 1's mean gradient and the params after step 1 probed as each
+    mesh rank holds them, losses and aux of TFM["steps"] steps."""
+    from repro_torch.core.pruning import iter_leaves
+    from repro_torch.core.sasp import build_sasp_overlay
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distribution.sharding import tp_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    dp, tp = mesh_shape
+    B, S = _tfm_shape(cfg)
+    t0 = time.time()
+    with torch.no_grad():
+        params = lm.init_params(cfg, seed=0, device=DEVICE)
+    oc = AdamWConfig(lr=TFM["lr"])
+    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    overlay, got = (build_sasp_overlay(params, cfg.sasp)
+                    if cfg.sasp.enabled else (None, 0.0))
+    masks = ({k: m.cpu().numpy() for k, m in _overlay_masks(overlay)}
+             if overlay is not None else {})
+    tcfg = tp_config(cfg, tp, ep=dp)
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    batches = [_batch(torch, pipe) for _ in range(TFM["steps"])]
+    if tcfg.ep_shards > 1:
+        g = ts._grads_groups(tcfg, params, batches[0], overlay, mb, None,
+                             dp)[2]
+        grads = list(iter_leaves(g))
+    else:
+        acc = {}
+        for d in range(dp):
+            g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp, mb),
+                          overlay, mb, None)[2]
+            for p, x in iter_leaves(g):
+                acc[p] = x if p not in acc else acc[p] + x
+        grads = [(p, x / dp) for p, x in acc.items()]
+    grads = _tm_slices(grads, layout.zero, tp, dp, TFM["probe"])
+    del g
+    step = ts.make_train_step(tcfg, oc, overlay=overlay, n_microbatches=mb,
+                              data_shards=dp, lr_schedule=_tm_schedule())
+    opt = adamw_init(params, oc)
+    losses, aux = [], []
+    for i, b in enumerate(batches):
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux"]))
+        if i == 0:
+            p1 = _tm_slices(list(iter_leaves(params)), layout.params, tp, dp,
+                            TFM["probe"])
+    out = dict(losses=losses, aux=aux, grads=grads, params1=p1, masks=masks,
+               sparsity=got, seconds=time.time() - t0)
+    del params, opt, overlay, step
+    return out
+
+
+def _tfm_case(torch, mesh, spec, case):
+    """One family's training case on this rank (``launch.train``'s
+    ``rank_params``: its data rank's experts, its model rank's d_ff and
+    heads), ZeRO moments (expert stacks EP-cut only), the overlay ranked
+    over the whole tree, step 1's mean gradient and the params after
+    step 1 probed, TFM["steps"] timed steps (all-to-alls counted on the
+    last), the final params probed; with ``case["save"]`` the params
+    saved by ``save_on_mesh``."""
+    from repro_torch.core.pruning import iter_leaves
+    from repro_torch.core.sasp import mesh_overlay
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.distribution.context import use_mesh
+    from repro_torch.distribution.sharding import local_config, tp_config
+    from repro_torch.launch.train import rank_params
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              gather_whole, save_on_mesh)
+    from repro_torch.train.optimizer import (AdamWConfig, reduce_grads,
+                                             zero_adamw_init)
+    dev = mesh.device
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    cfg = case["cfg"]
+    B, S = _tfm_shape(cfg)
+    oc = AdamWConfig(lr=TFM["lr"])
+    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    cuda = torch.device(dev).type == "cuda"     # (not measured on the CPU)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = rank_params(cfg, layout, mesh)
+    opt = zero_adamw_init(params, layout.zero, oc, mesh)
+    overlay, got = (mesh_overlay(params, cfg.sasp, mesh, layout.params)
+                    if cfg.sasp.enabled else (None, 0.0))
+    _dev_sync(torch, dev)
+    out = dict(init_s=time.perf_counter() - t0, sparsity=got, masks={})
+    if overlay is not None:
+        out["masks"] = {
+            k: gather_whole(m.to(torch.uint8), layout.params[
+                ("segments", k[0], k[1], "ffn", k[2], "w")], mesh).bool()
+            .cpu().numpy() for k, m in _overlay_masks(overlay)}
+    lcfg = local_config(tp_config(cfg, tp, ep=dp), tp)
+    pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
+    batches = [_batch_on(torch, pipe, dev) for _ in range(TFM["steps"])]
+    mb = case.get("mb", 1)
+    with use_mesh(mesh):
+        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp,
+                                             mb), overlay, mb, None)[2]
+        gs = reduce_grads(g, layout.zero, mesh)
+    del g
+    n = TFM["probe"]
+    out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
+    out["grads_finite"] = all(bool(torch.isfinite(x).all())
+                              for x in gs.values())
+    del gs
+    step = ts.make_mesh_train_step(lcfg, opt_cfg=oc, mesh=mesh,
+                                   layout=layout, overlay=overlay,
+                                   n_microbatches=mb,
+                                   lr_schedule=_tm_schedule())
+    losses, aux, ms = [], [], []
+    for i in range(TFM["steps"]):
+        _dev_sync(torch, dev)
+        mesh.reset_record()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i])
+        _dev_sync(torch, dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        aux.append(float(m["aux"]))
+        if i == 0:
+            out["params1"] = {p: _probe(x, n) for p, x in
+                              iter_leaves(params)}
+    out.update(losses=losses, aux=aux, step_ms=ms, a2a=mesh.a2a,
+               record=mesh.record(),
+               tok_s=B * S / (sum(ms[1:]) / max(1, len(ms) - 1) / 1e3),
+               held_gib=torch.cuda.memory_allocated(dev) / 2**30 if cuda
+               else float("nan"),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if cuda
+               else float("nan"))
+    if case.get("save"):
+        out["final"] = {p: _probe(x, n) for p, x in iter_leaves(params)}
+        specs = ts.state_specs(params, layout)
+        t = time.perf_counter()
+        save_on_mesh(CheckpointManager(spec["ckpt_dir"]), TFM["steps"],
+                     {"params": params}, {"params": specs["params"]}, mesh,
+                     extra={"step": TFM["steps"]})
+        out["save_s"] = time.perf_counter() - t
+    return out
+
+
+def _tfm_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """A training mesh's rank, spawned: join the mesh, run
+    ``spec["cases"]`` in turn (``_tfm_case``)."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    dp, tp = spec["mesh"]
+    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+                     backend=spec["backend"], device=spec["device"])
+    out = dict(rank=rank, model_rank=mesh.model_rank,
+               data_rank=mesh.data_rank, transport=mesh.transport, cases={})
+    for case in spec["cases"]:
+        out["cases"][case["name"]] = _tfm_case(torch, mesh, spec, case)
+        _free(torch)
+    return out
+
+
+def _tfm_spawn(spec, timeout=900):
+    from repro_torch.launch.mesh import init_file_in, run_ranks
+    store = init_file_in(OUT_DIR,
+                         f"tfm_store_{os.getpid()}_{time.time_ns()}")
+    try:
+        return run_ranks(_tfm_rank, spec["mesh"][0] * spec["mesh"][1],
+                         (spec, store), timeout=timeout)
+    finally:
+        if os.path.exists(store):
+            os.remove(store)
+
+
+def _tfm_check(tag, res, name, loop, tol):
+    """Every rank's case ``name`` against the loop: masks equal, step 1's
+    loss, the losses and aux, step 1's gradient slices and the params
+    after step 1 (each rank's own slices, its experts' included) within
+    ``tol``. Returns the largest errors found."""
+    worst = dict(loss1=0.0, losses=0.0, aux=0.0, grads=0.0, params1=0.0,
+                 mask_tiles=0)
+    for r in res:
+        c, key = r["cases"][name], (r["model_rank"], r["data_rank"])
+        check(c["grads_finite"], f"{tag} rank {r['rank']}: a gradient is "
+              f"not finite")
+        worst["mask_tiles"] = max(worst["mask_tiles"], sum(
+            int((c["masks"][k] != m).sum()) for k, m in loop["masks"].items()))
+        errs = dict(
+            loss1=abs(c["losses"][0] - loop["losses"][0])
+            / abs(loop["losses"][0]),
+            losses=max(abs(a - b) / abs(b) for a, b in zip(c["losses"],
+                                                           loop["losses"])),
+            aux=max(abs(a - b) / max(abs(b), 1e-30)
+                    for a, b in zip(c["aux"], loop["aux"])),
+            grads=max(_probe_err(g, loop["grads"][(p,) + key])
+                      for p, g in c["grads"].items()),
+            params1=max(_probe_err(x, loop["params1"][(p,) + key],
+                                   "params1_abs" in tol)
+                        for p, x in c["params1"].items()))
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    check(worst["mask_tiles"] == 0, f"{tag}: {worst['mask_tiles']} overlay "
+          f"tiles differ from the loop's (a near-tie of the tile L1?)")
+    tol = dict(tol, params1=tol.get("params1_abs", tol.get("params1")))
+    for k in ("loss1", "losses", "aux", "grads", "params1"):
+        check(worst[k] <= tol[k], f"{tag}: {k} {worst[k]:.3e} from the "
+              f"meshless loop, bound {tol[k]}")
+    return worst
+
+
+def _tfm_log(tag, res, name, loop, worst, wall):
+    c = [r["cases"][name] for r in res]
+    a2a = c[0]["a2a"]
+    log(f"  {tag} over {res[0]['transport']}: {wall:.1f} s wall (loop "
+        f"{loop['seconds']:.1f} s); losses "
+        f"{[round(x, 5) for x in c[0]['losses']]} (loop "
+        f"{[round(x, 5) for x in loop['losses']]}); aux "
+        f"{[round(x, 6) for x in c[0]['aux']]} (loop "
+        f"{[round(x, 6) for x in loop['aux']]}); step ms by rank "
+        f"{[[round(x, 1) for x in r['step_ms']] for r in c]}, "
+        f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
+        f"{[round(r['held_gib'], 2) for r in c]}, peak "
+        f"{[round(r['peak_gib'], 2) for r in c]}; all-to-alls a step "
+        f"{a2a['calls']} calls, {a2a['bytes'] / 2**20:.1f} MiB a rank; "
+        f"against the loop: step 1 loss {worst['loss1']:.2e}, losses "
+        f"{worst['losses']:.2e}, aux {worst['aux']:.2e}, step 1 gradient "
+        f"slices {worst['grads']:.2e}, params after step 1 "
+        f"{worst['params1']:.2e}, overlay tiles differing "
+        f"{worst['mask_tiles']}")
+
+
+def _tfm_summary(res, name, loop, worst, wall):
+    return dict(wall_s=wall, loop_s=loop["seconds"], worst=worst,
+                loop_losses=loop["losses"], loop_aux=loop["aux"],
+                ranks=[{k: v for k, v in r["cases"][name].items()
+                        if k not in ("masks", "grads", "params1", "final",
+                                     "record")} for r in res])
+
+
+def _tfm_full(torch, ckpt):
+    """(a) and (b)'s jamba on --mesh 2,2 in one spawn (this card, gloo
+    host-staged), each held to its loop run first here; (b)'s mamba2 on
+    --mesh 1,2."""
+    cfg = tfm_config("moonshot")
+    log(f"  (a) moonshot-v1-16b-a3b at full width: d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts top {cfg.moe.top_k}, expert d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; depth cut 48 -> "
+        f"{cfg.num_layers} layers; batch {TFM['batch']} x {TFM['seq']}; "
+        f"{TFM_NARROW['jamba'][1]}-layer jamba and "
+        f"{TFM_NARROW['mamba2'][1]}-layer mamba2 at d_model "
+        f"{TFM['narrow']['d_model']} with {TFM['ssm']} (finite SSD "
+        f"gradients: mamba2-780m's own widths give NaN in both packages)")
+    cfgs = {"a": cfg, "jamba": tfm_config("jamba"),
+            "mamba2": tfm_config("mamba2")}
+    loops = {}
+    for name, shape in (("a", (2, 2)), ("jamba", TFM_NARROW["jamba"][0]),
+                        ("mamba2", TFM_NARROW["mamba2"][0])):
+        loops[name] = _tfm_loop(torch, cfgs[name], shape)
+        _free(torch)
+    out = {}
+    # bf16 compute (phase 14 (a)'s bounds): the forward is the loop's bit
+    # for bit, the backward sums a column region's input gradient in
+    # another order; AdamW's first step moves an element by lr times the
+    # gradient's sign, so near-equal gradients leave params 2 lr apart
+    lr1 = TFM["lr"] * float(_tm_schedule()(0))
+    bf16 = dict(loss1=0.0, losses=1e-3, aux=1e-3, grads=5e-2,
+                params1_abs=2.5 * lr1)
+    # fp32 compute: as on the CPU; the params after step 1 absolute, a
+    # tenth of (a)'s bound: the SSM's zero-init conv_b moves by lr g /
+    # (|g| + eps) on step 1, a share of lr that a gradient's last bits
+    # shift where |g| is near eps
+    fp32 = dict(loss1=1e-5, losses=1e-5, aux=1e-5, grads=1e-5,
+                params1_abs=0.25 * lr1)
+    for shape, names in (((2, 2), ("a", "jamba")), ((1, 2), ("mamba2",))):
+        spec = dict(mesh=shape, device=DEVICE, backend="gloo",
+                    ckpt_dir=ckpt, cases=[
+                        dict(name=n, cfg=cfgs[n], save=n == "a")
+                        for n in names])
+        t0 = time.time()
+        res = _tfm_spawn(spec)
+        wall = time.time() - t0
+        for n in names:
+            tag = (f"({'a' if n == 'a' else 'b'}) "
+                   f"{cfgs[n].name} --mesh {shape[0]},{shape[1]}")
+            worst = _tfm_check(tag, res, n, loops[n],
+                               bf16 if n == "a" else fp32)
+            _tfm_log(tag, res, n, loops[n], worst, wall)
+            out[n] = _tfm_summary(res, n, loops[n], worst, wall)
+        if "a" in names:
+            out["final"] = {(r["model_rank"], r["data_rank"]):
+                            r["cases"]["a"]["final"] for r in res}
+            out["record"] = res[0]["cases"]["a"]["record"]
+    return out
+
+
+def _tfm_serve(torch, counters, ckpt, final):
+    """(c): (a)'s checkpoint, restored whole on this card (every leaf
+    equal to the ranks' final slices, probed), packed at 50% scope all
+    through ``launch.serve``'s path, served: the tile-skip GEMM on
+    mma."""
+    from repro_torch.core.pruning import iter_leaves
+    from repro_torch.distribution.sharding import take_slice
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg = tfm_config("moonshot")
+    t0 = time.time()
+    with torch.no_grad():
+        whole = launch.restore_params(ckpt, lm.init_params(cfg, seed=1,
+                                                           device=DEVICE))
+    layout = ts.mesh_layout(cfg, 2, 2, AdamWConfig())
+    bad = [(p, key) for key, probes in final.items()
+           for p, x in iter_leaves(whole)
+           if _probe_err(_probe(take_slice(x, layout.params[p], key[0], 2,
+                                           key[1], 2), TFM["probe"]),
+                         probes[p]) != 0.0]
+    check(not bad, f"(c) restored leaves differ from the ranks' trained "
+          f"slices: {bad[:4]}")
+    params, lcfg = launch.build_serving_params(
+        whole, cfg, path="packed", sparsity=SPARSITY, scope="all",
+        verbose=False)
+    del whole
+    run = _tp_serve(torch, params, lcfg, counters)
+    lc = run["launches"]["sasp_gemm"]
+    check(lc["total"] > 0 and set(lc["variant"]) == {"mma"},
+          f"(c) sasp_gemm launched {lc}, not on mma")
+    check(all(len(s) == 16 for s in run["streams"].values()),
+          "(c) a request did not finish its 16 tokens")
+    wall = time.time() - t0
+    log(f"  (c) (a)'s checkpoint restored on one card (every leaf equal to "
+        f"the ranks' trained slices), packed at 50% scope all: 4 requests "
+        f"x 16 tokens, sasp_gemm {lc['total']} launches {lc['variant']}, "
+        f"decode {run['times']['decode_ms_per_step']:.2f} ms/step; "
+        f"{wall:.1f} s")
+    del params
+    return dict(wall_s=wall, launches={n: run["launches"][n]["total"]
+                                       for n in MAIN_PATH},
+                times=run["times"])
+
+
+def _tfm_four_cards(torch):
+    """(d) over NCCL, a card a rank: moonshot at full width, 8 layers, on
+    --mesh 2,2 and 4,1: step ms, tokens/s, GiB a rank, all-to-all bytes
+    a step, losses finite."""
+    import numpy as np
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  (d) nccl: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    out = {}
+    cfg = tfm_config("moonshot", TFM["nccl_layers"])
+    for shape in ((2, 2), (4, 1)):
+        spec = dict(mesh=shape, device=DEVICE, backend="nccl",
+                    cases=[dict(name="d", cfg=cfg)])
+        t0 = time.time()
+        res = _tfm_spawn(spec)
+        c = [r["cases"]["d"] for r in res]
+        check(all(np.isfinite(r["losses"]).all() and r["grads_finite"]
+                  for r in c), f"(d) --mesh {shape}: a loss or gradient is "
+              f"not finite")
+        key = f"--mesh {shape[0]},{shape[1]}"
+        a2a = c[0]["a2a"]
+        log(f"  (d) {key} over {res[0]['transport']}, {cfg.num_layers} "
+            f"layers: losses {[round(x, 5) for x in c[0]['losses']]}; step "
+            f"ms {[round(x, 1) for x in c[0]['step_ms']]}, "
+            f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
+            f"{[round(r['held_gib'], 2) for r in c]}, peak "
+            f"{[round(r['peak_gib'], 2) for r in c]}; all-to-alls a step "
+            f"{a2a['calls']} calls, {a2a['bytes'] / 2**20:.1f} MiB a rank; "
+            f"{time.time() - t0:.1f} s")
+        out[key] = [{k: v for k, v in r.items()
+                     if k not in ("masks", "grads", "params1", "record")}
+                    for r in c]
+    return out
+
+
+def train_family_mesh_phase(torch, counters):
+    """Phase 16: MoE, SSM and hybrid families trained on a mesh; run
+    last, with every earlier model freed."""
+    import shutil
+    t_phase = time.time()
+    ckpt = os.path.join(OUT_DIR, "train_family_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        out = _tfm_full(torch, ckpt)
+        _free(torch)
+        out["c"] = _tfm_serve(torch, counters, ckpt, out.pop("final"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _free(torch)
+    out["d"] = _tfm_four_cards(torch)
+    out["launches"] = out["c"]["launches"]
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 16: {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = {
     "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
                   "src/repro/kernels/sasp_gemm/kernel.py:142"),
@@ -5660,13 +6130,24 @@ def main() -> int:
     _free(torch)
     analysis = analysis_phase(torch, counters, e2e, train_mesh)
 
+    log("[16] train MoE, SSM and hybrid families on a mesh: moonshot-v1-"
+        "16b-a3b at full width on --mesh 2,2 (experts in EP over 'data', "
+        "their d_ff over 'model') and reduced jamba (2,2) and mamba2 (1,2), "
+        "each against its meshless loop; the moonshot checkpoint served "
+        "packed on one card; moonshot at 8 layers on 2,2 and 4,1 over NCCL "
+        "where there are four cards (last, every earlier model freed)")
+    _free(torch)
+    family_train = train_family_mesh_phase(torch, counters)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
-    # checkpoint served, both ranks)
+    # checkpoint served, both ranks) and phase 16's (the mesh-trained
+    # moonshot checkpoint served on one card)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
                      + family_mesh["launches"][n]
                      + train_mesh["launches"][n]
+                     + family_train["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -5680,6 +6161,7 @@ def main() -> int:
                        families=families, tp=tp, depth=depth, dp=dp,
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
                        train_mesh=train_mesh, analysis=analysis,
+                       family_train=family_train,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

@@ -98,9 +98,11 @@ def mesh_overlay(params: Params, sasp: SASPConfig, mesh,
                  ) -> Tuple[Params, float]:
     """``build_sasp_overlay`` on a mesh rank: the whole tree's masks, the
     rank's slice of each. ``params`` are the rank's TP slices, whose
-    specs ``param_specs`` gives ({path: spec}, 'model' on a cut dim).
-    Each rank scores the tiles of its slices; each leaf's grid is
-    all-gathered over 'model' into the whole leaf's, the grids ranked in
+    specs ``param_specs`` gives ({path: spec}, 'model' on a cut dim,
+    'data' on an expert stack's experts under EP). Each rank scores the
+    tiles of its slices; each leaf's grid is all-gathered over 'model'
+    (and an EP-cut stack's over 'data') into the whole leaf's, the grids
+    ranked in
     the whole tree's leaf order (the same stable sort on every rank), and
     each mask cut back to the rank's tiles (``pruning.mask_shard``: a
     tile may not straddle two ranks). Returns (the rank's overlay, the
@@ -116,14 +118,17 @@ def mesh_masks(params: Params, sasp: SASPConfig, mesh,
     whole leaf's mask}), with no read of their values on the host (the
     dry run traces it on fake tensors)."""
     pred = is_prunable or scope_predicate(sasp)
-    tp = mesh.shape["model"]
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
     scores, cut = [], {}
     for path, leaf in iter_leaves(params):
         spec = param_specs[path]
         md = spec.index("model") if "model" in spec and tp > 1 else None
+        dd = spec.index("data") if "data" in spec and dp > 1 else None
         shape = list(leaf.shape)
         if md is not None:
             shape[md] *= tp
+        if dd is not None:
+            shape[dd] *= dp
         blocks = prunable_blocks(path, torch.empty(shape, device="meta"),
                                  sasp, pred)
         if blocks is None:
@@ -135,14 +140,20 @@ def mesh_masks(params: Params, sasp: SASPConfig, mesh,
                 f"SASP tiles of {path_str(path)}: a {bk}x{bn} tile "
                 f"straddles two model ranks ({tuple(leaf.shape)} on each)")
         grid = tile_l1(leaf, bk, bn)
+        cut[path] = []
         if md is not None:
             grid = mesh.gather(grid, "model", md)
-            cut[path] = md
+            cut[path].append((md, mesh.model_rank, tp))
+        if dd is not None:          # an expert stack's experts (EP)
+            grid = mesh.gather(grid, "data", dd)
+            cut[path].append((dd, mesh.data_rank, dp))
         scores.append((path, grid))
     masks = masks_from_scores(scores, sasp.sparsity)
-    local = {path: (mask_shard(m, cut[path], mesh.model_rank, tp,
-                               path_str(path)) if path in cut else m)
-             for path, m in masks.items()}
+    local = {}
+    for path, m in masks.items():
+        for dim, r, n in cut[path]:
+            m = mask_shard(m, dim, r, n, path_str(path))
+        local[path] = m
     return local, masks
 
 

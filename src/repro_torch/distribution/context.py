@@ -38,6 +38,8 @@ by the convention that the reference's ``shard_map`` bodies and GSPMD
 imply: everything outside a TP region is computed identically on every
 model rank, so the gradient of a replicated value is the same on every
 rank. The sum that leaves a region (``psum``) is the identity in
+backward; a sum that each rank consumes with its own channels
+(``psum_ar``: the SSM's gated-norm squares) is an all-reduce in
 backward; the entry to a column region (``copy_to_model``: identity
 forward) sums the ranks' partial gradients; an ``all_gather`` followed
 by replicated compute takes the rank's own slice of the gradient; a
@@ -45,7 +47,8 @@ by replicated compute takes the rank's own slice of the gradient; a
 rank's slice of replicated compute, entering a row region) all-gathers
 the slices' gradients. They apply only where
 the input requires grad: the no-grad serving path runs exactly the
-collectives above. ``allreduce`` / ``gather`` / ``reduce_scatter`` over
+collectives above. The all-to-all over 'data' is its own backward
+(expert parallelism's dispatch and return). ``allreduce`` / ``gather`` / ``reduce_scatter`` over
 'data' or the whole world (``axis="world"``) serve the optimizer
 (gradient reduction, ZeRO, the global norm) and take no gradient.
 
@@ -176,6 +179,14 @@ class Mesh:
             return _PSum.apply(x, self)
         return self.allreduce(x, "model")
 
+    def psum_ar(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every model rank's ``x`` where each rank consumes
+        the sum with its own channels (the SSM's gated-norm squares): the
+        ranks' gradients differ, so the backward is an all-reduce too."""
+        if _traced(x) and self.shape["model"] > 1:
+            return _PSumAR.apply(x, self)
+        return self.allreduce(x, "model")
+
     def psum_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's 1/tp slice along ``dim`` of the sum of every model
         rank's ``x`` (the reference's tiled ``psum_scatter``; an
@@ -299,9 +310,16 @@ class Mesh:
         """x (dp, …): block j to data rank j at this model index; returns
         (dp, …) whose block i came from data rank i (the reference's
         ``jax.lax.all_to_all(x, "data", split_axis=0, concat_axis=0)``).
-        On gloo a 16-bit tensor moves as fp32, which holds it exactly."""
+        On gloo a 16-bit tensor moves as fp32, which holds it exactly.
+        Under autograd its backward is the same all-to-all of the
+        gradient: block i goes back to data rank i."""
         if self.shape["data"] == 1:
             return x
+        if _traced(x):
+            return _AllToAll.apply(x, self)
+        return self._all_to_all(x)
+
+    def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         wide = self.backend == "gloo" and x.element_size() == 2
 
         def op(y):
@@ -377,6 +395,33 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _PSumAR(torch.autograd.Function):
+    """psum whose result each rank consumes with its own channels: an
+    all-reduce of the gradient (fp32) in backward."""
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.allreduce(x, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.allreduce(g.to(torch.float32), "model").to(
+            g.dtype), None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all over 'data'; the same all-to-all of the gradient in
+    backward (it is its own inverse)."""
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh._all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._all_to_all(g.contiguous()), None
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -472,6 +517,11 @@ def psum_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``jax.lax.psum_scatter(x, 'model', scatter_dimension=dim,
     tiled=True)``."""
     return _model_mesh().psum_scatter(x, dim)
+
+
+def psum_ar(x: torch.Tensor) -> torch.Tensor:
+    """``Mesh.psum_ar`` under the active mesh."""
+    return _model_mesh().psum_ar(x)
 
 
 def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:

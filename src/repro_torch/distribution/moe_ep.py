@@ -37,6 +37,18 @@ in the compute type, ``moe_ep.py:122``). The aux loss is averaged over
 'data' in ``ep`` mode (the reference's ``pmean``) and is the whole
 call's in ``local`` mode.
 
+Under autograd (training; ``ep`` mode only, ``local`` is refused with
+the reason): both all-to-alls carry the gradient back
+(``Mesh.data_all_to_all``), the buffer enters the experts' d_ff columns
+through ``copy_to_model``, and the reported aux (the ``pmean``) carries
+the gradient of the rank's own aux. So a rank's loss gradient is that of
+the reference's single-device loss on its rows (in ``ep`` mode a shard's
+capacity and slot positions are the local path's on those rows), and an
+expert owner's gradient arrives whole: the sum over the data ranks of
+each rank's loss gradient (``train.optimizer`` divides it by DP and
+reduces it no further). The meshless loop gives every group's own aux
+an equal share of the gradient, the mean the mesh step takes.
+
 ``moe_ffn_groups`` is the meshless loop: the same math in one process
 over a list of row groups, one per data rank, with the whole expert
 stacks, expert shard by expert shard and d_ff shard by d_ff shard, at
@@ -224,6 +236,44 @@ def _aux(cfg: ModelConfig, mode: str, infos: "_Infos") -> torch.Tensor:
     return m.num_experts * torch.sum(f_e * P_e) * m.router_aux_weight
 
 
+LOCAL_TRAIN = (
+    "a training call on an expert-parallel mesh runs in ep mode only: "
+    "every data rank brings the same rows and the batch splits evenly "
+    "(can_use_ep), so that each rank's capacity and aux are the "
+    "reference's per-shard moe_ffn_ep; this call's rows fall unevenly "
+    "(local mode: a call-wide capacity and aux), which the reference "
+    "never trains")
+
+
+class _AuxMean(torch.autograd.Function):
+    """The ``ep`` aux (the mean of every data rank's, read from the
+    all-gather) carrying the gradient of the mean of the aux losses
+    computed here: a mesh rank's own (the step averages the data ranks'
+    gradients), or every group's in the meshless loop."""
+    @staticmethod
+    def forward(ctx, value, *owns):
+        ctx.n = len(owns)
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(g / ctx.n for _ in range(ctx.n))
+
+
+def _aux_out(cfg: ModelConfig, mode: str, infos: "_Infos",
+             groups: List[_Routed], device) -> torch.Tensor:
+    """The call's aux (``_aux``) on ``device``; under autograd (``ep``
+    mode only: ``local`` is refused) it carries the gradient of its
+    groups' own aux losses (``_AuxMean``)."""
+    value = _aux(cfg, mode, infos).to(device)
+    owns = [g.r.aux_loss for g in groups]
+    if not (torch.is_grad_enabled() and any(a.requires_grad for a in owns)):
+        return value
+    if mode != "ep":
+        raise ValueError(LOCAL_TRAIN)
+    return _AuxMean.apply(value, *owns)
+
+
 def _finish(p: Dict, cfg: ModelConfig, g: _Routed, y: torch.Tensor,
             dtype) -> torch.Tensor:
     """The shared experts on this group's tokens (none for an empty
@@ -254,6 +304,7 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     g = _Routed(p, cfg, x)
     infos = _Infos(mesh.data_all_gather(g.info()), E)
     mode = _mode(cfg, infos, mesh.shape)
+    aux = _aux_out(cfg, mode, infos, [g], x.device)
     if mode == "ep":
         C = ep_capacity(cfg, g.n)
     else:
@@ -265,7 +316,7 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
         xe = recv.transpose(0, 1).reshape(El, ep * C, d)
     else:
         xe = _pick_rows(recv, infos, mesh.data_rank * El)
-    ye = moe_mod.experts_apply(p, cfg, xe)
+    ye = moe_mod.experts_apply(p, cfg, mesh.copy_to_model(xe))
     if mesh.shape["model"] > 1:
         ye = mesh.psum(ye.to(torch.float32)).to(ye.dtype)
     if mode == "ep":
@@ -274,8 +325,7 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
         back = ye[None].expand(ep, El, C, d)
     out = mesh.data_all_to_all(back.contiguous()).reshape(E, C, d)
     y = g.combine(out, pos_c, k)
-    return _finish(p, cfg, g, y, x.dtype), _aux(cfg, mode, infos).to(
-        x.device)
+    return _finish(p, cfg, g, y, x.dtype), aux
 
 
 def moe_ffn_dp(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
@@ -326,6 +376,7 @@ def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
     groups = [_Routed(p, cfg, x) for x in xs]
     infos = _Infos(torch.stack([g.info() for g in groups]), E)
     mode = _mode(cfg, infos, {"data": ep, "model": tp})
+    aux = _aux_out(cfg, mode, infos, groups, xs[0].device)
     if mode == "ep":
         C = ep_capacity(cfg, groups[0].n)
     else:
@@ -350,7 +401,7 @@ def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
                         dim=0)
         ys.append(_finish(p, cfg, g, g.combine(out, pos_c, k),
                           xs[s].dtype))
-    return ys, _aux(cfg, mode, infos).to(xs[0].device)
+    return ys, aux
 
 
 def moe_ffn_loop(p: Dict, cfg: ModelConfig, x: torch.Tensor

@@ -21,9 +21,12 @@ Usage (no card needed):
   flags: [--mesh DP,TP] (default 16,16) [--sasp S] [--quant] [--remat R]
          [--microbatches K] [--kvquant] [--tp-comm rs_ag_int8]
 
-Cells the port cannot trace yet are refused by name: a MoE, SSM or hybrid
-family's train step on a mesh (ROADMAP Queue 1 item 6j,
-``launch/train.py::MESH_FAMILY``), ``--multi-pod`` (item 6k). A serving
+Cells the port cannot trace are refused by name: a MoE or hybrid
+family's train step where 'data' > 1 (``EP_TRACE``: the expert-parallel
+path reads every data rank's routing counts on the host), ``--multi-pod``
+(ROADMAP Queue 1 item 6k). An SSM family's train step traces, on the
+training layout (``train_step.mesh_layout``: in_xbc / conv whole on
+every model rank). A serving
 cell of a MoE arch keeps every expert on every data rank, each expert's
 d_ff over 'model' (the port's layout of a ``--scheduler`` deployment):
 the expert-parallel path (``distribution/moe_ep.py``) reads every data
@@ -50,6 +53,12 @@ MULTI_POD = (
     "--multi-pod adds a 'pod' axis ((2, 16, 16)), which repro_torch does "
     "not have yet: ROADMAP Queue 1 item 6k (the 'pod' axis and --mesh "
     "multi); dry-run --mesh DP,TP")
+EP_TRACE = (
+    "{}: a MoE layer's train step on a mesh with 'data' > 1 runs expert "
+    "parallelism, whose every call reads all data ranks' routing counts "
+    "on the host (distribution/moe_ep.py:178, _Infos: the mode, the "
+    "capacity and the slot positions), which a fake-tensor trace cannot "
+    "give: not traced (train it on real ranks, launch/train.py --mesh)")
 # the reference's production mesh (repro/launch/mesh.py)
 PRODUCTION_MESH = (16, 16)
 # a reduced cell (tests): the shape cut to this many tokens and rows
@@ -102,6 +111,8 @@ def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
     train = shape.kind == "train"
     if train:
         check_mesh_config(cfg, dp, tp)
+        if cfg.moe is not None and dp > 1:
+            raise ValueError(EP_TRACE.format(cfg.name))
     mesh = dry_mesh(dp, tp, rank)
     with FakeTensorMode():
         whole = lm.init_params(cfg, device="cpu")
@@ -109,16 +120,17 @@ def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
             whole, cfg = abstract_bsr_params(whole, cfg, sasp,
                                              quantize=quantize,
                                              model_axis=tp)
-        params, _, lcfg = specs.abstract_params(cfg, mesh, whole=whole)
-        del whole
         opt = layout = ov = None
         if train:
             opt_cfg = opt_cfg or AdamWConfig(quantized=True)
-            opt, layout = specs.abstract_opt_state(cfg, opt_cfg, params,
-                                                   mesh)
+            params, lcfg, opt, layout = specs.abstract_train_state(
+                cfg, opt_cfg, mesh, whole)
             if overlay:
                 ov = masks_to_overlay(mesh_masks(params, cfg.sasp, mesh,
                                                  layout.params)[0])
+        else:
+            params, _, lcfg = specs.abstract_params(cfg, mesh, whole=whole)
+        del whole
         inputs = specs.input_shardings(cfg, lcfg, shape, mesh,
                                        specs.input_specs(cfg, shape))
         step = specs.make_step_fn(lcfg, shape, mesh, layout, opt_cfg, ov,
@@ -242,10 +254,10 @@ def run_all(out_dir: Optional[str], archs=None,
 
 
 def refused(err) -> bool:
-    """Is this failure one of the port's named refusals (ROADMAP Queue 1
-    items 6j, 6k)?"""
+    """Is this failure one of the port's named refusals (a MoE train cell
+    on a mesh with 'data' > 1, ``EP_TRACE``; ROADMAP Queue 1 item 6k)?"""
     msg = str(err)
-    return "item 6j" in msg or "item 6k" in msg
+    return "routing counts on the host" in msg or "item 6k" in msg
 
 
 def parse_mesh(spec: str) -> Tuple[int, int]:

@@ -40,14 +40,19 @@ def abstract_params(cfg: ModelConfig, mesh, ep: int = 1,
     return params, tcfg, shd.local_config(tcfg, tp)
 
 
-def abstract_opt_state(cfg: ModelConfig, opt_cfg: AdamWConfig, params,
-                       mesh):
-    """(the rank's ZeRO slice of the AdamW moments, the mesh layout); the
-    reference's dry run uses ``AdamWConfig(quantized=True)``: int8
-    moments with fp32 block scales."""
-    layout = ts.mesh_layout(cfg, mesh.shape["data"], mesh.shape["model"],
-                            opt_cfg)
-    return zero_adamw_init(params, layout.zero, opt_cfg, mesh), layout
+def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
+                         whole: Dict):
+    """(the rank's training params, its config, its ZeRO moments, the mesh
+    layout) of a train cell: ``whole`` cut by the training layout
+    (``train_step.mesh_layout`` / ``rank_slices``: an SSM's in_xbc /
+    conv leaves whole on every model rank, the expert stacks over
+    'data'), the rank's config at ``tp_config(cfg, tp, ep=dp)``."""
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    layout = ts.mesh_layout(cfg, dp, tp, opt_cfg)
+    params = ts.rank_slices(whole, layout, mesh)
+    lcfg = shd.local_config(shd.tp_config(cfg, tp, ep=dp), tp)
+    return (params, lcfg, zero_adamw_init(params, layout.zero, opt_cfg,
+                                          mesh), layout)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:

@@ -24,9 +24,15 @@ its TP slices of the params, its ZeRO slices of the moments, and its
 rows of every global batch (``train.train_step.make_mesh_train_step``);
 checkpoints are the reference's format, written by world rank 0 one
 gathered leaf at a time, and ``--resume`` reads each rank's slices back.
+Every family trains on a mesh: a MoE layer's experts are split over
+'data' (expert parallelism: each data rank draws and holds E / DP
+experts, the tokens go to their experts' owners and back by all-to-alls
+over 'data', each rank's aux the reference's per-shard one) and each
+expert's d_ff over 'model'; an SSM's heads over 'model'.
 ``--mesh single`` is the reference's (16, 16) mesh (256 ranks, refused
-where they are missing); ``--mesh multi`` (a 'pod' axis), MoE / SSM /
-hybrid families and the int8 TP reduction are refused with the reason.
+where they are missing); ``--mesh multi`` (a 'pod' axis), the int8 TP
+reduction, experts that do not split over DP and an expert d_ff or SSM
+heads that do not split over TP are refused with the reason.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mesh 2,2 --reduce \\
       --sasp 0.5 --device cpu --steps 4 --ckpt-every 2 [--resume]
@@ -61,11 +67,6 @@ MESH_MULTI = (
     "--mesh multi adds a 'pod' axis ((2, 16, 16)), which repro_torch does "
     "not have yet: ROADMAP Queue 1 item 6k (the 'pod' axis and --mesh "
     "multi); train with --mesh DP,TP or --mesh single")
-MESH_FAMILY = (
-    "{}: training on a mesh covers the dense decoder; MoE, SSM and hybrid "
-    "families wait for ROADMAP Queue 1 item 6j (expert-parallel all-to-"
-    "all with a backward and the global aux statistics); train them with "
-    "--mesh local")
 MESH_RS_AG = (
     "tp_comm='rs_ag_int8' rounds the TP reduction to int8 and has no "
     "backward in repro_torch: train with the exact all-reduce "
@@ -113,14 +114,14 @@ def model_config(args):
 
 
 def check_mesh_config(cfg, dp: int, tp: int) -> None:
-    """Refuse, with the reason, what a training mesh cannot run: MoE,
-    SSM and hybrid families, the int8 TP reduction, a d_ff or SASP tiles
-    that do not split over ``tp`` (heads that do not split run on every
-    model rank, ``distribution.sharding.heads_split``)."""
-    from repro_torch.configs.base import MIXER_ATTN
-    if cfg.moe is not None or any(k != MIXER_ATTN
-                                  for k in cfg.layer_mixer_kinds()):
-        raise ValueError(MESH_FAMILY.format(cfg.name))
+    """Refuse, with the reason, what a training mesh cannot place: experts
+    that do not split over ``dp`` data ranks, an expert d_ff or SSM heads
+    that do not split over ``tp`` (``distribution.sharding.
+    check_placement``), the int8 TP reduction, a d_ff or SASP tiles that
+    do not split over ``tp`` (attention heads that do not split run on
+    every model rank, ``distribution.sharding.heads_split``)."""
+    from repro_torch.distribution.sharding import check_placement
+    check_placement(cfg, tp, dp if cfg.moe is not None else 1)
     if cfg.tp_comm == "rs_ag_int8":
         raise ValueError(MESH_RS_AG)
     if cfg.d_ff % tp:
@@ -136,7 +137,7 @@ def check_mesh_config(cfg, dp: int, tp: int) -> None:
 
 def parse_mesh(args):
     """--mesh -> None (local) or (DP, TP); the usage errors, with the
-    reason: ``multi``, a family or option a training mesh does not run,
+    reason: ``multi``, a placement or option a training mesh does not run,
     ``single`` where its 256 ranks are missing."""
     spec = args.mesh.strip()
     if spec == "local":
@@ -246,9 +247,10 @@ def main(argv=None):
 
 
 def rank_params(cfg, layout, mesh, *, seed: int = 0, prepare=None):
-    """This rank's TP slices of ``lm.init_params(cfg, seed=seed)``, drawn
+    """This rank's slices of ``lm.init_params(cfg, seed=seed)``, drawn
     layer by layer (``lm.init_layer``: each layer from its own
-    generators) and cut before the next is drawn, so no rank holds the
+    generators, only the data rank's experts of an expert stack split
+    over 'data') and cut before the next is drawn, so no rank holds the
     whole tree; the embedding, final norm and head come whole from
     ``lm.init_top`` and are cut the same way (``layout.params``).
     ``prepare(path, leaf)``, where given, changes each whole leaf (a
@@ -257,6 +259,10 @@ def rank_params(cfg, layout, mesh, *, seed: int = 0, prepare=None):
     from repro_torch.distribution.sharding import take_slice
     device = mesh.device
     tp, r = mesh.shape["model"], mesh.model_rank
+    experts = None
+    if cfg.moe is not None and mesh.shape["data"] > 1:
+        n = cfg.moe.num_experts // mesh.shape["data"]
+        experts = (mesh.data_rank * n, (mesh.data_rank + 1) * n)
 
     def cut(prefix):
         def one(path, t):
@@ -269,7 +275,8 @@ def rank_params(cfg, layout, mesh, *, seed: int = 0, prepare=None):
     segs = []
     for si, (_, repeat) in enumerate(lm.segment_plan(cfg)):
         layers = [map_leaves(cut(("segments", si)), lm.init_layer(
-            cfg, si, i, seed=seed, device=device)) for i in range(repeat)]
+            cfg, si, i, seed=seed, device=device, experts=experts))
+            for i in range(repeat)]
         segs.append(_stack(layers))
     params["segments"] = tuple(segs)
     return params
@@ -324,7 +331,7 @@ def train_rank(rank: int, spec: dict, init_file: str) -> dict:
                      backend=spec["backend"], device=spec["device"])
     lead = mesh.rank == 0
     cfg = spec["cfg"]
-    lcfg = local_config(tp_config(cfg, tp), tp)
+    lcfg = local_config(tp_config(cfg, tp, ep=dp), tp)
     opt_cfg = AdamWConfig(lr=spec["lr"])
     layout = mesh_layout(cfg, dp, tp, opt_cfg)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],

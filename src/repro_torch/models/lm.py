@@ -667,9 +667,18 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     ``_xent_chunk_vocab``."""
     tokens = batch["tokens"]
     x = _embed_in(params, cfg, tokens, batch.get("embeds"))
-    B, S = tokens.shape
+    S = tokens.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     x, aux, _ = _run_segments_full(params, cfg, x, positions, False, 0)
+    ce = _xent(params, cfg, x, tokens, xent_chunk)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _xent(params, cfg: ModelConfig, x: torch.Tensor, tokens: torch.Tensor,
+          xent_chunk: int) -> torch.Tensor:
+    """``loss_fn``'s next-token cross-entropy of the last layer's ``x``
+    (B, S, d): the final norm, then the chunked head."""
+    B, S = tokens.shape
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
     emb = _head_table(params, cfg).to(x.dtype)
     mesh = _vocab_mesh(cfg)
@@ -697,8 +706,49 @@ def loss_fn(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, n, c):
         total = total + chunk(x[:, i:i + c], tokens[:, i + 1:i + 1 + c])
-    ce = total / (B * n)
-    return ce + aux, {"ce": ce, "aux": aux}
+    return total / (B * n)
+
+
+def loss_fn_groups(params, cfg: ModelConfig, batches: List[Dict],
+                   xent_chunk: int = 512):
+    """The meshless twin of ``loss_fn`` on an expert-parallel mesh whose
+    data ranks hold the row groups ``batches`` (each a batch of the same
+    rows): each group's embedding, mixers, dense FFNs and cross-entropy
+    apart, at the mesh's shapes, each MoE layer over every group at once
+    (``moe_ep.moe_ffn_groups``), each layer repeat under ``cfg.remat``.
+    Returns each group's (loss, {"ce", "aux"}): what each data rank's
+    ``loss_fn`` gives on the mesh. The aux (the mean over the groups)
+    carries every group's own aux gradient in equal shares, so the
+    gradient of the groups' mean loss is the mean of the mesh ranks'."""
+    xs = [_embed_in(params, cfg, b["tokens"], b.get("embeds"))
+          for b in batches]
+    S = batches[0]["tokens"].shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=xs[0].device)
+    aux = torch.zeros((), dtype=torch.float32, device=xs[0].device)
+    n = len(xs)
+    for seg_params, (pattern, repeat) in zip(params["segments"],
+                                             segment_plan(cfg)):
+        names = [f"slot{s}" for s in range(len(pattern))]
+        layers = {nm: unstack_layers(seg_params[nm], repeat)
+                  for nm in names}
+        for r in range(repeat):
+            def body(*args, r=r, names=names, pattern=pattern,
+                     layers=layers):
+                xs, aux = list(args[:n]), args[n]
+                for name, spec in zip(names, pattern):
+                    sp = layers[name][r]
+                    xs = [_mixer_full(sp, spec, cfg, x, positions, False,
+                                      0)[0] for x in xs]
+                    xs, a = _ffn_groups(sp, spec, cfg, xs)
+                    if a is not None:
+                        aux = aux + a
+                return (*xs, aux)
+            *xs, aux = _maybe_remat(body, cfg)(*xs, aux)
+    out = []
+    for b, x in zip(batches, xs):
+        ce = _xent(params, cfg, x, b["tokens"], xent_chunk)
+        out.append((ce + aux, {"ce": ce, "aux": aux}))
+    return out
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -765,13 +815,14 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor,
 def _ffn_groups(sp: Dict, spec: LayerSpec, cfg: ModelConfig, xs: List):
     """``_ffn`` over every group at once: a MoE layer's groups through
     ``moe_ep.moe_ffn_groups`` (the EP mesh's math), a dense FFN group by
-    group; an empty group stays empty."""
+    group; an empty group stays empty. Returns (xs, the MoE aux or
+    None)."""
     hs = [rmsnorm_apply(sp["norm2"], x, eps=cfg.norm_eps) for x in xs]
     if spec[2] == FFN_MOE:
-        ys, _ = moe_ep.moe_ffn_groups(sp["ffn"], cfg, hs)
-        return [x + y for x, y in zip(xs, ys)]
+        ys, aux = moe_ep.moe_ffn_groups(sp["ffn"], cfg, hs)
+        return [x + y for x, y in zip(xs, ys)], aux
     return [x + ffn_mod.ffn_apply(sp["ffn"], cfg, h) if x.shape[0] else x
-            for x, h in zip(xs, hs)]
+            for x, h in zip(xs, hs)], None
 
 
 def _walk_groups(params, cfg: ModelConfig, xs: List, mixer):
@@ -785,7 +836,7 @@ def _walk_groups(params, cfg: ModelConfig, xs: List, mixer):
                 sp = layer_params(seg_params[name], r)
                 xs = [mixer(sp, spec, g, x, si, name, r) if x.shape[0]
                       else x for g, x in enumerate(xs)]
-                xs = _ffn_groups(sp, spec, cfg, xs)
+                xs = _ffn_groups(sp, spec, cfg, xs)[0]
     return xs
 
 

@@ -179,7 +179,8 @@ def experts_tp(p: Dict, cfg: ModelConfig, buf: torch.Tensor
                ) -> torch.Tensor:
     """``experts_apply`` over the d_ff shards of a TP deployment: on a
     mesh whose 'model' axis splits d_ff, this rank's partial all-reduced
-    in fp32; with no mesh, ``cfg.tp_shards`` partials summed in fp32 in
+    in fp32 (``buf`` enters the rank's columns through ``copy_to_model``:
+    under autograd its gradient is the sum of the ranks' partials); with no mesh, ``cfg.tp_shards`` partials summed in fp32 in
     shard order; else the whole product."""
     from repro_torch.distribution import context as dctx
     from repro_torch.models.ffn import _sum_partials, tp_shards
@@ -187,7 +188,7 @@ def experts_tp(p: Dict, cfg: ModelConfig, buf: torch.Tensor
     if tp <= 1:
         return experts_apply(p, cfg, buf)
     if dctx.active_mesh() is not None:
-        part = experts_apply(p, cfg, buf)
+        part = experts_apply(p, cfg, dctx.copy_to_model(buf))
         return dctx.psum(part.to(torch.float32)).to(part.dtype)
     E = buf.shape[0]
     return _sum_partials([experts_apply(expert_shard(p, 0, E, s, tp), cfg,

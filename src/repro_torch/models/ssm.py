@@ -26,6 +26,16 @@ no mesh, ``cfg.tp_shards`` runs every head shard in turn with the same
 shapes and sums in shard order (``ssm_shard``), its caches in the whole
 layout, so that a mesh rank equals the loop.
 
+Training on a mesh (``train.train_step.mesh_layout``) holds in_xbc,
+conv_w and conv_b whole on every model rank and cuts them inside the
+layer (``_TakeXBC``): the B / C columns are replicated compute that each
+rank consumes with its own heads only, so their gradient on a rank is
+its heads' share; the cut's backward all-reduces the leaf's gradient
+over 'model', which gives every rank the whole gradient, while xin's
+gradient, through ``copy_to_model``, counts the B / C path once. The
+gated norm's squares are summed by ``psum_ar``, whose backward is an
+all-reduce too: each rank's ``rsqrt`` scales only its own channels.
+
 The SSD runs as plain torch ops, as the reference leaves it to XLA. Mixed
 operand types follow JAX's promotion (bf16 activations against fp32
 weights give fp32 results). ``_segsum_decay`` keeps the reference's order,
@@ -196,6 +206,7 @@ def _full_core(p: Dict, cfg: ModelConfig, xin: torch.Tensor):
     S, di) in x's type, z, the final cache)."""
     d, di, H, G, N, P, K, conv_dim = _dims(cfg)
     Bsz, S, _ = xin.shape
+    p, xin = _rank_entry(p, cfg, xin)
 
     z = dense_apply(p["in_z"], xin)
     xbc = dense_apply(p["in_xbc"], xin)
@@ -347,6 +358,64 @@ def xbc_shard(t: torch.Tensor, s: int, tp: int, di: int, gn: int
                      dim=-1).contiguous()
 
 
+class _TakeXBC(torch.autograd.Function):
+    """A model rank's ``xbc_shard`` of a whole [x | B | C] leaf (training
+    holds those leaves whole on every model rank). Backward: the rank's
+    gradient put back at its columns (zeros elsewhere) and all-reduced
+    over 'model' in fp32: every rank's x columns, and the B / C columns'
+    partials (each rank's heads' share) summed, so the replicated leaf
+    gets the same whole gradient on every rank."""
+    @staticmethod
+    def forward(ctx, t, mesh, di, gn):
+        ctx.mesh, ctx.di, ctx.shape = mesh, di, t.shape
+        return xbc_shard(t, mesh.model_rank, mesh.shape["model"], di, gn)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, di = ctx.mesh, ctx.di
+        n = di // mesh.shape["model"]
+        r = mesh.model_rank
+        whole = g.new_zeros(ctx.shape, dtype=torch.float32)
+        whole[..., r * n:(r + 1) * n] = g[..., :n]
+        whole[..., di:] = g[..., n:]
+        return mesh.allreduce(whole, "model").to(g.dtype), None, None, None
+
+
+def _rank_entry(p: Dict, cfg: ModelConfig, xin: torch.Tensor):
+    """On a mesh rank of ``cfg.ssm.head_shards`` heads: (the params with
+    whole [x | B | C] leaves cut to the rank's by ``_TakeXBC``, xin
+    through ``copy_to_model``: in_z, in_xbc and in_dt are column regions,
+    so xin's gradient is the sum of the ranks', the B / C path counted
+    once, as a partial on each rank). Leaves already cut (a serving
+    rank's, ``distribution.sharding.local_params``) are used as they
+    are: their B / C gradient would be partial, so autograd refuses
+    them."""
+    from repro_torch.distribution import context as dctx
+    tp = cfg.ssm.head_shards
+    mesh = dctx.active_mesh()
+    if tp == 1 or mesh is None:
+        return p, xin
+    di, gn = _dims(cfg)[1] * tp, _gn(cfg)
+    w = p["in_xbc"].get("w")          # an int8 serving path holds "qw"
+    if w is not None and w.shape[-1] == di + 2 * gn:
+        p = dict(p)
+        p["in_xbc"] = {"w": _take_xbc(w, mesh, di, gn)}
+        for k in ("conv_w", "conv_b"):
+            p[k] = _take_xbc(p[k], mesh, di, gn)
+    elif w is not None and torch.is_grad_enabled() and w.requires_grad:
+        raise ValueError(
+            "training an SSM on a mesh takes the whole in_xbc / conv_w / "
+            "conv_b leaves on every model rank (train_step.mesh_layout), "
+            "not a serving rank's cut: its B / C gradient is a partial")
+    return p, mesh.copy_to_model(xin)
+
+
+def _take_xbc(t: torch.Tensor, mesh, di: int, gn: int) -> torch.Tensor:
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _TakeXBC.apply(t, mesh, di, gn)
+    return xbc_shard(t, mesh.model_rank, mesh.shape["model"], di, gn)
+
+
 def ssm_shard(p: Dict, cfg: ModelConfig, s: int, tp: int) -> Dict:
     """Head shard ``s`` of ``tp`` of a layer's mixer params, as a rank
     holds it (contiguous copies)."""
@@ -397,7 +466,8 @@ def _gated_out(parts, cfg: ModelConfig) -> torch.Tensor:
     ss = [torch.sum(torch.square(g.to(torch.float32)), dim=-1, keepdim=True)
           for g in gs]
     mesh = len(parts) == 1
-    total = dctx.psum(ss[0]) if mesh else _sum_partials(ss, torch.float32)
+    total = dctx.psum_ar(ss[0]) if mesh else _sum_partials(ss,
+                                                          torch.float32)
     rs = torch.rsqrt(total / cfg.ssm.d_inner(cfg.d_model) + eps)
     outs = [dense_apply(p["out_proj"],
                         (g.to(torch.float32) * rs

@@ -253,10 +253,38 @@ def _dim_of(spec: Spec, axis: str) -> Optional[int]:
     return spec.index(axis) if axis in spec else None
 
 
-def local_slice(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """The view of ``t`` that this rank's data index holds under
-    ``spec``'s 'data' entry (``t`` already cut over 'model')."""
-    z = _dim_of(spec, "data")
+class ZeroSpecs(dict):
+    """{path: a moment's spec} (``opt_state_shardings``' q under int8
+    moments) and ``ep``: the paths whose param is cut over 'data' already
+    (an expert stack under expert parallelism, the reference's
+    ``expert_col`` / ``expert_row``). Such a leaf's moment keeps the
+    param's cut and no more (``zero_spec_from_param_spec`` leaves a spec
+    that holds 'data'), its gradient arrives whole on its data rank (the
+    all-to-all's backward sums every data rank's contribution), so it is
+    divided by DP and not reduced, and its update needs no all-gather.
+    A plain dict has no such path."""
+
+    def __init__(self, specs=(), ep=()):
+        super().__init__(specs)
+        self.ep = frozenset(ep)
+
+
+def _zero_dim(zero_specs: Dict, path) -> Optional[int]:
+    """The dim of the rank's param slice that ZeRO cuts over 'data'; None
+    where the moment is whole over 'data' or the param is EP-cut."""
+    if path in getattr(zero_specs, "ep", ()):
+        return None
+    return _dim_of(zero_specs[path], "data")
+
+
+def _ep(zero_specs: Dict, path) -> bool:
+    return path in getattr(zero_specs, "ep", ())
+
+
+def local_slice(t: torch.Tensor, z: Optional[int], mesh) -> torch.Tensor:
+    """The view of ``t`` (a rank's param slice) that this rank's data
+    index holds when ZeRO cuts dim ``z`` over 'data' (``_zero_dim``; None:
+    ``t`` itself)."""
     if z is None:
         return t
     k = t.shape[z] // mesh.shape["data"]
@@ -282,7 +310,8 @@ def zero_adamw_init(params, zero_specs: Dict, cfg: AdamWConfig, mesh
     scales hold every block of a cut last dim."""
     def zero(path, p):
         spec = zero_specs[path]
-        z = torch.zeros(local_slice(p, spec, mesh).shape,
+        z = torch.zeros(local_slice(p, _zero_dim(zero_specs, path),
+                                    mesh).shape,
                         dtype=torch.float32, device=p.device)
         if not cfg.quantized:
             return z
@@ -300,13 +329,16 @@ def zero_adamw_init(params, zero_specs: Dict, cfg: AdamWConfig, mesh
 def reduce_grads(grads, zero_specs: Dict, mesh):
     """{path: this rank's ZeRO slice of the mean over 'data'} of a
     rank's TP-slice gradients: a reduce-scatter on the ZeRO dim, or an
-    all-reduce where the moment is whole over 'data'."""
+    all-reduce where the moment is whole over 'data'; an EP-cut leaf's
+    gradient (``ZeroSpecs.ep``), whole already, divided by DP."""
     dp = mesh.shape["data"]
     out = {}
     for path, g in iter_leaves(grads):
-        z = _dim_of(zero_specs[path], "data")
+        z = _zero_dim(zero_specs, path)
         if dp == 1:
             out[path] = g
+        elif _ep(zero_specs, path):
+            out[path] = g / dp
         elif z is None:
             out[path] = mesh.allreduce(g, "data") / dp
         else:
@@ -318,8 +350,9 @@ def zero_global_norm(grads: Dict, param_specs: Dict, zero_specs: Dict,
                      mesh) -> torch.Tensor:
     """The global gradient norm from every rank's ZeRO slices: each
     slice's squares summed in fp32, a leaf whole over 'model' counted on
-    model rank 0 and one whole over 'data' on data rank 0, then summed
-    over the world."""
+    model rank 0 and one whole over 'data' on data rank 0 (an EP-cut
+    expert stack, whose moments hold 'data', on every data rank: each
+    holds its own experts), then summed over the world."""
     total = None
     for path, g in grads.items():
         if ("model" not in param_specs[path] and mesh.model_rank) or \
@@ -344,7 +377,8 @@ def zero_adamw_update(grads: Dict, state: AdamWState, params,
     with torch.no_grad():
         for path, p in iter_leaves(params):
             spec = zero_specs[path]
-            ps = local_slice(p, spec, mesh)
+            z = _zero_dim(zero_specs, path)
+            ps = local_slice(p, z, mesh)
             m, v = _leaf_at(state.m, path), _leaf_at(state.v, path)
             if cfg.quantized:
                 lo, red = _last_cut(spec, ps.shape[-1] if ps.ndim else 1,
@@ -359,7 +393,6 @@ def zero_adamw_update(grads: Dict, state: AdamWState, params,
                 nb = m.scale.shape[-1] if m.scale.ndim else 1
                 _store(m, _quantize_moment(mf, lo, nb, red))
                 _store(v, _quantize_moment(vf, lo, nb, red))
-            z = _dim_of(spec, "data")
             if z is None or mesh.shape["data"] == 1:
                 p.copy_(new)
             else:

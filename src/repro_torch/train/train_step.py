@@ -16,7 +16,7 @@ is its meshless twin.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -28,6 +28,7 @@ from repro_torch.train.optimizer import (
     AdamWConfig,
     AdamWState,
     QMoment,
+    ZeroSpecs,
     adamw_init,
     adamw_update,
     global_norm,
@@ -43,18 +44,53 @@ def value_and_grad(cfg: ModelConfig, params, batch: Dict,
     """(loss, metrics, grads) of ``lm.loss_fn`` on the params viewed
     through ``overlay``; ``grads`` has the params' structure (zeros where
     a leaf is unused, as jax gives)."""
+    def fn(pv):
+        loss, metrics = lm.loss_fn(pv, cfg, batch)
+        return loss, (loss, metrics)
+    _, (loss, metrics), grads = _value_and_grad(fn, params, overlay)
+    return loss, metrics, grads
+
+
+def _value_and_grad(fn, params, overlay):
+    """(fn's objective, fn's aux, grads of the objective): ``fn(pv)`` on
+    the params viewed through ``overlay`` returns (objective, aux), aux
+    holding tensors to detach."""
     flat = dict(iter_leaves(params))
     with torch.enable_grad():
         live = {k: p.detach().requires_grad_(True) for k, p in flat.items()}
         p = map_leaves(lambda path, _: live[path], params)
         pv = merge_overlay(p, overlay) if overlay is not None else p
-        loss, metrics = lm.loss_fn(pv, cfg, batch)
-        gs = torch.autograd.grad(loss, list(live.values()),
+        obj, aux = fn(pv)
+        gs = torch.autograd.grad(obj, list(live.values()),
                                  allow_unused=True)
     grads = {k: torch.zeros_like(flat[k]) if g is None else g
              for k, g in zip(live, gs)}
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    return (obj.detach(), _detach(aux),
             map_leaves(lambda path, _: grads[path], params))
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detach(v) for v in tree)
+    return tree.detach()
+
+
+def value_and_grad_groups(cfg: ModelConfig, params, batches: List[Dict],
+                          overlay: Optional[Any] = None):
+    """The meshless twin of an expert-parallel mesh's ``value_and_grad``
+    (``lm.loss_fn_groups``, data rank g's rows ``batches[g]``): (each
+    group's (loss, metrics), the gradient of the groups' mean loss: the
+    mean over 'data' of the mesh ranks' gradients)."""
+    def fn(pv):
+        parts = lm.loss_fn_groups(pv, cfg, batches)
+        total = parts[0][0]
+        for loss, _ in parts[1:]:
+            total = total + loss
+        return total / len(parts), parts
+    _, parts, grads = _value_and_grad(fn, params, overlay)
+    return parts, grads
 
 
 def _grads(cfg: ModelConfig, params, batch: Dict, overlay,
@@ -86,14 +122,71 @@ def _grads(cfg: ModelConfig, params, batch: Dict, overlay,
                       for n in ms[0]}, grads
 
 
-def _rows(batch: Dict, d: int, n: int) -> Dict:
-    """Data rank ``d``'s rows of ``n``: [d B/n, (d+1) B/n) (the
-    reference's ``P('data', None)``)."""
+def _rows(batch: Dict, d: int, n: int, k: int = 1) -> Dict:
+    """Data rank ``d``'s rows of ``n`` under ``k`` micro-batches, in the
+    reference's grouping (the global batch cut into k micro-batches,
+    each sharded ``P('data', None)``): micro-batch j's rows [j B/k + d
+    B/(k n), j B/k + (d+1) B/(k n)), for j in order, so that the rank's
+    own micro-batch j is its rows of the global micro-batch j."""
     B = next(iter(batch.values())).shape[0]
-    if B % n:
+    if B % (n * k):
         raise ValueError(f"a batch of {B} rows does not split over {n} "
-                         f"data ranks")
-    return {k: v.narrow(0, d * (B // n), B // n) for k, v in batch.items()}
+                         f"data ranks of {k} micro-batches")
+    b = B // (n * k)
+    return {name: v.reshape((k, n, b) + tuple(v.shape[1:]))[:, d]
+            .reshape((k * b,) + tuple(v.shape[1:]))
+            for name, v in batch.items()}
+
+
+def _grads_groups(cfg: ModelConfig, params, batch: Dict, overlay,
+                  n_microbatches: int, accum_dtype, data_shards: int):
+    """The meshless twin of an expert-parallel mesh step's gradients:
+    each micro-batch's data-rank groups in lock step
+    (``value_and_grad_groups``), the gradients accumulated over the
+    micro-batches in ``accum_dtype`` (default fp32) and averaged; the
+    loss and metrics reduced as the mesh reduces them (each data rank's
+    micro-batches averaged, then the data ranks). Returns (loss, metrics,
+    grads)."""
+    K, dp = n_microbatches, data_shards
+    adt = accum_dtype or torch.float32
+    ranks = [_rows(batch, d, dp, K) for d in range(dp)]
+    per_rank = [[] for _ in range(dp)]
+    grads = None
+    for j in range(K):
+        mbs = [{n: v.reshape((K, v.shape[0] // K) + tuple(v.shape[1:]))[j]
+                for n, v in r.items()} for r in ranks]
+        parts, g = value_and_grad_groups(cfg, params, mbs, overlay)
+        for d, part in enumerate(parts):
+            per_rank[d].append(part)
+        if K == 1:
+            grads = g
+            continue
+        if grads is None:
+            grads = map_leaves(lambda _, p: torch.zeros(
+                p.shape, dtype=adt, device=p.device), params)
+            acc = dict(iter_leaves(grads))
+        for path, x in iter_leaves(g):
+            acc[path].add_(x.to(adt))
+    if K > 1:
+        for x in acc.values():
+            x.div_(K)
+    rows = []
+    for parts in per_rank:                # each rank's _grads reduction
+        if K == 1:
+            loss, ms = parts[0]
+        else:
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=parts[0][0].device)
+            for lk, _ in parts:
+                loss = loss + lk
+            loss = loss / K
+            ms = {n: torch.stack([m[n] for _, m in parts]).mean()
+                  for n in parts[0][1]}
+        rows.append((loss, ms))
+    names = sorted(rows[0][1])
+    vals = torch.stack([torch.stack([loss] + [ms[n] for n in names])
+                        for loss, ms in rows]).sum(dim=0) / dp
+    return vals[0], {n: vals[i + 1] for i, n in enumerate(names)}, grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
@@ -109,15 +202,30 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     (default fp32); the activations held shrink by K at the cost of K
     sequential passes. ``data_shards`` > 1 is the meshless twin of a
     mesh step's 'data' axis (``make_mesh_train_step``): each data
-    rank's rows in turn (their own micro-batches), the gradients and
-    metrics averaged in data-rank order."""
+    rank's rows in turn (their own micro-batches, ``_rows``), the
+    gradients and metrics averaged in data-rank order; with experts in
+    ``cfg.ep_shards`` EP shards (``tp_config(..., ep=)``) the data ranks'
+    rows run in lock step instead, every MoE layer over all of them at
+    once (``_grads_groups``), as the mesh's all-to-alls join them."""
+
+    if cfg.ep_shards > 1 and data_shards != cfg.ep_shards:
+        raise ValueError(f"experts in {cfg.ep_shards} EP shards: the loop "
+                         f"runs data_shards={cfg.ep_shards} groups, not "
+                         f"{data_shards}")
 
     def step(params, opt_state: AdamWState, batch: Dict):
-        parts = [_grads(cfg, params, _rows(batch, d, data_shards), overlay,
-                        n_microbatches, accum_dtype)
-                 for d in range(data_shards)]
-        loss, metrics, grads = parts[0]
-        if data_shards > 1:
+        if cfg.ep_shards > 1:
+            loss, metrics, grads = _grads_groups(
+                cfg, params, batch, overlay, n_microbatches, accum_dtype,
+                data_shards)
+            parts = ()
+        else:
+            parts = [_grads(cfg, params, _rows(batch, d, data_shards,
+                                               n_microbatches),
+                            overlay, n_microbatches, accum_dtype)
+                     for d in range(data_shards)]
+            loss, metrics, grads = parts[0]
+        if len(parts) > 1:
             acc = dict(iter_leaves(grads))
             for _, _, g in parts[1:]:
                 for path, x in iter_leaves(g):
@@ -143,29 +251,59 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
 class MeshLayout(NamedTuple):
     """Where a mesh's ranks hold the training state: ``params`` {path:
-    TP spec} (``distribution.sharding.spec_for_param``), ``opt`` the
-    moments' specs (``optimizer.opt_state_shardings``), ``zero`` {path:
-    the moment's spec} (q's with int8 moments: where a rank's slice
-    sits)."""
+    spec} (``train_spec``), ``opt`` the moments' specs
+    (``optimizer.opt_state_shardings``), ``zero`` {path: the moment's
+    spec} (q's with int8 moments: where a rank's slice sits), a
+    ``ZeroSpecs`` whose ``ep`` names the EP-cut expert stacks."""
     params: Dict
     opt: AdamWState
     zero: Dict
 
 
+def train_spec(cfg: ModelConfig, path, shape, sizes) -> tuple:
+    """A training leaf's spec (``distribution.sharding.spec_for_param``):
+    an expert stack by the expert rules (E over 'data', d_ff over
+    'model'); an SSM's [x | B | C] leaves (in_xbc, conv_w, conv_b) whole
+    on every rank of a TP mesh, cut inside the layer (``models.ssm.
+    _TakeXBC``), so that their gradient, moments and checkpoint are the
+    whole leaf's."""
+    from repro_torch.distribution.sharding import _XBC, spec_for_param
+    if sizes.get("model", 1) > 1 and _XBC.search(
+            "/".join(str(k) for k in path)):
+        return (None,) * len(shape)
+    return spec_for_param(path, tuple(shape), sizes,
+                          expert=lm.expert_leaf(cfg, path))
+
+
 def mesh_layout(cfg: ModelConfig, dp: int, tp: int,
                 opt_cfg: AdamWConfig) -> MeshLayout:
     """The layout of ``cfg``'s training state on a (dp, tp) mesh, from
-    the whole tree's shapes (``lm.param_shapes``: nothing is
-    allocated)."""
-    from repro_torch.distribution.sharding import spec_for_param
+    the whole tree's shapes (``lm.param_shapes``: nothing is allocated):
+    each leaf's ``train_spec``, the moments' ZeRO specs, and ``zero`` a
+    ``ZeroSpecs`` naming the EP-cut expert stacks. Refuses what cannot
+    place (``sharding.check_placement``: experts that do not split over
+    'data', an expert d_ff or SSM heads that do not split over
+    'model')."""
+    from repro_torch.distribution.sharding import check_placement
+    check_placement(cfg, tp, dp if cfg.moe is not None else 1)
     shapes = lm.param_shapes(cfg)
     sizes = {"data": dp, "model": tp}
-    pspecs = {path: spec_for_param(path, tuple(t.shape), {"model": tp})
+    pspecs = {path: train_spec(cfg, path, tuple(t.shape), sizes)
               for path, t in iter_leaves(shapes)}
     opt = opt_state_shardings(shapes, sizes, opt_cfg, pspecs)
-    return MeshLayout(pspecs, opt, {
-        path: s.q if isinstance(s, QMoment) else s
-        for path, s in opt.m.items()})
+    return MeshLayout(pspecs, opt, ZeroSpecs(
+        {path: s.q if isinstance(s, QMoment) else s
+         for path, s in opt.m.items()},
+        ep=[path for path, spec in pspecs.items() if "data" in spec]))
+
+
+def rank_slices(params, layout: MeshLayout, mesh):
+    """This rank's training slices (``layout.params``) of a whole tree:
+    its model rank's cut of every leaf and its data rank's experts."""
+    from repro_torch.distribution.sharding import take_slice
+    return map_leaves(lambda path, t: take_slice(
+        t, layout.params[path], mesh.model_rank, mesh.shape["model"],
+        mesh.data_rank, mesh.shape["data"]), params)
 
 
 def state_specs(params, layout: MeshLayout):
@@ -204,7 +342,7 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     dp = mesh.shape["data"]
 
     def step(params, opt_state: AdamWState, batch: Dict):
-        mine = _rows(batch, mesh.data_rank, dp)
+        mine = _rows(batch, mesh.data_rank, dp, n_microbatches)
         with use_mesh(mesh):
             loss, metrics, grads = _grads(cfg, params, mine, overlay,
                                           n_microbatches, accum_dtype)

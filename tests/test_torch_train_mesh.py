@@ -537,9 +537,12 @@ def test_launcher_trains_on_a_mesh_and_resumes(tmp_path, capfd):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "multi"], "item 6k"),
     (["--mesh", "single", "--device", "cpu"], "needs 256 ranks"),
-    (["--mesh", "2,2", "--arch", "granite-moe-1b-a400m"], "item 6j"),
-    (["--mesh", "1,2", "--arch", "mamba2-780m"], "item 6j"),
-    (["--mesh", "1,2", "--arch", "jamba-1.5-large-398b"], "item 6j"),
+    (["--mesh", "3,1", "--arch", "granite-moe-1b-a400m"],
+     "4 experts do not split over 3 data ranks"),
+    (["--mesh", "1,3", "--arch", "mamba2-780m"],
+     "16 SSM heads .* do not split over 3 model ranks"),
+    (["--mesh", "1,3", "--arch", "jamba-1.5-large-398b"],
+     "the experts' d_ff 128 does not split over 3 model ranks"),
     (["--mesh", "1,2", "--backend", "nccl", "--device", "cpu"],
      "nccl needs a card per rank"),
     (["--mesh", "3,1", "--batch", "8"], "does not split into 3"),
