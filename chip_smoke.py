@@ -251,7 +251,7 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 it alone.
   16. family train — (last) MoE, SSM and hybrid families trained on a
                 (data, model) mesh: (a) moonshot-v1-16b-a3b at full
-                width (2 layers, fp32 masters, bf16 compute, remat full,
+                width (1 layer; fp32 masters, bf16 compute, remat full,
                 the 50% FFN overlay on the expert stacks too, batch 4 x
                 256, 3 steps) on ``--mesh 2,2`` (4 gloo processes on this
                 card, host-staged; experts in EP over 'data', their d_ff
@@ -266,6 +266,23 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 (its sasp_gemm launches join the ``kernels`` line); (d)
                 four NCCL cards: moonshot, 8 layers, on 2,2 and 4,1.
                 ``tools/train_family_mesh_phase.py`` runs it alone.
+  17. pod train — (last) training on a (pod, data, model) mesh: (a)
+                phase 16 (a)'s moonshot (1 layer: 8 ranks of 2 layers
+                do not fit the card) on ``--mesh 2,2,2`` (8 gloo
+                processes on this card; experts in EP over each pod's
+                'data' ranks, a replica in each pod), held to the
+                lock-step loop over the 4 DP groups with phase 16's
+                bounds, both pods' params and moments equal after every
+                step (every leaf's bit-pattern sums); (b) phase 14 (b)'s
+                narrow qwen3 on 2,2,2 (fp32 moments with 2 micro-batches;
+                int8 moments) and 2,1,2, each its loop's within 1e-5, the
+                2,1,2 checkpoint resumed bit for bit; (c) (b)'s
+                checkpoint served packed on one card (its sasp_gemm and
+                sasp_fused_ffn launches join the ``kernels`` line); (d)
+                (a)'s state on a dry 2,2,2 mesh (held GiB within 10% of
+                (a)'s) and (b)'s step traced there (record equal to the
+                real rank's); (e) four NCCL cards: moonshot, 8 layers, on
+                2,2,1. ``tools/pod_mesh_phase.py`` runs it alone.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -4776,7 +4793,9 @@ def family_mesh_phase(torch, counters):
 # (a) full width on --mesh 1,2; (b) a narrower qwen3 (fp32 compute) on
 # --mesh 2,1 and 2,2; (c) (b)'s checkpoint served on --mesh 1,2; (d) full
 # width, 8 layers, on 2,2 and 1,4 over NCCL with four cards
-TMP = dict(layers=2, batch=4, seq=256, steps=3, lr=3e-4, warmup=3,
+# (a)'s depth: 1 layer (2 before phase 17 was added, which the smoke's
+# time limit then could not hold)
+TMP = dict(layers=1, batch=4, seq=256, steps=3, lr=3e-4, warmup=3,
            total=20, narrow=dict(layers=4, d_model=512, vocab=8192),
            nbatch=8, nseq=128, nccl_layers=8, probe=65536)
 # (b)'s cases by mesh: (name, int8 moments, micro-batches); the last
@@ -4830,18 +4849,20 @@ def _tm_slices(tree_items, specs, tp, dp, n):
 
 
 def _tm_loop(torch, cfg, mesh_shape, quantized, mb):
-    """The meshless loop at ``mesh_shape`` (a TP config's shard loop, the
-    data ranks' rows in turn), run in this process: its overlay masks,
-    step 1's mean gradient and the params after step 1, probed as each
-    mesh rank holds them, and the losses of TMP["steps"] steps."""
-    from repro_torch.core.pruning import iter_leaves, map_leaves
+    """The meshless loop at ``mesh_shape`` ((DP, TP) or (P, DP, TP): a TP
+    config's shard loop, every DP rank's rows in turn), run in this
+    process: its overlay masks, step 1's mean gradient and the params
+    after step 1, probed as each mesh rank holds them (every pod holds
+    the same), and the losses of TMP["steps"] steps."""
+    from repro_torch.core.pruning import iter_leaves
     from repro_torch.core.sasp import build_sasp_overlay
     from repro_torch.data.pipeline import DataConfig, Pipeline
     from repro_torch.distribution.sharding import tp_config
     from repro_torch.models import lm
     from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
-    dp, tp = mesh_shape
+    pod, dp, tp = ((1,) + tuple(mesh_shape))[-3:]
+    n_dp = pod * dp
     narrow = cfg.compute_dtype == "float32"
     B, S = (TMP["nbatch"], TMP["nseq"]) if narrow else (TMP["batch"],
                                                          TMP["seq"])
@@ -4856,17 +4877,15 @@ def _tm_loop(torch, cfg, mesh_shape, quantized, mb):
     tcfg = tp_config(cfg, tp)
     pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
     batches = [_batch(torch, pipe) for _ in range(TMP["steps"])]
-    acc = None
-    for d in range(dp):
-        g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp, mb),
-                      overlay, mb, None)[2]
-        acc = g if acc is None else map_leaves(
-            lambda path, x, a=dict(iter_leaves(acc)): a[path] + x, g)
-    grads = _tm_slices([(p, x / dp) for p, x in iter_leaves(acc)],
-                       layout.zero, tp, dp, TMP["probe"])
-    del acc, g
+    got_grads = []
+
+    def first(grads):                     # step 1's mean gradient
+        if not got_grads:
+            got_grads.append(_tm_slices(list(iter_leaves(grads)),
+                                        layout.zero, tp, dp, TMP["probe"]))
     step = ts.make_train_step(tcfg, oc, overlay=overlay, n_microbatches=mb,
-                              data_shards=dp, lr_schedule=_tm_schedule())
+                              data_shards=n_dp, lr_schedule=_tm_schedule(),
+                              on_grads=first)
     opt = adamw_init(params, oc)
     losses = []
     for i, b in enumerate(batches):
@@ -4875,7 +4894,7 @@ def _tm_loop(torch, cfg, mesh_shape, quantized, mb):
         if i == 0:
             p1 = _tm_slices(list(iter_leaves(params)), layout.params, tp, 1,
                             TMP["probe"])
-    out = dict(losses=losses, grads=grads, params1=p1, masks=masks,
+    out = dict(losses=losses, grads=got_grads[0], params1=p1, masks=masks,
                sparsity=got, seconds=time.time() - t0)
     del params, opt, overlay, step
     return out
@@ -4901,15 +4920,13 @@ def _tm_case(torch, mesh, spec, case):
     from repro_torch.core.pruning import iter_leaves
     from repro_torch.core.sasp import mesh_overlay
     from repro_torch.data.pipeline import DataConfig, Pipeline
-    from repro_torch.distribution.context import use_mesh
     from repro_torch.distribution.sharding import local_config, tp_config
     from repro_torch.launch.train import rank_params
     from repro_torch.train import train_step as ts
     from repro_torch.train.checkpoint import (CheckpointManager,
                                               gather_whole, named_leaves,
                                               restore_on_mesh, save_on_mesh)
-    from repro_torch.train.optimizer import (AdamWConfig, reduce_grads,
-                                             zero_adamw_init)
+    from repro_torch.train.optimizer import AdamWConfig, zero_adamw_init
     dev = mesh.device
     dp, tp = mesh.shape["data"], mesh.shape["model"]
     cfg = spec["cfg"]
@@ -4918,7 +4935,7 @@ def _tm_case(torch, mesh, spec, case):
                                                          TMP["seq"])
     q, mb = case["int8"], case["mb"]
     oc = AdamWConfig(lr=TMP["lr"], quantized=q)
-    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    layout = ts.mesh_layout(cfg, dp, tp, oc, pod=mesh.pods)
     if torch.device(dev).type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -4935,19 +4952,17 @@ def _tm_case(torch, mesh, spec, case):
     lcfg = local_config(tp_config(cfg, tp), tp)
     pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
     batches = [_batch_on(torch, pipe, dev) for _ in range(TMP["steps"] + 1)]
-    with use_mesh(mesh):
-        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp,
-                                             mb), overlay, mb, None)[2]
-        gs = reduce_grads(g, layout.zero, mesh)
-    del g
     n = TMP["probe"]
-    out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
-    del gs
+
+    def first(gs):              # step 1's reduced gradient slices
+        if "grads" not in out:
+            out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
     step = ts.make_mesh_train_step(lcfg, opt_cfg=oc, mesh=mesh,
                                    layout=layout, overlay=overlay,
                                    n_microbatches=mb,
-                                   lr_schedule=_tm_schedule())
-    losses, ms = [], []
+                                   lr_schedule=_tm_schedule(),
+                                   on_grads=first)
+    losses, ms, out["sums"] = [], [], []
     for i in range(TMP["steps"]):
         _dev_sync(torch, dev)
         if i == 0:
@@ -4957,6 +4972,8 @@ def _tm_case(torch, mesh, spec, case):
         _dev_sync(torch, dev)
         ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
+        if mesh.pods > 1:
+            out["sums"].append(_state_sums(torch, params, opt))
         if i == 0:
             # the collectives of one step, by kind and axis (phase 15 (c)
             # holds the dry run's record to it)
@@ -5013,17 +5030,20 @@ def _batch_on(torch, pipe, dev):
 
 def _tm_rank(rank: int, spec: dict, init_file: str) -> dict:
     """A training mesh's rank, spawned: join the mesh over
-    ``spec["backend"]``, run ``spec["cases"]`` in turn (``_tm_case``)."""
+    ``spec["backend"]`` (``spec["pod"]`` pods, default 1), run
+    ``spec["cases"]`` in turn (``_tm_case``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     dp, tp = spec["mesh"]
+    pod = spec.get("pod", 1)
     if spec["device"] == "cpu":
-        torch.set_num_threads(max(1, torch.get_num_threads() // (dp * tp)))
-    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // (pod * dp * tp)))
+    mesh = make_mesh(dp, tp, pod=pod, rank=rank, init_file=init_file,
                      backend=spec["backend"], device=spec["device"])
     out = dict(rank=rank, model_rank=mesh.model_rank,
-               data_rank=mesh.data_rank, transport=mesh.transport,
-               cases={})
+               data_rank=mesh.data_rank, pod_rank=mesh.pod_rank,
+               transport=mesh.transport, cases={})
     for case in spec["cases"]:
         out["cases"][case["name"]] = _tm_case(torch, mesh, spec, case)
         _free(torch)
@@ -5034,8 +5054,8 @@ def _tm_spawn(spec, timeout=900):
     from repro_torch.launch.mesh import init_file_in, run_ranks
     store = init_file_in(OUT_DIR, f"tm_store_{os.getpid()}_{time.time_ns()}")
     try:
-        return run_ranks(_tm_rank, spec["mesh"][0] * spec["mesh"][1],
-                         (spec, store), timeout=timeout)
+        return run_ranks(_tm_rank, spec.get("pod", 1) * spec["mesh"][0]
+                         * spec["mesh"][1], (spec, store), timeout=timeout)
     finally:
         if os.path.exists(store):
             os.remove(store)
@@ -5088,8 +5108,9 @@ def _tm_check(tag, res, loop, tol):
 
 
 def _tm_full(torch):
-    """(a): qwen3-32b at full width, 2 layers, on --mesh 1,2 (this card,
-    gloo host-staged), held to the loop at tp 2 run first here."""
+    """(a): qwen3-32b at full width, ``TMP["layers"]`` layers, on --mesh
+    1,2 (this card, gloo host-staged), held to the loop at tp 2 run
+    first here."""
     cfg = tm_config(False)
     t0 = time.time()
     loop = _tm_loop(torch, cfg, (1, 2), False, 1)
@@ -5160,7 +5181,8 @@ def _tm_narrow(torch, ckpt):
                 loss1=1e-5, losses=1e-5 if not q else 1e-3, grads=1e-5,
                 params1=1e-4))
             c = [r["case"] for r in res]
-            log(f"  {tag}: {[round(x, 5) for x in c[0]['losses']]}; step ms "
+            log(f"  {tag} ({wall:.1f} s wall): "
+                f"{[round(x, 5) for x in c[0]['losses']]}; step ms "
                 f"{[round(x, 1) for x in c[0]['step_ms']]}, "
                 f"{c[0]['tok_s']:.0f} tokens/s; GiB a rank held "
                 f"{[round(r['held_gib'], 3) for r in c]}, peak "
@@ -5497,7 +5519,9 @@ def _an_tp16(torch, counters):
 # 2,2 and mamba2 on 1,2 at widths whose SSD gradients are finite; (c) (a)'s
 # checkpoint served packed on one card; (d) four NCCL cards: moonshot at
 # full width, 8 layers, on 2,2 and 4,1
-TFM = dict(layers=2, batch=4, seq=256, steps=3, lr=3e-4, probe=65536,
+# (a)'s depth: 1 layer (2 before phase 17 was added, which the smoke's
+# time limit then could not hold)
+TFM = dict(layers=1, batch=4, seq=256, steps=3, lr=3e-4, probe=65536,
            nbatch=8, nseq=128, nccl_layers=8,
            narrow=dict(d_model=256, vocab=8192),
            ssm=dict(head_dim=64, state_dim=64, chunk_size=16))
@@ -5537,12 +5561,14 @@ def _tfm_shape(cfg):
         else (TFM["batch"], TFM["seq"])
 
 
-def _tfm_loop(torch, cfg, mesh_shape, mb=1):
-    """The meshless loop at ``mesh_shape`` run in this process: the data
-    ranks' rows in lock step through every MoE layer where experts split
-    over 'data' (``train_step._grads_groups``), else in turn; its masks,
-    step 1's mean gradient and the params after step 1 probed as each
-    mesh rank holds them, losses and aux of TFM["steps"] steps."""
+def _tfm_loop(torch, cfg, mesh_shape, mb=1, steps=TFM["steps"]):
+    """The meshless loop at ``mesh_shape`` ((DP, TP) or (P, DP, TP)) run
+    in this process: every DP rank's rows in lock step through every MoE
+    layer where experts split over 'data' (``train_step._grads_groups``,
+    each pod's DP groups joined), else in turn; its masks, step 1's mean
+    gradient and the params after step 1 probed as each mesh rank holds
+    them (every pod holds the same), losses and aux of ``steps``
+    steps."""
     from repro_torch.core.pruning import iter_leaves
     from repro_torch.core.sasp import build_sasp_overlay
     from repro_torch.data.pipeline import DataConfig, Pipeline
@@ -5550,7 +5576,8 @@ def _tfm_loop(torch, cfg, mesh_shape, mb=1):
     from repro_torch.models import lm
     from repro_torch.train import train_step as ts
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
-    dp, tp = mesh_shape
+    pod, dp, tp = ((1,) + tuple(mesh_shape))[-3:]
+    n_dp = pod * dp
     B, S = _tfm_shape(cfg)
     t0 = time.time()
     with torch.no_grad():
@@ -5564,33 +5591,26 @@ def _tfm_loop(torch, cfg, mesh_shape, mb=1):
     tcfg = tp_config(cfg, tp, ep=dp)
     pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
     batches = [_batch(torch, pipe) for _ in range(TFM["steps"])]
-    if tcfg.ep_shards > 1:
-        g = ts._grads_groups(tcfg, params, batches[0], overlay, mb, None,
-                             dp)[2]
-        grads = list(iter_leaves(g))
-    else:
-        acc = {}
-        for d in range(dp):
-            g = ts._grads(tcfg, params, ts._rows(batches[0], d, dp, mb),
-                          overlay, mb, None)[2]
-            for p, x in iter_leaves(g):
-                acc[p] = x if p not in acc else acc[p] + x
-        grads = [(p, x / dp) for p, x in acc.items()]
-    grads = _tm_slices(grads, layout.zero, tp, dp, TFM["probe"])
-    del g
+    got_grads = []
+
+    def first(grads):                     # step 1's mean gradient
+        if not got_grads:
+            got_grads.append(_tm_slices(list(iter_leaves(grads)),
+                                        layout.zero, tp, dp, TFM["probe"]))
     step = ts.make_train_step(tcfg, oc, overlay=overlay, n_microbatches=mb,
-                              data_shards=dp, lr_schedule=_tm_schedule())
+                              data_shards=n_dp, lr_schedule=_tm_schedule(),
+                              on_grads=first)
     opt = adamw_init(params, oc)
     losses, aux = [], []
-    for i, b in enumerate(batches):
+    for i, b in enumerate(batches[:steps]):
         params, opt, m = step(params, opt, b)
         losses.append(float(m["loss"]))
         aux.append(float(m["aux"]))
         if i == 0:
             p1 = _tm_slices(list(iter_leaves(params)), layout.params, tp, dp,
                             TFM["probe"])
-    out = dict(losses=losses, aux=aux, grads=grads, params1=p1, masks=masks,
-               sparsity=got, seconds=time.time() - t0)
+    out = dict(losses=losses, aux=aux, grads=got_grads[0], params1=p1,
+               masks=masks, sparsity=got, seconds=time.time() - t0)
     del params, opt, overlay, step
     return out
 
@@ -5606,20 +5626,18 @@ def _tfm_case(torch, mesh, spec, case):
     from repro_torch.core.pruning import iter_leaves
     from repro_torch.core.sasp import mesh_overlay
     from repro_torch.data.pipeline import DataConfig, Pipeline
-    from repro_torch.distribution.context import use_mesh
     from repro_torch.distribution.sharding import local_config, tp_config
     from repro_torch.launch.train import rank_params
     from repro_torch.train import train_step as ts
     from repro_torch.train.checkpoint import (CheckpointManager,
                                               gather_whole, save_on_mesh)
-    from repro_torch.train.optimizer import (AdamWConfig, reduce_grads,
-                                             zero_adamw_init)
+    from repro_torch.train.optimizer import AdamWConfig, zero_adamw_init
     dev = mesh.device
     dp, tp = mesh.shape["data"], mesh.shape["model"]
     cfg = case["cfg"]
     B, S = _tfm_shape(cfg)
     oc = AdamWConfig(lr=TFM["lr"])
-    layout = ts.mesh_layout(cfg, dp, tp, oc)
+    layout = ts.mesh_layout(cfg, dp, tp, oc, pod=mesh.pods)
     cuda = torch.device(dev).type == "cuda"     # (not measured on the CPU)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -5640,22 +5658,20 @@ def _tfm_case(torch, mesh, spec, case):
     pipe = Pipeline(DataConfig(cfg.vocab_size, S, B))
     batches = [_batch_on(torch, pipe, dev) for _ in range(TFM["steps"])]
     mb = case.get("mb", 1)
-    with use_mesh(mesh):
-        g = ts._grads(lcfg, params, ts._rows(batches[0], mesh.data_rank, dp,
-                                             mb), overlay, mb, None)[2]
-        gs = reduce_grads(g, layout.zero, mesh)
-    del g
     n = TFM["probe"]
-    out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
-    out["grads_finite"] = all(bool(torch.isfinite(x).all())
-                              for x in gs.values())
-    del gs
+
+    def first(gs):              # step 1's reduced gradient slices
+        if "grads" not in out:
+            out["grads"] = {p: _probe(x, n) for p, x in gs.items()}
+            out["grads_finite"] = all(bool(torch.isfinite(x).all())
+                                      for x in gs.values())
     step = ts.make_mesh_train_step(lcfg, opt_cfg=oc, mesh=mesh,
                                    layout=layout, overlay=overlay,
                                    n_microbatches=mb,
-                                   lr_schedule=_tm_schedule())
-    losses, aux, ms = [], [], []
-    for i in range(TFM["steps"]):
+                                   lr_schedule=_tm_schedule(),
+                                   on_grads=first)
+    losses, aux, ms, out["sums"] = [], [], [], []
+    for i in range(case.get("steps", TFM["steps"])):
         _dev_sync(torch, dev)
         mesh.reset_record()
         t = time.perf_counter()
@@ -5664,6 +5680,8 @@ def _tfm_case(torch, mesh, spec, case):
         ms.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
         aux.append(float(m["aux"]))
+        if mesh.pods > 1:
+            out["sums"].append(_state_sums(torch, params, opt))
         if i == 0:
             out["params1"] = {p: _probe(x, n) for p, x in
                               iter_leaves(params)}
@@ -5686,17 +5704,24 @@ def _tfm_case(torch, mesh, spec, case):
 
 
 def _tfm_rank(rank: int, spec: dict, init_file: str) -> dict:
-    """A training mesh's rank, spawned: join the mesh, run
-    ``spec["cases"]`` in turn (``_tfm_case``)."""
+    """A training mesh's rank, spawned: join the mesh (``spec["pod"]``
+    pods, default 1), run ``spec["cases"]`` in turn (``_tfm_case``, or
+    ``_tm_case`` for a case with ``"tm"``)."""
     import torch
     from repro_torch.launch.mesh import make_mesh
     dp, tp = spec["mesh"]
-    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+    pod = spec.get("pod", 1)
+    if spec["device"] == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // (pod * dp * tp)))
+    mesh = make_mesh(dp, tp, pod=pod, rank=rank, init_file=init_file,
                      backend=spec["backend"], device=spec["device"])
     out = dict(rank=rank, model_rank=mesh.model_rank,
-               data_rank=mesh.data_rank, transport=mesh.transport, cases={})
+               data_rank=mesh.data_rank, pod_rank=mesh.pod_rank,
+               transport=mesh.transport, cases={})
     for case in spec["cases"]:
-        out["cases"][case["name"]] = _tfm_case(torch, mesh, spec, case)
+        run = _tm_case if case.get("tm") else _tfm_case
+        out["cases"][case["name"]] = run(torch, mesh, spec, case)
         _free(torch)
     return out
 
@@ -5706,8 +5731,8 @@ def _tfm_spawn(spec, timeout=900):
     store = init_file_in(OUT_DIR,
                          f"tfm_store_{os.getpid()}_{time.time_ns()}")
     try:
-        return run_ranks(_tfm_rank, spec["mesh"][0] * spec["mesh"][1],
-                         (spec, store), timeout=timeout)
+        return run_ranks(_tfm_rank, spec.get("pod", 1) * spec["mesh"][0]
+                         * spec["mesh"][1], (spec, store), timeout=timeout)
     finally:
         if os.path.exists(store):
             os.remove(store)
@@ -5937,6 +5962,289 @@ def train_family_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training on a (pod, data, model) mesh
+# ---------------------------------------------------------------------------
+
+# (a) phase 16 (a)'s moonshot on --mesh 2,2,2 (experts in EP over each
+# pod's 'data' ranks, a replica in each pod); (b) phase 14 (b)'s narrow
+# qwen3 on 2,2,2 and 2,1,2; (c) (b)'s checkpoint served packed on one
+# card; (d) (a)'s state and (b)'s step on a dry 2,2,2 mesh; (e) four NCCL
+# cards: moonshot, 8 layers, on 2,2,1, printed beside phase 16 (d)'s
+# 4287 tokens/s on 2,2 and 4673 on 4,1 (four H100 80GB HBM3, 700 W)
+# (a) is cut to 1 layer: 8 ranks of 2 layers need more than the card's 79
+# GiB (a rank reached 7.6 GiB allocated, 78.85 GiB in use on the card,
+# when one more allocation failed)
+POD = dict(mesh=(2, 2, 2), layers=1, nccl=(2, 2, 1), nccl_layers=8,
+           dry_ranks=(0, 7), tok_s_before={"2,2": 4287, "4,1": 4673})
+# (b)'s cases by mesh: (name, int8 moments, micro-batches); the 2,1,2
+# case saves the checkpoint that (c) serves and resumes it
+POD_CASES = {(2, 2, 2): (("fp32 mb2", False, 2), ("int8", True, 1)),
+             (2, 1, 2): (("fp32", False, 1),)}
+
+
+def _state_sums(torch, params, opt):
+    """Every leaf of a rank's params and moments as (sum, sum of squares)
+    of its elements' bit patterns (int64, wrapping), summed on the card
+    in chunks: two ranks whose sums agree leaf for leaf hold the same
+    bits but for a collision of both sums."""
+    from repro_torch.train.checkpoint import named_leaves
+    ints = {4: torch.int32, 2: torch.int16, 1: torch.int8}
+    sums = []
+    for _, t in named_leaves({"params": params, "opt": opt}):
+        v = t.detach().reshape(-1).view(ints[t.element_size()])
+        s1 = s2 = torch.zeros((), dtype=torch.int64, device=v.device)
+        for i in range(0, v.numel(), 1 << 24):
+            c = v[i:i + (1 << 24)].to(torch.int64)
+            s1, s2 = s1 + c.sum(), s2 + (c * c).sum()
+        sums += [s1, s2]
+    return torch.stack(sums).tolist()
+
+
+def _pods_equal(tag, res, name) -> int:
+    """Check that every rank's state sums (``_state_sums``, after every
+    step) equal those of the rank at its (data, model) index in pod 0;
+    returns the leaf-steps compared."""
+    first = {(r["model_rank"], r["data_rank"]): r["cases"][name]["sums"]
+             for r in res if r["pod_rank"] == 0}
+    n = 0
+    for r in res:
+        got = r["cases"][name]["sums"]
+        want = first[r["model_rank"], r["data_rank"]]
+        check(bool(got) and got == want, f"{tag}: rank {r['rank']} (pod "
+              f"{r['pod_rank']}) holds other params or moments than pod 0's "
+              f"rank at its (data, model) index")
+        n += sum(len(x) // 2 for x in got) if r["pod_rank"] else 0
+    return n
+
+
+def _pod_train(torch, ckpt):
+    """(a) and (b)'s 2,2,2 cases in one spawn of 8 processes on this card
+    (gloo host-staged), then (b)'s 2,1,2 case (4 processes); each held
+    to its loop, run first here, and both pods to each other."""
+    from repro_torch.analysis.comms import axis_bytes
+    cfg_a, cfg_b = tfm_config("moonshot", POD["layers"]), tm_config(True)
+    log(f"  (a) moonshot-v1-16b-a3b at full width: d_model {cfg_a.d_model}, "
+        f"{cfg_a.moe.num_experts} experts top {cfg_a.moe.top_k}, expert "
+        f"d_ff {cfg_a.d_ff}, vocab {cfg_a.vocab_size}; depth cut 48 -> "
+        f"{cfg_a.num_layers} layers; batch {TFM['batch']} x {TFM['seq']}; "
+        f"(b) qwen3 at {TMP['narrow']}, fp32, batch {TMP['nbatch']} x "
+        f"{TMP['nseq']}")
+    t0 = time.time()
+    loops = {"a": _tfm_loop(torch, cfg_a, POD["mesh"])}
+    _free(torch)
+    for shape, cases in POD_CASES.items():
+        for name, q, mb in cases:
+            loops[shape, name] = _tm_loop(torch, cfg_b, shape, q, mb)
+            _free(torch)
+    loop_s = time.time() - t0
+    log(f"  the loops: {loop_s:.1f} s ((a) {loops['a']['seconds']:.1f} s)")
+    lr1 = TFM["lr"] * float(_tm_schedule()(0))
+    out = dict(loop_s=loop_s)
+    for shape, cases in POD_CASES.items():
+        pod, dp, tp = shape
+        tm = [dict(name=n, tm=True, int8=q, mb=mb, save=shape[1] == 1)
+              for n, q, mb in cases]
+        first = shape == POD["mesh"]
+        spec = dict(mesh=(dp, tp), pod=pod, device=DEVICE, backend="gloo",
+                    cfg=cfg_b, ckpt_dir=ckpt,
+                    cases=([dict(name="a", cfg=cfg_a)] if first else []) + tm)
+        t0 = time.time()
+        res = _tfm_spawn(spec)
+        wall = time.time() - t0
+        key = f"--mesh {pod},{dp},{tp}"
+        out[key] = dict(wall_s=wall)
+        if first:
+            # phase 16 (a)'s bounds (bf16 compute)
+            tag = f"(a) {cfg_a.name} {key}"
+            worst = _tfm_check(tag, res, "a", loops["a"], dict(
+                loss1=0.0, losses=1e-3, aux=1e-3, grads=5e-2,
+                params1_abs=2.5 * lr1))
+            _tfm_log(tag, res, "a", loops["a"], worst, wall)
+            n = _pods_equal(tag, res, "a")
+            c = [r["cases"]["a"] for r in res]
+            rec = c[0]["record"]
+            by = axis_bytes(rec)
+            log(f"  {tag}: both pods' params and moments equal after every "
+                f"step ({n} leaf-steps of pod 1 against pod 0); a step moves "
+                f"{by.get('pod', 0) / 2**20:.1f} MiB over 'pod', "
+                f"{by.get('data', 0) / 2**20:.1f} MiB over 'data' "
+                f"({c[0]['a2a']['bytes'] / 2**20:.1f} MiB in "
+                f"{c[0]['a2a']['calls']} all-to-alls) and "
+                f"{by.get('pod,data', 0) / 2**20:.3f} MiB over "
+                f"('pod', 'data') a rank; on {card_line()}")
+            out["a"] = dict(_tfm_summary(res, "a", loops["a"], worst, wall),
+                            pods_equal=n, record=rec,
+                            records={r["rank"]: r["cases"]["a"]["record"]
+                                     for r in res})
+        for case in tm:
+            name = case["name"]
+            for r in res:
+                r["case"] = r["cases"][name]
+            tag = f"(b) {key} {name}"
+            q = name.startswith("int8")
+            worst = _tm_check(tag, res, loops[shape, name], dict(
+                loss1=1e-5, losses=1e-5 if not q else 1e-3, grads=1e-5,
+                params1=1e-4))
+            n = _pods_equal(tag, res, name)
+            c = [r["case"] for r in res]
+            log(f"  {tag} ({wall:.1f} s wall): "
+                f"{[round(x, 5) for x in c[0]['losses']]}; step ms "
+                f"{[round(x, 1) for x in c[0]['step_ms']]}, "
+                f"{c[0]['tok_s']:.0f} tokens/s; against the loop: losses "
+                f"{worst['losses']:.2e}, gradient slices {worst['grads']:.2e}"
+                f", params after step 1 {worst['params1']:.2e}; pods equal "
+                f"({n} leaf-steps)")
+            if case["save"]:
+                check(all(r["case"]["resume_equal"] for r in res),
+                      f"{tag}: step {TMP['steps'] + 1} from the restored "
+                      f"checkpoint differs from the uninterrupted run "
+                      f"({[r['case']['resume_loss'] for r in res]})")
+                log(f"  {tag}: saved by world rank 0 in "
+                    f"{c[0]['save_s']:.2f} s (pod 0 gathers), restored on "
+                    f"every pod: step {TMP['steps'] + 1} bit for bit the "
+                    f"uninterrupted run's on every rank")
+            out[tag] = dict(worst=worst, pods_equal=n, ranks=[{
+                k: v for k, v in r["case"].items()
+                if k not in ("masks", "grads", "params1", "sums")}
+                for r in res])
+    return out
+
+
+def _pod_serve(torch, counters, ckpt):
+    """(c): (b)'s 2,1,2 checkpoint restored whole on this card, packed at
+    50% scope all, bf16, served: both main-path kernels on mma."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(tm_config(True), compute_dtype="bfloat16")
+    t0 = time.time()
+    with torch.no_grad():
+        whole = launch.restore_params(ckpt, lm.init_params(cfg, seed=1,
+                                                           device=DEVICE))
+    params, lcfg = launch.build_serving_params(
+        whole, cfg, path="packed", sparsity=SPARSITY, scope="all",
+        verbose=False)
+    del whole
+    run = _tp_serve(torch, params, lcfg, counters)
+    for n in MAIN_PATH:
+        lc = run["launches"][n]
+        check(lc["total"] > 0 and all(
+            part == "mma" for v in lc["variant"] for part in v.split("/")),
+            f"(c) {n} launched {lc}, not on mma")
+    check(all(len(s) == 16 for s in run["streams"].values()),
+          "(c) a request did not finish its 16 tokens")
+    wall = time.time() - t0
+    log(f"  (c) (b)'s pod-trained checkpoint restored on one card, packed "
+        f"at 50% scope all: 4 requests x 16 tokens, launches "
+        f"{ {n: run['launches'][n]['variant'] for n in MAIN_PATH} }, decode "
+        f"{run['times']['decode_ms_per_step']:.2f} ms/step; {wall:.1f} s")
+    del params
+    return dict(wall_s=wall, launches={n: run["launches"][n]["total"]
+                                       for n in MAIN_PATH},
+                times=run["times"])
+
+
+def _pod_dry(torch, train):
+    """(d): (a)'s training state on a dry 2,2,2 mesh (fake tensors, on the
+    host; a MoE step is not traced, ``launch.dryrun.EP_TRACE``) beside
+    the GiB (a)'s ranks held, and (b)'s int8 step traced there, its
+    record equal to the real rank's."""
+    from repro_torch.analysis.comms import axis_bytes
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import held_train_state, trace_step
+    from repro_torch.train.optimizer import AdamWConfig
+    pod, dp, tp = POD["mesh"]
+    out = {}
+    for r in POD["dry_ranks"]:
+        t0 = time.time()
+        held = held_train_state(tfm_config("moonshot", POD["layers"]), dp,
+                                tp, r, pod=pod,
+                                opt_cfg=AdamWConfig(lr=TFM["lr"]),
+                                overlay=True) / 2**30
+        real = train["a"]["ranks"][r]["held_gib"]
+        err = abs(held - real) / real
+        tr = trace_step(tm_config(True), ShapeConfig(
+            "tm", "train", TMP["nseq"], TMP["nbatch"]), dp, tp, r,
+            opt_cfg=AdamWConfig(lr=TMP["lr"], quantized=True), overlay=True,
+            lr_schedule=_tm_schedule(), pod=pod)
+        want = train["(b) --mesh 2,2,2 int8"]["ranks"][r]["record"]
+        same = tr["record"] == want
+        out[r] = dict(held_gib=held, real_held_gib=real, held_err=err,
+                      record=tr["record"], record_equal=same,
+                      seconds=time.time() - t0)
+        log(f"  (d) rank {r}: (a)'s state on the dry mesh {held:.2f} GiB, "
+            f"(a) measured {real:.2f} ({err:.2%} off); (b)'s int8 step "
+            f"record {'equal to' if same else 'NOT equal to'} the real "
+            f"rank's ({axis_bytes(want).get('pod', 0) / 2**20:.2f} MiB "
+            f"over "
+            f"'pod'); {time.time() - t0:.1f} s")
+        check(same, f"(d) rank {r}: the dry record {tr['record']} is not "
+              f"the real rank's {want}")
+        check(err <= AN["held_tol"], f"(d) rank {r}: held {held:.2f} GiB "
+              f"predicted, {real:.2f} measured")
+    return out
+
+
+def _pod_four_cards(torch):
+    """(e) over NCCL, a card a rank: moonshot at full width, 8 layers, on
+    --mesh 2,2,1: step ms, tokens/s, GiB a rank, bytes over 'pod' and
+    all-to-all bytes a step, losses finite, pods equal."""
+    from repro_torch.analysis.comms import axis_bytes
+    import numpy as np
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  (e) nccl: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    pod, dp, tp = POD["nccl"]
+    cfg = tfm_config("moonshot", POD["nccl_layers"])
+    spec = dict(mesh=(dp, tp), pod=pod, device=DEVICE, backend="nccl",
+                cases=[dict(name="e", cfg=cfg)])
+    t0 = time.time()
+    res = _tfm_spawn(spec)
+    c = [r["cases"]["e"] for r in res]
+    key = f"--mesh {pod},{dp},{tp}"
+    check(all(np.isfinite(r["losses"]).all() and r["grads_finite"]
+              for r in c), f"(e) {key}: a loss or gradient is not finite")
+    eq = _pods_equal(f"(e) {key}", res, "e")
+    rec = c[0]["record"]
+    log(f"  (e) {key} over {res[0]['transport']}, {cfg.num_layers} layers: "
+        f"losses {[round(x, 5) for x in c[0]['losses']]}; step ms "
+        f"{[round(x, 1) for x in c[0]['step_ms']]}, {c[0]['tok_s']:.0f} "
+        f"tokens/s (phase 16 (d) measured 2,2 "
+        f"{POD['tok_s_before']['2,2']}, 4,1 {POD['tok_s_before']['4,1']}); "
+        f"GiB a rank held {[round(r['held_gib'], 2) for r in c]}, peak "
+        f"{[round(r['peak_gib'], 2) for r in c]}; a step moves "
+        f"{axis_bytes(rec).get('pod', 0) / 2**20:.1f} MiB over "
+        f"'pod', "
+        f"{c[0]['a2a']['bytes'] / 2**20:.1f} MiB in all-to-alls a rank; "
+        f"pods equal ({eq} leaf-steps); {time.time() - t0:.1f} s")
+    return {key: [{k: v for k, v in r.items()
+                   if k not in ("masks", "grads", "params1", "sums")}
+                  for r in c]}
+
+
+def pod_mesh_phase(torch, counters):
+    """Phase 17: training on a (pod, data, model) mesh; run last, with
+    every earlier model freed."""
+    import shutil
+    t_phase = time.time()
+    ckpt = os.path.join(OUT_DIR, "pod_mesh_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        out = {"train": _pod_train(torch, ckpt)}
+        _free(torch)
+        out["c"] = _pod_serve(torch, counters, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _free(torch)
+    out["d"] = _pod_dry(torch, out["train"])
+    out["e"] = _pod_four_cards(torch)
+    out["launches"] = out["c"]["launches"]
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = {
     "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
                   "src/repro/kernels/sasp_gemm/kernel.py:142"),
@@ -6139,15 +6447,27 @@ def main() -> int:
     _free(torch)
     family_train = train_family_mesh_phase(torch, counters)
 
+    log("[17] train on a (pod, data, model) mesh: moonshot-v1-16b-a3b at "
+        "full width on --mesh 2,2,2 (8 processes; experts in EP inside each "
+        "pod) and a narrower qwen3 on 2,2,2 and 2,1,2, each against its "
+        "lock-step loop, both pods equal; the qwen3 checkpoint resumed and "
+        "served packed on one card; the dry 2,2,2 mesh against the real "
+        "ranks; moonshot at 8 layers on 2,2,1 over NCCL where there are "
+        "four cards (last, every earlier model freed)")
+    _free(torch)
+    pod_train = pod_mesh_phase(torch, counters)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
     # checkpoint served, both ranks) and phase 16's (the mesh-trained
-    # moonshot checkpoint served on one card)
+    # moonshot checkpoint served on one card) and phase 17's (the
+    # pod-trained qwen3 checkpoint served on one card)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
                      + family_mesh["launches"][n]
                      + train_mesh["launches"][n]
                      + family_train["launches"][n]
+                     + pod_train["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -6161,7 +6481,7 @@ def main() -> int:
                        families=families, tp=tp, depth=depth, dp=dp,
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
                        train_mesh=train_mesh, analysis=analysis,
-                       family_train=family_train,
+                       family_train=family_train, pod_train=pod_train,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

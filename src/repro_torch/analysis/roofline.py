@@ -9,7 +9,10 @@ Sources:
     rank), in place of the reference's ``xla_raw_flops`` (XLA's
     ``cost_analysis``); kept for reference, as there;
   * collective bytes — the rank's dry-mesh record (``analysis.comms``) ×
-    chips;
+    chips (512 on the reference's (2, 16, 16) mesh), by kind and by axis
+    ('pod' and 'pod,data' rows on a mesh of pods), every byte charged at
+    the H100 model's one link rate (``NVLINK_BW``), as the reference
+    charges ICI: no term for a slower link between pods;
   * per-device memory — ``LiveBytes``, the rank's live storages while the
     step is traced: the held state (params, optimizer state, inputs)
     plus every storage an op makes, freed when it dies;
@@ -27,7 +30,7 @@ from typing import Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from repro_torch.analysis.comms import collective_bytes
+from repro_torch.analysis.comms import axis_bytes, collective_bytes
 from repro_torch.analysis.counters import step_costs
 from repro_torch.core.h100_model import HBM_BYTES, model_flops, roofline
 
@@ -118,6 +121,7 @@ class CellReport:
     fits_hbm: bool
     counted_flops: float = 0.0    # FlopCounterMode over the rank's trace
     note: str = ""
+    coll_axes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def to_json(self) -> str:
         return json.dumps(asdict(self), indent=1)
@@ -150,7 +154,7 @@ def analyze_traced(arch: str, shape, mesh_name: str, chips: int, cfg,
         bottleneck=terms.bottleneck, model_flops=mf,
         useful_flops_frac=(mf / costs.flops) if costs.flops else 0.0,
         fits_hbm=peak <= HBM_BYTES, counted_flops=float(counted_flops),
-        note=note)
+        note=note, coll_axes=axis_bytes(record))
 
 
 def format_row(r: CellReport) -> str:

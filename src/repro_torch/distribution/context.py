@@ -1,30 +1,41 @@
 """Active-mesh context of the port (``repro.distribution.context``).
 
-The reference runs one program over a ``(data, model)`` device mesh and
-wraps each TP kernel call in ``shard_map``. The port runs one process per
-rank (SPMD), joined by ``torch.distributed``: a :class:`Mesh` holds this
-process's place in the ``(data, model)`` grid and the process group of
-its 'model' axis, and each rank holds only its own slice of every
-sharded leaf (``distribution.sharding.local_params``). Model code reads
-the mesh from :func:`use_mesh` instead of taking it as an argument, as
-in the reference: under an active mesh whose 'model' size equals a
-container's ``shards``, the TP paths of ``models/ffn.py`` run the rank's
-shard-local visit list and call the collective over the 'model' group
-where the reference's ``shard_map`` body calls ``psum`` /
+The reference runs one program over a ``(data, model)`` or ``(pod, data,
+model)`` device mesh and wraps each TP kernel call in ``shard_map``. The
+port runs one process per rank (SPMD), joined by ``torch.distributed``: a
+:class:`Mesh` holds this process's place in the ``(pod, data, model)``
+grid and the process groups of its axes, and each rank holds only its own
+slice of every sharded leaf (``distribution.sharding.local_params``).
+Model code reads the mesh from :func:`use_mesh` instead of taking it as an
+argument, as in the reference: under an active mesh whose 'model' size
+equals a container's ``shards``, the TP paths of ``models/ffn.py`` run the
+rank's shard-local visit list and call the collective over the 'model'
+group where the reference's ``shard_map`` body calls ``psum`` /
 ``psum_scatter`` / ``all_gather``; with no mesh, or another size, a
 sequential loop over the shards runs the same math in one process.
 There is no ``shard_map`` shim: a rank's code is the body itself.
 
-The 'data' axis: each model index has a 'data' group, the processes at
-that model index of every data index. Data parallelism runs one copy of
-the host state in every process (``serve.engine`` / ``serve.scheduler``)
-and moves it in step with two collectives over that group: an all-gather
-of what each data rank computed, and a broadcast from data rank 0.
-``submesh`` is one data rank's mesh (its 'model' axis alone); ``flat`` is
-the mesh seen with every process its own data rank (the reference's
-``dp_only`` profile, ``profile``). Expert parallelism adds a third
-collective over that group, ``data_all_to_all``: block j of a rank's
-tensor goes to data rank j (``jax.lax.all_to_all`` over 'data').
+The 'data' axis: each (pod, model) index has a 'data' group, the
+processes at that model index of every data index of the pod. Data
+parallelism runs one copy of the host state in every process
+(``serve.engine`` / ``serve.scheduler``) and moves it in step with two
+collectives over that group: an all-gather of what each data rank
+computed, and a broadcast from data rank 0. ``submesh`` is one data
+rank's mesh (its 'model' axis alone); ``flat`` is the mesh seen with
+every process its own data rank (the reference's ``dp_only`` profile,
+``profile``). Expert parallelism adds a third collective over that
+group, ``data_all_to_all``: block j of a rank's tensor goes to data rank
+j (``jax.lax.all_to_all`` over 'data').
+
+The 'pod' axis (the reference's ``MULTI_POD``, ``(2, 16, 16)``): P pods of
+D x T processes, rank ``(p D + d) T + m``. A mesh of one pod has no 'pod'
+key in its shape and creates no pod group, so that a two-axis mesh is
+what it was. Each (data, model) index has a 'pod' group, the processes at
+that index in every pod; each model index a DP group over ``("pod",
+"data")``, the reference's ``dp_axes``, whose index is ``dp_rank = p D +
+d``. Training splits the batch over the DP group and reduces gradients
+over it (``train.optimizer.reduce_grads``: over 'data', then 'pod');
+expert parallelism stays inside a pod.
 
 Transport is named, never chosen silently: ``nccl`` where every rank has
 its own card; ``gloo`` on the CPU; ``gloo (host-staged)`` where ranks
@@ -48,14 +59,16 @@ rank's slice of replicated compute, entering a row region) all-gathers
 the slices' gradients. They apply only where
 the input requires grad: the no-grad serving path runs exactly the
 collectives above. The all-to-all over 'data' is its own backward
-(expert parallelism's dispatch and return). ``allreduce`` / ``gather`` / ``reduce_scatter`` over
-'data' or the whole world (``axis="world"``) serve the optimizer
-(gradient reduction, ZeRO, the global norm) and take no gradient.
+(expert parallelism's dispatch and return). ``allreduce`` / ``gather`` /
+``reduce_scatter`` over 'data', 'pod', the DP axes ``("pod", "data")``
+or the whole world (``axis="world"``) serve the optimizer (gradient
+reduction, ZeRO, the global norm) and take no gradient.
 
 Every collective that communicates is recorded on the mesh
 (``Mesh.comms``): calls and bytes by kind (``all-reduce``,
 ``all-gather``, ``reduce-scatter``, ``all-to-all``, ``broadcast``) and
-axis ('model', 'data', 'world'). The bytes are those of the result on
+axis ('model', 'data', 'pod', 'pod,data', 'world'; the DP axes of a mesh
+of one pod are 'data'). The bytes are those of the result on
 this rank, in the tensor's own type (the reference's HLO count reads the
 result shape the same way; gloo's fp32 widening of a 16-bit all-to-all
 is transport, not counted). A mesh's ``submesh`` / ``flat`` views share
@@ -78,11 +91,15 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class Mesh:
-    """This process's place in a ``(data, model)`` mesh of ``dp * tp``
-    ranks: global rank ``rank`` sits at data index ``rank // tp`` and
-    model index ``rank % tp``. ``model_group`` is the process group of
-    its 'model' axis, ``data_group`` that of its 'data' axis;
-    ``host_staged`` runs gloo over host copies of CUDA tensors;
+    """This process's place in a ``(pod, data, model)`` mesh of ``pod *
+    dp * tp`` ranks: global rank ``rank`` sits at pod index ``rank // (dp
+    tp)``, data index ``rank // tp % dp`` (within its pod) and model index
+    ``rank % tp``; ``shape`` holds 'pod' only where there are two pods or
+    more. ``model_group`` is the process group of its 'model' axis,
+    ``data_group`` that of its 'data' axis (inside its pod),
+    ``pod_group`` that of its 'pod' axis and ``dp_group`` that of the DP
+    axes ``("pod", "data")`` (None with one pod: the 'data' group is
+    it); ``host_staged`` runs gloo over host copies of CUDA tensors;
     ``profile`` is the reference's placement profile ("tp", or "dp_only"
     for ``flat``'s view)."""
     shape: Dict[str, int]
@@ -97,6 +114,8 @@ class Mesh:
     # ran (``record``); shared by ``submesh`` / ``flat`` views
     comms: Dict[str, Dict[str, Dict[str, int]]] = dataclasses.field(
         default_factory=dict)
+    pod_group: Any = None
+    dp_group: Any = None
 
     @property
     def model_rank(self) -> int:
@@ -104,33 +123,50 @@ class Mesh:
 
     @property
     def data_rank(self) -> int:
+        """The data index inside this process's pod."""
+        return self.dp_rank % self.shape["data"]
+
+    @property
+    def pods(self) -> int:
+        return self.shape.get("pod", 1)
+
+    @property
+    def pod_rank(self) -> int:
+        return self.dp_rank // self.shape["data"] if self.pods > 1 else 0
+
+    @property
+    def dp_rank(self) -> int:
+        """The index over the DP axes ``("pod", "data")``, pod-major:
+        ``pod_rank * dp + data_rank``."""
         return self.rank // self.shape["model"]
+
+    @property
+    def dp_total(self) -> int:
+        """The size of the DP axes: pods x data ranks."""
+        return self.pods * self.shape["data"]
 
     @property
     def transport(self) -> str:
         return self.backend + (" (host-staged)" if self.host_staged else "")
 
-    def axis_size(self, name: str) -> int:
-        if name == "world":
-            return self.shape["data"] * self.shape["model"]
-        return self.shape.get(name, 1)
+    def axis_size(self, name) -> int:
+        return self._axis(name)[1]
 
     def submesh(self) -> "Mesh":
         """This process's data rank alone: the 'model' axis and its group,
         a 'data' axis of one (the mesh of one data rank's engine)."""
         return dataclasses.replace(
             self, shape={"data": 1, "model": self.shape["model"]},
-            data_group=None)
+            data_group=None, pod_group=None, dp_group=None)
 
     def flat(self) -> "Mesh":
         """The mesh with every process a data rank of its own (the
-        reference's ``dp_only`` profile): a 'data' axis of ``dp * tp``
-        over the whole world, a 'model' axis of one."""
+        reference's ``dp_only`` profile): a 'data' axis of ``pod * dp *
+        tp`` over the whole world, a 'model' axis of one."""
         return dataclasses.replace(
-            self, shape={"data": self.shape["data"] * self.shape["model"],
-                         "model": 1},
-            model_group=None, data_group=dist.group.WORLD,
-            profile="dp_only")
+            self, shape={"data": self.axis_size("world"), "model": 1},
+            model_group=None, data_group=dist.group.WORLD, pod_group=None,
+            dp_group=None, profile="dp_only")
 
     # -- the record ------------------------------------------------------
     def _note(self, kind: str, axis: str, shape, dtype) -> None:
@@ -222,37 +258,48 @@ class Mesh:
         return x
 
     # -- collectives over any axis, no gradient -------------------------
-    def _axis(self, axis: str):
-        """(group, size, this rank's index) of 'model', 'data' or
-        'world' (every process)."""
+    def _axis(self, axis):
+        """(group, size, this rank's index, the record's name) of
+        'model', 'data', 'pod', the DP axes ``("pod", "data")`` (the
+        reference's ``dp_axes``; 'data' itself with one pod) or 'world'
+        (every process)."""
         if axis == "model":
-            return self.model_group, self.shape["model"], self.model_rank
+            return (self.model_group, self.shape["model"], self.model_rank,
+                    axis)
         if axis == "data":
-            return self.data_group, self.shape["data"], self.data_rank
+            return self.data_group, self.shape["data"], self.data_rank, axis
+        if axis == "pod":
+            return self.pod_group, self.pods, self.pod_rank, axis
+        if tuple(axis) == ("pod", "data"):
+            if self.pods == 1:
+                return self._axis("data")
+            return self.dp_group, self.dp_total, self.dp_rank, "pod,data"
         if axis == "world":
-            return None, self.shape["data"] * self.shape["model"], self.rank
-        raise ValueError(f"axis {axis!r} not in model|data|world")
+            return (None, self.dp_total * self.shape["model"], self.rank,
+                    axis)
+        raise ValueError(f"axis {axis!r} not in model|data|pod|"
+                         f"('pod', 'data')|world")
 
-    def axis_index(self, axis: str) -> int:
+    def axis_index(self, axis) -> int:
         return self._axis(axis)[2]
 
-    def allreduce(self, x: torch.Tensor, axis: str = "model",
+    def allreduce(self, x: torch.Tensor, axis="model",
                   op: str = "sum") -> torch.Tensor:
         """Every rank of ``axis``'s ``x`` reduced by ``op`` (sum or
         max)."""
-        group = self._axis(axis)[0]
+        group, _, _, key = self._axis(axis)
         rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
         def run(y):
             dist.all_reduce(y, op=rop, group=group)
             return y
-        return self._comm("all-reduce", axis, x, x.shape, run)
+        return self._comm("all-reduce", key, x, x.shape, run)
 
-    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
+    def reduce_scatter(self, x: torch.Tensor, axis, dim: int
                        ) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum over ``axis``: a
         reduce-scatter on NCCL, an all-reduce and the slice on gloo."""
-        group, n, idx = self._axis(axis)
+        group, n, idx, key = self._axis(axis)
         dim %= x.ndim
         k = x.shape[dim] // n
         shape = x.shape[:dim] + (k,) + x.shape[dim + 1:]
@@ -266,12 +313,12 @@ class Mesh:
                 return out
             dist.all_reduce(y, group=group)
             return y.narrow(dim, idx * k, k).contiguous()
-        return self._comm("reduce-scatter", axis, x, shape, run)
+        return self._comm("reduce-scatter", key, x, shape, run)
 
-    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Every rank of ``axis``'s ``x`` concatenated along ``dim`` in
-        rank order."""
-        group, n, _ = self._axis(axis)
+        rank order (pod-major over the DP axes)."""
+        group, n, _, key = self._axis(axis)
         dim %= x.ndim
         shape = x.shape[:dim] + (x.shape[dim] * n,) + x.shape[dim + 1:]
 
@@ -279,7 +326,7 @@ class Mesh:
             parts = [torch.empty_like(y) for _ in range(n)]
             dist.all_gather(parts, y, group=group)
             return torch.cat(parts, dim=dim)
-        return self._comm("all-gather", axis, x, shape, run)
+        return self._comm("all-gather", key, x, shape, run)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Model rank 0's ``x`` on every rank of the model group."""
@@ -334,7 +381,8 @@ class Mesh:
         index."""
         if self.shape["data"] == 1:
             return x
-        g_src = src * self.shape["model"] + self.model_rank
+        g_src = ((self.pod_rank * self.shape["data"] + src)
+                 * self.shape["model"] + self.model_rank)
 
         def op(y):
             dist.broadcast(y, src=g_src, group=self.data_group)
@@ -344,7 +392,7 @@ class Mesh:
     def world_value(self, x: torch.Tensor) -> torch.Tensor:
         """World rank 0's ``x`` on every process of the mesh (one
         broadcast over the default group)."""
-        if self.shape["data"] * self.shape["model"] == 1:
+        if self.axis_size("world") == 1:
             return x
 
         def op(y):
@@ -371,14 +419,21 @@ class DryMesh(Mesh):
         return x.new_zeros(tuple(shape))
 
 
+def mesh_shape(dp: int, tp: int, pod: int = 1) -> Dict[str, int]:
+    """A mesh's ``shape``: 'pod' only where there are two pods or
+    more."""
+    return ({"pod": pod} if pod > 1 else {}) | {"data": dp, "model": tp}
+
+
 def dry_mesh(dp: int, tp: int, rank: int = 0,
-             device: Optional[torch.device] = None) -> DryMesh:
-    """Rank ``rank``'s view of a ``(dp, tp)`` mesh, with no process group
-    (``launch/dryrun.py`` traces a step with one under
+             device: Optional[torch.device] = None, pod: int = 1
+             ) -> DryMesh:
+    """Rank ``rank``'s view of a ``(pod, dp, tp)`` mesh, with no process
+    group (``launch/dryrun.py`` traces a step with one under
     ``FakeTensorMode``)."""
-    if not 0 <= rank < dp * tp:
-        raise ValueError(f"rank {rank} not in a ({dp}, {tp}) mesh")
-    return DryMesh({"data": dp, "model": tp}, rank, "dry",
+    if not 0 <= rank < pod * dp * tp:
+        raise ValueError(f"rank {rank} not in a ({pod}, {dp}, {tp}) mesh")
+    return DryMesh(mesh_shape(dp, tp, pod), rank, "dry",
                    device or torch.device("cpu"))
 
 

@@ -35,7 +35,7 @@ The w2 partials of an expert's d_ff shards are summed over 'model' in
 fp32 and then cast, in the shard loop's order (the reference sums them
 in the compute type, ``moe_ep.py:122``). The aux loss is averaged over
 'data' in ``ep`` mode (the reference's ``pmean``) and is the whole
-call's in ``local`` mode.
+call's in ``local`` mode. On pods, see ``moe_ffn_ep``.
 
 Under autograd (training; ``ep`` mode only, ``local`` is refused with
 the reason): both all-to-alls carry the gradient back
@@ -55,8 +55,9 @@ stacks, expert shard by expert shard and d_ff shard by d_ff shard, at
 the mesh's shapes, so that a mesh process equals it bit for bit. A
 plain tensor under ``cfg.ep_shards`` splits evenly into groups where
 ``can_use_ep`` holds (the reference's batch split), else it is one
-group. ``moe_ffn_dp`` is the reference's ``dp_only`` profile: every
-process routes its own rows through its own whole experts.
+group (or pods of ``cfg.ep_shards`` groups). ``moe_ffn_dp`` is the
+reference's ``dp_only`` profile: every process routes its own rows
+through its own whole experts.
 """
 from __future__ import annotations
 
@@ -79,11 +80,10 @@ def can_use_ep(cfg: ModelConfig, x_shape, shape: Optional[Dict[str, int]]
                ) -> bool:
     """The reference's gate of ``moe_ffn_ep`` on the call's global
     ``x_shape`` (B, S, …) and a mesh ``shape``: experts split over
-    'data', the batch splits evenly over the DP ranks, d_ff over
-    'model'."""
+    'data', the batch over the DP ranks ('pod', 'data'), d_ff 'model'."""
     if shape is None or cfg.moe is None or "data" not in shape:
         return False
-    dp_total = _axis(shape, ("data",))
+    dp_total = _axis(shape, ("pod", "data"))
     ep = shape["data"]
     B, S = x_shape[0], x_shape[1]
     f_ok = cfg.d_ff % shape.get("model", 1) == 0
@@ -187,12 +187,14 @@ class _Infos:
 
 def _mode(cfg: ModelConfig, infos: "_Infos", shape: Dict[str, int]) -> str:
     """``ep`` where every data rank brings the same batch rows (> 0),
-    else ``local``."""
+    else ``local``; the call's global batch is every pod's (pods x the
+    pod's rows: each pod brings the same, ``_rows``)."""
     rows = infos.rows
     if rows[0] <= 0 or any(r != rows[0] for r in rows):
         return "local"
     S = infos.tokens[0] // rows[0]
-    return "ep" if can_use_ep(cfg, (sum(rows), S), shape) else "local"
+    return "ep" if can_use_ep(cfg, (shape.get("pod", 1) * sum(rows), S),
+                              shape) else "local"
 
 
 def _positions(g: _Routed, mode: str, infos: "_Infos", src: int
@@ -246,10 +248,11 @@ LOCAL_TRAIN = (
 
 
 class _AuxMean(torch.autograd.Function):
-    """The ``ep`` aux (the mean of every data rank's, read from the
-    all-gather) carrying the gradient of the mean of the aux losses
-    computed here: a mesh rank's own (the step averages the data ranks'
-    gradients), or every group's in the meshless loop."""
+    """The ``ep`` aux (the mean of every DP rank's, read from the
+    all-gathers) carrying the gradient of the mean of the aux losses
+    computed here: a mesh rank's own (the step averages the DP ranks'
+    gradients), or every group's in the meshless loop (each 1 / (pods x
+    data ranks) of it)."""
     @staticmethod
     def forward(ctx, value, *owns):
         ctx.n = len(owns)
@@ -260,12 +263,18 @@ class _AuxMean(torch.autograd.Function):
         return (None,) + tuple(g / ctx.n for _ in range(ctx.n))
 
 
-def _aux_out(cfg: ModelConfig, mode: str, infos: "_Infos",
-             groups: List[_Routed], device) -> torch.Tensor:
-    """The call's aux (``_aux``) on ``device``; under autograd (``ep``
-    mode only: ``local`` is refused) it carries the gradient of its
-    groups' own aux losses (``_AuxMean``)."""
-    value = _aux(cfg, mode, infos).to(device)
+def _pod_mean(values: torch.Tensor) -> torch.Tensor:
+    """The mean of the pods' ``ep`` aux values (P,), summed in pod
+    order: the mesh's (gathered over 'pod') and the loop's alike."""
+    return values.sum() / values.shape[0]
+
+
+def _aux_out(value: torch.Tensor, groups: List[_Routed], mode: str
+             ) -> torch.Tensor:
+    """The call's aux ``value`` (``_aux``, on the call's device; the
+    pods' mean where there are pods); under autograd (``ep`` mode only:
+    ``local`` is refused) it carries the gradient of its groups' own aux
+    losses (``_AuxMean``)."""
     owns = [g.r.aux_loss for g in groups]
     if not (torch.is_grad_enabled() and any(a.requires_grad for a in owns)):
         return value
@@ -293,7 +302,18 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     """This process's MoE call on a mesh whose 'data' ranks hold the
     experts in EP (``p`` holds E / ep experts, its d_ff shard of each).
     x (b, S, d): this data rank's rows, b may be 0 (a rank with no row
-    still enters every collective). Returns (y, aux)."""
+    still enters every collective). Returns (y, aux).
+
+    On a (pod, data, model) mesh expert parallelism stays inside a pod,
+    as in the reference: the experts are cut over 'data' only (each pod
+    holds a replica, whose gradient ``train.optimizer.reduce_grads`` sums
+    over 'pod'), both all-to-alls and the all-gather of the infos run
+    over the pod's 'data' group, the tokens split over ('pod', 'data')
+    (``can_use_ep`` and the capacity count every DP rank: a call's
+    global batch is pods x the pod's rows), and the ``ep`` aux is the
+    mean over both axes: each pod's mean over 'data', then the pods'
+    means gathered over 'pod' and averaged in pod order (``_pod_mean``;
+    the reference's ``pmean`` over ``("pod", "data")``)."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     ep = mesh.shape["data"]
@@ -304,7 +324,10 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     g = _Routed(p, cfg, x)
     infos = _Infos(mesh.data_all_gather(g.info()), E)
     mode = _mode(cfg, infos, mesh.shape)
-    aux = _aux_out(cfg, mode, infos, [g], x.device)
+    value = _aux(cfg, mode, infos).to(x.device)
+    if mode == "ep" and mesh.pods > 1:
+        value = _pod_mean(mesh.gather(value.reshape(1), "pod", 0))
+    aux = _aux_out(value, [g], mode)
     if mode == "ep":
         C = ep_capacity(cfg, g.n)
     else:
@@ -358,12 +381,35 @@ def moe_ffn_dp(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
 def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
                    tp: Optional[int] = None
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The EP mesh's math in one process: ``xs`` holds each data rank's
-    rows (``len(xs)`` = ep, a group may be empty), ``p`` the whole expert
-    stacks; ``tp`` d_ff shards (default ``cfg.tp_shards``). Expert shard
-    j multiplies what data rank j would receive, d_ff shard by d_ff shard
+    """The EP mesh's math in one process: ``xs`` holds each DP rank's
+    rows, pod-major (``len(xs)`` = pods x ep, ep = ``cfg.ep_shards``, or
+    ``len(xs)`` where that is 1; a group may be empty), ``p`` the whole
+    expert stacks; ``tp`` d_ff shards (default ``cfg.tp_shards``). Each
+    pod's groups in turn (``_pod_groups``); returns (each group's y, the
+    aux: the pods' mean where there are pods, carrying every group's own
+    aux gradient in equal shares)."""
+    ep = cfg.ep_shards if cfg.ep_shards > 1 else len(xs)
+    if len(xs) % ep:
+        raise ValueError(f"{len(xs)} row groups are no whole number of "
+                         f"pods of {ep} data ranks")
+    pods = len(xs) // ep
+    tp = cfg.tp_shards if tp is None else tp
+    shape = ({"pod": pods} if pods > 1 else {}) | {"data": ep, "model": tp}
+    runs = [_pod_groups(p, cfg, xs[i * ep:(i + 1) * ep], tp, shape)
+            for i in range(pods)]
+    _, value, mode, _ = runs[0]
+    if mode == "ep" and pods > 1:
+        value = _pod_mean(torch.stack([r[1] for r in runs]))
+    aux = _aux_out(value, [g for r in runs for g in r[3]], mode)
+    return [y for r in runs for y in r[0]], aux
+
+
+def _pod_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor], tp: int,
+                shape: Dict[str, int]):
+    """One pod's groups (the EP mesh's math of one pod): expert shard j
+    multiplies what data rank j would receive, d_ff shard by d_ff shard
     (partials summed in fp32 in shard order). Returns (each group's y,
-    aux)."""
+    the pod's aux value, the mode, the groups' routing)."""
     from repro_torch.models.ffn import _sum_partials
     m = cfg.moe
     E, k = m.num_experts, m.top_k
@@ -371,12 +417,11 @@ def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
     if E % ep:
         raise ValueError(f"{E} experts do not split over {ep} data ranks")
     El = E // ep
-    tp = cfg.tp_shards if tp is None else tp
     d = xs[0].shape[-1]
     groups = [_Routed(p, cfg, x) for x in xs]
     infos = _Infos(torch.stack([g.info() for g in groups]), E)
-    mode = _mode(cfg, infos, {"data": ep, "model": tp})
-    aux = _aux_out(cfg, mode, infos, groups, xs[0].device)
+    mode = _mode(cfg, infos, shape)
+    value = _aux(cfg, mode, infos).to(xs[0].device)
     if mode == "ep":
         C = ep_capacity(cfg, groups[0].n)
     else:
@@ -401,7 +446,7 @@ def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
                         dim=0)
         ys.append(_finish(p, cfg, g, g.combine(out, pos_c, k),
                           xs[s].dtype))
-    return ys, aux
+    return ys, value, mode, groups
 
 
 def moe_ffn_loop(p: Dict, cfg: ModelConfig, x: torch.Tensor

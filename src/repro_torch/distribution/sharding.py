@@ -14,6 +14,9 @@ whole int8 FFN, as under the reference's GSPMD. A dim that does not
 divide the axis stays whole. A spec here is a tuple with one entry per
 dim: an axis name or None. Packed containers shard along their shard
 axis (``axis_at``): a rank holds one shard-local visit list of each.
+No rule names 'pod' (nor do the reference's): on a ``(pod, data,
+model)`` mesh every pod holds the same slices, and data parallelism runs
+over ``dp_axes`` ('pod' and 'data').
 
 MoE and SSM layers (``distribution.moe_ep``, ``models.ssm``): an expert
 stack (L, E, din, dout) puts E over 'data' (expert parallelism, data
@@ -232,23 +235,44 @@ def _local_container(node, rank: Optional[int], tp: int):
 
 
 # the reference's placement profiles: "tp" runs data parallelism over the
-# 'data' axis and TP over 'model'; "dp_only" runs it over every axis
+# DP axes ('pod' and 'data') and TP over 'model'; "dp_only" runs it over
+# every axis
 PROFILES = ("tp", "dp_only")
+
+SERVE_POD = (
+    "serving on a (pod, data, model) mesh is not ported: the reference's "
+    "serve CLI builds (data, model) meshes only; train on pods "
+    "(launch/train.py --mesh P,D,T), serve with --mesh DP,TP")
+
+
+def dp_axes(shape: Dict[str, int], profile: str = "tp") -> Tuple[str, ...]:
+    """The reference's ``dp_axes``: the axes of a mesh ``shape`` that
+    data parallelism runs over, in mesh order: 'pod' and 'data', or
+    every axis (``dp_only``)."""
+    if profile not in PROFILES:
+        raise ValueError(f"profile={profile!r} not in {PROFILES}")
+    if profile == "dp_only":
+        return tuple(shape)
+    return tuple(a for a in shape if a in ("pod", "data"))
 
 
 def dp_size(shape: Dict[str, int], profile: str = "tp") -> int:
-    """The number of DP ranks of a ``{"data": dp, "model": tp}`` mesh
-    under ``profile``: the 'data' axis, or every axis (``dp_only``)."""
-    if profile not in PROFILES:
-        raise ValueError(f"profile={profile!r} not in {PROFILES}")
-    return shape["data"] * (shape["model"] if profile == "dp_only" else 1)
+    """The number of DP ranks of a ``{["pod": P,] "data": dp, "model":
+    tp}`` mesh under ``profile``: the product of its ``dp_axes``."""
+    n = 1
+    for a in dp_axes(shape, profile):
+        n *= shape[a]
+    return n
 
 
 def dp_mesh(mesh, profile: str = "tp"):
     """``mesh`` (``distribution.context.Mesh``) as the grid of
     ``profile``'s DP ranks: its 'data' axis the DP ranks, its 'model'
     axis each rank's TP group (``mesh`` itself, or ``mesh.flat()`` under
-    ``dp_only``)."""
+    ``dp_only``). A mesh of pods under "tp" has no such view here
+    (``SERVE_POD``)."""
+    if profile == "tp" and mesh.shape.get("pod", 1) > 1:
+        raise ValueError(SERVE_POD)
     return mesh.flat() if dp_size(mesh.shape, profile) > mesh.shape["data"] \
         else mesh
 
@@ -256,8 +280,9 @@ def dp_mesh(mesh, profile: str = "tp"):
 def dp_submeshes(mesh, profile: str = "tp") -> List[Tuple[int, Tuple[int,
                                                                    ...]]]:
     """One entry per DP rank, a scheduler rank each (the reference's
-    ``dp_submeshes``): its data index and the world ranks of its
-    processes, one TP group."""
+    ``dp_submeshes``, which collapses every DP axis): its index over the
+    DP axes (pod-major) and the world ranks of its processes, one TP
+    group."""
     tp = mesh.shape["model"] if profile == "tp" else 1
     return [(d, tuple(range(d * tp, (d + 1) * tp)))
             for d in range(dp_size(mesh.shape, profile))]

@@ -1,10 +1,12 @@
 """Process meshes of the port (``repro.launch.mesh``).
 
-``make_mesh`` joins this process to a ``(data, model)`` mesh of
-``dp * tp`` processes through ``torch.distributed`` and returns its
-:class:`~repro_torch.distribution.context.Mesh`; ``make_test_mesh`` is
-the CPU (gloo) mesh of the tests; ``run_ranks`` spawns one process per
-rank and returns every rank's result.
+``make_mesh`` joins this process to a ``(pod, data, model)`` mesh of
+``pod * dp * tp`` processes through ``torch.distributed`` and returns its
+:class:`~repro_torch.distribution.context.Mesh`;
+``make_production_mesh`` is the reference's production mesh, ``(16,
+16)`` or, with ``multi_pod``, ``(2, 16, 16)`` (``production_shape``);
+``make_test_mesh`` is the CPU (gloo) mesh of the tests; ``run_ranks``
+spawns one process per rank and returns every rank's result.
 
 Rendezvous is a file store (``init_method="file://…"``), so no TCP port
 is opened. Processes start with the ``spawn`` method (``fork`` breaks
@@ -20,12 +22,12 @@ import os
 import queue
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.distribution.context import Mesh
+from repro_torch.distribution.context import Mesh, mesh_shape
 
 
 def choose_backend(world: int, device: str) -> str:
@@ -37,12 +39,16 @@ def choose_backend(world: int, device: str) -> str:
 
 
 def make_mesh(dp: int, tp: int, *, rank: int, init_file: str,
-              backend: Optional[str] = None, device: str = "cuda") -> Mesh:
-    """Initialise the default process group of ``dp * tp`` ranks (this is
-    ``rank``) over the file store ``init_file`` and build the mesh: one
-    'model' group per data index, then one 'data' group per model
-    index."""
-    world = dp * tp
+              backend: Optional[str] = None, device: str = "cuda",
+              pod: int = 1) -> Mesh:
+    """Initialise the default process group of ``pod * dp * tp`` ranks
+    (this is ``rank``, at ``(p dp + d) tp + m``) over the file store
+    ``init_file`` and build the mesh. Every rank creates every group, in
+    one fixed order: one 'model' group per (pod, data) index, one 'data'
+    group per (pod, model) index and, with two pods or more, one 'pod'
+    group per (data, model) index and one DP group over ``("pod",
+    "data")`` per model index."""
+    world = pod * dp * tp
     cuda = device.startswith("cuda")
     backend = backend or choose_backend(world, device)
     if backend not in ("nccl", "gloo"):
@@ -59,19 +65,54 @@ def make_mesh(dp: int, tp: int, *, rank: int, init_file: str,
         dev = torch.device("cpu")
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=world, rank=rank)
-    model_group = data_group = None
-    for d in range(dp):                 # every rank creates every group,
-        g = dist.new_group(list(range(d * tp, (d + 1) * tp)))   # in order
-        if rank // tp == d:
-            model_group = g
-    for m in range(tp):
-        g = dist.new_group(list(range(m, world, tp)))
-        if rank % tp == m:
-            data_group = g
-    return Mesh({"data": dp, "model": tp}, rank, backend, dev,
-                model_group=model_group,
+    groups = {}
+    for i in range(pod * dp):
+        _join(groups, "model", range(i * tp, (i + 1) * tp), rank)
+    for p in range(pod):
+        for m in range(tp):
+            _join(groups, "data", [(p * dp + d) * tp + m for d in range(dp)],
+                  rank)
+    if pod > 1:
+        for d in range(dp):
+            for m in range(tp):
+                _join(groups, "pod", [(p * dp + d) * tp + m
+                                      for p in range(pod)], rank)
+        for m in range(tp):
+            _join(groups, "dp", range(m, world, tp), rank)
+    return Mesh(mesh_shape(dp, tp, pod), rank, backend, dev,
+                model_group=groups["model"],
                 host_staged=backend == "gloo" and cuda,
-                data_group=data_group)
+                data_group=groups["data"], pod_group=groups.get("pod"),
+                dp_group=groups.get("dp"))
+
+
+def _join(groups: dict, name: str, ranks, rank: int) -> None:
+    """Create the group of ``ranks`` (every process calls, in the same
+    order) and keep it as ``name`` where this rank is in it."""
+    ranks = list(ranks)
+    g = dist.new_group(ranks)
+    if rank in ranks:
+        groups[name] = g
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[int, int, int]:
+    """(pod, data, model) of the reference's production mesh
+    (``repro.launch.mesh.make_production_mesh``): ``configs.base``'s
+    ``SINGLE_POD`` (16, 16) or ``MULTI_POD`` (2, 16, 16)."""
+    from repro_torch.configs.base import MULTI_POD, SINGLE_POD
+    return MULTI_POD.shape if multi_pod else (1,) + SINGLE_POD.shape
+
+
+def make_production_mesh(*, rank: int, init_file: str,
+                         multi_pod: bool = False,
+                         backend: Optional[str] = None,
+                         device: str = "cuda") -> Mesh:
+    """This process's place in the reference's production mesh: ``(16,
+    16)`` over (data, model), or ``(2, 16, 16)`` over (pod, data, model)
+    with ``multi_pod`` (256 or 512 processes)."""
+    pod, dp, tp = production_shape(multi_pod)
+    return make_mesh(dp, tp, pod=pod, rank=rank, init_file=init_file,
+                     backend=backend, device=device)
 
 
 def make_test_mesh(tp: int, *, rank: int, init_file: str) -> Mesh:

@@ -46,9 +46,10 @@ def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     layout) of a train cell: ``whole`` cut by the training layout
     (``train_step.mesh_layout`` / ``rank_slices``: an SSM's in_xbc /
     conv leaves whole on every model rank, the expert stacks over
-    'data'), the rank's config at ``tp_config(cfg, tp, ep=dp)``."""
+    'data'), the rank's config at ``tp_config(cfg, tp, ep=dp)``; on a
+    mesh of pods every pod's rank holds the same."""
     dp, tp = mesh.shape["data"], mesh.shape["model"]
-    layout = ts.mesh_layout(cfg, dp, tp, opt_cfg)
+    layout = ts.mesh_layout(cfg, dp, tp, opt_cfg, pod=mesh.pods)
     params = ts.rank_slices(whole, layout, mesh)
     lcfg = shd.local_config(shd.tp_config(cfg, tp, ep=dp), tp)
     return (params, lcfg, zero_adamw_init(params, layout.zero, opt_cfg,
@@ -76,9 +77,9 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def batch_split(shape: ShapeConfig, dp: int) -> bool:
-    """Are the batch's rows split over the ``dp`` data ranks (the
-    reference's rule: B divides and B > 1)? Otherwise every data rank
-    runs the whole batch."""
+    """Are the batch's rows split over the ``dp`` DP ranks (pods x data
+    ranks; the reference's rule: B divides and B > 1)? Otherwise every DP
+    rank runs the whole batch."""
     B = shape.global_batch
     return dp > 1 and B > 1 and B % dp == 0
 
@@ -86,17 +87,18 @@ def batch_split(shape: ShapeConfig, dp: int) -> bool:
 def input_shardings(cfg: ModelConfig, lcfg: ModelConfig, shape: ShapeConfig,
                     mesh, inputs: Dict[str, Any]) -> Dict[str, Any]:
     """The rank's inputs: a train step takes the global batch (the mesh
-    step takes its data rank's rows, ``train_step._rows``); prefill and
-    decode take the rank's rows where the batch splits over 'data'
-    (``batch_split``), and decode the rank's caches, its rows of a cache
-    of ``seq_len`` holding its own KV heads (or every head,
-    ``heads_replicated``) and SSM heads."""
+    step takes its DP rank's rows, ``train_step._rows``); prefill and
+    decode take the rank's rows where the batch splits over the DP axes
+    ('pod' and 'data', pod-major: ``dp_rank``; ``batch_split``), and
+    decode the rank's caches, its rows of a cache of ``seq_len`` holding
+    its own KV heads (or every head, ``heads_replicated``) and SSM
+    heads."""
     if shape.kind == "train":
         return dict(inputs)
-    dp = mesh.shape["data"]
+    dp = mesh.dp_total
     n = shape.global_batch // dp if batch_split(shape, dp) else \
         shape.global_batch
-    out = {k: v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+    out = {k: v[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
            if batch_split(shape, dp) else v for k, v in inputs.items()}
     if shape.kind == "decode":
         out["caches"] = lm.init_caches(None, lcfg, n, shape.seq_len,

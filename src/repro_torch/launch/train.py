@@ -29,13 +29,21 @@ Every family trains on a mesh: a MoE layer's experts are split over
 experts, the tokens go to their experts' owners and back by all-to-alls
 over 'data', each rank's aux the reference's per-shard one) and each
 expert's d_ff over 'model'; an SSM's heads over 'model'.
-``--mesh single`` is the reference's (16, 16) mesh (256 ranks, refused
-where they are missing); ``--mesh multi`` (a 'pod' axis), the int8 TP
-reduction, experts that do not split over DP and an expert d_ff or SSM
-heads that do not split over TP are refused with the reason.
+``--mesh P,D,T`` adds a 'pod' axis: P pods of D x T ranks, the batch
+split over the P x D DP ranks (pod-major), the gradients reduced over
+'data' and then 'pod' (exactly, as the reference's GSPMD step), the
+moments ZeRO-cut over 'data' only, so every pod holds and updates the
+same slices; experts stay in EP over each pod's 'data' ranks, a replica
+in every pod. ``--mesh single`` is the reference's (16, 16) mesh and
+``--mesh multi`` its (2, 16, 16) (256 and 512 ranks, refused where they
+are missing); the int8 TP reduction, experts that do not split over D
+and an expert d_ff or SSM heads that do not split over T are refused
+with the reason.
 
   PYTHONPATH=src python -m repro_torch.launch.train --mesh 2,2 --reduce \\
       --sasp 0.5 --device cpu --steps 4 --ckpt-every 2 [--resume]
+  PYTHONPATH=src python -m repro_torch.launch.train --mesh 2,2,1 \\
+      --reduce --device cpu --steps 4 --ckpt-every 2 [--resume]
 """
 from __future__ import annotations
 
@@ -63,16 +71,12 @@ from repro_torch.train.train_step import (make_mesh_train_step,
                                          make_train_step, mesh_layout,
                                          state_specs)
 
-MESH_MULTI = (
-    "--mesh multi adds a 'pod' axis ((2, 16, 16)), which repro_torch does "
-    "not have yet: ROADMAP Queue 1 item 6k (the 'pod' axis and --mesh "
-    "multi); train with --mesh DP,TP or --mesh single")
 MESH_RS_AG = (
     "tp_comm='rs_ag_int8' rounds the TP reduction to int8 and has no "
     "backward in repro_torch: train with the exact all-reduce "
     "(tp_comm='ar')")
-# the reference's production mesh (repro/launch/mesh.py)
-SINGLE_POD = (16, 16)
+
+
 def parse_args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-32b")
@@ -91,7 +95,9 @@ def parse_args(argv):
     ap.add_argument("--mesh", default="local",
                     help="local (one process), DP,TP (a (data, model) "
                          "mesh of DP x TP spawned processes, e.g. 2,2), "
-                         "single (the reference's (16, 16)) or multi")
+                         "P,D,T (a (pod, data, model) mesh, e.g. 2,2,1), "
+                         "single (the reference's (16, 16)) or multi (its "
+                         "(2, 16, 16))")
     ap.add_argument("--backend", choices=("auto", "nccl", "gloo"),
                     default="auto",
                     help="a mesh's transport: auto is nccl where every "
@@ -136,45 +142,52 @@ def check_mesh_config(cfg, dp: int, tp: int) -> None:
 
 
 def parse_mesh(args):
-    """--mesh -> None (local) or (DP, TP); the usage errors, with the
-    reason: ``multi``, a placement or option a training mesh does not run,
-    ``single`` where its 256 ranks are missing."""
+    """--mesh -> None (local) or (P, D, T) (P = 1 for DP,TP); the usage
+    errors, with the reason: a placement or option a training mesh does
+    not run, ``single`` or ``multi`` where its ranks are missing."""
+    from repro_torch.launch.mesh import production_shape
     spec = args.mesh.strip()
     if spec == "local":
         return None
-    if spec == "multi":
-        raise SystemExit(MESH_MULTI)
-    if spec == "single":
-        dp, tp = SINGLE_POD
+    if spec in ("single", "multi"):
+        pod, dp, tp = production_shape(spec == "multi")
         have = (torch.cuda.device_count() if args.device.startswith("cuda")
                 else os.cpu_count() or 1)
         what = "cards" if args.device.startswith("cuda") else "CPU cores"
-        if have < dp * tp:
+        if have < pod * dp * tp:
+            axes = (f"{pod} pod x " if pod > 1 else "") + \
+                f"{dp} data x {tp} model"
+            shape = (pod, dp, tp) if pod > 1 else (dp, tp)
             raise SystemExit(
-                f"--mesh single is the reference's ({dp}, {tp}) mesh: it "
-                f"needs {dp * tp} ranks ({dp} data x {tp} model), one a "
-                f"card (or a core on the CPU); this machine has {have} "
-                f"{what}. Train with --mesh DP,TP")
+                f"--mesh {spec} is the reference's {shape} mesh: it needs "
+                f"{pod * dp * tp} ranks ({axes}), one a card (or a core on "
+                f"the CPU); this machine has {have} {what}. Train with "
+                f"--mesh DP,TP or P,D,T")
     else:
-        m = re.fullmatch(r"(\d+)\s*,\s*(\d+)", spec)
-        if not m or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        m = re.fullmatch(r"(\d+)\s*,\s*(\d+)(?:\s*,\s*(\d+))?", spec)
+        sizes = [int(g) for g in m.groups() if g is not None] if m else []
+        if not m or min(sizes) < 1:
             raise SystemExit(f"--mesh expects local, single, multi or "
-                             f"'DP,TP' (two positive integers, e.g. 2,2), "
-                             f"got {spec!r}")
-        dp, tp = int(m.group(1)), int(m.group(2))
+                             f"'DP,TP' (two positive integers, e.g. 2,2) or "
+                             f"'P,D,T' (three, e.g. 2,2,1), got {spec!r}")
+        pod, dp, tp = ([1] + sizes)[-3:]
+    name = f"{pod},{dp},{tp}" if pod > 1 else f"{dp},{tp}"
     try:
         check_mesh_config(model_config(args), dp, tp)
     except ValueError as e:
-        raise SystemExit(f"--mesh {dp},{tp}: {e}")
-    if args.batch % (dp * args.microbatches):
-        raise SystemExit(f"--batch {args.batch} does not split into {dp} "
-                         f"data ranks of {args.microbatches} micro-batches")
-    if (args.backend == "nccl" and dp * tp > (
+        raise SystemExit(f"--mesh {name}: {e}")
+    if args.batch % (pod * dp * args.microbatches):
+        raise SystemExit(f"--batch {args.batch} does not split into "
+                         f"{pod * dp} data ranks"
+                         f"{f' ({pod} pods of {dp})' if pod > 1 else ''} of "
+                         f"{args.microbatches} micro-batches")
+    world = pod * dp * tp
+    if (args.backend == "nccl" and world > (
             torch.cuda.device_count() if args.device.startswith("cuda")
             else 0)):
-        raise SystemExit(f"--backend nccl needs a card per rank: {dp * tp} "
+        raise SystemExit(f"--backend nccl needs a card per rank: {world} "
                          f"ranks, {torch.cuda.device_count()} cards")
-    return dp, tp
+    return pod, dp, tp
 
 
 def _sync(device) -> None:
@@ -290,12 +303,12 @@ def _stack(trees):
 
 
 def train_mesh(args) -> list:
-    """--mesh DP,TP: spawn DP x TP processes (``launch.mesh.run_ranks``,
-    a file store under the checkpoint directory), each ``train_rank``;
-    return every rank's result."""
+    """--mesh DP,TP or P,D,T: spawn P x D x T processes
+    (``launch.mesh.run_ranks``, a file store under the checkpoint
+    directory), each ``train_rank``; return every rank's result."""
     from repro_torch.launch.mesh import init_file_in, run_ranks
-    dp, tp = args.mesh_shape
-    spec = dict(mesh=(dp, tp), device=args.device,
+    pod, dp, tp = args.mesh_shape
+    spec = dict(mesh=(dp, tp), pod=pod, device=args.device,
                 backend=None if args.backend == "auto" else args.backend,
                 cfg=model_config(args), steps=args.steps, batch=args.batch,
                 seq=args.seq, microbatches=args.microbatches, lr=args.lr,
@@ -304,17 +317,20 @@ def train_mesh(args) -> list:
     store = init_file_in(args.ckpt_dir,
                          f"mesh_store_{os.getpid()}_{time.time_ns()}")
     try:
-        out = run_ranks(train_rank, dp * tp, (spec, store), timeout=86400)
+        out = run_ranks(train_rank, pod * dp * tp, (spec, store),
+                        timeout=86400)
     finally:
         if os.path.exists(store):
             os.remove(store)
-    print(f"mesh: {dp * tp} processes ({dp} data x {tp} model ranks) "
-          f"trained to step {out[0]['step']}")
+    pods = f"{pod} pods x " if pod > 1 else ""
+    print(f"mesh: {pod * dp * tp} processes ({pods}{dp} data x {tp} model "
+          f"ranks) trained to step {out[0]['step']}")
     return out
 
 
 def train_rank(rank: int, spec: dict, init_file: str) -> dict:
-    """One process of ``--mesh DP,TP``: join the mesh, take its TP slices
+    """One process of ``--mesh DP,TP`` or ``P,D,T``: join the mesh, take
+    its TP slices
     (drawn from seed 0, or its slices of the latest checkpoint with
     ``resume``) and ZeRO moments, build the SASP overlay on the mesh
     (``core.sasp.mesh_overlay``) and run the mesh train step on the
@@ -325,15 +341,17 @@ def train_rank(rank: int, spec: dict, init_file: str) -> dict:
     from repro_torch.distribution.sharding import local_config, tp_config
     from repro_torch.launch.mesh import make_mesh
     dp, tp = spec["mesh"]
+    pod = spec.get("pod", 1)
     if spec["device"] == "cpu":
-        torch.set_num_threads(max(1, torch.get_num_threads() // (dp * tp)))
-    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+        torch.set_num_threads(max(1, torch.get_num_threads()
+                                  // (pod * dp * tp)))
+    mesh = make_mesh(dp, tp, pod=pod, rank=rank, init_file=init_file,
                      backend=spec["backend"], device=spec["device"])
     lead = mesh.rank == 0
     cfg = spec["cfg"]
     lcfg = local_config(tp_config(cfg, tp, ep=dp), tp)
     opt_cfg = AdamWConfig(lr=spec["lr"])
-    layout = mesh_layout(cfg, dp, tp, opt_cfg)
+    layout = mesh_layout(cfg, dp, tp, opt_cfg, pod=pod)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=spec["seq"],
                       global_batch=spec["batch"])
     pipe = Pipeline(dcfg, kind="lm")
@@ -366,8 +384,8 @@ def train_rank(rank: int, spec: dict, init_file: str) -> dict:
                                    overlay=overlay, lr_schedule=sched,
                                    n_microbatches=spec["microbatches"])
     if lead:
-        print(f"mesh: {mesh.shape} over {dp * tp} processes, transport "
-              f"{mesh.transport}", flush=True)
+        print(f"mesh: {mesh.shape} over {pod * dp * tp} processes, "
+              f"transport {mesh.transport}", flush=True)
     losses, gnorms = [], []
 
     def save(step):

@@ -712,14 +712,16 @@ def _xent(params, cfg: ModelConfig, x: torch.Tensor, tokens: torch.Tensor,
 def loss_fn_groups(params, cfg: ModelConfig, batches: List[Dict],
                    xent_chunk: int = 512):
     """The meshless twin of ``loss_fn`` on an expert-parallel mesh whose
-    data ranks hold the row groups ``batches`` (each a batch of the same
-    rows): each group's embedding, mixers, dense FFNs and cross-entropy
-    apart, at the mesh's shapes, each MoE layer over every group at once
+    DP ranks hold the row groups ``batches`` (each a batch of the same
+    rows; pod-major, ``cfg.ep_shards`` groups a pod): each group's
+    embedding, mixers, dense FFNs and cross-entropy apart, at the mesh's
+    shapes, each MoE layer over every group at once, pod by pod
     (``moe_ep.moe_ffn_groups``), each layer repeat under ``cfg.remat``.
-    Returns each group's (loss, {"ce", "aux"}): what each data rank's
-    ``loss_fn`` gives on the mesh. The aux (the mean over the groups)
-    carries every group's own aux gradient in equal shares, so the
-    gradient of the groups' mean loss is the mean of the mesh ranks'."""
+    Returns each group's (loss, {"ce", "aux"}): what each DP rank's
+    ``loss_fn`` gives on the mesh. The aux (the mean over the groups:
+    each pod's, then the pods') carries every group's own aux gradient in
+    equal shares, so the gradient of the groups' mean loss is the mean of
+    the mesh ranks'."""
     xs = [_embed_in(params, cfg, b["tokens"], b.get("embeds"))
           for b in batches]
     S = batches[0]["tokens"].shape[1]

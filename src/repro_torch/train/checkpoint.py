@@ -350,10 +350,16 @@ def gather_whole(t: torch.Tensor, spec: Tuple, mesh) -> torch.Tensor:
 def save_on_mesh(mgr: CheckpointManager, step: int, state, specs, mesh,
                  extra: Optional[Dict] = None) -> None:
     """Save a mesh's state in the reference's format: each leaf gathered
-    whole over 'model' and 'data' (``gather_whole``), one leaf at a
-    time, and written by world rank 0 as it comes, so neither a card nor
-    the host holds the whole tree. ``specs``: ``state``'s structure with
-    a ``Placed`` at each leaf. Every rank calls; they leave together."""
+    whole over 'model' and 'data' (``gather_whole``) by the ranks of pod
+    0 (every pod holds the same slices, so the others gather nothing),
+    one leaf at a time, and written by world rank 0 as it comes, so
+    neither a card nor the host holds the whole tree. ``specs``:
+    ``state``'s structure with a ``Placed`` at each leaf. Every rank
+    calls; they leave together (a barrier over the whole world)."""
+    if mesh.pod_rank:
+        mesh.allreduce(torch.zeros((), device=mesh.host_device), "world")
+        return
+
     def leaves():
         for (name, t), (_, placed) in zip(named_leaves(state),
                                           named_leaves(specs)):
@@ -371,7 +377,8 @@ def save_on_mesh(mgr: CheckpointManager, step: int, state, specs, mesh,
 def restore_on_mesh(reader: CheckpointReader, like, specs, mesh):
     """This rank's slices of a checkpoint (either package's, written whole
     or by ``save_on_mesh``) in ``like``'s structure, dtypes and device
-    (``like``: the rank's own state; ``specs`` as in ``save_on_mesh``).
+    (``like``: the rank's own state; ``specs`` as in ``save_on_mesh``;
+    every pod reads the same slices: no spec names 'pod').
     A layer-stacked leaf (under ``segments``) is read one layer at a
     time (``CheckpointReader.layer``), only the rank's layers where its
     layer axis is cut, each cut before the next is read."""

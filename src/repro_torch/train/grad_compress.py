@@ -9,11 +9,13 @@ error is carried in the returned residual (error feedback), so the
 compression's bias vanishes over steps. On the wire an int8 payload and
 1/256-dense scales replace fp32 gradients (about 4x fewer bytes).
 
-The reference wires it into no launcher; neither does the port. The
-reference reduces over its 'pod' axis inside a ``shard_map``; the port's
-mesh has no 'pod' axis, so ``axis`` names one of the mesh's own
-('data' by default, 'model' or 'world'), and the collectives run over
-that axis's process group.
+The reference wires it into no launcher and no step; neither does the
+port (both reduce a step's gradients exactly, ``train.optimizer.
+reduce_grads``). The reference documents it over its 'pod' axis inside a
+``shard_map``; here ``axis`` names any axis of the mesh ('pod' on a
+``(pod, data, model)`` mesh, 'data' by default, 'model', the DP axes
+``("pod", "data")`` or 'world'), and the collectives run over that
+axis's process group.
 """
 from __future__ import annotations
 

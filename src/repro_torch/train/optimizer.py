@@ -204,12 +204,15 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
 # (``distribution.sharding``). On a (data, model) mesh a rank holds its
 # TP slice of every param (replicated over 'data') and its ZeRO slice of
 # every moment: the param's TP slice cut again over 'data' on the dim
-# ``zero_spec_from_param_spec`` picks. Int8 moments keep the whole
-# leaf's 256-wide blocks: q is cut like an fp32 moment, the scale on its
-# dims before the last only (the reference's placement); where the last
-# dim is cut, each rank holds every block's scale, taken as the max over
-# the ranks that share the block (``_quantize_moment``), so the state
-# equals the single-device state at every place.
+# ``zero_spec_from_param_spec`` picks. On a (pod, data, model) mesh the
+# moments are cut over 'data' only (the reference's ZeRO specs name no
+# 'pod'), so every pod holds the same slices and runs the same update.
+# Int8 moments keep the whole leaf's 256-wide blocks: q is cut like an
+# fp32 moment, the scale on its dims before the last only (the
+# reference's placement); where the last dim is cut, each rank holds
+# every block's scale, taken as the max over the ranks that share the
+# block (``_quantize_moment``), so the state equals the single-device
+# state at every place.
 
 Spec = Tuple[Optional[str], ...]
 
@@ -327,22 +330,34 @@ def zero_adamw_init(params, zero_specs: Dict, cfg: AdamWConfig, mesh
 
 
 def reduce_grads(grads, zero_specs: Dict, mesh):
-    """{path: this rank's ZeRO slice of the mean over 'data'} of a
-    rank's TP-slice gradients: a reduce-scatter on the ZeRO dim, or an
-    all-reduce where the moment is whole over 'data'; an EP-cut leaf's
-    gradient (``ZeroSpecs.ep``), whole already, divided by DP."""
-    dp = mesh.shape["data"]
+    """{path: this rank's ZeRO slice of the mean over the DP axes ('pod'
+    and 'data')} of a rank's TP-slice gradients: a reduce-scatter over
+    'data' on the ZeRO dim, then an all-reduce of the slice over 'pod';
+    an all-reduce over ``("pod", "data")`` where the moment is whole
+    over 'data'; an EP-cut leaf's gradient (``ZeroSpecs.ep``), whole in
+    its pod already, all-reduced over 'pod'. Each is divided by pods x
+    data ranks. Every pod ends with the same slices (the reference's
+    GSPMD reduces exactly over both axes; ``grad_compress`` is not
+    used)."""
+    dp, pods = mesh.shape["data"], mesh.pods
+    n = dp * pods
     out = {}
     for path, g in iter_leaves(grads):
         z = _zero_dim(zero_specs, path)
-        if dp == 1:
+        if n == 1:
             out[path] = g
-        elif _ep(zero_specs, path):
-            out[path] = g / dp
+            continue
+        if _ep(zero_specs, path):
+            s = g
         elif z is None:
-            out[path] = mesh.allreduce(g, "data") / dp
+            s = mesh.allreduce(g, ("pod", "data"))
+        elif dp > 1:
+            s = mesh.reduce_scatter(g, "data", z)
         else:
-            out[path] = mesh.reduce_scatter(g, "data", z) / dp
+            s = g
+        if pods > 1 and (z is not None or _ep(zero_specs, path)):
+            s = mesh.allreduce(s, "pod")
+        out[path] = s / n
     return out
 
 
@@ -352,11 +367,13 @@ def zero_global_norm(grads: Dict, param_specs: Dict, zero_specs: Dict,
     slice's squares summed in fp32, a leaf whole over 'model' counted on
     model rank 0 and one whole over 'data' on data rank 0 (an EP-cut
     expert stack, whose moments hold 'data', on every data rank: each
-    holds its own experts), then summed over the world."""
+    holds its own experts), every slice on pod 0 only (each pod holds
+    the same), then summed over the world."""
     total = None
     for path, g in grads.items():
         if ("model" not in param_specs[path] and mesh.model_rank) or \
-                ("data" not in zero_specs[path] and mesh.data_rank):
+                ("data" not in zero_specs[path] and mesh.data_rank) or \
+                mesh.pod_rank:
             continue
         s = torch.sum(torch.square(g.to(torch.float32)))
         total = s if total is None else total + s
@@ -371,8 +388,8 @@ def zero_adamw_update(grads: Dict, state: AdamWState, params,
     """AdamW on this rank's ZeRO slices (``grads`` from ``reduce_grads``,
     clipped by ``gnorm`` from ``zero_global_norm``), then each updated
     param slice all-gathered over 'data' into the rank's TP slice
-    (in place). Weight decay keys on the whole leaf's rank, which every
-    slice keeps."""
+    (in place; every pod runs the same update on the same slices). Weight
+    decay keys on the whole leaf's rank, which every slice keeps."""
     scalars = _step_scalars(state, gnorm, cfg, lr_scale)
     with torch.no_grad():
         for path, p in iter_leaves(params):

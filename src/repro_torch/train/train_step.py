@@ -7,12 +7,14 @@ reach the surviving tiles only. The step updates params and moments in
 place and returns them (the reference's launcher donates both to its
 jitted step).
 
-Under a (data, model) mesh (``make_mesh_train_step``) one process runs
-each rank: the reference's GSPMD step reduces the gradients over 'data'
-implicitly and keeps the moments ZeRO-sharded by its shardings; here
-the step does both by hand (``train.optimizer``'s ``zero_*``), and
+Under a (data, model) or (pod, data, model) mesh
+(``make_mesh_train_step``) one process runs each rank: the reference's
+GSPMD step splits the batch over its DP axes ('pod' and 'data'), reduces
+the gradients over them implicitly and keeps the moments ZeRO-sharded
+over 'data' by its shardings; here the step does both by hand
+(``train.optimizer``'s ``reduce_grads`` and ``zero_*``), and
 ``make_train_step(data_shards=)`` with a TP config (``cfg.tp_shards``)
-is its meshless twin.
+is its meshless twin, ``data_shards`` the DP ranks of every pod.
 """
 from __future__ import annotations
 
@@ -80,9 +82,9 @@ def _detach(tree):
 def value_and_grad_groups(cfg: ModelConfig, params, batches: List[Dict],
                           overlay: Optional[Any] = None):
     """The meshless twin of an expert-parallel mesh's ``value_and_grad``
-    (``lm.loss_fn_groups``, data rank g's rows ``batches[g]``): (each
-    group's (loss, metrics), the gradient of the groups' mean loss: the
-    mean over 'data' of the mesh ranks' gradients)."""
+    (``lm.loss_fn_groups``, DP rank g's rows ``batches[g]``, pod-major):
+    (each group's (loss, metrics), the gradient of the groups' mean loss:
+    the mean over the DP axes of the mesh ranks' gradients)."""
     def fn(pv):
         parts = lm.loss_fn_groups(pv, cfg, batches)
         total = parts[0][0]
@@ -123,11 +125,12 @@ def _grads(cfg: ModelConfig, params, batch: Dict, overlay,
 
 
 def _rows(batch: Dict, d: int, n: int, k: int = 1) -> Dict:
-    """Data rank ``d``'s rows of ``n`` under ``k`` micro-batches, in the
+    """DP rank ``d``'s rows of ``n`` under ``k`` micro-batches, in the
     reference's grouping (the global batch cut into k micro-batches,
-    each sharded ``P('data', None)``): micro-batch j's rows [j B/k + d
-    B/(k n), j B/k + (d+1) B/(k n)), for j in order, so that the rank's
-    own micro-batch j is its rows of the global micro-batch j."""
+    each sharded ``P(('pod', 'data'), None)``, pod-major: ``d`` is a
+    mesh rank's ``dp_rank``): micro-batch j's rows [j B/k + d B/(k n), j
+    B/k + (d+1) B/(k n)), for j in order, so that the rank's own
+    micro-batch j is its rows of the global micro-batch j."""
     B = next(iter(batch.values())).shape[0]
     if B % (n * k):
         raise ValueError(f"a batch of {B} rows does not split over {n} "
@@ -141,12 +144,12 @@ def _rows(batch: Dict, d: int, n: int, k: int = 1) -> Dict:
 def _grads_groups(cfg: ModelConfig, params, batch: Dict, overlay,
                   n_microbatches: int, accum_dtype, data_shards: int):
     """The meshless twin of an expert-parallel mesh step's gradients:
-    each micro-batch's data-rank groups in lock step
-    (``value_and_grad_groups``), the gradients accumulated over the
-    micro-batches in ``accum_dtype`` (default fp32) and averaged; the
-    loss and metrics reduced as the mesh reduces them (each data rank's
-    micro-batches averaged, then the data ranks). Returns (loss, metrics,
-    grads)."""
+    each micro-batch's ``data_shards`` DP-rank groups (every pod's) in
+    lock step (``value_and_grad_groups``), the gradients accumulated over
+    the micro-batches in ``accum_dtype`` (default fp32) and averaged; the
+    loss and metrics reduced as the mesh reduces them (each DP rank's
+    micro-batches averaged, then the DP ranks, ``_dp_mean``). Returns
+    (loss, metrics, grads)."""
     K, dp = n_microbatches, data_shards
     adt = accum_dtype or torch.float32
     ranks = [_rows(batch, d, dp, K) for d in range(dp)]
@@ -184,34 +187,46 @@ def _grads_groups(cfg: ModelConfig, params, batch: Dict, overlay,
                   for n in parts[0][1]}
         rows.append((loss, ms))
     names = sorted(rows[0][1])
-    vals = torch.stack([torch.stack([loss] + [ms[n] for n in names])
-                        for loss, ms in rows]).sum(dim=0) / dp
+    vals = _dp_mean(torch.stack([
+        torch.stack([loss] + [ms[n] for n in names]) for loss, ms in rows]))
     return vals[0], {n: vals[i + 1] for i, n in enumerate(names)}, grads
+
+
+def _dp_mean(rows: torch.Tensor) -> torch.Tensor:
+    """The mean of (DP ranks, k) over its DP ranks, summed in DP-rank
+    order: the mesh's metrics and the loop's, the same op on the same
+    shape."""
+    return rows.sum(dim=0) / rows.shape[0]
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     overlay: Optional[Any] = None,
                     lr_schedule: Optional[Callable] = None,
                     n_microbatches: int = 1,
-                    accum_dtype=None, data_shards: int = 1):
+                    accum_dtype=None, data_shards: int = 1,
+                    on_grads: Optional[Callable] = None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
     metrics {"ce", "aux", "loss", "grad_norm"}, 0-d tensors).
+    ``on_grads(grads)``, where given, sees each step's mean gradient (the
+    params' structure) before the update.
 
     ``n_microbatches > 1``: gradient accumulation over batch slices
     (rows [k B/K, (k+1) B/K) form micro-batch k), in ``accum_dtype``
     (default fp32); the activations held shrink by K at the cost of K
     sequential passes. ``data_shards`` > 1 is the meshless twin of a
-    mesh step's 'data' axis (``make_mesh_train_step``): each data
-    rank's rows in turn (their own micro-batches, ``_rows``), the
-    gradients and metrics averaged in data-rank order; with experts in
-    ``cfg.ep_shards`` EP shards (``tp_config(..., ep=)``) the data ranks'
+    mesh step's DP axes (``make_mesh_train_step``; pods x data ranks):
+    each DP rank's rows in turn (their own micro-batches, ``_rows``), the
+    gradients and metrics averaged in DP-rank order; with experts in
+    ``cfg.ep_shards`` EP shards (``tp_config(..., ep=)``) the DP ranks'
     rows run in lock step instead, every MoE layer over all of them at
-    once (``_grads_groups``), as the mesh's all-to-alls join them."""
+    once, each pod's ``cfg.ep_shards`` groups joined as its all-to-alls
+    join them (``_grads_groups``)."""
 
-    if cfg.ep_shards > 1 and data_shards != cfg.ep_shards:
+    if cfg.ep_shards > 1 and data_shards % cfg.ep_shards:
         raise ValueError(f"experts in {cfg.ep_shards} EP shards: the loop "
-                         f"runs data_shards={cfg.ep_shards} groups, not "
-                         f"{data_shards}")
+                         f"runs pods of {cfg.ep_shards} data ranks, and "
+                         f"data_shards={data_shards} is no whole number of "
+                         f"them")
 
     def step(params, opt_state: AdamWState, batch: Dict):
         if cfg.ep_shards > 1:
@@ -236,6 +251,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
             metrics = {n: torch.stack([p[1][n] for p in parts]).sum()
                        / data_shards for n in metrics}
 
+        if on_grads is not None:
+            on_grads(grads)
         lr_scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
         gnorm = global_norm(grads)
         new_params, new_opt = adamw_update(grads, opt_state, params,
@@ -276,18 +293,20 @@ def train_spec(cfg: ModelConfig, path, shape, sizes) -> tuple:
 
 
 def mesh_layout(cfg: ModelConfig, dp: int, tp: int,
-                opt_cfg: AdamWConfig) -> MeshLayout:
-    """The layout of ``cfg``'s training state on a (dp, tp) mesh, from
-    the whole tree's shapes (``lm.param_shapes``: nothing is allocated):
-    each leaf's ``train_spec``, the moments' ZeRO specs, and ``zero`` a
+                opt_cfg: AdamWConfig, pod: int = 1) -> MeshLayout:
+    """The layout of ``cfg``'s training state on a (pod, dp, tp) mesh,
+    from the whole tree's shapes (``lm.param_shapes``: nothing is
+    allocated): each leaf's ``train_spec``, the moments' ZeRO specs (over
+    'data' only: every pod holds the same slices), and ``zero`` a
     ``ZeroSpecs`` naming the EP-cut expert stacks. Refuses what cannot
     place (``sharding.check_placement``: experts that do not split over
     'data', an expert d_ff or SSM heads that do not split over
     'model')."""
+    from repro_torch.distribution.context import mesh_shape
     from repro_torch.distribution.sharding import check_placement
     check_placement(cfg, tp, dp if cfg.moe is not None else 1)
     shapes = lm.param_shapes(cfg)
-    sizes = {"data": dp, "model": tp}
+    sizes = mesh_shape(dp, tp, pod)
     pspecs = {path: train_spec(cfg, path, tuple(t.shape), sizes)
               for path, t in iter_leaves(shapes)}
     opt = opt_state_shardings(shapes, sizes, opt_cfg, pspecs)
@@ -325,29 +344,37 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                          layout: MeshLayout,
                          overlay: Optional[Any] = None,
                          lr_schedule: Optional[Callable] = None,
-                         n_microbatches: int = 1, accum_dtype=None):
-    """The train step of one rank of a (data, model) mesh: step(params,
-    opt_state, batch) -> (params, opt_state, metrics), ``batch`` the
-    global batch. ``cfg`` is the rank's config (``sharding.local_config``
-    of a ``tp_config``), ``params`` its TP slices, ``opt_state`` its ZeRO
-    slices (``optimizer.zero_adamw_init``), ``overlay`` its masks
-    (``core.sasp.mesh_overlay``). The data rank takes its rows of the
-    batch, runs forward and backward under the mesh (and its
-    micro-batches, accumulated locally), reduces the gradients to the
-    mean over 'data' on its ZeRO slices (``reduce_grads``), clips by the
-    global norm (``zero_global_norm``), runs AdamW on its slices and
-    all-gathers the params over 'data' (``zero_adamw_update``). Metrics
-    are the mean over 'data', on every rank."""
+                         n_microbatches: int = 1, accum_dtype=None,
+                         on_grads: Optional[Callable] = None):
+    """The train step of one rank of a (data, model) or (pod, data,
+    model) mesh: step(params, opt_state, batch) -> (params, opt_state,
+    metrics), ``batch`` the global batch. ``cfg`` is the rank's config
+    (``sharding.local_config`` of a ``tp_config``), ``params`` its TP
+    slices, ``opt_state`` its ZeRO slices (``optimizer.zero_adamw_init``),
+    ``overlay`` its masks (``core.sasp.mesh_overlay``). The rank takes its
+    DP rank's rows of the batch (pod-major, ``_rows``), runs forward and
+    backward under the mesh (and its micro-batches, accumulated locally),
+    reduces the gradients to the mean over 'pod' and 'data' on its ZeRO
+    slices (``reduce_grads``), clips by the global norm
+    (``zero_global_norm``), runs AdamW on its slices and all-gathers the
+    params over 'data' (``zero_adamw_update``). Metrics are the mean over
+    the DP axes, on every rank: an all-reduce over 'data' with one pod,
+    else the DP ranks' values gathered and summed in DP-rank order
+    (``_dp_mean``, as the loop sums them).
+    ``on_grads(gs)``, where given, sees each step's reduced gradient
+    slices ({path: the rank's ZeRO slice}) before the update."""
     from repro_torch.distribution.context import use_mesh
-    dp = mesh.shape["data"]
+    dp, pods = mesh.shape["data"], mesh.pods
 
     def step(params, opt_state: AdamWState, batch: Dict):
-        mine = _rows(batch, mesh.data_rank, dp, n_microbatches)
+        mine = _rows(batch, mesh.dp_rank, mesh.dp_total, n_microbatches)
         with use_mesh(mesh):
             loss, metrics, grads = _grads(cfg, params, mine, overlay,
                                           n_microbatches, accum_dtype)
             gs = reduce_grads(grads, layout.zero, mesh)
             del grads
+            if on_grads is not None:
+                on_grads(gs)
             gnorm = zero_global_norm(gs, layout.params, layout.zero, mesh)
             lr_scale = lr_schedule(opt_state.step) if lr_schedule else 1.0
             params, opt_state = zero_adamw_update(
@@ -355,7 +382,9 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                 lr_scale=lr_scale, gnorm=gnorm)
         names = sorted(metrics)
         vals = torch.stack([loss] + [metrics[n] for n in names])
-        if dp > 1:
+        if pods > 1:
+            vals = _dp_mean(mesh.gather(vals[None], ("pod", "data"), 0))
+        elif dp > 1:
             vals = mesh.allreduce(vals, "data") / dp
         out = {n: vals[i + 1] for i, n in enumerate(names)}
         out["loss"] = vals[0]

@@ -12,8 +12,8 @@ under ``FakeTensorMode`` on a ``DryMesh``.
   a dry (2, 2) mesh ends in a row or in a named refusal (a MoE or
   hybrid train step with 'data' > 1: the expert-parallel path reads the
   routing counts on the host); mamba2's train cells trace;
-* ``--multi-pod`` is refused, naming item 6k; the CLI prints a row of a
-  full-size cell."""
+* ``--multi-pod`` traces rank 0 of ``2x16x16``; the CLI prints a row of
+  a full-size cell."""
 import dataclasses
 
 import pytest
@@ -174,12 +174,20 @@ def test_every_reduced_cell_ends_in_a_row_or_a_refusal(arch, shape):
     assert format_row(rep).startswith(arch)
 
 
-def test_multi_pod_is_refused_naming_item_6k():
-    with pytest.raises(SystemExit, match="item 6k"):
-        dryrun.main(["--arch", "qwen3-32b", "--shape", "train_4k",
-                     "--multi-pod"])
-    with pytest.raises(ValueError, match="item 6k"):
-        dryrun.run_cell("qwen3-32b", "train_4k", multi_pod=True)
+def test_multi_pod_cell_traces_rank_0_of_2x16x16(tmp_path, capsys):
+    """``--multi-pod`` traces rank 0 of the reference's (2, 16, 16) mesh:
+    the row names ``2x16x16``, the report 512 chips and 'pod' rows in the
+    collective record."""
+    assert dryrun.main(["--arch", "qwen3-32b", "--shape", "decode_32k",
+                        "--multi-pod", "--out", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("qwen3-32b") and "2x16x16" in out
+    (f,) = tmp_path.iterdir()
+    assert f.name == "qwen3-32b_decode_32k_2x16x16.json"
+    rep = dryrun.run_cell("qwen3-32b", "train_4k", multi_pod=True,
+                          reduce=True, verbose=False)
+    assert rep.mesh == "2x16x16" and rep.chips == 512
+    assert rep.coll_axes["pod"] > 0
 
 
 def test_family_train_cell_refused_by_the_cli():

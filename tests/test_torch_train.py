@@ -462,10 +462,10 @@ def test_launcher_trains_on_cpu_and_checkpoints(tmp_path, capsys, sigterm):
     out = capsys.readouterr().out
     assert "resumed from step 4" in out
     assert sorted(os.listdir(d)) == ["step_0000000004", "step_0000000006"]
-    # a training mesh is ported: --mesh multi (a 'pod' axis) is what
-    # waits for a ROADMAP item, and --mesh single stops where its 256
-    # ranks are missing
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+    # the reference's production meshes stop where their ranks are
+    # missing, naming them: 512 for --mesh multi (a 'pod' axis), 256 for
+    # --mesh single
+    with pytest.raises(SystemExit, match="needs 512 ranks"):
         t_launch.main(["--mesh", "multi"])
     with pytest.raises(SystemExit, match="needs 256 ranks"):
         t_launch.main(["--mesh", "single"])

@@ -535,7 +535,8 @@ def test_launcher_trains_on_a_mesh_and_resumes(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "multi"], "item 6k"),
+    (["--mesh", "multi", "--device", "cpu"],
+     r"\(2, 16, 16\) mesh: it needs 512 ranks \(2 pod x 16 data x 16 model"),
     (["--mesh", "single", "--device", "cpu"], "needs 256 ranks"),
     (["--mesh", "3,1", "--arch", "granite-moe-1b-a400m"],
      "4 experts do not split over 3 data ranks"),
