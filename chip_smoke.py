@@ -221,15 +221,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 logits bit for bit the loop's; a rank's build s, held and
                 peak GiB; (c) ``--mesh 1,4`` over NCCL where the machine
                 has a card per rank, else ``nccl: not run``; (d) phase
-                3's model (4 layers) saved by the port's
+                3's model cut to 2 layers, saved by the port's
                 ``CheckpointManager``, restored through ``--mesh 1,2
-                --ckpt-dir`` by the launcher's ``serve_rank`` (each rank
-                reading one layer at a time): streams equal the shard
-                loop's tp 2 built from the whole restore; (e) (d) again
-                with ``--stream --trace-out --metrics-dump``: the same
-                streams, one trace and one Prometheus text (every engine
-                counter), both written by rank 0. ``tools/depth_phase.py``
-                runs it alone.
+                --ckpt-dir --stream --trace-out --metrics-dump`` by the
+                launcher's ``serve_rank`` (each rank reading one layer at
+                a time): streams equal the shard loop's tp 2 built from
+                the whole restore; (e) one trace and one Prometheus text
+                (every engine counter), both written by rank 0.
+                ``tools/depth_phase.py`` runs it alone.
   11-14.      — dp, mesh paths, families on a mesh, training on a mesh
                 (each phase's function and its ``tools/*_phase.py``
                 describe it).
@@ -279,7 +278,9 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 2,1,2 checkpoint resumed bit for bit; (c) (b)'s
                 checkpoint served packed on one card (its sasp_gemm and
                 sasp_fused_ffn launches join the ``kernels`` line); (d)
-                (a)'s state on a dry 2,2,2 mesh (held GiB within 10% of
+                (a)'s MoE step traced on a dry 2,2,2 mesh at ranks 0 and
+                7 (expert parallelism declared even, no host read;
+                record equal to the real rank's, held GiB within 10% of
                 (a)'s) and (b)'s step traced there (record equal to the
                 real rank's); (e) four NCCL cards: moonshot, 8 layers, on
                 2,2,1. ``tools/pod_mesh_phase.py`` runs it alone.
@@ -3240,7 +3241,9 @@ def _tp_mesh(torch, layers: int, a2):
 # ---------------------------------------------------------------------------
 
 # (a)-(c) at ``layers``; (d) and (e) restore phase 3's 4-layer model
-DEPTH = dict(layers=64, tp=2, nccl_tp=4, ckpt_layers=4, new=16)
+# (d)'s checkpoint: phase 3's model cut to ``ckpt_layers`` (4 until the
+# smoke outgrew its time limit on slower hosts: 1210 s with 4)
+DEPTH = dict(layers=64, tp=2, nccl_tp=4, ckpt_layers=2, new=16)
 
 
 def _free(torch):
@@ -3566,11 +3569,12 @@ def _depth_tp(torch, counters, cfg0, a_run):
 
 
 def _depth_ckpt(torch, counters):
-    """(d) phase 3's model (4 layers, wo and w2 spread) saved by the
-    port's ``CheckpointManager``, restored through ``--mesh 1,2
-    --ckpt-dir`` (the launcher's ``serve_rank``), against the shard loop
-    at tp 2 built from the whole restore; (e) (d) again with
-    ``--stream --trace-out --metrics-dump``."""
+    """(d) phase 3's model (``DEPTH["ckpt_layers"]`` layers, wo and w2
+    spread) saved by the port's ``CheckpointManager``, restored through
+    ``--mesh 1,2 --ckpt-dir --stream --trace-out --metrics-dump`` (the
+    launcher's ``serve_rank``), against the shard loop at tp 2 built from
+    the whole restore; (e) rank 0 alone wrote the trace and the
+    metrics."""
     import shutil
 
     from repro_torch.launch import serve as launch
@@ -3604,14 +3608,6 @@ def _depth_ckpt(torch, counters):
         del loop
         _free(torch)
         spec = _depth_spec(cfg, DEPTH["tp"], ckpt_dir=ckpt)
-        t0 = time.time()
-        d = launch.serve_mesh(spec, store_dir=OUT_DIR, timeout=600)
-        out["d"] = dict(wall_s=time.time() - t0,
-                        build_s=[r["build_s"] for r in d])
-        for r in d:
-            check(r["streams"] == run["streams"],
-                  f"(d) rank {r['rank']}: streams differ from the shard "
-                  f"loop's tp={DEPTH['tp']} on the whole restore")
         trace = os.path.join(OUT_DIR, "depth_trace.json")
         prom = os.path.join(OUT_DIR, "depth_metrics.prom")
         for f in (trace, prom):
@@ -3621,11 +3617,14 @@ def _depth_ckpt(torch, counters):
                              metrics_interval=0.0)
         t0 = time.time()
         e = launch.serve_mesh(spec, store_dir=OUT_DIR, timeout=600)
-        out["e"] = dict(wall_s=time.time() - t0)
+        out["d"] = dict(wall_s=time.time() - t0,
+                        build_s=[r["build_s"] for r in e])
+        out["e"] = {}
         for r in e:
             check(r["streams"] == run["streams"],
-                  f"(e) rank {r['rank']}: streamed and traced streams differ "
-                  f"from (d)'s")
+                  f"(d) rank {r['rank']}: streamed and traced streams differ "
+                  f"from the shard loop's tp={DEPTH['tp']} on the whole "
+                  f"restore")
         check(e[0]["wrote"] == [trace, prom] and not any(
             r["wrote"] for r in e[1:]),
             f"(e): files written by rank: {[r['wrote'] for r in e]}, not "
@@ -3643,14 +3642,14 @@ def _depth_ckpt(torch, counters):
         shutil.rmtree(ckpt, ignore_errors=True)
     log(f"  (d) checkpoint of phase 3's model ({cfg.num_layers} layers, "
         f"{out['ckpt_gib']:.2f} GiB on disk, saved in {out['save_s']:.1f} "
-        f"s): --mesh 1,{DEPTH['tp']} --ckpt-dir, each rank restoring layer "
-        f"by layer ({[round(b, 1) for b in out['d']['build_s']]} s), "
+        f"s): --mesh 1,{DEPTH['tp']} --ckpt-dir --stream --trace-out "
+        f"--metrics-dump, each rank restoring layer by layer "
+        f"({[round(b, 1) for b in out['d']['build_s']]} s), "
         f"{out['d']['wall_s']:.1f} s wall; streams equal the shard loop's "
         f"tp={DEPTH['tp']} on the whole restore ({out['whole_restore_s']:.1f}"
-        f" s to restore and build). (e) with --stream --trace-out "
-        f"--metrics-dump: {out['e']['wall_s']:.1f} s wall, the same "
-        f"streams; rank 0 alone wrote the trace ({out['e']['trace_events']}"
-        f" events) and the Prometheus text (every engine counter)")
+        f" s to restore and build). (e) rank 0 alone wrote the trace "
+        f"({out['e']['trace_events']} events) and the Prometheus text "
+        f"(every engine counter)")
     return out
 
 
@@ -3658,8 +3657,9 @@ def depth_phase(torch, counters, layers: int = DEPTH["layers"]):
     """Phase 10: qwen3-32b at full width and ``layers`` layers (default
     all 64), built layer by layer: (a) one card, (b) the shard loop and
     ``--mesh 1,2``, (c) ``--mesh 1,4`` over NCCL where there are cards
-    for it; then (d) and (e) on phase 3's 4-layer model restored from a
-    checkpoint. Run last, with every earlier model freed."""
+    for it; then (d) and (e) on phase 3's model, cut to
+    ``DEPTH["ckpt_layers"]`` layers, restored from a checkpoint. Run
+    last, with every earlier model freed."""
     t_phase = time.time()
     cfg0 = main_config(layers, "bfloat16")
     log(f"  qwen3-32b at full width and {layers} layers; seed 0, wo and w2 "
@@ -3683,7 +3683,8 @@ def depth_phase(torch, counters, layers: int = DEPTH["layers"]):
 
 # (a) and (b) at ``layers`` on one card, (c) at ``depth_layers`` on four;
 # ``requests`` > 2 ranks x ``slots_per_rank``
-DPP = dict(layers=4, depth_layers=64, tp=2, requests=8, new=16,
+# (2 layers; 4 until the smoke outgrew its time limit on slower hosts)
+DPP = dict(layers=2, depth_layers=64, tp=2, requests=8, new=16,
            slots_per_rank=2, cache_len=256, kv_pages=20, engine_slots=4)
 
 
@@ -3891,8 +3892,8 @@ def _dp_rank(rank: int, spec: dict, init_file: str) -> dict:
 
 def _dp_check(tag, res, oracle, kinds, layers):
     """Every process's streams and served ranks bit for bit the
-    oracle's; a model rank's launches 16 tile-skip GEMMs and 4 fused FFNs
-    a forward at 4 layers (4 and 1 a layer), all mma."""
+    oracle's; a model rank's launches 4 tile-skip GEMMs and 1 fused FFN
+    a layer a forward, all mma."""
     for r in res:
         for kind in kinds:
             got, want = r[kind], oracle[kind]
@@ -4072,7 +4073,8 @@ def dp_phase(torch):
 # ---------------------------------------------------------------------------
 
 # (a) at ``layers`` on one card, (c) at ``depth_layers`` on four
-MPP = dict(layers=2, depth_layers=64, tp=2, nccl_tp=4, slots=4,
+# (1 layer; 4 until PR 27, 2 until the smoke outgrew its time limit)
+MPP = dict(layers=1, depth_layers=64, tp=2, nccl_tp=4, slots=4,
            cache_len=256, kv_pages=32, new=16, draft_k=4)
 # name -> (path, sparsity, int8 weights, scope, paged, drafter: None or
 # (its sparsity, its int8 flag)); at 75% a drafter of random weights
@@ -4417,7 +4419,9 @@ def mesh_paths_phase(torch, counters):
 
 # (a)-(c) on one card; (d) on four: jamba at full width, moonshot at all
 # 48 layers
-FMP = dict(moonshot_layers=2, moonshot_depth=48, slots=4, cache_len=256,
+# moonshot at 1 layer on one card (4 until PR 27, 2 until the smoke
+# outgrew its time limit)
+FMP = dict(moonshot_layers=1, moonshot_depth=48, slots=4, cache_len=256,
            new=16)
 # the one-card meshes: (DP, TP) -> [(model, --scheduler)], one spawn each
 FAMILY_MESHES = {
@@ -4428,7 +4432,7 @@ FAMILY_MESHES = {
 
 
 def _fm_config(model: str, full: bool = False):
-    """moonshot-v1-16b-a3b at full width (2 layers; ``full``: all 48),
+    """moonshot-v1-16b-a3b at full width (1 layer; ``full``: all 48),
     mamba2-780m whole, jamba's 8-layer super-block at phase 8 (c)'s
     widths with bf16 weights (``full``: at full width, the launcher's
     fp32 masters); bf16 compute."""
@@ -5969,7 +5973,7 @@ def train_family_mesh_phase(torch, counters):
 # (a) phase 16 (a)'s moonshot on --mesh 2,2,2 (experts in EP over each
 # pod's 'data' ranks, a replica in each pod); (b) phase 14 (b)'s narrow
 # qwen3 on 2,2,2 and 2,1,2; (c) (b)'s checkpoint served packed on one
-# card; (d) (a)'s state and (b)'s step on a dry 2,2,2 mesh; (e) four NCCL
+# card; (d) (a)'s and (b)'s steps on a dry 2,2,2 mesh; (e) four NCCL
 # cards: moonshot, 8 layers, on 2,2,1, printed beside phase 16 (d)'s
 # 4287 tokens/s on 2,2 and 4673 on 4,1 (four H100 80GB HBM3, 700 W)
 # (a) is cut to 1 layer: 8 ranks of 2 layers need more than the card's 79
@@ -6145,40 +6149,54 @@ def _pod_serve(torch, counters, ckpt):
 
 
 def _pod_dry(torch, train):
-    """(d): (a)'s training state on a dry 2,2,2 mesh (fake tensors, on the
-    host; a MoE step is not traced, ``launch.dryrun.EP_TRACE``) beside
-    the GiB (a)'s ranks held, and (b)'s int8 step traced there, its
-    record equal to the real rank's."""
+    """(d): (a)'s moonshot MoE step traced on a dry 2,2,2 mesh (fake
+    tensors, on the host: expert parallelism declared even, no host
+    read), its record equal to the real rank's and its held GiB beside
+    what (a)'s rank held; (b)'s int8 step traced there, its record equal
+    to the real rank's."""
     from repro_torch.analysis.comms import axis_bytes
     from repro_torch.configs import ShapeConfig
-    from repro_torch.launch.dryrun import held_train_state, trace_step
+    from repro_torch.launch.dryrun import trace_step
     from repro_torch.train.optimizer import AdamWConfig
     pod, dp, tp = POD["mesh"]
+    cfg = tfm_config("moonshot", POD["layers"])
+    B, S = _tfm_shape(cfg)
     out = {}
     for r in POD["dry_ranks"]:
         t0 = time.time()
-        held = held_train_state(tfm_config("moonshot", POD["layers"]), dp,
-                                tp, r, pod=pod,
-                                opt_cfg=AdamWConfig(lr=TFM["lr"]),
-                                overlay=True) / 2**30
+        tr = trace_step(cfg, ShapeConfig("tfm", "train", S, B), dp, tp, r,
+                        opt_cfg=AdamWConfig(lr=TFM["lr"]), overlay=True,
+                        lr_schedule=_tm_schedule(), pod=pod)
+        held = tr["held"] / 2**30
         real = train["a"]["ranks"][r]["held_gib"]
         err = abs(held - real) / real
-        tr = trace_step(tm_config(True), ShapeConfig(
+        want_a = train["a"]["records"][r]
+        same_a = tr["record"] == want_a
+        t_a = time.time() - t0
+        tr_b = trace_step(tm_config(True), ShapeConfig(
             "tm", "train", TMP["nseq"], TMP["nbatch"]), dp, tp, r,
             opt_cfg=AdamWConfig(lr=TMP["lr"], quantized=True), overlay=True,
             lr_schedule=_tm_schedule(), pod=pod)
         want = train["(b) --mesh 2,2,2 int8"]["ranks"][r]["record"]
-        same = tr["record"] == want
-        out[r] = dict(held_gib=held, real_held_gib=real, held_err=err,
-                      record=tr["record"], record_equal=same,
-                      seconds=time.time() - t0)
-        log(f"  (d) rank {r}: (a)'s state on the dry mesh {held:.2f} GiB, "
-            f"(a) measured {real:.2f} ({err:.2%} off); (b)'s int8 step "
-            f"record {'equal to' if same else 'NOT equal to'} the real "
-            f"rank's ({axis_bytes(want).get('pod', 0) / 2**20:.2f} MiB "
-            f"over "
+        same = tr_b["record"] == want
+        out[r] = dict(held_gib=held, peak_gib=tr["peak"] / 2**30,
+                      real_held_gib=real, held_err=err,
+                      record_a=tr["record"], record_a_equal=same_a,
+                      trace_a_s=t_a, record=tr_b["record"],
+                      record_equal=same, seconds=time.time() - t0)
+        log(f"  (d) rank {r}: (a)'s MoE step traced on the dry mesh in "
+            f"{t_a:.1f} s: held {held:.2f} GiB, peak "
+            f"{tr['peak'] / 2**30:.2f} ((a) measured {real:.2f}, "
+            f"{err:.2%} off); record "
+            f"{'equal to' if same_a else 'NOT equal to'} the real rank's "
+            f"(all-to-alls {want_a.get('all-to-all')}); (b)'s int8 step "
+            f"record "
+            f"{'equal to' if same else 'NOT equal to'} the real rank's "
+            f"({axis_bytes(want).get('pod', 0) / 2**20:.2f} MiB over "
             f"'pod'); {time.time() - t0:.1f} s")
-        check(same, f"(d) rank {r}: the dry record {tr['record']} is not "
+        check(same_a, f"(d) rank {r}: (a)'s dry record {tr['record']} is "
+              f"not the real rank's {want_a}")
+        check(same, f"(d) rank {r}: the dry record {tr_b['record']} is not "
               f"the real rank's {want}")
         check(err <= AN["held_tol"], f"(d) rank {r}: held {held:.2f} GiB "
               f"predicted, {real:.2f} measured")

@@ -23,9 +23,15 @@ collectives over that group: an all-gather of what each data rank
 computed, and a broadcast from data rank 0. ``submesh`` is one data
 rank's mesh (its 'model' axis alone); ``flat`` is the mesh seen with
 every process its own data rank (the reference's ``dp_only`` profile,
-``profile``). Expert parallelism adds a third collective over that
-group, ``data_all_to_all``: block j of a rank's tensor goes to data rank
-j (``jax.lax.all_to_all`` over 'data').
+``profile``; its 'data' axis spans every axis of the mesh, and the
+record names them, ``data_axis``: 'data,model'). Expert parallelism
+adds a third collective over that group, ``data_all_to_all``: block j
+of a rank's tensor goes to data rank j (``jax.lax.all_to_all`` over
+'data'). A caller that gives every DP rank the same rows by
+construction (a train step, a serving step whose batch splits) says so
+once, ``use_mesh(mesh, even_rows=True)``: expert parallelism then takes
+its mode, capacity and buffer type from the rank's own shape and reads
+nothing back to the host (``distribution/moe_ep.py``).
 
 The 'pod' axis (the reference's ``MULTI_POD``, ``(2, 16, 16)``): P pods of
 D x T processes, rank ``(p D + d) T + m``. A mesh of one pod has no 'pod'
@@ -68,8 +74,9 @@ Every collective that communicates is recorded on the mesh
 (``Mesh.comms``): calls and bytes by kind (``all-reduce``,
 ``all-gather``, ``reduce-scatter``, ``all-to-all``, ``broadcast``) and
 axis ('model', 'data', 'pod', 'pod,data', 'world'; the DP axes of a mesh
-of one pod are 'data'). The bytes are those of the result on
-this rank, in the tensor's own type (the reference's HLO count reads the
+of one pod are 'data'; ``flat``'s 'data' is 'data,model'). The bytes
+are those of the result on this rank, in the tensor's own type (the
+reference's HLO count reads the
 result shape the same way; gloo's fp32 widening of a 16-bit all-to-all
 is transport, not counted). A mesh's ``submesh`` / ``flat`` views share
 their parent's record. ``DryMesh`` is rank r's view of a mesh with no
@@ -101,7 +108,8 @@ class Mesh:
     axes ``("pod", "data")`` (None with one pod: the 'data' group is
     it); ``host_staged`` runs gloo over host copies of CUDA tensors;
     ``profile`` is the reference's placement profile ("tp", or "dp_only"
-    for ``flat``'s view)."""
+    for ``flat``'s view); ``data_axis`` the record's name of the 'data'
+    axis (the axes it spans: 'data,model' for ``flat``'s view)."""
     shape: Dict[str, int]
     rank: int
     backend: str
@@ -116,6 +124,7 @@ class Mesh:
         default_factory=dict)
     pod_group: Any = None
     dp_group: Any = None
+    data_axis: str = "data"
 
     @property
     def model_rank(self) -> int:
@@ -166,7 +175,8 @@ class Mesh:
         return dataclasses.replace(
             self, shape={"data": self.axis_size("world"), "model": 1},
             model_group=None, data_group=dist.group.WORLD, pod_group=None,
-            dp_group=None, profile="dp_only")
+            dp_group=None, profile="dp_only",
+            data_axis=",".join(self.shape))
 
     # -- the record ------------------------------------------------------
     def _note(self, kind: str, axis: str, shape, dtype) -> None:
@@ -191,7 +201,7 @@ class Mesh:
     def a2a(self) -> Dict[str, int]:
         """The 'data' all-to-alls so far: calls and bytes."""
         return dict(self.comms.get("all-to-all", {}).get(
-            "data", {"calls": 0, "bytes": 0}))
+            self.data_axis, {"calls": 0, "bytes": 0}))
 
     # -- collectives over the 'model' axis -----------------------------
     def _run(self, x: torch.Tensor, op) -> torch.Tensor:
@@ -267,7 +277,8 @@ class Mesh:
             return (self.model_group, self.shape["model"], self.model_rank,
                     axis)
         if axis == "data":
-            return self.data_group, self.shape["data"], self.data_rank, axis
+            return (self.data_group, self.shape["data"], self.data_rank,
+                    self.data_axis)
         if axis == "pod":
             return self.pod_group, self.pods, self.pod_rank, axis
         if tuple(axis) == ("pod", "data"):
@@ -350,7 +361,7 @@ class Mesh:
             parts = [torch.empty_like(y) for _ in range(self.shape["data"])]
             dist.all_gather(parts, y, group=self.data_group)
             return torch.stack(parts)
-        return self._comm("all-gather", "data", x,
+        return self._comm("all-gather", self.data_axis, x,
                           (self.shape["data"],) + tuple(x.shape), op)
 
     def data_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
@@ -374,7 +385,7 @@ class Mesh:
             out = torch.empty_like(y)
             dist.all_to_all_single(out, y, group=self.data_group)
             return out.to(x.dtype)
-        return self._comm("all-to-all", "data", x, x.shape, op)
+        return self._comm("all-to-all", self.data_axis, x, x.shape, op)
 
     def data_broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Data rank ``src``'s ``x`` on every data rank at this model
@@ -387,7 +398,7 @@ class Mesh:
         def op(y):
             dist.broadcast(y, src=g_src, group=self.data_group)
             return y
-        return self._comm("broadcast", "data", x, x.shape, op)
+        return self._comm("broadcast", self.data_axis, x, x.shape, op)
 
     def world_value(self, x: torch.Tensor) -> torch.Tensor:
         """World rank 0's ``x`` on every process of the mesh (one
@@ -535,21 +546,33 @@ class _ReduceScatter(torch.autograd.Function):
 
 
 _ACTIVE_MESH: Optional[Mesh] = None
+_EVEN_ROWS = False
 
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE_MESH
 
 
+def even_rows() -> bool:
+    """Did the caller of the active ``use_mesh`` declare that every DP
+    rank brings the same rows (the batch split evenly by construction)?"""
+    return _EVEN_ROWS
+
+
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]):
-    global _ACTIVE_MESH
-    prev = _ACTIVE_MESH
-    _ACTIVE_MESH = mesh
+def use_mesh(mesh: Optional[Mesh], even_rows: bool = False):
+    """``mesh`` active for the block. ``even_rows``: every DP rank brings
+    the same rows to every call in it (a train step's ``_rows``, a
+    serving step of a split batch), so that expert parallelism decides
+    from the rank's own shape, with no host read (``moe_ep.moe_ffn_ep``;
+    a call whose rows cannot split raises ``moe_ep.UnevenRows``)."""
+    global _ACTIVE_MESH, _EVEN_ROWS
+    prev = _ACTIVE_MESH, _EVEN_ROWS
+    _ACTIVE_MESH, _EVEN_ROWS = mesh, bool(even_rows) and mesh is not None
     try:
         yield mesh
     finally:
-        _ACTIVE_MESH = prev
+        _ACTIVE_MESH, _EVEN_ROWS = prev
 
 
 def axis_size(name: str) -> int:

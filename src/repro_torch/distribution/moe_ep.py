@@ -10,9 +10,7 @@ capacity-padded ``(E, C, d)`` buffer, and a pair of all-to-alls over
 experts' owners and the expert outputs back. Dropped slots write the
 scratch row C, which is cut off; the gates are normalised in fp32.
 
-A call takes one of two modes, from what every data rank brings to it:
-one small all-gather over 'data' of each rank's batch rows, tokens,
-per-expert slot counts, aux loss and router probs' sums.
+A call runs in one of two modes:
 
 * ``ep``: every data rank brings the same number of batch rows (the
   reference's ``can_use_ep`` on the call's global shape, the batch split
@@ -20,22 +18,40 @@ per-expert slot counts, aux loss and router probs' sums.
   under the reference's per-source-shard capacity, integer arithmetic
   ``C = max(1, -(-n_local k int(100 cf) // (100 E)))``; an expert's
   owner multiplies the ep buffers' rows for it at once, ``(E/ep, ep C,
-  d)``.
+  d)``. The aux loss is the mean of the data ranks' (the reference's
+  ``pmean``), summed on the device in data-rank order (``_mean``).
 * ``local``: the rows fall unevenly (a per-request prefill of one row,
   an admission whose slots lie on some data ranks only, a data rank with
   no row at all). The call keeps the local path's semantics: its float
-  ceil capacity over the call's N tokens, and each slot's position in
-  the call-wide expert order (the data ranks' tokens in data-rank order,
-  each rank's in its own). The experts stay placed by EP: each rank
-  writes its slots at those positions, the all-to-all moves them, and
-  an owner takes each buffer row from the one rank that wrote it, so
-  no expert stack is ever gathered.
+  ceil capacity over the call's N tokens, each slot's position in the
+  call-wide expert order (the data ranks' tokens in data-rank order,
+  each rank's in its own), and the whole call's aux. The experts stay
+  placed by EP: each rank writes its slots at those positions, the
+  all-to-all moves them, and an owner takes each buffer row from the one
+  rank that wrote it, so no expert stack is ever gathered.
+
+Who decides the mode:
+
+* **Declared** (``context.use_mesh(mesh, even_rows=True)``: a train
+  step, a serving step whose batch splits over the DP ranks). The call
+  is ``ep`` by construction, as the reference's is: ``can_use_ep`` on
+  the global shape (every DP rank's rows, ``pods x ep x b``) from x's
+  own shape, the capacity from ``b S``, the buffers in x's type, the
+  aux the mean of a device all-gather over 'data' of every rank's fp32
+  aux. Nothing is read back to the host, so a fake-tensor trace
+  (``launch/dryrun.py``) runs it. A declared call whose shape fails
+  ``can_use_ep`` raises ``UnevenRows``; it never falls back to
+  ``local``, which needs the host read.
+* **Gathered** (no declaration: the serving ``Engine`` and scheduler,
+  whose rows may fall unevenly). One small all-gather over 'data' of
+  each rank's rows, tokens, activation type, per-expert slot counts,
+  aux and router probs' sums, read back to the host (``_Infos``), gives
+  the mode, the buffers' type, the capacity and the positions. Where it
+  gives ``ep`` the call equals the declared one bit for bit.
 
 The w2 partials of an expert's d_ff shards are summed over 'model' in
 fp32 and then cast, in the shard loop's order (the reference sums them
-in the compute type, ``moe_ep.py:122``). The aux loss is averaged over
-'data' in ``ep`` mode (the reference's ``pmean``) and is the whole
-call's in ``local`` mode. On pods, see ``moe_ffn_ep``.
+in the compute type, ``moe_ep.py:122``). On pods, see ``moe_ffn_ep``.
 
 Under autograd (training; ``ep`` mode only, ``local`` is refused with
 the reason): both all-to-alls carry the gradient back
@@ -52,7 +68,8 @@ an equal share of the gradient, the mean the mesh step takes.
 ``moe_ffn_groups`` is the meshless loop: the same math in one process
 over a list of row groups, one per data rank, with the whole expert
 stacks, expert shard by expert shard and d_ff shard by d_ff shard, at
-the mesh's shapes, so that a mesh process equals it bit for bit. A
+the mesh's shapes, so that a mesh process equals it bit for bit (its
+``ep`` aux is the declared call's op on the same shape and device). A
 plain tensor under ``cfg.ep_shards`` splits evenly into groups where
 ``can_use_ep`` holds (the reference's batch split), else it is one
 group (or pods of ``cfg.ep_shards`` groups). ``moe_ffn_dp`` is the
@@ -222,20 +239,44 @@ def _pick_rows(recv: torch.Tensor, infos: "_Infos", e0: int
     return recv[src, e, c[None, :].expand(El, C)]
 
 
-def _aux(cfg: ModelConfig, mode: str, infos: "_Infos") -> torch.Tensor:
-    """``ep``: the mean of the data ranks' aux losses (the reference's
-    ``pmean``); ``local``: the whole call's, from every rank's slot
-    counts and probs sums."""
+def _aux(cfg: ModelConfig, mode: str, infos: "_Infos", device
+         ) -> torch.Tensor:
+    """The call's aux on ``device``. ``ep``: the mean of the data ranks'
+    aux losses (the reference's ``pmean``), the declared call's op on
+    the same values (``_mean`` on the device); ``local``: the whole
+    call's, from every rank's slot counts and probs sums."""
     if mode == "ep":
-        total = infos.aux[0]
-        for a in infos.aux[1:]:
-            total = total + a
-        return total / len(infos.aux)
+        return _mean(torch.stack(infos.aux).to(device))
     m = cfg.moe
     N = sum(infos.tokens)
     f_e = infos.counts.sum(dim=0).to(torch.float32) / max(N * m.top_k, 1)
     P_e = infos.prob_sums.sum(dim=0) / max(N, 1)
-    return m.num_experts * torch.sum(f_e * P_e) * m.router_aux_weight
+    return (m.num_experts * torch.sum(f_e * P_e)
+            * m.router_aux_weight).to(device)
+
+
+class UnevenRows(ValueError):
+    """A call declared to bring every DP rank the same rows
+    (``context.use_mesh(even_rows=True)``) whose global shape expert
+    parallelism cannot split (``can_use_ep``)."""
+
+
+def _declared_shape(cfg: ModelConfig, g: "_Routed", shape: Dict[str, int]
+                    ) -> None:
+    """Refuse a declared call whose global shape (every DP rank's rows:
+    pods x ep x the rank's b, by the declaration) fails ``can_use_ep``."""
+    dp_total = _axis(shape, ("pod", "data"))
+    S = g.n // g.rows if g.rows else 0
+    if not can_use_ep(cfg, (dp_total * g.rows, S), shape):
+        raise UnevenRows(
+            f"a MoE call declared even (every DP rank the same rows, "
+            f"use_mesh(even_rows=True)) brings {g.rows} rows of {S} "
+            f"tokens a rank, a global batch ({dp_total * g.rows}, {S}) "
+            f"that expert parallelism over {shape} cannot split "
+            f"(can_use_ep: at least a row a DP rank, tokens divisible by "
+            f"the DP ranks, experts by 'data', d_ff by 'model'); a "
+            f"declared call never falls back to the local mode, whose "
+            f"call-wide capacity needs every rank's counts on the host")
 
 
 LOCAL_TRAIN = (
@@ -263,16 +304,19 @@ class _AuxMean(torch.autograd.Function):
         return (None,) + tuple(g / ctx.n for _ in range(ctx.n))
 
 
-def _pod_mean(values: torch.Tensor) -> torch.Tensor:
-    """The mean of the pods' ``ep`` aux values (P,), summed in pod
-    order: the mesh's (gathered over 'pod') and the loop's alike."""
-    return values.sum() / values.shape[0]
+def _mean(values: torch.Tensor) -> torch.Tensor:
+    """The mean of ``ep`` aux values, summed in rank order: the data
+    ranks' (gathered over 'data', or the loop's groups stacked) and the
+    pods' (gathered over 'pod', or the loop's pods stacked); the mesh's
+    and the loop's alike, one op on one shape."""
+    v = values.reshape(-1)
+    return v.sum() / v.shape[0]
 
 
 def _aux_out(value: torch.Tensor, groups: List[_Routed], mode: str
              ) -> torch.Tensor:
-    """The call's aux ``value`` (``_aux``, on the call's device; the
-    pods' mean where there are pods); under autograd (``ep`` mode only:
+    """The call's aux ``value`` (on the call's device; the pods' mean
+    where there are pods); under autograd (``ep`` mode only:
     ``local`` is refused) it carries the gradient of its groups' own aux
     losses (``_AuxMean``)."""
     owns = [g.r.aux_loss for g in groups]
@@ -297,12 +341,16 @@ def _finish(p: Dict, cfg: ModelConfig, g: _Routed, y: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
+def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh,
+               even_rows: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This process's MoE call on a mesh whose 'data' ranks hold the
     experts in EP (``p`` holds E / ep experts, its d_ff shard of each).
     x (b, S, d): this data rank's rows, b may be 0 (a rank with no row
-    still enters every collective). Returns (y, aux).
+    still enters every collective). ``even_rows``: the caller declared
+    that every DP rank brings b rows (``ep`` mode from x's shape, no
+    host read; ``UnevenRows`` where they cannot split); else the mode
+    comes from the gathered infos. Returns (y, aux).
 
     On a (pod, data, model) mesh expert parallelism stays inside a pod,
     as in the reference: the experts are cut over 'data' only (each pod
@@ -312,7 +360,7 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     (``can_use_ep`` and the capacity count every DP rank: a call's
     global batch is pods x the pod's rows), and the ``ep`` aux is the
     mean over both axes: each pod's mean over 'data', then the pods'
-    means gathered over 'pod' and averaged in pod order (``_pod_mean``;
+    means gathered over 'pod' and averaged in pod order (``_mean``;
     the reference's ``pmean`` over ``("pod", "data")``)."""
     m = cfg.moe
     E, k = m.num_experts, m.top_k
@@ -322,18 +370,24 @@ def moe_ffn_ep(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh
     El = E // ep
     d = x.shape[-1]
     g = _Routed(p, cfg, x)
-    infos = _Infos(mesh.data_all_gather(g.info()), E)
-    mode = _mode(cfg, infos, mesh.shape)
-    value = _aux(cfg, mode, infos).to(x.device)
+    if even_rows:
+        _declared_shape(cfg, g, mesh.shape)
+        mode, infos, dtype = "ep", None, x.dtype
+        value = _mean(mesh.data_all_gather(
+            g.r.aux_loss.detach().to(torch.float32).reshape(1)))
+    else:
+        infos = _Infos(mesh.data_all_gather(g.info()), E)
+        mode, dtype = _mode(cfg, infos, mesh.shape), infos.dtype
+        value = _aux(cfg, mode, infos, x.device)
     if mode == "ep" and mesh.pods > 1:
-        value = _pod_mean(mesh.gather(value.reshape(1), "pod", 0))
+        value = _mean(mesh.gather(value.reshape(1), "pod", 0))
     aux = _aux_out(value, [g], mode)
     if mode == "ep":
         C = ep_capacity(cfg, g.n)
     else:
         C = local_capacity(cfg, sum(infos.tokens))
     buf, pos_c = g.buffer(_positions(g, mode, infos, mesh.data_rank), E, C,
-                          k, infos.dtype)
+                          k, dtype)
     recv = mesh.data_all_to_all(buf.reshape(ep, El, C, d))
     if mode == "ep":
         xe = recv.transpose(0, 1).reshape(El, ep * C, d)
@@ -356,13 +410,18 @@ def moe_ffn_dp(p: Dict, cfg: ModelConfig, x: torch.Tensor, mesh=None,
     """The reference's ``dp_only`` profile: every DP rank routes its own
     rows through its own whole experts (``moe_ffn_local``) and the aux
     loss is averaged over the ranks. On a mesh ``x`` is this process's
-    rows; with none, x splits into ``shards`` row groups run in turn (x
-    whole where its batch does not divide, as the reference falls back
-    to ``moe_ffn_local``)."""
+    rows, the mesh ``flat``'s view (its 'data' axis every axis, the
+    reference's ``pmean`` over all of them), and the aux carries the
+    gradient of the rank's own (the step averages the ranks'
+    gradients); with none, x splits into ``shards`` row groups run in
+    turn (x whole where its batch does not divide, as the reference
+    falls back to ``moe_ffn_local``)."""
     if mesh is not None:
         y, aux = moe_mod.moe_ffn_local(p, cfg, x)
-        auxes = mesh.data_all_gather(aux.reshape(1))
-        return y, auxes.sum() / auxes.shape[0]
+        value = _mean(mesh.data_all_gather(aux.detach().reshape(1)))
+        if torch.is_grad_enabled() and aux.requires_grad:
+            value = _AuxMean.apply(value, aux)
+        return y, value
     if shards <= 1 or x.shape[0] % shards:
         return moe_mod.moe_ffn_local(p, cfg, x)
     outs = [moe_mod.moe_ffn_local(p, cfg, xs)
@@ -399,7 +458,7 @@ def moe_ffn_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor],
             for i in range(pods)]
     _, value, mode, _ = runs[0]
     if mode == "ep" and pods > 1:
-        value = _pod_mean(torch.stack([r[1] for r in runs]))
+        value = _mean(torch.stack([r[1] for r in runs]))
     aux = _aux_out(value, [g for r in runs for g in r[3]], mode)
     return [y for r in runs for y in r[0]], aux
 
@@ -421,7 +480,7 @@ def _pod_groups(p: Dict, cfg: ModelConfig, xs: List[torch.Tensor], tp: int,
     groups = [_Routed(p, cfg, x) for x in xs]
     infos = _Infos(torch.stack([g.info() for g in groups]), E)
     mode = _mode(cfg, infos, shape)
-    value = _aux(cfg, mode, infos).to(xs[0].device)
+    value = _aux(cfg, mode, infos, xs[0].device)
     if mode == "ep":
         C = ep_capacity(cfg, groups[0].n)
     else:
@@ -476,7 +535,8 @@ def moe_dispatch(p: Dict, cfg: ModelConfig, x: torch.Tensor
     """The MoE layer under whatever placement is active: the ``dp_only``
     profile's mesh -> ``moe_ffn_dp``; experts in EP (``cfg.ep_shards``)
     -> ``moe_ffn_ep`` on the mesh, ``moe_ffn_loop`` without one; else
-    ``moe_ffn_local`` (every expert here, d_ff whole or over 'model')."""
+    ``moe_ffn_local`` (every expert here, d_ff whole or over 'model').
+    Under ``use_mesh(even_rows=True)`` the EP call is declared."""
     from repro_torch.distribution import context as dctx
     mesh = dctx.active_mesh()
     if mesh is not None and mesh.profile == "dp_only":
@@ -488,5 +548,5 @@ def moe_dispatch(p: Dict, cfg: ModelConfig, x: torch.Tensor
             raise ValueError(
                 f"experts in {cfg.ep_shards} EP shards on a mesh of "
                 f"{mesh.shape['data']} data ranks")
-        return moe_ffn_ep(p, cfg, x, mesh)
+        return moe_ffn_ep(p, cfg, x, mesh, dctx.even_rows())
     return moe_mod.moe_ffn_local(p, cfg, x)

@@ -20,30 +20,41 @@ Usage (no card needed):
   python -m repro_torch.launch.dryrun --arch jamba-1.5-large-398b --all-shapes
   flags: [--mesh DP,TP | P,D,T] (default 16,16) [--multi-pod] [--sasp S]
          [--quant] [--remat R] [--microbatches K] [--kvquant]
-         [--tp-comm rs_ag_int8]
+         [--tp-comm rs_ag_int8] [--profile tp|dp_only]
 
-``--multi-pod`` traces rank 0 of the reference's ``(2, 16, 16)`` mesh
-over (pod, data, model), named ``2x16x16``, 512 chips: the batch split
-over the 32 DP ranks, the gradients reduced over 'data' and then 'pod'
-(the collective record's 'pod' and 'pod,data' rows), the params and
-moments a rank holds those of the single-pod rank (no leaf is cut over
-'pod'). Cells the port cannot trace are refused by name: a MoE or
-hybrid family's train step where 'data' > 1 (``EP_TRACE``: the
-expert-parallel path reads every data rank's routing counts on the
-host). An SSM family's train step traces, on the
-training layout (``train_step.mesh_layout``: in_xbc / conv whole on
-every model rank). A serving
-cell of a MoE arch keeps every expert on every data rank, each expert's
-d_ff over 'model' (the port's layout of a ``--scheduler`` deployment):
-the expert-parallel path (``distribution/moe_ep.py``) reads every data
-rank's routing counts on the host, which a fake trace cannot, so the
-reference's ``expert_col`` split of the experts over 'data' is not
-traced and a MoE rank's memory is over-counted by the experts it would
-not hold.
-Where the batch does not split over the DP ranks (``long_500k``, B = 1)
-every DP rank decodes the whole batch against the whole cache: the port
-has no sequence-parallel cache (the reference's ``cache_shardings``
-splits the cache's length over (data, model) there).
+What is traced, as the reference compiles it:
+
+* **Train cells** of every family: ``train_step.make_mesh_train_step``
+  on the training layout (``train_step.mesh_layout``: an SSM's in_xbc /
+  conv whole on every model rank; a MoE's expert stacks cut over 'data',
+  each expert's d_ff over 'model'). The step declares even rows, so its
+  MoE layers run expert parallelism with no host read
+  (``distribution/moe_ep.py``): mode and capacity from the rank's shape,
+  the aux averaged by a device all-gather, two all-to-alls over 'data'
+  a layer (and their backward).
+* **Serving cells** (prefill, decode): the rank's rows where the batch
+  splits over the DP ranks; a MoE cell there cuts its experts over
+  'data' and declares even rows (``specs.serve_ep``), as the reference
+  runs ``moe_ffn_ep``. Where the batch does not split (``long_500k``, B =
+  1) every DP rank decodes the whole batch against the whole cache and
+  holds every expert: the port has no sequence-parallel cache (the
+  reference's ``cache_shardings`` splits the cache's length over (data,
+  model) there) and does not cut experts at B = 1 (the reference's
+  ``expert_col``, gathered by GSPMD).
+* ``--multi-pod``: rank 0 of the reference's ``(2, 16, 16)`` mesh over
+  (pod, data, model), named ``2x16x16``, 512 chips: the batch split over
+  the 32 DP ranks, the gradients reduced over 'data' and then 'pod' (the
+  record's 'pod' and 'pod,data' rows), a rank's params and moments
+  those of the single-pod rank (no leaf is cut over 'pod'); experts in
+  EP inside a pod.
+* ``--profile dp_only`` (tag ``_dp_only``): the reference's small-model
+  profile. Every process is a DP rank holding the whole tree; the batch
+  splits over every axis; MoE runs ``moe_ffn_dp`` (each rank's own
+  experts, the aux averaged over every axis: the record's 'data,model'
+  row); the gradients are reduced over 'data' and then 'model'; the
+  AdamW moments are cut over 'data' only, replicated over 'model'.
+
+``main`` and ``run_all`` fail on any failed cell, as the reference's do.
 """
 from __future__ import annotations
 
@@ -55,12 +66,6 @@ import time
 import traceback
 from typing import Optional, Tuple
 
-EP_TRACE = (
-    "{}: a MoE layer's train step on a mesh with 'data' > 1 runs expert "
-    "parallelism, whose every call reads all data ranks' routing counts "
-    "on the host (distribution/moe_ep.py:178, _Infos: the mode, the "
-    "capacity and the slot positions), which a fake-tensor trace cannot "
-    "give: not traced (train it on real ranks, launch/train.py --mesh)")
 # the reference's production mesh (repro/launch/mesh.py), (16, 16); with
 # --multi-pod (2, 16, 16) (``launch.mesh.production_shape``)
 PRODUCTION_MESH = (16, 16)
@@ -88,17 +93,18 @@ def cell_config(arch: str, *, remat: str = "full", kv_quant: bool = False,
 def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
                opt_cfg=None, overlay: bool = False, n_microbatches: int = 1,
                sasp: float = 0.0, quantize: bool = False,
-               lr_schedule=None, pod: int = 1) -> dict:
+               lr_schedule=None, pod: int = 1, profile: str = "tp") -> dict:
     """Trace rank ``rank``'s step of ``shape`` on a dry ``(pod, dp, tp)``
     mesh under ``FakeTensorMode``. ``opt_cfg`` (train; default int8 moments,
     as the reference's dry run), ``overlay``: the SASP overlay of
     ``cfg.sasp`` built on the mesh first (``core.sasp.mesh_masks``; its
     collectives are not the step's), ``sasp`` / ``quantize``: BSR FFNs
-    (``launch/sasp_abstract.py``). Returns {"record": the step's
+    (``launch/sasp_abstract.py``); ``profile``: "tp" or "dp_only" (every
+    rank a DP rank of the whole tree). Returns {"record": the step's
     collectives, "held": bytes of params, optimizer state and overlay,
     "peak": the most live bytes, "counted_flops", "cfg": the traced
-    config, "lcfg": the rank's}; raises the
-    named refusal of a cell the port cannot run."""
+    config, "lcfg": the rank's}; raises the reason of a cell the port
+    cannot place."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -110,30 +116,31 @@ def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
     from repro_torch.models import lm
     from repro_torch.train.optimizer import AdamWConfig
 
-    train = shape.kind == "train"
-    if train:
+    train, dp_only = shape.kind == "train", profile == "dp_only"
+    if train and not dp_only:
         check_mesh_config(cfg, dp, tp)
-        if cfg.moe is not None and dp > 1:
-            raise ValueError(EP_TRACE.format(cfg.name))
     mesh = dry_mesh(dp, tp, rank, pod=pod)
+    view = mesh.flat() if dp_only else mesh
     with FakeTensorMode():
         whole = lm.init_params(cfg, device="cpu")
         if sasp > 0.0 or quantize:
             whole, cfg = abstract_bsr_params(whole, cfg, sasp,
                                              quantize=quantize,
-                                             model_axis=tp)
+                                             model_axis=view.shape["model"])
         opt = layout = ov = None
         if train:
             opt_cfg = opt_cfg or AdamWConfig(quantized=True)
             params, lcfg, opt, layout, ov = _train_state(
-                cfg, opt_cfg, mesh, whole, overlay)
+                cfg, opt_cfg, mesh, whole, overlay, profile)
         else:
-            params, _, lcfg = specs.abstract_params(cfg, mesh, whole=whole)
+            params, _, lcfg = specs.abstract_params(
+                cfg, view, ep=specs.serve_ep(cfg, shape, view), whole=whole)
         del whole
-        inputs = specs.input_shardings(cfg, lcfg, shape, mesh,
+        inputs = specs.input_shardings(cfg, lcfg, shape, view,
                                        specs.input_specs(cfg, shape))
-        step = specs.make_step_fn(lcfg, shape, mesh, layout, opt_cfg, ov,
-                                  n_microbatches, lr_schedule)
+        step = specs.make_step_fn(lcfg, shape, mesh if train else view,
+                                  layout, opt_cfg, ov, n_microbatches,
+                                  lr_schedule)
         live = LiveBytes()
         held = live.hold(params, opt, ov)
         live.hold(inputs)
@@ -148,43 +155,21 @@ def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
                 counted_flops=counted, cfg=cfg, lcfg=lcfg)
 
 
-def held_train_state(cfg, dp: int, tp: int, rank: int = 0, *,
-                     pod: int = 1, opt_cfg=None, overlay: bool = False
-                     ) -> int:
-    """Bytes that rank ``rank`` of a dry ``(pod, dp, tp)`` mesh holds of
-    ``cfg``'s training state (its params, ZeRO moments and, with
-    ``overlay``, its SASP masks): what ``trace_step`` counts as held,
-    without tracing the step, so that a cell whose step the dry run
-    cannot trace (``EP_TRACE``) still has its state's size."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
-
-    from repro_torch.analysis.roofline import LiveBytes
-    from repro_torch.distribution.context import dry_mesh
-    from repro_torch.models import lm
-    from repro_torch.train.optimizer import AdamWConfig
-    mesh = dry_mesh(dp, tp, rank, pod=pod)
-    with FakeTensorMode():
-        params, _, opt, _, ov = _train_state(
-            cfg, opt_cfg or AdamWConfig(quantized=True), mesh,
-            lm.init_params(cfg, device="cpu"), overlay)
-        return LiveBytes().hold(params, opt, ov)
-
-
-def _train_state(cfg, opt_cfg, mesh, whole, overlay: bool):
+def _train_state(cfg, opt_cfg, mesh, whole, overlay: bool, profile: str):
     """(params, the rank's config, ZeRO moments, the mesh layout, the
     SASP overlay or None) of a train cell's rank, from the whole tree
     ``whole`` (under the caller's fake mode)."""
     from repro_torch.core.sasp import masks_to_overlay, mesh_masks
     from repro_torch.launch import specs
-    params, lcfg, opt, layout = specs.abstract_train_state(cfg, opt_cfg,
-                                                           mesh, whole)
+    params, lcfg, opt, layout = specs.abstract_train_state(
+        cfg, opt_cfg, mesh, whole, profile)
     ov = (masks_to_overlay(mesh_masks(params, cfg.sasp, mesh,
                                       layout.params)[0])
           if overlay else None)
     return params, lcfg, opt, layout, ov
 
 
-def _tag(arch, shape_name, mesh_name, sasp, quant, mb, kv_quant,
+def _tag(arch, shape_name, mesh_name, sasp, quant, mb, profile, kv_quant,
          tp_comm) -> Tuple[str, str]:
     """(the JSON file's tag, the report's note), as the reference tags
     its cells."""
@@ -198,6 +183,9 @@ def _tag(arch, shape_name, mesh_name, sasp, quant, mb, kv_quant,
     if mb > 1:
         tag += f"_mb{mb}"
         notes.append(f"mb={mb}")
+    if profile != "tp":
+        tag += f"_{profile}"
+        notes.append(profile)
     if kv_quant:
         tag += "_kv8"
         notes.append("kv8")
@@ -211,14 +199,15 @@ def run_cell(arch: str, shape_name: str, *,
              mesh: Tuple[int, int] = PRODUCTION_MESH,
              multi_pod: bool = False, sasp_bsr_sparsity: float = 0.0,
              remat: str = "full", quant_weights: bool = False,
-             n_microbatches: int = 1, kv_quant: bool = False,
-             tp_comm: str = "ar", out_dir: Optional[str] = None,
-             verbose: bool = True, reduce: bool = False):
+             n_microbatches: int = 1, profile: str = "tp",
+             kv_quant: bool = False, tp_comm: str = "ar",
+             out_dir: Optional[str] = None, verbose: bool = True,
+             reduce: bool = False):
     """Trace one (arch × shape × mesh) cell; return its CellReport.
     ``mesh``: (DP, TP) or (P, DP, TP); ``multi_pod``: the reference's
-    (2, 16, 16) instead. ``reduce``: the reduced config and the shape cut
-    to ``REDUCED_SEQ`` tokens and ``REDUCED_BATCH`` rows (its kind
-    kept; at least a row a DP rank)."""
+    (2, 16, 16) instead; ``profile``: "tp" or "dp_only". ``reduce``: the
+    reduced config and the shape cut to ``REDUCED_SEQ`` tokens and
+    ``REDUCED_BATCH`` rows (its kind kept; at least a row a DP rank)."""
     from repro_torch.analysis.roofline import analyze_traced, format_row
     from repro_torch.configs import get_shape
     from repro_torch.launch.mesh import production_shape
@@ -237,10 +226,11 @@ def run_cell(arch: str, shape_name: str, *,
     t0 = time.time()
     tr = trace_step(cfg, shape, dp, tp, sasp=sasp_bsr_sparsity,
                     quantize=quant_weights, n_microbatches=n_microbatches,
-                    pod=pod)
+                    pod=pod, profile=profile)
     t_trace = time.time() - t0
     tag, note = _tag(arch, shape_name, mesh_name, sasp_bsr_sparsity,
-                     quant_weights, n_microbatches, kv_quant, tp_comm)
+                     quant_weights, n_microbatches, profile, kv_quant,
+                     tp_comm)
     rep = analyze_traced(arch, shape, mesh_name, pod * dp * tp, tr["cfg"],
                          tr["record"], tr["peak"], tr["held"],
                          tr["counted_flops"], note=note,
@@ -253,7 +243,8 @@ def run_cell(arch: str, shape_name: str, *,
               f"{rep.coll_calls} calls, {rep.coll_breakdown} B, by axis "
               f"{rep.coll_axes} B; heads "
               f"{'replicated' if tr['lcfg'].heads_replicated else 'split'}"
-              f" over 'model' (prediction of the H100 model)", flush=True)
+              f" over 'model'; experts in {tr['lcfg'].ep_shards} EP "
+              f"shard(s) (prediction of the H100 model)", flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, tag + ".json"), "w",
@@ -264,10 +255,11 @@ def run_cell(arch: str, shape_name: str, *,
 
 def run_all(out_dir: Optional[str], archs=None,
             mesh: Tuple[int, ...] = PRODUCTION_MESH, reduce: bool = False,
-            verbose: bool = True, multi_pod: bool = False):
+            verbose: bool = True, multi_pod: bool = False,
+            profile: str = "tp"):
     """Every assigned arch × its shape cells; a cell that raises is
-    collected as a failure (with the refusal's message), as the
-    reference's ``run_all`` does. Returns (reports, failures)."""
+    collected as a failure (its traceback printed), as the reference's
+    ``run_all`` does. Returns (reports, failures)."""
     from repro_torch.configs import (ASSIGNED_ARCHS, get_config, shapes_for,
                                      skipped_shapes_for)
     reports, failures = [], []
@@ -277,27 +269,19 @@ def run_all(out_dir: Optional[str], archs=None,
             try:
                 reports.append(run_cell(arch, sh.name, mesh=mesh,
                                         multi_pod=multi_pod,
-                                        out_dir=out_dir, reduce=reduce,
-                                        verbose=verbose))
+                                        profile=profile, out_dir=out_dir,
+                                        reduce=reduce, verbose=verbose))
             except Exception as e:   # a failed cell ends the cell only
-                if not refused(e):
-                    traceback.print_exc()
+                traceback.print_exc()
                 failures.append((arch, sh.name, repr(e)))
         for sk in skipped_shapes_for(cfg):
             if verbose:
                 print(f"{arch:26s} {sk:12s} SKIP (full-attention arch)",
                       flush=True)
-    print(f"\n{len(reports)} cells traced, {len(failures)} failures "
-          f"({sum(refused(f[2]) for f in failures)} named refusals)")
+    print(f"\n{len(reports)} cells traced, {len(failures)} failures")
     for f in failures:
         print("FAIL:", f)
     return reports, failures
-
-
-def refused(err) -> bool:
-    """Is this failure one of the port's named refusals (a MoE train cell
-    on a mesh with 'data' > 1, ``EP_TRACE``)?"""
-    return "routing counts on the host" in str(err)
 
 
 def parse_mesh(spec: str) -> Tuple[int, ...]:
@@ -325,21 +309,23 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", default="full")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--quant", action="store_true")
+    ap.add_argument("--profile", default="tp", choices=("tp", "dp_only"))
     ap.add_argument("--kvquant", action="store_true")
     ap.add_argument("--tp-comm", default="ar")
     ap.add_argument("--out", default=os.path.join("build", "dryrun"))
     args = ap.parse_args(argv)
     mesh = parse_mesh(args.mesh)
     if args.all:
-        _, failures = run_all(args.out, mesh=mesh, multi_pod=args.multi_pod)
-        return 1 if any(not refused(f[2]) for f in failures) else 0
+        _, failures = run_all(args.out, mesh=mesh, multi_pod=args.multi_pod,
+                              profile=args.profile)
+        return 1 if failures else 0
     if not args.arch:
         raise SystemExit("--arch is required (or --all)")
     kw = dict(mesh=mesh, multi_pod=args.multi_pod,
               sasp_bsr_sparsity=args.sasp,
               remat=args.remat, quant_weights=args.quant,
-              n_microbatches=args.microbatches, kv_quant=args.kvquant,
-              tp_comm=args.tp_comm, out_dir=args.out)
+              n_microbatches=args.microbatches, profile=args.profile,
+              kv_quant=args.kvquant, tp_comm=args.tp_comm, out_dir=args.out)
     if args.all_shapes:
         from repro_torch.configs import get_config, shapes_for
         for sh in shapes_for(get_config(args.arch)):
@@ -347,12 +333,7 @@ def main(argv=None) -> int:
         return 0
     if not args.shape:
         raise SystemExit("--shape is required (or --all-shapes)")
-    try:
-        run_cell(args.arch, args.shape, **kw)
-    except ValueError as e:
-        if refused(e):
-            raise SystemExit(str(e))
-        raise
+    run_cell(args.arch, args.shape, **kw)
     return 0
 
 

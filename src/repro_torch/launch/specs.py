@@ -11,6 +11,18 @@ placement: ``models/lm.py::param_shapes``' tree cut to the rank by
 ``distribution/sharding.py::local_params`` at ``tp_config``, the ZeRO
 slices of the AdamW moments (``train/optimizer.py::zero_adamw_init``),
 and the rank's rows and cache slice of each input.
+
+A MoE serving cell whose batch splits over the DP ranks, on a global
+shape where the reference's ``can_use_ep`` holds (prefill_32k, B = 32;
+decode_32k, B = 128, over 16 DP ranks), cuts its experts over 'data'
+as the reference's ``moe_ffn_ep`` does (``serve_ep``), and its step
+declares even rows (``use_mesh(even_rows=True)``: expert parallelism
+with no host read). Where the batch does not split (``long_500k``, B =
+1) every expert stays on every data rank, each expert's d_ff over
+'model': the reference cuts them by ``expert_col`` there too and lets
+GSPMD gather them, which the port does not trace. Under the ``dp_only``
+profile the mesh is its ``flat`` view: every process a DP rank holding
+the whole tree.
 """
 from __future__ import annotations
 
@@ -41,19 +53,38 @@ def abstract_params(cfg: ModelConfig, mesh, ep: int = 1,
 
 
 def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
-                         whole: Dict):
+                         whole: Dict, profile: str = "tp"):
     """(the rank's training params, its config, its ZeRO moments, the mesh
     layout) of a train cell: ``whole`` cut by the training layout
     (``train_step.mesh_layout`` / ``rank_slices``: an SSM's in_xbc /
     conv leaves whole on every model rank, the expert stacks over
     'data'), the rank's config at ``tp_config(cfg, tp, ep=dp)``; on a
-    mesh of pods every pod's rank holds the same."""
+    mesh of pods every pod's rank holds the same. ``profile="dp_only"``:
+    the whole tree at tp 1, the moments cut over 'data'."""
     dp, tp = mesh.shape["data"], mesh.shape["model"]
-    layout = ts.mesh_layout(cfg, dp, tp, opt_cfg, pod=mesh.pods)
+    layout = ts.mesh_layout(cfg, dp, tp, opt_cfg, pod=mesh.pods,
+                            profile=profile)
     params = ts.rank_slices(whole, layout, mesh)
-    lcfg = shd.local_config(shd.tp_config(cfg, tp, ep=dp), tp)
+    if profile == "dp_only":
+        lcfg = shd.local_config(shd.tp_config(cfg, 1), 1)
+    else:
+        lcfg = shd.local_config(shd.tp_config(cfg, tp, ep=dp), tp)
     return (params, lcfg, zero_adamw_init(params, layout.zero, opt_cfg,
                                           mesh), layout)
+
+
+def serve_ep(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
+    """The EP shards of a serving cell's experts: the 'data' ranks where
+    the batch splits over the DP ranks (``batch_split``) and the
+    reference's ``can_use_ep`` holds on the global shape, else 1 (every
+    expert on every data rank; always under ``dp_only``)."""
+    from repro_torch.distribution.moe_ep import can_use_ep
+    if (cfg.moe is None or mesh.profile == "dp_only"
+            or not batch_split(shape, mesh.dp_total)):
+        return 1
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    return mesh.shape["data"] if can_use_ep(
+        cfg, (shape.global_batch, S), mesh.shape) else 1
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
@@ -117,24 +148,28 @@ def make_step_fn(lcfg: ModelConfig, shape: ShapeConfig, mesh,
     prefill: one prefill forward (params, batch) -> (greedy ids, caches);
     decode:  one decode step against the rank's cache of ``seq_len``
              (params, batch) -> (greedy ids, caches), as the reference's
-             ``serve_step``."""
+             ``serve_step``.
+    A serving step declares even rows where the batch splits over the
+    DP ranks (``batch_split``); ``mesh`` is the ``flat`` view under
+    ``dp_only``."""
     from repro_torch.distribution.context import use_mesh
     if shape.kind == "train":
         return ts.make_mesh_train_step(
             lcfg, opt_cfg or AdamWConfig(quantized=True), mesh, layout,
             overlay=overlay, n_microbatches=n_microbatches,
             lr_schedule=lr_schedule)
+    even = batch_split(shape, mesh.dp_total)
 
     if shape.kind == "prefill":
         def prefill_step(params, batch):
-            with use_mesh(mesh), torch.no_grad():
+            with use_mesh(mesh, even_rows=even), torch.no_grad():
                 logits, caches = lm.prefill(params, lcfg, batch["tokens"],
                                             cache_len=shape.seq_len)
                 return torch.argmax(logits, dim=-1), caches
         return prefill_step
 
     def serve_step(params, batch):
-        with use_mesh(mesh), torch.no_grad():
+        with use_mesh(mesh, even_rows=even), torch.no_grad():
             logits, caches = lm.decode_step(params, lcfg, batch["tokens"],
                                             batch["pos"], batch["caches"])
             return torch.argmax(logits, dim=-1), caches

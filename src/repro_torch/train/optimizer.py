@@ -329,7 +329,7 @@ def zero_adamw_init(params, zero_specs: Dict, cfg: AdamWConfig, mesh
                       v=map_leaves(zero, params))
 
 
-def reduce_grads(grads, zero_specs: Dict, mesh):
+def reduce_grads(grads, zero_specs: Dict, mesh, over_model: bool = False):
     """{path: this rank's ZeRO slice of the mean over the DP axes ('pod'
     and 'data')} of a rank's TP-slice gradients: a reduce-scatter over
     'data' on the ZeRO dim, then an all-reduce of the slice over 'pod';
@@ -338,9 +338,14 @@ def reduce_grads(grads, zero_specs: Dict, mesh):
     its pod already, all-reduced over 'pod'. Each is divided by pods x
     data ranks. Every pod ends with the same slices (the reference's
     GSPMD reduces exactly over both axes; ``grad_compress`` is not
-    used)."""
+    used). ``over_model`` (the ``dp_only`` profile: whole params, a DP
+    rank on every process): 'model' is a DP axis too, each slice then
+    all-reduced over it and divided by every process (the moments stay
+    cut over 'data' only, replicated over 'model', the reference's
+    ``zero_spec_from_param_spec`` of a replicated spec)."""
     dp, pods = mesh.shape["data"], mesh.pods
-    n = dp * pods
+    tp = mesh.shape["model"] if over_model else 1
+    n = dp * pods * tp
     out = {}
     for path, g in iter_leaves(grads):
         z = _zero_dim(zero_specs, path)
@@ -357,6 +362,8 @@ def reduce_grads(grads, zero_specs: Dict, mesh):
             s = g
         if pods > 1 and (z is not None or _ep(zero_specs, path)):
             s = mesh.allreduce(s, "pod")
+        if tp > 1:
+            s = mesh.allreduce(s, "model")
         out[path] = s / n
     return out
 

@@ -14,7 +14,12 @@ the gradients over them implicitly and keeps the moments ZeRO-sharded
 over 'data' by its shardings; here the step does both by hand
 (``train.optimizer``'s ``reduce_grads`` and ``zero_*``), and
 ``make_train_step(data_shards=)`` with a TP config (``cfg.tp_shards``)
-is its meshless twin, ``data_shards`` the DP ranks of every pod.
+is its meshless twin, ``data_shards`` the DP ranks of every pod. The
+mesh step gives every DP rank the same rows by construction and says
+so (``use_mesh(even_rows=True)``): its MoE layers run expert
+parallelism with no host read. Under the reference's ``dp_only``
+profile (``mesh_layout(profile="dp_only")``) every process is a DP
+rank holding whole params, and 'model' joins the gradient reduction.
 """
 from __future__ import annotations
 
@@ -271,10 +276,13 @@ class MeshLayout(NamedTuple):
     spec} (``train_spec``), ``opt`` the moments' specs
     (``optimizer.opt_state_shardings``), ``zero`` {path: the moment's
     spec} (q's with int8 moments: where a rank's slice sits), a
-    ``ZeroSpecs`` whose ``ep`` names the EP-cut expert stacks."""
+    ``ZeroSpecs`` whose ``ep`` names the EP-cut expert stacks;
+    ``profile`` the reference's placement profile ("tp" or
+    "dp_only")."""
     params: Dict
     opt: AdamWState
     zero: Dict
+    profile: str = "tp"
 
 
 def train_spec(cfg: ModelConfig, path, shape, sizes) -> tuple:
@@ -293,7 +301,8 @@ def train_spec(cfg: ModelConfig, path, shape, sizes) -> tuple:
 
 
 def mesh_layout(cfg: ModelConfig, dp: int, tp: int,
-                opt_cfg: AdamWConfig, pod: int = 1) -> MeshLayout:
+                opt_cfg: AdamWConfig, pod: int = 1,
+                profile: str = "tp") -> MeshLayout:
     """The layout of ``cfg``'s training state on a (pod, dp, tp) mesh,
     from the whole tree's shapes (``lm.param_shapes``: nothing is
     allocated): each leaf's ``train_spec``, the moments' ZeRO specs (over
@@ -301,19 +310,26 @@ def mesh_layout(cfg: ModelConfig, dp: int, tp: int,
     ``ZeroSpecs`` naming the EP-cut expert stacks. Refuses what cannot
     place (``sharding.check_placement``: experts that do not split over
     'data', an expert d_ff or SSM heads that do not split over
-    'model')."""
+    'model'). ``profile="dp_only"``: every leaf whole on every rank (the
+    reference's replicated specs), the moments cut over 'data' only."""
     from repro_torch.distribution.context import mesh_shape
-    from repro_torch.distribution.sharding import check_placement
-    check_placement(cfg, tp, dp if cfg.moe is not None else 1)
-    shapes = lm.param_shapes(cfg)
+    from repro_torch.distribution.sharding import PROFILES, check_placement
+    if profile not in PROFILES:
+        raise ValueError(f"profile={profile!r} not in {PROFILES}")
     sizes = mesh_shape(dp, tp, pod)
-    pspecs = {path: train_spec(cfg, path, tuple(t.shape), sizes)
+    dp_only = profile == "dp_only"
+    if not dp_only:
+        check_placement(cfg, tp, dp if cfg.moe is not None else 1)
+    shapes = lm.param_shapes(cfg)
+    pspecs = {path: (None,) * t.ndim if dp_only
+              else train_spec(cfg, path, tuple(t.shape), sizes)
               for path, t in iter_leaves(shapes)}
     opt = opt_state_shardings(shapes, sizes, opt_cfg, pspecs)
     return MeshLayout(pspecs, opt, ZeroSpecs(
         {path: s.q if isinstance(s, QMoment) else s
          for path, s in opt.m.items()},
-        ep=[path for path, spec in pspecs.items() if "data" in spec]))
+        ep=[path for path, spec in pspecs.items() if "data" in spec]),
+        profile)
 
 
 def rank_slices(params, layout: MeshLayout, mesh):
@@ -353,25 +369,33 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
     slices, ``opt_state`` its ZeRO slices (``optimizer.zero_adamw_init``),
     ``overlay`` its masks (``core.sasp.mesh_overlay``). The rank takes its
     DP rank's rows of the batch (pod-major, ``_rows``), runs forward and
-    backward under the mesh (and its micro-batches, accumulated locally),
-    reduces the gradients to the mean over 'pod' and 'data' on its ZeRO
-    slices (``reduce_grads``), clips by the global norm
-    (``zero_global_norm``), runs AdamW on its slices and all-gathers the
-    params over 'data' (``zero_adamw_update``). Metrics are the mean over
-    the DP axes, on every rank: an all-reduce over 'data' with one pod,
-    else the DP ranks' values gathered and summed in DP-rank order
-    (``_dp_mean``, as the loop sums them).
+    backward under the mesh with even rows declared (and its
+    micro-batches, accumulated locally), reduces the gradients to the
+    mean over 'pod' and 'data' on its ZeRO slices (``reduce_grads``),
+    clips by the global norm (``zero_global_norm``), runs AdamW on its
+    slices and all-gathers the params over 'data'
+    (``zero_adamw_update``). Metrics are the mean over the DP axes, on
+    every rank: an all-reduce over 'data' with one pod, else the DP
+    ranks' values gathered and summed in DP-rank order (``_dp_mean``, as
+    the loop sums them).
+    Under ``layout.profile == "dp_only"`` (``cfg`` whole, at tp 1) every
+    process is a DP rank: its rows are those of its world rank, the
+    forward runs under ``mesh.flat()`` (MoE through ``moe_ffn_dp``), the
+    gradients are reduced over 'data' and then 'model'
+    (``reduce_grads(over_model=True)``) and the metrics over every axis.
     ``on_grads(gs)``, where given, sees each step's reduced gradient
     slices ({path: the rank's ZeRO slice}) before the update."""
     from repro_torch.distribution.context import use_mesh
     dp, pods = mesh.shape["data"], mesh.pods
+    dp_only = layout.profile == "dp_only"
+    view = mesh.flat() if dp_only else mesh
 
     def step(params, opt_state: AdamWState, batch: Dict):
-        mine = _rows(batch, mesh.dp_rank, mesh.dp_total, n_microbatches)
-        with use_mesh(mesh):
+        mine = _rows(batch, view.dp_rank, view.dp_total, n_microbatches)
+        with use_mesh(view, even_rows=True):
             loss, metrics, grads = _grads(cfg, params, mine, overlay,
                                           n_microbatches, accum_dtype)
-            gs = reduce_grads(grads, layout.zero, mesh)
+            gs = reduce_grads(grads, layout.zero, mesh, over_model=dp_only)
             del grads
             if on_grads is not None:
                 on_grads(gs)
@@ -382,7 +406,9 @@ def make_mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
                 lr_scale=lr_scale, gnorm=gnorm)
         names = sorted(metrics)
         vals = torch.stack([loss] + [metrics[n] for n in names])
-        if pods > 1:
+        if dp_only:
+            vals = view.allreduce(vals, "data") / view.dp_total
+        elif pods > 1:
             vals = _dp_mean(mesh.gather(vals[None], ("pod", "data"), 0))
         elif dp > 1:
             vals = mesh.allreduce(vals, "data") / dp

@@ -8,12 +8,17 @@ under ``FakeTensorMode`` on a ``DryMesh``.
   the same step, on every rank;
 * **held bytes match**: the dry run's held bytes for a rank equal the
   bytes of the real rank's params and ZeRO state;
-* **every cell ends cleanly**: every reduced assigned arch × shape cell on
-  a dry (2, 2) mesh ends in a row or in a named refusal (a MoE or
-  hybrid train step with 'data' > 1: the expert-parallel path reads the
-  routing counts on the host); mamba2's train cells trace;
+* **MoE steps match**: the reduced granite-moe's train step and decode
+  step at (2, 2), experts cut over 'data' and even rows declared (expert
+  parallelism with no host read), give each rank's real record and held
+  bytes;
+* **every cell ends in a row**: every reduced assigned arch × shape cell
+  on a dry (2, 2) mesh, the MoE and hybrid train cells included;
+* ``--profile dp_only``: a dense and a MoE train cell hold the whole
+  tree, run only the gradient reduction over every axis, the moments'
+  ZeRO traffic over 'data' and (MoE) ``moe_ffn_dp``'s aux mean;
 * ``--multi-pod`` traces rank 0 of ``2x16x16``; the CLI prints a row of
-  a full-size cell."""
+  a full-size cell and of a granite-moe train cell."""
 import dataclasses
 
 import pytest
@@ -28,7 +33,7 @@ from repro_torch.configs import (ASSIGNED_ARCHS, ShapeConfig,  # noqa: E402
 from repro_torch.distribution.context import dry_mesh, use_mesh  # noqa
 from repro_torch.distribution.sharding import (local_config,  # noqa: E402
                                                local_params, tp_config)
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dryrun, specs  # noqa: E402
 from repro_torch.launch.mesh import init_file_in, make_mesh  # noqa: E402
 from repro_torch.launch.mesh import run_ranks  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
@@ -45,6 +50,11 @@ OPT = AdamWConfig(lr=1e-3, quantized=True)
 def model_config():
     return reduced(get_config("qwen3-32b"), layers=2, d_model=64,
                    vocab=128)
+
+
+def moe_config():
+    return reduced(get_config("granite-moe-1b-a400m"), layers=2,
+                   d_model=64, vocab=128)
 
 
 def _bytes(*trees) -> int:
@@ -88,6 +98,80 @@ def real_rank(rank: int, dp: int, tp: int, init_file: str) -> dict:
                                   dtype=torch.int32), caches)
     out["decode"] = mesh.record()
     return out
+
+
+def real_moe_rank(rank: int, dp: int, tp: int, init_file: str) -> dict:
+    """One rank of a real gloo mesh running the reduced granite-moe: the
+    record and held bytes of one train step (its experts cut over 'data'
+    by the training layout) and of one decode step (the serving tree at
+    ``tp_config(ep=dp)``, the dry run's step function)."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(dp, tp, rank=rank, init_file=init_file,
+                     backend="gloo", device="cpu")
+    cfg = moe_config()
+    lcfg = local_config(tp_config(cfg, tp, ep=dp), tp)
+    whole = lm.init_params(cfg, device="cpu")
+    layout = ts.mesh_layout(cfg, dp, tp, OPT)
+    params = ts.rank_slices(whole, layout, mesh)
+    opt = zero_adamw_init(params, layout.zero, OPT, mesh)
+    out = {"train_held": _bytes(params, opt)}
+    step = ts.make_mesh_train_step(lcfg, OPT, mesh, layout)
+    batch = {"tokens": torch.randint(0, 128, (TRAIN.global_batch,
+                                               TRAIN.seq_len),
+                                     generator=torch.Generator()
+                                     .manual_seed(0), dtype=torch.int32)}
+    mesh.reset_record()
+    step(params, opt, batch)
+    out["train"] = mesh.record()
+    assert specs.serve_ep(cfg, DECODE, mesh) == dp
+    sp = local_params(whole, tp_config(cfg, tp, ep=dp), tp, mesh.model_rank,
+                      ep=dp, data_rank=mesh.data_rank)
+    out["decode_held"] = _bytes(sp)
+    inputs = specs.input_shardings(cfg, lcfg, DECODE, mesh,
+                                   specs.input_specs(cfg, DECODE))
+    mesh.reset_record()
+    specs.make_step_fn(lcfg, DECODE, mesh)(sp, inputs)
+    out["decode"] = mesh.record()
+    # the dp_only profile: whole params, every process a DP rank
+    lay = ts.mesh_layout(cfg, dp, tp, OPT, profile="dp_only")
+    pw = ts.rank_slices(whole, lay, mesh)
+    ow = zero_adamw_init(pw, lay.zero, OPT, mesh)
+    out["dp_only_held"] = _bytes(pw, ow)
+    step = ts.make_mesh_train_step(local_config(tp_config(cfg, 1), 1), OPT,
+                                   mesh, lay, on_grads=lambda gs: out.update(
+                                       dp_only_grads={p: g.numpy().copy()
+                                                      for p, g in
+                                                      gs.items()}))
+    mesh.reset_record()
+    _, _, m = step(pw, ow, batch)
+    out["dp_only"] = mesh.record()
+    out["dp_only_metrics"] = {k: float(v) for k, v in m.items()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def real_moe(tmp_path_factory):
+    store = init_file_in(str(tmp_path_factory.mktemp("drymoe")))
+    return run_ranks(real_moe_rank, 4, (2, 2, store), timeout=120)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dry_moe_record_and_held_equal_real_mesh(real_moe, kind):
+    """Expert parallelism declared even, traced with fake tensors: each
+    rank's record (two all-to-alls a MoE layer and their backward, one
+    fp32 aux all-gather over 'data') and held bytes equal the real
+    gloo rank's."""
+    shape = TRAIN if kind == "train" else DECODE
+    for rank, got in enumerate(real_moe):
+        dry = dryrun.trace_step(moe_config(), shape, 2, 2, rank,
+                                opt_cfg=OPT)
+        assert dry["record"] == got[kind], (rank, kind)
+        assert dry["held"] == got[f"{kind}_held"], (rank, kind)
+        assert dry["lcfg"].ep_shards == 2
+        a2a, ag = got[kind]["all-to-all"]["data"], \
+            got[kind]["all-gather"]["data"]
+        n_moe = moe_config().num_layers
+        assert a2a["calls"] >= 2 * n_moe and ag["calls"] >= n_moe
 
 
 @pytest.fixture(scope="module", params=MESHES,
@@ -159,15 +243,11 @@ CELLS = [(a, s.name) for a in ASSIGNED_ARCHS
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
-def test_every_reduced_cell_ends_in_a_row_or_a_refusal(arch, shape):
-    try:
-        rep = dryrun.run_cell(arch, shape, mesh=(2, 2), reduce=True,
-                              verbose=False)
-    except ValueError as e:
-        assert dryrun.refused(e) and "moe_ep.py:178" in str(e)
-        cfg = get_config(arch)
-        assert shape == "train_4k" and cfg.family in ("moe", "hybrid")
-        return
+def test_every_reduced_cell_ends_in_a_row(arch, shape):
+    rep = dryrun.run_cell(arch, shape, mesh=(2, 2), reduce=True,
+                          verbose=False)
+    if get_config(arch).moe is not None and shape != "long_500k":
+        assert rep.coll_breakdown["all-to-all"] > 0, "experts not in EP"
     assert rep.flops > 0 and rep.bound_s > 0 and rep.chips == 4
     assert rep.peak_memory_per_device >= rep.held_memory_per_device > 0
     assert rep.counted_flops > 0
@@ -190,10 +270,104 @@ def test_multi_pod_cell_traces_rank_0_of_2x16x16(tmp_path, capsys):
     assert rep.coll_axes["pod"] > 0
 
 
-def test_family_train_cell_refused_by_the_cli():
-    with pytest.raises(SystemExit, match="routing counts on the host"):
-        dryrun.main(["--arch", "granite-moe-1b-a400m", "--shape",
-                     "train_4k", "--mesh", "2,2"])
+def test_cli_prints_a_family_train_row(tmp_path, capsys, monkeypatch):
+    """A MoE train cell's row from the CLI on a dry (2, 2) mesh: its
+    experts in EP over 'data', all-to-alls in the record (the reduced
+    config at train_4k's shape, to keep the trace short)."""
+    whole = dryrun.cell_config
+    monkeypatch.setattr(dryrun, "cell_config",
+                        lambda arch, **kw: whole(arch, **{**kw,
+                                                          "reduce": True}))
+    assert dryrun.main(["--arch", "granite-moe-1b-a400m", "--shape",
+                        "train_4k", "--mesh", "2,2", "--out",
+                        str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("granite-moe-1b-a400m") and "train_4k" in out
+    assert "experts in 2 EP shard(s)" in out and "all-to-all" in out
+    (f,) = tmp_path.iterdir()
+    assert f.name == "granite-moe-1b-a400m_train_4k_2x2.json"
+
+
+def test_dp_only_mesh_step_equals_the_loop_and_the_dry_rank(real_moe):
+    """The granite step under ``dp_only`` on a real (2, 2) gloo mesh:
+    each rank's reduced gradient slices equal the meshless loop's mean
+    gradient over the 4 DP ranks (each routing its own row through its
+    own whole experts, ``moe_ffn_dp``) within 1e-5 of the leaf's scale,
+    the loss and aux its mean within 1e-6; the dry rank's record and held
+    bytes equal the real rank's."""
+    from repro_torch.core.pruning import iter_leaves
+    from repro_torch.train.optimizer import _zero_dim, adamw_init, local_slice
+    cfg = moe_config()
+    lay = ts.mesh_layout(cfg, 2, 2, OPT, profile="dp_only")
+    whole = lm.init_params(cfg, device="cpu")
+    want = {}
+    step = ts.make_train_step(tp_config(cfg, 1), OPT, data_shards=4,
+                              on_grads=lambda g: want.update(
+                                  dict(iter_leaves(g))))
+    batch = {"tokens": torch.randint(0, 128, (TRAIN.global_batch,
+                                               TRAIN.seq_len),
+                                     generator=torch.Generator()
+                                     .manual_seed(0), dtype=torch.int32)}
+    _, _, m = step(whole, adamw_init(whole, OPT), batch)
+    for rank, got in enumerate(real_moe):
+        for k in ("loss", "aux", "ce"):
+            assert abs(got["dp_only_metrics"][k] - float(m[k])) <= 1e-6 * (
+                1 + abs(float(m[k]))), (rank, k)
+        mesh = dry_mesh(2, 2, rank)
+        for path, g in got["dp_only_grads"].items():
+            w = local_slice(want[path], _zero_dim(lay.zero, path),
+                            mesh).numpy()
+            scale = float(want[path].abs().max()) + 1e-30
+            assert float(abs(g - w).max()) <= 1e-5 * scale, (rank, path)
+        dry = dryrun.trace_step(cfg, TRAIN, 2, 2, rank, opt_cfg=OPT,
+                                profile="dp_only")
+        assert dry["record"] == got["dp_only"], rank
+        assert dry["held"] == got["dp_only_held"], rank
+
+
+# (kind, axis) pairs a dp_only train step may record: the gradient
+# reduction ('data' then 'model'), the moments' ZeRO traffic over 'data'
+# (the params' all-gather, the int8 scales' max), the global norm
+# ('world'), the metrics' and moe_ffn_dp's aux mean over every axis
+DP_ONLY = {("reduce-scatter", "data"), ("all-reduce", "data"),
+           ("all-reduce", "model"), ("all-gather", "data"),
+           ("all-reduce", "world"), ("all-reduce", "data,model"),
+           ("all-gather", "data,model")}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-32b", "granite-moe-1b-a400m"])
+def test_dp_only_train_cell_holds_whole_params(arch, tmp_path):
+    """``--profile dp_only`` on (2, 2): rank 3 holds the whole tree; the
+    record is the gradient reduction over every axis, ZeRO over 'data'
+    and (MoE) the aux all-gather over every axis, with no all-to-all;
+    the tag ends in ``_dp_only``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    cfg = dryrun.cell_config(arch, reduce=True)
+    shape = ShapeConfig("t", "train", seq_len=16, global_batch=8)
+    tr = dryrun.trace_step(cfg, shape, 2, 2, 3, profile="dp_only")
+    opt_cfg = AdamWConfig(quantized=True)
+    with FakeTensorMode():
+        whole = lm.init_params(cfg, device="cpu")
+        lay = ts.mesh_layout(cfg, 2, 2, opt_cfg, profile="dp_only")
+        held = _bytes(whole, zero_adamw_init(whole, lay.zero, opt_cfg,
+                                             dry_mesh(2, 2, 3)))
+    assert tr["held"] == held > _bytes(whole)
+    assert tr["lcfg"].tp_shards == 1 and tr["lcfg"].ep_shards == 1
+    rec = tr["record"]
+    pairs = {(k, a) for k, axes in rec.items() for a in axes}
+    assert pairs <= DP_ONLY, pairs - DP_ONLY
+    assert {("reduce-scatter", "data"), ("all-reduce", "model"),
+            ("all-gather", "data")} <= pairs
+    assert (("all-gather", "data,model") in pairs) == (cfg.moe is not None)
+    if cfg.moe is not None:
+        ag = rec["all-gather"]["data,model"]
+        assert ag["bytes"] == ag["calls"] * 4 * 4      # fp32, 4 ranks
+    rep = dryrun.run_cell(arch, "train_4k", mesh=(2, 2), reduce=True,
+                          profile="dp_only", out_dir=str(tmp_path),
+                          verbose=False)
+    assert rep.note.endswith("dp_only")
+    (f,) = tmp_path.iterdir()
+    assert f.name == f"{arch}_train_4k_2x2_dp_only.json"
 
 
 def test_cli_prints_a_full_size_row(tmp_path, capsys):

@@ -7,7 +7,13 @@ capacity (8.0) and the default 1.25. The port's gloo mesh (spawned
 processes, each holding its experts and d_ff shard by
 ``distribution.sharding.local_params``) and its meshless loop
 (``moe_ffn_loop``) give y within 1e-5 of max |y| and aux within 1e-6 of
-the reference's, and the mesh is the loop bit for bit. Experts under TP
+the reference's, and the mesh is the loop bit for bit, in both modes:
+gathered (the mode read from every rank's infos on the host) and
+declared (``use_mesh(even_rows=True)``: from the rank's own shape, no
+host read), which equal each other bit for bit. The declared mode runs
+under ``FakeTensorMode`` on a dry mesh, where the gathered mode's host
+read cannot; a declared call whose rows cannot split raises
+``UnevenRows``. Experts under TP
 alone (every expert, d_ff over 'model') match ``moe_ffn_local`` at tp 2
 and 4; a call whose rows all sit on one data rank keeps the local path's
 semantics with the experts still placed by EP; ``moe_ffn_dp`` matches
@@ -35,6 +41,7 @@ from repro_torch.models import moe as t_moe  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 MESHES = ((2, 1), (2, 2), (4, 2))
 FACTORS = (8.0, 1.25)
+MODES = ("gathered", "declared")
 
 
 def port_config(cf: float):
@@ -79,15 +86,17 @@ def _rank(rank, shape, ref_file, store):
         cfg = tp_config(port_config(cf), tp, dp)
         loc = _rank_ffn(p, cfg, tp, mesh.model_rank, dp, mesh.data_rank)
         assert loc["w1"]["w"].shape == (4 // dp, 64, 64 // tp)
+        for mode in MODES:
+            with dctx.use_mesh(mesh, even_rows=mode == "declared"):
+                y, aux = moe_ep.moe_dispatch(loc, cfg,
+                                             x.chunk(dp)[mesh.data_rank])
+            out[f"ep/{mode}/{cf}"] = (y.numpy(), float(aux))
         with dctx.use_mesh(mesh):
-            y, aux = moe_ep.moe_dispatch(loc, cfg,
-                                         x.chunk(dp)[mesh.data_rank])
             # a rank without rows brings the compute type (bf16) where
             # the owner's activations were promoted to fp32
             yo, auxo = moe_ep.moe_dispatch(
                 loc, cfg, x if mesh.data_rank == 0 else
                 x[:0].to(torch.bfloat16))
-        out[f"ep/{cf}"] = (y.numpy(), float(aux))
         out[f"owner/{cf}"] = (yo.float().numpy(), float(auxo))
         tcfg = tp_config(port_config(cf), tp)
         with dctx.use_mesh(mesh.submesh()):
@@ -136,8 +145,13 @@ def _mesh_y(results, key):
     return [by_data[d] for d in sorted(by_data)]
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
-def test_ep_mesh_and_loop_equal_reference_ep(reference, mesh_runs, shape):
+def test_ep_mesh_and_loop_equal_reference_ep(reference, mesh_runs, shape,
+                                             mode):
+    """Each mode's mesh ranks against the reference's ``moe_ffn_ep``
+    (1e-5 / 1e-6) and the loop (bit for bit); the declared mode equals
+    the gathered mode bit for bit, y and aux."""
     _, ref = reference
     dp, tp = shape
     p, x = _params(ref), torch.as_tensor(ref["x"])
@@ -148,10 +162,60 @@ def test_ep_mesh_and_loop_equal_reference_ep(reference, mesh_runs, shape):
                                      x)
         assert _rel(y.numpy(), want_y) <= 1e-5, cf
         assert abs(float(aux) - want_aux) <= 1e-6, cf
-        ys = _mesh_y(mesh_runs[shape], f"ep/{cf}")
+        key = f"ep/{mode}/{cf}"
+        ys = _mesh_y(mesh_runs[shape], key)
         assert np.array_equal(np.concatenate(ys), y.numpy()), cf
         for r in mesh_runs[shape]:
-            assert r[f"ep/{cf}"][1] == float(aux), cf
+            assert abs(r[key][1] - want_aux) <= 1e-6, cf
+            assert r[key][1] == float(aux), cf
+            other = r[f"ep/{MODES[0]}/{cf}"]
+            assert np.array_equal(r[key][0], other[0]), cf
+            assert r[key][1] == other[1], cf
+
+
+def _dry_layer(cf: float, rank: int):
+    """A dry (2, 2) mesh's rank, its MoE params (fake, under the caller's
+    mode) and the reduced granite-moe's EP config."""
+    cfg = tp_config(port_config(cf), 2, 2)
+    mesh = dctx.dry_mesh(2, 2, rank)
+    E, d, f = 4, 64, 64
+    p = {"router": {"w": torch.zeros((d, E))},
+         "w1": {"w": torch.zeros((E // 2, d, f // 2))},
+         "w3": {"w": torch.zeros((E // 2, d, f // 2))},
+         "w2": {"w": torch.zeros((E // 2, f // 2, d))}}
+    return cfg, mesh, p
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_declared_mode_traces_under_fake_tensors(rank):
+    """Under ``FakeTensorMode`` on a dry (2, 2) mesh the declared call
+    runs (no host read: its record is one fp32 aux all-gather over 'data'
+    and two all-to-alls), while the gathered call's read of the infos
+    cannot."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        cfg, mesh, p = _dry_layer(1.25, rank)
+        x = torch.zeros((4, 16, 64))
+        with dctx.use_mesh(mesh, even_rows=True):
+            y, aux = moe_ep.moe_dispatch(p, cfg, x)
+        assert tuple(y.shape) == (4, 16, 64) and aux.shape == ()
+        rec = mesh.record()
+        assert rec["all-gather"]["data"] == {"calls": 1, "bytes": 2 * 4}
+        assert rec["all-to-all"]["data"]["calls"] == 2
+        with dctx.use_mesh(mesh), pytest.raises(Exception) as err:
+            moe_ep.moe_dispatch(p, cfg, x)
+        assert not isinstance(err.value, moe_ep.UnevenRows)
+
+
+def test_declared_call_without_rows_raises_uneven_rows():
+    """A declared call on a rank with no rows (the global batch cannot
+    give every DP rank a row) raises ``UnevenRows``, never the local
+    mode's host read."""
+    cfg, mesh, p = _dry_layer(1.25, 0)
+    with dctx.use_mesh(mesh, even_rows=True), \
+            pytest.raises(moe_ep.UnevenRows, match="declared even"):
+        moe_ep.moe_dispatch(p, cfg, torch.zeros((0, 16, 64)))
+    assert not mesh.record(), "a refused call ran a collective"
 
 
 @pytest.mark.parametrize("tp", [2, 4])

@@ -172,8 +172,11 @@ def _moe_case(mesh, whole):
                        if path in layout.zero.ep},
            "losses": [], "aux": []}
     step = t_step.make_mesh_train_step(lcfg, oc, mesh, layout)
-    for b in bs:
+    for i, b in enumerate(bs):
+        mesh.reset_record()
         params, opt, m = step(params, opt, b)
+        if i == 0:
+            out["record"] = mesh.record()
         out["losses"].append(float(m["loss"]))
         out["aux"].append(float(m["aux"]))
     out["state"] = (_np(params), _np(opt))
@@ -406,6 +409,22 @@ def test_pod_rows_carry_the_zero_slices_and_match_a_dry_rank(mesh_run):
     dry = dryrun.trace_step(port_config(), train, D, T, rank,
                             opt_cfg=AdamWConfig(lr=LR), overlay=True, pod=P)
     assert dry["record"] == res[rank][case]["record"]
+
+
+def test_moe_pod_step_matches_a_dry_rank(spawned):
+    """granite's step on (2,2,1), its MoE layers declared even (expert
+    parallelism with no host read): a dry rank of the same mesh, traced
+    under fake tensors, records the same collectives (the all-to-alls
+    inside a pod, the aux gathered over 'data' and then 'pod')."""
+    res = spawned[2, 2, 1]
+    train = ShapeConfig("t", "train", seq_len=SEQ, global_batch=BATCH)
+    for rank in (0, len(res) - 1):
+        dry = dryrun.trace_step(moe_config(), train, 2, 1, rank,
+                                opt_cfg=AdamWConfig(lr=LR), pod=2)
+        assert dry["record"] == res[rank]["moe"]["record"], rank
+    rec = res[0]["moe"]["record"]
+    assert rec["all-gather"]["pod"]["calls"] >= moe_config().num_layers
+    assert rec["all-to-all"]["data"]["calls"] >= 2 * moe_config().num_layers
 
 
 def test_moe_aux_is_the_mean_over_the_dp_shards(spawned, ref_models):

@@ -6,7 +6,7 @@
 Builds the CUDA kernels, then runs ``chip_smoke.dp_phase``: qwen3-32b at
 full width (seed 0, wo and w2 spread, 50% of the 32x32 tiles, scope
 all, bf16), (a) ``--mesh 2,1 --scheduler`` and ``--mesh 2,2
---scheduler`` at 4 layers on one card (gloo, host-staged), contiguous
+--scheduler`` at 2 layers on one card (gloo, host-staged), contiguous
 and paged, every process bit for bit the meshless 2-rank scheduler over
 the shard loop; (b) ``--mesh 2,2`` with one engine of 4 slots split over
 'data', greedy-equal to each request alone; (c) ``--mesh 2,2

@@ -6,7 +6,7 @@ mesh.
 
 Builds the CUDA kernels, then runs ``chip_smoke.family_mesh_phase``:
 (a)-(c) on one card over gloo, host-staged: moonshot-v1-16b-a3b at full
-width (2 layers) on ``--mesh 2,1`` (experts in EP over 'data'), ``1,2``
+width (1 layer) on ``--mesh 2,1`` (experts in EP over 'data'), ``1,2``
 (experts' d_ff over 'model'), ``2,2`` and ``2,2 --scheduler`` (each
 scheduler rank's experts whole), mamba2-780m whole on ``--mesh 1,2``
 (SSM heads over 'model') and jamba's super-block at phase 8 (c)'s widths

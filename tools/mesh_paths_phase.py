@@ -9,7 +9,7 @@ qwen3-32b at full width (seed 0, wo and w2 spread, 50% of the 32x32
 tiles where pruned, bf16 compute), (a) ``--mesh 1,2`` on one card (gloo,
 host-staged) with ``--sasp 0``, masked, masked int8 (scope ffn), bsr,
 kernel, packed (paged) and packed with an fp and an int8 drafter at 75%,
-2 layers, every rank bit for bit the shard loop at tp 2 and greedy-equal
+1 layer, every rank bit for bit the shard loop at tp 2 and greedy-equal
 to the one-card engine up to printed near-ties; (b) the dense rs+int8-ag
 FFN within 2e-2 of the exact one; (c) ``--mesh 1,4 --sasp 0`` and packed
 at all 64 layers over NCCL where the machine has four cards

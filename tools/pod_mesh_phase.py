@@ -15,8 +15,9 @@ both pods' params and moments equal after every step; (b) a narrower
 qwen3 (4 layers, d_model 512, vocab 8192, fp32) on 2,2,2 (fp32 moments
 with 2 micro-batches; int8 moments) and on 2,1,2 (a checkpoint resumed
 bit for bit), each held to its loop; (c) (b)'s checkpoint served packed
-on one card; (d) (a)'s state and (b)'s step on a dry 2,2,2 mesh beside
-the real ranks; (e) over NCCL where the machine has four cards:
+on one card; (d) (a)'s MoE step and (b)'s step traced on a dry 2,2,2
+mesh (fake tensors, on the host), their records beside the real ranks'
+and (a)'s held GiB beside the measured; (e) over NCCL where the machine has four cards:
 moonshot at full width, 8 layers, on ``--mesh 2,2,1`` (``--nccl-only``:
 (e) alone, for a four-card call). Prints the card's name and power limit
 first and ``RESULT`` with the phase's seconds last; details in
