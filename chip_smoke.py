@@ -284,6 +284,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 (a)'s) and (b)'s step traced there (record equal to the
                 real rank's); (e) four NCCL cards: moonshot, 8 layers, on
                 2,2,1. ``tools/pod_mesh_phase.py`` runs it alone.
+  18. seq mesh — (last) the reference's long-context layout on a mesh,
+                one slot (the batch does not split over 'data'): (a)
+                gemma3-4b at full width, 6 layers (5 windowed, 1 global),
+                50% of the tiles packed (scope all), bf16, cache 32768, a
+                512-token prompt and 16 new tokens, on ``--mesh 2,1`` (2
+                gloo processes on this card): each ring's capacity cut
+                over 'data'; (b) moonshot-v1-16b-a3b at full width, 1
+                layer, on ``--mesh 2,1``: experts cut 32 / 32, the
+                replicated MoE mode with no ``_Infos`` gather; (c) gemma3
+                at d_model 512 with one KV head on ``--mesh 1,2``: rings
+                cut over 'model'. Every process bit for bit its meshless
+                twin (``Engine(data_shards=D, seq_split=True)``: streams,
+                every decode step's logits), its KV (and expert) bytes
+                the whole model's over the cut, three collectives an
+                attention layer a decode step in ``Mesh.record``; (a)'s
+                twin within 2e-2 of the logit scale of the one-card
+                engine. ``tools/seq_mesh_phase.py`` runs it alone, and
+                with four cards gemma3-4b at full depth with the
+                long_500k ring on 4,1 and 2,2 and jamba's block on 4,1.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1893,12 +1912,15 @@ def paths_phase(torch, counters):
     return results, qw
 
 
-def _profiled(torch, step, n: int, name: str, ops_by_shape=()):
+def _profiled(torch, step, n: int, name: str, ops_by_shape=(),
+              quiet: bool = False):
     """Device time by kernel over ``n`` calls of ``step`` under
     torch.profiler, and the share of the wall time the device was busy
     (sum of kernel self times; kernels of one stream do not overlap);
     the ops named in ``ops_by_shape`` also by their input shapes. The
-    trace goes to build/chip_smoke/<name>_trace.json."""
+    trace goes to build/chip_smoke/<name>_trace.json. ``quiet``: log
+    nothing (a spawned rank's)."""
+    say = (lambda m: None) if quiet else log
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -1919,18 +1941,18 @@ def _profiled(torch, step, n: int, name: str, ops_by_shape=()):
     os.makedirs(OUT_DIR, exist_ok=True)
     prof.export_chrome_trace(os.path.join(OUT_DIR, f"{name}_trace.json"))
     if not events:
-        log(f"  {name}: device time not measured (the profiler saw no "
+        say(f"  {name}: device time not measured (the profiler saw no "
             f"device activity)")
         return dict(wall_ms_per_step=wall_us / n / 1e3, busy_share=None,
                     kernels=[])
-    log(f"  {name}, {n} step(s): {wall_us / n / 1e3:.2f} ms/step wall, "
+    say(f"  {name}, {n} step(s): {wall_us / n / 1e3:.2f} ms/step wall, "
         f"device busy {busy_us / n / 1e3:.2f} ms/step "
         f"({busy_us / wall_us:.1%} of wall)")
     rows = []
     for e in sorted(events, key=dev_us, reverse=True)[:12]:
         rows.append(dict(name=e.key[:90], calls=e.count,
                          ms_per_step=dev_us(e) / n / 1e3))
-        log(f"    {dev_us(e) / n / 1e3:8.3f} ms/step  {e.count / n:6.1f} "
+        say(f"    {dev_us(e) / n / 1e3:8.3f} ms/step  {e.count / n:6.1f} "
             f"calls/step  {e.key[:90]}")
     shaped = []
     if ops_by_shape:
@@ -1939,12 +1961,12 @@ def _profiled(torch, step, n: int, name: str, ops_by_shape=()):
                 getattr(e, "cuda_time_total", 0)
         ops = [e for e in prof.key_averages(group_by_input_shape=True)
                if e.key in ops_by_shape and tot_us(e)]
-        log(f"  {name}: {', '.join(ops_by_shape)} by input shapes "
+        say(f"  {name}: {', '.join(ops_by_shape)} by input shapes "
             f"(device time, their kernels included):")
         for e in sorted(ops, key=tot_us, reverse=True)[:16]:
             shaped.append(dict(op=e.key, shapes=str(e.input_shapes),
                                calls=e.count, ms_per_step=tot_us(e) / n / 1e3))
-            log(f"    {tot_us(e) / n / 1e3:8.3f} ms/step  "
+            say(f"    {tot_us(e) / n / 1e3:8.3f} ms/step  "
                 f"{e.count / n:6.1f} calls/step  {e.key} "
                 f"{str(e.input_shapes)[:100]}")
     return dict(wall_ms_per_step=wall_us / n / 1e3,
@@ -4458,8 +4480,7 @@ def _fm_build(torch, cfg0, mesh, sched, rank, data_rank, device):
     all, packed; wo and w2 spread as drawn), timed, with the peak GiB the
     build reached on ``device``."""
     from repro_torch.launch import serve as launch
-    ep = launch.expert_shards(cfg0, mesh, scheduler=sched,
-                              slots=FMP["slots"], kv_pages=None)
+    ep = launch.expert_shards(cfg0, mesh, scheduler=sched)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
@@ -6263,6 +6284,550 @@ def pod_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the reference's long-context layout on a mesh
+# ---------------------------------------------------------------------------
+
+# one slot, so that the batch does not split over 'data': (a) gemma3-4b at
+# full width, 6 layers (5 windowed of 1024, 1 global), cache 32768, a
+# 512-token prompt, on --mesh 2,1 (rings cut over 'data'); (b) moonshot
+# at full width, 1 layer, on --mesh 2,1 (experts cut 32 / 32, the
+# replicated mode); (c) a narrow gemma3 with one KV head on --mesh 1,2
+# (every model rank runs every head: rings cut over 'model')
+SEQP = dict(layers=6, new=16, logit_share=2e-2,
+            cases={"a": (512, 32768), "b": (64, 256), "c": (64, 256)})
+SEQ_MESHES = {(2, 1): ("a", "b"), (1, 2): ("c",)}
+# the main-path kernels each case launches (packed, scope all): moonshot
+# its attention projections only (its FFNs are experts, masked-dense)
+SEQ_KERNELS = {"a": {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"},
+               "b": {"sasp_gemm": "mma"},
+               "c": {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"}}
+
+
+def seq_case_config(case: str):
+    """(a) gemma3-4b at full width, ``SEQP["layers"]`` layers; (b)
+    moonshot-v1-16b-a3b at full width, 1 layer; (c) gemma3-4b at d_model
+    512 (4 heads of 128, window 16), 6 layers, vocab 8192, with one KV
+    head; bf16 compute."""
+    from repro_torch.configs import get_config, reduced
+    if case == "a":
+        return dataclasses.replace(get_config("gemma3-4b"),
+                                   num_layers=SEQP["layers"],
+                                   compute_dtype="bfloat16")
+    if case == "b":
+        return moonshot_config(1, "bfloat16")
+    return dataclasses.replace(
+        reduced(get_config("gemma3-4b"), layers=6, d_model=512, vocab=8192),
+        num_kv_heads=1, compute_dtype="bfloat16")
+
+
+def _seq_build(torch, cfg0, tp, rank, data_rank, ep, device):
+    """``build_rank_params`` (50% of the 32x32 tiles, scope all, packed;
+    wo and w2 spread as drawn): (tree, deployed config, rank config)."""
+    from repro_torch.launch import serve as launch
+    params, tcfg, lcfg, _ = launch.build_rank_params(
+        cfg0, tp=tp, rank=rank, device=device, sparsity=SPARSITY,
+        scope="all", path="packed", prepare=spread_leaf(cfg0), ep=ep,
+        data_rank=data_rank)
+    return params, tcfg, lcfg
+
+
+def _kv_bytes(eng) -> int:
+    """Bytes of an engine's attention rings (SSM states apart)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for seg in eng.caches for c in seg.values()
+               if hasattr(c, "k") for leaf in c if leaf is not None)
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of every expert stack's matrices in a tree."""
+    n = 0
+    for seg in params["segments"]:
+        for slot in seg.values():
+            ffn = slot["ffn"]
+            if "router" in ffn:
+                n += sum(ffn[w]["w"].numel() * ffn[w]["w"].element_size()
+                         for w in ("w1", "w2", "w3") if w in ffn)
+    return n
+
+
+def _seq_prompt(vocab: int, n: int):
+    import numpy as np
+    return np.random.default_rng(18).integers(0, vocab, size=(n,)).astype(
+        np.int32)
+
+
+def _seq_serve(torch, params, cfg, counters, case, mesh=None, **kw):
+    """The case's one request (its prompt, ``SEQP["new"]`` tokens)
+    through ``Engine`` of one slot at the case's cache length, on
+    ``mesh`` or as the meshless twin (``kw``), every step timed, every
+    decode step's fp32 logits kept; launch counts and the mesh's record
+    set to 0 just before the run and read just after."""
+    from repro_torch.serve.engine import Engine, Request
+    n, C = SEQP["cases"][case]
+    eng = Engine(params, cfg, batch_slots=1, cache_len=C, mesh=mesh, **kw)
+    logits = []
+    dec = eng._decode_step
+
+    def recorded(p, c, *a):
+        x = dec(p, c, *a)
+        logits.append(x.float().cpu())
+        return x
+    eng._decode_step = recorded
+    req = Request(rid=0, prompt=_seq_prompt(cfg.vocab_size, n),
+                  max_new_tokens=SEQP["new"])
+    reset(counters)
+    if mesh is not None:
+        mesh.reset_record()
+    streams, steps = _drive_timed(torch, eng, [req], check_pool=False)
+    return dict(stream=streams[0], logits=logits, times=_step_times(steps),
+                layout=eng.layout, kv_bytes=_kv_bytes(eng),
+                launches=_launch_counts(counters),
+                record=None if mesh is None else mesh.record())
+
+
+def _seq_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """Phase 18's process, spawned by the launcher's ``serve_mesh``: join
+    the mesh, then for each case build this rank's tree layer by layer
+    (a MoE's experts cut over 'data': ``expert_shards``), serve the
+    case's request on one slot (the sequence-parallel layout), count the
+    ``_Infos`` gathers (the EP path's host read), free. Decode logits
+    come back as digests."""
+    import torch
+    from repro_torch.distribution import moe_ep
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    out = dict(rank=rank, data_rank=mesh.data_rank,
+               model_rank=mesh.model_rank, transport=mesh.transport,
+               cases={}, streams={})
+    for case in spec["cases"]:
+        cfg0 = seq_case_config(case)
+        ep = launch.expert_shards(cfg0, spec["mesh"], scheduler=False)
+        params, _, lcfg = _seq_build(torch, cfg0, spec["mesh"][1],
+                                     mesh.model_rank, mesh.data_rank, ep,
+                                     dev)
+        infos = {"n": 0}
+        base = moe_ep._Infos
+
+        class Counted(base):
+            def __init__(self, *a, **k):
+                infos["n"] += 1
+                super().__init__(*a, **k)
+        moe_ep._Infos = Counted
+        try:
+            run = _seq_serve(torch, params, lcfg, counters, case, mesh=mesh)
+        finally:
+            moe_ep._Infos = base
+        run.update(infos=infos["n"], expert_bytes=_expert_bytes(params),
+                   logits=[_digest(x) for x in run["logits"]], ep=ep)
+        out["streams"][case] = run.pop("stream")
+        out["cases"][case] = run
+        del params
+        _free(torch)
+    return out
+
+
+def _seq_oracles(torch, counters):
+    """On this card, each case's meshless twin (the whole tree at the
+    mesh's TP, ``Engine(data_shards=D, seq_split=True)``: every ring
+    whole, every block run in turn) and, for (a), the one-card engine
+    (rings whole, the plain softmax)."""
+    out = {}
+    for case in ("a", "b", "c"):
+        (dp, tp), = [m for m, cs in SEQ_MESHES.items() if case in cs]
+        cfg0 = seq_case_config(case)
+        tree, tcfg, _ = _seq_build(torch, cfg0, tp, None, 0, 1, DEVICE)
+        cfg = dataclasses.replace(tcfg, ep_shards=dp) if cfg0.moe else tcfg
+        res = dict(twin=_seq_serve(torch, tree, cfg, counters, case,
+                                   data_shards=dp, seq_split=True),
+                   expert_bytes=_expert_bytes(tree))
+        if case == "a":
+            res["one"] = _seq_serve(torch, tree, tcfg, counters, case)
+        out[case] = res
+        del tree
+        _free(torch)
+    return out
+
+
+def _seq_check(case, mesh, res, oracle):
+    """Every process of a case: the sequence-parallel layout; streams and
+    every decode step's logits bit for bit the twin's; each rank's KV
+    (and, (b), expert) bytes the whole model's over the cut; three
+    collectives an attention layer a decode step over the cut's axes (and
+    (b)'s one ordered sum a MoE layer a call); no ``_Infos`` gather; the
+    case's kernels on their tensor-core variants."""
+    twin = oracle["twin"]
+    D, T = mesh
+    cfg0 = seq_case_config(case)
+    attn = cfg0.num_layers
+    n = D * T if case == "c" else D
+    axis = "data,model" if case == "c" else "data"
+    for r in res:
+        tag = f"(18{case}) --mesh {D},{T} rank {r['rank']}"
+        got = r["cases"][case]
+        check(got["layout"] == "sequence split over data",
+              f"{tag}: layout {got['layout']}")
+        check(r["streams"][case] == twin["stream"],
+              f"{tag}: stream differs from the meshless twin's")
+        check(got["logits"] == [_digest(x) for x in twin["logits"]],
+              f"{tag}: decode logits are not bit for bit the twin's")
+        check(got["kv_bytes"] * n == twin["kv_bytes"],
+              f"{tag}: {got['kv_bytes']} KV bytes, the whole rings' "
+              f"{twin['kv_bytes']} over {n}")
+        steps = len(got["logits"])
+        rec = got["record"]
+        moe = 1 if cfg0.moe else 0
+        ar = rec.get("all-reduce", {}).get(axis, {}).get("calls", 0)
+        ag = rec.get("all-gather", {}).get(axis, {}).get("calls", 0)
+        check(ar == attn * steps and ag == 2 * attn * steps
+              + moe * (steps + 1),
+              f"{tag}: {ar} all-reduces and {ag} all-gathers over {axis} "
+              f"in {steps} decode steps of {attn} attention layers")
+        check(got["infos"] == 0, f"{tag}: {got['infos']} _Infos gathers")
+        if cfg0.moe:
+            check(got["expert_bytes"] * D == oracle["expert_bytes"],
+                  f"{tag}: expert bytes {got['expert_bytes']}, the whole "
+                  f"stacks' {oracle['expert_bytes']} over {D}")
+        for k in MAIN_PATH:
+            lk = got["launches"][k]
+            if k in SEQ_KERNELS[case]:
+                check(lk["total"] > 0 and set(lk["variant"]) == {
+                    SEQ_KERNELS[case][k]}, f"{tag}: {k} launched {lk}")
+            else:
+                check(lk["total"] == 0, f"{tag}: {k} launched {lk}")
+
+
+def _seq_share(twin, one) -> float:
+    """The largest |twin - one card| of a decode step's logits, as a share
+    of that step's logit scale (max |one card|), over the steps both runs
+    take from the same tokens (up to the step that samples their first
+    differing token, where the streams part)."""
+    first = next((i for i, (a, b) in enumerate(zip(twin["stream"],
+                                                   one["stream"]))
+                  if a != b), len(one["stream"]))
+    pairs = list(zip(twin["logits"], one["logits"]))[:max(first, 0)]
+    return max((float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in pairs), default=0.0)
+
+
+def _seq_one_card(torch, counters):
+    """(a)-(c) on this card over gloo, host-staged, one spawn a mesh
+    shape, against the twins run first."""
+    from repro_torch.launch import serve as launch
+    t0 = time.time()
+    oracles = _seq_oracles(torch, counters)
+    out = {"oracle_s": time.time() - t0, "cases": {},
+           "launches": dict.fromkeys(MAIN_PATH, 0)}
+    a = oracles["a"]
+    share = _seq_share(a["twin"], a["one"])
+    agree = a["twin"]["stream"] == a["one"]["stream"]
+    check(share <= SEQP["logit_share"],
+          f"(18a) the twin's logits differ from the one-card engine's by "
+          f"{share:.3g} of the logit scale (bound {SEQP['logit_share']})")
+    out["a_vs_one_card"] = dict(share=share, streams_equal=agree)
+    _free(torch)
+    for mesh, cases in SEQ_MESHES.items():
+        t0 = time.time()
+        spec = dict(mesh=mesh, device=DEVICE, backend="gloo",
+                    cases=list(cases))
+        res = launch.serve_mesh(spec, _seq_rank, store_dir=OUT_DIR,
+                                timeout=600)
+        wall = time.time() - t0
+        for case in cases:
+            _seq_check(case, mesh, res, oracles[case])
+            c = [r["cases"][case] for r in res]
+            tw = oracles[case]["twin"]
+            line = (f"  (18{case}) --mesh {mesh[0]},{mesh[1]} over "
+                    f"{res[0]['transport']}: decode ms/step by rank "
+                    f"{[round(x['times']['decode_ms_per_step'], 2) for x in c]}"
+                    f" (the twin {tw['times']['decode_ms_per_step']:.2f}"
+                    + (f", one card {a['one']['times']['decode_ms_per_step']:.2f}"
+                       if case == "a" else "")
+                    + f"), prefill {c[0]['times']['prefill_ms']:.1f} ms; KV "
+                    f"MiB a rank {c[0]['kv_bytes'] / 2**20:.2f} (whole "
+                    f"{tw['kv_bytes'] / 2**20:.2f}); "
+                    + (f"experts in {c[0]['ep']} shards, expert MiB a rank "
+                       f"{c[0]['expert_bytes'] / 2**20:.1f} (whole "
+                       f"{oracles[case]['expert_bytes'] / 2**20:.1f}), "
+                       f"_Infos gathers {c[0]['infos']}; "
+                       if c[0]["ep"] > 1 else "")
+                    + f"record {c[0]['record']}; launches "
+                    f"{ {k: l['variant'] for k, l in c[0]['launches'].items() if l['total']} }"
+                    f"; bit for bit the twin ({wall:.1f} s wall)")
+            if case == "a":
+                line += (f"; the twin against one card: logits within "
+                         f"{share:.3g} of the logit scale, streams "
+                         f"{'equal' if agree else 'differ'}")
+            log(line)
+            out["cases"][f"{case} {mesh}"] = dict(
+                wall_s=wall, twin={k: v for k, v in tw.items()
+                                   if k != "logits"},
+                ranks=[{k: v for k, v in x.items() if k != "logits"}
+                       for x in c])
+            for k in MAIN_PATH:
+                out["launches"][k] += sum(x["launches"][k]["total"]
+                                          for x in c)
+    return out
+
+
+# the four-card runs of ``tools/seq_mesh_phase.py`` (not in the smoke):
+# gemma3-4b at full depth with the long_500k ring, and jamba's block
+SEQ4 = dict(cache_len=524288, prompt=4096, steps=32, meshes=((4, 1), (2, 2)))
+
+
+def seq4_config(model: str):
+    """gemma3-4b at full depth (34 layers), bf16 compute; or jamba-1.5-
+    large's 8-layer block at full width with bf16 weights (the dry run's
+    cells' type: with fp32 masters a 4,1 rank's quarter of the experts,
+    38.7 GB, and their bf16 casts per call do not fit beside NCCL's
+    buffers)."""
+    from repro_torch.configs import get_config
+    if model == "gemma":
+        return dataclasses.replace(get_config("gemma3-4b"),
+                                   compute_dtype="bfloat16")
+    return dataclasses.replace(_fm_config("jamba", full=True),
+                               param_dtype="bfloat16")
+
+
+def _seq_fill(torch, caches, cfg, pos: int, cut_of, heads):
+    """Every attention ring of ``caches`` (a rank's blocks, or whole) as
+    if ``pos`` tokens had been written: slot j holds the latest position
+    below ``pos`` that lands on it, with k / v drawn from generators
+    seeded by (segment, slot, layer, leaf), each drawn whole and cut to
+    this process's block (``cut_of(spec)``: its slots) and heads
+    (``heads``: (first, count) of the whole KV heads)."""
+    import zlib
+    from repro_torch.models import lm
+    for si, (pattern, repeat) in enumerate(lm.segment_plan(cfg)):
+        for sl, spec in enumerate(pattern):
+            c = caches[si][f"slot{sl}"]
+            if not hasattr(c, "k"):
+                continue
+            C = lm.ring_capacity(cfg, spec, SEQ4["cache_len"])
+            lo, n = cut_of(spec, C)
+            j = torch.arange(C, device=c.pos.device)
+            whole = (pos - 1 - (pos - 1 - j) % C).to(torch.int32)
+            for r in range(repeat):
+                c.pos[r, 0] = whole[lo:lo + n]
+                for name in ("k", "v"):
+                    g = torch.Generator(device=c.k.device)
+                    g.manual_seed(zlib.crc32(f"{si}/{sl}/{r}/{name}".encode()))
+                    full = torch.randn((C, cfg.num_kv_heads,
+                                        cfg.attn_head_dim), generator=g,
+                                       device=c.k.device)
+                    getattr(c, name)[r, 0] = full[lo:lo + n, heads[0]:
+                                                  heads[0] + heads[1]].to(
+                        c.k.dtype)
+                    del full
+
+
+def _seq_full_ring(torch, params, cfg, whole_cfg, mesh=None):
+    """One decode step at position ``cache_len - 1`` against rings filled
+    to it (``_seq_fill``): (the logits' digest, its ms)."""
+    from repro_torch.distribution.context import use_mesh
+    from repro_torch.distribution.sharding import ring_cut
+    from repro_torch.models import lm
+    dev = params["embed"]["emb"].device
+    caches = lm.init_caches(params, cfg, 1, SEQ4["cache_len"], device=dev)
+    kh = cfg.num_kv_heads
+    first = (mesh.model_rank * kh if mesh is not None
+             and not cfg.heads_replicated and kh < whole_cfg.num_kv_heads
+             else 0)
+
+    def cut_of(spec, C):
+        cut = ring_cut(cfg, C)
+        if cut is None or not cut.local:
+            return 0, C
+        return cut.index * cut.block, cut.block
+    pos = SEQ4["cache_len"] - 1
+    _seq_fill(torch, caches, whole_cfg, pos, cut_of, (first, kh))
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    _dev_sync(torch, dev)
+    t0 = time.perf_counter()
+    with use_mesh(mesh), torch.no_grad():
+        logits, _ = lm.decode_step(params, cfg, tok, p, caches)
+    _dev_sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    del caches
+    return _digest(logits), ms
+
+
+def _seq_long(torch, params, lcfg, counters, mesh=None, **kw):
+    """The long_500k engine: one slot at cache 524288, a 4096-token
+    prompt, then ``SEQ4["steps"]`` decode steps timed; GiB held (the
+    tree and the rings) and the rings' GiB."""
+    from repro_torch.serve.engine import Engine, Request
+    dev = params["embed"]["emb"].device
+    _free(torch)
+    eng = Engine(params, lcfg, batch_slots=1, cache_len=SEQ4["cache_len"],
+                 mesh=mesh, **kw)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    req = Request(rid=0, prompt=_seq_prompt(lcfg.vocab_size,
+                                            SEQ4["prompt"]),
+                  max_new_tokens=SEQ4["steps"] + 1)
+    reset(counters)
+    streams, steps = _drive_timed(torch, eng, [req], check_pool=False)
+    out = dict(stream=streams[0], times=_step_times(steps), held_gib=held,
+               kv_gib=_kv_bytes(eng) / 2**30, layout=eng.layout,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               launches=_launch_counts(counters))
+    # two more decode steps under torch.profiler (every rank, so that the
+    # collectives pair up; rank 0's and one card's are logged)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    pos = torch.full((1,), SEQ4["prompt"] + SEQ4["steps"] + 1,
+                     dtype=torch.int32, device=dev)
+
+    def step():
+        with torch.no_grad(), eng._mesh_ctx():
+            eng._decode_step(params, eng.cfg, tok, pos)
+    step()
+    tag = "one_card" if mesh is None else f"rank{mesh.rank}"
+    out["profile"] = _profiled(
+        torch, step, 2, f"seq4_{tag}",
+        quiet=mesh is not None and mesh.rank != 0)
+    del eng
+    _free(torch)
+    return out
+
+
+def _seq4_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """A process of the four-card runs: gemma3-4b at full depth, the
+    long_500k engine and one full-ring step; or jamba's block with one
+    slot (GiB held, a short request served)."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    dev = mesh.device
+    D, T = spec["mesh"]
+    out = dict(rank=rank, transport=mesh.transport, streams={})
+    cfg0 = seq4_config(spec["model"])
+    if spec["model"] == "gemma":
+        params, tcfg, lcfg = _seq_build(torch, cfg0, T, mesh.model_rank,
+                                        mesh.data_rank, 1, dev)
+        out["tree_gib"] = _tree_gib(params)
+        run = _seq_long(torch, params, lcfg, counters, mesh=mesh)
+        out["streams"]["long"] = run.pop("stream")
+        out["long"] = run
+        from repro_torch.distribution.sharding import seq_config
+        scfg = seq_config(lcfg, mesh, 1, SEQ4["cache_len"])
+        out["full_ring"] = _seq_full_ring(torch, params, scfg, tcfg, mesh)
+    else:
+        ep = launch.expert_shards(cfg0, spec["mesh"], scheduler=False)
+        params, _, lcfg = _seq_build(torch, cfg0, T, mesh.model_rank,
+                                     mesh.data_rank, ep, dev)
+        out["tree_gib"] = _tree_gib(params)
+        out["expert_gib"] = _expert_bytes(params) / 2**30
+        from repro_torch.serve.engine import Engine, Request
+        eng = Engine(params, lcfg, batch_slots=1, cache_len=256, mesh=mesh)
+        out["held_gib"] = torch.cuda.memory_allocated(dev) / 2**30
+        out["layout"] = eng.layout
+        (done,) = eng.run([Request(rid=0, prompt=_seq_prompt(
+            lcfg.vocab_size, 64), max_new_tokens=4)])
+        out["streams"]["jamba"] = [int(t) for t in done.out_tokens]
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def _seq_four_cards(torch, counters):
+    """The four-card runs over NCCL, a card a process: gemma3-4b at full
+    depth (34 layers) with one slot at cache 524288 (the long_500k ring,
+    10.12 GiB of bf16 KV on one card) meshless on this card, then on
+    ``--mesh 4,1`` and ``2,2``: GiB held a rank, the rings' GiB, decode
+    ms/step over 32 steps after a 4096-token prompt, and one decode step
+    at position 524287 against rings filled by seeded draws, each rank
+    bit for bit its meshless twin's step on this card; then jamba-1.5-
+    large's block at full width on ``--mesh 4,1`` with one slot (experts
+    cut four ways): GiB held a rank."""
+    from repro_torch.distribution.sharding import seq_config
+    from repro_torch.launch import serve as launch
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  four cards: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    out = {}
+    cfg0 = seq4_config("gemma")
+    twins = {}
+    for tp in sorted({T for _, T in SEQ4["meshes"]}):
+        tree, tcfg, _ = _seq_build(torch, cfg0, tp, None, 0, 1, DEVICE)
+        if tp == 1:
+            one = _seq_long(torch, tree, tcfg, counters)
+            out["one card"] = {k: v for k, v in one.items() if k != "stream"}
+            log(f"  gemma3-4b, {cfg0.num_layers} layers, one card: held "
+                f"{one['held_gib']:.2f} GiB (rings {one['kv_gib']:.2f}), "
+                f"peak {one['peak_gib']:.2f}; decode "
+                f"{one['times']['decode_ms_per_step']:.2f} ms/step, "
+                f"prefill {one['times']['prefill_ms']:.1f} ms")
+        for D, T in SEQ4["meshes"]:
+            if T == tp:
+                twins[D, T] = _seq_full_ring(
+                    torch, tree, seq_config(tcfg, {"data": D, "model": T},
+                                            1, SEQ4["cache_len"]), tcfg)
+        del tree
+        _free(torch)
+    for D, T in SEQ4["meshes"]:
+        t0 = time.time()
+        spec = dict(mesh=(D, T), device=DEVICE, backend="nccl",
+                    model="gemma")
+        res = launch.serve_mesh(spec, _seq4_rank, store_dir=OUT_DIR,
+                                timeout=1200)
+        key = f"--mesh {D},{T}"
+        for r in res:
+            check(r["full_ring"][0] == twins[D, T][0],
+                  f"(four cards) {key} rank {r['rank']}: the full-ring "
+                  f"step is not bit for bit the twin's")
+            check(r["long"]["layout"] == "sequence split over data",
+                  f"(four cards) {key}: layout {r['long']['layout']}")
+        c = [r["long"] for r in res]
+        log(f"  gemma3-4b, {cfg0.num_layers} layers, {key} over "
+            f"{res[0]['transport']}: "
+            f"held GiB a rank {[round(x['held_gib'], 2) for x in c]} "
+            f"(rings {[round(x['kv_gib'], 3) for x in c]}), peak "
+            f"{[round(x['peak_gib'], 2) for x in c]}; decode ms/step "
+            f"{[round(x['times']['decode_ms_per_step'], 2) for x in c]}, "
+            f"prefill {c[0]['times']['prefill_ms']:.1f} ms; the full-ring "
+            f"step {[round(r['full_ring'][1], 2) for r in res]} ms, bit "
+            f"for bit the twin ({twins[D, T][1]:.2f} ms on one card); "
+            f"{time.time() - t0:.1f} s")
+        out[key] = dict(ranks=[dict(r["long"], tree_gib=r["tree_gib"],
+                                    full_ring_ms=r["full_ring"][1])
+                               for r in res], twin_ms=twins[D, T][1])
+    t0 = time.time()
+    res = launch.serve_mesh(dict(mesh=(4, 1), device=DEVICE,
+                                 backend="nccl", model="jamba"),
+                            _seq4_rank, store_dir=OUT_DIR, timeout=1200)
+    log(f"  jamba-1.5-large block, --mesh 4,1, one slot "
+        f"({res[0]['layout'] if 'layout' in res[0] else ''}): held GiB a "
+        f"rank {[round(r['held_gib'], 2) for r in res]} (experts "
+        f"{[round(r['expert_gib'], 2) for r in res]}), peak "
+        f"{[round(r['peak_gib'], 2) for r in res]}; {time.time() - t0:.1f}"
+        f" s")
+    out["jamba --mesh 4,1"] = [{k: v for k, v in r.items()
+                                if k != "streams"} for r in res]
+    return out
+
+
+def seq_mesh_phase(torch, counters):
+    """Phase 18: the reference's long-context layout on a mesh, (a)-(c)
+    on this card. Run last, with every earlier model freed."""
+    t_phase = time.time()
+    log(f"  one slot; (a) gemma3-4b at full width, {SEQP['layers']} layers, "
+        f"cache {SEQP['cases']['a'][1]}, a {SEQP['cases']['a'][0]}-token "
+        f"prompt; (b) moonshot at full width, 1 layer; (c) gemma3 at d "
+        f"512 with one KV head; seed 0, wo and w2 spread, 50% of the 32x32 "
+        f"tiles (scope all), bf16 compute; {SEQP['new']} new tokens")
+    out = _seq_one_card(torch, counters)
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = {
     "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
                   "src/repro/kernels/sasp_gemm/kernel.py:142"),
@@ -6475,17 +7040,28 @@ def main() -> int:
     _free(torch)
     pod_train = pod_mesh_phase(torch, counters)
 
+    log("[18] the long-context layout on a mesh, one slot: gemma3-4b at "
+        "full width (6 layers, cache 32768) on --mesh 2,1, its rings cut "
+        "over 'data'; moonshot at full width on --mesh 2,1, its experts "
+        "cut over 'data' (the replicated mode); a narrow gemma3 with one "
+        "KV head on --mesh 1,2, its rings cut over 'model'; each bit for "
+        "bit its meshless twin (last, every earlier model freed)")
+    _free(torch)
+    seq_mesh = seq_mesh_phase(torch, counters)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
     # checkpoint served, both ranks) and phase 16's (the mesh-trained
     # moonshot checkpoint served on one card) and phase 17's (the
-    # pod-trained qwen3 checkpoint served on one card)
+    # pod-trained qwen3 checkpoint served on one card) and phase 18's
+    # (every case, every process)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
                      + family_mesh["launches"][n]
                      + train_mesh["launches"][n]
                      + family_train["launches"][n]
                      + pod_train["launches"][n]
+                     + seq_mesh["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -6500,6 +7076,7 @@ def main() -> int:
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
                        train_mesh=train_mesh, analysis=analysis,
                        family_train=family_train, pod_train=pod_train,
+                       seq_mesh=seq_mesh,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

@@ -163,6 +163,16 @@ class ModelConfig:
     # rank holds every head and runs the whole attention core (the
     # reference's replicated SDPA; ``distribution.sharding.local_config``)
     heads_replicated: bool = False
+    # the sequence-parallel KV layout of a deployment whose batch does
+    # not split over 'data' (``distribution.sharding.seq_config``): the
+    # cache length its rings are sized from (0: no such layout), the
+    # sizes of 'data' and 'model' that may cut a ring's capacity
+    # ('model' 1 where the KV heads split over it) and this rank's index
+    # over them, data-major (-1: the meshless twin, every block of every
+    # ring in one process)
+    seq_cache_len: int = 0
+    seq_mesh: Tuple[int, int] = (1, 1)
+    seq_index: int = -1
     # --- SASP ---
     sasp: SASPConfig = field(default_factory=SASPConfig)
     # --- numerics ---

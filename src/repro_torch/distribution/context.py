@@ -33,6 +33,16 @@ once, ``use_mesh(mesh, even_rows=True)``: expert parallelism then takes
 its mode, capacity and buffer type from the rank's own shape and reads
 nothing back to the host (``distribution/moe_ep.py``).
 
+The sequence-parallel layout (``sharding.seq_axes``) cuts a ring over
+``("data",)`` or ``("data", "model")``; the latter is every process of
+a pod, indexed data-major, recorded as 'data,model'. Its softmax combine
+takes a max (``allreduce(op="max")``) and fp32 sums in rank order
+(``ordered_sum``: an all-gather, then one add at a time, the meshless
+twin's order; a ring all-reduce sums in an order of its own). A caller
+whose data ranks bring the same rows, all of them (such an engine), says
+so with ``use_mesh(mesh, replicated_rows=True)``: experts cut over
+'data' then run ``moe_ep.moe_ffn_replicated``.
+
 The 'pod' axis (the reference's ``MULTI_POD``, ``(2, 16, 16)``): P pods of
 D x T processes, rank ``(p D + d) T + m``. A mesh of one pod has no 'pod'
 key in its shape and creates no pod group, so that a two-axis mesh is
@@ -285,11 +295,20 @@ class Mesh:
             if self.pods == 1:
                 return self._axis("data")
             return self.dp_group, self.dp_total, self.dp_rank, "pod,data"
+        if tuple(axis) == ("data",):
+            return self._axis("data")
+        if tuple(axis) == ("data", "model"):
+            n = self.shape["data"] * self.shape["model"]
+            if self.pods > 1 and self.backend != "dry":
+                raise ValueError("a collective over ('data', 'model') of a "
+                                 "mesh of pods: serving on pods is not "
+                                 "ported")
+            return None, n, self.rank % n, "data,model"
         if axis == "world":
             return (None, self.dp_total * self.shape["model"], self.rank,
                     axis)
         raise ValueError(f"axis {axis!r} not in model|data|pod|"
-                         f"('pod', 'data')|world")
+                         f"('pod', 'data')|('data', 'model')|world")
 
     def axis_index(self, axis) -> int:
         return self._axis(axis)[2]
@@ -338,6 +357,15 @@ class Mesh:
             dist.all_gather(parts, y, group=group)
             return torch.cat(parts, dim=dim)
         return self._comm("all-gather", key, x, shape, run)
+
+    def ordered_sum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The sum over ``axis`` of every rank's ``x`` in rank order: an
+        all-gather, then ``sum_in_order`` of the parts, the meshless
+        twin's order (an NCCL or gloo all-reduce sums in an order of its
+        own). Used in fp32 by the sequence-parallel attention combine and
+        the replicated MoE's expert outputs."""
+        parts = self.gather(x[None], axis, 0)
+        return sum_in_order(list(parts.unbind(0)))
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Model rank 0's ``x`` on every rank of the model group."""
@@ -448,6 +476,14 @@ def dry_mesh(dp: int, tp: int, rank: int = 0,
                    device or torch.device("cpu"))
 
 
+def sum_in_order(parts) -> torch.Tensor:
+    """``parts[0] + parts[1] + …``, one add at a time, in list order."""
+    y = parts[0]
+    for p in parts[1:]:
+        y = y + p
+    return y
+
+
 def _traced(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -547,6 +583,7 @@ class _ReduceScatter(torch.autograd.Function):
 
 _ACTIVE_MESH: Optional[Mesh] = None
 _EVEN_ROWS = False
+_REPLICATED_ROWS = False
 
 
 def active_mesh() -> Optional[Mesh]:
@@ -559,20 +596,37 @@ def even_rows() -> bool:
     return _EVEN_ROWS
 
 
+def replicated_rows() -> bool:
+    """Did the caller of the active ``use_mesh`` declare that every data
+    rank brings the same rows, all of them (an engine whose batch does
+    not split over 'data')?"""
+    return _REPLICATED_ROWS
+
+
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh], even_rows: bool = False):
+def use_mesh(mesh: Optional[Mesh], even_rows: bool = False,
+             replicated_rows: bool = False):
     """``mesh`` active for the block. ``even_rows``: every DP rank brings
     the same rows to every call in it (a train step's ``_rows``, a
     serving step of a split batch), so that expert parallelism decides
     from the rank's own shape, with no host read (``moe_ep.moe_ffn_ep``;
-    a call whose rows cannot split raises ``moe_ep.UnevenRows``)."""
-    global _ACTIVE_MESH, _EVEN_ROWS
-    prev = _ACTIVE_MESH, _EVEN_ROWS
+    a call whose rows cannot split raises ``moe_ep.UnevenRows``).
+    ``replicated_rows``: every data rank brings the whole batch (an
+    engine of the sequence-parallel or the replicated layout), so that
+    experts cut over 'data' run in the replicated mode
+    (``moe_ep.moe_ffn_replicated``: each rank its own experts' slots, no
+    host read); with no mesh, the meshless twin of such an engine."""
+    global _ACTIVE_MESH, _EVEN_ROWS, _REPLICATED_ROWS
+    if even_rows and replicated_rows:
+        raise ValueError("a call's rows are split evenly or replicated, "
+                         "not both")
+    prev = _ACTIVE_MESH, _EVEN_ROWS, _REPLICATED_ROWS
     _ACTIVE_MESH, _EVEN_ROWS = mesh, bool(even_rows) and mesh is not None
+    _REPLICATED_ROWS = bool(replicated_rows)
     try:
         yield mesh
     finally:
-        _ACTIVE_MESH, _EVEN_ROWS = prev
+        _ACTIVE_MESH, _EVEN_ROWS, _REPLICATED_ROWS = prev
 
 
 def axis_size(name: str) -> int:

@@ -65,6 +65,14 @@ each rank's loss gradient (``train.optimizer`` divides it by DP and
 reduces it no further). The meshless loop gives every group's own aux
 an equal share of the gradient, the mean the mesh step takes.
 
+A third mode, ``replicated`` (``moe_ffn_replicated``), serves rows that
+every data rank holds alike (an engine whose batch does not split over
+'data', declared by ``context.use_mesh(replicated_rows=True)``): the
+local path's routing and capacity on every rank, each data rank's own
+experts' slots, the outputs summed over 'data' in fp32 in rank order;
+no all-to-all and no host read. With no mesh it is its own meshless
+twin.
+
 ``moe_ffn_groups`` is the meshless loop: the same math in one process
 over a list of row groups, one per data rank, with the whole expert
 stacks, expert shard by expert shard and d_ff shard by d_ff shard, at
@@ -526,6 +534,66 @@ def moe_ffn_loop(p: Dict, cfg: ModelConfig, x: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
+# Replicated rows: every data rank brings the whole call
+# ---------------------------------------------------------------------------
+
+
+def moe_ffn_replicated(p: Dict, cfg: ModelConfig, x: torch.Tensor,
+                       mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A MoE call whose rows every data rank holds alike (an engine whose
+    batch does not split over 'data': the sequence-parallel layout, or a
+    page pool replicated over 'data'), its experts cut over 'data'
+    (``cfg.ep_shards``; the reference's ``expert_col`` / ``expert_row``
+    at B = 1, where ``can_use_ep`` fails and ``moe_ffn_local`` runs on
+    the cut stacks). The router runs on the rows as they are; the
+    capacity and every slot's position are the local path's over the
+    call's N tokens, equal on every rank by construction, so nothing is
+    gathered to the host. Data rank j multiplies only its experts' slots
+    ``[j E/ep, (j+1) E/ep)`` (d_ff over 'model' as ``models.moe.
+    experts_tp``), combines them with their gates into an (N, d) partial
+    in the experts' type, and the partials are summed over 'data' in
+    fp32 in data-rank order (``Mesh.ordered_sum``), then cast; the
+    shared experts follow. The aux is the local path's. With no ``mesh``
+    this is the meshless twin: ``p`` holds every expert, and the ep
+    shards' partials (each d_ff shard's partial summed in fp32 in shard
+    order) run in turn."""
+    from repro_torch.distribution.context import sum_in_order
+    from repro_torch.models.ffn import _sum_partials
+    m = cfg.moe
+    E, k = m.num_experts, m.top_k
+    ep = cfg.ep_shards
+    if E % ep:
+        raise ValueError(f"{E} experts do not split over {ep} data ranks")
+    El = E // ep
+    g = _Routed(p, cfg, x)
+    C = local_capacity(cfg, g.n)
+    buf, pos_c = g.buffer(g.r.pos_in_expert, E, C, k, None)
+
+    def partial(j: int, ye: torch.Tensor) -> torch.Tensor:
+        # the gates' combine of expert shard j's rows alone, in fp32
+        out = ye.new_zeros((E,) + tuple(ye.shape[1:]))
+        out[j * El:(j + 1) * El] = ye
+        return g.combine(out, pos_c, k).to(torch.float32)
+
+    if mesh is not None:
+        j = mesh.data_rank
+        y = mesh.ordered_sum(partial(j, moe_mod.experts_tp(
+            p, cfg, buf[j * El:(j + 1) * El].contiguous())), "data")
+    else:
+        tp = cfg.tp_shards
+        parts = []
+        for j in range(ep):
+            xe = buf[j * El:(j + 1) * El].contiguous()
+            ys = [moe_mod.experts_apply(moe_mod.expert_shard(
+                p, j * El, (j + 1) * El, s, tp), cfg, xe)
+                for s in range(tp)]
+            parts.append(partial(j, ys[0] if tp == 1
+                                 else _sum_partials(ys, ys[0].dtype)))
+        y = sum_in_order(parts)
+    return _finish(p, cfg, g, y.to(buf.dtype), x.dtype), g.r.aux_loss
+
+
+# ---------------------------------------------------------------------------
 # Dispatch (the reference's ``models.lm._moe_dispatch``)
 # ---------------------------------------------------------------------------
 
@@ -533,20 +601,25 @@ def moe_ffn_loop(p: Dict, cfg: ModelConfig, x: torch.Tensor
 def moe_dispatch(p: Dict, cfg: ModelConfig, x: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE layer under whatever placement is active: the ``dp_only``
-    profile's mesh -> ``moe_ffn_dp``; experts in EP (``cfg.ep_shards``)
-    -> ``moe_ffn_ep`` on the mesh, ``moe_ffn_loop`` without one; else
-    ``moe_ffn_local`` (every expert here, d_ff whole or over 'model').
-    Under ``use_mesh(even_rows=True)`` the EP call is declared."""
+    profile's mesh -> ``moe_ffn_dp``; experts cut over 'data'
+    (``cfg.ep_shards``) -> ``moe_ffn_replicated`` where the caller
+    declared replicated rows (``use_mesh(replicated_rows=True)``, on the
+    mesh or its meshless twin), else ``moe_ffn_ep`` on the mesh,
+    ``moe_ffn_loop`` without one; else ``moe_ffn_local`` (every expert
+    here, d_ff whole or over 'model'). Under ``use_mesh(even_rows=True)``
+    the EP call is declared."""
     from repro_torch.distribution import context as dctx
     mesh = dctx.active_mesh()
     if mesh is not None and mesh.profile == "dp_only":
         return moe_ffn_dp(p, cfg, x, mesh)
     if cfg.ep_shards > 1:
-        if mesh is None:
-            return moe_ffn_loop(p, cfg, x)
-        if mesh.shape["data"] != cfg.ep_shards:
+        if mesh is not None and mesh.shape["data"] != cfg.ep_shards:
             raise ValueError(
                 f"experts in {cfg.ep_shards} EP shards on a mesh of "
                 f"{mesh.shape['data']} data ranks")
+        if dctx.replicated_rows():
+            return moe_ffn_replicated(p, cfg, x, mesh)
+        if mesh is None:
+            return moe_ffn_loop(p, cfg, x)
         return moe_ffn_ep(p, cfg, x, mesh, dctx.even_rows())
     return moe_mod.moe_ffn_local(p, cfg, x)

@@ -34,9 +34,21 @@ by their x channels with B and C whole on every rank (``models.ssm.
 xbc_shard``; the reference's ``col`` rule shards all of conv_dim, which
 only GSPMD can honour).
 
+Caches (``seq_axes``, the reference's ``cache_shardings``): where an
+engine's batch splits over 'data' each data rank holds its slots' rows;
+where it does not (B = 1, or B not divisible), the sequence-parallel
+long-context layout cuts each KV ring's capacity over ``("data",
+"model")`` where every model rank runs every head and D x T divides it,
+else over 'data' where D divides it, else not at all (``seq_config``
+gives a rank's config its place, ``ring_cut`` each ring's blocks). Where
+the KV heads split over 'model' they stay there and only 'data' cuts
+the capacity: C / D x KH / T a rank, the reference's C / (D T) x KH in
+bytes, with no gather of q; where the batch splits, the reference cuts
+the capacity over 'model' and the port the KV heads. SSM states keep
+their heads over 'model' and are never cut by sequence.
+
 Placement differs from the reference, the math does not. The reference
-leaves activations and caches to GSPMD (``cache_shardings`` puts a
-cache's capacity axis over 'model'). PyTorch has no GSPMD: each rank
+leaves activations and caches to GSPMD. PyTorch has no GSPMD: each rank
 here runs attention over its own heads — ``local_config`` gives it
 ``num_heads / tp`` query and ``num_kv_heads / tp`` KV heads, and
 ``H / tp`` SSM heads, so its caches and page pool hold only those heads
@@ -320,6 +332,71 @@ def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
 
 def _has_ssm(cfg: ModelConfig) -> bool:
     return any(k != MIXER_ATTN for k in cfg.layer_mixer_kinds())
+
+
+def seq_axes(cfg: ModelConfig, mesh, batch: int, capacity: int
+             ) -> Tuple[str, ...]:
+    """The axes that cut a KV ring's capacity (the reference's
+    ``cache_shardings``, the sequence-parallel long-context layout):
+    none where the batch splits over the DP ranks (B divides, B > 1);
+    else, where every model rank runs every head, ``("data", "model")``
+    when ``capacity`` divides by D x T, else ``("data",)`` when it
+    divides by D, else none (the reference's ``_fits`` fall-through);
+    where the KV heads split over 'model' they stay there and only
+    ``("data",)`` may cut (a rank holds C / D x KH / T, the reference's
+    C / (D T) x KH in bytes). ``mesh``: a rank's ``Mesh`` (``cfg`` its
+    local config, ``heads_replicated`` saying whether its heads split),
+    or a ``{"data": D, "model": T}`` shape (``cfg`` the shard loop's
+    config, whose heads split where they divide T)."""
+    shape = mesh if isinstance(mesh, dict) else mesh.shape
+    D, T = shape.get("data", 1), shape.get("model", 1)
+    if batch > 1 and batch % dp_size(shape) == 0:
+        return ()
+    rep = (cfg.heads_replicated if not isinstance(mesh, dict)
+           else not heads_split(cfg, T))
+    if rep and capacity % (D * T) == 0:
+        return ("data", "model")
+    if capacity % D == 0:
+        return ("data",)
+    return ()
+
+
+def seq_config(cfg: ModelConfig, mesh, batch: int, cache_len: int
+               ) -> ModelConfig:
+    """``cfg`` with the sequence-parallel layout of an engine of ``batch``
+    rows and ``cache_len`` on ``mesh`` (a rank's ``Mesh``, or a shape:
+    the meshless twin, ``seq_index`` -1), or ``cfg`` itself where the
+    batch splits over the DP ranks or no axis of two or more ranks could
+    cut a ring (``seq_axes``). Each ring is then cut by its own capacity
+    (``ring_cut``)."""
+    shape = mesh if isinstance(mesh, dict) else mesh.shape
+    D, T = shape.get("data", 1), shape.get("model", 1)
+    axes = seq_axes(cfg, mesh, batch, D * T)
+    Ts = T if "model" in axes else 1
+    if not axes or D * Ts == 1:
+        return cfg
+    index = -1 if isinstance(mesh, dict) else (
+        mesh.data_rank * Ts + (mesh.model_rank if Ts > 1 else 0))
+    return dataclasses.replace(cfg, seq_cache_len=int(cache_len),
+                               seq_mesh=(D, Ts), seq_index=index)
+
+
+def ring_cut(cfg: ModelConfig, capacity: int):
+    """The cut of a ring of ``capacity`` slots under ``cfg``'s sequence
+    layout (``seq_config``): an ``attention.RingCut`` of its blocks and
+    this rank's (every block, the meshless twin), or None where no axis
+    divides it and the ring stays whole."""
+    if not cfg.seq_cache_len:
+        return None
+    from repro_torch.models.attention import RingCut
+    D, T = cfg.seq_mesh
+    axes = seq_axes(cfg, {"data": D, "model": T}, 1, capacity)
+    n = D * (T if "model" in axes else 1) if axes else 1
+    if n == 1:
+        return None
+    index = None if cfg.seq_index < 0 else (
+        cfg.seq_index if "model" in axes else cfg.seq_index // T)
+    return RingCut(int(capacity), n, index, axes)
 
 
 def check_placement(cfg: ModelConfig, tp: int, ep: int = 1) -> None:

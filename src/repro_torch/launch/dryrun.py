@@ -36,11 +36,13 @@ What is traced, as the reference compiles it:
   splits over the DP ranks; a MoE cell there cuts its experts over
   'data' and declares even rows (``specs.serve_ep``), as the reference
   runs ``moe_ffn_ep``. Where the batch does not split (``long_500k``, B =
-  1) every DP rank decodes the whole batch against the whole cache and
-  holds every expert: the port has no sequence-parallel cache (the
-  reference's ``cache_shardings`` splits the cache's length over (data,
-  model) there) and does not cut experts at B = 1 (the reference's
-  ``expert_col``, gathered by GSPMD).
+  1) every DP rank decodes the whole batch under the reference's
+  long-context layout (``cache_shardings``): each ring's capacity cut
+  over (data, model) where it divides, a rank holding its block and the
+  softmax combined over the blocks (an all-reduce max and two ordered
+  all-gather sums a layer, recorded under 'data,model' or 'data'), and
+  a MoE's experts cut over 'data' with the step declaring replicated
+  rows (one ordered sum over 'data' a MoE layer).
 * ``--multi-pod``: rank 0 of the reference's ``(2, 16, 16)`` mesh over
   (pod, data, model), named ``2x16x16``, 512 chips: the batch split over
   the 32 DP ranks, the gradients reduced over 'data' and then 'pod' (the
@@ -135,6 +137,7 @@ def trace_step(cfg, shape, dp: int, tp: int, rank: int = 0, *,
         else:
             params, _, lcfg = specs.abstract_params(
                 cfg, view, ep=specs.serve_ep(cfg, shape, view), whole=whole)
+            lcfg = specs.serve_config(lcfg, shape, view)
         del whole
         inputs = specs.input_shardings(cfg, lcfg, shape, view,
                                        specs.input_specs(cfg, shape))
@@ -244,7 +247,9 @@ def run_cell(arch: str, shape_name: str, *,
               f"{rep.coll_axes} B; heads "
               f"{'replicated' if tr['lcfg'].heads_replicated else 'split'}"
               f" over 'model'; experts in {tr['lcfg'].ep_shards} EP "
-              f"shard(s) (prediction of the H100 model)", flush=True)
+              f"shard(s); rings cut over (data, model) "
+              f"{tr['lcfg'].seq_mesh if tr['lcfg'].seq_cache_len else 'no'}"
+              f" (prediction of the H100 model)", flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, tag + ".json"), "w",

@@ -71,9 +71,14 @@ card holds its rank's tree and one layer's masters, not the model; the
 drafter's layers are re-pruned from each deployed layer and packed into
 visit lists sharded like a packed target's. ``--sasp 0`` serves the
 dense params, as the reference does. Without ``--scheduler`` one
-``Engine`` serves on the whole mesh, its slots split over 'data' or
-replicated (``Engine.layout``, printed; a drafter needs the paged pool,
-so "replicated over data"); with it, ``ShardedScheduler(mesh=)`` runs
+``Engine`` serves on the whole mesh (``Engine.layout``, printed): its
+slots split over 'data' where ``--slots`` divides by DP; where they do
+not (``--mesh D,T --slots 1``, or ``--slots 3`` on D = 2) the
+reference's long-context layout, every data rank running the whole
+batch with each KV ring's capacity cut over 'data' (and over 'model'
+where the heads do not split: on a ``--mesh 1,T`` mesh too), its
+softmax combined over the blocks (``distribution.sharding.seq_axes``);
+a paged pool, and so a drafter, replicated over 'data'. With it, ``ShardedScheduler(mesh=)`` runs
 one scheduler rank per data index, each the engine of its TP group
 (``--ranks``, if given, must equal DP: the reference's
 ``check_ranks``). Model rank 0 of each group samples and broadcasts the
@@ -85,13 +90,15 @@ nccl where each process has its own card, gloo staged through the host
 where processes share one. ``--mesh`` with ``--hosts`` is the
 reference's usage error.
 
-MoE, SSM and hybrid stacks serve on a mesh too. One ``Engine`` with its
-slots split over 'data' holds its experts in EP: data rank d the experts
-[d E/DP, (d+1) E/DP), each expert's d_ff over 'model'
-(``distribution.moe_ep``; ``expert_shards``). ``--scheduler`` ranks and
-an engine replicated over 'data' (``--kv-pages``, or ``--slots`` not
-divisible by DP) keep every expert on every data rank, d_ff over
-'model'. SSM layers split their heads over 'model'. Attention heads
+MoE, SSM and hybrid stacks serve on a mesh too. One ``Engine`` on the
+mesh cuts its experts over 'data', whatever its slots: data rank d
+holds the experts [d E/DP, (d+1) E/DP), each expert's d_ff over 'model'
+(``distribution.moe_ep``; ``expert_shards``), in expert parallelism
+where the slots split over 'data', else in the replicated mode (every
+data rank routes the whole batch and multiplies its own experts' slots,
+the outputs summed over 'data'). ``--scheduler`` ranks keep every
+expert on every data rank, d_ff over 'model'. SSM layers split their
+heads over 'model' and keep their states whole over 'data'. Attention heads
 whose counts do not divide TP run whole on every model rank (the
 reference's replicated SDPA; ``distribution.sharding.heads_split``). A
 mesh that cannot place the arch (experts not divisible by DP where they
@@ -519,8 +526,7 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
     cfg = model_config(args)
     try:
         check_placement(cfg, tp, expert_shards(
-            cfg, (dp, tp), scheduler=args.scheduler, slots=args.slots,
-            kv_pages=args.kv_pages))
+            cfg, (dp, tp), scheduler=args.scheduler))
     except ValueError as e:
         raise SystemExit(f"--mesh {dp},{tp}: {e}")
     if cfg.moe is not None and args.draft_sparsity is not None:
@@ -867,9 +873,7 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
     opts = spec.get("serve") or {}
     t0 = time.perf_counter()
     ep = expert_shards(spec["cfg"], spec["mesh"],
-                       scheduler=spec.get("scheduler") is not None,
-                       slots=spec["engine"]["batch_slots"],
-                       kv_pages=spec["engine"].get("kv_pages"))
+                       scheduler=spec.get("scheduler") is not None)
     params, cfg, lcfg, draft = build_rank_params(
         spec["cfg"], tp=tp, rank=mesh.model_rank, device=mesh.device,
         ep=ep, data_rank=mesh.data_rank, verbose=lead, **spec["build"])
@@ -1050,14 +1054,16 @@ def _ckpt_source(cfg, ckpt_dir: str, device) -> _Source:
     return _Source(top, layer, expert)
 
 
-def expert_shards(cfg, mesh, *, scheduler: bool, slots: int,
-                  kv_pages) -> int:
+def expert_shards(cfg, mesh, *, scheduler: bool) -> int:
     """The experts' shards over 'data' that a (DP, TP) mesh serves with:
-    DP where one ``Engine`` splits its slots over 'data' (expert
-    parallelism), else 1 (every expert on every data rank: the
-    scheduler's ranks, an engine replicated over 'data')."""
+    DP where one ``Engine`` serves the whole mesh, whatever its slots
+    (expert parallelism where the slots split over 'data', the
+    replicated mode where every data rank holds the whole batch:
+    ``moe_ep.moe_ffn_replicated``), else 1: each scheduler rank is a
+    submesh with 'data' collapsed (the reference's ``dp_submeshes``) and
+    holds every expert."""
     dp = mesh[0]
-    if cfg.moe is None or dp == 1 or scheduler or kv_pages or slots % dp:
+    if cfg.moe is None or dp == 1 or scheduler:
         return 1
     return dp
 

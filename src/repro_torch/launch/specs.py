@@ -18,11 +18,16 @@ decode_32k, B = 128, over 16 DP ranks), cuts its experts over 'data'
 as the reference's ``moe_ffn_ep`` does (``serve_ep``), and its step
 declares even rows (``use_mesh(even_rows=True)``: expert parallelism
 with no host read). Where the batch does not split (``long_500k``, B =
-1) every expert stays on every data rank, each expert's d_ff over
-'model': the reference cuts them by ``expert_col`` there too and lets
-GSPMD gather them, which the port does not trace. Under the ``dp_only``
+1) the cell takes the reference's long-context layout: each KV ring's
+capacity cut over (data, model) where it divides (``sharding.seq_axes``
+/ ``seq_config``; a rank holds C / (D T) slots, or C / D where the KV
+heads split over 'model'), and the experts still cut over 'data' (the
+reference's ``expert_col`` / ``expert_row``) with the step declaring
+replicated rows (``moe_ep.moe_ffn_replicated``: each data rank its own
+experts' slots, the outputs summed over 'data'). Under the ``dp_only``
 profile the mesh is its ``flat`` view: every process a DP rank holding
-the whole tree.
+the whole tree, the rings cut over every axis where the batch does not
+split.
 """
 from __future__ import annotations
 
@@ -76,15 +81,30 @@ def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, mesh,
 def serve_ep(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
     """The EP shards of a serving cell's experts: the 'data' ranks where
     the batch splits over the DP ranks (``batch_split``) and the
-    reference's ``can_use_ep`` holds on the global shape, else 1 (every
-    expert on every data rank; always under ``dp_only``)."""
+    reference's ``can_use_ep`` holds on the global shape, or where the
+    batch does not split at all (the replicated mode); else 1 (every
+    expert on every data rank: a split batch that ``can_use_ep``
+    refuses, and always under ``dp_only``)."""
     from repro_torch.distribution.moe_ep import can_use_ep
-    if (cfg.moe is None or mesh.profile == "dp_only"
-            or not batch_split(shape, mesh.dp_total)):
+    if cfg.moe is None or mesh.profile == "dp_only":
         return 1
+    if not batch_split(shape, mesh.dp_total):
+        return mesh.shape["data"]
     S = 1 if shape.kind == "decode" else shape.seq_len
     return mesh.shape["data"] if can_use_ep(
         cfg, (shape.global_batch, S), mesh.shape) else 1
+
+
+def serve_config(lcfg: ModelConfig, shape: ShapeConfig, mesh
+                 ) -> ModelConfig:
+    """The rank's serving config of a prefill or decode cell: under the
+    sequence-parallel layout where the batch does not split over the DP
+    ranks (``sharding.seq_config`` at the cell's length), else
+    ``lcfg``."""
+    from repro_torch.distribution.sharding import seq_config
+    if shape.kind == "train":
+        return lcfg
+    return seq_config(lcfg, mesh, shape.global_batch, shape.seq_len)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
@@ -123,7 +143,8 @@ def input_shardings(cfg: ModelConfig, lcfg: ModelConfig, shape: ShapeConfig,
     ('pod' and 'data', pod-major: ``dp_rank``; ``batch_split``), and
     decode the rank's caches, its rows of a cache of ``seq_len`` holding
     its own KV heads (or every head, ``heads_replicated``) and SSM
-    heads."""
+    heads; where the batch does not split, each ring holds the rank's
+    block of its capacity (``lcfg`` from ``serve_config``)."""
     if shape.kind == "train":
         return dict(inputs)
     dp = mesh.dp_total
@@ -150,8 +171,9 @@ def make_step_fn(lcfg: ModelConfig, shape: ShapeConfig, mesh,
              (params, batch) -> (greedy ids, caches), as the reference's
              ``serve_step``.
     A serving step declares even rows where the batch splits over the
-    DP ranks (``batch_split``); ``mesh`` is the ``flat`` view under
-    ``dp_only``."""
+    DP ranks (``batch_split``), replicated rows where it does not and
+    the experts are cut over 'data' (``lcfg.ep_shards``); ``mesh`` is
+    the ``flat`` view under ``dp_only``."""
     from repro_torch.distribution.context import use_mesh
     if shape.kind == "train":
         return ts.make_mesh_train_step(
@@ -159,17 +181,19 @@ def make_step_fn(lcfg: ModelConfig, shape: ShapeConfig, mesh,
             overlay=overlay, n_microbatches=n_microbatches,
             lr_schedule=lr_schedule)
     even = batch_split(shape, mesh.dp_total)
+    rows = dict(even_rows=even, replicated_rows=not even and lcfg.moe
+                is not None and lcfg.ep_shards > 1)
 
     if shape.kind == "prefill":
         def prefill_step(params, batch):
-            with use_mesh(mesh, even_rows=even), torch.no_grad():
+            with use_mesh(mesh, **rows), torch.no_grad():
                 logits, caches = lm.prefill(params, lcfg, batch["tokens"],
                                             cache_len=shape.seq_len)
                 return torch.argmax(logits, dim=-1), caches
         return prefill_step
 
     def serve_step(params, batch):
-        with use_mesh(mesh, even_rows=even), torch.no_grad():
+        with use_mesh(mesh, **rows), torch.no_grad():
             logits, caches = lm.decode_step(params, lcfg, batch["tokens"],
                                             batch["pos"], batch["caches"])
             return torch.argmax(logits, dim=-1), caches

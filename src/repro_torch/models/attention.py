@@ -19,6 +19,15 @@ and the attention core shard by shard over each shard's heads, the calls
 a rank makes: the batched fp32 score and value products give other bits
 for half the KV heads than for the same heads inside the whole call.
 
+Under the sequence-parallel layout (``cfg.seq_*``; a ``RingCut`` from
+``distribution.sharding.ring_cut``) a ring's capacity is cut into blocks
+of contiguous slots: a mesh rank holds one (its int8 scales with it),
+writes only the entries whose slots fall in it, and decode and the
+suffix prefill combine their softmax over the blocks (the blocks' max
+all-reduced, their fp32 sums gathered and added in rank order); the
+meshless twin holds the whole ring and runs every block in turn. A ring
+that is not cut keeps the plain softmax.
+
 The int8 cache (``cfg.kv_quant``) stores k / v as int8 with one fp32
 scale per (slot, head); reads dequantize. The paged pool's primitives
 (``gather_kv_pages`` …) assemble ring caches from (R, P, L, …) page
@@ -53,6 +62,27 @@ class KVCache(NamedTuple):
     pos: torch.Tensor
     kscale: Optional[torch.Tensor] = None
     vscale: Optional[torch.Tensor] = None
+
+
+class RingCut(NamedTuple):
+    """A ring's capacity cut into ``n`` blocks of ``capacity // n``
+    contiguous slots over the mesh ``axes`` (the sequence-parallel
+    layout, ``distribution.sharding.ring_cut``): a rank holds block
+    ``index`` (slots ``[index c, (index + 1) c)``); ``index`` None is the
+    meshless twin, which holds the whole ring and runs every block."""
+    capacity: int
+    n: int
+    index: Optional[int]
+    axes: Tuple[str, ...]
+
+    @property
+    def block(self) -> int:
+        return self.capacity // self.n
+
+    @property
+    def local(self) -> bool:
+        """Does this process hold one block only (a mesh rank)?"""
+        return self.index is not None
 
 
 def cache_map(fn, cache):
@@ -316,27 +346,41 @@ def attn_apply_full(p: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                      pos: torch.Tensor, cache: KVCache, window
+                      pos: torch.Tensor, cache: KVCache, window,
+                      cut: Optional[RingCut] = None
                       ) -> Tuple[torch.Tensor, KVCache]:
     """x (B, 1, d); pos (B,) absolute position of the new token. Writes
-    the new K/V into ``cache`` in place and returns it."""
+    the new K/V into ``cache`` in place and returns it. ``cut``: the
+    ring's capacity is cut into blocks (the sequence-parallel layout):
+    a mesh rank holds one block of ``cache`` and writes the new entry
+    only where its block holds slot ``pos % C``; the softmax is combined
+    over the blocks (``_attend_decode_cut``)."""
     B = x.shape[0]
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
-    C = cache.k.shape[1]
+    C = cache.k.shape[1] if cut is None else cut.capacity
     q, k_new, v_new = _project_qkv(p, cfg, x, pos[:, None])
     slot = (pos % C).to(torch.int64)
     bidx = torch.arange(B, device=x.device)
+    new = {"pos": pos.to(torch.int32)}
     if cache.kscale is not None:
-        kq, ks = _quant_heads(k_new[:, 0])
-        vq, vs = _quant_heads(v_new[:, 0])
-        cache.k[bidx, slot] = kq
-        cache.v[bidx, slot] = vq
-        cache.kscale[bidx, slot] = ks
-        cache.vscale[bidx, slot] = vs
+        new["k"], new["kscale"] = _quant_heads(k_new[:, 0])
+        new["v"], new["vscale"] = _quant_heads(v_new[:, 0])
     else:
-        cache.k[bidx, slot] = k_new[:, 0].to(cache.k.dtype)
-        cache.v[bidx, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos[bidx, slot] = pos.to(torch.int32)
+        new["k"] = k_new[:, 0].to(cache.k.dtype)
+        new["v"] = v_new[:, 0].to(cache.v.dtype)
+    if cut is not None and cut.local:
+        # only the rank whose block holds the slot writes it
+        c = cut.block
+        at = slot - cut.index * c
+        mine = (at >= 0) & (at < c)
+        at = at.clamp(0, c - 1)
+        for name, val in new.items():
+            leaf = getattr(cache, name)
+            keep = mine.reshape((B,) + (1,) * (val.ndim - 1))
+            leaf[bidx, at] = torch.where(keep, val, leaf[bidx, at])
+    else:
+        for name, val in new.items():
+            getattr(cache, name)[bidx, slot] = val
 
     qg = q.reshape(B, kvh, h // kvh, hd) * (hd ** -0.5)
     k_read, v_read = _read_kv(cache, qg.dtype)
@@ -344,6 +388,9 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     mask = (cache.pos >= 0) & (delta >= 0) & (delta < window)
 
     def attend(qs, ks, vs):
+        if cut is not None:
+            return _attend_decode_cut(qs, ks, vs, mask, cfg.logit_softcap,
+                                      cut)
         s = torch.einsum("bkgd,bckd->bkgc", qs.to(torch.float32),
                          ks.to(torch.float32))
         if cfg.logit_softcap:
@@ -360,6 +407,128 @@ def attn_apply_decode(p: Dict, cfg: ModelConfig, x: torch.Tensor,
     return _proj(p, "wo", out, cfg), cache
 
 
+def _ring_blocks(cut: RingCut, ts):
+    """Each ring block's slices of the tensors ``ts`` (slot axis 1): a
+    mesh rank's own block, or the meshless twin's ``cut.n`` blocks in
+    order, each contiguous as a rank holds it."""
+    if cut.local:
+        return [[t.contiguous() for t in ts]]
+    c = cut.block
+    return [[t.narrow(1, b * c, c).contiguous() for t in ts]
+            for b in range(cut.n)]
+
+
+def _seq_mesh():
+    from repro_torch.distribution import context as dctx
+    mesh = dctx.active_mesh()
+    if mesh is None:
+        raise RuntimeError("a ring cut to one block needs the active mesh "
+                           "(distribution.context.use_mesh)")
+    return mesh
+
+
+def _blocks_max(cut: RingCut, vals):
+    """The max of every block's ``vals``: over the cut's axes on a mesh
+    rank (an all-reduce), else over the twin's blocks."""
+    if cut.local:
+        return _seq_mesh().allreduce(vals[0], cut.axes, "max")
+    m = vals[0]
+    for v in vals[1:]:
+        m = torch.maximum(m, v)
+    return m
+
+
+def _blocks_sum(cut: RingCut, vals):
+    """The fp32 sum of every block's ``vals`` in block order: gathered
+    over the cut's axes and summed in rank order on a mesh rank
+    (``Mesh.ordered_sum``), else the twin's blocks summed in order."""
+    if cut.local:
+        return _seq_mesh().ordered_sum(vals[0], cut.axes)
+    from repro_torch.distribution.context import sum_in_order
+    return sum_in_order(vals)
+
+
+def _attend_decode_cut(qs, ks, vs, mask, cap: float, cut: RingCut):
+    """Decode attention over a cut ring, the reference's softmax split
+    over its blocks: the max of the blocks' masked maxima, the ordered
+    sum of their ``exp(s - m)``, each block's weights normalised by that
+    sum in fp32 and cast to q's type, and the blocks' fp32 value
+    products summed in order. A fully masked block gives zeros. Three
+    collectives on a mesh rank: (B, KH, G), (B, KH, G), (B, KH, G, D)."""
+    q32 = qs.to(torch.float32)
+    scores = []
+    for kb, vb, mb in _ring_blocks(cut, (ks, vs, mask)):
+        s = torch.einsum("bkgd,bckd->bkgc", q32, kb.to(torch.float32))
+        if cap:
+            s = softcap(s, cap)
+        mb = mb[:, None, None]
+        scores.append((torch.where(mb, s, torch.full_like(s, NEG_INF)), mb,
+                       vb))
+    m = _blocks_max(cut, [torch.amax(s, dim=-1) for s, _, _ in scores])
+    es = [torch.where(mb, torch.exp(s - m[..., None]), torch.zeros_like(s))
+          for s, mb, _ in scores]
+    lsum = _blocks_sum(cut, [e.sum(dim=-1) for e in es])[..., None]
+    return _blocks_sum(cut, [
+        torch.einsum("bkgc,bckd->bkgd",
+                     (e / lsum).to(qs.dtype).to(torch.float32),
+                     vb.to(torch.float32))
+        for e, (_, _, vb) in zip(es, scores)])
+
+
+def _attend_past_cut(q, k_past, v_past, past_pos, k_new, v_new, q_pos,
+                     window, cap: float, cut: RingCut) -> torch.Tensor:
+    """``attend_chunked`` of a suffix's queries q (B, Sq, KH, G, D) over
+    a cut ring (``past``, its blocks) and the fresh suffix K/V, whose
+    keys sit at the queries' positions ``q_pos`` (B, Sq) and every rank
+    holds: each chunk's max over the blocks and the suffix, the blocks'
+    ordered sums of the unnormalised weights and of their fp32 value
+    products, the suffix's added after, then one division. Returns (B,
+    Sq, KH, G, D)."""
+    B, Sq, KH, G, D = q.shape
+    q = q * D ** -0.5
+    q_pos = q_pos.to(torch.int32)
+    blocks = _ring_blocks(cut, (k_past, v_past, past_pos))
+    kfs = [kb.to(torch.float32) for kb, _, _ in blocks]
+    knf = k_new.to(torch.float32)
+    vdt = v_new.dtype
+    outs = []
+    for s0 in range(0, Sq, Q_CHUNK):
+        qb = q[:, s0:s0 + Q_CHUNK].to(torch.float32)
+        qp = q_pos[:, s0:s0 + Q_CHUNK]
+
+        def score(kf, kvp):
+            s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf)
+            if cap:
+                s = softcap(s, cap)
+            delta = qp[:, :, None] - kvp[:, None, :]
+            mask = ((delta >= 0) & (delta < window)
+                    & (kvp[:, None, :] >= 0))[:, None, None]
+            return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+        ring = [score(kf, pb) for kf, (_, _, pb) in zip(kfs, blocks)]
+        sn, mn = score(knf, q_pos)
+        m = torch.maximum(
+            _blocks_max(cut, [torch.amax(s, dim=-1) for s, _ in ring]),
+            torch.amax(sn, dim=-1))[..., None]
+
+        def probs(s, mask):
+            return torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+
+        def pv(pr, v):
+            return torch.einsum("bkgqs,bskd->bkgqd",
+                                pr.to(vdt).to(torch.float32),
+                                v.to(torch.float32))
+        prs = [probs(s, mask) for s, mask in ring]
+        prn = probs(sn, mn)
+        lsum = _blocks_sum(cut, [pr.sum(dim=-1) for pr in prs]) \
+            + prn.sum(dim=-1)
+        acc = _blocks_sum(cut, [pv(pr, vb) for pr, (_, vb, _)
+                                in zip(prs, blocks)]) + pv(prn, v_new)
+        out = acc / torch.clamp(lsum, min=1e-20)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
+
+
 def _ring_write(cache: KVCache, idx, k, v, posv, quant: bool):
     """Write k / v (…, KH, D) and positions at ``idx`` of a fresh ring
     (int8 caches quantize per head first)."""
@@ -374,86 +543,119 @@ def _ring_write(cache: KVCache, idx, k, v, posv, quant: bool):
         cache.v[idx] = v.to(cache.v.dtype)
 
 
+def _block_slots(slots: torch.Tensor, cut: Optional[RingCut]):
+    """(the slots a write lands on, the ring's slots to allocate): the
+    whole ring's ``slots``, or on a mesh rank its block's local slots,
+    every slot outside the block sent to a sacrificial extra slot that
+    is cut off (no host read picks the block's entries)."""
+    if cut is None or not cut.local:
+        return slots, None
+    c = cut.block
+    at = slots - cut.index * c
+    return torch.where((at >= 0) & (at < c), at, torch.full_like(at, c)), c
+
+
 def build_cache_from_prefill(k: torch.Tensor, v: torch.Tensor,
                              capacity: int,
                              positions: Optional[torch.Tensor] = None,
-                             quant: bool = False) -> KVCache:
+                             quant: bool = False,
+                             cut: Optional[RingCut] = None) -> KVCache:
     """Arrange prefill K/V (B, S, KH, D) into a ring of ``capacity``.
     positions: optional per-batch (B, S) (left-padded prefill; pads < 0
-    are zeroed and written with pos = -1)."""
+    are zeroed and written with pos = -1). ``cut`` on a mesh rank: only
+    its block of the ring, the entries whose slots fall in it."""
     B, S, KH, D = k.shape
-    cache = init_kv_cache(B, capacity, KH, D, k.dtype, k.device, quant)
     if positions is None:
         n = min(S, capacity)
         src = torch.arange(S - n, S, device=k.device)
-        slots = src % capacity
+        slots, c = _block_slots(src % capacity, cut)
+        cache = init_kv_cache(B, capacity if c is None else c + 1, KH, D,
+                              k.dtype, k.device, quant)
         _ring_write(cache, (slice(None), slots), k[:, src], v[:, src],
                     src.to(torch.int32).expand(B, n), quant)
-        return cache
+        return cache if c is None else cache_map(lambda a: a[:, :c], cache)
     positions = positions.to(torch.int32)
     if S > capacity:
         k, v = k[:, -capacity:], v[:, -capacity:]
         positions = positions[:, -capacity:]
     valid = positions >= 0
-    slots = (positions % capacity).to(torch.int64)
+    slots, c = _block_slots((positions % capacity).to(torch.int64), cut)
+    cache = init_kv_cache(B, capacity if c is None else c + 1, KH, D,
+                          k.dtype, k.device, quant)
     posv = torch.where(valid, positions, torch.full_like(positions, -1))
     kz = torch.where(valid[..., None, None], k, torch.zeros_like(k))
     vz = torch.where(valid[..., None, None], v, torch.zeros_like(v))
     bidx = torch.arange(B, device=k.device)[:, None]
     _ring_write(cache, (bidx, slots), kz, vz, posv, quant)
-    return cache
+    return cache if c is None else cache_map(lambda a: a[:, :c], cache)
 
 
 def build_cache_from_suffix(k: torch.Tensor, v: torch.Tensor,
                             capacity: int, positions: torch.Tensor,
-                            quant: bool = False) -> KVCache:
+                            quant: bool = False,
+                            cut: Optional[RingCut] = None) -> KVCache:
     """A ring holding ONLY the freshly prefilled suffix tokens: pad
     columns (positions < 0) go to a sacrificial extra slot that is cut
     off, so no pad write lands on the resident prefix's slots; every
-    other slot stays empty (zeros, pos = -1)."""
+    other slot stays empty (zeros, pos = -1). ``cut`` on a mesh rank:
+    its block of that ring (the other entries go to the extra slot)."""
     B, S, KH, D = k.shape
     positions = positions.to(torch.int32)
     if S > capacity:
         k, v = k[:, -capacity:], v[:, -capacity:]
         positions = positions[:, -capacity:]
     valid = positions >= 0
-    cache = init_kv_cache(B, capacity + 1, KH, D, k.dtype, k.device, quant)
     slots = torch.where(valid, positions % capacity,
                         torch.full_like(positions, capacity)).to(torch.int64)
+    slots, c = _block_slots(slots, cut)
+    c = capacity if c is None else c
+    cache = init_kv_cache(B, c + 1, KH, D, k.dtype, k.device, quant)
     posv = torch.where(valid, positions, torch.full_like(positions, -1))
     kz = torch.where(valid[..., None, None], k, torch.zeros_like(k))
     vz = torch.where(valid[..., None, None], v, torch.zeros_like(v))
     bidx = torch.arange(B, device=k.device)[:, None]
     _ring_write(cache, (bidx, slots), kz, vz, posv, quant)
-    return cache_map(lambda a: a[:, :capacity], cache)
+    return cache_map(lambda a: a[:, :c], cache)
 
 
 def attn_apply_prefill_past(p: Dict, cfg: ModelConfig, x: torch.Tensor,
-                            positions: torch.Tensor, past: KVCache, window
+                            positions: torch.Tensor, past: KVCache, window,
+                            cut: Optional[RingCut] = None
                             ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill only a prompt's suffix against resident prefix K/V.
 
     x (B, S, d) suffix states; positions (B, S) absolute (pads < 0);
     past: each row's gathered ring holding the prefix (every other slot
     pos = -1). Keys are the ring followed by the fresh suffix K/V; the
-    returned cache holds only the suffix (``build_cache_from_suffix``)."""
+    returned cache holds only the suffix (``build_cache_from_suffix``).
+    ``cut``: the ring is cut into blocks (a mesh rank's ``past`` is its
+    block), the softmax combined over them (``_attend_past_cut``)."""
     B, S, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.attn_head_dim
     q, k_new, v_new = _project_qkv(p, cfg, x, positions)
     k_past, v_past = _read_kv(past, k_new.dtype)
-    k_all = torch.cat([k_past, k_new], dim=1)
-    v_all = torch.cat([v_past, v_new], dim=1)
-    kv_pos = torch.cat([past.pos, positions.to(torch.int32)], dim=1)
     qg = q.reshape(B, S, kvh, h // kvh, hd)
-    out = _by_head_shard(
-        _loop_head_shards(p, cfg),
-        lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, kv_pos,
-                                          window=window,
-                                          cap=cfg.logit_softcap),
-        (qg, k_all, v_all), (2, 2, 2), 2)
+    if cut is None:
+        k_all = torch.cat([k_past, k_new], dim=1)
+        v_all = torch.cat([v_past, v_new], dim=1)
+        kv_pos = torch.cat([past.pos, positions.to(torch.int32)], dim=1)
+        out = _by_head_shard(
+            _loop_head_shards(p, cfg),
+            lambda qs, ks, vs: attend_chunked(qs, ks, vs, positions, kv_pos,
+                                              window=window,
+                                              cap=cfg.logit_softcap),
+            (qg, k_all, v_all), (2, 2, 2), 2)
+    else:
+        out = _by_head_shard(
+            _loop_head_shards(p, cfg),
+            lambda qs, kp, vp, kn, vn: _attend_past_cut(
+                qs, kp, vp, past.pos, kn, vn, positions, window,
+                cfg.logit_softcap, cut),
+            (qg, k_past, v_past, k_new, v_new), (2, 2, 2, 2, 2), 2)
     out = out.reshape(B, S, h * hd).to(x.dtype)
-    cache = build_cache_from_suffix(k_new, v_new, past.k.shape[1],
-                                    positions, quant=cfg.kv_quant)
+    cache = build_cache_from_suffix(
+        k_new, v_new, past.k.shape[1] if cut is None else cut.capacity,
+        positions, quant=cfg.kv_quant, cut=cut)
     return _proj(p, "wo", out, cfg), cache
 
 

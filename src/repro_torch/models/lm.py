@@ -20,6 +20,11 @@ mesh needs every data rank in every MoE call: ``moe_bystander`` walks a
 rank with no rows through the MoE layers' collectives alone, and
 ``prefill_groups`` / ``decode_step_groups`` are the meshless twins that
 run every data rank's rows in one process, layer by layer in lock step.
+Under the sequence-parallel layout (``cfg.seq_cache_len``) each ring is
+cut by its own capacity (``ring_capacity``, ``sharding.ring_cut``):
+``init_caches`` sizes a rank's rings at its block, and prefill, the
+suffix prefill and decode pass the cut to attention; SSM states stay
+whole.
 
 Every layer of every layer-stacked leaf, and every expert of an expert
 stack, is drawn from its own generator (``draw_layer``, ``draw_expert``),
@@ -360,6 +365,32 @@ def _slot_window(cfg: ModelConfig, spec: LayerSpec, seq_len: int) -> int:
     return max(seq_len, 1) + 1
 
 
+def ring_capacity(cfg: ModelConfig, spec: LayerSpec, cache_len: int,
+                  uniform: bool = False) -> int:
+    """The slots of an attention layer's whole ring: a windowed layer's
+    window (at most ``cache_len``), a global layer's ``cache_len``; every
+    layer ``cache_len`` with ``uniform`` (the paged pool)."""
+    if uniform:
+        return cache_len
+    return min(_slot_window(cfg, spec, cache_len), cache_len)
+
+
+def _ring_cut(cfg: ModelConfig, spec: LayerSpec,
+              cache_len: Optional[int] = None):
+    """The cut of the layer's ring under ``cfg``'s sequence-parallel
+    layout (``sharding.ring_cut``), or None (no such layout, or no axis
+    divides the ring). ``cache_len``, where the caller sizes the ring,
+    must be the layout's."""
+    if not cfg.seq_cache_len:
+        return None
+    if cache_len is not None and cache_len != cfg.seq_cache_len:
+        raise ValueError(
+            f"rings of cache_len {cache_len} under a sequence-parallel "
+            f"layout sized for {cfg.seq_cache_len}")
+    from repro_torch.distribution.sharding import ring_cut
+    return ring_cut(cfg, ring_capacity(cfg, spec, cfg.seq_cache_len))
+
+
 def _ffn(sp: Dict, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor):
     """The residual block's second half: (x + FFN(norm2(x)), the MoE aux
     loss, or None for a dense FFN)."""
@@ -386,12 +417,13 @@ def _mixer_full(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
             # uniform_cache: every layer's ring at the full cache_len
             # (the paged pool's one page geometry); the window mask
             # governs reads
-            cap = min(window, cache_len) if (
-                spec[1] == ATTN_LOCAL and not uniform_cache) else cache_len
+            cap = ring_capacity(cfg, spec, cache_len, uniform_cache)
             cache = attn_mod.build_cache_from_prefill(
                 k, v, cap,
                 positions=positions if positions.ndim == 2 else None,
-                quant=cfg.kv_quant)
+                quant=cfg.kv_quant,
+                cut=None if uniform_cache else _ring_cut(cfg, spec,
+                                                         cache_len))
     else:
         y, ssm_cache = ssm_mod.ssm_apply_full(sp["mixer"], cfg, h)
         if want_cache:
@@ -419,7 +451,8 @@ def _mixer_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
     if spec[0] == MIXER_ATTN:
         window = _slot_window(cfg, spec, int(1e9) - 2)
         y, cache = attn_mod.attn_apply_decode(sp["mixer"], cfg, h, pos,
-                                              cache, window)
+                                              cache, window,
+                                              _ring_cut(cfg, spec))
     else:
         y, cache = ssm_mod.ssm_apply_decode(sp["mixer"], cfg, h, cache)
     return x + y, cache
@@ -443,12 +476,13 @@ def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
     never attends an entry C or more positions back, so masking those
     (old-lap entries of a wrapped ring) keeps this pass step-equivalent
     to decode, which the speculative verify relies on."""
-    C = cache.k.shape[1]
+    cut = _ring_cut(cfg, spec)
+    C = cache.k.shape[1] if cut is None else cut.capacity
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
     window = cfg.sliding_window if (
         spec[1] == ATTN_LOCAL and cfg.sliding_window) else C
     y, new_cache = attn_mod.attn_apply_prefill_past(
-        sp["mixer"], cfg, h, positions, cache, window)
+        sp["mixer"], cfg, h, positions, cache, window, cut)
     x, _ = _ffn(sp, spec, cfg, x + y)
     return x, new_cache
 
@@ -919,7 +953,9 @@ def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
     C, KH, D) (int8 with (repeat, B, C, KH) scales under
     ``cfg.kv_quant``), SSM states (repeat, B, H, P, N) and conv windows
     (repeat, B, K-1, conv_dim). uniform_cap: every ring at capacity
-    cache_len (the paged pool's page geometry)."""
+    cache_len (the paged pool's page geometry). Under a sequence-parallel
+    layout (``cfg.seq_cache_len``) a mesh rank's ring holds its block,
+    C / n slots (``sharding.ring_cut``); SSM leaves stay whole."""
     device = device or params["embed"]["emb"].device
     cdt = as_dtype(cfg.compute_dtype)
     caches = []
@@ -927,8 +963,11 @@ def init_caches(params, cfg: ModelConfig, batch: int, cache_len: int,
         seg = {}
         for slot, spec in enumerate(pattern):
             if spec[0] == MIXER_ATTN:
-                cap = cache_len if uniform_cap else min(
-                    _slot_window(cfg, spec, cache_len), cache_len)
+                cap = ring_capacity(cfg, spec, cache_len, uniform_cap)
+                cut = None if uniform_cap else _ring_cut(cfg, spec,
+                                                         cache_len)
+                if cut is not None and cut.local:
+                    cap = cut.block
                 c = attn_mod.init_kv_cache(
                     repeat * batch, cap, cfg.num_kv_heads,
                     cfg.attn_head_dim, cdt, device, quant=cfg.kv_quant)

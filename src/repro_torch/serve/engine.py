@@ -57,23 +57,38 @@ the (B,) sampled ids and done flags come back to the host.
   0's), broadcast, so every rank accepts the same drafts.
 * **Data parallelism** — a mesh with a 'data' axis of DP > 1: every
   process keeps the whole engine's host state (queue, slots, positions,
-  pages, stats) and takes one of two layouts (``layout``). "slots split
-  over data" (contiguous caches, ``batch_slots % DP == 0``): data rank
-  d holds and computes only slots ``[d B/DP, (d+1) B/DP)``; each data
-  rank draws the whole batch's sampling noise, samples its own rows
+  pages, stats) and takes one of three layouts (``layout``). "slots
+  split over data" (contiguous caches, ``batch_slots % DP == 0``): data
+  rank d holds and computes only slots ``[d B/DP, (d+1) B/DP)``; each
+  data rank draws the whole batch's sampling noise, samples its own rows
   (model rank 0, broadcast in its group), and the rows are all-gathered
   over 'data'; a kept-KV snapshot lives with its slot's data rank and is
   broadcast from it if the request resumes in another's slot.
-  "replicated over data" (a paged pool, or ``batch_slots % DP != 0``):
-  every data rank runs the whole engine and data rank 0's tokens are
-  broadcast. The reference splits the page pool's page axis, or the
-  cache's sequence axis, over 'data' instead; the values are the same.
-  With the experts in EP over 'data' (``cfg.ep_shards``, split layout
-  only) a data rank with no rows in an admission still enters every MoE
-  layer's collectives (``lm.moe_bystander``). ``data_shards`` with no
-  mesh is the meshless twin of a split engine: every data rank's rows in
-  one process, layer by layer in lock step (``lm.prefill_groups``,
-  ``lm.decode_step_groups``), bit for bit the mesh's processes.
+  "sequence split over data" (contiguous caches whose batch does not
+  split: ``batch_slots % DP != 0``, or one slot; on a DP = 1 mesh too
+  where every model rank runs every head): the reference's long-context
+  layout (``distribution.sharding.seq_axes``). Every data rank runs the
+  whole engine and its rows, and data rank 0's tokens are broadcast, but
+  each KV ring's capacity is cut over 'data' (and over 'model' where the
+  heads do not split and the ring divides D x T): a rank holds one
+  contiguous block of slots (``cfg.seq_*``, ``lm.init_caches``), writes
+  only the entries that fall in it and combines attention's softmax
+  over the blocks (``models.attention``); SSM states stay whole over
+  'data'; a kept-KV snapshot is the rank's block. "replicated over data"
+  (a paged pool): every data rank runs the whole engine on the whole
+  pool and data rank 0's tokens are broadcast (the reference cuts the
+  page axis there, which the port does not). Experts in EP over 'data'
+  (``cfg.ep_shards`` = DP) serve every layout: a split engine's data
+  rank with no rows in an admission still enters every MoE layer's
+  collectives (``lm.moe_bystander``); the other two layouts declare
+  replicated rows and run ``moe_ep.moe_ffn_replicated`` (each data rank
+  its own experts' slots, no host read). ``data_shards`` with no mesh
+  is the meshless twin of a split engine: every data rank's rows in one
+  process, layer by layer in lock step (``lm.prefill_groups``,
+  ``lm.decode_step_groups``), bit for bit the mesh's processes; with
+  ``seq_split`` it is the twin of a sequence-parallel engine of
+  ``data_shards`` x ``cfg.tp_shards`` ranks: whole rings, every block
+  run in turn and combined in block order.
 * **Failure hand-off** — ``dead`` is set by the scheduler when a step
   raises; :meth:`Engine.evacuate_inflight` re-arms in-flight requests
   for an exact re-prefill resume elsewhere, :meth:`Engine.fail_inflight`
@@ -96,6 +111,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MIXER_ATTN, ModelConfig
+from repro_torch.distribution import sharding
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_map
 from repro_torch.models.modules import as_dtype
@@ -103,6 +119,9 @@ from repro_torch.serve import memory as kvmem
 from repro_torch.serve.telemetry import Telemetry
 
 ADMISSION_MODES = ("continuous", "drain")
+# the layout of a contiguous engine whose batch does not split over
+# 'data' (``Engine.layout``)
+SEQ_LAYOUT = "sequence split over data"
 SLO_CLASSES = ("interactive", "batch")
 # request lifecycle states surfaced on Request.status
 STATUSES = ("new", "queued", "running", "done", "failed", "rejected")
@@ -244,7 +263,8 @@ class Engine:
                  admission: str = "continuous",
                  rank: int = 0,
                  telemetry: Optional[Telemetry] = None,
-                 mesh=None, draft=None, data_shards: int = 1):
+                 mesh=None, draft=None, data_shards: int = 1,
+                 seq_split: bool = False):
         if admission not in ADMISSION_MODES:
             raise ValueError(f"admission={admission!r} not in "
                              f"{ADMISSION_MODES}")
@@ -273,37 +293,57 @@ class Engine:
         # data parallelism: None, or the layout over the 'data' axis;
         # split engines hold slots [_lo, _lo + _per); the meshless twin
         # of a split engine (_groups data ranks) computes every rank's
-        # block in one process
+        # block in one process; the sequence-parallel layout cuts the
+        # rings (cfg.seq_*)
         dp = 1 if mesh is None else mesh.shape["data"]
         ep = cfg.ep_shards if cfg.moe is not None else 1
         self.layout: Optional[str] = None
         self._per: Optional[int] = None
         self._groups: Optional[int] = None
-        if dp > 1:
-            if kv_pages or batch_slots % dp:
-                self.layout = "replicated over data"
-            else:
+        groups = data_shards if mesh is None else dp
+        rings = any(m == MIXER_ATTN for m in cfg.layer_mixer_kinds())
+        if mesh is None and seq_split:
+            seq = sharding.seq_config(
+                cfg, {"data": groups, "model": cfg.tp_shards}, batch_slots,
+                cache_len)
+            if kv_pages or seq is cfg or not rings:
+                raise ValueError(
+                    f"seq_split: the meshless twin of a sequence-parallel "
+                    f"engine (contiguous rings, batch_slots "
+                    f"{batch_slots} not split over data_shards={groups}, "
+                    f"a ring that {groups} x {cfg.tp_shards} ranks could "
+                    f"cut)")
+            cfg = self.cfg = seq
+            self.layout = SEQ_LAYOUT + " (meshless)"
+        elif mesh is not None:
+            if dp > 1 and not kv_pages and batch_slots % dp == 0:
                 self.layout = "slots split over data"
                 self._per = batch_slots // dp
                 self._lo = mesh.data_rank * self._per
-        groups = data_shards if mesh is None else dp
-        if groups > 1 and mesh is None and (kv_pages
-                                            or batch_slots % groups):
+            elif not kv_pages and rings and (seq := sharding.seq_config(
+                    cfg, mesh, batch_slots, cache_len)) is not cfg:
+                cfg = self.cfg = seq
+                self.layout = SEQ_LAYOUT
+            elif dp > 1:
+                self.layout = "replicated over data"
+        elif groups > 1 and (kv_pages or batch_slots % groups):
             raise ValueError(
                 f"data_shards={groups}: the meshless twin of an engine "
                 f"whose contiguous slots split over {groups} data ranks "
-                f"(batch_slots % {groups} == 0, no page pool)")
-        if ep > 1 and (ep != groups or (mesh is not None and self.layout
-                                        != "slots split over data")):
+                f"(batch_slots % {groups} == 0, no page pool), or with "
+                f"seq_split of one whose batch does not split")
+        if ep > 1 and ep != groups:
             raise ValueError(
-                f"experts in {ep} EP shards serve one engine with its "
-                f"contiguous slots split over 'data' ({ep} data ranks, "
-                f"batch_slots % {ep} == 0, no page pool); build the "
-                f"experts whole on every data rank otherwise")
-        if mesh is None and groups > 1:
+                f"experts in {ep} EP shards serve one engine over {ep} "
+                f"data ranks (its mesh's 'data' axis, or data_shards={ep} "
+                f"for the meshless twin); build the experts whole on "
+                f"every data rank otherwise")
+        if mesh is None and groups > 1 and self.layout is None:
             self.layout = "slots split over data (meshless)"
             self._groups, self._per, self._lo = (groups,
                                                  batch_slots // groups, 0)
+        # experts cut over 'data' on rows every data rank holds alike
+        self._replicated_moe = ep > 1 and self._per is None
         # the stream every device op of step() runs on, whichever thread
         # holds the caller's lock
         self._stream = (torch.cuda.current_stream(self.device)
@@ -409,12 +449,17 @@ class Engine:
 
     def _mesh_ctx(self):
         """The engine's mesh as the active one (a no-op without one, or
-        where the mesh is one process)."""
+        where the mesh is one process), declaring replicated rows where
+        experts cut over 'data' serve a batch that does not split (and
+        in the meshless twin of such an engine)."""
+        from repro_torch.distribution import context as dctx
         if self.mesh is None or (self.mesh.shape["model"] == 1
                                  and self.mesh.shape["data"] == 1):
+            if self._replicated_moe:
+                return dctx.use_mesh(None, replicated_rows=True)
             return contextlib.nullcontext()
-        from repro_torch.distribution import context as dctx
-        return dctx.use_mesh(self.mesh)
+        return dctx.use_mesh(self.mesh,
+                             replicated_rows=self._replicated_moe)
 
     def _sample(self, logits: Optional[torch.Tensor], temps: torch.Tensor,
                 slots: Optional[Sequence[int]] = None) -> torch.Tensor:

@@ -388,3 +388,57 @@ def test_heads_replicated_cell_on_the_production_mesh_shape():
     assert tr["lcfg"].heads_replicated and tr["lcfg"].num_kv_heads == 8
     ag = tr["record"]["all-gather"]["model"]
     assert ag["calls"] == 3 * cfg.num_layers + 1
+
+
+LONG = ShapeConfig("l", "decode", seq_len=128, global_batch=1)
+
+
+def test_long_context_cell_cuts_rings_over_data_and_model():
+    """A ``long_500k``-like cell (B = 1) of a reduced gemma3 with one KV
+    head (which does not split over 2 model ranks) on a dry (2, 2) mesh:
+    the rank's rings hold C / (D T) slots, windowed and global alike
+    (``sharding.seq_axes``), and the decode step's record names the
+    combine's collectives over 'data,model': one all-reduce (the max)
+    and two all-gathers (the ordered sums) an attention layer."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.distribution.sharding import seq_config
+    cfg = dataclasses.replace(
+        dryrun.cell_config("gemma3-4b", reduce=True), num_kv_heads=1)
+    tr = dryrun.trace_step(cfg, LONG, 2, 2, 3)
+    lcfg = tr["lcfg"]
+    assert lcfg.heads_replicated and lcfg.seq_mesh == (2, 2)
+    assert lcfg.seq_cache_len == LONG.seq_len and lcfg.seq_index == 3
+    L = cfg.num_layers
+    assert tr["record"]["all-reduce"]["data,model"]["calls"] == L
+    assert tr["record"]["all-gather"]["data,model"]["calls"] == 2 * L
+    with FakeTensorMode():
+        mesh = dry_mesh(2, 2, 3)
+        caches = specs.input_shardings(
+            cfg, seq_config(local_config(tp_config(cfg, 2), 2), mesh, 1,
+                            LONG.seq_len),
+            LONG, mesh, specs.input_specs(cfg, LONG))["caches"]
+    caps = [lm.ring_capacity(cfg, spec, LONG.seq_len)
+            for pattern, _ in lm.segment_plan(cfg) for spec in pattern]
+    assert [int(c.k.shape[2]) for seg in caches for c in seg.values()] \
+        == [c // 4 for c in caps]
+
+
+def test_moe_cell_at_one_row_cuts_experts_over_data():
+    """A MoE decode cell at B = 1 on a dry (2, 2) mesh: the experts stay
+    cut over 'data' (E / D a rank), the step declares replicated rows
+    (``moe_ep.moe_ffn_replicated``: no all-to-all, no host read under
+    fake tensors) and its record names one ordered sum over 'data' a MoE
+    layer beside the rings' combine."""
+    cfg = dryrun.cell_config("granite-moe-1b-a400m", reduce=True)
+    tr = dryrun.trace_step(cfg, LONG, 2, 2, 1)
+    lcfg = tr["lcfg"]
+    assert lcfg.ep_shards == 2 and lcfg.seq_mesh == (2, 1)
+    rec = tr["record"]
+    assert "all-to-all" not in rec
+    L = cfg.num_layers
+    # per layer: the MoE's sum, and the rings' two sums, over 'data'
+    assert rec["all-gather"]["data"]["calls"] == 3 * L
+    assert rec["all-reduce"]["data"]["calls"] == L
+    dense = dryrun.trace_step(cfg, LONG, 1, 2, 1)
+    assert dense["lcfg"].ep_shards == 1
+    assert tr["held"] < dense["held"]

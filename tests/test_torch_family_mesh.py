@@ -84,8 +84,7 @@ def _build(arch, shape, ckpt, rank, data_rank, scheduler, cf=None,
            how=PACKED):
     dp, tp = shape
     cfg = port_config(arch, cf)
-    ep = expert_shards(cfg, shape, scheduler=scheduler, slots=SLOTS,
-                       kv_pages=None)
+    ep = expert_shards(cfg, shape, scheduler=scheduler)
     with torch.no_grad():
         params, tcfg, lcfg, _ = build_rank_params(
             cfg, tp=tp, rank=rank, device="cpu", ckpt_dir=ckpt, ep=ep,
