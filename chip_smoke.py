@@ -303,6 +303,25 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 engine. ``tools/seq_mesh_phase.py`` runs it alone, and
                 with four cards gemma3-4b at full depth with the
                 long_500k ring on 4,1 and 2,2 and jamba's block on 4,1.
+  19. paged mesh — (last) the paged KV pool cut over 'data' as the
+                reference places it (``sharding.pool_axes``) and a MoE
+                drafter on a mesh, on ``--mesh 2,1`` (2 gloo processes on
+                this card): (a) qwen3-32b at full width, 1 layer, and (b)
+                moonshot-v1-16b-a3b at full width, 1 layer (its experts
+                and its drafter's in EP over 'data'), 50% of the tiles
+                packed (scope all), bf16, a drafter at 75% (draft_k 3),
+                Engine(4 slots, cache 256, kv_pages 30 of 32 tokens: P =
+                32, 16 a data rank), prefix sharing, 3c (b)'s first 4
+                requests submitted one a step. Every process bit for bit
+                its meshless twin (``Engine(data_shards=2)``: streams,
+                every decode step's logits, speculation and prefix
+                counters), its pool half the whole pool's bytes (two
+                local reserved pages more on data rank 1), no broadcast
+                over 'data' in ``Mesh.record``; each twin's first prefill
+                through both kernels within 1e-2 of their plain
+                versions'. ``tools/paged_mesh_phase.py`` runs it alone,
+                and with four cards qwen3-32b at 16 layers with an 8 GiB
+                pool on 4,1 and 2,2 against one card.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1015,7 +1034,7 @@ def _drive_timed(torch, eng, reqs, preempts=(), check_pool=True):
                       eng.stats["admitted"] - adm,
                       sum(len(r.out_tokens) for r in reqs) - toks))
         if check_pool and eng.pool is not None:
-            eng.pool.alloc.check()
+            eng.pool.check()
         n += 1
         if n in preempts:
             slot = next(i for i, r in enumerate(eng.slot_req)
@@ -1070,9 +1089,9 @@ def _greedy_equal(name, got, want, margins, ref="the contiguous run"):
 def _no_leak(name, eng):
     mem = eng.memory_stats()
     check(mem.device_used == mem.cached_pages and mem.host_used == 0
-          and not eng.pool.alloc.rc and not eng.pool.alloc.scratch,
+          and not eng.pool.allocs[0].rc and not eng.pool.allocs[0].scratch,
           f"{name}: pages leaked: {mem.as_dict()}")
-    eng.pool.alloc.check()
+    eng.pool.check()
     return mem.as_dict()
 
 
@@ -6828,6 +6847,415 @@ def seq_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the paged KV pool cut over 'data', and a MoE drafter on a mesh
+# ---------------------------------------------------------------------------
+
+PGM = dict(layers=1, slots=4, cache_len=256, page_len=32, kv_pages=30,
+           draft=0.75, draft_k=3, mesh=(2, 1), logit_tol=1e-2)
+# the main-path kernels each model launches (target and drafter packed,
+# scope all; moonshot's FFNs are experts, masked-dense)
+PGM_KERNELS = {"qwen": {"sasp_gemm": "mma", "sasp_fused_ffn": "mma/mma"},
+               "moonshot": {"sasp_gemm": "mma"}}
+PGM_SPEC = ("spec_rounds", "spec_draft_tokens", "spec_accepted_tokens",
+            "spec_fallbacks")
+
+
+def pgm_config(model: str):
+    """qwen3-32b at full width, ``PGM["layers"]`` layers, or moonshot-v1-
+    16b-a3b at full width, 1 layer; bf16 compute."""
+    if model == "qwen":
+        return main_config(PGM["layers"], "bfloat16")
+    return moonshot_config(1, "bfloat16")
+
+
+def _pgm_build(torch, cfg0, rank, data_rank, ep, device):
+    """``build_rank_params`` at tp 1 with a drafter: 50% of the 32x32
+    tiles (scope all), packed, wo and w2 spread as drawn; the drafter at
+    75%, its experts (moonshot) cut like the target's: (tree, deployed
+    config, rank config, drafter)."""
+    from repro_torch.launch import serve as launch
+    return launch.build_rank_params(
+        cfg0, tp=1, rank=rank, device=device, sparsity=SPARSITY,
+        scope="all", path="packed", prepare=spread_leaf(cfg0), ep=ep,
+        data_rank=data_rank, draft_sparsity=PGM["draft"])
+
+
+def _pgm_serve(torch, params, cfg, draft, counters, mesh=None, **kw):
+    """3c (b)'s first 4 requests (a 96-token prefix of 3 pages and a
+    suffix each, 16 new tokens) through ``Engine`` of 4 slots, cache 256,
+    32-token pages, ``kv_pages`` 30 (P = 32), prefix sharing and the
+    drafter (``draft_k`` 3), on ``mesh`` or as the meshless twin
+    (``kw``); submitted one a step, so that each data rank's second
+    request maps the prefix pages its first wrote. Every step timed with
+    the device synchronised, the pools checked after each; every target
+    decode step's fp32 logits kept; launch counts and the mesh's record
+    set to 0 just before the run and read just after."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(params, cfg, batch_slots=PGM["slots"],
+                 cache_len=PGM["cache_len"], kv_pages=PGM["kv_pages"],
+                 kv_page_len=PGM["page_len"], kv_share=True, draft=draft,
+                 draft_k=PGM["draft_k"], mesh=mesh, **kw)
+    logits = []
+    dec = eng._paged_decode_step
+
+    def recorded(p, c, toks, pos, bt, tabs=None):
+        x = dec(p, c, toks, pos, bt, tabs)
+        if p is eng.params:                     # not the drafter's steps
+            logits.append(_live_rows(eng, x, bt).cpu())
+        return x
+    eng._paged_decode_step = recorded
+    reqs = shared_prefix_requests(cfg.vocab_size)[:PGM["slots"]]
+    pending, steps = list(reqs), []
+    reset(counters)
+    if mesh is not None:
+        mesh.reset_record()
+    while pending or eng.has_work():
+        if pending:
+            eng.submit(pending.pop(0))
+        adm = eng.stats["admitted"]
+        toks = sum(len(r.out_tokens) for r in reqs)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t) * 1e3,
+                      eng.stats["admitted"] - adm,
+                      sum(len(r.out_tokens) for r in reqs) - toks))
+        eng.pool.check()
+    launches = _launch_counts(counters)
+    record = None if mesh is None else mesh.record()
+    mem = eng.memory_stats()
+    return dict(streams={r.rid: list(r.out_tokens) for r in reqs},
+                logits=logits, times=_step_times(steps), layout=eng.layout,
+                launches=launches, record=record,
+                spec={k: eng.stats[k] for k in PGM_SPEC},
+                prefix=dict(hits=mem.prefix_hits,
+                            reused=mem.prefix_pages_reused,
+                            elsewhere=mem.prefix_pages_elsewhere),
+                pool_bytes=eng.pool.nbytes(), pages=PGM["kv_pages"] + 2)
+
+
+def _live_rows(eng, x, bt):
+    """A paged decode step's fp32 logits (a mesh rank's rows, or every
+    row) with the rows of slots that decode no token set to 0: idle and
+    speculating slots read the trash page, whose content is whichever
+    of the step's duplicate writes to it landed last (unspecified on the
+    card)."""
+    torch = sys.modules["torch"]
+    from repro_torch.serve import memory as kvmem
+    live = torch.as_tensor((bt != kvmem.TRASH_PAGE).any(axis=1),
+                           device=x.device)
+    if len(live) > len(x):
+        live = live[eng._lo:eng._lo + eng._per]
+    return torch.where(live[:, None], x.float(), torch.zeros_like(
+        x, dtype=torch.float32))
+
+
+def _pgm_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """Phase 19's process, spawned by the launcher's ``serve_mesh``: join
+    the mesh, then for each model build this rank's tree and drafter
+    layer by layer (moonshot's experts, the drafter's too, cut over
+    'data': ``expert_shards``) and serve (``_pgm_serve``). Decode logits
+    come back as digests."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    out = dict(rank=rank, data_rank=mesh.data_rank,
+               transport=mesh.transport, cases={}, streams={})
+    for model in spec["cases"]:
+        cfg0 = pgm_config(model)
+        ep = launch.expert_shards(cfg0, spec["mesh"], scheduler=False)
+        params, _, lcfg, draft = _pgm_build(torch, cfg0, mesh.model_rank,
+                                            mesh.data_rank, ep, mesh.device)
+        run = _pgm_serve(torch, params, lcfg, draft, counters, mesh=mesh)
+        run.update(logits=[_digest(x) for x in run["logits"]],
+                   draft_ep=draft[1].ep_shards)
+        out["streams"][model] = run.pop("streams")
+        out["cases"][model] = run
+        del params, draft
+        _free(torch)
+    return out
+
+
+def _pgm_oracles(torch, counters):
+    """On this card, each model's meshless twin (the whole tree and
+    drafter, ``Engine(data_shards=2)``: both page blocks in one process,
+    each data rank's rows in lock step), the bytes of a whole pool (the
+    replicated layout's, every rank's there), and its first prefill
+    through both kernels against their plain versions."""
+    from repro_torch.serve import memory as kvmem
+    D = PGM["mesh"][0]
+    out = {}
+    for model in PGM_KERNELS:
+        cfg0 = pgm_config(model)
+        ep = D if cfg0.moe else 1
+        tree, tcfg, _, draft = _pgm_build(torch, cfg0, None, 0, ep, DEVICE)
+        twin = _pgm_serve(torch, tree, tcfg, draft, counters, data_shards=D)
+        whole = kvmem.PagedKVPool(tree, tcfg, cache_len=PGM["cache_len"],
+                                  device_pages=PGM["kv_pages"],
+                                  page_len=PGM["page_len"]).nbytes()
+        vs = _prefill_vs_plain(torch, tree,
+                               dataclasses.replace(tcfg, ep_shards=1))
+        check(vs["rel_err"] <= PGM["logit_tol"],
+              f"(19 {model}) the kernels' prefill logits differ from their "
+              f"plain versions' by {vs['rel_err']:.3g} of the logit scale")
+        out[model] = dict(twin=twin, whole_bytes=whole, vs_plain=vs)
+        del tree, draft
+        _free(torch)
+    return out
+
+
+def _pgm_check(model, res, oracle):
+    """Every process: the cut layout; streams, every decode step's logits
+    (its rows), the speculation and prefix counters bit for bit the
+    twin's; its pool's bytes its block's (half the whole pool, two local
+    reserved pages more on data rank 1); over 'data' no broadcast (no KV
+    moved); the model's kernels on their tensor-core variants."""
+    from repro_torch.serve.engine import PAGED_LAYOUT
+    twin = oracle["twin"]
+    D = PGM["mesh"][0]
+    per = PGM["slots"] // D
+    page = oracle["whole_bytes"] // twin["pages"]
+    for r in res:
+        d = r["data_rank"]
+        tag = f"(19 {model}) --mesh {D},1 rank {r['rank']}"
+        got = r["cases"][model]
+        check(got["layout"] == PAGED_LAYOUT, f"{tag}: layout {got['layout']}")
+        check(r["streams"][model] == twin["streams"],
+              f"{tag}: streams differ from the meshless twin's")
+        want = [_digest(x[d * per:(d + 1) * per]) for x in twin["logits"]]
+        first = next((i for i, (a, b) in enumerate(zip(got["logits"], want))
+                      if a != b), None)
+        check(got["logits"] == want,
+              f"{tag}: decode logits are not bit for bit the twin's rows "
+              f"({len(got['logits'])} steps, the twin {len(want)}; first "
+              f"differing step {first})")
+        check(got["spec"] == twin["spec"] and got["prefix"] ==
+              twin["prefix"], f"{tag}: counters {got['spec']} "
+              f"{got['prefix']}, the twin's {twin['spec']} "
+              f"{twin['prefix']}")
+        check(got["spec"]["spec_rounds"] > 0 and got["prefix"]["hits"] >= 2,
+              f"{tag}: {got['spec']} {got['prefix']}")
+        check(got["pool_bytes"] == oracle["whole_bytes"] // D
+              + (2 * page if d else 0),
+              f"{tag}: {got['pool_bytes']} pool bytes, not the block's of "
+              f"{oracle['whole_bytes']}")
+        check("data" not in got["record"].get("broadcast", {}),
+              f"{tag}: a broadcast over 'data': {got['record']}")
+        for k in MAIN_PATH:
+            lk = got["launches"][k]
+            if k in PGM_KERNELS[model]:
+                check(lk["total"] > 0 and set(lk["variant"]) == {
+                    PGM_KERNELS[model][k]}, f"{tag}: {k} launched {lk}")
+            else:
+                check(lk["total"] == 0, f"{tag}: {k} launched {lk}")
+
+
+# the four-card runs of ``tools/paged_mesh_phase.py`` (not in the smoke):
+# qwen3-32b at 16 layers with an 8 GiB page pool (4094 pages of 32
+# tokens, 64 KiB of KV a token) cut over 'data' on 4,1 and 2,2, and
+# replicated over 'data' on 4,1 (kv_pages 4093: P = 4095 does not divide)
+PGM4 = dict(layers=16, kv_pages=4094, page_len=32, slots=16,
+            cache_len=2048, prompt=512, requests=32, new=32,
+            meshes=(((4, 1), 4094), ((2, 2), 4094), ((4, 1), 4093)))
+
+
+def _pgm4_requests(vocab: int):
+    """32 requests of 512-token prompts (16 pages each), 32 new tokens."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(19)
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=(PGM4["prompt"],)).astype(np.int32),
+        max_new_tokens=PGM4["new"]) for i in range(PGM4["requests"])]
+
+
+def _pgm4_build(torch, tp, rank, device):
+    from repro_torch.launch import serve as launch
+    cfg0 = main_config(PGM4["layers"], "bfloat16")
+    params, tcfg, lcfg, _ = launch.build_rank_params(
+        cfg0, tp=tp, rank=rank, device=device, sparsity=SPARSITY,
+        scope="all", path="packed", prepare=spread_leaf(cfg0))
+    return params, tcfg, lcfg
+
+
+def _pgm4_serve(torch, params, cfg, counters, kv_pages, mesh=None, **kw):
+    """The 32 requests through ``Engine`` of 16 slots at cache 2048 with
+    ``kv_pages`` pages of 32 tokens: GiB held (tree and pool) and the
+    pool's GiB, peak GiB, decode ms/step and tokens/s over the run (every
+    step timed with the device synchronised), every target decode step's
+    logits digested after the run (this process's rows)."""
+    from repro_torch.serve.engine import Engine
+    dev = params["embed"]["emb"].device
+    _free(torch)
+    eng = Engine(params, cfg, batch_slots=PGM4["slots"],
+                 cache_len=PGM4["cache_len"], kv_pages=kv_pages,
+                 kv_page_len=PGM4["page_len"], mesh=mesh, **kw)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits = []
+    dec = eng._paged_decode_step
+
+    def recorded(p, c, toks, pos, bt, tabs=None):
+        x = dec(p, c, toks, pos, bt, tabs)
+        logits.append(_live_rows(eng, x, bt))
+        return x
+    eng._paged_decode_step = recorded
+    reset(counters)
+    streams, steps = _drive_timed(torch, eng,
+                                  _pgm4_requests(cfg.vocab_size),
+                                  check_pool=False)
+    out = dict(streams=streams, times=_step_times(steps), held_gib=held,
+               pool_gib=eng.pool.nbytes() / 2**30, layout=eng.layout,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               launches=_launch_counts(counters), logits=logits)
+    del eng
+    return out
+
+
+def _pgm4_rank(rank: int, spec: dict, init_file: str) -> dict:
+    """A process of the four-card runs: its tree layer by layer, then the
+    32 requests on the mesh; decode logits come back as digests."""
+    import torch
+    from repro_torch.kernels.sasp_gemm import fused_ffn, gemm
+    from repro_torch.launch import serve as launch
+    counters = {"sasp_gemm": gemm, "sasp_fused_ffn": fused_ffn}
+    mesh = launch.join_mesh(rank, spec, init_file, backend=spec["backend"])
+    params, _, lcfg = _pgm4_build(torch, spec["mesh"][1], mesh.model_rank,
+                                  mesh.device)
+    run = _pgm4_serve(torch, params, lcfg, counters, spec["kv_pages"],
+                      mesh=mesh)
+    run.update(rank=rank, data_rank=mesh.data_rank,
+               transport=mesh.transport, tree_gib=_tree_gib(params),
+               logits=[_digest(x) for x in run["logits"]])
+    return run
+
+
+def _pgm_four_cards(torch, counters):
+    """The four-card runs over NCCL, a card a process: qwen3-32b at full
+    width, 16 layers, 16 slots, an 8 GiB pool (4094 pages of 32 tokens)
+    on one card; cut over 'data' on ``--mesh 4,1`` and ``2,2`` (each rank
+    2 GiB of pages: a quarter of the pages, or half the pages of half the
+    KV heads); replicated over 'data' on ``4,1`` (kv_pages 4093, every
+    rank the whole pool and the whole batch). GiB held a rank, the pool's
+    GiB, decode ms/step and tokens/s; each cut rank's streams and decode
+    logits against its meshless twin's on this card."""
+    from repro_torch.launch import serve as launch
+    n = torch.cuda.device_count()
+    if n < 4:
+        log(f"  four cards: not run ({n} card{'s' if n > 1 else ''})")
+        return f"not run ({n} card{'s' if n > 1 else ''})"
+    out, twins = {}, {}
+    for tp in (1, 2):
+        tree, tcfg, _ = _pgm4_build(torch, tp, None, DEVICE)
+        if tp == 1:
+            one = _pgm4_serve(torch, tree, tcfg, counters, PGM4["kv_pages"])
+            out["one card"] = {k: v for k, v in one.items()
+                               if k not in ("streams", "logits")}
+            one_streams = one["streams"]
+            log(f"  qwen3-32b, {PGM4['layers']} layers, one card: held "
+                f"{one['held_gib']:.2f} GiB (pool {one['pool_gib']:.2f}), "
+                f"peak {one['peak_gib']:.2f}; decode "
+                f"{one['times']['decode_ms_per_step']:.2f} ms/step, "
+                f"{one['times']['tok_s']:.1f} tok/s")
+            del one
+        for (D, T), kv in PGM4["meshes"]:
+            if T == tp and (D, T) not in twins and kv == PGM4["kv_pages"]:
+                tw = _pgm4_serve(torch, tree, tcfg, counters, kv,
+                                 data_shards=D)
+                per = PGM4["slots"] // D
+                twins[D, T] = dict(streams=tw["streams"], rows=[
+                    [_digest(x[d * per:(d + 1) * per]) for x in tw["logits"]]
+                    for d in range(D)])
+                del tw
+        del tree
+        _free(torch)
+    for (D, T), kv in PGM4["meshes"]:
+        t0 = time.time()
+        spec = dict(mesh=(D, T), device=DEVICE, backend="nccl",
+                    kv_pages=kv)
+        res = launch.serve_mesh(spec, _pgm4_rank, store_dir=OUT_DIR,
+                                timeout=1200)
+        key = f"--mesh {D},{T} kv_pages {kv}"
+        tw = twins.get((D, T)) if kv == PGM4["kv_pages"] else None
+        bits = None if tw is None else [
+            r["streams"] == tw["streams"] and r["logits"] ==
+            tw["rows"][r["data_rank"]] for r in res]
+        log(f"  {key} over {res[0]['transport']} ({res[0]['layout']}): "
+            f"held GiB a rank {[round(r['held_gib'], 2) for r in res]} "
+            f"(pool {[round(r['pool_gib'], 3) for r in res]}), peak "
+            f"{[round(r['peak_gib'], 2) for r in res]}; decode ms/step "
+            f"{[round(r['times']['decode_ms_per_step'], 2) for r in res]}, "
+            f"tok/s {res[0]['times']['tok_s']:.1f}; streams "
+            f"{'equal' if res[0]['streams'] == one_streams else 'differ'} "
+            f"to one card's; bit for bit the twin: {bits}; "
+            f"{time.time() - t0:.1f} s")
+        out[key] = dict(ranks=[{k: v for k, v in r.items()
+                                if k not in ("streams", "logits")}
+                               for r in res], twin_bits=bits,
+                        streams_equal_one_card=res[0]["streams"]
+                        == one_streams)
+    return out
+
+
+def paged_mesh_phase(torch, counters):
+    """Phase 19: the paged KV pool cut over 'data' (the reference's
+    ``pool_shardings`` placement, ``Engine.layout`` "slots and pages
+    split over data") with prefix sharing and a drafter, qwen3-32b and
+    moonshot (its experts and its drafter's in EP over 'data') on
+    ``--mesh 2,1`` on this card (gloo, host-staged), against the twins
+    run first. Run last, with every earlier model freed."""
+    from repro_torch.launch import serve as launch
+    t_phase = time.time()
+    log(f"  qwen3-32b at full width, {PGM['layers']} layer(s), and "
+        f"moonshot at full width, 1 layer; seed 0, wo and w2 spread, 50% "
+        f"of the 32x32 tiles (scope all), bf16; a drafter at 75%, draft_k "
+        f"{PGM['draft_k']}; Engine({PGM['slots']} slots, cache "
+        f"{PGM['cache_len']}, kv_pages {PGM['kv_pages']} of "
+        f"{PGM['page_len']} tokens, prefix sharing); 3c (b)'s first 4 "
+        f"requests, one submitted a step")
+    t0 = time.time()
+    oracles = _pgm_oracles(torch, counters)
+    out = {"oracle_s": time.time() - t0, "cases": {},
+           "launches": dict.fromkeys(MAIN_PATH, 0)}
+    _free(torch)
+    t0 = time.time()
+    spec = dict(mesh=PGM["mesh"], device=DEVICE, backend="gloo",
+                cases=list(PGM_KERNELS))
+    res = launch.serve_mesh(spec, _pgm_rank, store_dir=OUT_DIR, timeout=600)
+    wall = time.time() - t0
+    for model in PGM_KERNELS:
+        _pgm_check(model, res, oracles[model])
+        c = [r["cases"][model] for r in res]
+        tw, o = oracles[model]["twin"], oracles[model]
+        log(f"  (19 {model}) --mesh 2,1 over {res[0]['transport']}: decode "
+            f"ms/step by rank "
+            f"{[round(x['times']['decode_ms_per_step'], 2) for x in c]} "
+            f"(the twin {tw['times']['decode_ms_per_step']:.2f}), tok/s "
+            f"{c[0]['times']['tok_s']:.1f} (twin {tw['times']['tok_s']:.1f})"
+            f"; pool MiB a rank "
+            f"{[round(x['pool_bytes'] / 2**20, 3) for x in c]} of a whole "
+            f"{o['whole_bytes'] / 2**20:.3f}; spec {c[0]['spec']}; prefix "
+            f"{c[0]['prefix']}; record {c[0]['record']}; launches "
+            f"{ {k: l['total'] for k, l in c[0]['launches'].items()} }; "
+            f"kernels vs plain {o['vs_plain']['rel_err']:.3g} of the logit "
+            f"scale; bit for bit the twin ({wall:.1f} s wall)")
+        out["cases"][model] = dict(
+            twin={k: v for k, v in tw.items() if k != "logits"},
+            whole_bytes=o["whole_bytes"], vs_plain=o["vs_plain"],
+            ranks=[{k: v for k, v in x.items() if k != "logits"}
+                   for x in c])
+        for k in MAIN_PATH:
+            out["launches"][k] += sum(x["launches"][k]["total"] for x in c)
+    out["wall_s"] = wall
+    out["seconds"] = time.time() - t_phase
+    log(f"  phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 KERNELS = {
     "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
                   "src/repro/kernels/sasp_gemm/kernel.py:142"),
@@ -7049,19 +7477,27 @@ def main() -> int:
     _free(torch)
     seq_mesh = seq_mesh_phase(torch, counters)
 
+    log("[19] the paged KV pool cut over 'data' and a MoE drafter on a "
+        "mesh: qwen3-32b and moonshot at full width, 1 layer, on --mesh 2,1 "
+        "with prefix sharing and a drafter, each process bit for bit its "
+        "meshless twin (last, every earlier model freed)")
+    _free(torch)
+    paged_mesh = paged_mesh_phase(torch, counters)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
     # checkpoint served, both ranks) and phase 16's (the mesh-trained
     # moonshot checkpoint served on one card) and phase 17's (the
     # pod-trained qwen3 checkpoint served on one card) and phase 18's
-    # (every case, every process)
+    # and phase 19's (every case, every process)
     path_launches = {n: launches[n] + mesh_paths["launches"][n]
                      + family_mesh["launches"][n]
                      + train_mesh["launches"][n]
                      + family_train["launches"][n]
                      + pod_train["launches"][n]
                      + seq_mesh["launches"][n]
+                     + paged_mesh["launches"][n]
                      if n in MAIN_PATH else ablation["launches"][n]
                      for n in KERNELS}
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -7076,7 +7512,7 @@ def main() -> int:
                        mesh_paths=mesh_paths, family_mesh=family_mesh,
                        train_mesh=train_mesh, analysis=analysis,
                        family_train=family_train, pod_train=pod_train,
-                       seq_mesh=seq_mesh,
+                       seq_mesh=seq_mesh, paged_mesh=paged_mesh,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")

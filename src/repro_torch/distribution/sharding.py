@@ -68,6 +68,11 @@ its rows and the ranks' rows are summed, and each rank's logits over its
 rows are all-gathered in vocab order (``models.lm``). A TP deployment's
 config (``tp_config``) carries the shard counts, so that the meshless
 shard loop runs the same shards in one process.
+
+The paged KV pool (``pool_axes``, the reference's ``pool_shardings``):
+its page axis over the DP axes where they divide it, its KV heads over
+'model'; ``serve.engine`` serves such a pool with each data rank's
+slots on its own block of pages (``pool_blocks``).
 """
 from __future__ import annotations
 
@@ -397,6 +402,34 @@ def ring_cut(cfg: ModelConfig, capacity: int):
     index = None if cfg.seq_index < 0 else (
         cfg.seq_index if "model" in axes else cfg.seq_index // T)
     return RingCut(int(capacity), n, index, axes)
+
+
+def pool_axes(mesh, shape: Tuple[int, ...]) -> Tuple:
+    """The reference's ``pool_shardings`` as a rule: the axes of each dim
+    of a paged KV pool leaf ``(R, P, page_len, …)``. The physical page
+    dim P goes over the DP axes (``dp_axes``, a tuple) when they hold
+    two ranks or more and divide it; the KV-head dim (3, on k/v/scale
+    leaves) over 'model' when it divides. ``mesh``: a ``Mesh`` or a
+    ``{"data": D, "model": T}`` shape. On a scheduler rank's submesh DP
+    collapses to 1, so the pool stays whole there."""
+    sizes = mesh if isinstance(mesh, dict) else mesh.shape
+    dp = dp_axes(sizes)
+    spec: List = [None] * len(shape)
+    n = dp_size(sizes)
+    if n > 1 and shape[1] % n == 0:
+        spec[1] = dp
+    if len(shape) >= 4 and shape[3] % sizes.get("model", 1) == 0:
+        spec[3] = "model"
+    return tuple(spec)
+
+
+def pool_blocks(mesh, pages: int) -> int:
+    """How many blocks ``pool_axes`` cuts a pool of ``pages`` physical
+    pages into over the DP axes: their size, or 1 (whole)."""
+    if mesh is None:
+        return 1
+    sizes = mesh if isinstance(mesh, dict) else mesh.shape
+    return dp_size(sizes) if pool_axes(sizes, (1, pages))[1] else 1
 
 
 def check_placement(cfg: ModelConfig, tp: int, ep: int = 1) -> None:

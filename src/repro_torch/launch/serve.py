@@ -77,8 +77,14 @@ not (``--mesh D,T --slots 1``, or ``--slots 3`` on D = 2) the
 reference's long-context layout, every data rank running the whole
 batch with each KV ring's capacity cut over 'data' (and over 'model'
 where the heads do not split: on a ``--mesh 1,T`` mesh too), its
-softmax combined over the blocks (``distribution.sharding.seq_axes``);
-a paged pool, and so a drafter, replicated over 'data'. With it, ``ShardedScheduler(mesh=)`` runs
+softmax combined over the blocks (``distribution.sharding.seq_axes``).
+A paged pool (and so a drafter) whose ``--kv-pages`` + 2 pages the
+reference's rule cuts over 'data' (``distribution.sharding.pool_axes``:
+DP divides them) with ``--slots`` that split: slots and pages split over
+'data', each data rank serving its slots from its own block of the pool
+(the pool's GiB a rank printed); else replicated over 'data', every data
+rank running the whole engine on the whole pool. With
+``--scheduler``, ``ShardedScheduler(mesh=)`` runs
 one scheduler rank per data index, each the engine of its TP group
 (``--ranks``, if given, must equal DP: the reference's
 ``check_ranks``). Model rank 0 of each group samples and broadcasts the
@@ -103,9 +109,11 @@ whose counts do not divide TP run whole on every model rank (the
 reference's replicated SDPA; ``distribution.sharding.heads_split``). A
 mesh that cannot place the arch (experts not divisible by DP where they
 split, an expert d_ff or SSM heads not divisible by TP) is refused with
-the reason; a
-drafter for MoE experts on a mesh and ``--path masked --int8-weights``
-for MoE experts are refused too.
+the reason;
+``--path masked --int8-weights`` for MoE experts is refused too. A
+drafter for MoE experts is built like the target's: each expert taken
+alone, pruned by the target's masks and then the drafter's, cut to the
+rank's experts and d_ff, masked-dense.
 """
 from __future__ import annotations
 
@@ -142,10 +150,6 @@ MASKED_INT8_ALL = (
     "repro/models/modules.py:36); use --scope ffn, or --path packed")
 
 
-MOE_DRAFT_MESH = (
-    "a drafter (--draft-sparsity) for MoE experts on a mesh is not served: "
-    "the layer-by-layer build keeps no whole expert stack to re-prune; "
-    "serve the drafter on one card, or the target alone on the mesh")
 MOE_INT8 = (
     "--path masked --int8-weights with MoE experts is not served: the "
     "expert products read only the dense 'w' (models/moe.py, as the "
@@ -529,8 +533,6 @@ def parse_mesh(args) -> Optional[Tuple[int, int]]:
             cfg, (dp, tp), scheduler=args.scheduler))
     except ValueError as e:
         raise SystemExit(f"--mesh {dp},{tp}: {e}")
-    if cfg.moe is not None and args.draft_sparsity is not None:
-        raise SystemExit(MOE_DRAFT_MESH)
     return dp, tp
 
 
@@ -893,7 +895,11 @@ def serve_rank(rank: int, spec: dict, init_file: str) -> dict:
         server = Engine(params, lcfg, mesh=mesh, telemetry=tel, draft=draft,
                         **spec["engine"])
         if lead and server.layout is not None:
-            print(f"engine: {server.B} slots {server.layout}", flush=True)
+            pool = "" if server.pool is None else (
+                f"; a pool of {server.pool.blocks} block(s), "
+                f"{server.pool.nbytes() / 2**30:.3f} GiB on world rank 0")
+            print(f"engine: {server.B} slots {server.layout}{pool}",
+                  flush=True)
     stop_rep = start_metrics_reporter(
         lambda: tel.registry.summary()["counters"],
         opts.get("metrics_interval", 0.0) if lead else 0.0)
@@ -1101,7 +1107,10 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
     is the deployed layer re-pruned at ``draft_sparsity`` and packed: its
     global selection reads the target's tile scores with the target's
     pruned tiles set to 0, which is what ``tile_l1`` gives on the pruned
-    weights ``draft_pack`` re-prunes. The device holds the rank's trees,
+    weights ``draft_pack`` re-prunes; its expert stacks, like the
+    target's, are taken one expert at a time, pruned by the target's
+    masks and then the drafter's, cut to the rank's experts and d_ff,
+    masked-dense, in the target's EP shards. The device holds the rank's trees,
     the table, and one layer's masters with their deployed copies.
     ``prepare(path, leaf)``, where given, changes each one-layer leaf (and
     each expert) as it is taken, before scoring and pruning. ``rank``
@@ -1129,8 +1138,6 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
         raise ValueError(MASKED_INT8_ALL)
     check_placement(cfg, tp, ep)
     moe = cfg.moe is not None
-    if moe and draft_sparsity is not None:
-        raise ValueError(MOE_DRAFT_MESH)
     if moe and path == "masked" and int8_weights and sparsity > 0:
         raise ValueError(MOE_INT8)
     tsasp = None                # the target's pruning, None: dense
@@ -1229,22 +1236,25 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
         del scored, scores
         t0 = clock("scoring", t0)
 
-        def rank_experts(q, i):
+        def rank_experts(q, i, draft=False):
             """The rank's experts of layer i of the stack at q: each taken
-            alone, pruned, cut to the rank's d_ff, stacked (1, E', …)."""
+            alone, pruned (by the target's masks, then the drafter's for
+            the drafter), cut to the rank's d_ff, stacked (1, E', …)."""
             parts = []
             for e in range(lo, hi):
                 w = expert(q, i, e)
-                if q in tmasks:
-                    apply_block_mask_(w, tmasks[q][i:i + 1, e:e + 1])
+                for masks in (tmasks, dmasks if draft else {}):
+                    if q in masks:
+                        apply_block_mask_(w, masks[q][i:i + 1, e:e + 1])
                 if rank is not None and tp > 1:
                     w = take_slice(w, spec_for_param(
                         q, tuple(w.shape), {"model": tp}, True), rank, tp)
                 parts.append(w)
             return torch.cat(parts, dim=1)
 
-        def with_experts(seg, si, i):
-            """A one-layer local segment with its experts written in."""
+        def with_experts(seg, si, i, draft=False):
+            """A one-layer local segment with its experts (the target's,
+            or the drafter's) written in."""
             seg = dict(seg)
             for j, spec in enumerate(plan[si][0]):
                 s = f"slot{j}"
@@ -1255,7 +1265,7 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                 for n in ("w1", "w2", "w3"):
                     if n in ffn:
                         ffn[n] = dict(ffn[n], w=rank_experts(
-                            ("segments", si, s, "ffn", n, "w"), i))
+                            ("segments", si, s, "ffn", n, "w"), i, draft))
                 slot["ffn"] = ffn
                 seg[s] = slot
             return seg
@@ -1304,16 +1314,20 @@ def build_rank_params(cfg, *, tp: int, rank: Optional[int], device,
                 if dstacks is not None:
                     dseg = map_leaves(
                         lambda q, t: apply_block_mask(t, dm[q][i:i + 1])
-                        if q in dm else t,
+                        if q in dm and not lm.expert_leaf(cfg, q) else t,
                         strip_packed(served)["segments"][0],
                         ("segments", 0))
                     dtree, dcfg = deploy_packed(
                         dict(top, segments=(dseg,)),
                         dataclasses.replace(tcfg, sasp=dsasp),
                         quantize=bool(draft_int8), tp=tp)
+                    dcfg = tp_config(dcfg, tp, ep)
                     del dseg
                     dlocal = local_params({"segments": dtree["segments"]},
-                                          dcfg, tp, rank)["segments"][0]
+                                          dcfg, tp, rank, ep,
+                                          data_rank)["segments"][0]
+                    if moe:
+                        dlocal = with_experts(dlocal, si, i, draft=True)
                     if cdt != torch.float32:
                         dlocal = cast_packed_values(dlocal, cdt)
                     del dtree

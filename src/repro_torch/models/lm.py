@@ -18,8 +18,9 @@ heads route themselves by their shards (``models.ffn``, ``models.moe``,
 ``models.ssm``), and a data rank runs its own rows. An expert-parallel
 mesh needs every data rank in every MoE call: ``moe_bystander`` walks a
 rank with no rows through the MoE layers' collectives alone, and
-``prefill_groups`` / ``decode_step_groups`` are the meshless twins that
-run every data rank's rows in one process, layer by layer in lock step.
+``prefill_groups`` / ``prefill_with_past_groups`` / ``decode_step_groups``
+are the meshless twins that run every data rank's rows in one process,
+layer by layer in lock step.
 Under the sequence-parallel layout (``cfg.seq_cache_len``) each ring is
 cut by its own capacity (``ring_capacity``, ``sharding.ring_cut``):
 ``init_caches`` sizes a rank's rings at its block, and prefill, the
@@ -467,15 +468,15 @@ def _apply_slot_decode(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
     return x, cache
 
 
-def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
-                             x: torch.Tensor, positions: torch.Tensor,
-                             cache: attn_mod.KVCache):
-    """One layer of the suffix prefill: attention reads the resident
-    prefix through ``cache``; the returned cache holds only the suffix.
-    Global layers take window = C, the ring capacity: sequential decode
-    never attends an entry C or more positions back, so masking those
-    (old-lap entries of a wrapped ring) keeps this pass step-equivalent
-    to decode, which the speculative verify relies on."""
+def _mixer_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                        x: torch.Tensor, positions: torch.Tensor,
+                        cache: attn_mod.KVCache):
+    """The first half of a layer of the suffix prefill: attention reads
+    the resident prefix through ``cache``; the returned cache holds only
+    the suffix. Global layers take window = C, the ring capacity:
+    sequential decode never attends an entry C or more positions back,
+    so masking those (old-lap entries of a wrapped ring) keeps this pass
+    step-equivalent to decode, which the speculative verify relies on."""
     cut = _ring_cut(cfg, spec)
     C = cache.k.shape[1] if cut is None else cut.capacity
     h = rmsnorm_apply(sp["norm1"], x, eps=cfg.norm_eps)
@@ -483,7 +484,16 @@ def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
         spec[1] == ATTN_LOCAL and cfg.sliding_window) else C
     y, new_cache = attn_mod.attn_apply_prefill_past(
         sp["mixer"], cfg, h, positions, cache, window, cut)
-    x, _ = _ffn(sp, spec, cfg, x + y)
+    return x + y, new_cache
+
+
+def _apply_slot_prefill_past(sp: Dict, spec: LayerSpec, cfg: ModelConfig,
+                             x: torch.Tensor, positions: torch.Tensor,
+                             cache: attn_mod.KVCache):
+    """One layer of the suffix prefill (``_mixer_prefill_past``, then the
+    FFN)."""
+    x, new_cache = _mixer_prefill_past(sp, spec, cfg, x, positions, cache)
+    x, _ = _ffn(sp, spec, cfg, x)
     return x, new_cache
 
 
@@ -877,13 +887,13 @@ def _walk_groups(params, cfg: ModelConfig, xs: List, mixer):
 
 
 def prefill_groups(params, cfg: ModelConfig, tokens: List, positions: List,
-                   cache_len: int):
+                   cache_len: int, uniform_cache: bool = False):
     """The meshless twin of a prefill on an expert-parallel mesh whose
     data ranks hold the row groups ``tokens`` (each (b_g, S), b_g may be
     0; ``positions`` each (b_g, S) or None): every layer's mixer group
     by group, each MoE layer over every group at once, at the mesh's
     shapes. Returns each group's (last-token logits, caches), None for
-    an empty group."""
+    an empty group. ``uniform_cache``: as ``prefill``'s."""
     xs = [_embed_in(params, cfg, t) for t in tokens]
     S = tokens[0].shape[1]
     poss = [torch.arange(S, dtype=torch.int32, device=x.device)
@@ -892,11 +902,42 @@ def prefill_groups(params, cfg: ModelConfig, tokens: List, positions: List,
     got: List[Dict] = [{} for _ in xs]
 
     def mixer(sp, spec, g, x, si, name, r):
-        x, c = _mixer_full(sp, spec, cfg, x, poss[g], True, cache_len)
+        x, c = _mixer_full(sp, spec, cfg, x, poss[g], True, cache_len,
+                           uniform_cache)
         got[g].setdefault((si, name), []).append(c)
         return x
 
     xs = _walk_groups(params, cfg, xs, mixer)
+    return _group_outputs(params, cfg, xs, got, False)
+
+
+def prefill_with_past_groups(params, cfg: ModelConfig, tokens: List,
+                             positions: List, pasts: List,
+                             all_logits: bool = False):
+    """``prefill_with_past`` of each row group (``tokens`` / ``positions``
+    each (b_g, S), b_g may be 0; ``pasts`` each group's ring caches) in
+    lock step, as ``prefill_groups``: the meshless twin of a suffix
+    prefill, or a speculative verify, on a mesh whose data ranks hold
+    the groups. Returns each group's (logits, suffix caches), None for
+    an empty group."""
+    xs = [_embed_in(params, cfg, t) for t in tokens]
+    got: List[Dict] = [{} for _ in xs]
+
+    def mixer(sp, spec, g, x, si, name, r):
+        x, c = _mixer_prefill_past(sp, spec, cfg, x,
+                                   positions[g].to(torch.int32),
+                                   _layer_cache(pasts[g][si][name], r))
+        got[g].setdefault((si, name), []).append(c)
+        return x
+
+    xs = _walk_groups(params, cfg, xs, mixer)
+    return _group_outputs(params, cfg, xs, got, all_logits)
+
+
+def _group_outputs(params, cfg: ModelConfig, xs: List, got: List,
+                   all_logits: bool):
+    """Each group's (logits, stacked caches), None for an empty group:
+    the last position's logits, or every position's."""
     out = []
     for g, x in enumerate(xs):
         if not x.shape[0]:
@@ -905,7 +946,8 @@ def prefill_groups(params, cfg: ModelConfig, tokens: List, positions: List,
         caches = tuple({f"slot{s}": _stack_caches(got[g][(si, f"slot{s}")])
                         for s in range(len(pattern))}
                        for si, (pattern, _) in enumerate(segment_plan(cfg)))
-        logits = softcap(logits_fn(params, cfg, x[:, -1:]),
+        logits = softcap(logits_fn(params, cfg,
+                                   x if all_logits else x[:, -1:]),
                          cfg.logit_softcap)
         out.append((logits, caches))
     return out

@@ -57,13 +57,35 @@ the (B,) sampled ids and done flags come back to the host.
   0's), broadcast, so every rank accepts the same drafts.
 * **Data parallelism** — a mesh with a 'data' axis of DP > 1: every
   process keeps the whole engine's host state (queue, slots, positions,
-  pages, stats) and takes one of three layouts (``layout``). "slots
+  pages, stats) and takes one of four layouts (``layout``). "slots
   split over data" (contiguous caches, ``batch_slots % DP == 0``): data
   rank d holds and computes only slots ``[d B/DP, (d+1) B/DP)``; each
   data rank draws the whole batch's sampling noise, samples its own rows
   (model rank 0, broadcast in its group), and the rows are all-gathered
   over 'data'; a kept-KV snapshot lives with its slot's data rank and is
   broadcast from it if the request resumes in another's slot.
+  "slots and pages split over data" (``PAGED_LAYOUT``: a page pool whose
+  P = kv_pages + 2 pages the reference's rule cuts over 'data',
+  ``sharding.pool_axes``, and ``batch_slots % DP == 0``): the slots
+  split as above, and data rank d holds only the pages of block d
+  (``serve.memory.PagedKVPool``: P / DP pages, two local reserved pages
+  more where d > 0). Every process keeps one allocator a block; a slot's
+  pages (its own, its drafts' scratch pages, pages faulted back from the
+  host) come from its data rank's block, so a decode step moves no KV
+  over 'data', only the sampled rows. Each data rank drafts and verifies
+  its own rows, and one all-gather a round gives every process every
+  row's drafts and predictions, so the allocators decide alike. A
+  kept-KV request that resumes in another data rank's slot has its pages
+  moved once (a broadcast over 'data' from the block that held them);
+  prefix sharing maps only the slot's block's pages (what another block
+  held is prefilled again, and counted). A free slot whose block has no
+  room for an admission is passed over for one of another block that
+  has. Where the rule does not cut P, or the batch does not split, or a
+  block's watermark cap (block 0: P / DP - 2 usable pages, times the
+  watermark) is under one slot's ring (``kvmem.block_caps``), a paged
+  engine takes "replicated over data" below: the reference places its
+  pool by the rule alone and allocates from the whole of it, so the port
+  differs from it in the last two cases.
   "sequence split over data" (contiguous caches whose batch does not
   split: ``batch_slots % DP != 0``, or one slot; on a DP = 1 mesh too
   where every model rank runs every head): the reference's long-context
@@ -75,17 +97,20 @@ the (B,) sampled ids and done flags come back to the host.
   only the entries that fall in it and combines attention's softmax
   over the blocks (``models.attention``); SSM states stay whole over
   'data'; a kept-KV snapshot is the rank's block. "replicated over data"
-  (a paged pool): every data rank runs the whole engine on the whole
-  pool and data rank 0's tokens are broadcast (the reference cuts the
-  page axis there, which the port does not). Experts in EP over 'data'
-  (``cfg.ep_shards`` = DP) serve every layout: a split engine's data
-  rank with no rows in an admission still enters every MoE layer's
-  collectives (``lm.moe_bystander``); the other two layouts declare
-  replicated rows and run ``moe_ep.moe_ffn_replicated`` (each data rank
-  its own experts' slots, no host read). ``data_shards`` with no mesh
-  is the meshless twin of a split engine: every data rank's rows in one
-  process, layer by layer in lock step (``lm.prefill_groups``,
-  ``lm.decode_step_groups``), bit for bit the mesh's processes; with
+  (a paged pool the rule does not cut, whose batch does not split, or
+  whose blocks could not hold a slot's ring):
+  every data rank runs the whole engine on the whole pool and data rank
+  0's tokens are broadcast. Experts in EP over 'data' (``cfg.ep_shards``
+  = DP) serve every layout: a split engine's data rank with no rows in
+  an admission still enters every MoE layer's collectives
+  (``lm.moe_bystander``); the other two layouts declare replicated rows
+  and run ``moe_ep.moe_ffn_replicated`` (each data rank its own experts'
+  slots, no host read). ``data_shards`` with no mesh is the meshless
+  twin of a split engine (with a page pool, of one whose pool is cut:
+  every block in one process): every data rank's rows in one process,
+  layer by layer in lock step (``lm.prefill_groups``,
+  ``lm.prefill_with_past_groups``, ``lm.decode_step_groups``), bit for
+  bit the mesh's processes; with
   ``seq_split`` it is the twin of a sequence-parallel engine of
   ``data_shards`` x ``cfg.tp_shards`` ranks: whole rings, every block
   run in turn and combined in block order.
@@ -122,6 +147,9 @@ ADMISSION_MODES = ("continuous", "drain")
 # the layout of a contiguous engine whose batch does not split over
 # 'data' (``Engine.layout``)
 SEQ_LAYOUT = "sequence split over data"
+# the layout of a paged engine whose page pool the reference's rule cuts
+# over 'data' and whose slots split there too (``Engine.layout``)
+PAGED_LAYOUT = "slots and pages split over data"
 SLO_CLASSES = ("interactive", "batch")
 # request lifecycle states surfaced on Request.status
 STATUSES = ("new", "queued", "running", "done", "failed", "rejected")
@@ -302,6 +330,16 @@ class Engine:
         self._groups: Optional[int] = None
         groups = data_shards if mesh is None else dp
         rings = any(m == MIXER_ATTN for m in cfg.layer_mixer_kinds())
+        # a page pool whose page axis the reference's rule cuts over the
+        # data ranks (``sharding.pool_axes``), served where the slots
+        # split over them too and every block's watermark cap holds one
+        # slot's ring (block 0 has two usable pages fewer)
+        self._cut = bool(kv_pages) and groups > 1 \
+            and batch_slots % groups == 0 and sharding.pool_blocks(
+                {"data": groups}, kv_pages + kvmem.RESERVED_PAGES) > 1 \
+            and min(kvmem.block_caps(kv_pages, groups, kv_watermark)) \
+            >= cache_len // kvmem.tile_aligned_page_len(cfg, cache_len,
+                                                        kv_page_len)
         if mesh is None and seq_split:
             seq = sharding.seq_config(
                 cfg, {"data": groups, "model": cfg.tp_shards}, batch_slots,
@@ -316,8 +354,10 @@ class Engine:
             cfg = self.cfg = seq
             self.layout = SEQ_LAYOUT + " (meshless)"
         elif mesh is not None:
-            if dp > 1 and not kv_pages and batch_slots % dp == 0:
-                self.layout = "slots split over data"
+            if dp > 1 and batch_slots % dp == 0 and (not kv_pages
+                                                      or self._cut):
+                self.layout = (PAGED_LAYOUT if kv_pages
+                               else "slots split over data")
                 self._per = batch_slots // dp
                 self._lo = mesh.data_rank * self._per
             elif not kv_pages and rings and (seq := sharding.seq_config(
@@ -326,12 +366,15 @@ class Engine:
                 self.layout = SEQ_LAYOUT
             elif dp > 1:
                 self.layout = "replicated over data"
-        elif groups > 1 and (kv_pages or batch_slots % groups):
+        elif groups > 1 and (batch_slots % groups
+                             or (kv_pages and not self._cut)):
             raise ValueError(
                 f"data_shards={groups}: the meshless twin of an engine "
-                f"whose contiguous slots split over {groups} data ranks "
-                f"(batch_slots % {groups} == 0, no page pool), or with "
-                f"seq_split of one whose batch does not split")
+                f"whose slots split over {groups} data ranks (batch_slots "
+                f"% {groups} == 0; with a page pool, kv_pages + "
+                f"{kvmem.RESERVED_PAGES} divisible by {groups} and every "
+                f"block's watermark cap at least one slot's ring), or "
+                f"with seq_split of one whose batch does not split")
         if ep > 1 and ep != groups:
             raise ValueError(
                 f"experts in {ep} EP shards serve one engine over {ep} "
@@ -339,7 +382,8 @@ class Engine:
                 f"for the meshless twin); build the experts whole on "
                 f"every data rank otherwise")
         if mesh is None and groups > 1 and self.layout is None:
-            self.layout = "slots split over data (meshless)"
+            self.layout = (PAGED_LAYOUT if kv_pages else
+                           "slots split over data") + " (meshless)"
             self._groups, self._per, self._lo = (groups,
                                                  batch_slots // groups, 0)
         # experts cut over 'data' on rows every data rank holds alike
@@ -373,7 +417,11 @@ class Engine:
                 params, cfg, cache_len=cache_len, device_pages=kv_pages,
                 page_len=kv_page_len, watermark=kv_watermark,
                 host_pages=kv_host_pages, share=kv_share,
-                device=self.device, telemetry=self.telemetry)
+                device=self.device, telemetry=self.telemetry,
+                blocks=groups if self._cut else 1,
+                block=(mesh.data_rank if self._cut and mesh is not None
+                       else None),
+                mesh=mesh if self._cut else None)
             self.caches = None
         else:
             self.caches = lm.init_caches(
@@ -499,11 +547,60 @@ class Engine:
 
     def _agree(self, toks: torch.Tensor) -> torch.Tensor:
         """Greedy tokens every rank computed from the same all-gathered
-        logits, taken from model rank 0 (and data rank 0) on a mesh, so
-        that every rank's host state moves on the same tokens."""
+        logits, taken from model rank 0 (and data rank 0, unless each
+        data rank computed rows of its own) on a mesh, so that every
+        rank's host state moves on the same tokens."""
         if self.mesh is None:
             return toks
-        return self.mesh.data_broadcast(self.mesh.broadcast(toks))
+        toks = self.mesh.broadcast(toks)
+        return toks if self._per is not None else \
+            self.mesh.data_broadcast(toks)
+
+    def _to_batch(self, rows: torch.Tensor) -> torch.Tensor:
+        """A mesh rank's own rows of a cut pool's pass in their slots of
+        the whole batch (0 elsewhere); the rows as they are otherwise."""
+        if not self._cut or self._groups:
+            return rows
+        out = rows.new_zeros((self.B,) + tuple(rows.shape[1:]))
+        out[self._lo:self._lo + self._per] = rows
+        return out
+
+    def _share_round(self, drafts: np.ndarray, pred: np.ndarray):
+        """A speculative round's drafts (k, B) and the target's
+        predictions (B, k+1) of every row in every process: on a mesh
+        rank of a cut pool each data rank has its own rows, shared by one
+        all-gather over 'data'."""
+        if not self._cut or self._groups:
+            return drafts, pred
+        k, rows = len(drafts), slice(self._lo, self._lo + self._per)
+        mine = np.concatenate([drafts[:, rows].T, pred[rows]], axis=1)
+        both = self.mesh.data_all_gather(self._t(mine)).cpu().numpy()
+        both = both.reshape(self.B, 2 * k + 1)
+        return np.ascontiguousarray(both[:, :k].T), both[:, k:]
+
+    def _block(self, slot: int) -> int:
+        """The page block of ``slot``: its data rank's where the pool is
+        cut, else 0."""
+        return slot // self._per if self._cut else 0
+
+    def _row_groups(self, slots: Sequence[int]
+                    ) -> List[Tuple[int, List[int]]]:
+        """The page blocks this process computes rows of, each with its
+        rows (indices into ``slots``): where the pool is cut, every data
+        rank's (the twin) or this data rank's (a mesh rank); else block 0
+        with every row."""
+        if not self._cut:
+            return [(0, list(range(len(slots))))]
+        gs = range(self._groups) if self._groups else (self.mesh.data_rank,)
+        return [(g, self._own_rows(slots, g)) for g in gs]
+
+    def _bystander(self, S: int):
+        """A mesh rank with no rows in a prefill still enters the MoE
+        layers' collectives where experts split over 'data' (its experts
+        serve the other data ranks' tokens)."""
+        if self.cfg.moe is not None and self.cfg.ep_shards > 1:
+            lm.moe_bystander(self.params, self.cfg, S, self.device,
+                             as_dtype(self.cfg.compute_dtype))
 
     def _own_rows(self, slots: Sequence[int], g: Optional[int] = None
                   ) -> Optional[List[int]]:
@@ -534,59 +631,133 @@ class Engine:
                                              self.caches)
         return logits[:, 0]
 
-    def _paged_decode_step(self, params, cfg, toks, pos, bt):
-        """The paged twin: gather each slot's pages (block table ``bt``)
-        into the contiguous ring layout, run the same decode, write back
-        the one page each slot touched. (B, V) logits."""
-        caches = kvmem.gather_block_tables(self.pool.data, bt)
-        logits, caches = lm.decode_step(params, cfg, toks, pos, caches)
-        kvmem.scatter_written_pages(self.pool.data, caches, bt, pos,
-                                    self.pool.NB, self.pool.page_len)
+    def _block_tables(self, bt: np.ndarray
+                      ) -> List[Tuple[int, slice, torch.Tensor]]:
+        """A decode block table (B, NB) of global page ids as the device
+        tables this process gathers with: (block, its rows, the rows'
+        ids into the block's tensors), one a block it computes rows of;
+        a whole pool's table goes to the device as it is."""
+        if self.pool.blocks == 1:
+            return [(0, slice(0, self.B), self._t(bt))]
+        out = []
+        for g, rows in self._row_groups(range(self.B)):
+            r = slice(rows[0], rows[-1] + 1)
+            out.append((g, r, self._t(self.pool.local(bt[r], g))))
+        return out
+
+    def _paged_decode_step(self, params, cfg, toks, pos, bt, tabs=None):
+        """The paged twin of ``_decode_step``: gather each slot's pages
+        (block table ``bt``: (B, NB) global page ids, numpy; ``tabs``
+        its ``_block_tables`` where the caller made them already) into
+        the contiguous ring layout, run the same decode, write back the
+        one page each slot touched. (B, V) logits. Where the pool is
+        cut, each data rank's rows read and write its own block: a mesh
+        rank computes its own rows only ((B / DP, V) logits), the twin
+        every rank's in lock step (``lm.decode_step_groups``)."""
+        pool = self.pool
+        if tabs is None:
+            tabs = self._block_tables(bt)
+        groups = [g for g, _, _ in tabs]
+        spans = [r for _, r, _ in tabs]
+        tabs = [t for _, _, t in tabs]
+        caches = [kvmem.gather_block_tables(pool.block_data(g), t)
+                  for g, t in zip(groups, tabs)]
+        if self._groups:
+            whole = kvmem.cat_rows(caches)
+            logits = lm.decode_step_groups(params, cfg, toks, pos, whole,
+                                           self._groups)
+            caches = [kvmem.rows_of(whole, r.start, r.stop) for r in spans]
+        else:
+            logits, caches[0] = lm.decode_step(params, cfg, toks[spans[0]],
+                                               pos[spans[0]], caches[0])
+        for g, r, t, c in zip(groups, spans, tabs, caches):
+            kvmem.scatter_written_pages(pool.block_data(g), c, t, pos[r],
+                                        pool.NB, pool.page_len)
         return logits[:, 0]
 
-    def _draft_decode(self, toks, pos, bt) -> torch.Tensor:
-        """One drafter step (greedy, the generator untouched) -> (B,)."""
+    def _draft_decode(self, toks, pos, tabs) -> torch.Tensor:
+        """One drafter step (greedy, the generator untouched) against the
+        round's ``_block_tables`` -> (B,); a mesh rank of a cut pool
+        drafts its own rows (0 elsewhere)."""
         dparams, dcfg = self._draft
-        logits = self._paged_decode_step(dparams, dcfg, toks, pos, bt)
-        return self._agree(torch.argmax(logits.to(torch.float32), dim=-1)
-                           .to(torch.int32))
+        logits = self._paged_decode_step(dparams, dcfg, toks, pos, None,
+                                         tabs)
+        return self._to_batch(self._agree(
+            torch.argmax(logits.to(torch.float32), dim=-1)
+            .to(torch.int32)))
 
     def _paged_spec_verify(self, toks, poss, past_bt, dests
                            ) -> torch.Tensor:
         """One target pass over [x0, d1..dk] at positions P..P+k against
         each slot's real pages: the target's greedy token after every
-        position (B, k+1). Its fresh K/V merges into the round's scratch
+        position (B, k+1); a mesh rank of a cut pool verifies its own
+        rows (0 elsewhere). Its fresh K/V merges into the round's scratch
         pages (``dests``), only where the suffix holds an entry."""
-        past = kvmem.gather_block_tables(self.pool.data, past_bt)
-        logits, caches1 = lm.prefill_with_past(self.params, self.cfg, toks,
-                                               poss, past, all_logits=True)
-        pred = self._agree(torch.argmax(logits.to(torch.float32), dim=-1)
-                           .to(torch.int32))
-        kvmem.masked_scatter_pages(self.pool.data, caches1, dests)
-        return pred
+        logits = self._paged_rows(range(self.B), toks, poss, past_bt, dests,
+                                  "verify")
+        return self._to_batch(self._agree(
+            torch.argmax(logits.to(torch.float32), dim=-1)
+            .to(torch.int32)))
 
-    def _paged_prefill_write(self, toks, poss, dests):
-        """Paged admission: prompt prefill, then the new cache pages
-        scattered into the pool at ``dests`` (G, NB); the trash page
-        takes unallocated logical pages and group padding. Returns the
-        last-token logits (G, V)."""
-        logits, caches1 = lm.prefill(self.params, self.cfg, toks,
-                                     cache_len=self.cache_len,
-                                     positions=poss, uniform_cache=True)
-        kvmem.scatter_prefill_pages(self.pool.data, caches1, dests)
-        return logits[:, 0]
-
-    def _paged_prefill_past_write(self, toks, poss, past_bt, dests):
-        """Suffix-only admission (prefix sharing): gather each row's
-        matched prefix pages as its past ring (the rest reads the zero
-        page), prefill only the suffix against it, scatter the fresh
-        suffix pages (``dests`` routes the shared pages to trash, so a
-        page with refcount > 1 is never written)."""
-        past = kvmem.gather_block_tables(self.pool.data, past_bt)
-        logits, caches1 = lm.prefill_with_past(self.params, self.cfg, toks,
-                                               poss, past)
-        kvmem.scatter_prefill_pages(self.pool.data, caches1, dests)
-        return logits[:, 0]
+    def _paged_rows(self, slots, toks, poss, past, dests, kind):
+        """One paged pass of the target over rows (row i that of slot
+        ``slots[i]``): ``kind`` "prefill" (the prompts; the new pages
+        scattered at ``dests``, the trash page taking unallocated logical
+        pages and padding), "past" (prefix sharing: each row's suffix
+        against its matched prefix pages ``past``, the rest reading the
+        zero page; fresh pages at ``dests``, which route shared pages to
+        trash) or "verify" (every position's logits against ``past``;
+        the suffix's entries merged into the scratch pages ``dests``).
+        ``past`` / ``dests``: (rows, NB) global page ids, numpy.
+        Where the pool is cut each data rank's rows go against its block:
+        the twin runs every rank's in lock step (``lm.prefill_groups``,
+        ``lm.prefill_with_past_groups``), a mesh rank its own (a
+        bystander in the MoE layers where it has none). Returns the
+        logits of the rows computed here in the call's order: every row,
+        or a mesh rank's own (None where it has none)."""
+        pool, params, cfg = self.pool, self.params, self.cfg
+        parts = []
+        for g, rows in self._row_groups(slots):
+            sel = self._t(rows, torch.int64)
+            pst = None if past is None else kvmem.gather_block_tables(
+                pool.block_data(g), self._t(pool.local(past[rows], g)))
+            parts.append((g, sel, toks[sel],
+                          None if poss is None else poss[sel], pst,
+                          self._t(pool.local(dests[rows], g))))
+        if self._groups:
+            if kind == "prefill":
+                outs = lm.prefill_groups(params, cfg, [p[2] for p in parts],
+                                         [p[3] for p in parts],
+                                         self.cache_len, uniform_cache=True)
+            else:
+                outs = lm.prefill_with_past_groups(
+                    params, cfg, [p[2] for p in parts], [p[3] for p in parts],
+                    [p[4] for p in parts], all_logits=kind == "verify")
+        elif not len(parts[0][1]):
+            self._bystander(toks.shape[1])
+            return None
+        elif kind == "prefill":
+            outs = [lm.prefill(params, cfg, parts[0][2],
+                               cache_len=self.cache_len,
+                               positions=parts[0][3], uniform_cache=True)]
+        else:
+            outs = [lm.prefill_with_past(params, cfg, parts[0][2],
+                                         parts[0][3], parts[0][4],
+                                         all_logits=kind == "verify")]
+        scatter = (kvmem.masked_scatter_pages if kind == "verify"
+                   else kvmem.scatter_prefill_pages)
+        logits = None
+        for (g, sel, *_, dst), out in zip(parts, outs):
+            if out is None:
+                continue
+            lg, caches1 = out
+            scatter(pool.block_data(g), caches1, dst)
+            if not self._groups:
+                return lg
+            if logits is None:
+                logits = lg.new_zeros((len(slots),) + tuple(lg.shape[1:]))
+            logits[sel] = lg
+        return logits
 
     def _prefill_and_write(self, toks, poss, all_slots, valid):
         """Contiguous admission: prompt prefill, then the new cache rows
@@ -599,11 +770,7 @@ class Engine:
         rows = self._own_rows(all_slots)
         if rows is not None:
             if not rows:
-                if self.cfg.moe is not None and self.cfg.ep_shards > 1:
-                    # its experts serve the other data ranks' tokens
-                    lm.moe_bystander(self.params, self.cfg, toks.shape[1],
-                                     self.device,
-                                     as_dtype(self.cfg.compute_dtype))
+                self._bystander(toks.shape[1])
                 return None
             sel = self._t(rows, torch.int64)
             toks = toks[sel]
@@ -667,9 +834,11 @@ class Engine:
         if self.pool is None:
             out = self._prefill_and_write(toks, poss, all_slots, valid)
         else:
-            out = self._paged_prefill_write(
-                toks, poss, self._t(self.pool.dest_table(
-                    [r.rid for r in reqs], rows)))
+            out = self._paged_rows(all_slots, toks, poss, None,
+                                   self.pool.dest_table(
+                                       [r.rid for r in reqs], rows),
+                                   "prefill")
+            out = None if out is None else out[:, 0]
         self._trace.complete("prefill", t0, tid=self.rank,
                              rids=[r.rid for r in reqs], rows=int(rows),
                              S=int(S))
@@ -856,24 +1025,44 @@ class Engine:
         return tuple(a[j * L:(j + 1) * L].tobytes()
                      for j in range(len(seq) // L))
 
-    def _paged_reserve(self, req: Request) -> Tuple[bool, str]:
-        """Acquire an admission's pages: (ok, 'resume') re-attached a
-        preempted request's live pages, (ok, 'prefill') allocated pages
-        to prefill. Sharing maps matched prefix pages instead, leaving at
-        least one token to prefill (the first sampled token comes from
-        the suffix's last logits). Not ok: the pool is exhausted."""
+    def _paged_reserve(self, req: Request, slot: int) -> Tuple[bool, str]:
+        """Acquire an admission's pages, in ``slot``'s block: (ok,
+        'resume') re-attached a preempted request's live pages (moved
+        from another block where the pool is cut and it held them
+        there), (ok, 'prefill') allocated pages to prefill. Sharing maps
+        matched prefix pages instead, leaving at least one token to
+        prefill (the first sampled token comes from the suffix's last
+        logits). Not ok: the block is exhausted."""
+        block = self._block(slot)
         if req._resume_pos is not None and self.pool.has_pages(req.rid):
-            return self.pool.resume(req.rid), "resume"
+            return self.pool.resume(req.rid, block), "resume"
         seq = self._prefill_tokens(req)
         n = self.pool.pages_for(len(seq))
         keys = self._page_keys(seq)
         if keys:
             keys = keys[:(len(seq) - 1) // self.pool.page_len]
         ok, m = self.pool.admit_prefix(
-            req.rid, n, keys, min_pages=self.kv_share_min_pages)
+            req.rid, n, keys, min_pages=self.kv_share_min_pages, block=block)
         if ok and m:
             self._shared_tokens[req.rid] = m * self.pool.page_len
         return ok, "prefill"
+
+    def _paged_place(self, req: Request, free: Sequence[int]
+                     ) -> Tuple[Optional[int], Optional[str]]:
+        """The first of the ``free`` slots whose page block takes
+        ``req``, and how (``_paged_reserve``'s mode); each block is
+        asked once. (None, None): no block has room. A whole pool has one
+        block: the first free slot or none."""
+        asked = set()
+        for slot in free:
+            block = self._block(slot)
+            if block in asked:
+                continue
+            asked.add(block)
+            ok, mode = self._paged_reserve(req, slot)
+            if ok:
+                return slot, mode
+        return None, None
 
     def _prefill_tokens(self, req: Request) -> np.ndarray:
         """The prompt, or for a re-prefill resume the prompt and every
@@ -982,6 +1171,9 @@ class Engine:
         if self.buckets:
             S = self._bucket_len(S)
             nrows = self.B
+        # pad rows take the free slots' places
+        all_slots = list(slots) + [i for i in range(self.B)
+                                   if i not in slots][:nrows - G]
         toks = np.zeros((nrows, S), np.int32)
         poss = np.full((nrows, S), -1, np.int32)
         for g, suf in enumerate(sufs):
@@ -991,18 +1183,19 @@ class Engine:
         rids = [r.rid for r in reqs]
         skip_pages = [m // L for m in skips]
         t0 = self._trace.t0()
-        logits = self._paged_prefill_past_write(
-            self._t(toks), self._t(poss),
-            self._t(self.pool.prefix_table(rids, skip_pages, nrows)),
-            self._t(self.pool.dest_table(rids, nrows,
-                                         skip_pages=skip_pages)))
+        logits = self._paged_rows(
+            all_slots, self._t(toks), self._t(poss),
+            self.pool.prefix_table(rids, skip_pages, nrows),
+            self.pool.dest_table(rids, nrows, skip_pages=skip_pages),
+            "past")
+        logits = None if logits is None else logits[:, 0]
         self._trace.complete("prefill", t0, tid=self.rank, rids=rids,
                              rows=int(nrows), S=int(S), shared=True)
         self._register_prompt(reqs, seqs)
         temps = np.zeros((nrows,), np.float32)
         for g, r in enumerate(reqs):
             temps[g] = r.temperature
-        nxts = self._sample_host(logits, temps)[:G]
+        nxts = self._sample_host(logits, temps, all_slots)[:G]
         for slot, req, nxt, seq in zip(slots, reqs, nxts, seqs):
             self._started(slot, req, nxt, len(seq))
 
@@ -1027,22 +1220,25 @@ class Engine:
         if not take:
             return
         popped = [self.queue.pop(0) for _ in range(take)]
-        slots = free[:take]
+        open_slots = list(free)
         try:
             # snapshot / page resumes restore directly; paged admissions
-            # take their pages first and defer (back to the queue, in
-            # order) once the pool is exhausted
+            # take their pages first, in the first free slot whose block
+            # has room, and defer (back to the queue, in order) once no
+            # block has
             pending = []
-            for k, (slot, req) in enumerate(zip(slots, popped)):
+            for k, req in enumerate(popped):
+                slot, mode = open_slots[0], None
                 if self.pool is not None:
-                    ok, mode = self._paged_reserve(req)
-                    if not ok:
+                    slot, mode = self._paged_place(req, open_slots)
+                    if slot is None:
                         self.queue[:0] = popped[k:]
                         popped = popped[:k]
                         break
-                    if mode == "resume":
-                        self._attach_paged_resume(slot, req)
-                        continue
+                open_slots.remove(slot)
+                if mode == "resume":
+                    self._attach_paged_resume(slot, req)
+                    continue
                 if req._resume_pos is not None and req._kv is not None:
                     self._restore_slot(slot, req)
                 else:
@@ -1156,9 +1352,9 @@ class Engine:
                 logits = self._decode_step(self.params, self.cfg, toks, pos)
             else:
                 # speculating slots read and write the trash page here
-                bt = self._t(self.pool.block_table(
+                bt = self.pool.block_table(
                     [r.rid if (r is not None and i in active) else None
-                     for i, r in enumerate(self.slot_req)]))
+                     for i, r in enumerate(self.slot_req)])
                 logits = self._paged_decode_step(self.params, self.cfg,
                                                  toks, pos, bt)
             act_t = self._t(act, torch.bool)
@@ -1258,17 +1454,17 @@ class Engine:
             for i, req, got in specs:
                 for j, s in got.items():
                     dbt[i, j] = s
-            dbt_t = self._t(dbt)
             cur = np.zeros((B, 1), np.int32)
             act = np.zeros((B,), bool)
             for i, req, _ in specs:
                 cur[i, 0] = req.out_tokens[-1]
                 act[i] = True
+            dtabs = self._block_tables(dbt)     # once for the k steps
             pos_d = self.pos.astype(np.int32).copy()
             drafts = np.zeros((k, B), np.int32)
             for t in range(k):
                 nxt = self._draft_decode(self._t(cur), self._t(pos_d),
-                                         dbt_t)
+                                         dtabs)
                 drafts[t] = np.where(act, nxt.cpu().numpy(), 0)
                 cur = drafts[t].reshape(B, 1)
                 pos_d += 1
@@ -1281,15 +1477,16 @@ class Engine:
                 toks[i, 0] = req.out_tokens[-1]
                 toks[i, 1:] = drafts[:, i]
                 poss[i] = np.arange(P, P + k + 1)
-                for j, p in enumerate(self.pool.alloc.dev_pages(req.rid)):
+                for j, p in enumerate(self.pool.dev_pages(req.rid)):
                     if p is not None:
                         verify_bt[i, j] = p
                 for j, s in got.items():
                     dests[i, j] = s
             pred = self._paged_spec_verify(
-                self._t(toks), self._t(poss), self._t(verify_bt),
-                self._t(dests))
-            pred = pred.cpu().numpy()               # (B, k+1)
+                self._t(toks), self._t(poss), verify_bt, dests)
+            # (B, k+1); every row's in every process
+            drafts, pred = self._share_round(drafts,
+                                             pred.cpu().numpy())
             for i, req, got in specs:
                 P = int(self.pos[i])
                 a = 0
@@ -1334,7 +1531,7 @@ class Engine:
                         if not self.pool.ensure_writable(req.rid, j):
                             ok = False
                             break
-                        dst = self.pool.alloc.dev_pages(req.rid)[j]
+                        dst = self.pool.dev_pages(req.rid)[j]
                         self.pool.merge_scratch_slots(got[j], dst, P, hi)
                 self.pool.discard_scratch(req.rid)
                 if not ok:

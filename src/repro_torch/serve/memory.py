@@ -17,7 +17,10 @@ never read by a live slot).
 
 On a mesh the pool is built on a rank's local config, so its pages hold
 that rank's KV heads; every allocator decision is host-side and reads no
-device value, so it is the same on every rank.
+device value, so it is the same on every rank. Where the reference's
+rule cuts the page axis over 'data' (``distribution.sharding.
+pool_axes``) the pool falls into one block a data rank, each with an
+allocator of its own (:class:`PagedKVPool`, ``blocks``).
 
 Policy. Pages are allocated at admission (the prompt's pages) and one at
 a time as decode crosses a page boundary, and freed at EOS. A
@@ -92,6 +95,23 @@ def tile_aligned_page_len(cfg: ModelConfig, cache_len: int,
     return page_len
 
 
+def block_ids(device_pages: int, blocks: int, b: int) -> range:
+    """The usable global page ids of block ``b`` of a pool of
+    ``device_pages`` + 2 pages cut into ``blocks``: block 0 gives up the
+    zero and the trash page."""
+    Pb = (int(device_pages) + RESERVED_PAGES) // blocks
+    return range(max(b * Pb, RESERVED_PAGES), (b + 1) * Pb)
+
+
+def block_caps(device_pages: int, blocks: int,
+               watermark: float = 1.0) -> List[int]:
+    """Each block's watermark cap in pages (its usable pages times the
+    watermark, at least 1): a block whose cap is under one slot's ring
+    could never hold a slot's pages (``PageAllocator`` refuses it)."""
+    return [max(1, int(math.floor(len(block_ids(device_pages, blocks, b))
+                                  * watermark))) for b in range(blocks)]
+
+
 @dataclass
 class MemoryStats:
     """Per-pool accounting, surfaced through ``Engine.stats['memory']``."""
@@ -114,6 +134,10 @@ class MemoryStats:
     # speculative decoding (DESIGN.md §17) / cross-request dedup
     scratch_pages: int = 0   # pages held by in-flight draft rounds
     dedup_merges: int = 0    # resident duplicate pages re-linked
+    # a pool cut over 'data' (PagedKVPool, blocks > 1)
+    blocks: int = 1          # blocks of the page pool, one a data rank
+    prefix_pages_elsewhere: int = 0  # prefix pages only another block held
+    moved_pages: int = 0     # pages moved to another block on resume
 
     @property
     def device_free(self) -> int:
@@ -565,6 +589,27 @@ class PageAllocator:
         if rid in self.resident:
             self.preempt(rid)
 
+    def adopt(self, rid: int, js: Sequence[int]
+              ) -> Tuple[bool, List[_Move], Dict[int, int]]:
+        """Fresh private pages at logical pages ``js`` for a request
+        moving in from another block of a cut pool (its kept KV is
+        copied onto them), resident at once. Returns (ok, moves, {j:
+        page}); not ok = no room (partial spill moves still execute)."""
+        assert rid not in self.tables, f"rid {rid} already has pages"
+        moves: List[_Move] = []
+        if not self._make_room(len(js), moves):
+            return False, moves, {}
+        refs: List[Optional[Tuple]] = [None] * self.NB
+        got = {}
+        for j in js:
+            p = self.free_dev.pop()
+            refs[j] = ("dev", p)
+            self.rc[p] = 1
+            got[int(j)] = p
+        self.tables[rid] = refs
+        self.resident.add(rid)
+        return True, moves, got
+
     def resume(self, rid: int) -> Tuple[bool, List[_Move]]:
         """Fault a preempted request's spilled pages back and pin it
         resident. not ok = no room yet (caller retries later) — the
@@ -819,22 +864,67 @@ def merge_page_slots(data, src: int, dst: int, lo: int, hi: int):
             a[:, dst] = torch.where(mm, a[:, src], a[:, dst])
 
 
+def cat_rows(trees):
+    """Cache trees (R, b_g, C, …) -> one tree of their rows in order."""
+    return _rebuild(trees[0], lambda si, n, c: type(c)(*(
+        None if a is None else torch.cat([t[si][n][i] for t in trees], 1)
+        for i, a in enumerate(c))))
+
+
+def rows_of(data, lo: int, hi: int):
+    """Rows [lo, hi) of a cache tree (views)."""
+    return _rebuild(data, lambda si, n, c: attn_mod.cache_map(
+        lambda a: a[:, lo:hi], c))
+
+
 class PagedKVPool:
     """Shared device page pool + host spill pool for one Engine.
 
-    ``data`` is the pool's cache tree (leaves (R, P, L, …), P =
-    device_pages + 2 reserved) on the engine's device; the engine reads
-    and writes it through block tables. The host pool has the same
-    structure on the CPU (pinned where the pool is on a card). Spills
-    and faults copy synchronously, so a host page is never overwritten
-    while a copy from or to it is still in flight. All policy lives in
-    the embedded :class:`PageAllocator`."""
+    ``block_data(b)`` is block ``b``'s cache tree (leaves (R, P, L, …),
+    P = device_pages + 2 reserved for a whole pool, one block) on the
+    engine's device; the engine reads and writes it through block
+    tables. The host pool has the same structure on the CPU (pinned
+    where the pool is on a card). Spills and faults copy synchronously,
+    so a host page is never overwritten while a copy from or to it is
+    still in flight. All policy lives in the embedded
+    :class:`PageAllocator` of each block (``allocs``), reached through
+    the pool's methods.
+
+    Cut over 'data' (``blocks`` = D > 1: ``distribution.sharding.
+    pool_axes`` cuts the page axis, and the engine's slots split over
+    'data'). The P physical pages fall into D blocks of P / D, block d
+    holding the global ids [d P/D, (d+1) P/D), and each block has an
+    allocator of its own over its ids (``block_ids``, ``block_caps``):
+    every request's pages come from the block of its slot's data rank
+    (``admit_prefix(block=)``), and its growth, copies-on-write, scratch
+    pages, spills and faults stay there, so the watermark, the headroom
+    and room-making count per block. Block tables hold global ids; a
+    block's tensors are indexed by ``local``. Reserved pages: block 0
+    holds the zero and the trash page (global 0 and 1); every other
+    block's tensors carry two local reserved pages of their own at local
+    0 and 1, which ``ZERO_PAGE`` / ``TRASH_PAGE`` in a table mean there.
+    So block 0 has P/D - 2 usable pages and its tensors P/D pages, every
+    other block P/D usable pages and P/D + 2 in its tensors. This
+    process holds the tensors of ``block`` (a mesh rank's data rank), or
+    of every block (None: the meshless twin); the bookkeeping of every
+    block is kept everywhere and reads no device value, so every process
+    decides alike. The host pool is cut likewise (block d has
+    ``host_pages // D`` slots, the first ``host_pages % D`` blocks one
+    more), written only where its block's tensors live. Prefix sharing
+    is per block: an admission maps only its block's pages; the pages
+    that another block's index held beyond them are counted
+    (``MemoryStats.prefix_pages_elsewhere``) and prefilled again, never
+    copied. A preempted request that resumes in another block's slot
+    moves its pages once (``resume(block=)``): read where they lie
+    (device or host), broadcast over 'data' from their block's rank and
+    written onto fresh pages of the new block (``moved_pages``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, cache_len: int,
                  device_pages: int, page_len: Optional[int] = None,
                  watermark: float = 1.0, host_pages: int = 0,
                  share: bool = False, device=None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 blocks: int = 1, block: Optional[int] = None, mesh=None):
         if any(m != MIXER_ATTN for m in cfg.layer_mixer_kinds()):
             raise ValueError(
                 "paged KV requires an attention-only stack (SSM/hybrid "
@@ -857,50 +947,97 @@ class PagedKVPool:
         self.page_len = tile_aligned_page_len(cfg, cache_len, page_len)
         self.NB = self.cache_len // self.page_len
         self.n_device = int(device_pages)
-        cap = max(1, int(math.floor(self.n_device * watermark)))
         self.share = bool(share)
-        self.alloc = PageAllocator(
-            range(RESERVED_PAGES, RESERVED_PAGES + self.n_device),
-            host_pages, cap, self.NB, share=self.share)
         P = self.n_device + RESERVED_PAGES
-        self.data = lm.init_caches(params, cfg, P, self.page_len,
-                                   device=device, uniform_cap=True)
-        self.device = self.data[0]["slot0"].k.device
-        self._host = None
-        if host_pages > 0:
-            pin = self.device.type == "cuda"
-            self._host = _rebuild(self.data, lambda si, n, c:
-                                  attn_mod.cache_map(lambda a: torch.zeros(
-                                      (a.shape[0], host_pages)
-                                      + tuple(a.shape[2:]), dtype=a.dtype,
-                                      pin_memory=pin), c))
+        if blocks < 1 or P % blocks or P // blocks <= RESERVED_PAGES:
+            raise ValueError(f"a pool of {P} pages does not cut into "
+                             f"{blocks} blocks of more than "
+                             f"{RESERVED_PAGES} pages")
+        self.blocks, self.mesh = int(blocks), mesh
+        self.block_pages = Pb = P // self.blocks
+        self.allocs = [PageAllocator(
+            block_ids(self.n_device, self.blocks, b),
+            host_pages // self.blocks + (b < host_pages % self.blocks), cap,
+            self.NB, share=self.share) for b, cap in enumerate(
+                block_caps(self.n_device, self.blocks, watermark))]
+        self._of: Dict[int, int] = {}       # rid -> its block (cut pools)
+        self.elsewhere = 0
+        self.moved = 0
+        self.held = (tuple(range(self.blocks)) if block is None
+                     else (int(block),))
+        self._data = {b: lm.init_caches(
+            params, cfg, Pb + (RESERVED_PAGES if b else 0), self.page_len,
+            device=device, uniform_cap=True) for b in self.held}
+        self.device = self._data[self.held[0]][0]["slot0"].k.device
+        pin = self.device.type == "cuda"
+        self._hosts = {}
+        for b in self.held:
+            h = self.allocs[b].n_host
+            if h > 0:
+                self._hosts[b] = _rebuild(
+                    self._data[b], lambda si, n, c: attn_mod.cache_map(
+                        lambda a: torch.zeros(
+                            (a.shape[0], h) + tuple(a.shape[2:]),
+                            dtype=a.dtype, pin_memory=pin), c))
 
-    def _ids(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+    # -- blocks ----------------------------------------------------------
+    def block_data(self, b: int):
+        """Block ``b``'s cache tree (held here)."""
+        return self._data[b]
 
-    def _read(self, ids):
-        """Pages ``ids`` of every leaf: a tree of (R, n, L, …) tensors."""
-        t = self._ids(ids)
-        return _rebuild(self.data, lambda si, n, c:
+    def _blk(self, rid: int) -> int:
+        return self._of.get(rid, 0)
+
+    def _a(self, rid: int) -> PageAllocator:
+        return self.allocs[self._blk(rid)]
+
+    def local(self, ids, b: int) -> np.ndarray:
+        """Global page ids (a table of them) as indices into block
+        ``b``'s tensors: the reserved ids are the block's own."""
+        ids = np.asarray(ids)
+        lo = b * self.block_pages
+        real = ids >= RESERVED_PAGES
+        assert np.all(~real | ((ids >= lo) & (ids < lo + self.block_pages))
+                      ), (b, ids)
+        off = lo - (RESERVED_PAGES if b else 0)
+        return np.where(real, ids - off, ids).astype(ids.dtype)
+
+    def _ids(self, ids, b: int) -> torch.Tensor:
+        return torch.as_tensor(self.local(np.asarray(ids, np.int64), b),
+                               device=self.device)
+
+    def _read(self, ids, b: int = 0):
+        """Pages ``ids`` of every leaf of block ``b``: a tree of (R, n,
+        L, …) tensors."""
+        t = self._ids(ids, b)
+        return _rebuild(self._data[b], lambda si, n, c:
                         attn_mod.cache_map(lambda a: a[:, t], c))
 
-    def _write(self, ids, vals):
-        """Write a tree of (R, n, L, …) tensors onto pages ``ids``."""
-        t = self._ids(ids)
-        for si, name, c in _caches(self.data):
+    def _write(self, ids, vals, b: int = 0):
+        """Write a tree of (R, n, L, …) tensors onto pages ``ids`` of
+        block ``b``."""
+        t = self._ids(ids, b)
+        for si, name, c in _caches(self._data[b]):
             for a, v in zip(c, vals[si][name]):
                 if a is not None:
                     a[:, t] = v.to(device=a.device, dtype=a.dtype)
 
-    def _scrub(self, ids):
+    def _scrub(self, ids, b: int = 0):
         """Reset recycled pages to the zero page (zeros, pos = -1): a
         decode-growth page gets one token written, and the rest of it
         must not carry the previous owner's positions."""
-        t = self._ids(ids)
-        for _, _, c in _caches(self.data):
+        if b not in self._data:
+            return
+        t = self._ids(ids, b)
+        for _, _, c in _caches(self._data[b]):
             for a in c:
                 if a is not None:
                     a[:, t] = a[:, ZERO_PAGE].clone()[:, None]
+
+    def _copy(self, src: Sequence[int], dst: Sequence[int], b: int):
+        """Pages ``src`` onto pages ``dst`` within block ``b``."""
+        if src and b in self._data:
+            self._write(dst, self._read(src, b), b)
 
     # -- sizing --------------------------------------------------------
     def pages_for(self, n_tokens: int) -> int:
@@ -909,36 +1046,47 @@ class PagedKVPool:
         n = min(int(n_tokens), self.cache_len)
         return max(1, -(-n // self.page_len))
 
+    def nbytes(self) -> int:
+        """Bytes of the device tensors this process holds."""
+        return sum(a.nbytes for d in self._data.values()
+                   for _, _, c in _caches(d) for a in c if a is not None)
+
     # -- lifecycle (delegates to the allocator, executes moves) --------
     # the allocator's moves execute even when the op fails: partial
     # spills committed by its room-making must reach the host pool, or
     # a later resume would fault back never-written zeros
 
-    def admit(self, rid: int, n_pages: int) -> bool:
-        ok, moves = self.alloc.admit(rid, n_pages)
-        self._execute(moves)
-        return ok
+    def admit(self, rid: int, n_pages: int, block: int = 0) -> bool:
+        return self.admit_prefix(rid, n_pages, block=block)[0]
 
     def admit_prefix(self, rid: int, n_pages: int,
-                     keys: Sequence[bytes] = (), min_pages: int = 1
-                     ) -> Tuple[bool, int]:
-        """Sharing-aware admission: (ok, matched pages); the engine
-        prefills only the suffix beyond the matched pages."""
-        ok, moves, m = self.alloc.admit_prefix(rid, n_pages, keys,
-                                               min_pages=min_pages)
-        self._execute(moves)
+                     keys: Sequence[bytes] = (), min_pages: int = 1,
+                     block: int = 0) -> Tuple[bool, int]:
+        """Sharing-aware admission into ``block``: (ok, matched pages);
+        the engine prefills only the suffix beyond the matched pages."""
+        ok, moves, m = self.allocs[block].admit_prefix(
+            rid, n_pages, keys, min_pages=min_pages)
+        self._execute(moves, block)
+        if ok and self.blocks > 1:
+            self._of[rid] = block
+            if self.share and keys:
+                best = max(len(a.match_prefix(keys[:n_pages]))
+                           for b, a in enumerate(self.allocs) if b != block)
+                if best >= max(1, int(min_pages)):
+                    self.elsewhere += max(0, best - m)
         return ok, m
 
     def register_prefix(self, rid: int, keys: Sequence[bytes]):
         if self.share and keys:
-            self.alloc.register_prefix(rid, keys)
+            self._a(rid).register_prefix(rid, keys)
 
     def ensure_page(self, rid: int, j: int) -> bool:
-        fresh = self.alloc.tables[rid][j] is None
-        ok, moves = self.alloc.ensure(rid, j)
-        self._execute(moves)
+        a, b = self._a(rid), self._blk(rid)
+        fresh = a.tables[rid][j] is None
+        ok, moves = a.ensure(rid, j)
+        self._execute(moves, b)
         if ok and fresh:
-            self._scrub([self.alloc.tables[rid][j][1]])
+            self._scrub([a.tables[rid][j][1]], b)
         return ok
 
     def ensure_writable(self, rid: int, j: int) -> bool:
@@ -946,19 +1094,81 @@ class PagedKVPool:
         write rule (rc == 1, unregistered). Absent pages allocate and
         scrub; shared pages copy-on-write; private registered pages
         unregister."""
-        if self.alloc.tables[rid][j] is None:
+        a, b = self._a(rid), self._blk(rid)
+        if a.tables[rid][j] is None:
             return self.ensure_page(rid, j)
-        ok, moves, copy = self.alloc.make_writable(rid, j)
-        self._execute(moves)
+        ok, moves, copy = a.make_writable(rid, j)
+        self._execute(moves, b)
         if ok and copy is not None:                 # copy-on-write
-            src, dst = copy
-            self._write([dst], self._read([src]))
+            self._copy([copy[0]], [copy[1]], b)
         return ok
 
-    def resume(self, rid: int) -> bool:
-        ok, moves = self.alloc.resume(rid)
-        self._execute(moves)
+    def resume(self, rid: int, block: Optional[int] = None) -> bool:
+        """Pin a preempted request resident again, faulting its spilled
+        pages back; into ``block`` where that is another than its own
+        (a cut pool), by moving its pages there."""
+        b = self._blk(rid)
+        if block is not None and block != b:
+            return self._move(rid, block)
+        ok, moves = self.allocs[b].resume(rid)
+        self._execute(moves, b)
         return ok
+
+    def _move(self, rid: int, dst: int) -> bool:
+        """A preempted request's pages from its block onto fresh pages of
+        block ``dst``: one broadcast over 'data' a leaf from the source
+        block's rank (a copy where one process holds both)."""
+        src = self._blk(rid)
+        refs = self.allocs[src].tables[rid]
+        js = [j for j, e in enumerate(refs) if e is not None]
+        ok, moves, got = self.allocs[dst].adopt(rid, js)
+        self._execute(moves, dst)
+        if not ok:
+            return False
+        vals = self._entries(src, [refs[j] for j in js]) \
+            if src in self._data else None
+        if self.mesh is not None:
+            mesh = self.mesh
+
+            def sent(si, n, i, a):
+                t = torch.empty((a.shape[0], len(js)) + tuple(a.shape[2:]),
+                                dtype=a.dtype, device=a.device) \
+                    if vals is None else vals[si][n][i]
+                # gloo moves a 16-bit tensor as fp32, which holds it
+                wide = mesh.backend == "gloo" and t.element_size() == 2
+                out = mesh.data_broadcast(
+                    (t.float() if wide else t).contiguous(), src)
+                return out.to(a.dtype)
+            vals = _rebuild(self._data[self.held[0]], lambda si, n, c: type(c)(
+                *(None if a is None else sent(si, n, i, a)
+                  for i, a in enumerate(c))))
+        if dst in self._data:
+            self._write([got[j] for j in js], vals, dst)
+        self.allocs[src].free(rid)
+        self._of[rid] = dst
+        self.moved += len(js)
+        return True
+
+    def _entries(self, b: int, entries):
+        """The pages of ``entries`` (("dev", id) / ("host", slot)) of
+        block ``b``, device or host, as a tree of (R, n, L, …) on the
+        device, in order."""
+        dev = [i for i, e in enumerate(entries) if e[0] == "dev"]
+        host = [i for i, e in enumerate(entries) if e[0] == "host"]
+        dv = self._read([entries[i][1] for i in dev], b) if dev else None
+        hs = torch.as_tensor([entries[i][1] for i in host], dtype=torch.int64)
+
+        def leaf(si, n, i, a):
+            out = torch.empty((a.shape[0], len(entries)) + tuple(a.shape[2:]),
+                              dtype=a.dtype, device=a.device)
+            if dev:
+                out[:, dev] = dv[si][n][i]
+            if host:
+                out[:, host] = self._hosts[b][si][n][i][:, hs].to(a.device)
+            return out
+        return _rebuild(self._data[b], lambda si, n, c: type(c)(*(
+            None if a is None else leaf(si, n, i, a)
+            for i, a in enumerate(c))))
 
     # -- speculative-decode scratch ------------------------------------
     def begin_scratch(self, rid: int, js: Sequence[int]
@@ -967,51 +1177,66 @@ class PagedKVPool:
         ``js``, seeded with the real page's content (scrubbed where the
         logical page is unallocated), so entries before the range and
         old-lap entries survive the round. None under pool pressure."""
-        ok, moves, got = self.alloc.alloc_scratch(rid, list(js))
-        self._execute(moves)
+        a, b = self._a(rid), self._blk(rid)
+        ok, moves, got = a.alloc_scratch(rid, list(js))
+        self._execute(moves, b)
         if not ok:
             return None
-        pages = self.alloc.dev_pages(rid)
+        pages = a.dev_pages(rid)
         fresh = [s for j, s in got.items() if pages[j] is None]
         if fresh:
-            self._scrub(fresh)
+            self._scrub(fresh, b)
         seeded = [(pages[j], s) for j, s in got.items()
                   if pages[j] is not None]
-        if seeded:
-            self._write([b for _, b in seeded],
-                        self._read([a for a, _ in seeded]))
+        self._copy([p for p, _ in seeded], [s for _, s in seeded], b)
         return got
 
     def promote_scratch(self, rid: int, j: int) -> int:
         """Fully accepted page: a bookkeeping swap, never a copy."""
-        return self.alloc.promote_scratch(rid, j)
+        return self._a(rid).promote_scratch(rid, j)
 
     def discard_scratch(self, rid: int):
-        self.alloc.discard_scratch(rid)
+        self._a(rid).discard_scratch(rid)
 
     def merge_scratch_slots(self, src: int, dst: int, lo: int, hi: int):
         """Boundary page of a partial acceptance: entries with positions
         in [lo, hi] move from scratch page ``src`` onto real page
-        ``dst`` (which already satisfies the write rule)."""
-        merge_page_slots(self.data, src, dst, lo, hi)
+        ``dst`` (which already satisfies the write rule); both lie in
+        one block."""
+        b = src // self.block_pages
+        if b in self._data:
+            s, d = self.local([src, dst], b)
+            merge_page_slots(self._data[b], int(s), int(d), lo, hi)
 
     def dedup_sweep(self) -> int:
-        return self.alloc.dedup_sweep()
+        return sum(a.dedup_sweep() for a in self.allocs)
 
     def free(self, rid: int):
-        self.alloc.free(rid)
+        self._a(rid).free(rid)
+        self._of.pop(rid, None)
 
     def preempt(self, rid: int):
-        self.alloc.preempt(rid)
+        self._a(rid).preempt(rid)
 
     def mark_preempted(self, rid: int):
-        self.alloc.mark_preempted(rid)
+        self._a(rid).mark_preempted(rid)
 
     def has_pages(self, rid: int) -> bool:
-        return self.alloc.has(rid)
+        return self._a(rid).has(rid)
+
+    def dev_pages(self, rid: int) -> List[Optional[int]]:
+        return self._a(rid).dev_pages(rid)
 
     def admissible_requests(self) -> int:
-        return self.alloc.admissible_requests()
+        return sum(a.admissible_requests() for a in self.allocs)
+
+    def check(self):
+        """Every block's allocator invariants, and each request in the
+        block it is mapped to."""
+        for b, a in enumerate(self.allocs):
+            a.check()
+            for rid in a.tables:
+                assert self._blk(rid) == b, (rid, b)
 
     # -- tables --------------------------------------------------------
     def block_table(self, slot_rids: Sequence[Optional[int]]
@@ -1024,7 +1249,7 @@ class PagedKVPool:
         for i, rid in enumerate(slot_rids):
             if rid is None:
                 continue
-            for j, p in enumerate(self.alloc.dev_pages(rid)):
+            for j, p in enumerate(self.dev_pages(rid)):
                 bt[i, j] = ZERO_PAGE if p is None else p
         return bt
 
@@ -1037,7 +1262,7 @@ class PagedKVPool:
         dests = np.full((n_rows, self.NB), TRASH_PAGE, np.int32)
         for i, rid in enumerate(rids):
             skip = 0 if skip_pages is None else int(skip_pages[i])
-            for j, p in enumerate(self.alloc.dev_pages(rid)):
+            for j, p in enumerate(self.dev_pages(rid)):
                 if p is not None and j >= skip:
                     dests[i, j] = p
         return dests
@@ -1050,24 +1275,27 @@ class PagedKVPool:
         page."""
         bt = np.full((n_rows, self.NB), ZERO_PAGE, np.int32)
         for i, (rid, m) in enumerate(zip(rids, shared_pages)):
-            pages = self.alloc.dev_pages(rid)
+            pages = self.dev_pages(rid)
             for j in range(int(m)):
                 assert pages[j] is not None, (rid, j, m)
                 bt[i, j] = pages[j]
         return bt
 
     # -- data movement -------------------------------------------------
-    def _execute(self, moves: List[_Move]):
-        """Run the allocator's spill / fault moves: one gather to the
-        host per call, one scatter from it. The ``spill`` / ``fault``
-        spans time the host around the copies."""
+    def _execute(self, moves: List[_Move], b: int = 0):
+        """Run block ``b``'s allocator's spill / fault moves where its
+        tensors live: one gather to the host per call, one scatter from
+        it. The ``spill`` / ``fault`` spans time the host around the
+        copies."""
+        if b not in self._data:
+            return
         spills = [(m[3], m[4]) for m in moves if m[0] == "spill"]
         faults = [(m[3], m[4]) for m in moves if m[0] == "fault"]
         t0 = self._trace.t0()
         if spills:
-            vals = self._read([d for d, _ in spills])
+            vals = self._read([d for d, _ in spills], b)
             hs = torch.as_tensor([h for _, h in spills], dtype=torch.int64)
-            for si, name, hc in _caches(self._host):
+            for si, name, hc in _caches(self._hosts[b]):
                 for h, v in zip(hc, vals[si][name]):
                     if h is not None:
                         h[:, hs] = v.cpu()
@@ -1075,23 +1303,34 @@ class PagedKVPool:
         if faults:
             hs = torch.as_tensor([h for h, _ in faults], dtype=torch.int64)
             self._write([d for _, d in faults], _rebuild(
-                self._host, lambda si, n, c: attn_mod.cache_map(
-                    lambda a: a[:, hs], c)))
+                self._hosts[b], lambda si, n, c: attn_mod.cache_map(
+                    lambda a: a[:, hs], c)), b)
             self._trace.complete("fault", t0, cat="kv", pages=len(faults))
 
     # -- accounting ----------------------------------------------------
     def stats(self) -> MemoryStats:
-        a = self.alloc
+        """The pool's accounting, summed over its blocks."""
+        def total(fn):
+            return sum(fn(a) for a in self.allocs)
         return MemoryStats(
-            device_pages=a.n_device, host_pages=a.n_host,
-            watermark=a.cap, device_used=a.used_dev,
-            host_used=a.used_host,
-            preempted_resident=a.preempted_dev_pages(),
-            spills=a.spills, faults=a.faults, drops=a.drops,
-            shared_pages=sum(1 for c in a.rc.values() if c > 1),
-            cached_pages=len(a.cached),
-            prefix_hits=a.prefix_hits,
-            prefix_pages_reused=a.prefix_pages_reused,
-            cow_copies=a.cow, cache_evictions=a.evictions,
-            scratch_pages=sum(len(d) for d in a.scratch.values()),
-            dedup_merges=a.dedup_merges)
+            device_pages=total(lambda a: a.n_device),
+            host_pages=total(lambda a: a.n_host),
+            watermark=total(lambda a: a.cap),
+            device_used=total(lambda a: a.used_dev),
+            host_used=total(lambda a: a.used_host),
+            preempted_resident=total(lambda a: a.preempted_dev_pages()),
+            spills=total(lambda a: a.spills),
+            faults=total(lambda a: a.faults),
+            drops=total(lambda a: a.drops),
+            shared_pages=total(lambda a: sum(1 for c in a.rc.values()
+                                             if c > 1)),
+            cached_pages=total(lambda a: len(a.cached)),
+            prefix_hits=total(lambda a: a.prefix_hits),
+            prefix_pages_reused=total(lambda a: a.prefix_pages_reused),
+            cow_copies=total(lambda a: a.cow),
+            cache_evictions=total(lambda a: a.evictions),
+            scratch_pages=total(lambda a: sum(len(d)
+                                              for d in a.scratch.values())),
+            dedup_merges=total(lambda a: a.dedup_merges),
+            blocks=self.blocks, prefix_pages_elsewhere=self.elsewhere,
+            moved_pages=self.moved)

@@ -324,7 +324,11 @@ class ShardedScheduler:
     equal the DP size. ``draft``: a prebuilt drafter (its tree and
     config, a mesh rank's local ones) for every engine, where
     ``sched.draft_sparsity`` would otherwise have each engine build its
-    own from ``params``' dense masters.
+    own from ``params``' dense masters (on a mesh, a MoE's drafter with
+    every expert, as its target: ``launch.serve.build_rank_params``).
+    A rank's page pool stays whole on its submesh: 'data' collapses to
+    1 there, and the reference's rule cuts nothing
+    (``distribution.sharding.pool_axes``).
     """
 
     def __init__(self, params, cfg, *, sched: Optional[SchedulerConfig]

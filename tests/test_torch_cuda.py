@@ -901,7 +901,7 @@ def test_paged_streams_equal_contiguous_bit_for_bit(cuda_device):
     paged, eng = run(kv_pages=16)
     assert paged == contig
     assert eng.pool.page_len == 32
-    eng.pool.alloc.check()
+    eng.pool.check()
     # one more decode step of both engines from the same state: equal
     # logits, bit for bit
     ce = Engine(params, cfg, batch_slots=4, cache_len=128)
@@ -915,8 +915,7 @@ def test_paged_streams_equal_contiguous_bit_for_bit(cuda_device):
     pos = torch.as_tensor(ce.pos, device=cuda_device)
     for r, p in zip(pe.slot_req, ce.pos):
         assert pe.pool.ensure_writable(r.rid, int(p) // pe.pool.page_len)
-    bt = torch.as_tensor(pe.pool.block_table([r.rid for r in pe.slot_req]),
-                         device=cuda_device)
+    bt = pe.pool.block_table([r.rid for r in pe.slot_req])
     with torch.no_grad():
         want = ce._decode_step(params, cfg, toks, pos)
         got = pe._paged_decode_step(params, cfg, toks, pos, bt)
@@ -932,7 +931,7 @@ def test_paged_streams_equal_contiguous_bit_for_bit(cuda_device):
     eng.queue.append(eng.preempt_slot(0))
     while eng.has_work():
         eng.step()
-        eng.pool.alloc.check()
+        eng.pool.check()
     assert {r.rid: r.out_tokens for r in reqs} == contig
     assert eng.memory_stats().device_used == 0
 
@@ -962,7 +961,7 @@ def test_int8_drafter_runs_the_int8_kernel_forms(cuda_device):
         for wt in ("int8", "bfloat16"):
             assert mod.weight_launches.get(wt, 0) > before.get(wt, 0), \
                 (mod.__name__, wt, mod.weight_launches)
-    eng.pool.alloc.check()
+    eng.pool.check()
 
 
 @pytest.mark.cuda

@@ -6,11 +6,12 @@ that served each request; the workload of tests/dist_worker.py's
 ``mode_sched_mesh``); one ``Engine`` on a (2, 2) mesh with its slots
 split over 'data' against the reference's meshless engine (streams, and
 every decode step's logits within 1e-4; ``mode_packed_serve_mesh``'s
-workload), and on a (2, 1) mesh with a paged pool (replicated over
-'data'); EDF with preemption, buckets and ``stream()`` taking the same
-decisions in every process; a raise in data rank 1's step contained as
-the meshless port scheduler contains it; and the launcher's ``--mesh
-DP,TP --scheduler`` and its usage errors. Imports no jax at its top: the
+workload), and on a (2, 1) mesh with a paged pool (cut over 'data'
+where the reference's rule cuts it, else replicated); EDF with
+preemption, buckets and ``stream()`` taking the same decisions in every
+process; a raise in data rank 1's step contained as the meshless port
+scheduler contains it; and the launcher's ``--mesh DP,TP --scheduler``
+and its usage errors. Imports no jax at its top: the
 ranks are spawned processes that import this module."""
 import dataclasses
 import re
@@ -170,8 +171,17 @@ def dp_rank(rank: int, spec: dict, init_file: str) -> dict:
                             status={r.rid: r.status for r in reqs},
                             stats=plain_stats(sched.stats()))
     eparams, ecfg = _rank_tree(spec["engine_params"], tp, mesh)
+    for name, kw in spec["engines"].items():
+        out[name] = _engine_case(eparams, ecfg, mesh, kw)
+    return out
+
+
+def _engine_case(eparams, ecfg, mesh, kw) -> dict:
+    """One ``Engine`` on the mesh with options ``kw``: its run (streams,
+    layout, decode logits) and a kept-KV preemption's."""
+    out = {}
     eng = Engine(eparams, ecfg, mesh=mesh, batch_slots=2, cache_len=64,
-                 **spec["engine"])
+                 **kw)
     steps = record_decode_logits(eng)
     done = eng.run(engine_requests())
     out["engine"] = dict(streams=streams(done), layout=eng.layout,
@@ -180,7 +190,7 @@ def dp_rank(rank: int, spec: dict, init_file: str) -> dict:
     # request 0's slot preempted with its KV kept after two steps: it
     # resumes in slot 1, another data rank's when the slots are split
     eng = Engine(eparams, ecfg, mesh=mesh, batch_slots=2, cache_len=64,
-                 **spec["engine"])
+                 **kw)
     reqs = engine_requests()
     for r in reqs:
         eng.submit(r)
@@ -192,9 +202,10 @@ def dp_rank(rank: int, spec: dict, init_file: str) -> dict:
         eng.step()
         if resumed_in is None and reqs[0] in eng.slot_req:
             resumed_in = eng.slot_req.index(reqs[0])
-    out["engine_preempt"] = dict(streams=streams(reqs),
-                                 resumes=eng.stats["resumes"],
-                                 resumed_in=resumed_in)
+    mem = eng.memory_stats()
+    out["engine_preempt"] = dict(
+        streams=streams(reqs), resumes=eng.stats["resumes"],
+        resumed_in=resumed_in, moved=None if mem is None else mem.moved_pages)
     return out
 
 
@@ -277,8 +288,8 @@ def reference():
                 engine=dict(streams=streams(done), steps=ref_steps))
 
 
-def _run_mesh(reference, tmp_path_factory, shape, cases, engine):
-    spec = dict(shape=shape, cases=cases, engine=engine,
+def _run_mesh(reference, tmp_path_factory, shape, cases, engines):
+    spec = dict(shape=shape, cases=cases, engines=engines,
                 sched_params=reference["sched_np"],
                 engine_params=reference["engine_np"],
                 eos=reference["eos"][:2])
@@ -290,13 +301,22 @@ def _run_mesh(reference, tmp_path_factory, shape, cases, engine):
 @pytest.fixture(scope="module")
 def mesh22(reference, tmp_path_factory):
     return _run_mesh(reference, tmp_path_factory, (2, 2),
-                     ("dp_only", "qos", "raise"), {})
+                     ("dp_only", "qos", "raise"), {"split": {}})
+
+
+# ``kv_pages``, or (``kv_pages``, ``kv_watermark``), of the paged cases
+PAGED_CASES = (24, 23, 16, (24, 0.6))
+
+
+def _pool_options(kv) -> dict:
+    pages, mark = kv if isinstance(kv, tuple) else (kv, 1.0)
+    return dict(kv_pages=pages, kv_page_len=8, kv_watermark=mark)
 
 
 @pytest.fixture(scope="module")
 def mesh21(reference, tmp_path_factory):
     return _run_mesh(reference, tmp_path_factory, (2, 1), (),
-                     dict(kv_pages=24, kv_page_len=8))
+                     {kv: _pool_options(kv) for kv in PAGED_CASES})
 
 
 # ---------------------------------------------------------------------------
@@ -357,6 +377,7 @@ def test_dp_engine_split_slots_equals_reference_engine(reference, mesh22):
     its KV kept and resumed in the other data rank's slot."""
     want = reference["engine"]
     for r, out in enumerate(mesh22):
+        out = out["split"]
         got = out["engine"]
         assert got["layout"] == "slots split over data"
         assert got["streams"] == want["streams"], r
@@ -373,17 +394,35 @@ def test_dp_engine_split_slots_equals_reference_engine(reference, mesh22):
 
 
 @pytest.mark.timeout(300)
-def test_dp_engine_paged_is_replicated_with_equal_streams(reference,
-                                                         mesh21):
-    """``Engine(mesh=(2, 1), kv_pages=24)``: every data rank runs the whole
-    engine, with the reference's meshless streams, a kept-KV preemption
-    too."""
+@pytest.mark.parametrize("kv_pages,layout", [
+    (24, "slots and pages split over data"),    # P = 26 cuts over D = 2
+    (23, "replicated over data"),               # P = 25 does not
+    # P = 18 cuts, but block 0's 7 usable pages hold no 8-page ring
+    pytest.param(16, "replicated over data", id="16-block-under-a-ring"),
+    # block 0's cap floor(11 x 0.6) = 6 pages holds no 8-page ring
+    pytest.param((24, 0.6), "replicated over data",
+                 id="24-watermark-0.6")])
+def test_dp_engine_paged_is_replicated_with_equal_streams(
+        reference, mesh21, kv_pages, layout):
+    """``Engine(mesh=(2, 1), batch_slots=2, cache_len=64, kv_pages=N,
+    kv_page_len=8)``: where the reference's rule cuts the pool's P = N +
+    2 pages over 'data' and every block's watermark cap holds one slot's
+    8-page ring, each data rank runs its own slot on its own block of
+    pages, and request 0's kept KV moves to the other block when it
+    resumes in slot 1; where the rule does not cut, or a block is too
+    small, every data rank runs the whole engine. Either way the
+    reference's meshless streams, the kept-KV preemption's too."""
     for out in mesh21:
-        assert out["engine"]["layout"] == "replicated over data"
+        out = out[kv_pages]
+        assert out["engine"]["layout"] == layout
         assert out["engine"]["streams"] == reference["engine"]["streams"]
         pre = out["engine_preempt"]
         assert pre["resumes"] == 1
         assert pre["streams"] == reference["engine"]["streams"]
+        if kv_pages == 24:
+            assert pre["resumed_in"] == 1 and pre["moved"] > 0
+        else:
+            assert pre["moved"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -219,7 +219,7 @@ def test_cancel_queued_and_running(paged):
     assert [r.rid for r in done] == [1]
     if paged:
         assert eng.memory_stats().device_used == 0
-        eng.pool.alloc.check()
+        eng.pool.check()
 
 
 def test_int8_kv_bytes_and_scales_equal_reference():

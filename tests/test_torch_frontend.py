@@ -299,7 +299,7 @@ def _check_pools(fe):
     for h in fe.hosts.values():
         for eng in h.sched.shards:
             if not eng.dead and eng.pool is not None:
-                eng.pool.alloc.check()
+                eng.pool.check()
 
 
 def _run_schedule(setup, schedule, n_reqs=5, sched=SCHED):

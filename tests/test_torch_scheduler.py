@@ -531,7 +531,7 @@ def test_route_steers_away_from_rank_mid_spill(dense):
     assert sorted(r.rid for r in done) == [0, 1, 2]
     assert _streams(done) == solo.of(done)
     for e in paged.shards:
-        e.pool.alloc.check()
+        e.pool.check()
 
     contig = build(paged=False)
     assert contig.shards[0].route_headroom_tokens() is None

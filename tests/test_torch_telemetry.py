@@ -387,7 +387,7 @@ def test_preempt_spill_resume_traced_and_bit_identical(amp, tmp_path):
     done = []
     while sched.has_work():
         done.extend(sched.step())
-        sched.shards[0].pool.alloc.check()
+        sched.shards[0].pool.check()
     assert {r.rid: r.out_tokens for r in done} == want
     assert sched.stats()["preemptions"] >= 1
     path = tmp_path / "sched_trace.json"

@@ -96,7 +96,7 @@ def _serve(params, cfg, opts, mesh=None):
     while eng.has_work():
         done += eng.step()
         if eng.pool is not None:
-            tables.append(repr(sorted(eng.pool.alloc.tables.items())))
+            tables.append(repr(sorted(eng.pool.allocs[0].tables.items())))
     return ({r.rid: [int(t) for t in r.out_tokens] for r in done},
             [s.numpy().copy() for s in steps], tables or None)
 
