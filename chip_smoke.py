@@ -322,6 +322,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
                 versions'. ``tools/paged_mesh_phase.py`` runs it alone,
                 and with four cards qwen3-32b at 16 layers with an 8 GiB
                 pool on 4,1 and 2,2 against one card.
+  20. analyze — (last, in this process) the port's static analyzer
+                (``tools/analyze_torch``): every pass, the packed pass's
+                deployments on this card, under ``--strict`` against its
+                ``baseline.json``; ``validate_params_tree`` over phase
+                3's full-width packed containers on the card (run as
+                soon as phase 3 has built them, while they are held);
+                ``check_page_refcounts`` on phase 3c's paged engines
+                after their runs and on phase 19's cut pools (every
+                block, in the twin and in each rank's process). One line
+                gives its seconds and the findings by rule; a finding
+                outside the baseline, a container error or a page error
+                fails the run.
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -1095,6 +1107,13 @@ def _no_leak(name, eng):
     return mem.as_dict()
 
 
+def _page_errors(eng):
+    """``tools.analyze_torch.check_page_refcounts`` over every block of
+    ``eng``'s pool (phase 20 reads them)."""
+    from tools.analyze_torch import check_page_refcounts
+    return check_page_refcounts(eng.pool)
+
+
 def _launch_counts(counters):
     return {n: dict(total=m.launches, variant=dict(m.variant_launches),
                     weight=dict(m.weight_launches))
@@ -1131,6 +1150,7 @@ def paged_phase(torch, params, cfg, counters):
     out["a"] = dict(paged=a["times"], contiguous=c["times"],
                     launches=a["launches"],
                     memory=_no_leak("(a)", a["eng"]),
+                    page_errors=_page_errors(a["eng"]),
                     bit_identical_steps=len(a["rec"]["steps"]))
     log(f"  (a) paged, {B * 8} pages of 32 tokens: streams and all "
         f"{len(a['rec']['steps'])} decode steps' logits bit for bit equal "
@@ -1177,7 +1197,8 @@ def paged_phase(torch, params, cfg, counters):
             "spec_accepted_tokens", "spec_fallbacks", "generated_tokens")}
         mem = _no_leak(f"({name})", eng)
         res = dict(times=_step_times(steps), stats=st, memory=mem,
-                   launches=launches, near_ties=ties, setup_s=setup_s)
+                   launches=launches, near_ties=ties, setup_s=setup_s,
+                   page_errors=_page_errors(eng))
         out[name] = res
         drafter = {"b": "", "c": ", int8 drafter at 75%, k 4",
                    "d": ", bf16 drafter at the target's 50%, k 4"}[name]
@@ -6933,7 +6954,8 @@ def _pgm_serve(torch, params, cfg, draft, counters, mesh=None, **kw):
                 prefix=dict(hits=mem.prefix_hits,
                             reused=mem.prefix_pages_reused,
                             elsewhere=mem.prefix_pages_elsewhere),
-                pool_bytes=eng.pool.nbytes(), pages=PGM["kv_pages"] + 2)
+                pool_bytes=eng.pool.nbytes(), pages=PGM["kv_pages"] + 2,
+                blocks=eng.pool.blocks, page_errors=_page_errors(eng))
 
 
 def _live_rows(eng, x, bt):
@@ -7256,6 +7278,77 @@ def paged_mesh_phase(torch, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the port's static analyzer, the packed containers and the
+# page pools
+# ---------------------------------------------------------------------------
+
+BASELINE = os.path.join(ROOT, "tools", "analyze_torch", "baseline.json")
+
+
+def analyze_containers(torch, params):
+    """Phase 20's container check, run on phase 3's tree while it is
+    held: ``validate_params_tree`` on the card. Returns the errors, the
+    containers checked and the seconds."""
+    from tools.analyze_torch import packed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errors = packed.validate_params_tree(params)
+    torch.cuda.synchronize()
+    out = dict(errors=errors, seconds=time.perf_counter() - t0,
+               containers=len(list(packed.packed_leaves(params))))
+    log(f"  (20) validate_params_tree over phase 3's containers: "
+        f"{out['containers']} containers, {len(errors)} errors, "
+        f"{out['seconds']:.2f} s")
+    return out
+
+
+def analyze_phase(torch, containers, paged, paged_mesh):
+    """Phase 20: every pass of ``tools/analyze_torch`` (the packed pass
+    on this card) against its baseline, with the container check made
+    after phase 3 and the page checks made in phases 3c and 19."""
+    import collections
+
+    from tools.analyze_torch import load_baseline, run_all
+    t0 = time.perf_counter()
+    findings = run_all(device=DEVICE)
+    torch.cuda.synchronize()
+    passes_s = time.perf_counter() - t0
+    baseline = set(load_baseline(BASELINE))
+    fresh = [f for f in findings if f.key() not in baseline]
+    by_rule = dict(sorted(collections.Counter(
+        f.rule for f in findings).items()))
+    pages = {f"3c ({k})": v["page_errors"] for k, v in paged.items()
+             if isinstance(v, dict) and "page_errors" in v}
+    for model, case in paged_mesh["cases"].items():
+        pages[f"19 {model} twin"] = case["twin"]["page_errors"]
+        for i, r in enumerate(case["ranks"]):
+            pages[f"19 {model} rank {i}"] = r["page_errors"]
+    blocks = sum(case["twin"]["blocks"] + sum(r["blocks"]
+                                              for r in case["ranks"])
+                 for case in paged_mesh["cases"].values())
+    out = dict(seconds=passes_s + containers["seconds"], passes_s=passes_s,
+               containers_s=containers["seconds"],
+               containers=containers["containers"],
+               container_errors=len(containers["errors"]),
+               findings=len(findings), baselined=len(findings) - len(fresh),
+               new=len(fresh), by_rule=by_rule, pools=len(pages),
+               blocks=blocks,
+               page_errors=sum(len(e) for e in pages.values()))
+    for f in fresh:
+        log(f"  (20) NEW {f.render()}")
+    log("  phase 20: " + json.dumps(out))
+    check(not fresh, f"(20) {len(fresh)} finding(s) outside "
+          f"tools/analyze_torch/baseline.json")
+    check(not containers["errors"], f"(20) phase 3's containers: "
+          f"{containers['errors'][:3]}")
+    check(all(f"3c ({k})" in pages for k in "abcd"),
+          f"(20) phase 3c recorded page checks for {sorted(pages)}")
+    check(all(not e for e in pages.values()),
+          f"(20) page errors: { {k: v[:2] for k, v in pages.items() if v} }")
+    return out
+
+
 KERNELS = {
     "sasp_gemm": ("src/repro_torch/kernels/csrc/sasp_gemm.cu",
                   "src/repro/kernels/sasp_gemm/kernel.py:142"),
@@ -7347,6 +7440,7 @@ def main() -> int:
 
     log("[3] serve: packed qwen3-32b, bf16, 4 layers")
     params, cfg, launches, e2e = serve_phase(torch, counters)
+    containers = analyze_containers(torch, params)
 
     log("[4] profile: the prefill step and 3 decode steps under "
         "torch.profiler")
@@ -7484,6 +7578,11 @@ def main() -> int:
     _free(torch)
     paged_mesh = paged_mesh_phase(torch, counters)
 
+    log("[20] analyze: tools/analyze_torch --strict (the packed pass on "
+        "this card) against its baseline, phase 3's containers, the page "
+        "pools of phases 3c and 19")
+    analyze = analyze_phase(torch, containers, paged, paged_mesh)
+
     # each kernel's launches on its own path: the main path's, phase 3's,
     # phase 12's mesh ranks' (every path, both ranks), phase 13's (every
     # family case, every process) and phase 14's (the mesh-trained
@@ -7513,6 +7612,7 @@ def main() -> int:
                        train_mesh=train_mesh, analysis=analysis,
                        family_train=family_train, pod_train=pod_train,
                        seq_mesh=seq_mesh, paged_mesh=paged_mesh,
+                       analyze=analyze,
                        seconds=time.time() - t_start), fh, indent=1,
                   default=str)
     log(f"total {time.time() - t_start:.1f} s")
